@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (video2music_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+  1. set-up: require CUDA, build the port's CUDA kernels from csrc/ (into
+     video2music_tpu_torch/_build/), print the card and its power limit,
+     turn TF32 off;
+  2. kernels: each hand-written kernel against its plain PyTorch version at
+     the product shapes, in float32 and bfloat16, with both times;
+  3. slice: a full-width Video2music (AMT 2.2 + bimamba+, random weights
+     from seed 0) in bfloat16 answers three requests from seeded synthetic
+     features; the outputs are checked, and each kernel's launch count over
+     those requests must equal what the path implies;
+  4. teacher-forced: 16 decode steps of the kernel path against the plain
+     path on the card, float32 and bfloat16.
+The last three lines of stdout are a JSON object listing the kernels with
+their launches, errors and times, the card's name and power limit as
+nvidia-smi gives them, and {"ok": true, "device": ...}.
+Imports no JAX (the port imports only the JAX package's framework-free
+core/midi/data.native modules).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# f32: another summation order only; bf16: 8-bit mantissa over sums of
+# 512-2048 terms, relative to the largest reference magnitude
+F32_RTOL, F32_ATOL = 1e-4, 1e-5
+BF16_REL = 2e-2
+# teacher-forced logits pass through 6 layers of such sums
+F32_LOGIT_ATOL = 1e-4
+# the sampler emits chord ids in [1, CHORD_END): "N" (0) is banned and the
+# end / pad ids lie at CHORD_END and above
+CHORD_END = 157
+
+KERNELS = {
+    "flash_attention": dict(
+        source="video2music_tpu_torch/csrc/flash_attention.cu",
+        replaces="video2music_tpu/ops/pallas_attention.py:68"),
+    "decode_layer": dict(
+        source="video2music_tpu_torch/csrc/decode_layer.cu",
+        replaces="video2music_tpu/ops/pallas_decode.py:316"),
+    "decode_ends": dict(
+        source="video2music_tpu_torch/csrc/decode_layer.cu",
+        replaces="video2music_tpu/ops/pallas_decode_stack.py:519"),
+    "selective_scan": dict(
+        source="video2music_tpu_torch/csrc/selective_scan.cu",
+        replaces="video2music_tpu/ops/pallas_scan.py:59"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def fail_unless(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def errors(got, want):
+    """(max abs error, max abs error / max |want|)."""
+    d = (got.float() - want.float()).abs().max().item()
+    scale = max(want.float().abs().max().item(), 1e-30)
+    return d, d / scale
+
+
+def check_close(name, dtype, got, want, atol=F32_ATOL):
+    import torch
+    abs_err, rel_err = errors(got, want)
+    if dtype == torch.float32:
+        ok = torch.allclose(got.float(), want.float(), rtol=F32_RTOL,
+                            atol=atol)
+        tol = f"rtol {F32_RTOL} atol {atol}"
+    else:
+        ok = rel_err <= BF16_REL
+        tol = f"rel {BF16_REL}"
+    print(f"  {name} [{str(dtype)[6:]}] max_abs {abs_err:.3e} "
+          f"max_rel {rel_err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+    fail_unless(ok, f"{name} [{dtype}] disagrees with its plain version")
+    return abs_err
+
+
+def time_ms(fn, iters=20, reps=5):
+    """(device ms, eager ms) per call of fn. Device: iters calls captured
+    into one CUDA graph and replayed, so the host's launch overhead is
+    excluded. Eager: iters calls as Python issues them, host included.
+    Both from CUDA events after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    eager = start.elapsed_time(end) / iters
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * iters), eager
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def random_layer(gen, D, F, E, deep, dtype, dev):
+    import torch
+
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    p = dict(wqkv=r(3 * D, D, scale=D ** -0.5), bqkv=r(3 * D, scale=0.1),
+             wo=r(D, D, scale=D ** -0.5), bo=r(D, scale=0.1),
+             cwq=r(D, D, scale=D ** -0.5), cbq=r(D, scale=0.1),
+             cwo=r(D, D, scale=D ** -0.5), cbo=r(D, scale=0.1),
+             norm_scale=(1 + r(3, D, scale=0.1)), norm_bias=r(3, D, scale=0.1),
+             w1g=r(2 * F, D, scale=D ** -0.5), b1g=r(2 * F, scale=0.1),
+             w2=r(D, F, scale=F ** -0.5), b2=r(D, scale=0.1))
+    if deep:
+        p.update(gate_w=r(E, D, scale=D ** -0.5), gate_b=r(E, scale=0.1),
+                 ew1g=r(E, 2 * F, D, scale=D ** -0.5),
+                 eb1g=r(E, 2 * F, scale=0.1),
+                 ew2=r(E, D, F, scale=F ** -0.5), eb2=r(E, D, scale=0.1))
+    return {k: v.contiguous() for k, v in p.items()}
+
+
+def note_error(report, name, dtype, err):
+    errs = report[name].setdefault("err", {})
+    errs[dtype] = max(err, errs.get(dtype, 0.0))
+
+
+def note_times(report, name, dtype, kernel_fn, plain_fn, plain_iters=20):
+    """(kernel device, kernel eager, plain device, plain eager) ms."""
+    times = time_ms(kernel_fn) + time_ms(plain_fn, iters=plain_iters)
+    report[name].setdefault("ms", {})[dtype] = times
+    print(f"  {name} [{str(dtype)[6:]}] kernel {times[0]:.4f} ms device "
+          f"({times[1]:.4f} ms eager), plain {times[2]:.4f} ms device "
+          f"({times[3]:.4f} ms eager)")
+
+
+def kernel_phase(report, v2m):
+    import torch
+    from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops.embeddings import rope_table
+    from video2music_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from video2music_tpu_torch.ops.scan import (selective_scan,
+                                                selective_scan_plain)
+
+    dev = v2m.device
+    cfg = v2m.amt_cfg  # the product shapes
+    D, F, E, H = cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.num_heads
+    S, Sm = cfg.max_seq_chord, cfg.max_seq_video
+    mamba = v2m.model_reg.backbone.layers[0].mamba_forward.cfg
+    hd = D // H
+    gen = torch.Generator().manual_seed(1234)
+    table = rope_table(max(S, Sm), hd, dev)
+    rope = (table[..., 0].contiguous(), table[..., 1].contiguous())
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"kernels, {dtype}:")
+        # kernel 1: flash attention, encoder self-attention shape
+        q, k, v = (torch.randn(1, H, Sm, hd, generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        bias = torch.randn(1, H, Sm, Sm, generator=gen).to(dev)
+        for tag, kw in (("", {}), ("+bias", dict(bias=bias)),
+                        ("+causal", dict(causal=True))):
+            err = check_close(f"flash_attention{tag}", dtype,
+                              flash_attention(q, k, v, **kw),
+                              flash_attention_plain(q, k, v, **kw))
+            note_error(report, "flash_attention", dtype, err)
+        note_times(report, "flash_attention", dtype,
+                   lambda: flash_attention(q, k, v),
+                   lambda: flash_attention_plain(q, k, v))
+
+        # kernels 2 and 3: decode layer, shallow and deep, plain and ends
+        pos = S // 2
+        kx, vx = (torch.randn(Sm, D, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        caches = [torch.randn(S, D, generator=gen).to(dev, dtype)
+                  for _ in range(2)]
+        x = torch.randn(1, D, generator=gen).to(dev, dtype)
+        head = dict(
+            emb_root=torch.randn(15, D, generator=gen).to(dev, dtype),
+            emb_attr=torch.randn(16, D, generator=gen).to(dev, dtype),
+            lc_w=(torch.randn(D, D, generator=gen) * D ** -0.5).to(dev, dtype),
+            lc_krow=torch.randn(D, generator=gen).to(dev, dtype),
+            lc_b=(torch.randn(D, generator=gen) * 0.1).to(dev, dtype),
+            dn_scale=(1 + 0.1 * torch.randn(D, generator=gen)).to(dev, dtype),
+            dn_bias=(0.1 * torch.randn(D, generator=gen)).to(dev, dtype),
+            wout=(torch.randn(159, D, generator=gen) * D ** -0.5).to(dev, dtype),
+            bout=(0.1 * torch.randn(159, generator=gen)).to(dev, dtype))
+        root = torch.tensor([3], device=dev, dtype=torch.int32)
+        attr = torch.tensor([5], device=dev, dtype=torch.int32)
+        key = torch.tensor([1.0], device=dev)
+        kw = dict(n_heads=H, k_top=2, rope=rope)
+        for deep in (False, True):
+            p = random_layer(gen, D, F, E, deep, dtype, dev)
+            tag = "deep" if deep else "shallow"
+            kc1, vc1 = (c.clone() for c in caches)
+            kc2, vc2 = (c.clone() for c in caches)
+            got = dl.decode_layer_step(x, pos, p, kc1, vc1, kx, vx, **kw)
+            want = dl.decode_layer_plain(x, pos, p, kc2, vc2, kx, vx, **kw)
+            err = check_close(f"decode_layer {tag}", dtype, got, want)
+            check_close(f"decode_layer {tag} k row", dtype, kc1[pos], kc2[pos])
+            check_close(f"decode_layer {tag} v row", dtype, vc1[pos], vc2[pos])
+            note_error(report, "decode_layer", dtype, err)
+            if deep:
+                note_times(report, "decode_layer", dtype,
+                           lambda: dl.decode_layer_step(
+                               x, pos, p, kc1, vc1, kx, vx, **kw),
+                           lambda: dl.decode_layer_plain(
+                               x, pos, p, kc2, vc2, kx, vx, **kw))
+            # ends: embed prologue on the shallow layer, head on the deep one
+            ends = dict(embed=not deep, fold_head=deep, x=None if not deep else x)
+            kc1, vc1 = (c.clone() for c in caches)
+            kc2, vc2 = (c.clone() for c in caches)
+            got = dl.decode_ends_step(root, attr, key, pos, p, head, kc1, vc1,
+                                      kx, vx, **kw, **ends)
+            want = dl.decode_ends_plain(root, attr, key, pos, p, head, kc2,
+                                        vc2, kx, vx, **kw, **ends)
+            err = check_close(f"decode_ends {'head' if deep else 'embed'}",
+                              dtype, got, want)
+            note_error(report, "decode_ends", dtype, err)
+            if deep:
+                note_times(report, "decode_ends", dtype,
+                           lambda: dl.decode_ends_step(
+                               root, attr, key, pos, p, head, kc1, vc1, kx,
+                               vx, **kw, **ends),
+                           lambda: dl.decode_ends_plain(
+                               root, attr, key, pos, p, head, kc2, vc2, kx,
+                               vx, **kw, **ends))
+
+        # kernel 4: selective scan, bimamba+ block shape
+        L, ED, N = Sm, mamba.d_inner, mamba.d_state
+        xs = torch.randn(1, L, ED, generator=gen).to(dev, dtype)
+        dt = (torch.rand(1, L, ED, generator=gen) * 0.1).to(dev, dtype)
+        A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(ED, 1).to(dev)
+        Bm, Cm = (torch.randn(1, L, N, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        Dv = torch.ones(ED, device=dev)
+        err = check_close("selective_scan", dtype,
+                          selective_scan(xs, dt, A, Bm, Cm, Dv),
+                          selective_scan_plain(xs, dt, A, Bm, Cm, Dv))
+        note_error(report, "selective_scan", dtype, err)
+        note_times(report, "selective_scan", dtype,
+                   lambda: selective_scan(xs, dt, A, Bm, Cm, Dv),
+                   lambda: selective_scan_plain(xs, dt, A, Bm, Cm, Dv),
+                   plain_iters=3)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the slice, three requests
+# ---------------------------------------------------------------------------
+
+REQUESTS = (
+    dict(n_sec=30, primer="C Am F G", key="C major", temperature=1.0),
+    dict(n_sec=120, primer="", key=None, temperature=1.0),
+    dict(n_sec=300, primer="", key=None, temperature=0.8),
+)
+
+
+def synthetic_features(n_sec, seed):
+    import numpy as np
+    r = np.random.default_rng(seed)
+    emo = r.uniform(size=(n_sec, 6)).astype(np.float32)
+    return {"semantic": r.standard_normal((n_sec, 768)).astype(np.float32),
+            "emotion": emo / emo.sum(-1, keepdims=True),
+            "scene_offset": np.repeat(np.arange(n_sec // 10 + 1),
+                                      10)[:n_sec].astype(np.float32) + 1.0,
+            "motion": r.standard_normal((n_sec, 512)).astype(np.float32)}
+
+
+def wrappers():
+    """The kernel wrappers, by their names in KERNELS. Each counts the
+    launches of its kernel in ``.launches``."""
+    from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops.flash_attention import flash_attention
+    from video2music_tpu_torch.ops.scan import selective_scan
+    return {"flash_attention": flash_attention,
+            "decode_layer": dl.decode_layer_step,
+            "decode_ends": dl.decode_ends_step,
+            "selective_scan": selective_scan}
+
+
+def slice_phase(v2m, card, report):
+    import numpy as np
+    from video2music_tpu_torch.pipeline.primer import parse_primer
+
+    cfg, rcfg = v2m.amt_cfg, v2m.reg_cfg
+    T = 300
+    n_layers = len(cfg.decoder_layers)
+    per_clip = {"flash_attention": len(cfg.encoder_layers),
+                "decode_layer": (T - 1) * (n_layers - 2),
+                "decode_ends": (T - 1) * 2,
+                "selective_scan": 2 * rcfg.n_layers}
+    with tempfile.TemporaryDirectory() as tmp:
+        v2m.generate(features=synthetic_features(30, 99),  # warm-up
+                     output_dir=os.path.join(tmp, "warm_up"))
+        for fn in wrappers().values():
+            fn.launches = 0
+        for i, req in enumerate(REQUESTS):
+            out_dir = os.path.join(tmp, f"clip_{i}")
+            t0 = time.perf_counter()
+            res = v2m.generate(primer=req["primer"], key=req["key"],
+                               temperature=req["temperature"],
+                               features=synthetic_features(req["n_sec"], i),
+                               output_dir=out_dir, seed=i)
+            wall = time.perf_counter() - t0
+            tm = v2m.last_timings
+            ids = np.asarray(res.chord_ids)
+            n = req["n_sec"]
+            fail_unless(ids.shape == (n,), f"request {i}: {ids.shape} ids")
+            fail_unless(((ids >= 1) & (ids < CHORD_END)).all(),
+                        f"request {i}: chord ids outside [1, 157)")
+            primer_ids = parse_primer(req["primer"])[0] if req["primer"] \
+                else np.zeros(0, np.int64)
+            P = len(primer_ids) if req["primer"] else 1
+            fail_unless((ids[:len(primer_ids)] == primer_ids).all(),
+                        f"request {i}: primer tokens not kept")
+            gen_part = ids[max(P - 2, 0):]
+            triples = (gen_part[2:] == gen_part[1:-1]) & \
+                (gen_part[1:-1] == gen_part[:-2])
+            fail_unless(not triples.any(),
+                        f"request {i}: three equal consecutive tokens")
+            fail_unless(np.isfinite(res.instruments).all(),
+                        f"request {i}: non-finite instruments")
+            fail_unless(os.path.getsize(res.midi_path) > 0,
+                        f"request {i}: empty output.mid")
+            ln_nd, inst = (v2m.last_regression[k]
+                           for k in ("ln_nd", "instrument"))
+            fail_unless(ln_nd.shape == (300, 2) and inst.shape == (300, 40),
+                        f"request {i}: regression shapes {ln_nd.shape} "
+                        f"{inst.shape}")
+            fail_unless(np.isfinite(ln_nd).all() and np.isfinite(inst).all()
+                        and (inst >= 0).all() and (inst <= 1).all(),
+                        f"request {i}: ln_nd / instrument out of range")
+            print(f"request {i} ({n} s, primer {req['primer']!r}, "
+                  f"temperature {req['temperature']}): wall {wall:.3f} s, "
+                  f"encode {tm['encode']:.3f} ms, prime {tm['prime']:.3f} ms, "
+                  f"decode {tm['decode']:.1f} ms = "
+                  f"{tm['decode'] / (T - 1):.4f} ms/token, regression "
+                  f"{tm['regression']:.3f} ms, postprocess "
+                  f"{tm['postprocess']:.1f} ms [{card}]")
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    for name, per in per_clip.items():
+        want = per * len(REQUESTS)
+        print(f"  launches {name}: {counts[name]} (path implies {want})")
+        fail_unless(counts[name] == want and counts[name] > 0,
+                    f"{name}: {counts[name]} launches, path implies {want}")
+        report[name]["launches"] = counts[name]
+
+
+# ---------------------------------------------------------------------------
+# phase 4: teacher-forced kernel path against the plain path
+# ---------------------------------------------------------------------------
+
+def plain_ends_step(model):
+    """decode/fused.make_fused_ends_step through the plain versions."""
+    from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops.embeddings import rope_table
+
+    layers = dl.pack_decoder_layers(model)
+    head = dl.pack_ends(model)
+    cfg = model.cfg
+    table = rope_table(max(cfg.max_seq_chord, cfg.max_seq_video),
+                       cfg.d_model // cfg.num_heads, layers[0]["wqkv"].device)
+    kw = dict(n_heads=cfg.num_heads, k_top=cfg.moe.n_experts_per_token,
+              rope=(table[..., 0].contiguous(), table[..., 1].contiguous()))
+
+    def kv(c, i):
+        return c[f"k{i}"], c[f"v{i}"], c[f"ck{i}"], c[f"cv{i}"]
+
+    def run(caches, root, attr, key, pos):
+        x = dl.decode_ends_plain(root, attr, key, pos, layers[0], head,
+                                 *kv(caches, 0), embed=True, fold_head=False,
+                                 **kw)
+        for i in range(1, len(layers) - 1):
+            x = dl.decode_layer_plain(x, pos, layers[i], *kv(caches, i), **kw)
+        return dl.decode_ends_plain(None, None, None, pos, layers[-1], head,
+                                    *kv(caches, len(layers) - 1), embed=False,
+                                    fold_head=True, x=x, **kw)
+    return run
+
+
+def teacher_forced_phase(v2m):
+    """16 positions of seeded random (root, attr) tokens through the kernel
+    step and the plain step, each on its own copy of the caches."""
+    import torch
+    from video2music_tpu_torch.decode.fused import (init_fused_caches,
+                                                    make_fused_ends_step)
+
+    gen = torch.Generator().manual_seed(7)
+    roots = torch.randint(v2m.model.embedding_root.num_embeddings, (16,),
+                          generator=gen)
+    attrs = torch.randint(v2m.model.embedding_attr.num_embeddings, (16,),
+                          generator=gen)
+    feats = synthetic_features(300, 7)
+    dev = v2m.device
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        model, _ = v2m._models(name)
+        f = {k: torch.as_tensor(a, device=dev).to(dtype)[None]
+             for k, a in feats.items()}
+        key = torch.tensor([0.0], device=dev)
+        with torch.no_grad():
+            cross = model.prime(model.encode(**f))
+            kernel_caches = init_fused_caches(model, cross)
+            plain_caches = {k: v.clone() for k, v in kernel_caches.items()}
+            kernel_step = make_fused_ends_step(model)
+            plain_step = plain_ends_step(model)
+            worst = 0.0
+            for pos in range(16):
+                root = roots[pos:pos + 1].to(dev, torch.int32)
+                attr = attrs[pos:pos + 1].to(dev, torch.int32)
+                got = kernel_step(kernel_caches, root, attr, key, pos)
+                want = plain_step(plain_caches, root, attr, key, pos)
+                worst = max(worst, check_close(
+                    f"teacher-forced logits pos {pos}", dtype, got, want,
+                    atol=F32_LOGIT_ATOL))
+        print(f"teacher-forced {name}: max abs logit error over 16 "
+              f"positions {worst:.3e}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from video2music_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.library()
+    print(f"built kernels in {time.perf_counter() - t0:.1f} s "
+          f"({kernels.BUILD_DIR})")
+    print("\n".join(l for l in kernels.build_log.splitlines()
+                    if "registers" in l or "spill" in l.lower()))
+    card = card_line()
+    print(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+
+    from video2music_tpu_torch.pipeline.api import Video2music
+    t0 = time.perf_counter()
+    v2m = Video2music(seed=0, device="cuda")
+    print(f"built full-width Video2music (AMT 2.2 + bimamba+) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    report = {name: {} for name in KERNELS}
+    kernel_phase(report, v2m)
+    slice_phase(v2m, card, report)
+    teacher_forced_phase(v2m)
+
+    rows = []
+    for name, meta in KERNELS.items():
+        r = report[name]
+        bf, f32 = r["ms"][torch.bfloat16], r["ms"][torch.float32]
+        rows.append(dict(name=name, route="cuda", source=meta["source"],
+                         replaces=meta["replaces"], launches=r["launches"],
+                         max_abs_err=r["err"][torch.bfloat16], ms=bf[0],
+                         plain_ms=bf[2], dtype="bfloat16",
+                         ms_eager=bf[1], plain_ms_eager=bf[3],
+                         max_abs_err_f32=r["err"][torch.float32],
+                         ms_f32=f32[0], plain_ms_f32=f32[2]))
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

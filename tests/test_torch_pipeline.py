@@ -1,0 +1,158 @@
+"""The port's product slice against the JAX pipeline (CPU, f32):
+``Video2music.generate(features=...)`` with bridged weights and the JAX
+sampling noise handed in must give the same chords and byte-identical
+MIDI, stems and inst.csv. Also: the port imports no JAX, CPU calls launch
+no kernel, and the parts outside the slice raise NotImplementedError."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from video2music_tpu.core import constants as C
+from video2music_tpu.pipeline import Video2music as JaxVideo2music
+from video2music_tpu.pipeline.api import smooth_emotion as jax_smooth
+from video2music_tpu_torch.ops import decode_layer as port_decode
+from video2music_tpu_torch.ops.flash_attention import flash_attention
+from video2music_tpu_torch.ops.scan import selective_scan
+from video2music_tpu_torch.pipeline import Video2music
+from video2music_tpu_torch.pipeline.api import _pad_to
+from video2music_tpu_torch.weights import amt_from_jax, regression_from_jax
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KW = dict(music_gen_version="2.2", reg_model="bimamba+", motion_type=0,
+          amt_overrides=dict(n_layers=3, num_heads=2, d_model=16, d_ff=32),
+          reg_overrides=dict(n_layers=1, d_model=8, d_hidden=16))
+T = 300
+
+
+def _features(n_sec, seed):
+    r = np.random.default_rng(seed)
+    return {"semantic": r.standard_normal((n_sec, 768)).astype(np.float32),
+            "emotion": r.uniform(size=(n_sec, 6)).astype(np.float32),
+            "scene_offset": np.arange(n_sec, dtype=np.float32),
+            "motion": r.standard_normal((n_sec,)).astype(np.float32)}
+
+
+def _jax_gumbel(seed):
+    rng = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(T - 1):
+        rng, sub = jax.random.split(rng)
+        out.append(np.asarray(jax.random.gumbel(sub, (1, C.CHORD_END))))
+    return torch.from_numpy(np.stack(out))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jv = JaxVideo2music(**KW)
+    pv = Video2music(device="cpu", **KW)
+    pv.load_state_dicts(
+        amt_from_jax(jax.device_get(jv.variables["params"])),
+        regression_from_jax(jax.device_get(jv.reg_variables["params"])))
+    return jv, pv
+
+
+def _files(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return out
+
+
+def test_generate_matches_jax_pipeline(pair, tmp_path):
+    jv, pv = pair
+    feats = _features(24, 5)
+    kw = dict(primer="C Am", key="C major", features=feats, seed=3,
+              temperature=0.9, compute_dtype="float32")
+    want = jv.generate(output_dir=str(tmp_path / "jax"), **kw)
+    got = pv.generate(output_dir=str(tmp_path / "port"),
+                      _gumbel=_jax_gumbel(3), **kw)
+    np.testing.assert_array_equal(got.chord_ids, want.chord_ids)
+    assert got.chords == want.chords and got.key == want.key
+    assert got.densities == want.densities
+    assert got.velocities == want.velocities
+    np.testing.assert_array_equal(got.instruments, want.instruments)
+    jax_files = _files(tmp_path / "jax")
+    port_files = _files(tmp_path / "port")
+    assert "output.mid" in port_files and "inst.csv" in port_files
+    assert any(name.startswith("stems") for name in port_files)
+    assert sorted(port_files) == sorted(jax_files)
+    for name, data in jax_files.items():
+        assert port_files[name] == data, f"{name} differs"
+
+    # the regression outputs behind densities / velocities / instruments
+    L = T
+    sem = _pad_to(feats["semantic"], L)[None]
+    emo = jax_smooth(_pad_to(feats["emotion"], L))[None]
+    zeros = np.zeros((1, L), np.float32)
+    (ln_nd, inst), _ = jv.model_reg.apply(
+        jv.reg_variables, sem, zeros, zeros, emo,
+        mutable=["moe_state", "metrics"])
+    np.testing.assert_allclose(pv.last_regression["ln_nd"],
+                               np.asarray(ln_nd)[0], rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(pv.last_regression["instrument"],
+                               np.asarray(inst)[0], rtol=2e-4, atol=2e-5)
+
+
+def test_cpu_generate_launches_no_kernel(pair, tmp_path):
+    _, pv = pair
+    fns = (flash_attention, port_decode.decode_layer_step,
+           port_decode.decode_ends_step, selective_scan)
+    for fn in fns:
+        fn.launches = 0
+    res = pv.generate(features=_features(10, 1), output_dir=str(tmp_path),
+                      compute_dtype="float32")
+    assert res.chord_ids.shape == (10,)
+    assert all(fn.launches == 0 for fn in fns)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
+        "    sys.modules[m] = None\n"
+        "import chip_smoke\n"
+        "import video2music_tpu_torch.pipeline.api\n"
+        "import video2music_tpu_torch.weights\n"
+        "import video2music_tpu_torch.kernels\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax') and sys.modules[m]]\n"
+        "assert not bad, bad\n"
+        "assert 'video2music_tpu.pipeline' not in sys.modules\n"
+        "assert 'video2music_tpu.train' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("case", ["video", "quantize", "checkpoint",
+                                  "backbone", "wiring", "batch"])
+def test_outside_the_slice_raises(pair, tmp_path, case):
+    _, pv = pair
+    feats = _features(4, 0)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        if case == "video":
+            pv.generate(video="clip.mp4", output_dir=str(tmp_path))
+        elif case == "quantize":
+            pv.generate(features=feats, quantize="int8",
+                        output_dir=str(tmp_path))
+        elif case == "checkpoint":
+            Video2music(device="cpu", amt_checkpoint="ckpt", **KW)
+        elif case == "backbone":
+            Video2music(device="cpu", **dict(KW, reg_model="bigru"))
+        elif case == "wiring":
+            Video2music(device="cpu", **dict(KW, music_gen_version="3.1"))
+        else:
+            from video2music_tpu_torch.decode.sampler import generate_chords
+            z = torch.zeros(2, 4, 7)
+            generate_chords(pv.model, semantic=z, key=None,
+                            scene_offset=None, motion=None, emotion=None,
+                            primer=None, primer_root=None, primer_attr=None,
+                            num_primer=1)

@@ -1,0 +1,170 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+build happens at first use, into ``_build/`` beside this file (listed in
+``.gitignore``); the library's file name carries a hash of the sources and
+flags, so an edited source is rebuilt and a stale library is never loaded.
+
+Nothing here runs at import time: the CPU tests import every module, and
+the CPU has no ``nvcc``. Each wrapper calls :func:`library` only on the
+path that launches a kernel on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+_lib = None
+_lock = threading.Lock()
+build_log = ""  # the compiler's output of the last build (registers, spills)
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile every source (in parallel) and link one ``.so``; returns its
+    path. A library already built from the same sources is reused."""
+    global build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"libv2m_kernels_{_digest()}.so")
+    if os.path.exists(so):
+        return so
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            objs.append(obj)
+            procs.append((name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name),
+                 "-o", obj], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for name, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {name}\n{out}")
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+        tmp_so = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], *objs,
+                               "-o", tmp_so], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(tmp_so, so)
+    build_log = "\n".join(logs)
+    return so
+
+
+class DecodeLayerArgs(ctypes.Structure):
+    """Mirror of ``V2MDecodeLayer`` in csrc/decode_layer.cu (same order)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x", "y",
+        "wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
+        "norm_scale", "norm_bias",
+        "w1g", "b1g", "w2", "b2",
+        "gate_w", "gate_b", "ew1g", "eb1g", "ew2", "eb2",
+        "rope_cos", "rope_sin",
+        "k_cache", "v_cache", "k_cross", "v_cross",
+        "work", "sel",
+        "token_root", "token_attr", "key",
+        "emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b",
+        "dn_scale", "dn_bias", "wout", "bout", "logits")] + [
+        (name, ctypes.c_int) for name in (
+            "D", "H", "F", "E", "k_top", "Sm", "n_out", "pos")]
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.v2m_flash_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.v2m_flash_attention.restype = i
+    lib.v2m_decode_layer.argtypes = [i, ctypes.POINTER(DecodeLayerArgs), p]
+    lib.v2m_decode_layer.restype = i
+    lib.v2m_selective_scan.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.v2m_selective_scan.restype = i
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _declare(ctypes.CDLL(build()))
+        return _lib
+
+
+def use_plain(t, what: str) -> bool:
+    """Dispatch by device and nothing else: True for a CPU tensor (take the
+    plain version), False for a CUDA tensor (launch the kernel); any other
+    device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
+def dtype_code(t, what: str) -> int:
+    name = str(t.dtype).replace("torch.", "")
+    if name not in DTYPE_CODES:
+        raise TypeError(f"{what}: the kernel takes float32 or bfloat16, "
+                        f"got {t.dtype}")
+    return DTYPE_CODES[name]
+
+
+def require(cond: bool, what: str, msg: str) -> None:
+    """Validate what the kernel can take; raise ValueError otherwise."""
+    if not cond:
+        raise ValueError(f"{what}: {msg}")
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """Device pointer of a tensor (None for an absent operand)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,127 @@
+"""VideoMusicTransformer for the AMT 2.2 wiring (counterpart of
+models/amt.py), built from the JAX package's ``core.config.amt_config``.
+
+Chord tokens embed as emb_root(x_root) + emb_attr(x_attr), the scalar key
+is appended and Linear_chord projects; video features
+[semantic | scene_offset | motion | emotion] project by Linear_vis; no
+additive positions (RoPE sits inside attention); post-norm encoder over the
+video tokens, causal post-norm decoder with cross-attention; final norms
+and the 159-way head.
+
+Decoding is ``encode -> prime -> decode_step``; the product decode loop
+runs the fused kernel step of decode/fused.py instead of
+:meth:`VideoMusicTransformer.decode_step`, which stays the unfused
+reference.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+from video2music_tpu.core import constants as C
+from video2music_tpu.core.config import AMTConfig
+
+from ..ops.attention import not_ported
+from ..ops.norms import LayerNorm
+from .layers import DecoderLayer, EncoderLayer
+
+
+def check_supported(cfg: AMTConfig) -> None:
+    """Raise NotImplementedError for wirings this port does not cover yet
+    (everything but the V2 family with RoPE, e.g. 2.2 and 2.1)."""
+    problems = []
+    if cfg.version is None or not cfg.version.startswith("2."):
+        problems.append(f"AMT version {cfg.version!r}")
+    if cfg.pos_encoding != "none":
+        problems.append(f"{cfg.pos_encoding!r} position encoding")
+    if cfg.norm != "layernorm" or cfg.pre_norm:
+        problems.append("RMSNorm / pre-norm layers")
+    if cfg.chord_embed or cfg.scene_embed or cfg.separated:
+        problems.append("chord / scene embedding tables or separated heads")
+    if cfg.kv_heads is not None:
+        problems.append("grouped-query attention")
+    if problems:
+        raise not_ported(", ".join(problems),
+                         "Queue 1, variant wirings")
+
+
+class VideoMusicTransformer(nn.Module):
+    def __init__(self, cfg: AMTConfig):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        D = cfg.d_model
+        self.embedding_root = nn.Embedding(C.CHORD_ROOT_SIZE, D)
+        self.embedding_attr = nn.Embedding(C.CHORD_ATTR_SIZE, D)
+        self.linear_chord = nn.Linear(D + 1, D)
+        self.linear_vis = nn.Linear(cfg.total_vf_dim, D)
+        self.encoder_layers = nn.ModuleList(
+            EncoderLayer(spec, cfg) for spec in cfg.encoder_layers)
+        self.decoder_layers = nn.ModuleList(
+            DecoderLayer(spec, cfg) for spec in cfg.decoder_layers)
+        self.encoder_norm = LayerNorm(D)
+        self.decoder_norm = LayerNorm(D)
+        self.wout = nn.Linear(D, C.CHORD_SIZE)
+
+    # -- embeddings ---------------------------------------------------------
+    def _embed_chords(self, x_root, x_attr, key):
+        """(B, L) root/attr ids + (B,) or (B, 1) key -> (B, L, D)."""
+        emb = self.embedding_root(x_root) + self.embedding_attr(x_attr)
+        key = key.to(emb.dtype).reshape(emb.shape[0], 1, 1)
+        key = key.expand(emb.shape[0], emb.shape[1], 1)
+        return self.linear_chord(torch.cat([emb, key], dim=-1))
+
+    def _embed_video(self, semantic, scene_offset, motion, emotion):
+        dt = semantic.dtype
+        if motion.dim() == 2:
+            motion = motion[..., None]
+        feats = torch.cat([semantic, scene_offset[..., None].to(dt),
+                           motion.to(dt), emotion.to(dt)], dim=-1)
+        return self.linear_vis(feats)
+
+    # -- decomposed pieces ----------------------------------------------------
+    def encode(self, semantic, scene_offset, motion, emotion):
+        """Video features -> encoder memory (B, Lv, D)."""
+        vf = self._embed_video(semantic, scene_offset, motion, emotion)
+        for layer in self.encoder_layers:
+            vf = layer(vf)
+        return self.encoder_norm(vf)
+
+    def prime(self, memory) -> List[tuple]:
+        """Every decoder layer's cross-attention (K, V), each (B, Sm, D)."""
+        return [layer.prime(memory) for layer in self.decoder_layers]
+
+    def init_cache(self, cross: List[tuple]) -> List[Dict[str, torch.Tensor]]:
+        """Cache for :meth:`decode_step`: zero self K/V (B, S, D) per layer
+        beside the primed cross K/V."""
+        B, _, D = cross[0][0].shape
+        S = self.cfg.max_seq_chord
+        return [dict(k=ck.new_zeros(B, S, D), v=ck.new_zeros(B, S, D),
+                     ck=ck, cv=cv) for ck, cv in cross]
+
+    def decode_step(self, token, token_root, token_attr, key, pos: int,
+                    cache):
+        """One cached step (unfused reference). token_*: (B, 1) ids of the
+        current token; pos: its position. Returns (B, 159) logits; the self
+        caches are written in place."""
+        del token  # root/attr ids carry the chord (no chord_embed table)
+        out = self._embed_chords(token_root, token_attr, key)
+        for layer, c in zip(self.decoder_layers, cache):
+            out = layer.step(out, pos, c)
+        return self.wout(self.decoder_norm(out))[:, 0]
+
+    def head(self, out):
+        return self.wout(self.decoder_norm(out))
+
+    def forward(self, x, x_root, x_attr, semantic, key, scene_offset, motion,
+                emotion):
+        """Teacher-forced full forward -> (B, L, 159) logits."""
+        del x
+        memory = self.encode(semantic, scene_offset, motion, emotion)
+        out = self._embed_chords(x_root, x_attr, key)
+        for layer in self.decoder_layers:
+            out = layer(out, memory)
+        return self.head(out)

@@ -1,0 +1,56 @@
+"""Mamba selective-state-space block (counterpart of models/mamba.py:
+MambaBlock).
+
+Kept as in the JAX block: depthwise causal conv1d of width d_conv (left pad
+d_conv - 1), SiLU, x_proj into (delta, B, C), softplus(dt_proj(delta)),
+A = -exp(A_log), the selective scan, and for mamba+ (use_version=1) the
+output y * z + xb * (1 - sigmoid(z)) where z is ALREADY silu(z) — the
+reference's quirk, kept. ``dt_proj`` holds the effective weight: the JAX
+parameter is stored unshifted and shifted by -dt_rank**-0.5 at use
+(weights.regression_from_jax applies the shift).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from video2music_tpu.core.config import MambaBackboneConfig
+
+from ..ops.scan import selective_scan
+
+
+class MambaBlock(nn.Module):
+    def __init__(self, cfg: MambaBackboneConfig):
+        super().__init__()
+        self.cfg = cfg
+        ED, R, N = cfg.d_inner, cfg.resolved_dt_rank, cfg.d_state
+        self.in_proj = nn.Linear(cfg.d_model, 2 * ED, bias=cfg.bias)
+        self.conv = nn.Conv1d(ED, ED, cfg.d_conv, groups=ED,
+                              bias=cfg.conv_bias)
+        self.x_proj = nn.Linear(ED, R + 2 * N, bias=False)
+        self.dt_proj = nn.Linear(R, ED)
+        self.A_log = nn.Parameter(torch.zeros(ED, N))
+        self.D = nn.Parameter(torch.ones(ED))
+        self.out_proj = nn.Linear(ED, cfg.d_model, bias=cfg.bias)
+
+    def forward(self, x):  # (B, L, d_model)
+        cfg = self.cfg
+        R, N = cfg.resolved_dt_rank, cfg.d_state
+        xb, z = self.in_proj(x).chunk(2, dim=-1)
+        xb = F.conv1d(F.pad(xb.transpose(1, 2), (cfg.d_conv - 1, 0)),
+                      self.conv.weight, self.conv.bias,
+                      groups=cfg.d_inner).transpose(1, 2)
+        xb = F.silu(xb)
+        delta, B, C = self.x_proj(xb).split([R, N, N], dim=-1)
+        delta = F.softplus(self.dt_proj(delta))
+        A = -torch.exp(self.A_log.float())
+        y = selective_scan(xb.contiguous(), delta.contiguous(), A,
+                           B.contiguous(), C.contiguous(), self.D)
+        z = F.silu(z)
+        if cfg.use_version == 1:  # mamba+
+            out = y * z + xb * (1.0 - torch.sigmoid(z))
+        else:
+            out = y * z
+        return self.out_proj(out)

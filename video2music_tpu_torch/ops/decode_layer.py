@@ -1,0 +1,368 @@
+"""B=1 decoder-layer step of AMT 2.2, kernels 2 and 3 of the port:
+csrc/decode_layer.cu.
+
+Counterparts:
+  * ops/pallas_decode.py:decode_layer_step -> :func:`decode_layer_step`
+    (one post-norm V2 decoder layer: fused QKV, pairwise RoPE, cache append
+    at ``pos``, masked cached self-attention, cross-attention over primed
+    memory, SwiGLU or top-k shared-expert MoE);
+  * ops/pallas_decode_stack.py:decode_flat_monolith_step, as the product
+    uses it (a one-layer run with the embed prologue or the final-LN + head
+    epilogue) -> :func:`decode_ends_step`;
+  * ops/pallas_decode.py:pack_decoder_layers -> :func:`pack_decoder_layers`
+    (and pack_monolith's embed/head keys -> :func:`pack_ends`).
+
+Both wrappers run the plain PyTorch versions on CPU tensors and launch the
+CUDA chain on CUDA tensors. The self-attention caches are updated IN PLACE
+at row ``pos`` on both paths (JAX returns new caches; here nothing else
+holds them).
+
+Layouts: weights (out, in) row-major, as ``nn.Linear`` keeps them; caches
+(S, D) with the heads concatenated along D, as the JAX fused path keeps
+them. Every matmul input is rounded to the weight dtype and accumulated in
+f32; the residual stream inside a layer stays f32; the layer output is
+rounded to the compute dtype. That is the Pallas kernels' arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .. import kernels
+from .norms import LN_EPS
+
+MAX_TOP_K = 8  # csrc/decode_layer.cu kMaxTop
+_DEEP_KEYS = ("gate_w", "gate_b", "ew1g", "eb1g", "ew2", "eb2")
+
+
+# ---------------------------------------------------------------------------
+# packing
+# ---------------------------------------------------------------------------
+
+def pack_decoder_layers(model) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer weight dicts of a port VideoMusicTransformer, as views of
+    its parameters (the cross-attention query rows are a slice of
+    ``in_proj``): wqkv (3D, D), bqkv, wo, bo, cwq (D, D), cbq, cwo, cbo,
+    norm_scale / norm_bias (3, D), and w1g (2F, D) = [linear1; gate],
+    b1g, w2 (D, F), b2 of the SwiGLU — the shared expert in a MoE layer,
+    which adds gate_w (E, D), gate_b, ew1g (E, 2F, D), eb1g, ew2 (E, D, F),
+    eb2."""
+    layers = []
+    D = model.cfg.d_model
+    with torch.no_grad():
+        for layer in model.decoder_layers:
+            sa, ca, ffn = layer.self_attn, layer.cross_attn, layer.ffn
+            norms = (layer.norm1, layer.norm2, layer.norm3)
+            p = dict(
+                wqkv=sa.in_proj.weight, bqkv=sa.in_proj.bias,
+                wo=sa.out_proj.weight, bo=sa.out_proj.bias,
+                cwq=ca.in_proj.weight[:D], cbq=ca.in_proj.bias[:D],
+                cwo=ca.out_proj.weight, cbo=ca.out_proj.bias,
+                norm_scale=torch.stack([n.weight for n in norms]),
+                norm_bias=torch.stack([n.bias for n in norms]))
+            swiglu = getattr(ffn, "shared", ffn)
+            p.update(w1g=swiglu.w1g.weight, b1g=swiglu.w1g.bias,
+                     w2=swiglu.linear2.weight, b2=swiglu.linear2.bias)
+            if swiglu is not ffn:  # SharedMoE
+                p.update(gate_w=ffn.gate.weight, gate_b=ffn.gate.bias,
+                         ew1g=ffn.w1g, eb1g=ffn.b1g, ew2=ffn.w2, eb2=ffn.b2)
+            layers.append({k: v.detach() for k, v in p.items()})
+    return layers
+
+
+def pack_ends(model) -> Dict[str, torch.Tensor]:
+    """Embed / head weights for :func:`decode_ends_step`: the embedding
+    tables, Linear_chord split as lc_w (D, D) + lc_krow (D,) (the weight
+    column of the appended key) + lc_b, the final norm and the head."""
+    D = model.cfg.d_model
+    with torch.no_grad():
+        lc = model.linear_chord.weight.detach()
+        return dict(
+            emb_root=model.embedding_root.weight.detach(),
+            emb_attr=model.embedding_attr.weight.detach(),
+            lc_w=lc[:, :D].contiguous(), lc_krow=lc[:, D].contiguous(),
+            lc_b=model.linear_chord.bias.detach(),
+            dn_scale=model.decoder_norm.weight.detach(),
+            dn_bias=model.decoder_norm.bias.detach(),
+            wout=model.wout.weight.detach(), bout=model.wout.bias.detach())
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _dot(x, w):
+    """x (..., K) rounded to w's dtype, times w (N, K)^T, accumulated f32."""
+    return x.to(w.dtype).float() @ w.float().t()
+
+
+def _layer_norm(x, g, b):
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + LN_EPS) * g.float() + b.float()
+
+
+def _rotate(y, cos, sin):
+    """Pairwise RoPE of y (n,) with per-pair cos/sin (n/2,)."""
+    y0, y1 = y[0::2], y[1::2]
+    return torch.stack([y0 * cos - y1 * sin, y1 * cos + y0 * sin],
+                       dim=-1).reshape(y.shape)
+
+
+def _cached_attention(q, k, v, n_heads: int, rows: int):
+    """q (D,) f32 over cache rows [0, rows) of k/v (S, D) -> (D,) f32."""
+    D = q.shape[0]
+    hd = D // n_heads
+    kk = k[:rows].float().view(rows, n_heads, hd)
+    vv = v[:rows].float().view(rows, n_heads, hd)
+    logits = torch.einsum("hd,shd->hs", q.view(n_heads, hd), kk) * hd ** -0.5
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("hs,shd->hd", p, vv).reshape(D)
+
+
+def _swiglu(x, w1g, b1g, w2, b2):
+    F = w2.shape[-1]
+    hg = _dot(x, w1g) + b1g.float()
+    h, g = hg[:F], hg[F:]
+    h = h * (g * torch.sigmoid(g))
+    return _dot(h, w2) + b2.float()
+
+
+def _moe(x2, p, k_top: int):
+    """Top-k shared-expert MoE at one token: first index wins a tie,
+    softmax over the selected raw logits, shared expert divided by k.
+    Expert ids stay on the device (no host read), so the function can be
+    captured into a CUDA graph."""
+    logits = _dot(x2, p["gate_w"]) + p["gate_b"].float()
+    remaining = logits.clone()
+    sel, vals = [], []
+    for _ in range(k_top):
+        e = torch.argmax(remaining).view(1)  # first maximal index
+        sel.append(e)
+        vals.append(remaining.gather(0, e))
+        remaining = remaining.index_fill(0, e, float("-inf"))
+    vals = torch.cat(vals)
+    exps = torch.exp(vals - vals[0])
+    w = exps / exps.sum()
+    h = _swiglu(x2, p["w1g"], p["b1g"], p["w2"], p["b2"]) / float(k_top)
+    for j, e in enumerate(sel):
+        expert = [p[k].index_select(0, e)[0]
+                  for k in ("ew1g", "eb1g", "ew2", "eb2")]
+        h = h + w[j] * _swiglu(x2, *expert)
+    return h
+
+
+def _rope_at(rope, pos: int, n: int):
+    cos, sin = rope
+    reps = n // (2 * cos.shape[1])
+    return cos[pos].repeat(reps), sin[pos].repeat(reps)
+
+
+def decode_layer_plain(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
+                       n_heads: int, k_top: int = 2, rope=None):
+    """Plain version of :func:`decode_layer_step`: x (1, D) -> y (1, D)."""
+    dt = k_cache.dtype
+    x0 = x.reshape(-1)
+    D = x0.shape[0]
+    qkv = _dot(x0, p["wqkv"]) + p["bqkv"].float()
+    q, k, v = qkv[:D], qkv[D:2 * D], qkv[2 * D:]
+    if rope is not None:
+        cos, sin = _rope_at(rope, pos, D)
+        q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+    k_cache[pos] = k.to(dt)
+    v_cache[pos] = v.to(dt)
+    attn = _cached_attention(q, k_cache, v_cache, n_heads, pos + 1)
+    x1 = _layer_norm(x0.float() + (_dot(attn, p["wo"]) + p["bo"].float()),
+                     p["norm_scale"][0], p["norm_bias"][0])
+    cq = _dot(x1, p["cwq"]) + p["cbq"].float()
+    if rope is not None:
+        cq = _rotate(cq, cos, sin)
+    cattn = _cached_attention(cq, k_cross, v_cross, n_heads, k_cross.shape[0])
+    x2 = _layer_norm(x1 + (_dot(cattn, p["cwo"]) + p["cbo"].float()),
+                     p["norm_scale"][1], p["norm_bias"][1])
+    if "gate_w" in p:
+        h = _moe(x2, p, k_top)
+    else:
+        h = _swiglu(x2, p["w1g"], p["b1g"], p["w2"], p["b2"])
+    y = _layer_norm(x2 + h, p["norm_scale"][2], p["norm_bias"][2])
+    return y.to(dt).reshape(1, D)
+
+
+def embed_plain(token_root, token_attr, key, head, dtype):
+    """Chord embedding + Linear_chord as emb @ lc_w + key * lc_krow + lc_b,
+    rounded to ``dtype``: (1, D)."""
+    emb = (head["emb_root"][token_root.reshape(-1)[:1]].float()
+           + head["emb_attr"][token_attr.reshape(-1)[:1]].float())
+    x = _dot(emb, head["lc_w"])
+    x = x + key.reshape(-1)[:1].float() * head["lc_krow"].float()
+    return (x + head["lc_b"].float()).to(dtype)
+
+
+def head_plain(y, head):
+    """Final LayerNorm + chord head: (1, D) -> (1, n_out) in y's dtype."""
+    xf = _layer_norm(y, head["dn_scale"], head["dn_bias"])
+    return (_dot(xf, head["wout"]) + head["bout"].float()).to(y.dtype)
+
+
+def decode_ends_plain(token_root, token_attr, key, pos: int, p, head,
+                      k_cache, v_cache, k_cross, v_cross, *, n_heads: int,
+                      k_top: int = 2, rope=None, embed: bool = True,
+                      fold_head: bool = True, x=None):
+    """Plain version of :func:`decode_ends_step`."""
+    if embed:
+        x = embed_plain(token_root, token_attr, key, head, k_cache.dtype)
+    y = decode_layer_plain(x, pos, p, k_cache, v_cache, k_cross, v_cross,
+                           n_heads=n_heads, k_top=k_top, rope=rope)
+    return head_plain(y, head) if fold_head else y
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def workspace_size(D: int, F: int, k_top: int) -> int:
+    """f32 scratch of one layer step (csrc/decode_layer.cu run_layer)."""
+    return 10 * D + MAX_TOP_K + (k_top + 1) * F
+
+
+def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
+            n_heads: int, k_top: int, rope, what: str,
+            ends: Optional[Tuple] = None) -> Tuple[torch.Tensor,
+                                                   Optional[torch.Tensor]]:
+    """Validate and launch one layer chain. ``ends`` = (token_root,
+    token_attr, key, head, embed, fold_head). Returns (y, logits)."""
+    S, D = k_cache.shape
+    F = p["w2"].shape[-1]
+    dev, dt = k_cache.device, k_cache.dtype
+    code = kernels.dtype_code(k_cache, what)
+    deep = "gate_w" in p
+    E = p["gate_w"].shape[0] if deep else 0
+    hd = D // n_heads if n_heads else 0
+    kernels.require(n_heads > 0 and D % n_heads == 0 and hd % 8 == 0
+                    and hd <= 256, what, f"bad head split D={D} H={n_heads}")
+    kernels.require(D % 8 == 0 and F % 8 == 0, what,
+                    f"D={D} and F={F} must be multiples of 8")
+    kernels.require(0 <= pos < S, what, f"pos {pos} outside cache of {S}")
+    kernels.require(not deep or (1 <= k_top <= min(E, MAX_TOP_K) and E <= 32),
+                    what, f"k_top={k_top} E={E} not supported")
+    tensors = dict(p, k_cache=k_cache, v_cache=v_cache, k_cross=k_cross,
+                   v_cross=v_cross)
+    if x is not None:
+        tensors["x"] = x
+    embed = fold_head = False
+    if ends is not None:
+        token_root, token_attr, key, head, embed, fold_head = ends
+        if embed or fold_head:
+            tensors.update(head)
+    for name, t in tensors.items():
+        kernels.require(t.device == dev and t.dtype == dt
+                        and t.is_contiguous(), what,
+                        f"{name} must be a contiguous {dt} tensor on {dev}")
+    kernels.require(k_cross.shape[1] == D and v_cross.shape == k_cross.shape,
+                    what, "cross K/V must be (Sm, D)")
+    work = torch.empty(workspace_size(D, F, k_top), device=dev,
+                       dtype=torch.float32)
+    sel = torch.empty(MAX_TOP_K, device=dev, dtype=torch.int32)
+    y = torch.empty(1, D, device=dev, dtype=dt)
+    a = kernels.DecodeLayerArgs()
+    P = kernels.ptr
+    for name in ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
+                 "norm_scale", "norm_bias", "w1g", "b1g", "w2", "b2"):
+        setattr(a, name, P(p[name]).value)
+    if deep:
+        for name in _DEEP_KEYS:
+            setattr(a, name, P(p[name]).value)
+    if rope is not None:
+        cos, sin = (t.to(device=dev, dtype=torch.float32).contiguous()
+                    for t in rope)
+        kernels.require(cos.shape[1] == hd // 2 and cos.shape[0] > pos, what,
+                        "rope tables must be (>pos, head_dim/2)")
+        a.rope_cos, a.rope_sin = P(cos).value, P(sin).value
+    a.k_cache, a.v_cache = P(k_cache).value, P(v_cache).value
+    a.k_cross, a.v_cross = P(k_cross).value, P(v_cross).value
+    a.work, a.sel, a.y = P(work).value, P(sel).value, P(y).value
+    logits = None
+    if embed:
+        ids = [t.reshape(-1)[:1].to(device=dev, dtype=torch.int32)
+               for t in (token_root, token_attr)]
+        kf = key.reshape(-1)[:1].to(device=dev, dtype=torch.float32)
+        a.token_root, a.token_attr = P(ids[0]).value, P(ids[1]).value
+        a.key = P(kf).value
+        for name in ("emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b"):
+            setattr(a, name, P(head[name]).value)
+    else:
+        kernels.require(x is not None and x.numel() == D, what,
+                        "x must be (1, D) without the embed prologue")
+        a.x = P(x).value
+    if fold_head:
+        n_out = head["wout"].shape[0]
+        logits = torch.empty(1, n_out, device=dev, dtype=dt)
+        for name in ("dn_scale", "dn_bias", "wout", "bout"):
+            setattr(a, name, P(head[name]).value)
+        a.logits, a.n_out = P(logits).value, n_out
+    a.D, a.H, a.F, a.E, a.k_top = D, n_heads, F, E, k_top
+    a.Sm, a.pos = k_cross.shape[0], pos
+    status = kernels.library().v2m_decode_layer(code, ctypes.byref(a),
+                                                kernels.stream_of(k_cache))
+    kernels.check(status, what)
+    return y, logits
+
+
+def decode_layer_step(x, pos: int, layer, k_cache, v_cache, k_cross,
+                      v_cross, *, n_heads: int, k_top: int = 2, rope=None):
+    """One decoder-layer step at B=1.
+
+    Args:
+      x: (1, D) layer input in the compute dtype.
+      pos: position of the current token (a host int: the loop index).
+      layer: one dict of :func:`pack_decoder_layers`.
+      k_cache, v_cache: (S, D) self-attention caches, written in place at
+        row ``pos``.
+      k_cross, v_cross: (Sm, D) primed memory K/V.
+      rope: (cos, sin) float32 tables (>= S, head_dim/2) or None.
+    Returns:
+      y: (1, D) in the compute dtype.
+    """
+    what = "decode_layer_step"
+    if kernels.use_plain(k_cache, what):
+        return decode_layer_plain(x, pos, layer, k_cache, v_cache, k_cross,
+                                  v_cross, n_heads=n_heads, k_top=k_top,
+                                  rope=rope)
+    y, _ = _launch(x, pos, layer, k_cache, v_cache, k_cross, v_cross,
+                   n_heads=n_heads, k_top=k_top, rope=rope, what=what)
+    decode_layer_step.launches += 1
+    return y
+
+
+decode_layer_step.launches = 0
+
+
+def decode_ends_step(token_root, token_attr, key, pos: int, layer, head,
+                     k_cache, v_cache, k_cross, v_cross, *, n_heads: int,
+                     k_top: int = 2, rope=None, embed: bool = True,
+                     fold_head: bool = True, x=None):
+    """An end layer of the decoder: one layer step with the chord-embedding
+    prologue (``embed``: token_root / token_attr (1,) int ids and key (1,)
+    on the device) and/or the final-LayerNorm + chord-head epilogue
+    (``fold_head``). Without ``embed`` pass the layer input ``x`` (1, D).
+    Returns logits (1, n_out) when ``fold_head``, else y (1, D); the
+    caches are written in place as in :func:`decode_layer_step`."""
+    what = "decode_ends_step"
+    if kernels.use_plain(k_cache, what):
+        return decode_ends_plain(token_root, token_attr, key, pos, layer,
+                                 head, k_cache, v_cache, k_cross, v_cross,
+                                 n_heads=n_heads, k_top=k_top, rope=rope,
+                                 embed=embed, fold_head=fold_head, x=x)
+    y, logits = _launch(x, pos, layer, k_cache, v_cache, k_cross, v_cross,
+                        n_heads=n_heads, k_top=k_top, rope=rope, what=what,
+                        ends=(token_root, token_attr, key, head, embed,
+                              fold_head))
+    decode_ends_step.launches += 1
+    return logits if fold_head else y
+
+
+decode_ends_step.launches = 0

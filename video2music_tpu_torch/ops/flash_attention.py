@@ -1,0 +1,74 @@
+"""Fused full-sequence attention (counterpart of ops/pallas_attention.py:
+``flash_attention``), kernel 1 of the port: csrc/flash_attention.cu.
+
+``flash_attention`` runs :func:`flash_attention_plain` on CPU tensors and
+launches the CUDA kernel on CUDA tensors. Forward only: serving needs no
+backward.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+NEG_INF = -1e9
+
+
+def flash_attention_plain(q, k, v, *, bias=None, causal: bool = False):
+    """softmax(q k^T / sqrt(d) + bias + causal) v in plain PyTorch, as
+    ops/pallas_attention.py:reference_attention: f32 logits and softmax,
+    masked logits -1e9, weights rounded to v's dtype before the product.
+    q (B, H, L, D); k, v (B, H, S, D); bias (B, H, L, S) or None."""
+    D = q.shape[-1]
+    logits = torch.einsum("bhld,bhsd->bhls", q.float(), k.float()) * D ** -0.5
+    if bias is not None:
+        logits = logits + bias.float()
+    if causal:
+        L, S = logits.shape[-2:]
+        rows = torch.arange(L, device=q.device)[:, None]
+        cols = torch.arange(S, device=q.device)[None, :]
+        logits = logits.masked_fill(cols > rows + (S - L), NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhls,bhsd->bhld", w.float(), v.float()).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, bias=None, causal: bool = False):
+    """Fused attention. q (B, H, L, D); k, v (B, H, S, D) (same head count);
+    bias: optional (B, H, L, S) additive logits bias. The causal mask is
+    start-aligned and needs L == S, as in the TPU kernel."""
+    what = "flash_attention"
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError(
+            f"causal flash_attention requires L == S, got L={q.shape[2]} "
+            f"S={k.shape[2]} (use an explicit bias mask for L != S)")
+    if kernels.use_plain(q, what):
+        return flash_attention_plain(q, k, v, bias=bias, causal=causal)
+    B, H, L, D = q.shape
+    S = k.shape[2]
+    code = kernels.dtype_code(q, what)
+    kernels.require(k.shape == (B, H, S, D) and v.shape == k.shape, what,
+                    f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not "
+                    f"match q {tuple(q.shape)}")
+    kernels.require(k.dtype == q.dtype and v.dtype == q.dtype, what,
+                    "q, k and v must share one dtype")
+    kernels.require(all(t.is_cuda and t.is_contiguous() for t in (q, k, v)),
+                    what, "q, k and v must be contiguous CUDA tensors")
+    kernels.require(D in (16, 32, 64), what,
+                    f"head_dim {D} not built (16, 32 or 64)")
+    if bias is not None:
+        kernels.require(bias.shape == (B, H, L, S), what,
+                        f"bias shape {tuple(bias.shape)} != {(B, H, L, S)}")
+        bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    out = torch.empty_like(q)
+    lib = kernels.library()
+    status = lib.v2m_flash_attention(
+        code, kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
+        kernels.ptr(bias), kernels.ptr(out), B * H, L, S, D, int(causal),
+        D ** -0.5, kernels.stream_of(q))
+    kernels.check(status, what)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

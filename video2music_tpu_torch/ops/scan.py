@@ -1,0 +1,66 @@
+"""Mamba selective scan (counterpart of ops/scan.py:selective_scan and
+ops/pallas_scan.py:selective_scan_pallas), kernel 4 of the port:
+csrc/selective_scan.cu.
+
+``selective_scan`` runs :func:`selective_scan_plain` on CPU tensors and
+launches the CUDA kernel on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+
+def selective_scan_plain(x, delta, A, B, C, D):
+    """h[t] = exp(delta[t] A) h[t-1] + delta[t] B[t] x[t];
+    y[t] = C[t] . h[t] + D x[t], in f32, walked over t in plain PyTorch.
+
+    x, delta (b, L, ED); A (ED, N); B, C (b, L, N); D (ED,) -> y (b, L, ED)
+    in x's dtype.
+    """
+    xf, df = x.float(), delta.float()
+    dA = torch.exp(df[..., None] * A.float())                    # (b, L, ED, N)
+    dBx = (df * xf)[..., None] * B.float()[:, :, None, :]        # (b, L, ED, N)
+    h = torch.zeros_like(dA[:, 0])
+    hs = []
+    for t in range(x.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        hs.append(h)
+    y = torch.einsum("blen,bln->ble", torch.stack(hs, dim=1), C.float())
+    return (y + D.float() * xf).to(x.dtype)
+
+
+def selective_scan(x, delta, A, B, C, D):
+    """Selective scan (same signature as :func:`selective_scan_plain`)."""
+    what = "selective_scan"
+    if kernels.use_plain(x, what):
+        return selective_scan_plain(x, delta, A, B, C, D)
+    b, L, ED = x.shape
+    N = A.shape[-1]
+    code = kernels.dtype_code(x, what)
+    kernels.require(delta.shape == x.shape and A.shape == (ED, N)
+                    and B.shape == (b, L, N) and C.shape == (b, L, N)
+                    and D.shape == (ED,), what, "shape mismatch")
+    kernels.require(all(t.dtype == x.dtype for t in (delta, B, C)), what,
+                    "x, delta, B and C must share one dtype")
+    kernels.require(all(t.is_cuda and t.is_contiguous()
+                        for t in (x, delta, B, C)), what,
+                    "x, delta, B and C must be contiguous CUDA tensors")
+    kernels.require(N in (4, 8, 16, 32), what,
+                    f"d_state {N} not built (4, 8, 16 or 32)")
+    A32 = A.to(device=x.device, dtype=torch.float32).contiguous()
+    D32 = D.to(device=x.device, dtype=torch.float32).contiguous()
+    y = torch.empty_like(x)
+    lib = kernels.library()
+    status = lib.v2m_selective_scan(
+        code, kernels.ptr(x), kernels.ptr(delta), kernels.ptr(A32),
+        kernels.ptr(B), kernels.ptr(C), kernels.ptr(D32), kernels.ptr(y),
+        b, L, ED, N, kernels.stream_of(x))
+    kernels.check(status, what)
+    selective_scan.launches += 1
+    return y
+
+
+selective_scan.launches = 0

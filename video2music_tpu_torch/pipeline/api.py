@@ -1,0 +1,355 @@
+"""The product API of the port: ``Video2music().generate(features=...)``
+(counterpart of pipeline/api.py).
+
+``generate`` runs, eagerly, the four stages the JAX package traces into one
+program — encoder, cross-K/V priming, the 300-step KV-cached constrained
+decode (decode/sampler.py) and the regression forward — then the same
+host-side post-process: MIDI and per-instrument stems through
+``video2music_tpu.data.native.render_clip`` (or the ``video2music_tpu.midi``
+writers), ``inst.csv``, and a FluidSynth render where FluidSynth exists.
+
+Not ported yet, and raising NotImplementedError: raw-video feature
+extraction (``video=``), orbax checkpoints, int8 (``quantize``),
+``generate_batch`` / B>1, and every wiring but AMT 2.x + bimamba+.
+Weights come from :mod:`video2music_tpu_torch.weights`: random from a seed,
+or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from video2music_tpu.core import constants as C
+from video2music_tpu.core.config import RegressionConfig, amt_config
+from video2music_tpu.core.vocab import chord_inv_dict
+from video2music_tpu.data import native as _native
+from video2music_tpu.midi import Chord, MIDIFile, add_chord, chord_offsets, voice
+from video2music_tpu.midi.arpeggio import density_bucket, velocity_from_loudness
+
+from ..decode.sampler import GenerateConfig, generate_chords
+from ..models import VideoMusicTransformer, VideoRegression
+from ..ops.attention import not_ported
+from ..weights import init_weights_
+from .primer import TRANSPOSE_KEY, parse_primer, resolve_key_and_primer
+
+ARPEGGIO_INSTRUMENTS = frozenset(
+    (3, 7, 8, 11, 14, 27, 31, 37, 38, 39))
+LEFT_PAN = frozenset((13, 14, 16, 25, 28, 29, 34, 39))
+CENTER_PAN = frozenset((7, 15, 17, 20, 21, 23, 24, 30, 32, 33, 35, 36, 37,
+                        38))
+PAN_VALS = {"left": 32, "center": 64, "right": 96}
+LOW_VELOCITY_INSTRUMENTS = frozenset((14,))
+BASE_TEMPO = 120
+CHORD_DURATION_BEATS = 2  # 1 second per chord at 120 bpm
+INSTRUMENT_THRESHOLD = 0.35
+MAX_SECONDS = 300
+
+
+def _inst_policy(n_inst: int = C.INSTRUMENT_SIZE):
+    """The per-instrument render policy (pan/arpeggio/velocity sets above)
+    as flat rows for the native renderer (data/native.render_clip)."""
+    pan = np.asarray([
+        PAN_VALS["left"] if i in LEFT_PAN else
+        PAN_VALS["center"] if i in CENTER_PAN else PAN_VALS["right"]
+        for i in range(n_inst)], np.int32)
+    return dict(
+        arp=np.asarray([i in ARPEGGIO_INSTRUMENTS
+                        for i in range(n_inst)], np.uint8),
+        vel=np.asarray([1.15 if i in LOW_VELOCITY_INSTRUMENTS else 1.0
+                        for i in range(n_inst)], np.float64),
+        pan_ctrl_correct=np.full(n_inst, 10, np.int32),
+        pan_param_correct=pan,
+        # reference quirk: pan value lands in the controller-number byte
+        pan_ctrl_quirk=pan,
+        pan_param_quirk=np.zeros(n_inst, np.int32),
+    )
+
+
+_INST_POLICY = _inst_policy()
+
+
+@dataclasses.dataclass
+class GenerateResult:
+    chords: List[str]
+    chord_ids: np.ndarray
+    midi_path: Optional[str]
+    audio_path: Optional[str]
+    video_path: Optional[str]
+    densities: List[int]
+    velocities: List[int]
+    instruments: np.ndarray
+    key: str
+
+
+def smooth_emotion(emotion: np.ndarray, window: int = 5) -> np.ndarray:
+    """Grouped 1-d average over time, zero padded (reference:
+    video2music.py:827-831). emotion: (L, 6)."""
+    k = np.ones(window, np.float32) / window
+    pad = window // 2
+    padded = np.pad(emotion, ((pad, pad), (0, 0)))
+    out = np.empty_like(emotion)
+    for c in range(emotion.shape[1]):
+        out[:, c] = np.convolve(padded[:, c], k, mode="valid")
+    return out
+
+
+def _pad_to(arr: np.ndarray, length: int) -> np.ndarray:
+    if arr.shape[0] >= length:
+        return arr[:length]
+    pad_shape = (length - arr.shape[0],) + arr.shape[1:]
+    return np.concatenate([arr, np.zeros(pad_shape, arr.dtype)], axis=0)
+
+
+def _midi_to_audio(midi_path: str, audio_path: str,
+                   sound_font: Optional[str] = None) -> None:
+    """FluidSynth render (the JAX pipeline's video_io.midi_to_audio)."""
+    cmd = ["fluidsynth", "-ni"]
+    if sound_font:
+        cmd.append(str(sound_font))
+    cmd += [str(midi_path), "-F", str(audio_path), "-r", "44100"]
+    subprocess.run(cmd, check=True, capture_output=True)
+
+
+class Video2music:
+    """Video2music on PyTorch, B=1 from precomputed features.
+
+    Models are built from the JAX package's configs, initialised from
+    ``seed`` with a torch.Generator, and kept in float32 on ``device``; a
+    bfloat16 copy is made at the first bfloat16 ``generate``.
+    """
+
+    def __init__(self, *, music_gen_version: str = "2.2",
+                 reg_model: str = "bimamba+", motion_type: int = 1,
+                 amt_checkpoint: Optional[str] = None,
+                 reg_checkpoint: Optional[str] = None, seed: int = 0,
+                 amt_overrides: Optional[dict] = None,
+                 reg_overrides: Optional[dict] = None,
+                 device=None):
+        if amt_checkpoint or reg_checkpoint:
+            raise not_ported(
+                "orbax checkpoint loading (it needs orbax/jax; bridge params "
+                "with video2music_tpu_torch.weights instead)",
+                "Queue 1, orbax checkpoint loading")
+        self.motion_type = motion_type
+        self.device = torch.device(device if device is not None else
+                                   ("cuda" if torch.cuda.is_available()
+                                    else "cpu"))
+        motion_dim = {0: 1, 1: 512, 2: 768}[motion_type]
+        total_vf = 768 + 1 + motion_dim + 6  # reference: video2music.py:609
+        self.amt_cfg = amt_config(music_gen_version, total_vf_dim=total_vf,
+                                  **(amt_overrides or {}))
+        self.reg_cfg = RegressionConfig(reg_model=reg_model,
+                                        total_vf_dim=768 + 6,
+                                        **(reg_overrides or {}))
+        gen = torch.Generator().manual_seed(seed)
+        self.model = init_weights_(VideoMusicTransformer(self.amt_cfg), gen)
+        self.model_reg = init_weights_(VideoRegression(self.reg_cfg), gen)
+        self.model.to(self.device).eval()
+        self.model_reg.to(self.device).eval()
+        self._bf16 = None
+        # stage times (ms) and regression outputs of the last generate
+        self.last_timings: Dict[str, float] = {}
+        self.last_regression: Dict[str, np.ndarray] = {}
+
+    def load_state_dicts(self, amt_state=None, reg_state=None) -> None:
+        """Load float32 state dicts (e.g. weights.amt_from_jax output) into
+        the models; drops the cached bfloat16 copies."""
+        if amt_state is not None:
+            self.model.load_state_dict(amt_state)
+        if reg_state is not None:
+            self.model_reg.load_state_dict(reg_state)
+        self._bf16 = None
+
+    def _models(self, compute_dtype: str):
+        if compute_dtype == "float32":
+            return self.model, self.model_reg
+        if compute_dtype != "bfloat16":
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        if self._bf16 is None:
+            self._bf16 = tuple(copy.deepcopy(m).to(torch.bfloat16)
+                               for m in (self.model, self.model_reg))
+        return self._bf16
+
+    def generate(self, video: Optional[str] = None,
+                 primer: Optional[str] = "", key: Optional[str] = None,
+                 transposition_value: int = 0,
+                 custom_sound_font: bool = False, temperature: float = 1.0,
+                 *, features: Optional[Dict[str, np.ndarray]] = None,
+                 output_dir: str = "./output", seed: int = 0,
+                 correct_panning: bool = False,
+                 sound_font: Optional[str] = None,
+                 caption_overlays=None,
+                 compute_dtype: str = "bfloat16",
+                 quantize: Optional[str] = None,
+                 _gumbel=None) -> GenerateResult:
+        """One clip from precomputed ``features`` (semantic (n, 768),
+        emotion (n, 6), scene_offset (n,), motion (n,) or (n, M)).
+        ``_gumbel`` is the sampler's test seam (decode/sampler.py)."""
+        del custom_sound_font  # the sound font is chosen by sound_font
+        del caption_overlays  # burned into a muxed video only
+        if video is not None or features is None:
+            raise not_ported("raw-video feature extraction and muxing "
+                             "(pass features=)",
+                             "Queue 1, raw-video extraction")
+        if quantize is not None:
+            raise not_ported("int8 decode (quantize=)",
+                             "Queue 1, int8 decode")
+        os.makedirs(output_dir, exist_ok=True)
+        t_start = time.perf_counter()
+
+        L = MAX_SECONDS
+        n_sec = min(int(features["semantic"].shape[0]), L)
+        semantic = _pad_to(np.asarray(features["semantic"], np.float32), L)
+        emotion = _pad_to(np.asarray(features["emotion"], np.float32), L)
+        scene_offset = _pad_to(
+            np.asarray(features["scene_offset"], np.float32), L)
+        motion = _pad_to(np.asarray(features["motion"], np.float32), L)
+        key, key_feature, primer = resolve_key_and_primer(
+            key, primer, emotion)
+        primer_ids, primer_roots, primer_attrs = parse_primer(primer)
+        emotion = smooth_emotion(emotion)
+
+        model, model_reg = self._models(compute_dtype)
+        dt = getattr(torch, compute_dtype)
+        dev = self.device
+        feat = lambda a: torch.as_tensor(a, device=dev).to(dt)[None]
+        feats = dict(semantic=feat(semantic), scene_offset=feat(scene_offset),
+                     motion=feat(motion), emotion=feat(emotion))
+        ids = lambda a: torch.as_tensor(a, device=dev)[None]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gcfg = GenerateConfig(target_seq_length=L, max_conseq_N=0,
+                              max_conseq_chord=2)
+        out = generate_chords(
+            model, key=torch.tensor([[key_feature]], device=dev, dtype=dt),
+            primer=ids(primer_ids), primer_root=ids(primer_roots),
+            primer_attr=ids(primer_attrs), num_primer=len(primer_ids),
+            generator=gen, gcfg=gcfg, temperature=temperature,
+            _gumbel=_gumbel, **feats)
+        gen_seq = out["gen_seq"].cpu().numpy()[0]
+        t_reg = time.perf_counter()
+        with torch.no_grad():
+            ln_nd, inst = model_reg(**feats)
+        ln_nd = ln_nd.float().cpu().numpy()[0]
+        inst = inst.float().cpu().numpy()[0]
+        self.last_regression = dict(ln_nd=ln_nd, instrument=inst)
+        t_post = time.perf_counter()
+        result = self._postprocess(
+            gen_seq, ln_nd, inst, emotion, n_sec, key, transposition_value,
+            output_dir, correct_panning, sound_font)
+        t_end = time.perf_counter()
+        self.last_timings = dict(
+            out["timings_ms"], regression=(t_post - t_reg) * 1e3,
+            postprocess=(t_end - t_post) * 1e3,
+            total=(t_end - t_start) * 1e3)
+        return result
+
+    def _postprocess(self, chord_ids, ln_nd, inst_probs, emotion, n_sec,
+                     key, transposition_value, output_dir, correct_panning,
+                     sound_font) -> GenerateResult:
+        """Host-side symbolic rendering of one clip's decoded arrays
+        (reference: video2music.py:849-1052), as the JAX pipeline's."""
+        os.makedirs(output_dir, exist_ok=True)
+        chord_ids = chord_ids[:n_sec]
+        ln_nd = ln_nd[:n_sec]
+        inst_probs = inst_probs[:n_sec]
+
+        note_density = np.clip(np.round(ln_nd[:, 0]), 0, 40).astype(int)
+        loudness_lv = np.clip((ln_nd[:, 1] * 100).astype(int), 0, 50)
+        emotion_idx = np.argmax(emotion[:n_sec], axis=1)
+        velocities = [velocity_from_loudness(loudness_lv[i], emotion_idx[i])
+                      for i in range(n_sec)]
+        densities = [density_bucket(note_density[i], emotion_idx[i])
+                     for i in range(n_sec)]
+        inst_bin = (inst_probs >= INSTRUMENT_THRESHOLD).astype(np.float32)
+
+        inv = chord_inv_dict()
+        chords = [inv.get(int(i), "N") for i in chord_ids]
+        offsets = chord_offsets(chords)
+        midi_chords = voice([
+            [] if s == "N" else Chord(s.replace(":", "")).getMIDI(
+                key[0].lower(), 4)
+            for s in chords])
+        trans = TRANSPOSE_KEY.get(key, transposition_value)
+
+        midi_path = os.path.join(output_dir, "output.mid")
+        stems_dir = os.path.join(output_dir, "stems")
+        rendered = _native.render_clip(
+            midi_chords, offsets, densities, velocities,
+            np.isin(emotion_idx, (0, 1, 2)), inst_bin,
+            arp_inst=_INST_POLICY["arp"], vel_factor=_INST_POLICY["vel"],
+            pan_ctrl=(_INST_POLICY["pan_ctrl_correct"] if correct_panning
+                      else _INST_POLICY["pan_ctrl_quirk"]),
+            pan_param=(_INST_POLICY["pan_param_correct"] if correct_panning
+                       else _INST_POLICY["pan_param_quirk"]),
+            chord_dur=CHORD_DURATION_BEATS, tempo=BASE_TEMPO)
+        if rendered is not None:
+            main_bytes, stem_bytes = rendered
+            with open(midi_path, "wb") as f:
+                f.write(main_bytes)
+            os.makedirs(stems_dir, exist_ok=True)
+            for inst_id, data in stem_bytes.items():
+                with open(os.path.join(stems_dir,
+                                       f"inst_{inst_id:02d}.mid"),
+                          "wb") as f:
+                    f.write(data)
+        else:  # pure-Python fallback (no toolchain): identical output
+            generated = MIDIFile(1)
+            generated.addTempo(0, 0, BASE_TEMPO)
+            track_files: Dict[int, MIDIFile] = {}
+            for i, chord in enumerate(midi_chords):
+                add_chord(generated, chord, offsets[i], densities[i], trans,
+                          i * CHORD_DURATION_BEATS, CHORD_DURATION_BEATS,
+                          velocities[i], int(emotion_idx[i]),
+                          arpeggio_chord=True)
+                for inst_id in np.nonzero(inst_bin[i])[0]:
+                    inst_id = int(inst_id)
+                    if inst_id not in track_files:
+                        mf = MIDIFile(1)
+                        mf.addTempo(0, 0, BASE_TEMPO)
+                        pan = (PAN_VALS["left"] if inst_id in LEFT_PAN else
+                               PAN_VALS["center"] if inst_id in CENTER_PAN
+                               else PAN_VALS["right"])
+                        if correct_panning:
+                            mf.addControllerEvent(0, 0, 0, 10, pan)
+                        else:
+                            # reference quirk: pan value as controller number
+                            mf.addControllerEvent(0, 0, 0, pan, 0)
+                        track_files[inst_id] = mf
+                    arp = (inst_id in ARPEGGIO_INSTRUMENTS
+                           or int(emotion_idx[i]) in (0, 1, 2))
+                    vel = velocities[i] * (
+                        1.15 if inst_id in LOW_VELOCITY_INSTRUMENTS else 1.0)
+                    add_chord(track_files[inst_id], chord, offsets[i],
+                              densities[i], trans, i * CHORD_DURATION_BEATS,
+                              CHORD_DURATION_BEATS, vel, int(emotion_idx[i]),
+                              arpeggio_chord=arp)
+            with open(midi_path, "wb") as f:
+                generated.writeFile(f)
+            os.makedirs(stems_dir, exist_ok=True)
+            for inst_id, mf in track_files.items():
+                with open(os.path.join(stems_dir,
+                                       f"inst_{inst_id:02d}.mid"),
+                          "wb") as f:
+                    mf.writeFile(f)
+        np.savetxt(os.path.join(output_dir, "inst.csv"), inst_bin,
+                   delimiter=",", fmt="%.0f")
+
+        audio_path = None
+        if shutil.which("fluidsynth") is not None:
+            audio_path = os.path.join(output_dir, "output.flac")
+            _midi_to_audio(midi_path, audio_path, sound_font)
+
+        return GenerateResult(
+            chords=chords, chord_ids=chord_ids, midi_path=midi_path,
+            audio_path=audio_path, video_path=None,
+            densities=densities, velocities=velocities,
+            instruments=inst_bin, key=key)
