@@ -8,13 +8,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      video2music_tpu_torch/_build/), print the card and its power limit,
      turn TF32 off;
   2. kernels: each hand-written kernel against its plain PyTorch version at
-     the product shapes, in float32 and bfloat16, with both times;
+     the product shapes, in float32 and bfloat16, with both times; the
+     batched decode kernels at B=16 (timed at B=64 too), flash attention
+     and the scan at B=16 as well;
   3. slice: a full-width Video2music (AMT 2.2 + bimamba+, random weights
      from seed 0) in bfloat16 answers three requests from seeded synthetic
      features; the outputs are checked, and each kernel's launch count over
      those requests must equal what the path implies;
   4. teacher-forced: 16 decode steps of the kernel path against the plain
-     path on the card, float32 and bfloat16.
+     path on the card, float32 and bfloat16;
+  5. serving: the same Video2music decodes batches through generate_batch
+     at B=16 and B=64 and through a DynamicBatcher (max_batch 16) fed 24
+     requests at once; every clip is checked, and the launch counts must
+     equal what the widths that ran imply;
+  6. teacher-forced batch: 16 steps of the batched kernel step against the
+     batched plain step at B=8, float32 and bfloat16.
 The last three lines of stdout are a JSON object listing the kernels with
 their launches, errors and times, the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -39,6 +47,9 @@ F32_RTOL, F32_ATOL = 1e-4, 1e-5
 BF16_REL = 2e-2
 # teacher-forced logits pass through 6 layers of such sums
 F32_LOGIT_ATOL = 1e-4
+# batched bf16 teacher forcing: at most one clip-position in this many may
+# leave BF16_REL (a router near-tie flipped by a one-ulp input difference)
+BF16_ROUTE_SHARE = 16
 # the sampler emits chord ids in [1, CHORD_END): "N" (0) is banned and the
 # end / pad ids lie at CHORD_END and above
 CHORD_END = 157
@@ -56,7 +67,18 @@ KERNELS = {
     "selective_scan": dict(
         source="video2music_tpu_torch/csrc/selective_scan.cu",
         replaces="video2music_tpu/ops/pallas_scan.py:59"),
+    "batched_layer_step": dict(
+        source="video2music_tpu_torch/csrc/decode_batch.cu",
+        replaces="video2music_tpu/ops/pallas_decode_batch.py:609"),
+    "batched_moe_ffn": dict(
+        source="video2music_tpu_torch/csrc/decode_batch.cu",
+        replaces="video2music_tpu/ops/pallas_decode_batch.py:761"),
 }
+# the kernels of the B=1 slice and of batched serving
+SLICE_KERNELS = ("flash_attention", "decode_layer", "decode_ends",
+                 "selective_scan")
+SERVING_KERNELS = ("flash_attention", "batched_layer_step",
+                   "batched_moe_ffn", "selective_scan")
 
 
 class SmokeFailure(RuntimeError):
@@ -158,24 +180,42 @@ def random_layer(gen, D, F, E, deep, dtype, dev):
     return {k: v.contiguous() for k, v in p.items()}
 
 
+def random_head(gen, D, dtype, dev):
+    """Embedding / Linear_chord / final norm / head weights (pack_ends)."""
+    import torch
+    return dict(
+        emb_root=torch.randn(15, D, generator=gen).to(dev, dtype),
+        emb_attr=torch.randn(16, D, generator=gen).to(dev, dtype),
+        lc_w=(torch.randn(D, D, generator=gen) * D ** -0.5).to(dev, dtype),
+        lc_krow=torch.randn(D, generator=gen).to(dev, dtype),
+        lc_b=(torch.randn(D, generator=gen) * 0.1).to(dev, dtype),
+        dn_scale=(1 + 0.1 * torch.randn(D, generator=gen)).to(dev, dtype),
+        dn_bias=(0.1 * torch.randn(D, generator=gen)).to(dev, dtype),
+        wout=(torch.randn(159, D, generator=gen) * D ** -0.5).to(dev, dtype),
+        bout=(0.1 * torch.randn(159, generator=gen)).to(dev, dtype))
+
+
 def note_error(report, name, dtype, err):
     errs = report[name].setdefault("err", {})
     errs[dtype] = max(err, errs.get(dtype, 0.0))
 
 
-def note_times(report, name, dtype, kernel_fn, plain_fn, plain_iters=20):
-    """(kernel device, kernel eager, plain device, plain eager) ms."""
+def note_times(report, name, dtype, kernel_fn, plain_fn, plain_iters=20,
+               key="ms"):
+    """(kernel device, kernel eager, plain device, plain eager) ms, kept
+    under report[name][key][dtype]."""
     times = time_ms(kernel_fn) + time_ms(plain_fn, iters=plain_iters)
-    report[name].setdefault("ms", {})[dtype] = times
-    print(f"  {name} [{str(dtype)[6:]}] kernel {times[0]:.4f} ms device "
-          f"({times[1]:.4f} ms eager), plain {times[2]:.4f} ms device "
+    report[name].setdefault(key, {})[dtype] = times
+    tag = "" if key == "ms" else f" ({key})"
+    print(f"  {name}{tag} [{str(dtype)[6:]}] kernel {times[0]:.4f} ms "
+          f"device ({times[1]:.4f} ms eager), plain {times[2]:.4f} ms device "
           f"({times[3]:.4f} ms eager)")
 
 
 def kernel_phase(report, v2m):
     import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
     from video2music_tpu_torch.ops import decode_layer as dl
-    from video2music_tpu_torch.ops.embeddings import rope_table
     from video2music_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
     from video2music_tpu_torch.ops.scan import (selective_scan,
@@ -188,8 +228,7 @@ def kernel_phase(report, v2m):
     mamba = v2m.model_reg.backbone.layers[0].mamba_forward.cfg
     hd = D // H
     gen = torch.Generator().manual_seed(1234)
-    table = rope_table(max(S, Sm), hd, dev)
-    rope = (table[..., 0].contiguous(), table[..., 1].contiguous())
+    rope = rope_tables(v2m.model, dev)
     for dtype in (torch.float32, torch.bfloat16):
         print(f"kernels, {dtype}:")
         # kernel 1: flash attention, encoder self-attention shape
@@ -213,16 +252,7 @@ def kernel_phase(report, v2m):
         caches = [torch.randn(S, D, generator=gen).to(dev, dtype)
                   for _ in range(2)]
         x = torch.randn(1, D, generator=gen).to(dev, dtype)
-        head = dict(
-            emb_root=torch.randn(15, D, generator=gen).to(dev, dtype),
-            emb_attr=torch.randn(16, D, generator=gen).to(dev, dtype),
-            lc_w=(torch.randn(D, D, generator=gen) * D ** -0.5).to(dev, dtype),
-            lc_krow=torch.randn(D, generator=gen).to(dev, dtype),
-            lc_b=(torch.randn(D, generator=gen) * 0.1).to(dev, dtype),
-            dn_scale=(1 + 0.1 * torch.randn(D, generator=gen)).to(dev, dtype),
-            dn_bias=(0.1 * torch.randn(D, generator=gen)).to(dev, dtype),
-            wout=(torch.randn(159, D, generator=gen) * D ** -0.5).to(dev, dtype),
-            bout=(0.1 * torch.randn(159, generator=gen)).to(dev, dtype))
+        head = random_head(gen, D, dtype, dev)
         root = torch.tensor([3], device=dev, dtype=torch.int32)
         attr = torch.tensor([5], device=dev, dtype=torch.int32)
         key = torch.tensor([1.0], device=dev)
@@ -282,6 +312,108 @@ def kernel_phase(report, v2m):
                    plain_iters=3)
 
 
+def batched_kernel_phase(report, v2m):
+    """The batched decode kernels at B=16 (and timed at B=64), product
+    widths, pos 150; flash attention and the scan at B=16."""
+    import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from video2music_tpu_torch.ops.scan import (selective_scan,
+                                                selective_scan_plain)
+
+    dev = v2m.device
+    cfg = v2m.amt_cfg
+    D, F, E, H = cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.num_heads
+    S, Sm = cfg.max_seq_chord, cfg.max_seq_video
+    k_top = cfg.moe.n_experts_per_token
+    mamba = v2m.model_reg.backbone.layers[0].mamba_forward.cfg
+    hd = D // H
+    pos = S // 2
+    gen = torch.Generator().manual_seed(4321)
+    kw = dict(n_heads=H, rope=rope_tables(v2m.model, dev))
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"batched kernels, {dtype}:")
+        head = random_head(gen, D, dtype, dev)
+        shallow = random_layer(gen, D, F, E, False, dtype, dev)
+        deep = random_layer(gen, D, F, E, True, dtype, dev)
+        for B in (16, 64):
+            caches = [torch.randn(B, S, D, generator=gen).to(dev, dtype)
+                      for _ in range(2)]
+            kx, vx = (torch.randn(B, Sm, D, generator=gen).to(dev, dtype)
+                      for _ in range(2))
+            x = torch.randn(B, D, generator=gen).to(dev, dtype)
+            tokens = (torch.randint(15, (B,), generator=gen).to(dev),
+                      torch.randint(16, (B,), generator=gen).to(dev),
+                      torch.randint(2, (B,), generator=gen).to(dev).float())
+            key = "ms" if B == 16 else f"ms_b{B}"
+            for tag, p, x_in, tok in (("shallow+embed", shallow, None, tokens),
+                                      ("deep", deep, x, None)):
+                kc1, vc1 = (c.clone() for c in caches)
+                kc2, vc2 = (c.clone() for c in caches)
+                lkw = dict(kw, tokens=tok, embed_pack=head if tok else None)
+                got = db.batched_layer_step(x_in, pos, p, kc1, vc1, kx, vx,
+                                            **lkw)
+                want = db.batched_layer_step_plain(x_in, pos, p, kc2, vc2,
+                                                   kx, vx, **lkw)
+                name = f"batched_layer_step {tag} B={B}"
+                err = check_close(name, dtype, got, want)
+                check_close(name + " k row", dtype, kc1[:, pos], kc2[:, pos])
+                check_close(name + " v row", dtype, vc1[:, pos], vc2[:, pos])
+                fail_unless(torch.equal(kc1[:, :pos], kc2[:, :pos]),
+                            f"{name}: cache rows other than pos changed")
+                if B == 16:
+                    note_error(report, "batched_layer_step", dtype, err)
+                if tag == "deep":
+                    note_times(report, "batched_layer_step", dtype,
+                               lambda: db.batched_layer_step(
+                                   x, pos, p, kc1, vc1, kx, vx, **kw),
+                               lambda: db.batched_layer_step_plain(
+                                   x, pos, p, kc2, vc2, kx, vx, **kw),
+                               key=key)
+            for tag, hp in (("", None), ("+head", head)):
+                got = db.batched_moe_ffn(x, deep, k_top=k_top, head_pack=hp)
+                want = db.batched_moe_ffn_plain(x, deep, k_top=k_top,
+                                                head_pack=hp)
+                err = check_close(f"batched_moe_ffn{tag} B={B}", dtype, got,
+                                  want)
+                if B == 16:
+                    note_error(report, "batched_moe_ffn", dtype, err)
+            note_times(report, "batched_moe_ffn", dtype,
+                       lambda: db.batched_moe_ffn(x, deep, k_top=k_top,
+                                                  head_pack=head),
+                       lambda: db.batched_moe_ffn_plain(
+                           x, deep, k_top=k_top, head_pack=head), key=key)
+
+        # flash attention and the scan at the batch of the serving path
+        B = 16
+        q, k, v = (torch.randn(B, H, Sm, hd, generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        err = check_close(f"flash_attention B={B}", dtype,
+                          flash_attention(q, k, v),
+                          flash_attention_plain(q, k, v))
+        note_error(report, "flash_attention", dtype, err)
+        note_times(report, "flash_attention", dtype,
+                   lambda: flash_attention(q, k, v),
+                   lambda: flash_attention_plain(q, k, v), key="ms_b16")
+        L, ED, N = Sm, mamba.d_inner, mamba.d_state
+        xs = torch.randn(B, L, ED, generator=gen).to(dev, dtype)
+        dt = (torch.rand(B, L, ED, generator=gen) * 0.1).to(dev, dtype)
+        A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(ED, 1).to(dev)
+        Bm, Cm = (torch.randn(B, L, N, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        Dv = torch.ones(ED, device=dev)
+        err = check_close(f"selective_scan B={B}", dtype,
+                          selective_scan(xs, dt, A, Bm, Cm, Dv),
+                          selective_scan_plain(xs, dt, A, Bm, Cm, Dv))
+        note_error(report, "selective_scan", dtype, err)
+        note_times(report, "selective_scan", dtype,
+                   lambda: selective_scan(xs, dt, A, Bm, Cm, Dv),
+                   lambda: selective_scan_plain(xs, dt, A, Bm, Cm, Dv),
+                   plain_iters=3, key="ms_b16")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice, three requests
 # ---------------------------------------------------------------------------
@@ -307,26 +439,80 @@ def synthetic_features(n_sec, seed):
 def wrappers():
     """The kernel wrappers, by their names in KERNELS. Each counts the
     launches of its kernel in ``.launches``."""
+    from video2music_tpu_torch.ops import decode_batch as db
     from video2music_tpu_torch.ops import decode_layer as dl
     from video2music_tpu_torch.ops.flash_attention import flash_attention
     from video2music_tpu_torch.ops.scan import selective_scan
     return {"flash_attention": flash_attention,
             "decode_layer": dl.decode_layer_step,
             "decode_ends": dl.decode_ends_step,
-            "selective_scan": selective_scan}
+            "selective_scan": selective_scan,
+            "batched_layer_step": db.batched_layer_step,
+            "batched_moe_ffn": db.batched_moe_ffn}
+
+
+def path_launches(v2m, width: int, T: int = 300):
+    """Kernel launches one generate call of ``width`` clips implies: the
+    B=1 kernels at width 1, the batched ones above."""
+    cfg, rcfg = v2m.amt_cfg, v2m.reg_cfg
+    L = len(cfg.decoder_layers)
+    n_deep = sum(spec.ffn != "swiglu" for spec in cfg.decoder_layers)
+    out = dict.fromkeys(KERNELS, 0)
+    out.update(flash_attention=len(cfg.encoder_layers),
+               selective_scan=2 * rcfg.n_layers)
+    if width == 1:
+        out.update(decode_layer=(T - 1) * (L - 2), decode_ends=(T - 1) * 2)
+    else:
+        out.update(batched_layer_step=(T - 1) * L,
+                   batched_moe_ffn=(T - 1) * n_deep)
+    return out
+
+
+def check_launches(report, v2m, widths, names, record):
+    """Compare the counters with what generate calls of ``widths`` imply;
+    every kernel of ``names`` must have launched; record the launches of
+    ``record``."""
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    for name in KERNELS:
+        want = sum(path_launches(v2m, w)[name] for w in widths)
+        print(f"  launches {name}: {counts[name]} (path implies {want})")
+        fail_unless(counts[name] == want,
+                    f"{name}: {counts[name]} launches, path implies {want}")
+    for name in names:
+        fail_unless(counts[name] > 0, f"{name}: never launched")
+    for name in record:
+        report[name]["launches"] = counts[name]
+
+
+def check_clip(tag, res, primer, n, inst=None, ln_nd=None):
+    """The repo's own checks of one rendered clip."""
+    import numpy as np
+    from video2music_tpu_torch.pipeline.primer import parse_primer
+    ids = np.asarray(res.chord_ids)
+    fail_unless(ids.shape == (n,), f"{tag}: {ids.shape} ids")
+    fail_unless(((ids >= 1) & (ids < CHORD_END)).all(),
+                f"{tag}: chord ids outside [1, 157)")
+    primer_ids = parse_primer(primer)[0] if primer else np.zeros(0, np.int64)
+    P = len(primer_ids) if primer else 1
+    fail_unless((ids[:len(primer_ids)] == primer_ids).all(),
+                f"{tag}: primer tokens not kept")
+    gen_part = ids[max(P - 2, 0):]
+    triples = (gen_part[2:] == gen_part[1:-1]) & \
+        (gen_part[1:-1] == gen_part[:-2])
+    fail_unless(not triples.any(), f"{tag}: three equal consecutive tokens")
+    fail_unless(np.isfinite(res.instruments).all(),
+                f"{tag}: non-finite instruments")
+    fail_unless(os.path.getsize(res.midi_path) > 0, f"{tag}: empty output.mid")
+    if ln_nd is not None:
+        fail_unless(ln_nd.shape == (300, 2) and inst.shape == (300, 40),
+                    f"{tag}: regression shapes {ln_nd.shape} {inst.shape}")
+        fail_unless(np.isfinite(ln_nd).all() and np.isfinite(inst).all()
+                    and (inst >= 0).all() and (inst <= 1).all(),
+                    f"{tag}: ln_nd / instrument out of range")
 
 
 def slice_phase(v2m, card, report):
-    import numpy as np
-    from video2music_tpu_torch.pipeline.primer import parse_primer
-
-    cfg, rcfg = v2m.amt_cfg, v2m.reg_cfg
     T = 300
-    n_layers = len(cfg.decoder_layers)
-    per_clip = {"flash_attention": len(cfg.encoder_layers),
-                "decode_layer": (T - 1) * (n_layers - 2),
-                "decode_ends": (T - 1) * 2,
-                "selective_scan": 2 * rcfg.n_layers}
     with tempfile.TemporaryDirectory() as tmp:
         v2m.generate(features=synthetic_features(30, 99),  # warm-up
                      output_dir=os.path.join(tmp, "warm_up"))
@@ -341,47 +527,18 @@ def slice_phase(v2m, card, report):
                                output_dir=out_dir, seed=i)
             wall = time.perf_counter() - t0
             tm = v2m.last_timings
-            ids = np.asarray(res.chord_ids)
-            n = req["n_sec"]
-            fail_unless(ids.shape == (n,), f"request {i}: {ids.shape} ids")
-            fail_unless(((ids >= 1) & (ids < CHORD_END)).all(),
-                        f"request {i}: chord ids outside [1, 157)")
-            primer_ids = parse_primer(req["primer"])[0] if req["primer"] \
-                else np.zeros(0, np.int64)
-            P = len(primer_ids) if req["primer"] else 1
-            fail_unless((ids[:len(primer_ids)] == primer_ids).all(),
-                        f"request {i}: primer tokens not kept")
-            gen_part = ids[max(P - 2, 0):]
-            triples = (gen_part[2:] == gen_part[1:-1]) & \
-                (gen_part[1:-1] == gen_part[:-2])
-            fail_unless(not triples.any(),
-                        f"request {i}: three equal consecutive tokens")
-            fail_unless(np.isfinite(res.instruments).all(),
-                        f"request {i}: non-finite instruments")
-            fail_unless(os.path.getsize(res.midi_path) > 0,
-                        f"request {i}: empty output.mid")
-            ln_nd, inst = (v2m.last_regression[k]
-                           for k in ("ln_nd", "instrument"))
-            fail_unless(ln_nd.shape == (300, 2) and inst.shape == (300, 40),
-                        f"request {i}: regression shapes {ln_nd.shape} "
-                        f"{inst.shape}")
-            fail_unless(np.isfinite(ln_nd).all() and np.isfinite(inst).all()
-                        and (inst >= 0).all() and (inst <= 1).all(),
-                        f"request {i}: ln_nd / instrument out of range")
-            print(f"request {i} ({n} s, primer {req['primer']!r}, "
+            check_clip(f"request {i}", res, req["primer"], req["n_sec"],
+                       v2m.last_regression["instrument"],
+                       v2m.last_regression["ln_nd"])
+            print(f"request {i} ({req['n_sec']} s, primer {req['primer']!r}, "
                   f"temperature {req['temperature']}): wall {wall:.3f} s, "
                   f"encode {tm['encode']:.3f} ms, prime {tm['prime']:.3f} ms, "
                   f"decode {tm['decode']:.1f} ms = "
                   f"{tm['decode'] / (T - 1):.4f} ms/token, regression "
                   f"{tm['regression']:.3f} ms, postprocess "
                   f"{tm['postprocess']:.1f} ms [{card}]")
-    counts = {name: fn.launches for name, fn in wrappers().items()}
-    for name, per in per_clip.items():
-        want = per * len(REQUESTS)
-        print(f"  launches {name}: {counts[name]} (path implies {want})")
-        fail_unless(counts[name] == want and counts[name] > 0,
-                    f"{name}: {counts[name]} launches, path implies {want}")
-        report[name]["launches"] = counts[name]
+    check_launches(report, v2m, [1] * len(REQUESTS), SLICE_KERNELS,
+                   SLICE_KERNELS)
 
 
 # ---------------------------------------------------------------------------
@@ -390,16 +547,14 @@ def slice_phase(v2m, card, report):
 
 def plain_ends_step(model):
     """decode/fused.make_fused_ends_step through the plain versions."""
+    from video2music_tpu_torch.decode.fused import rope_tables
     from video2music_tpu_torch.ops import decode_layer as dl
-    from video2music_tpu_torch.ops.embeddings import rope_table
 
     layers = dl.pack_decoder_layers(model)
     head = dl.pack_ends(model)
     cfg = model.cfg
-    table = rope_table(max(cfg.max_seq_chord, cfg.max_seq_video),
-                       cfg.d_model // cfg.num_heads, layers[0]["wqkv"].device)
     kw = dict(n_heads=cfg.num_heads, k_top=cfg.moe.n_experts_per_token,
-              rope=(table[..., 0].contiguous(), table[..., 1].contiguous()))
+              rope=rope_tables(model, layers[0]["wqkv"].device))
 
     def kv(c, i):
         return c[f"k{i}"], c[f"v{i}"], c[f"ck{i}"], c[f"cv{i}"]
@@ -455,6 +610,200 @@ def teacher_forced_phase(v2m):
               f"positions {worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: batched serving
+# ---------------------------------------------------------------------------
+
+SERVE_PRIMERS = ("C Am F G", "", "G", "Dm G C", "")
+
+
+def serving_requests(n, seed0):
+    """n requests with mixed primers, keys, clip lengths and temperatures."""
+    reqs, temps = [], []
+    for i in range(n):
+        primer = SERVE_PRIMERS[i % len(SERVE_PRIMERS)]
+        reqs.append(dict(features=synthetic_features(30 + (i * 37) % 271,
+                                                     seed0 + i),
+                         primer=primer,
+                         key="C major" if primer else None))
+        temps.append(0.8 + 0.1 * (i % 5))
+    return reqs, temps
+
+
+class WidthLog:
+    """A Video2music stand-in for the DynamicBatcher that records the width
+    of every generate_batch call it forwards."""
+
+    def __init__(self, v2m):
+        self.v2m = v2m
+        self.widths = []
+
+    def generate_batch(self, requests, **kwargs):
+        self.widths.append(len(requests))
+        return self.v2m.generate_batch(requests, **kwargs)
+
+    def extract_features_batch(self, video_paths):
+        return self.v2m.extract_features_batch(video_paths)
+
+
+def check_batch(tag, v2m, reqs, results):
+    reg = v2m.last_regression
+    for i, (req, res) in enumerate(zip(reqs, results)):
+        n = min(req["features"]["semantic"].shape[0], 300)
+        check_clip(f"{tag} clip {i}", res, req["primer"], n,
+                   reg["instrument"][i], reg["ln_nd"][i])
+
+
+def serving_phase(v2m, card, report):
+    from video2music_tpu_torch.pipeline.serving import DynamicBatcher
+
+    T = 300
+    widths = []
+    with tempfile.TemporaryDirectory() as tmp:
+        reqs, temps = serving_requests(2, 500)  # warm-up
+        v2m.generate_batch(reqs, temperature=temps,
+                           output_dir=os.path.join(tmp, "warm_up"))
+        for fn in wrappers().values():
+            fn.launches = 0
+        for B in (16, 64):
+            reqs, temps = serving_requests(B, 1000 * B)
+            t0 = time.perf_counter()
+            results = v2m.generate_batch(reqs, temperature=temps, seed=B,
+                                         output_dir=os.path.join(tmp, f"b{B}"))
+            wall = time.perf_counter() - t0
+            widths.append(B)
+            fail_unless(len(results) == B, f"B={B}: {len(results)} results")
+            check_batch(f"generate_batch B={B}", v2m, reqs, results)
+            tm = v2m.last_timings
+            print(f"generate_batch B={B}: wall {wall:.3f} s = "
+                  f"{B / wall:.2f} clips/s, encode {tm['encode']:.3f} ms, "
+                  f"prime {tm['prime']:.3f} ms, decode {tm['decode']:.1f} ms "
+                  f"= {tm['decode'] / (T - 1):.4f} ms/step, regression "
+                  f"{tm['regression']:.3f} ms, postprocess "
+                  f"{tm['postprocess']:.1f} ms [{card}]")
+        log = WidthLog(v2m)
+        batcher = DynamicBatcher(log, max_batch=16, max_wait_ms=2000,
+                                 output_dir=os.path.join(tmp, "serve"))
+        try:
+            reqs, temps = serving_requests(24, 7000)
+            t0 = time.perf_counter()
+            futures = [batcher.submit(r, temperature=t)
+                       for r, t in zip(reqs, temps)]
+            out = [f.result(timeout=600) for f in futures]
+            wall = time.perf_counter() - t0
+        finally:
+            batcher.stop()
+        for i, (req, (res, width)) in enumerate(zip(reqs, out)):
+            check_clip(f"batcher request {i} (width {width})", res,
+                       req["primer"], req["features"]["semantic"].shape[0])
+        stats = batcher.stats
+        fail_unless(stats["batches"] == len(log.widths)
+                    and stats["batched_requests"] == 24,
+                    f"batcher stats {stats}, widths run {log.widths}")
+        fail_unless(max(log.widths) > 1, f"no batch wider than 1: {log.widths}")
+        widths += log.widths
+        print(f"DynamicBatcher(max_batch=16): 24 requests in {wall:.3f} s = "
+              f"{24 / wall:.2f} clips/s, batches of widths {log.widths} "
+              f"(the gather window is 2 s) [{card}]")
+    check_launches(report, v2m, widths, SERVING_KERNELS,
+                   SERVING_KERNELS[1:3])
+
+
+# ---------------------------------------------------------------------------
+# phase 6: teacher-forced batched kernel step against the plain step
+# ---------------------------------------------------------------------------
+
+def plain_batch_step(model):
+    """decode/fused.make_fused_batch_step through the plain versions."""
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_layer as dl
+
+    layers = dl.pack_decoder_layers(model)
+    head = dl.pack_ends(model)
+    cfg = model.cfg
+    kw = dict(n_heads=cfg.num_heads,
+              rope=rope_tables(model, layers[0]["wqkv"].device))
+    k_top = cfg.moe.n_experts_per_token
+
+    def run(c, root, attr, key, pos):
+        x = None
+        for i, p in enumerate(layers):
+            x = db.batched_layer_step_plain(
+                x, pos, p, c[f"k{i}"], c[f"v{i}"], c[f"ck{i}"], c[f"cv{i}"],
+                tokens=(root, attr, key) if i == 0 else None,
+                embed_pack=head if i == 0 else None, **kw)
+            if "gate_w" in p:
+                x = db.batched_moe_ffn_plain(
+                    x, p, k_top=k_top,
+                    head_pack=head if i == len(layers) - 1 else None)
+        return x
+    return run
+
+
+def teacher_forced_batch_phase(v2m, B=8):
+    """16 positions of seeded random (root, attr) tokens for B clips
+    through the batched kernel step and the batched plain step. float32:
+    each path carries its own caches and every logit must agree. bfloat16:
+    the plain caches are reset to the kernel's before each step, and a
+    clip-position may leave the tolerance only rarely (at most one in
+    BF16_ROUTE_SHARE): a near-tie in a router's gate logits, which a
+    one-ulp difference of its bf16 input can flip, sends that clip to
+    other experts."""
+    import torch
+    from video2music_tpu_torch.decode.fused import (init_fused_batch_caches,
+                                                    make_fused_batch_step)
+
+    gen = torch.Generator().manual_seed(8)
+    roots = torch.randint(v2m.model.embedding_root.num_embeddings, (16, B),
+                          generator=gen)
+    attrs = torch.randint(v2m.model.embedding_attr.num_embeddings, (16, B),
+                          generator=gen)
+    feats = [synthetic_features(300, 70 + b) for b in range(B)]
+    dev = v2m.device
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        model, _ = v2m._models(name)
+        f = {k: torch.stack([torch.as_tensor(x[k]) for x in feats]).to(
+            dev, dtype) for k in feats[0]}
+        key = (torch.arange(B, device=dev) % 2).float()
+        with torch.no_grad():
+            cross = model.prime(model.encode(**f))
+            kernel_caches = init_fused_batch_caches(model, cross)
+            plain_caches = {k: v.clone() for k, v in kernel_caches.items()}
+            kernel_step = make_fused_batch_step(model)
+            plain_step = plain_batch_step(model)
+            worst, outliers = 0.0, []
+            for pos in range(16):
+                root = roots[pos].to(dev, torch.int32)
+                attr = attrs[pos].to(dev, torch.int32)
+                if dtype == torch.bfloat16:
+                    for k, v in kernel_caches.items():
+                        plain_caches[k].copy_(v)
+                got = kernel_step(kernel_caches, root, attr, key, pos)
+                want = plain_step(plain_caches, root, attr, key, pos)
+                fail_unless(bool(torch.isfinite(got).all()),
+                            f"teacher-forced batch pos {pos}: non-finite")
+                if dtype == torch.float32:
+                    worst = max(worst, check_close(
+                        f"teacher-forced batch logits pos {pos}", dtype, got,
+                        want, atol=F32_LOGIT_ATOL))
+                    continue
+                for b in range(B):
+                    abs_err, rel_err = errors(got[b], want[b])
+                    worst = max(worst, abs_err)
+                    if rel_err > BF16_REL:
+                        outliers.append((pos, b, round(rel_err, 4)))
+        if dtype == torch.bfloat16:
+            print(f"  bf16 clip-positions outside rel {BF16_REL}: "
+                  f"{len(outliers)} of {16 * B} {outliers}")
+            fail_unless(len(outliers) * BF16_ROUTE_SHARE <= 16 * B,
+                        f"teacher-forced batch bf16: {len(outliers)} of "
+                        f"{16 * B} clip-positions disagree")
+        print(f"teacher-forced batch B={B} {name}: max abs logit error over "
+              f"16 positions {worst:.3e}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -487,20 +836,29 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     report = {name: {} for name in KERNELS}
     kernel_phase(report, v2m)
+    batched_kernel_phase(report, v2m)
     slice_phase(v2m, card, report)
     teacher_forced_phase(v2m)
+    serving_phase(v2m, card, report)
+    teacher_forced_batch_phase(v2m)
 
     rows = []
     for name, meta in KERNELS.items():
         r = report[name]
         bf, f32 = r["ms"][torch.bfloat16], r["ms"][torch.float32]
-        rows.append(dict(name=name, route="cuda", source=meta["source"],
-                         replaces=meta["replaces"], launches=r["launches"],
-                         max_abs_err=r["err"][torch.bfloat16], ms=bf[0],
-                         plain_ms=bf[2], dtype="bfloat16",
-                         ms_eager=bf[1], plain_ms_eager=bf[3],
-                         max_abs_err_f32=r["err"][torch.float32],
-                         ms_f32=f32[0], plain_ms_f32=f32[2]))
+        row = dict(name=name, route="cuda", source=meta["source"],
+                   replaces=meta["replaces"], launches=r["launches"],
+                   max_abs_err=r["err"][torch.bfloat16], ms=bf[0],
+                   plain_ms=bf[2], dtype="bfloat16",
+                   ms_eager=bf[1], plain_ms_eager=bf[3],
+                   max_abs_err_f32=r["err"][torch.float32],
+                   ms_f32=f32[0], plain_ms_f32=f32[2])
+        for key in ("ms_b16", "ms_b64"):  # the other batch widths
+            if key in r:
+                t = r[key][torch.bfloat16]
+                row[key], row["plain_" + key] = t[0], t[2]
+                row[key + "_f32"] = r[key][torch.float32][0]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

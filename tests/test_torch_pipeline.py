@@ -2,7 +2,8 @@
 ``Video2music.generate(features=...)`` with bridged weights and the JAX
 sampling noise handed in must give the same chords and byte-identical
 MIDI, stems and inst.csv. Also: the port imports no JAX, CPU calls launch
-no kernel, and the parts outside the slice raise NotImplementedError."""
+no kernel, the parts outside the slice raise NotImplementedError, and
+without CUDA the default device raises instead of falling back."""
 
 import os
 import subprocess
@@ -121,6 +122,7 @@ def test_port_imports_no_jax():
         "    sys.modules[m] = None\n"
         "import chip_smoke\n"
         "import video2music_tpu_torch.pipeline.api\n"
+        "import video2music_tpu_torch.pipeline.serving\n"
         "import video2music_tpu_torch.weights\n"
         "import video2music_tpu_torch.kernels\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -133,7 +135,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("case", ["video", "quantize", "checkpoint",
-                                  "backbone", "wiring", "batch"])
+                                  "backbone", "wiring", "kv_quant",
+                                  "batch_quantize"])
 def test_outside_the_slice_raises(pair, tmp_path, case):
     _, pv = pair
     feats = _features(4, 0)
@@ -150,9 +153,17 @@ def test_outside_the_slice_raises(pair, tmp_path, case):
         elif case == "wiring":
             Video2music(device="cpu", **dict(KW, music_gen_version="3.1"))
         else:
-            from video2music_tpu_torch.decode.sampler import generate_chords
-            z = torch.zeros(2, 4, 7)
-            generate_chords(pv.model, semantic=z, key=None,
-                            scene_offset=None, motion=None, emotion=None,
-                            primer=None, primer_root=None, primer_attr=None,
-                            num_primer=1)
+            kw = ({"kv_quant": "int8"} if case == "kv_quant"
+                  else {"quantize": "int8"})
+            pv.generate_batch([{"features": feats}] * 2,
+                              output_dir=str(tmp_path), **kw)
+
+
+def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """No silent CPU fallback: device=None means "cuda", and without CUDA
+    the constructor raises instead of picking the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Video2music(**KW)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Video2music(device="cuda", **KW)

@@ -1,11 +1,17 @@
-"""Fused decode step at B=1 (counterpart of decode/fused.py:
-``init_fused_caches`` and the split "ends" step of
-``make_fused_ends_step``, the product's B=1 backend).
+"""Fused decode steps (counterpart of decode/fused.py): the product's B=1
+``"ends"`` backend (``init_fused_caches`` / ``make_fused_ends_step``) and
+its batched (B>1) ``ends=True`` form (``init_fused_batch_caches`` /
+``make_fused_batch_step``).
 
-The first layer runs with the chord-embedding prologue folded in, the
+B=1: the first layer runs with the chord-embedding prologue folded in, the
 middle layers as plain decode-layer steps, the last layer with the
-final-LayerNorm + head epilogue (ops/decode_layer.py). The whole-step
-monolith (``split=False``) and the other fused backends are not ported.
+final-LayerNorm + head epilogue (ops/decode_layer.py).
+
+B>1: every layer runs the batched attention step (ops/decode_batch.py),
+the first with the embedding prologue; every MoE layer finishes with the
+batched MoE step, which routes in the kernel, and the last one emits the
+logits. The whole-step monolith (``split=False``), the stack and variant
+backends, int8 KV caches and cache segmentation are not ported.
 """
 
 from __future__ import annotations
@@ -14,9 +20,21 @@ from typing import Dict
 
 import torch
 
+from ..ops.decode_batch import batched_layer_step, batched_moe_ffn
 from ..ops.decode_layer import (decode_ends_step, decode_layer_step,
                                 pack_decoder_layers, pack_ends)
 from ..ops.embeddings import rope_table
+
+
+def rope_tables(model, device):
+    """(cos, sin) float32 tables (S, head_dim/2) of the decoder's pairwise
+    RoPE on ``device``, or None for a wiring without RoPE."""
+    cfg = model.cfg
+    if not cfg.decoder_layers[0].attn.rope:
+        return None
+    table = rope_table(max(cfg.max_seq_chord, cfg.max_seq_video),
+                       cfg.d_model // cfg.num_heads, device)
+    return table[..., 0].contiguous(), table[..., 1].contiguous()
 
 
 def init_fused_caches(model, cross) -> Dict[str, torch.Tensor]:
@@ -43,15 +61,9 @@ def make_fused_ends_step(model):
     cfg = model.cfg
     layers = pack_decoder_layers(model)
     head = pack_ends(model)
-    H = cfg.num_heads
-    k_top = cfg.moe.n_experts_per_token
     L = len(layers)
-    rope = None
-    if cfg.decoder_layers[0].attn.rope:
-        table = rope_table(max(cfg.max_seq_chord, cfg.max_seq_video),
-                           cfg.d_model // H, layers[0]["wqkv"].device)
-        rope = (table[..., 0].contiguous(), table[..., 1].contiguous())
-    kw = dict(n_heads=H, k_top=k_top, rope=rope)
+    kw = dict(n_heads=cfg.num_heads, k_top=cfg.moe.n_experts_per_token,
+              rope=rope_tables(model, layers[0]["wqkv"].device))
 
     def kv(caches, i):
         return (caches[f"k{i}"], caches[f"v{i}"], caches[f"ck{i}"],
@@ -68,5 +80,56 @@ def make_fused_ends_step(model):
         return decode_ends_step(None, None, None, pos, layers[-1], head,
                                 *kv(caches, L - 1), embed=False,
                                 fold_head=True, x=x, **kw)
+
+    return step_logits
+
+
+def init_fused_batch_caches(model, cross) -> Dict[str, torch.Tensor]:
+    """Batched analogue of :func:`init_fused_caches`: zero (B, S, D) self
+    caches k{i}/v{i} beside the primed (B, Sm, D) cross K/V ck{i}/cv{i},
+    heads concatenated along D."""
+    S = model.cfg.max_seq_chord
+    caches = {}
+    for i, (ck, cv) in enumerate(cross):
+        B, _, D = ck.shape
+        caches[f"k{i}"] = ck.new_zeros(B, S, D)
+        caches[f"v{i}"] = ck.new_zeros(B, S, D)
+        caches[f"ck{i}"] = ck.contiguous()
+        caches[f"cv{i}"] = cv.contiguous()
+    return caches
+
+
+def make_fused_batch_step(model):
+    """Returns ``step_logits(caches, token_root, token_attr, key, pos)`` ->
+    (B, CHORD_SIZE) logits in the model dtype; token_root / token_attr /
+    key are (B,) tensors on the model's device, pos a host int shared by
+    every clip. The self caches are written in place.
+
+    The embedding prologue folds into layer 0's attention step; each MoE
+    layer routes inside its MoE step; the last layer, a MoE layer in every
+    2.x wiring, emits the logits (the JAX ``ends=True`` form)."""
+    cfg = model.cfg
+    layers = pack_decoder_layers(model)
+    if "gate_w" not in layers[-1]:
+        raise ValueError("the batched step folds the head into a last MoE "
+                         "layer; this wiring ends with a SwiGLU layer")
+    head = pack_ends(model)
+    H = cfg.num_heads
+    k_top = cfg.moe.n_experts_per_token
+    L = len(layers)
+    rope = rope_tables(model, layers[0]["wqkv"].device)
+
+    def step_logits(caches, token_root, token_attr, key, pos: int):
+        x = None
+        for i, layer in enumerate(layers):
+            tokens = (token_root, token_attr, key) if i == 0 else None
+            x = batched_layer_step(
+                x, pos, layer, caches[f"k{i}"], caches[f"v{i}"],
+                caches[f"ck{i}"], caches[f"cv{i}"], n_heads=H, rope=rope,
+                tokens=tokens, embed_pack=head if i == 0 else None)
+            if "gate_w" in layer:
+                x = batched_moe_ffn(x, layer, k_top=k_top,
+                                    head_pack=head if i == L - 1 else None)
+        return x
 
     return step_logits

@@ -1,5 +1,5 @@
-"""KV-cached, constraint-aware chord sampler at B=1 (counterpart of
-decode/sampler.py:generate_chords).
+"""KV-cached, constraint-aware chord sampler (counterpart of
+decode/sampler.py:generate_chords), at B=1 and for a batch of clips.
 
 Sampling semantics kept from the JAX sampler:
   * probs = softmax(logits / temperature)[:CHORD_END], sampled
@@ -7,14 +7,18 @@ Sampling semantics kept from the JAX sampler:
   * max_conseq_N == 0 bans the "N" chord (id 0);
   * if the last ``max_conseq_chord`` tokens are equal, that chord is banned
     for the next step;
-  * primer tokens are kept while pos + 1 is inside the primer;
+  * a clip's primer tokens are kept while pos + 1 is inside its primer
+    (a torch.where on the device);
   * a sample is argmax(log(probs) + gumbel), which is how
     jax.random.categorical samples; the noise comes from a torch.Generator,
-    drawn for all T - 1 steps at once.
+    drawn for all T - 1 steps and B clips at once.
 The token, its root/attr ids and the sequence advance on the device: the
 loop never reads a device value back, and gen_seq is fetched by the caller.
-The first step runs outside the loop, as in the JAX sampler. B>1
-(generate_batch) is not ported yet.
+The first step runs outside the loop, as in the JAX sampler. B=1 decodes
+through the fused ends step, B>1 through the batched fused step
+(decode/fused.py), as the JAX sampler routes them. Cache segmentation
+(``GenerateConfig.cache_segments``) is not ported: the JAX sampler is
+bit-exact with one segment, and the kernels read only rows <= pos.
 """
 
 from __future__ import annotations
@@ -27,8 +31,8 @@ import torch
 from video2music_tpu.core import constants as C
 from video2music_tpu.core.vocab import chord_to_root_attr_tables
 
-from ..ops.attention import not_ported
-from .fused import init_fused_caches, make_fused_ends_step
+from .fused import (init_fused_batch_caches, init_fused_caches,
+                    make_fused_batch_step, make_fused_ends_step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +50,9 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def _sample_next(logits, gen_seq, pos: int, gcfg: GenerateConfig,
-                 temperature: float, noise):
-    """Token for position pos+1 from the logits at pos: (B,) int64."""
+                 temperature, noise):
+    """Token for position pos+1 from the logits at pos: (B,) int64.
+    ``temperature`` is a float or a (B, 1) tensor."""
     probs = torch.softmax(logits.float() / temperature, dim=-1)
     probs = probs[..., :C.CHORD_END].clone()
     if gcfg.max_conseq_N == 0:
@@ -77,44 +82,52 @@ def _timer(device):
 
 
 def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
-                    primer, primer_root, primer_attr, num_primer: int,
+                    primer, primer_root, primer_attr, num_primer,
                     generator: torch.Generator = None,
                     gcfg: GenerateConfig = GenerateConfig(),
-                    temperature: float = None, _gumbel=None):
-    """Generate a (1, target_seq_length) chord-id sequence.
+                    temperature=None, _gumbel=None):
+    """Generate a (B, target_seq_length) chord-id sequence.
 
     Args:
       model: a port VideoMusicTransformer, on the device and in the dtype
         to compute in.
-      semantic/scene_offset/motion/emotion: (1, Lv, ...) video features.
-      key: (1, 1) key conditioning (0 major, 1 minor).
-      primer, primer_root, primer_attr: (1, P) ids; the first num_primer
+      semantic/scene_offset/motion/emotion: (B, Lv, ...) video features.
+      key: (B, 1) or (B,) key conditioning (0 major, 1 minor).
+      primer, primer_root, primer_attr: (B, P) ids; the first num_primer
         (>= 1) are kept.
+      num_primer: an int for every clip, or a (B,) / (B, 1) tensor of
+        per-clip primer lengths.
       generator: the torch.Generator of the sampling noise (on the model's
         device).
-      temperature: sampling temperature (default gcfg.temperature).
-      _gumbel: test seam — (T-1, 1, CHORD_END) noise used instead of the
+      temperature: sampling temperature, a float or a (B,) / (B, 1) tensor
+        of per-clip values (default gcfg.temperature).
+      _gumbel: test seam — (T-1, B, CHORD_END) noise used instead of the
         generator's.
     Returns:
-      dict of gen_seq / gen_seq_root / gen_seq_attr (1, T) int32 tensors on
+      dict of gen_seq / gen_seq_root / gen_seq_attr (B, T) int32 tensors on
       the device, and ``timings_ms``: encode / prime / decode stage times.
     """
     B = semantic.shape[0]
-    if B != 1:
-        raise not_ported("decoding several clips at once (generate_batch)",
-                         "Queue 1, pipeline: generate_batch")
     device = semantic.device
     T = gcfg.target_seq_length
     if temperature is None:
         temperature = gcfg.temperature
+    if torch.is_tensor(temperature):
+        temperature = temperature.to(device=device, dtype=torch.float32)
+        temperature = temperature.reshape(-1, 1).expand(B, 1)
     root_tab, attr_tab = (torch.from_numpy(t).to(device)
                           for t in chord_to_root_attr_tables())
     P = primer.shape[1]
+    num_primer = torch.as_tensor(num_primer, device=device,
+                                 dtype=torch.int32).reshape(-1, 1).expand(B, 1)
+    in_primer = torch.arange(P, device=device)[None, :] < num_primer
 
     def padded(ids, pad):
         out = torch.full((B, T), pad, dtype=torch.int32, device=device)
-        n = min(P, num_primer)
-        out[:, :n] = ids[:, :n].to(device=device, dtype=torch.int32)
+        n = min(P, T)
+        out[:, :n] = torch.where(in_primer[:, :n],
+                                 ids[:, :n].to(device=device,
+                                               dtype=torch.int32), pad)
         return out
 
     gen_seq = padded(primer, C.CHORD_PAD)
@@ -124,27 +137,36 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
         noise = gumbel_noise((T - 1, B, C.CHORD_END), generator, device)
     else:
         noise = _gumbel.to(device=device, dtype=torch.float32)
-    key = key.reshape(-1)[:1].to(device=device, dtype=torch.float32)
+    key = key.reshape(-1).to(device=device, dtype=torch.float32)
+    key = key.expand(B).contiguous()
 
     mark, elapsed = _timer(device)
     t0 = mark()
     with torch.no_grad():
         memory = model.encode(semantic, scene_offset, motion, emotion)
         t1 = mark()
-        caches = init_fused_caches(model, model.prime(memory))
-        step_logits = make_fused_ends_step(model)
+        cross = model.prime(memory)
+        if B == 1:
+            caches = init_fused_caches(model, cross)
+            step_logits = make_fused_ends_step(model)
+        else:
+            caches = init_fused_batch_caches(model, cross)
+            step_logits = make_fused_batch_step(model)
         t2 = mark()
 
         def step(pos: int):
-            logits = step_logits(caches, gen_root[:, pos], gen_attr[:, pos],
-                                 key, pos)
-            if pos + 1 < num_primer:
-                return  # the primer token at pos+1 stays
+            root = gen_root[:, pos].contiguous()
+            attr = gen_attr[:, pos].contiguous()
+            logits = step_logits(caches, root, attr, key, pos)
             nxt = _sample_next(logits, gen_seq, pos, gcfg, temperature,
                                noise[pos])
-            gen_seq[:, pos + 1] = nxt.to(torch.int32)
-            gen_root[:, pos + 1] = root_tab[nxt]
-            gen_attr[:, pos + 1] = attr_tab[nxt]
+            keep = pos + 1 < num_primer[:, 0]  # the primer token stays
+            gen_seq[:, pos + 1] = torch.where(keep, gen_seq[:, pos + 1],
+                                              nxt.to(torch.int32))
+            gen_root[:, pos + 1] = torch.where(keep, gen_root[:, pos + 1],
+                                               root_tab[nxt])
+            gen_attr[:, pos + 1] = torch.where(keep, gen_attr[:, pos + 1],
+                                               attr_tab[nxt])
 
         step(0)
         for pos in range(1, T - 1):

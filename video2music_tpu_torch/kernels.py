@@ -24,7 +24,8 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu")
+SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu",
+           "decode_batch.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,6 +110,32 @@ class DecodeLayerArgs(ctypes.Structure):
             "D", "H", "F", "E", "k_top", "Sm", "n_out", "pos")]
 
 
+class BatchLayerArgs(ctypes.Structure):
+    """Mirror of ``V2MBatchLayer`` in csrc/decode_batch.cu (same order)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x", "y",
+        "wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
+        "norm_scale", "norm_bias", "w1g", "b1g", "w2", "b2",
+        "rope_cos", "rope_sin",
+        "k_cache", "v_cache", "k_cross", "v_cross", "work",
+        "token_root", "token_attr", "key",
+        "emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b")] + [
+        (name, ctypes.c_int) for name in (
+            "shallow", "B", "D", "H", "F", "S", "Sm", "pos")]
+
+
+class BatchMoeArgs(ctypes.Structure):
+    """Mirror of ``V2MBatchMoe`` in csrc/decode_batch.cu (same order)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x2", "out", "gate_w", "gate_b", "w1g", "b1g", "w2", "b2",
+        "ew1g", "eb1g", "ew2", "eb2", "norm_scale", "norm_bias",
+        "dn_scale", "dn_bias", "wout", "bout", "work", "sel")] + [
+        (name, ctypes.c_int) for name in (
+            "B", "D", "F", "E", "k_top", "n_out")]
+
+
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.v2m_flash_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
@@ -117,6 +144,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.v2m_decode_layer.restype = i
     lib.v2m_selective_scan.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.v2m_selective_scan.restype = i
+    lib.v2m_batched_layer.argtypes = [i, ctypes.POINTER(BatchLayerArgs), p]
+    lib.v2m_batched_layer.restype = i
+    lib.v2m_batched_moe.argtypes = [i, ctypes.POINTER(BatchMoeArgs), p]
+    lib.v2m_batched_moe.restype = i
     return lib
 
 
@@ -152,6 +183,16 @@ def require(cond: bool, what: str, msg: str) -> None:
     """Validate what the kernel can take; raise ValueError otherwise."""
     if not cond:
         raise ValueError(f"{what}: {msg}")
+
+
+def require_like(tensors, ref, what: str) -> None:
+    """Every tensor of the dict ``tensors`` must be contiguous, with ref's
+    device and dtype."""
+    for name, t in tensors.items():
+        require(t.device == ref.device and t.dtype == ref.dtype
+                and t.is_contiguous(), what,
+                f"{name} must be a contiguous {ref.dtype} tensor on "
+                f"{ref.device}")
 
 
 def check(status: int, what: str) -> None:

@@ -107,8 +107,8 @@ def _layer_norm(x, g, b):
 
 
 def _rotate(y, cos, sin):
-    """Pairwise RoPE of y (n,) with per-pair cos/sin (n/2,)."""
-    y0, y1 = y[0::2], y[1::2]
+    """Pairwise RoPE of y (..., n) with per-pair cos/sin (n/2,)."""
+    y0, y1 = y[..., 0::2], y[..., 1::2]
     return torch.stack([y0 * cos - y1 * sin, y1 * cos + y0 * sin],
                        dim=-1).reshape(y.shape)
 
@@ -127,7 +127,7 @@ def _cached_attention(q, k, v, n_heads: int, rows: int):
 def _swiglu(x, w1g, b1g, w2, b2):
     F = w2.shape[-1]
     hg = _dot(x, w1g) + b1g.float()
-    h, g = hg[:F], hg[F:]
+    h, g = hg[..., :F], hg[..., F:]
     h = h * (g * torch.sigmoid(g))
     return _dot(h, w2) + b2.float()
 
@@ -194,11 +194,11 @@ def decode_layer_plain(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
 
 def embed_plain(token_root, token_attr, key, head, dtype):
     """Chord embedding + Linear_chord as emb @ lc_w + key * lc_krow + lc_b,
-    rounded to ``dtype``: (1, D)."""
-    emb = (head["emb_root"][token_root.reshape(-1)[:1]].float()
-           + head["emb_attr"][token_attr.reshape(-1)[:1]].float())
+    rounded to ``dtype``: (B,) root / attr ids and keys -> (B, D)."""
+    emb = (head["emb_root"][token_root.reshape(-1).long()].float()
+           + head["emb_attr"][token_attr.reshape(-1).long()].float())
     x = _dot(emb, head["lc_w"])
-    x = x + key.reshape(-1)[:1].float() * head["lc_krow"].float()
+    x = x + key.reshape(-1, 1).float() * head["lc_krow"].float()
     return (x + head["lc_b"].float()).to(dtype)
 
 
@@ -258,10 +258,7 @@ def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
         token_root, token_attr, key, head, embed, fold_head = ends
         if embed or fold_head:
             tensors.update(head)
-    for name, t in tensors.items():
-        kernels.require(t.device == dev and t.dtype == dt
-                        and t.is_contiguous(), what,
-                        f"{name} must be a contiguous {dt} tensor on {dev}")
+    kernels.require_like(tensors, k_cache, what)
     kernels.require(k_cross.shape[1] == D and v_cross.shape == k_cross.shape,
                     what, "cross K/V must be (Sm, D)")
     work = torch.empty(workspace_size(D, F, k_top), device=dev,

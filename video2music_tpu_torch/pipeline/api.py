@@ -1,16 +1,20 @@
 """The product API of the port: ``Video2music().generate(features=...)``
-(counterpart of pipeline/api.py).
+and ``Video2music().generate_batch(requests)`` (counterpart of
+pipeline/api.py).
 
-``generate`` runs, eagerly, the four stages the JAX package traces into one
-program — encoder, cross-K/V priming, the 300-step KV-cached constrained
-decode (decode/sampler.py) and the regression forward — then the same
-host-side post-process: MIDI and per-instrument stems through
-``video2music_tpu.data.native.render_clip`` (or the ``video2music_tpu.midi``
-writers), ``inst.csv``, and a FluidSynth render where FluidSynth exists.
+``generate_batch`` runs, eagerly and once for B clips, the four stages the
+JAX package traces into one program — encoder, cross-K/V priming, the
+300-step KV-cached constrained decode (decode/sampler.py: B=1 through the
+B=1 kernels, B>1 through the batched ones) and the regression forward —
+then, per clip, the same host-side post-process: MIDI and per-instrument
+stems through ``video2music_tpu.data.native.render_clip`` (or the
+``video2music_tpu.midi`` writers), ``inst.csv``, and a FluidSynth render
+where FluidSynth exists. ``generate`` is a batch of one; the
+DynamicBatcher of pipeline/serving.py drives ``generate_batch``.
 
 Not ported yet, and raising NotImplementedError: raw-video feature
-extraction (``video=``), orbax checkpoints, int8 (``quantize``),
-``generate_batch`` / B>1, and every wiring but AMT 2.x + bimamba+.
+extraction (``video=``, ``extract_features_batch``), orbax checkpoints,
+int8 (``quantize``, ``kv_quant``), and every wiring but AMT 2.x + bimamba+.
 Weights come from :mod:`video2music_tpu_torch.weights`: random from a seed,
 or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`).
 """
@@ -119,12 +123,35 @@ def _midi_to_audio(midi_path: str, audio_path: str,
     subprocess.run(cmd, check=True, capture_output=True)
 
 
+_FEATURES = ("semantic", "scene_offset", "motion", "emotion")
+_GCFG = GenerateConfig(target_seq_length=MAX_SECONDS, max_conseq_N=0,
+                       max_conseq_chord=2)
+
+
+def _prepare(features, key, primer) -> dict:
+    """One request's host-side inputs: features padded to MAX_SECONDS, the
+    key and primer resolved (the flat emotion argmax of the reference),
+    the primer parsed, the emotion smoothed."""
+    L = MAX_SECONDS
+    pad = lambda name: _pad_to(np.asarray(features[name], np.float32), L)
+    emotion = pad("emotion")
+    key, key_feature, primer = resolve_key_and_primer(key, primer, emotion)
+    ids, roots, attrs = parse_primer(primer)
+    return dict(n_sec=min(int(features["semantic"].shape[0]), L), key=key,
+                key_feature=key_feature, semantic=pad("semantic"),
+                scene_offset=pad("scene_offset"), motion=pad("motion"),
+                emotion=smooth_emotion(emotion), primer_ids=ids,
+                primer_roots=roots, primer_attrs=attrs)
+
+
 class Video2music:
-    """Video2music on PyTorch, B=1 from precomputed features.
+    """Video2music on PyTorch, from precomputed features.
 
     Models are built from the JAX package's configs, initialised from
-    ``seed`` with a torch.Generator, and kept in float32 on ``device``; a
-    bfloat16 copy is made at the first bfloat16 ``generate``.
+    ``seed`` with a torch.Generator, and kept in float32 on ``device``
+    ("cuda" unless given; without CUDA the constructor raises, and
+    ``device="cpu"`` runs the plain versions of the kernels); a bfloat16
+    copy is made at the first bfloat16 ``generate``.
     """
 
     def __init__(self, *, music_gen_version: str = "2.2",
@@ -140,9 +167,12 @@ class Video2music:
                 "with video2music_tpu_torch.weights instead)",
                 "Queue 1, orbax checkpoint loading")
         self.motion_type = motion_type
-        self.device = torch.device(device if device is not None else
-                                   ("cuda" if torch.cuda.is_available()
-                                    else "cpu"))
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Video2music: CUDA is not available (torch.cuda.is_available()"
+                " is False); pass device='cpu' to run the plain PyTorch "
+                "versions of the kernels on the CPU")
         motion_dim = {0: 1, 1: 512, 2: 768}[motion_type]
         total_vf = 768 + 1 + motion_dim + 6  # reference: video2music.py:609
         self.amt_cfg = amt_config(music_gen_version, total_vf_dim=total_vf,
@@ -192,65 +222,142 @@ class Video2music:
                  quantize: Optional[str] = None,
                  _gumbel=None) -> GenerateResult:
         """One clip from precomputed ``features`` (semantic (n, 768),
-        emotion (n, 6), scene_offset (n,), motion (n,) or (n, M)).
-        ``_gumbel`` is the sampler's test seam (decode/sampler.py)."""
+        emotion (n, 6), scene_offset (n,), motion (n,) or (n, M)), written
+        to ``output_dir``: a batch of one (:meth:`generate_batch`), which
+        decodes through the B=1 kernels. ``_gumbel`` is the sampler's test
+        seam (decode/sampler.py). ``last_regression`` holds this clip's
+        regression outputs."""
         del custom_sound_font  # the sound font is chosen by sound_font
         del caption_overlays  # burned into a muxed video only
         if video is not None or features is None:
             raise not_ported("raw-video feature extraction and muxing "
                              "(pass features=)",
                              "Queue 1, raw-video extraction")
+        request = dict(features=features, primer=primer, key=key,
+                       transposition_value=transposition_value,
+                       sound_font=sound_font, output_dir=output_dir)
+        (result,) = self.generate_batch(
+            [request], temperature=temperature, seed=seed,
+            correct_panning=correct_panning, compute_dtype=compute_dtype,
+            quantize=quantize, _gumbel=_gumbel)
+        self.last_regression = {k: v[0]
+                                for k, v in self.last_regression.items()}
+        return result
+
+    def generate_batch(self, requests, *, output_dir: str = "./output",
+                       temperature=1.0, seed: int = 0,
+                       correct_panning: bool = False,
+                       compute_dtype: str = "bfloat16",
+                       quantize: Optional[str] = None,
+                       kv_quant: Optional[str] = None,
+                       n_real: Optional[int] = None,
+                       on_decoded=None, defer_render: bool = False,
+                       _gumbel=None):
+        """Decode B clips at once (the JAX ``generate_batch`` contract).
+
+        Args:
+          requests: list of dicts — ``features`` (required), optional
+            ``primer``, ``key``, ``transposition_value``, ``sound_font``,
+            ``output_dir`` (default ``output_dir/clip_{i:03d}``).
+          temperature: one float for the batch, or one per request.
+          n_real: only the first ``n_real`` requests are real; the rest are
+            padding clones that decode but are not rendered or returned.
+          on_decoded: optional ``fn(i, {"chords", "chord_ids", "key"})``,
+            called per real request once ``gen_seq`` is fetched, before any
+            render.
+          defer_render: return a zero-arg closure that renders and returns
+            the results, instead of the results (the DynamicBatcher hands
+            it to its render thread).
+          _gumbel: the sampler's test seam, (T-1, B, CHORD_END) noise.
+        Returns:
+          list of GenerateResult, one per real request, or the closure.
+        Each output array is fetched once for the whole batch.
+        ``last_timings`` holds the batch's encode / prime / decode /
+        regression times, and postprocess / total once rendered.
+        """
         if quantize is not None:
-            raise not_ported("int8 decode (quantize=)",
+            raise not_ported("int8 decode (quantize=)", "Queue 1, int8 decode")
+        if kv_quant is not None:
+            raise not_ported("int8 KV caches (kv_quant=)",
                              "Queue 1, int8 decode")
-        os.makedirs(output_dir, exist_ok=True)
+        if not requests:
+            return (lambda: []) if defer_render else []
+        if any("video" in req for req in requests):
+            raise not_ported("muxing onto a video (drop the request's "
+                             "'video')", "Queue 1, raw-video extraction")
+        if n_real is None:
+            n_real = len(requests)
         t_start = time.perf_counter()
-
-        L = MAX_SECONDS
-        n_sec = min(int(features["semantic"].shape[0]), L)
-        semantic = _pad_to(np.asarray(features["semantic"], np.float32), L)
-        emotion = _pad_to(np.asarray(features["emotion"], np.float32), L)
-        scene_offset = _pad_to(
-            np.asarray(features["scene_offset"], np.float32), L)
-        motion = _pad_to(np.asarray(features["motion"], np.float32), L)
-        key, key_feature, primer = resolve_key_and_primer(
-            key, primer, emotion)
-        primer_ids, primer_roots, primer_attrs = parse_primer(primer)
-        emotion = smooth_emotion(emotion)
-
+        prepped = [dict(_prepare(req["features"], req.get("key"),
+                                 req.get("primer", "")),
+                        out_dir=req.get("output_dir", os.path.join(
+                            output_dir, f"clip_{i:03d}")))
+                   for i, req in enumerate(requests)]
+        temps = np.asarray(temperature, np.float32).reshape(-1)
+        if temps.shape[0] == 1:
+            temps = np.repeat(temps, len(requests))
+        if temps.shape[0] != len(requests):
+            raise ValueError(
+                f"temperature: expected 1 or {len(requests)} values, got "
+                f"{temps.shape[0]}")
         model, model_reg = self._models(compute_dtype)
         dt = getattr(torch, compute_dtype)
         dev = self.device
-        feat = lambda a: torch.as_tensor(a, device=dev).to(dt)[None]
-        feats = dict(semantic=feat(semantic), scene_offset=feat(scene_offset),
-                     motion=feat(motion), emotion=feat(emotion))
-        ids = lambda a: torch.as_tensor(a, device=dev)[None]
+        stack = lambda rows: torch.as_tensor(np.stack(rows), device=dev)
+        pad = lambda k, value: stack([np.concatenate(
+            [np.asarray(p[k], np.int32),
+             np.full(MAX_SECONDS - len(p[k]), value, np.int32)])
+            for p in prepped])
+        feats = {k: stack([p[k] for p in prepped]).to(dt) for k in _FEATURES}
         gen = torch.Generator(device=dev).manual_seed(seed)
-        gcfg = GenerateConfig(target_seq_length=L, max_conseq_N=0,
-                              max_conseq_chord=2)
         out = generate_chords(
-            model, key=torch.tensor([[key_feature]], device=dev, dtype=dt),
-            primer=ids(primer_ids), primer_root=ids(primer_roots),
-            primer_attr=ids(primer_attrs), num_primer=len(primer_ids),
-            generator=gen, gcfg=gcfg, temperature=temperature,
+            model, key=torch.tensor([[p["key_feature"]] for p in prepped],
+                                    device=dev, dtype=dt),
+            primer=pad("primer_ids", C.CHORD_PAD),
+            primer_root=pad("primer_roots", C.CHORD_ROOT_PAD),
+            primer_attr=pad("primer_attrs", C.CHORD_ATTR_PAD),
+            num_primer=torch.tensor([len(p["primer_ids"]) for p in prepped],
+                                    device=dev),
+            generator=gen, gcfg=_GCFG,
+            temperature=torch.as_tensor(temps, device=dev),
             _gumbel=_gumbel, **feats)
-        gen_seq = out["gen_seq"].cpu().numpy()[0]
+        gen_host = out["gen_seq"].cpu().numpy()
+        if on_decoded is not None:
+            inv = chord_inv_dict()
+            for i, p in enumerate(prepped[:n_real]):
+                ids = gen_host[i][:p["n_sec"]]
+                on_decoded(i, {"chords": [inv.get(int(c), "N") for c in ids],
+                               "chord_ids": ids, "key": p["key"]})
         t_reg = time.perf_counter()
         with torch.no_grad():
             ln_nd, inst = model_reg(**feats)
-        ln_nd = ln_nd.float().cpu().numpy()[0]
-        inst = inst.float().cpu().numpy()[0]
-        self.last_regression = dict(ln_nd=ln_nd, instrument=inst)
-        t_post = time.perf_counter()
-        result = self._postprocess(
-            gen_seq, ln_nd, inst, emotion, n_sec, key, transposition_value,
-            output_dir, correct_panning, sound_font)
-        t_end = time.perf_counter()
-        self.last_timings = dict(
-            out["timings_ms"], regression=(t_post - t_reg) * 1e3,
-            postprocess=(t_end - t_post) * 1e3,
-            total=(t_end - t_start) * 1e3)
-        return result
+        ln_host = ln_nd.float().cpu().numpy()
+        inst_host = inst.float().cpu().numpy()
+        self.last_regression = dict(ln_nd=ln_host, instrument=inst_host)
+        timings = dict(out["timings_ms"],
+                       regression=(time.perf_counter() - t_reg) * 1e3)
+        self.last_timings = timings
+
+        def render():
+            t_post = time.perf_counter()
+            results = [self._postprocess(
+                gen_host[i], ln_host[i], inst_host[i], p["emotion"],
+                p["n_sec"], p["key"], req.get("transposition_value", 0),
+                p["out_dir"], correct_panning, req.get("sound_font"))
+                for i, (req, p) in enumerate(zip(requests[:n_real],
+                                                 prepped[:n_real]))]
+            t_end = time.perf_counter()
+            timings.update(postprocess=(t_end - t_post) * 1e3,
+                           total=(t_end - t_start) * 1e3)
+            return results
+
+        return render if defer_render else render()
+
+    def extract_features_batch(self, video_paths):
+        """Raw-video feature extraction is not ported; the DynamicBatcher
+        calls this for requests that carry a ``video`` and no features."""
+        raise not_ported("raw-video feature extraction (pass features=)",
+                         "Queue 1, raw-video extraction")
 
     def _postprocess(self, chord_ids, ln_nd, inst_probs, emotion, n_sec,
                      key, transposition_value, output_dir, correct_panning,
