@@ -8,9 +8,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      video2music_tpu_torch/_build/), print the card and its power limit,
      turn TF32 off;
   2. kernels: each hand-written kernel against its plain PyTorch version at
-     the product shapes, in float32 and bfloat16, with both times; the
-     batched decode kernels at B=16 (timed at B=64 too), flash attention
-     and the scan at B=16 as well;
+     the product shapes, in float32 and bfloat16, with both times, its
+     bound and, where one PyTorch call computes the same function, that
+     call's time; the batched decode kernels at B=16 (timed at B=64 too),
+     flash attention and the scan at B=16 as well; the dropout attention
+     forward and backward at the training shape (B=16, H=8, L=S=300,
+     D=64, rate 0.1, causal and not, plus a small case with a bias):
+     output, mask entry for entry, and dq / dk / dv (/ dbias);
   3. slice: a full-width Video2music (AMT 2.2 + bimamba+, random weights
      from seed 0) in bfloat16 answers three requests from seeded synthetic
      features; the outputs are checked, and each kernel's launch count over
@@ -22,12 +26,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      requests at once; every clip is checked, and the launch counts must
      equal what the widths that ran imply;
   6. teacher-forced batch: 16 steps of the batched kernel step against the
-     batched plain step at B=8, float32 and bfloat16.
+     batched plain step at B=8, float32 and bfloat16;
+  7. train: a full-width AMT 2.2 (total_vf_dim 1287, motion_type 1) on a
+     synthetic feature tree of 32 clips of 300 s that the script writes:
+     one train_amt epoch at B=16 (bf16 mixed precision, AdamW lr 1e-4)
+     with results.csv and a checkpoint that restores, then 60 steps on one
+     fixed batch (the loss must drop), ms/step from CUDA events; the
+     dropout kernels must launch 18 forward and 18 backward times a step;
+  8. teacher-forced train step: one f32 step's loss and gradients through
+     the dropout kernels against the same step through the plain dropout
+     attention, from the same weights, batch and generator seed.
 The last three lines of stdout are a JSON object listing the kernels with
-their launches, errors and times, the card's name and power limit as
-nvidia-smi gives them, and {"ok": true, "device": ...}.
-Imports no JAX (the port imports only the JAX package's framework-free
-core/midi/data.native modules).
+their launches, errors, times and bounds, the card's name and power limit
+as nvidia-smi gives them, and {"ok": true, "device": ...}.
+Imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -73,12 +85,24 @@ KERNELS = {
     "batched_moe_ffn": dict(
         source="video2music_tpu_torch/csrc/decode_batch.cu",
         replaces="video2music_tpu/ops/pallas_decode_batch.py:761"),
+    "flash_attention_dropout_fwd": dict(
+        source="video2music_tpu_torch/csrc/flash_attention_dropout.cu",
+        replaces="video2music_tpu/ops/pallas_attention_dropout.py:175"),
+    "flash_attention_dropout_bwd": dict(
+        source="video2music_tpu_torch/csrc/flash_attention_dropout.cu",
+        replaces="video2music_tpu/ops/pallas_attention_dropout.py:214"),
 }
 # the kernels of the B=1 slice and of batched serving
 SLICE_KERNELS = ("flash_attention", "decode_layer", "decode_ends",
                  "selective_scan")
 SERVING_KERNELS = ("flash_attention", "batched_layer_step",
                    "batched_moe_ffn", "selective_scan")
+TRAIN_KERNELS = ("flash_attention_dropout_fwd", "flash_attention_dropout_bwd")
+
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16 = 989e12   # tensor cores
+PEAK_F32 = 67e12     # outside the tensor cores (elementwise work)
 
 
 class SmokeFailure(RuntimeError):
@@ -120,11 +144,9 @@ def check_close(name, dtype, got, want, atol=F32_ATOL):
     return abs_err
 
 
-def time_ms(fn, iters=20, reps=5):
-    """(device ms, eager ms) per call of fn. Device: iters calls captured
-    into one CUDA graph and replayed, so the host's launch overhead is
-    excluded. Eager: iters calls as Python issues them, host included.
-    Both from CUDA events after a warm-up."""
+def eager_ms(fn, iters=20):
+    """ms per call of fn as Python issues it (host included), from CUDA
+    events after a warm-up."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -135,7 +157,16 @@ def time_ms(fn, iters=20, reps=5):
         fn()
     end.record()
     end.synchronize()
-    eager = start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters=20, reps=5):
+    """(device ms, eager ms) per call of fn. Device: iters calls captured
+    into one CUDA graph and replayed, so the host's launch overhead is
+    excluded. Eager: iters calls as Python issues them, host included.
+    Both from CUDA events after a warm-up."""
+    import torch
+    eager = eager_ms(fn, iters)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -147,6 +178,8 @@ def time_ms(fn, iters=20, reps=5):
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         graph.replay()
@@ -193,6 +226,42 @@ def random_head(gen, D, dtype, dev):
         dn_bias=(0.1 * torch.randn(D, generator=gen)).to(dev, dtype),
         wout=(torch.randn(159, D, generator=gen) * D ** -0.5).to(dev, dtype),
         bout=(0.1 * torch.randn(159, generator=gen)).to(dev, dtype))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def note_bound(report, name, n_bytes, flops, peak=PEAK_BF16):
+    """The least time the card needs for the work of the call timed under
+    "ms": its bytes (each input read once, each output written once) over
+    the memory rate, or its operations over the peak rate of their type,
+    whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    report[name]["bound_ms"] = max(t_bytes, t_ops)
+    report[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+EXPERT_KEYS = ("ew1g", "eb1g", "ew2", "eb2")
+
+
+def layer_work(p, keys, expert_rows=None):
+    """(bytes, flops) of the weights ``keys`` of a packed layer read once
+    and applied to one row each (2 flops per weight); experts count only
+    where ``expert_rows`` (E,) has rows, each applied to that many rows."""
+    b = f = 0
+    for key in keys:
+        t = p[key]
+        if key in EXPERT_KEYS:
+            per = t[0].numel()
+            used = int((expert_rows > 0).sum())
+            b += used * per * t.element_size()
+            f += 2 * per * int(expert_rows.sum())
+        else:
+            b += nbytes(t)
+            f += 2 * t.numel()
+    return b, f
 
 
 def note_error(report, name, dtype, err):
@@ -244,6 +313,12 @@ def kernel_phase(report, v2m):
         note_times(report, "flash_attention", dtype,
                    lambda: flash_attention(q, k, v),
                    lambda: flash_attention_plain(q, k, v))
+        if dtype == torch.bfloat16:
+            note_bound(report, "flash_attention", nbytes(q, k, v, q),
+                       4 * H * Sm * Sm * hd)
+            report["flash_attention"]["library_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v))[0]
 
         # kernels 2 and 3: decode layer, shallow and deep, plain and ends
         pos = S // 2
@@ -274,6 +349,19 @@ def kernel_phase(report, v2m):
                                x, pos, p, kc1, vc1, kx, vx, **kw),
                            lambda: dl.decode_layer_plain(
                                x, pos, p, kc2, vc2, kx, vx, **kw))
+                # one row: the k_top experts its router picks, the self
+                # cache rows 0..pos, all cross rows; the new K/V row out
+                el = x.element_size()
+                rows = torch.zeros(E)
+                rows[:2] = 1
+                w_b, w_f = layer_work(p, p.keys(), rows)
+                c_b = 2 * (pos + 1) * D * el + nbytes(kx, vx)
+                c_f = 4 * (pos + 1) * D + 4 * Sm * D
+                if dtype == torch.bfloat16:
+                    note_bound(report, "decode_layer",
+                               w_b + c_b + nbytes(x) * 2 + 2 * D * el,
+                               w_f + c_f)
+                    report["decode_layer"]["library_ms"] = None
             # ends: embed prologue on the shallow layer, head on the deep one
             ends = dict(embed=not deep, fold_head=deep, x=None if not deep else x)
             kc1, vc1 = (c.clone() for c in caches)
@@ -293,6 +381,13 @@ def kernel_phase(report, v2m):
                            lambda: dl.decode_ends_plain(
                                root, attr, key, pos, p, head, kc2, vc2, kx,
                                vx, **kw, **ends))
+                if dtype == torch.bfloat16:  # the deep layer + the head
+                    h_b, h_f = layer_work(head, ("dn_scale", "dn_bias",
+                                                 "wout", "bout"))
+                    note_bound(report, "decode_ends",
+                               w_b + c_b + h_b + nbytes(x) + 2 * D * el
+                               + 159 * el, w_f + c_f + h_f)
+                    report["decode_ends"]["library_ms"] = None
 
         # kernel 4: selective scan, bimamba+ block shape
         L, ED, N = Sm, mamba.d_inner, mamba.d_state
@@ -310,6 +405,12 @@ def kernel_phase(report, v2m):
                    lambda: selective_scan(xs, dt, A, Bm, Cm, Dv),
                    lambda: selective_scan_plain(xs, dt, A, Bm, Cm, Dv),
                    plain_iters=3)
+        if dtype == torch.bfloat16:
+            # per (step, channel, state): exp, 4 mul, 2 add, 1 fma, in f32
+            note_bound(report, "selective_scan",
+                       nbytes(xs, dt, A, Bm, Cm, Dv, xs), 8 * L * ED * N,
+                       peak=PEAK_F32)
+            report["selective_scan"]["library_ms"] = None
 
 
 def batched_kernel_phase(report, v2m):
@@ -372,6 +473,16 @@ def batched_kernel_phase(report, v2m):
                                lambda: db.batched_layer_step_plain(
                                    x, pos, p, kc2, vc2, kx, vx, **kw),
                                key=key)
+                if tag == "deep" and B == 16 and dtype == torch.bfloat16:
+                    # the attention block's weights once for the batch;
+                    # per clip self rows 0..pos and all cross rows
+                    el = x.element_size()
+                    w_b, w_f = layer_work(p, db._LAYER_KEYS)
+                    note_bound(report, "batched_layer_step",
+                               w_b + B * (2 * (pos + 1) * D * el)
+                               + nbytes(kx, vx) + 4 * nbytes(x),
+                               B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D))
+                    report["batched_layer_step"]["library_ms"] = None
             for tag, hp in (("", None), ("+head", head)):
                 got = db.batched_moe_ffn(x, deep, k_top=k_top, head_pack=hp)
                 want = db.batched_moe_ffn_plain(x, deep, k_top=k_top,
@@ -385,6 +496,21 @@ def batched_kernel_phase(report, v2m):
                                                   head_pack=head),
                        lambda: db.batched_moe_ffn_plain(
                            x, deep, k_top=k_top, head_pack=head), key=key)
+            if B == 16 and dtype == torch.bfloat16:
+                # shared expert, router, norm and head for every clip; each
+                # expert its router picked, for the clips that picked it
+                rows = (db.route_plain(x, deep["gate_w"], deep["gate_b"],
+                                       k_top) != 0).sum(0).cpu()
+                s_b, s_f = layer_work(deep, ("w1g", "b1g", "w2", "b2",
+                                             "gate_w", "gate_b",
+                                             "norm_scale", "norm_bias"))
+                e_b, e_f = layer_work(deep, EXPERT_KEYS, rows)
+                h_b, h_f = layer_work(head, ("dn_scale", "dn_bias", "wout",
+                                             "bout"))
+                note_bound(report, "batched_moe_ffn",
+                           s_b + e_b + h_b + nbytes(x) + B * 159
+                           * x.element_size(), B * (s_f + h_f) + e_f)
+                report["batched_moe_ffn"]["library_ms"] = None
 
         # flash attention and the scan at the batch of the serving path
         B = 16
@@ -414,6 +540,107 @@ def batched_kernel_phase(report, v2m):
                    plain_iters=3, key="ms_b16")
 
 
+def dropout_kernel_phase(report, cfg):
+    """The dropout attention kernels at the training shape (B=16, H=8,
+    L=S=300, D=64, rate 0.1), causal and not, f32 and bf16, plus a small
+    case with a bias: the output and the gradients against the plain
+    versions, the mask entry for entry (f32, read through identity values),
+    the times of both and of F.scaled_dot_product_attention with the same
+    dropout rate (which draws another mask)."""
+    import torch
+    from torch.nn import functional as F
+    from video2music_tpu_torch.ops import flash_attention_dropout as fad
+
+    dev = "cuda"
+    B, H, L, D, rate = 16, cfg.num_heads, cfg.max_seq_chord, cfg.head_dim, \
+        cfg.dropout
+    gen = torch.Generator().manual_seed(99)
+    seed = torch.tensor([20241016], dtype=torch.int32, device=dev)
+    fwd_name, bwd_name = TRAIN_KERNELS
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"dropout attention kernels, {dtype}:")
+        cases = [(B, H, L, D, causal, False) for causal in (False, True)]
+        cases.append((2, H, 77, D, True, True))
+        for (b, h, l, d, causal, use_bias) in cases:
+            q, k, v, do = (torch.randn(b, h, l, d, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            bias = (torch.randn(b, h, l, l, generator=gen).to(dev)
+                    if use_bias else None)
+            tag = f" B={b} L={l}" + (" causal" if causal else "") + \
+                (" +bias" if use_bias else "")
+            out, stats = fad.flash_attention_dropout_fwd(q, k, v, bias, seed,
+                                                         causal, rate)
+            want = fad.flash_attention_dropout_plain(
+                q, k, v, bias=bias, causal=causal, dropout_rate=rate,
+                seed=seed)
+            err = check_close(f"{fwd_name}{tag}", dtype, out, want)
+            note_error(report, fwd_name, dtype, err)
+            grads = fad.flash_attention_dropout_bwd(q, k, v, bias, do, seed,
+                                                    stats, causal, rate)
+            wants = fad.flash_attention_dropout_plain_bwd(
+                q, k, v, do, bias=bias, causal=causal, dropout_rate=rate,
+                seed=seed)
+            for gname, g, w in zip(("dq", "dk", "dv", "dbias"), grads, wants):
+                if w is not None:
+                    err = check_close(f"{bwd_name} {gname}{tag}", dtype, g, w)
+                    note_error(report, bwd_name, dtype, err)
+            if dtype == torch.float32:
+                got = fad.extract_dropped_probs(q, k, bias=bias,
+                                                causal=causal,
+                                                dropout_rate=rate, seed=seed)
+                ref = fad._probs(q, k, bias, causal) * fad.dropout_mask(
+                    b, h, l, l, rate, seed, dev)
+                same = torch.equal(got == 0, ref == 0)
+                kept = (ref != 0).float().mean().item()
+                print(f"  mask{tag}: kernel and plain drop the same "
+                      f"entries: {same} (kept share {kept:.4f})")
+                fail_unless(same, f"dropout mask{tag} differs from the plain "
+                            "version's")
+                check_close(f"dropped probabilities{tag}", dtype, got, ref)
+        # times at the training shape: "ms" without, "ms_causal" with the
+        # causal mask
+        for causal in (False, True):
+            q, k, v, do = (torch.randn(B, H, L, D, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            _, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
+                                                       causal, rate)
+            kw = dict(causal=causal, dropout_rate=rate, seed=seed)
+            key = "ms_causal" if causal else "ms"
+            note_times(report, fwd_name, dtype,
+                       lambda: fad.flash_attention_dropout_fwd(
+                           q, k, v, None, seed, causal, rate),
+                       lambda: fad.flash_attention_dropout_plain(q, k, v, **kw),
+                       plain_iters=5, key=key)
+            note_times(report, bwd_name, dtype,
+                       lambda: fad.flash_attention_dropout_bwd(
+                           q, k, v, None, do, seed, stats, causal, rate),
+                       lambda: fad.flash_attention_dropout_plain_bwd(
+                           q, k, v, do, **kw),
+                       plain_iters=5, key=key)
+            if dtype != torch.bfloat16 or causal:
+                continue
+            flops = 2 * B * H * L * L * D  # one (L, S, D) product
+            note_bound(report, fwd_name, nbytes(q, k, v, q), 2 * flops)
+            note_bound(report, bwd_name, nbytes(q, k, v, do, q, k, v),
+                       5 * flops)
+            # the library's fused attention with the same dropout rate (its
+            # own random mask); eager, since it draws random numbers
+            ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl,
+                                                     dropout_p=rate)
+            report[fwd_name]["library_ms"] = eager_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       dropout_p=rate))
+            report[bwd_name]["library_ms"] = eager_ms(
+                lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                            retain_graph=True))
+            print(f"  F.scaled_dot_product_attention(dropout_p={rate}) "
+                  f"[{str(dtype)[6:]}]: forward "
+                  f"{report[fwd_name]['library_ms']:.4f} ms, backward "
+                  f"{report[bwd_name]['library_ms']:.4f} ms (eager; another "
+                  f"mask)")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice, three requests
 # ---------------------------------------------------------------------------
@@ -441,6 +668,7 @@ def wrappers():
     launches of its kernel in ``.launches``."""
     from video2music_tpu_torch.ops import decode_batch as db
     from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops import flash_attention_dropout as fad
     from video2music_tpu_torch.ops.flash_attention import flash_attention
     from video2music_tpu_torch.ops.scan import selective_scan
     return {"flash_attention": flash_attention,
@@ -448,7 +676,9 @@ def wrappers():
             "decode_ends": dl.decode_ends_step,
             "selective_scan": selective_scan,
             "batched_layer_step": db.batched_layer_step,
-            "batched_moe_ffn": db.batched_moe_ffn}
+            "batched_moe_ffn": db.batched_moe_ffn,
+            "flash_attention_dropout_fwd": fad.flash_attention_dropout_fwd,
+            "flash_attention_dropout_bwd": fad.flash_attention_dropout_bwd}
 
 
 def path_launches(v2m, width: int, T: int = 300):
@@ -804,6 +1034,271 @@ def teacher_forced_batch_phase(v2m, B=8):
               f"16 positions {worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+def write_feature_tree(root, n_clips, n_sec, seed):
+    """A MuVi-Sync-layout feature tree (the layout of the test fixture
+    tests/test_data.py:_write_fixture_tree) of n_clips clips of n_sec
+    seconds, motion_type 1 (512-d motion .npy), from a seed; every clip in
+    the train split, the first half in val and test."""
+    import numpy as np
+    from video2music_tpu_torch.core.vocab import chord_dict
+
+    d = {k: os.path.join(root, *v) for k, v in dict(
+        chord=("vevo_chord", "lab_v2_norm", "origin"),
+        chord_nn=("vevo_chord", "lab_v2", "origin"),
+        emotion=("vevo_emotion", "6c_l14p", "origin"),
+        motion=("vevo_motion", "option1"),
+        scene=("vevo_scene_offset", "origin"),
+        loud=("vevo_loudness", "origin"),
+        nd=("vevo_note_density", "origin"),
+        instr=("vevo_instrument", "thresholding"),
+        sem=("vevo_semantic", "origin", "2d", "clip_l14p"),
+        split=("vevo_meta", "split", "v1")).items()}
+    for path in d.values():
+        os.makedirs(path, exist_ok=True)
+    ids = [f"clip{i:03d}" for i in range(n_clips)]
+    for split, part in (("train", ids), ("val", ids[:n_clips // 2]),
+                        ("test", ids[:n_clips // 2])):
+        with open(os.path.join(d["split"], split + ".txt"), "w") as f:
+            f.write("\n".join(part) + "\n")
+    symbols = [sym for sym in chord_dict() if sym not in ("N",)]
+    r = np.random.default_rng(seed)
+
+    def lab(key, fid, lines):
+        with open(os.path.join(d[key], fid + ".lab"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    for fid in ids:
+        chords = r.choice(len(symbols), n_sec)
+        lab("chord", fid, ["key C major"] + [
+            f"{t} {symbols[c]}" for t, c in enumerate(chords)])
+        lab("chord_nn", fid, ["key D major", "0 D"])
+        emo = r.dirichlet(np.ones(6), n_sec)
+        lab("emotion", fid,
+            ["time exciting fearful tense sad relaxing neutral"] + [
+                f"{t} " + " ".join(f"{p:.4f}" for p in row)
+                for t, row in enumerate(emo)])
+        lab("scene", fid, [f"{t} {t // 10}" for t in range(n_sec)])
+        for key in ("loud", "nd"):
+            lab(key, fid, [f"{t} {v:.4f}"
+                           for t, v in enumerate(r.uniform(size=n_sec))])
+        with open(os.path.join(d["instr"], fid + ".csv"), "w") as f:
+            f.write(",".join(f"i{i}" for i in range(40)) + "\n")
+            for row in r.uniform(size=(n_sec, 40)) > 0.8:
+                f.write(",".join(str(int(v)) for v in row) + "\n")
+        np.save(os.path.join(d["sem"], fid + ".npy"),
+                r.standard_normal((n_sec, 768)).astype(np.float32))
+        np.save(os.path.join(d["motion"], fid + ".npy"),
+                r.standard_normal((n_sec, 512)).astype(np.float32))
+
+
+def train_phase(card, report):
+    """train_amt for one epoch at B=16 on 32 synthetic clips, a checkpoint
+    restore, then the learning guard: 60 steps on one fixed batch from a
+    fresh state (bench.py's guard), its loss drop and ms/step. The launch
+    counters, zeroed before train_amt and read after the 60 steps, must
+    show 18 forward and 18 backward dropout-kernel launches per step and
+    18 flash_attention launches per eval batch."""
+    import csv
+
+    import torch
+    from video2music_tpu_torch.core.config import TrainConfig, amt_config
+    from video2music_tpu_torch.data import batches, create_vevo_datasets
+    from video2music_tpu_torch.data.loader import to_device
+    from video2music_tpu_torch.train import (CSV_HEADER, LoopConfig,
+                                             create_train_state,
+                                             make_amt_train_step,
+                                             restore_checkpoint, train_amt)
+
+    cfg = amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6)
+    tcfg = TrainConfig(optimizer="adamw", lr=1e-4, mixed_precision=True)
+    B, n_attn = 16, 3 * len(cfg.decoder_layers)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = os.path.join(tmp, "vevo"), os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        write_feature_tree(root, 32, 300, seed=5)
+        train_ds, val_ds, _ = create_vevo_datasets(root, motion_type=1)
+        print(f"wrote a feature tree of {len(train_ds)} clips of 300 s in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for fn in wrappers().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state = train_amt(cfg, tcfg, LoopConfig(epochs=1, batch_size=B,
+                                                output_dir=out),
+                          train_ds, val_ds, device="cuda")
+        torch.cuda.synchronize()
+        epoch_steps = state.step
+        print(f"train_amt: one epoch of {epoch_steps} steps at B={B} plus "
+              f"the eval passes in {time.perf_counter() - t0:.2f} s [{card}]")
+        with open(os.path.join(out, "results.csv")) as f:
+            rows = list(csv.reader(f))
+        fail_unless(rows[0] == CSV_HEADER and len(rows) == 2,
+                    f"results.csv rows {rows}")
+        fail_unless(all(torch.isfinite(torch.tensor(float(v)))
+                        for v in rows[1][2:]), f"results.csv {rows[1]}")
+        print(f"results.csv: {dict(zip(rows[0], rows[1]))}")
+        fresh = restore_checkpoint(
+            os.path.join(out, "weights", "epoch_0001"),
+            create_train_state(cfg, tcfg, device="cuda"))
+        fail_unless(fresh.step == epoch_steps
+                    and all(torch.equal(v, state.model.state_dict()[k])
+                            for k, v in fresh.model.state_dict().items()),
+                    "the epoch checkpoint does not restore the trained state")
+        print("checkpoint epoch_0001 restores the trained weights, "
+              "optimizer and step")
+
+        batch = to_device(next(batches(train_ds, B, shuffle=False)), "cuda")
+        state = create_train_state(cfg, tcfg, device="cuda")
+        step = make_amt_train_step(tcfg)
+        losses, events = [], [torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)]
+        for i in range(60):
+            if i == 10:
+                events[0].record()
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        events[1].record()
+        events[1].synchronize()
+        ms_step = events[0].elapsed_time(events[1]) / 50
+        counts = {name: fn.launches for name, fn in wrappers().items()}
+        profile_train_steps(step, state, batch, card)
+    losses = torch.stack(losses).float().cpu()
+    fail_unless(bool(torch.isfinite(losses).all()), f"losses {losses}")
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    drop = 100.0 * (first - last) / max(first, 1e-9)
+    print(f"learning guard: 60 steps on one batch, loss {first:.4f} -> "
+          f"{last:.4f} (drop {drop:.2f}%), {ms_step:.2f} ms/step over "
+          f"steps 10-59 (CUDA events, bf16, B={B}) [{card}]")
+    fail_unless(drop > 0, f"loss did not drop: {first} -> {last}")
+    n_steps = epoch_steps + 60
+    # train_amt's eval passes: the train split, then the val split
+    eval_batches = -(-len(train_ds) // B) + -(-len(val_ds) // B)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=n_attn * eval_batches,
+                flash_attention_dropout_fwd=n_attn * n_steps,
+                flash_attention_dropout_bwd=n_attn * n_steps)
+    for name in KERNELS:
+        print(f"  launches {name}: {counts[name]} (path implies "
+              f"{want[name]}: {n_steps} steps, {eval_batches} eval batches)")
+        fail_unless(counts[name] == want[name],
+                    f"{name}: {counts[name]} launches, path implies "
+                    f"{want[name]}")
+    for name in TRAIN_KERNELS:
+        report[name]["launches"] = counts[name]
+    report["train"] = dict(ms_step=ms_step, loss_drop_pct=drop,
+                           loss_first=first, loss_last=last)
+
+
+def profile_train_steps(step, state, batch, card, n=3):
+    """torch.profiler over n train steps: the device time per step by
+    kernel (the 15 largest) and the device's busy share of the window.
+    Informational: the launch counters are read before it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # device-side events only (kernels, copies); the operator rows above
+    # them would count the same time twice
+    rows = [(e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"profile of {n} train steps (profiler on): wall {wall_ms:.2f} "
+          f"ms/step, device {busy:.2f} ms/step in {launches:.0f} kernels "
+          f"and copies, busy share {busy / wall_ms:.3f} [{card}]")
+    for ms, count, key in rows[:15]:
+        print(f"  {ms:8.3f} ms/step  {count:6.0f} calls/step  {key[:90]}")
+
+
+def loss_and_grads(state, batch, tcfg):
+    """One training forward and backward of a train state (the step
+    without its update): (loss, {name: gradient})."""
+    import torch
+    from video2music_tpu_torch.train.step import MODEL_INPUTS, amt_loss
+
+    logits = state.model(*(batch[k] for k in MODEL_INPUTS),
+                         deterministic=False, generator=state.generator)
+    loss = amt_loss(logits, batch, tcfg)[0]
+    named = dict(state.model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.detach(), dict(zip(named, grads))
+
+
+def teacher_forced_train_phase(card):
+    """One f32 training step (B=4, full width) through the dropout kernels
+    and through the plain dropout attention, from the same weights, batch
+    and generator seed: every other dropout draws the same torch mask and
+    the attention masks come from the same hash. The loss must agree
+    within 1e-5 relative and each gradient within 1e-3 of its tensor's
+    largest entry (f32 sums in another order through 12 layers), that
+    scale floored at 1e-3 of the model's largest gradient."""
+    import numpy as np
+    import torch
+    from video2music_tpu_torch.core.config import TrainConfig, amt_config
+    from video2music_tpu_torch.core.vocab import emotion_chord_targets
+    from video2music_tpu_torch.ops import attention
+    from video2music_tpu_torch.ops import flash_attention_dropout as fad
+    from video2music_tpu_torch.train import create_train_state
+
+    cfg = amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6)
+    tcfg = TrainConfig(optimizer="adamw", lr=1e-4)
+    B, L = 4, cfg.max_seq_chord
+    r = np.random.default_rng(11)
+    batch = dict(
+        x=r.integers(0, CHORD_END, (B, L - 1)),
+        x_root=r.integers(0, 13, (B, L - 1)),
+        x_attr=r.integers(0, 14, (B, L - 1)),
+        tgt=r.integers(0, CHORD_END, (B, L - 1)),
+        tgt_emotion=emotion_chord_targets()[r.integers(0, 6, (B, L - 1))],
+        semantic=r.standard_normal((B, L, 768)).astype(np.float32),
+        key=r.integers(0, 2, (B, 1)).astype(np.float32),
+        scene_offset=(np.arange(L) // 10).astype(np.float32)[None].repeat(
+            B, 0),
+        motion=r.standard_normal((B, L, 512)).astype(np.float32),
+        emotion=r.dirichlet(np.ones(6), (B, L)).astype(np.float32))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    results = []
+    for plain in (False, True):
+        state = create_train_state(cfg, tcfg, device="cuda")
+        if plain:
+            attention.flash_attention_dropout = \
+                fad.flash_attention_dropout_plain
+        try:
+            results.append(loss_and_grads(state, batch, tcfg))
+        finally:
+            attention.flash_attention_dropout = fad.flash_attention_dropout
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    # a tensor's scale, floored at 1e-3 of the model's largest gradient:
+    # the key-projection biases have a gradient that is zero but for float
+    # noise (softmax is invariant to them)
+    floor = 1e-3 * max(g.abs().max().item() for g in grads_p.values())
+    worst, worst_name = 0.0, ""
+    for name, gp in grads_p.items():
+        e = (grads_k[name] - gp).abs().max().item() / max(
+            gp.abs().max().item(), floor)
+        if e > worst:
+            worst, worst_name = e, name
+    print(f"teacher-forced train step f32 B={B}: loss {loss_k.item():.6f} "
+          f"(kernel) vs {loss_p.item():.6f} (plain), rel {rel:.2e} (tol "
+          f"1e-5); worst gradient {worst_name} rel {worst:.2e} (tol 1e-3)")
+    fail_unless(rel <= 1e-5, f"train step loss differs by {rel}")
+    fail_unless(worst <= 1e-3, f"gradient {worst_name} differs by {worst}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -837,10 +1332,15 @@ def main() -> int:
     report = {name: {} for name in KERNELS}
     kernel_phase(report, v2m)
     batched_kernel_phase(report, v2m)
+    dropout_kernel_phase(report, v2m.amt_cfg)
     slice_phase(v2m, card, report)
     teacher_forced_phase(v2m)
     serving_phase(v2m, card, report)
     teacher_forced_batch_phase(v2m)
+    del v2m
+    torch.cuda.empty_cache()
+    train_phase(card, report)
+    teacher_forced_train_phase(card)
 
     rows = []
     for name, meta in KERNELS.items():
@@ -849,16 +1349,19 @@ def main() -> int:
         row = dict(name=name, route="cuda", source=meta["source"],
                    replaces=meta["replaces"], launches=r["launches"],
                    max_abs_err=r["err"][torch.bfloat16], ms=bf[0],
-                   plain_ms=bf[2], dtype="bfloat16",
+                   plain_ms=bf[2], bound_ms=r["bound_ms"],
+                   bound_by=r["bound_by"], library_ms=r["library_ms"],
+                   dtype="bfloat16",
                    ms_eager=bf[1], plain_ms_eager=bf[3],
                    max_abs_err_f32=r["err"][torch.float32],
                    ms_f32=f32[0], plain_ms_f32=f32[2])
-        for key in ("ms_b16", "ms_b64"):  # the other batch widths
+        for key in ("ms_b16", "ms_b64", "ms_causal"):  # other shapes
             if key in r:
                 t = r[key][torch.bfloat16]
                 row[key], row["plain_" + key] = t[0], t[2]
                 row[key + "_f32"] = r[key][torch.float32][0]
         rows.append(row)
+    print(f"train: {json.dumps(report['train'])}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """The port's product slice against the JAX pipeline (CPU, f32):
 ``Video2music.generate(features=...)`` with bridged weights and the JAX
 sampling noise handed in must give the same chords and byte-identical
-MIDI, stems and inst.csv. Also: the port imports no JAX, CPU calls launch
-no kernel, the parts outside the slice raise NotImplementedError, and
-without CUDA the default device raises instead of falling back."""
+MIDI, stems and inst.csv. Also: the port runs with the JAX package and
+JAX blocked, CPU calls launch no kernel, the parts outside the slice raise
+NotImplementedError, and without CUDA the default device raises instead
+of falling back."""
 
 import os
 import subprocess
@@ -115,23 +116,72 @@ def test_cpu_generate_launches_no_kernel(pair, tmp_path):
     assert all(fn.launches == 0 for fn in fns)
 
 
+ISOLATED_RUN = """
+import sys, tempfile
+BLOCKED = ("video2music_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
+for m in BLOCKED:
+    sys.modules[m] = None
+import importlib, pkgutil
+import numpy as np
+import torch
+import chip_smoke
+import video2music_tpu_torch as pkg
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+from video2music_tpu_torch.core.config import TrainConfig, amt_config
+from video2music_tpu_torch.core.vocab import emotion_chord_targets
+from video2music_tpu_torch.pipeline import Video2music
+from video2music_tpu_torch.pipeline.serving import DynamicBatcher
+from video2music_tpu_torch.train import create_train_state, make_amt_train_step
+torch.set_num_threads(1)
+r = np.random.default_rng(0)
+feats = {"semantic": r.standard_normal((6, 768)).astype(np.float32),
+         "emotion": r.uniform(size=(6, 6)).astype(np.float32),
+         "scene_offset": np.arange(6, dtype=np.float32),
+         "motion": r.standard_normal((6,)).astype(np.float32)}
+v2m = Video2music(device="cpu", music_gen_version="2.2", reg_model="bimamba+",
+                  motion_type=0, amt_overrides=dict(n_layers=2, num_heads=2,
+                  d_model=16, d_ff=32), reg_overrides=dict(n_layers=1,
+                  d_model=8, d_hidden=16))
+with tempfile.TemporaryDirectory() as tmp:
+    assert v2m.generate(features=feats, output_dir=tmp).chord_ids.shape == (6,)
+    batcher = DynamicBatcher(v2m, max_batch=2, max_wait_ms=10, output_dir=tmp)
+    try:
+        res, width = batcher.submit({"features": feats}).result(timeout=300)
+    finally:
+        batcher.stop()
+    assert res.chord_ids.shape == (6,) and width >= 1
+L = 8
+cfg = amt_config("2.2", n_layers=2, num_heads=2, d_model=32, d_ff=64,
+                 max_seq_video=L, max_seq_chord=L, total_vf_dim=8 + 1 + 1 + 6)
+state = create_train_state(cfg, TrainConfig(lr=1e-3), device="cpu")
+B = 2
+batch = dict(x=r.integers(0, 157, (B, L)), x_root=r.integers(0, 13, (B, L)),
+             x_attr=r.integers(0, 14, (B, L)), tgt=r.integers(0, 157, (B, L)),
+             tgt_emotion=emotion_chord_targets()[r.integers(0, 6, (B, L))],
+             semantic=r.standard_normal((B, L, 8)).astype(np.float32),
+             key=np.zeros((B, 1), np.float32),
+             scene_offset=np.zeros((B, L), np.float32),
+             motion=r.standard_normal((B, L)).astype(np.float32),
+             emotion=r.uniform(size=(B, L, 6)).astype(np.float32))
+state, m = make_amt_train_step(TrainConfig(lr=1e-3))(
+    state, {k: torch.as_tensor(v) for k, v in batch.items()})
+assert state.step == 1 and torch.isfinite(m["loss"])
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
+assert not loaded, loaded
+print("isolated ok")
+"""
+
+
 def test_port_imports_no_jax():
-    code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
-        "    sys.modules[m] = None\n"
-        "import chip_smoke\n"
-        "import video2music_tpu_torch.pipeline.api\n"
-        "import video2music_tpu_torch.pipeline.serving\n"
-        "import video2music_tpu_torch.weights\n"
-        "import video2music_tpu_torch.kernels\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax') and sys.modules[m]]\n"
-        "assert not bad, bad\n"
-        "assert 'video2music_tpu.pipeline' not in sys.modules\n"
-        "assert 'video2music_tpu.train' not in sys.modules\n")
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
-                   timeout=120)
+    """With the JAX package and JAX itself blocked, the whole port imports
+    (every module, and chip_smoke.py) and runs on the CPU: a tiny
+    ``generate``, a DynamicBatcher request and one train step."""
+    out = subprocess.run([sys.executable, "-c", ISOLATED_RUN], cwd=ROOT,
+                         check=True, timeout=600, capture_output=True,
+                         text=True)
+    assert "isolated ok" in out.stdout
 
 
 @pytest.mark.parametrize("case", ["video", "quantize", "checkpoint",

@@ -28,8 +28,8 @@ import time
 
 import torch
 
-from video2music_tpu.core import constants as C
-from video2music_tpu.core.vocab import chord_to_root_attr_tables
+from ..core import constants as C
+from ..core.vocab import chord_to_root_attr_tables
 
 from .fused import (init_fused_batch_caches, init_fused_caches,
                     make_fused_batch_step, make_fused_ends_step)

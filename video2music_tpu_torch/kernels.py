@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu",
-           "decode_batch.cu")
+           "decode_batch.cu", "flash_attention_dropout.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -137,7 +137,7 @@ class BatchMoeArgs(ctypes.Structure):
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.v2m_flash_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
     lib.v2m_flash_attention.restype = i
     lib.v2m_decode_layer.argtypes = [i, ctypes.POINTER(DecodeLayerArgs), p]
@@ -148,6 +148,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.v2m_batched_layer.restype = i
     lib.v2m_batched_moe.argtypes = [i, ctypes.POINTER(BatchMoeArgs), p]
     lib.v2m_batched_moe.restype = i
+    lib.v2m_attention_dropout_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
+                                              i, i, f, u, f, i, p]
+    lib.v2m_attention_dropout_fwd.restype = i
+    lib.v2m_attention_dropout_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
+                                              p, p, i, i, i, i, i, f, u, f, i,
+                                              p]
+    lib.v2m_attention_dropout_bwd.restype = i
     return lib
 
 

@@ -11,7 +11,10 @@ and the 159-way head.
 Decoding is ``encode -> prime -> decode_step``; the product decode loop
 runs the fused kernel step of decode/fused.py instead of
 :meth:`VideoMusicTransformer.decode_step`, which stays the unfused
-reference.
+reference. The full forward with ``deterministic=False`` and a
+``generator`` is the training forward: every dropout of the layers draws
+from the generator. ``drop_token_rate`` is not ported to training
+(ROADMAP.md, Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ from typing import Dict, List
 import torch
 from torch import nn
 
-from video2music_tpu.core import constants as C
-from video2music_tpu.core.config import AMTConfig
+from ..core import constants as C
+from ..core.config import AMTConfig
 
 from ..ops.attention import not_ported
 from ..ops.norms import LayerNorm
@@ -83,11 +86,11 @@ class VideoMusicTransformer(nn.Module):
         return self.linear_vis(feats)
 
     # -- decomposed pieces ----------------------------------------------------
-    def encode(self, semantic, scene_offset, motion, emotion):
+    def encode(self, semantic, scene_offset, motion, emotion, generator=None):
         """Video features -> encoder memory (B, Lv, D)."""
         vf = self._embed_video(semantic, scene_offset, motion, emotion)
         for layer in self.encoder_layers:
-            vf = layer(vf)
+            vf = layer(vf, generator)
         return self.encoder_norm(vf)
 
     def prime(self, memory) -> List[tuple]:
@@ -117,11 +120,33 @@ class VideoMusicTransformer(nn.Module):
         return self.wout(self.decoder_norm(out))
 
     def forward(self, x, x_root, x_attr, semantic, key, scene_offset, motion,
-                emotion):
-        """Teacher-forced full forward -> (B, L, 159) logits."""
+                emotion, deterministic: bool = True, generator=None):
+        """Teacher-forced full forward -> (B, L, 159) logits. With
+        ``deterministic=False`` a training forward: ``generator`` (a
+        torch.Generator on the inputs' device) drives every dropout."""
         del x
-        memory = self.encode(semantic, scene_offset, motion, emotion)
+        if deterministic:
+            generator = None
+        elif generator is None:
+            raise ValueError("a training forward (deterministic=False) "
+                             "needs a generator")
+        elif self.cfg.drop_token_rate > 0.0:
+            raise not_ported("drop_token_rate in training", "Queue 1 item 10")
+        memory = self.encode(semantic, scene_offset, motion, emotion,
+                             generator)
         out = self._embed_chords(x_root, x_attr, key)
         for layer in self.decoder_layers:
-            out = layer(out, memory)
+            out = layer(out, memory, generator)
         return self.head(out)
+
+    def moe_metrics(self):
+        """The last training forward's load metrics of the SharedMoE layers
+        (encoder first, then decoder): ``expert_counts`` (n, E) and
+        ``maxvio`` (n,), or an empty dict without MoE layers."""
+        moes = [layer.ffn for layer in (*self.encoder_layers,
+                                        *self.decoder_layers)
+                if getattr(layer.ffn, "expert_counts", None) is not None]
+        if not moes:
+            return {}
+        return {"expert_counts": torch.stack([m.expert_counts for m in moes]),
+                "maxvio": torch.stack([m.maxvio for m in moes])}

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from video2music_tpu.core.config import MambaBackboneConfig
+from ..core.config import MambaBackboneConfig
 
 from ..ops.scan import selective_scan
 

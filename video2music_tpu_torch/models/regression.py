@@ -9,8 +9,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from video2music_tpu.core import constants as C
-from video2music_tpu.core.config import MambaBackboneConfig, RegressionConfig
+from ..core import constants as C
+from ..core.config import MambaBackboneConfig, RegressionConfig
 
 from ..ops.attention import not_ported
 from .bimamba import BiMambaEncoder

@@ -1,2 +1,3 @@
-"""Operators of the port: norms, RoPE, attention, MoE, and the kernel
-wrappers (flash_attention, decode_layer, scan)."""
+"""Operators of the port: norms, RoPE, attention, MoE, losses, and the
+kernel wrappers (flash_attention, flash_attention_dropout, decode_layer,
+decode_batch, scan)."""

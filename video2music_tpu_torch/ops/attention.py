@@ -4,7 +4,10 @@ pairwise RoPE.
 
 Modes, as in the JAX module:
   * "full": dense attention over the sequence (encoder; the decoder's full
-    forward with ``causal``) through :func:`flash_attention`;
+    forward with ``causal``) through :func:`flash_attention`, or, in a
+    training forward (``generator`` given) with dropout, through
+    :func:`flash_attention_dropout` with a seed drawn from the generator
+    (ops/attention.py:82-96 of the JAX package);
   * "prime" (cross-attention): project encoder memory to K/V once;
   * "step": one query; self-attention writes its K/V at ``pos`` into the
     caller's cache (in place) and attends over rows <= pos, cross-attention
@@ -20,10 +23,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from video2music_tpu.core.config import AttentionConfig
+from ..core.config import AttentionConfig
 
 from .embeddings import apply_rope
 from .flash_attention import NEG_INF, flash_attention
+from .flash_attention_dropout import flash_attention_dropout
 
 
 def not_ported(what: str, queue_item: str) -> NotImplementedError:
@@ -47,7 +51,7 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, cfg: AttentionConfig, d_model: int, *,
                  is_cross: bool = False, max_cache_len: int = 300,
-                 max_query_len: int = 0):
+                 max_query_len: int = 0, dropout_rate: float = 0.0):
         super().__init__()
         if cfg.kind != "vanilla":
             raise not_ported(f"{cfg.kind!r} attention",
@@ -59,6 +63,7 @@ class MultiHeadAttention(nn.Module):
         self.rope = cfg.rope
         self.d_model = d_model
         self.is_cross = is_cross
+        self.dropout_rate = dropout_rate
         self.max_cache_len = max_cache_len
         # RoPE table length for query positions (chord positions for the
         # cross-attention, whose K/V are memory rows); values per position
@@ -92,18 +97,27 @@ class MultiHeadAttention(nn.Module):
                 self._proj(x, 2))
 
     def forward(self, query, key_value=None, *, causal: bool = False,
-                mode: str = "full", cache=None, pos: int = 0):
+                mode: str = "full", cache=None, pos: int = 0,
+                generator=None):
         """cache: "step" mode only — (k, v) tensors (B, S, D); written in
-        place for self-attention, read for cross-attention."""
+        place for self-attention, read for cross-attention. generator: a
+        torch.Generator on the query's device makes a "full" call a
+        training call (attention dropout at ``dropout_rate``)."""
         if mode == "prime":
             return self.project_kv(key_value)
         if mode == "full":
             q = self._rope(self._proj(query, 0), None, self.max_query_len)
             k, v = self.project_kv(key_value if self.is_cross else query)
-            attn = flash_attention(self._heads(q).contiguous(),
-                                   self._heads(k).contiguous(),
-                                   self._heads(v).contiguous(),
-                                   causal=causal)
+            q, k, v = (self._heads(t).contiguous() for t in (q, k, v))
+            if generator is not None and self.dropout_rate > 0.0:
+                # the seed stays on the device: no host sync per call
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=query.device, dtype=torch.int32)
+                attn = flash_attention_dropout(
+                    q, k, v, causal=causal, dropout_rate=self.dropout_rate,
+                    seed=seed)
+            else:
+                attn = flash_attention(q, k, v, causal=causal)
             return self.out_proj(self._merge(attn))
         if mode != "step":
             raise ValueError(f"unknown attention mode {mode!r}")

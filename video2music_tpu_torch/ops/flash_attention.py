@@ -2,8 +2,11 @@
 ``flash_attention``), kernel 1 of the port: csrc/flash_attention.cu.
 
 ``flash_attention`` runs :func:`flash_attention_plain` on CPU tensors and
-launches the CUDA kernel on CUDA tensors. Forward only: serving needs no
-backward.
+launches the CUDA kernel on CUDA tensors. It is differentiable: the
+backward recomputes through :func:`flash_attention_plain` under autograd,
+as the JAX kernel's custom VJP recomputes through ``reference_attention``
+(pallas_attention.py:103-129). Training with dropout takes
+ops/flash_attention_dropout.py instead; this backward serves the rest.
 """
 
 from __future__ import annotations
@@ -33,15 +36,8 @@ def flash_attention_plain(q, k, v, *, bias=None, causal: bool = False):
     return torch.einsum("bhls,bhsd->bhld", w.float(), v.float()).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, bias=None, causal: bool = False):
-    """Fused attention. q (B, H, L, D); k, v (B, H, S, D) (same head count);
-    bias: optional (B, H, L, S) additive logits bias. The causal mask is
-    start-aligned and needs L == S, as in the TPU kernel."""
+def _forward(q, k, v, bias, causal: bool):
     what = "flash_attention"
-    if causal and q.shape[2] != k.shape[2]:
-        raise ValueError(
-            f"causal flash_attention requires L == S, got L={q.shape[2]} "
-            f"S={k.shape[2]} (use an explicit bias mask for L != S)")
     if kernels.use_plain(q, what):
         return flash_attention_plain(q, k, v, bias=bias, causal=causal)
     B, H, L, D = q.shape
@@ -69,6 +65,37 @@ def flash_attention(q, k, v, *, bias=None, causal: bool = False):
     kernels.check(status, what)
     flash_attention.launches += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.causal = causal
+        return _forward(q, k, v, bias, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_()
+                      for t in saved]
+            out = flash_attention_plain(*leaves[:3], bias=leaves[3],
+                                        causal=ctx.causal)
+            wanted = [t for t in leaves if t is not None]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(None if t is None else next(grads) for t in leaves), None)
+
+
+def flash_attention(q, k, v, *, bias=None, causal: bool = False):
+    """Fused attention. q (B, H, L, D); k, v (B, H, S, D) (same head count);
+    bias: optional (B, H, L, S) additive logits bias. The causal mask is
+    start-aligned and needs L == S, as in the TPU kernel."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError(
+            f"causal flash_attention requires L == S, got L={q.shape[2]} "
+            f"S={k.shape[2]} (use an explicit bias mask for L != S)")
+    return _Attention.apply(q, k, v, bias, bool(causal))
 
 
 flash_attention.launches = 0

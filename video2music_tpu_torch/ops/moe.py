@@ -1,14 +1,17 @@
-"""SharedMoE feed-forward at eval (counterpart of ops/moe.py:MoELayer with
-GLU experts and the shared expert).
+"""SharedMoE feed-forward (counterpart of ops/moe.py:MoELayer with GLU
+experts and the shared expert), at eval and in a training call.
 
-Semantics kept: top-k over the raw gate logits with the first index
-winning a tie, softmax over the selected raw logits, the shared expert
-divided by k. A sequence routes densely (every expert computes every
-token, combined with zero weight where unselected, ops/moe.py:265-290);
-one token gathers only its k experts (ops/moe.py:250-258). Training-time
-machinery (balancing updates, the top-k scheduler, dropout, load metrics)
-is not ported: at eval the scheduler uses its floor k and balancing does
-not touch the output.
+Semantics kept: top-k over the gate logits with the first index winning a
+tie, softmax over the selected raw logits, the shared expert divided by k.
+A sequence routes densely (every expert computes every token, combined with
+zero weight where unselected, ops/moe.py:265-290); one token at eval
+gathers only its k experts (ops/moe.py:250-258). A training call (a
+``generator`` given) adds the JAX module's dropout inside the GLU experts
+(:66, :93) and on the expert outputs (:282), records the step's
+``expert_counts`` and ``maxvio``, and, with ``cfg.balancing``, selects with
+the balancing bias and then moves it (:294-296). Not ported, and raising:
+the capacity dispatch, the top-k scheduler in training, the temperature
+schedule (ROADMAP.md, Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -17,23 +20,39 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from video2music_tpu.core.config import MoEConfig
+from ..core.config import MoEConfig
 
 from .attention import not_ported
 
 
-class SwiGLU(nn.Module):
-    """h * silu(g) feed-forward. ``w1g`` rows are [linear1; gate] (2F, D)."""
+def dropout(x, rate: float, generator):
+    """flax ``nn.Dropout`` of a training call: keep each entry with
+    probability 1 - rate (a uniform draw from ``generator`` below it), kept
+    entries divided by 1 - rate in x's dtype. The identity at eval
+    (``generator`` None) or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
-    def __init__(self, d_model: int, d_ff: int):
+
+class SwiGLU(nn.Module):
+    """h * silu(g) feed-forward, dropout on h before ``linear2`` in a
+    training call (models/layers.py:88). ``w1g`` rows are [linear1; gate]
+    (2F, D)."""
+
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_ff = d_ff
+        self.dropout_rate = dropout_rate
         self.w1g = nn.Linear(d_model, 2 * d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h, g = self.w1g(x).split(self.d_ff, dim=-1)
-        return self.linear2(h * F.silu(g))
+        return self.linear2(dropout(h * F.silu(g), self.dropout_rate,
+                                    generator))
 
 
 class SharedMoE(nn.Module):
@@ -41,46 +60,67 @@ class SharedMoE(nn.Module):
     w2 (E, D, F), b2 (E, D); plus ``gate`` (E, D) and the ``shared``
     SwiGLU."""
 
-    def __init__(self, cfg: MoEConfig, d_model: int, d_ff: int):
+    def __init__(self, cfg: MoEConfig, d_model: int, d_ff: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         if cfg.expert != "glu" or not cfg.shared_expert:
             raise not_ported(f"{cfg.expert!r} experts without the shared one",
                              "Queue 1, variant wirings")
         if cfg.temperature_schedule:
             raise not_ported("the routing temperature schedule",
-                             "Queue 1, variant wirings")
+                             "Queue 1 item 10")
+        if cfg.dispatch != "dense":
+            raise not_ported(f"the {cfg.dispatch!r} MoE dispatch",
+                             "Queue 1 item 10")
         E = cfg.n_experts
+        self.cfg = cfg
         self.k = cfg.n_experts_per_token
         self.d_ff = d_ff
+        self.dropout_rate = dropout_rate
         self.gate = nn.Linear(d_model, E)
         self.w1g = nn.Parameter(torch.zeros(E, 2 * d_ff, d_model))
         self.b1g = nn.Parameter(torch.zeros(E, 2 * d_ff))
         self.w2 = nn.Parameter(torch.zeros(E, d_model, d_ff))
         self.b2 = nn.Parameter(torch.zeros(E, d_model))
-        self.shared = SwiGLU(d_model, d_ff)
+        self.shared = SwiGLU(d_model, d_ff, dropout_rate)
+        if cfg.balancing:
+            # the JAX module's "moe_state" balance_bias: moves in training
+            # calls, selects only in training calls
+            self.register_buffer("balance_bias", torch.zeros(E))
+        # the last training call's load metrics (E,) and ()
+        self.expert_counts = self.maxvio = None
 
-    def _experts(self, x, idx=None):
+    def _experts(self, x, idx=None, generator=None):
         """x (..., D) through every expert (..., E, D), or through the
         experts idx (K,) for a single token -> (K, D)."""
         F_ = self.d_ff
         if idx is None:
             hg = torch.einsum("...d,efd->...ef", x, self.w1g) + self.b1g
             h, g = hg.split(F_, dim=-1)
-            return torch.einsum("...ef,edf->...ed", h * F.silu(g),
-                                self.w2) + self.b2
+            h = dropout(h * F.silu(g), self.dropout_rate, generator)
+            return torch.einsum("...ef,edf->...ed", h, self.w2) + self.b2
         hg = torch.einsum("d,kfd->kf", x.reshape(-1), self.w1g[idx]) \
             + self.b1g[idx]
         h, g = hg.split(F_, dim=-1)
         return torch.einsum("kf,kdf->kd", h * F.silu(g), self.w2[idx]) \
             + self.b2[idx]
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """generator: a torch.Generator on x's device makes this a training
+        call (dropout, load metrics, balancing)."""
+        training = generator is not None
+        if training and self.cfg.topk_schedule:
+            raise not_ported("training with the top-k scheduler",
+                             "Queue 1 item 10")
         logits = self.gate(x).float()  # (B, L, E)
         E, k = logits.shape[-1], self.k
+        select = logits
+        if training and self.cfg.balancing:
+            select = logits + self.balance_bias
         # descending order, ties to the first index (stable, as jnp.argsort
         # and lax.top_k)
-        order = torch.argsort(-logits, dim=-1, stable=True)
-        if x.shape[0] * x.shape[1] == 1 and k < E:
+        order = torch.argsort(-select, dim=-1, stable=True)
+        if not training and x.shape[0] * x.shape[1] == 1 and k < E:
             idx = order.reshape(E)[:k]
             w = torch.softmax(logits.reshape(E)[idx], dim=-1).to(x.dtype)
             out = (w[:, None] * self._experts(x, idx)).sum(0).view_as(x)
@@ -88,5 +128,20 @@ class SharedMoE(nn.Module):
             selected = torch.argsort(order, dim=-1, stable=True) < k
             w = torch.softmax(logits.masked_fill(~selected, float("-inf")),
                               dim=-1).to(x.dtype)
-            out = torch.einsum("ble,bled->bld", w, self._experts(x))
-        return out + self.shared(x) / k
+            experts = dropout(self._experts(x, generator=generator),
+                              self.dropout_rate, generator)
+            out = torch.einsum("ble,bled->bld", w, experts)
+            if training:
+                self._record_load(selected)
+        return out + self.shared(x, generator) / k
+
+    @torch.no_grad()
+    def _record_load(self, selected):
+        counts = selected.sum(dim=(0, 1)).float()
+        mean = counts.mean()
+        self.expert_counts = counts
+        self.maxvio = (counts.max() - mean.clamp(min=1e-6)) \
+            / mean.clamp(min=1e-6)
+        if self.cfg.balancing:
+            self.balance_bias += self.cfg.balancing_update_rate \
+                * (mean - counts)

@@ -7,8 +7,8 @@ JAX package traces into one program — encoder, cross-K/V priming, the
 300-step KV-cached constrained decode (decode/sampler.py: B=1 through the
 B=1 kernels, B>1 through the batched ones) and the regression forward —
 then, per clip, the same host-side post-process: MIDI and per-instrument
-stems through ``video2music_tpu.data.native.render_clip`` (or the
-``video2music_tpu.midi`` writers), ``inst.csv``, and a FluidSynth render
+stems through ``data.native.render_clip`` (or the ``midi`` writers, the
+port's copies of the JAX package's), ``inst.csv``, and a FluidSynth render
 where FluidSynth exists. ``generate`` is a batch of one; the
 DynamicBatcher of pipeline/serving.py drives ``generate_batch``.
 
@@ -32,12 +32,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from video2music_tpu.core import constants as C
-from video2music_tpu.core.config import RegressionConfig, amt_config
-from video2music_tpu.core.vocab import chord_inv_dict
-from video2music_tpu.data import native as _native
-from video2music_tpu.midi import Chord, MIDIFile, add_chord, chord_offsets, voice
-from video2music_tpu.midi.arpeggio import density_bucket, velocity_from_loudness
+from ..core import constants as C
+from ..core.config import RegressionConfig, amt_config
+from ..core.vocab import chord_inv_dict
+from ..data import native as _native
+from ..midi import Chord, MIDIFile, add_chord, chord_offsets, voice
+from ..midi.arpeggio import density_bucket, velocity_from_loudness
 
 from ..decode.sampler import GenerateConfig, generate_chords
 from ..models import VideoMusicTransformer, VideoRegression

@@ -5,9 +5,8 @@ Reproduces the reference's user-facing chord notation translation
 (reference: ``video2music.py:757-815``) and the emotion-argmax fallback for
 missing key/primer (``:722-735,752-756``).
 
-A copy of ``video2music_tpu/pipeline/primer.py``: that module is free of
-JAX, but importing it runs ``video2music_tpu/pipeline/__init__.py``, which
-imports the JAX pipeline.
+A copy of ``video2music_tpu/pipeline/primer.py``: the port imports nothing
+of the JAX package, not even its modules that are free of JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from video2music_tpu.core.vocab import chord_attr_dict, chord_dict, chord_root_dict
+from ..core.vocab import chord_attr_dict, chord_dict, chord_root_dict
 
 FLATSHARP = {"Db": "C#", "Eb": "D#", "Gb": "F#", "Ab": "G#", "Bb": "A#"}
 

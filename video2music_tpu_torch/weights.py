@@ -105,6 +105,20 @@ def amt_from_jax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def load_amt_from_jax_(model: nn.Module, params) -> None:
+    """Copy a JAX train state's ``params`` (a numpy tree) into ``model`` in
+    place: the tensors keep their device and identity, so an optimizer
+    over them stays valid."""
+    sd = amt_from_jax(params)
+    with torch.no_grad():
+        own = model.state_dict()
+        if sorted(own) != sorted(sd):
+            raise KeyError(f"parameter names differ: "
+                           f"{sorted(set(own) ^ set(sd))}")
+        for name, t in sd.items():
+            own[name].copy_(t)
+
+
 def _put_mamba(sd, prefix, p):
     _put_linear(sd, f"{prefix}.in_proj", p["in_proj"])
     # (d_conv, 1, ED) "HIO" -> depthwise Conv1d (ED, 1, d_conv)
