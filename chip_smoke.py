@@ -14,7 +14,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      flash attention and the scan at B=16 as well; the dropout attention
      forward and backward at the training shape (B=16, H=8, L=S=300,
      D=64, rate 0.1, causal and not, plus a small case with a bias):
-     output, mask entry for entry, and dq / dk / dv (/ dbias);
+     output, mask entry for entry, and dq / dk / dv (/ dbias); the three
+     variant decode kernels in every wiring they cover (base AMT RPR +
+     ReLU + LayerNorm, V1.0 / V1.1 shared-less MLP / GLU experts, V3.1 and
+     V3.2 differential + RMSNorm, post- and pre-norm): the B=1 layer and
+     the batched pair at B=16 (the 3.1 deep layer timed at B=64 too), and
+     flash attention at the V3 encoder's 2H = 16 heads;
   3. slice: a full-width Video2music (AMT 2.2 + bimamba+, random weights
      from seed 0) in bfloat16 answers three requests from seeded synthetic
      features; the outputs are checked, and each kernel's launch count over
@@ -27,15 +32,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      equal what the widths that ran imply;
   6. teacher-forced batch: 16 steps of the batched kernel step against the
      batched plain step at B=8, float32 and bfloat16;
-  7. train: a full-width AMT 2.2 (total_vf_dim 1287, motion_type 1) on a
+  7. V3 slice: full-width bfloat16 Video2music at 3.1 (three requests at
+     B=1, generate_batch at B=16) and at 3.2 (one request, one B=16
+     batch); every clip is checked, and the launches of the variant
+     kernels, flash attention (at 2H heads) and the scan must equal what
+     the V3 path implies;
+  8. V3 teacher-forced: 16 steps of the variant kernel step against the
+     plain step at B=1 and B=8, for 3.1 and 3.2, float32 and bfloat16;
+  9. train: a full-width AMT 2.2 (total_vf_dim 1287, motion_type 1) on a
      synthetic feature tree of 32 clips of 300 s that the script writes:
      one train_amt epoch at B=16 (bf16 mixed precision, AdamW lr 1e-4)
      with results.csv and a checkpoint that restores, then 60 steps on one
      fixed batch (the loss must drop), ms/step from CUDA events; the
      dropout kernels must launch 18 forward and 18 backward times a step;
-  8. teacher-forced train step: one f32 step's loss and gradients through
+  10. teacher-forced train step: one f32 step's loss and gradients through
      the dropout kernels against the same step through the plain dropout
      attention, from the same weights, batch and generator seed.
+Each phase's wall seconds are printed.
 The last three lines of stdout are a JSON object listing the kernels with
 their launches, errors, times and bounds, the card's name and power limit
 as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -91,6 +104,15 @@ KERNELS = {
     "flash_attention_dropout_bwd": dict(
         source="video2music_tpu_torch/csrc/flash_attention_dropout.cu",
         replaces="video2music_tpu/ops/pallas_attention_dropout.py:214"),
+    "decode_variant_layer": dict(
+        source="video2music_tpu_torch/csrc/decode_variant.cu",
+        replaces="video2music_tpu/ops/pallas_decode_variant.py:373"),
+    "batched_variant_layer_step": dict(
+        source="video2music_tpu_torch/csrc/decode_variant.cu",
+        replaces="video2music_tpu/ops/pallas_decode_batch_variant.py:383"),
+    "batched_variant_moe_ffn": dict(
+        source="video2music_tpu_torch/csrc/decode_variant.cu",
+        replaces="video2music_tpu/ops/pallas_decode_batch_variant.py:479"),
 }
 # the kernels of the B=1 slice and of batched serving
 SLICE_KERNELS = ("flash_attention", "decode_layer", "decode_ends",
@@ -98,6 +120,10 @@ SLICE_KERNELS = ("flash_attention", "decode_layer", "decode_ends",
 SERVING_KERNELS = ("flash_attention", "batched_layer_step",
                    "batched_moe_ffn", "selective_scan")
 TRAIN_KERNELS = ("flash_attention_dropout_fwd", "flash_attention_dropout_bwd")
+# the kernels of the V3 serving path (B=1 and B>1)
+V3_KERNELS = ("flash_attention", "decode_variant_layer",
+              "batched_variant_layer_step", "batched_variant_moe_ffn",
+              "selective_scan")
 
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -667,7 +693,9 @@ def wrappers():
     """The kernel wrappers, by their names in KERNELS. Each counts the
     launches of its kernel in ``.launches``."""
     from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
     from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops import decode_variant as dv
     from video2music_tpu_torch.ops import flash_attention_dropout as fad
     from video2music_tpu_torch.ops.flash_attention import flash_attention
     from video2music_tpu_torch.ops.scan import selective_scan
@@ -678,30 +706,41 @@ def wrappers():
             "batched_layer_step": db.batched_layer_step,
             "batched_moe_ffn": db.batched_moe_ffn,
             "flash_attention_dropout_fwd": fad.flash_attention_dropout_fwd,
-            "flash_attention_dropout_bwd": fad.flash_attention_dropout_bwd}
+            "flash_attention_dropout_bwd": fad.flash_attention_dropout_bwd,
+            "decode_variant_layer": dv.decode_variant_layer_step,
+            "batched_variant_layer_step": dbv.batched_variant_layer_step,
+            "batched_variant_moe_ffn": dbv.batched_variant_moe_ffn}
 
 
 def path_launches(v2m, width: int, T: int = 300):
     """Kernel launches one generate call of ``width`` clips implies: the
-    B=1 kernels at width 1, the batched ones above."""
+    B=1 kernels at width 1, the batched ones above; the V2 kernels for the
+    V2 family, the variant kernels for the others (V3)."""
+    from video2music_tpu_torch.ops.decode_layer import fused_decode_eligible
     cfg, rcfg = v2m.amt_cfg, v2m.reg_cfg
     L = len(cfg.decoder_layers)
-    n_deep = sum(spec.ffn != "swiglu" for spec in cfg.decoder_layers)
+    n_deep = sum(spec.ffn == "moe" for spec in cfg.decoder_layers)
     out = dict.fromkeys(KERNELS, 0)
     out.update(flash_attention=len(cfg.encoder_layers),
                selective_scan=2 * rcfg.n_layers)
-    if width == 1:
+    v2 = fused_decode_eligible(cfg)
+    if width == 1 and v2:
         out.update(decode_layer=(T - 1) * (L - 2), decode_ends=(T - 1) * 2)
-    else:
+    elif v2:
         out.update(batched_layer_step=(T - 1) * L,
                    batched_moe_ffn=(T - 1) * n_deep)
+    elif width == 1:
+        out.update(decode_variant_layer=(T - 1) * L)
+    else:
+        out.update(batched_variant_layer_step=(T - 1) * L,
+                   batched_variant_moe_ffn=(T - 1) * n_deep)
     return out
 
 
-def check_launches(report, v2m, widths, names, record):
+def check_launches(report, v2m, widths, names, record, key="launches"):
     """Compare the counters with what generate calls of ``widths`` imply;
     every kernel of ``names`` must have launched; record the launches of
-    ``record``."""
+    ``record`` under ``key`` (added to what an earlier run recorded)."""
     counts = {name: fn.launches for name, fn in wrappers().items()}
     for name in KERNELS:
         want = sum(path_launches(v2m, w)[name] for w in widths)
@@ -711,7 +750,7 @@ def check_launches(report, v2m, widths, names, record):
     for name in names:
         fail_unless(counts[name] > 0, f"{name}: never launched")
     for name in record:
-        report[name]["launches"] = counts[name]
+        report[name][key] = report[name].get(key, 0) + counts[name]
 
 
 def check_clip(tag, res, primer, n, inst=None, ln_nd=None):
@@ -1035,7 +1074,478 @@ def teacher_forced_batch_phase(v2m, B=8):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: training
+# phases 7-8 (and the variant part of 2): the V3 serving path
+# ---------------------------------------------------------------------------
+
+# every wiring the variant kernels cover, as (name, layers, norm, pre_norm,
+# rope): base AMT (RPR + ReLU + LayerNorm), V1.0 (shared-less SiLU-MLP
+# experts), V1.1 (shared-less GLU experts), the V3.0 / 3.1 decoder
+# (differential + RMSNorm, post-norm) and V3.2 (pre-norm); a layer is
+# (meta fields, expert hidden width as a multiple of D or None)
+VARIANT_CASES = (
+    ("AMT", (("rpr", "vanilla", "relu", "glu", False),), "layernorm", False,
+     False),
+    ("1.0", (("vanilla", "vanilla", "moe", "mlp", False),), "layernorm",
+     False, False),
+    ("1.1", (("vanilla", "vanilla", "moe", "glu", False),), "layernorm",
+     False, False),
+    ("3.1", (("differential", "differential", "swiglu", "glu", True),
+             ("differential", "differential", "moe", "glu", True)),
+     "rmsnorm", False, True),
+    ("3.2", (("differential", "differential", "swiglu", "glu", True),
+             ("differential", "differential", "moe", "glu", True)),
+     "rmsnorm", True, True),
+)
+
+
+def random_variant_layer(gen, meta, D, H, F, E, S, dtype, dev):
+    """A packed variant layer (ops/decode_variant.py layout) at width D:
+    2D-wide q/k for differential attention, the RPR table (S, D), the FFN
+    of the meta (SiLU-MLP experts 2D wide, GLU experts and FFNs F wide)."""
+    import torch
+
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    def f32(t):
+        return t.to(dev, torch.float32).contiguous()
+
+    nq = 2 if meta.attn == "differential" else 1
+    nc = 2 if meta.cross == "differential" else 1
+    hd = D // H
+    p = dict(wqkv=r((2 * nq + 1) * D, D, scale=D ** -0.5),
+             bqkv=r((2 * nq + 1) * D, scale=0.1),
+             wo=r(D, D, scale=D ** -0.5), bo=r(D, scale=0.1),
+             cwq=r(nc * D, D, scale=D ** -0.5), cbq=r(nc * D, scale=0.1),
+             cwo=r(D, D, scale=D ** -0.5), cbo=r(D, scale=0.1),
+             norm_scale=1 + r(3, D, scale=0.1), norm_bias=r(3, D, scale=0.1))
+    for prefix, kind in (("", meta.attn), ("c", meta.cross)):
+        if kind == "differential":
+            p[prefix + "lam"] = f32(0.5 + 0.1 * torch.randn(1, generator=gen))
+            p[prefix + "subw"] = f32(
+                0.4 * (1 + 0.1 * torch.randn(D, generator=gen)))
+    if meta.attn == "rpr":
+        p["er"] = f32((torch.randn(S, hd, generator=gen) * hd ** -0.5)
+                      .repeat(1, H))
+    if meta.ffn != "moe":
+        G = 2 * F if meta.ffn == "swiglu" else F
+        p.update(fw1g=r(G, D, scale=D ** -0.5), fb1g=r(G, scale=0.1),
+                 fw2=r(D, F, scale=F ** -0.5), fb2=r(D, scale=0.1))
+    else:
+        Fe = F if meta.expert == "glu" else 2 * D
+        G = 2 * Fe if meta.expert == "glu" else Fe
+        p.update(gate_w=r(E, D, scale=D ** -0.5), gate_b=r(E, scale=0.1),
+                 ew1g=r(E, G, D, scale=D ** -0.5), eb1g=r(E, G, scale=0.1),
+                 ew2=r(E, D, Fe, scale=Fe ** -0.5), eb2=r(E, D, scale=0.1))
+        if meta.shared:
+            p.update(sw1g=r(G, D, scale=D ** -0.5), sb1g=r(G, scale=0.1),
+                     sw2=r(D, Fe, scale=Fe ** -0.5), sb2=r(D, scale=0.1))
+    return {k: v.contiguous() for k, v in p.items()}
+
+
+VARIANT_ATTN_KEYS = ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
+                     "norm_scale", "norm_bias", "lam", "subw", "clam",
+                     "csubw")
+VARIANT_SHARED_KEYS = ("gate_w", "gate_b", "sw1g", "sb1g", "sw2", "sb2")
+
+
+def variant_attention_work(p, B, pos, Sm, D, el):
+    """(bytes, flops) of B clips' self-attention over rows 0..pos and
+    cross-attention over Sm rows: K (2D wide for differential) and V read
+    once, the new K/V rows written; 2 flops per q.k and per p.v term."""
+    Dk, Dc = (p["wqkv"].shape[0] - D) // 2, p["cwq"].shape[0]
+    rows_s, rows_c = pos + 1, Sm
+    b = B * el * (rows_s * (Dk + D) + rows_c * (Dc + D) + Dk + D)
+    f = B * 2 * (rows_s * (Dk + Dk) + rows_c * (Dc + Dc))
+    return b, f
+
+
+def variant_kernel_phase(report, v2m):
+    """The three variant kernels against their plain versions at full
+    width (d_model 512, 8 heads, d_ff 1024, 6 experts top-2, S = Sm = 300,
+    pos 150), float32 and bfloat16, every wiring case of VARIANT_CASES:
+    the B=1 layer, the batched layer at B=16 and the batched MoE at B=16
+    (plus the 3.1 deep layer timed at B=64); flash attention at the V3
+    encoder's 2H = 16 heads. Times and bounds on the 3.1 deep layer."""
+    import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
+    from video2music_tpu_torch.ops import decode_variant as dv
+    from video2music_tpu_torch.ops.decode_batch import route_plain
+    from video2music_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    dev = v2m.device
+    cfg = v2m.amt_cfg
+    D, F, E, H = cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.num_heads
+    S, Sm = cfg.max_seq_chord, cfg.max_seq_video
+    k_top = cfg.moe.n_experts_per_token
+    hd = D // H
+    pos = S // 2
+    gen = torch.Generator().manual_seed(2468)
+    rope = rope_tables(v2m.model, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"variant kernels, {dtype}:")
+        el = torch.tensor([], dtype=dtype).element_size()
+        q, k, v = (torch.randn(1, 2 * H, Sm, hd, generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        err = check_close("flash_attention 2H heads", dtype,
+                          flash_attention(q, k, v),
+                          flash_attention_plain(q, k, v))
+        note_error(report, "flash_attention", dtype, err)
+        note_times(report, "flash_attention", dtype,
+                   lambda: flash_attention(q, k, v),
+                   lambda: flash_attention_plain(q, k, v), key="ms_2h")
+        for name, layer_metas, norm, pre_norm, use_rope in VARIANT_CASES:
+            for fields in layer_metas:
+                meta = dv.VariantLayerMeta(*fields)
+                p = random_variant_layer(gen, meta, D, H, F, E, S, dtype, dev)
+                nq = 2 if meta.attn == "differential" else 1
+                nc = 2 if meta.cross == "differential" else 1
+                kw = dict(n_heads=H, rope=rope if use_rope else None,
+                          norm=norm, pre_norm=pre_norm)
+                tag = f"{name} {meta.attn}/{meta.ffn}"
+                deep = meta.ffn == "moe"
+                # B=1: the whole layer
+                kc, vc = (torch.randn(S, w * D, generator=gen).to(dev, dtype)
+                          for w in (nq, 1))
+                kx, vx = (torch.randn(Sm, w * D, generator=gen).to(dev, dtype)
+                          for w in (nc, 1))
+                x = torch.randn(1, D, generator=gen).to(dev, dtype)
+                k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                args1 = (x, pos, p, meta, k1, v1, kx, vx)
+                args2 = (x, pos, p, meta, k2, v2, kx, vx)
+                got = dv.decode_variant_layer_step(*args1, k_top=k_top, **kw)
+                want = dv.decode_variant_layer_plain(*args2, k_top=k_top,
+                                                     **kw)
+                err = check_close(f"decode_variant_layer {tag}", dtype, got,
+                                  want)
+                check_close(f"decode_variant_layer {tag} k row", dtype,
+                            k1[pos], k2[pos])
+                check_close(f"decode_variant_layer {tag} v row", dtype,
+                            v1[pos], v2[pos])
+                note_error(report, "decode_variant_layer", dtype, err)
+                if name == "3.1" and deep:
+                    note_times(report, "decode_variant_layer", dtype,
+                               lambda: dv.decode_variant_layer_step(
+                                   *args1, k_top=k_top, **kw),
+                               lambda: dv.decode_variant_layer_plain(
+                                   *args2, k_top=k_top, **kw))
+                    if dtype == torch.bfloat16:
+                        rows = torch.zeros(E)
+                        rows[:k_top] = 1
+                        w_b, w_f = layer_work(
+                            p, VARIANT_ATTN_KEYS + VARIANT_SHARED_KEYS)
+                        e_b, e_f = layer_work(p, EXPERT_KEYS, rows)
+                        a_b, a_f = variant_attention_work(p, 1, pos, Sm, D,
+                                                          el)
+                        note_bound(report, "decode_variant_layer",
+                                   w_b + e_b + a_b + 2 * nbytes(x),
+                                   w_f + e_f + a_f)
+                        report["decode_variant_layer"]["library_ms"] = None
+                # B=16 (and B=64 for the timed layer): the batched pair
+                for B in (16, 64) if name == "3.1" and deep else (16,):
+                    kc, vc = (torch.randn(B, S, w * D, generator=gen)
+                              .to(dev, dtype) for w in (nq, 1))
+                    kx, vx = (torch.randn(B, Sm, w * D, generator=gen)
+                              .to(dev, dtype) for w in (nc, 1))
+                    x = torch.randn(B, D, generator=gen).to(dev, dtype)
+                    k1, v1 = kc.clone(), vc.clone()
+                    k2, v2 = kc.clone(), vc.clone()
+                    args1 = (x, pos, p, meta, k1, v1, kx, vx)
+                    args2 = (x, pos, p, meta, k2, v2, kx, vx)
+                    got = dbv.batched_variant_layer_step(*args1, **kw)
+                    want = dbv.batched_variant_layer_plain(*args2, **kw)
+                    bname = f"batched_variant_layer_step {tag} B={B}"
+                    err = check_close(bname, dtype, got, want)
+                    check_close(bname + " k row", dtype, k1[:, pos],
+                                k2[:, pos])
+                    check_close(bname + " v row", dtype, v1[:, pos],
+                                v2[:, pos])
+                    fail_unless(torch.equal(k1[:, :pos], kc[:, :pos]),
+                                f"{bname}: cache rows other than pos changed")
+                    if B == 16:
+                        note_error(report, "batched_variant_layer_step",
+                                   dtype, err)
+                    key = "ms" if B == 16 else f"ms_b{B}"
+                    nkw = dict(norm=norm, pre_norm=pre_norm)
+                    if name == "3.1" and deep:
+                        note_times(report, "batched_variant_layer_step",
+                                   dtype,
+                                   lambda: dbv.batched_variant_layer_step(
+                                       *args1, **kw),
+                                   lambda: dbv.batched_variant_layer_plain(
+                                       *args2, **kw), key=key)
+                    if name == "3.1" and deep and B == 16 \
+                            and dtype == torch.bfloat16:
+                        w_b, w_f = layer_work(p, VARIANT_ATTN_KEYS)
+                        a_b, a_f = variant_attention_work(p, B, pos, Sm, D,
+                                                          el)
+                        note_bound(report, "batched_variant_layer_step",
+                                   w_b + a_b + 2 * nbytes(x), B * w_f + a_f)
+                        report["batched_variant_layer_step"][
+                            "library_ms"] = None
+                    if not deep:
+                        continue
+                    got = dbv.batched_variant_moe_ffn(want, p, meta,
+                                                      k_top=k_top, **nkw)
+                    ref = dbv.batched_variant_moe_plain(want, p, meta,
+                                                        k_top=k_top, **nkw)
+                    err = check_close(f"batched_variant_moe_ffn {tag} B={B}",
+                                      dtype, got, ref)
+                    if B == 16:
+                        note_error(report, "batched_variant_moe_ffn", dtype,
+                                   err)
+                    if name != "3.1":
+                        continue
+                    note_times(report, "batched_variant_moe_ffn", dtype,
+                               lambda: dbv.batched_variant_moe_ffn(
+                                   want, p, meta, k_top=k_top, **nkw),
+                               lambda: dbv.batched_variant_moe_plain(
+                                   want, p, meta, k_top=k_top, **nkw),
+                               key=key)
+                    if B == 16 and dtype == torch.bfloat16:
+                        xn = want
+                        if pre_norm:
+                            xn = dv._norm(want, p["norm_scale"][2],
+                                          p["norm_bias"][2], norm).to(dtype)
+                        rows = (route_plain(xn, p["gate_w"], p["gate_b"],
+                                            k_top) != 0).sum(0).cpu()
+                        s_b, s_f = layer_work(
+                            p, VARIANT_SHARED_KEYS + ("norm_scale",
+                                                      "norm_bias"))
+                        e_b, e_f = layer_work(p, EXPERT_KEYS, rows)
+                        note_bound(report, "batched_variant_moe_ffn",
+                                   s_b + e_b + 2 * nbytes(want),
+                                   B * s_f + e_f)
+                        report["batched_variant_moe_ffn"]["library_ms"] = \
+                            None
+
+
+def v3_slice_phase(card, report):
+    """Full-width bf16 Video2music at 3.1 (three B=1 requests, then
+    generate_batch at B=16) and at 3.2 (one B=1 request, one B=16 batch),
+    random weights from seed 0: every clip checked, and each kernel's
+    launches equal to what the V3 path implies (the variant kernels,
+    flash attention at 2H heads, the scan). Returns the two models."""
+    from video2music_tpu_torch.pipeline.api import Video2music
+
+    T = 300
+    models = {}
+    for version in ("3.1", "3.2"):
+        t0 = time.perf_counter()
+        v2m = Video2music(music_gen_version=version, seed=0, device="cuda")
+        print(f"built full-width Video2music (AMT {version} + bimamba+) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        models[version] = v2m
+        requests = REQUESTS if version == "3.1" else REQUESTS[:1]
+        widths = []
+        with tempfile.TemporaryDirectory() as tmp:
+            v2m.generate(features=synthetic_features(30, 99),  # warm-up
+                         output_dir=os.path.join(tmp, "warm_up"))
+            reqs, temps = serving_requests(2, 500)
+            v2m.generate_batch(reqs, temperature=temps,
+                               output_dir=os.path.join(tmp, "warm_up_b"))
+            for fn in wrappers().values():
+                fn.launches = 0
+            for i, req in enumerate(requests):
+                t0 = time.perf_counter()
+                res = v2m.generate(primer=req["primer"], key=req["key"],
+                                   temperature=req["temperature"],
+                                   features=synthetic_features(req["n_sec"],
+                                                               i),
+                                   output_dir=os.path.join(tmp, f"clip_{i}"),
+                                   seed=i)
+                wall = time.perf_counter() - t0
+                widths.append(1)
+                tm = v2m.last_timings
+                check_clip(f"V{version} request {i}", res, req["primer"],
+                           req["n_sec"], v2m.last_regression["instrument"],
+                           v2m.last_regression["ln_nd"])
+                print(f"V{version} request {i} ({req['n_sec']} s, primer "
+                      f"{req['primer']!r}): wall {wall:.3f} s, encode "
+                      f"{tm['encode']:.3f} ms, prime {tm['prime']:.3f} ms, "
+                      f"decode {tm['decode']:.1f} ms = "
+                      f"{tm['decode'] / (T - 1):.4f} ms/token, regression "
+                      f"{tm['regression']:.3f} ms, postprocess "
+                      f"{tm['postprocess']:.1f} ms [{card}]")
+            B = 16
+            reqs, temps = serving_requests(B, 3000 + B)
+            t0 = time.perf_counter()
+            results = v2m.generate_batch(reqs, temperature=temps, seed=B,
+                                         output_dir=os.path.join(tmp, "b16"))
+            wall = time.perf_counter() - t0
+            widths.append(B)
+            fail_unless(len(results) == B, f"B={B}: {len(results)} results")
+            check_batch(f"V{version} generate_batch B={B}", v2m, reqs,
+                        results)
+            tm = v2m.last_timings
+            print(f"V{version} generate_batch B={B}: wall {wall:.3f} s = "
+                  f"{B / wall:.2f} clips/s, encode {tm['encode']:.3f} ms, "
+                  f"prime {tm['prime']:.3f} ms, decode {tm['decode']:.1f} ms "
+                  f"= {tm['decode'] / (T - 1):.4f} ms/step, regression "
+                  f"{tm['regression']:.3f} ms, postprocess "
+                  f"{tm['postprocess']:.1f} ms [{card}]")
+        check_launches(report, v2m, widths, V3_KERNELS, V3_KERNELS[1:4])
+        fl = wrappers()["flash_attention"].launches
+        report["flash_attention"]["launches_2h"] = \
+            report["flash_attention"].get("launches_2h", 0) + fl
+        if version == "3.1":  # after the launch check: the profile launches
+            report["v3_step"] = {f"B={B}": profile_v3_steps(v2m, B, card)
+                                 for B in (1, 16)}
+    return models
+
+
+def profile_v3_steps(v2m, B, card, n=20):
+    """The bf16 V3 decode step alone (no sampler) at width B: ms/step from
+    CUDA events over n steps, then torch.profiler over n more: device time
+    per step, the device's busy share and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from video2music_tpu_torch.decode.sampler import fused_backend
+
+    model, _ = v2m._models("bfloat16")
+    feats = [synthetic_features(300, 40 + b) for b in range(B)]
+    f = {k: torch.stack([torch.as_tensor(x[k]) for x in feats])
+         .to("cuda", torch.bfloat16) for k in feats[0]}
+    init_caches, make_step = fused_backend(model.cfg, B)
+    ids = torch.arange(B, device="cuda", dtype=torch.int32) % 12 + 1
+    key = torch.zeros(B, device="cuda")
+    with torch.no_grad():
+        caches = init_caches(model, model.prime(model.encode(**f)))
+        step = make_step(model)
+        for pos in range(5):  # warm-up
+            step(caches, ids, ids, key, pos)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for pos in range(5, 5 + n):
+            step(caches, ids, ids, key, pos)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for pos in range(5 + n, 5 + 2 * n):
+                step(caches, ids, ids, key, pos)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = [(e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"V{model.cfg.version} decode step B={B} (bf16, no sampler): "
+          f"{ms:.4f} ms/step (CUDA events, {n} steps); profiler on: wall "
+          f"{wall:.4f} ms/step, device {busy:.4f} ms/step in "
+          f"{sum(r[1] for r in rows):.0f} kernels and copies, busy share "
+          f"{busy / wall:.3f} [{card}]")
+    for t, count, name in rows[:8]:
+        print(f"  {t:8.4f} ms/step  {count:5.0f} calls/step  {name[:90]}")
+    return dict(ms_step=ms, device_ms=busy, busy=busy / wall)
+
+
+def plain_variant_step(model, batched):
+    """decode/fused.make_fused_(batch_)variant_step through the plain
+    versions."""
+    from video2music_tpu_torch.decode.fused import _embed, _variant_setup
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
+    from video2music_tpu_torch.ops import decode_variant as dv
+
+    layers, metas, kw = _variant_setup(model)
+    k_top = model.cfg.moe.n_experts_per_token
+    nkw = dict(norm=kw["norm"], pre_norm=kw["pre_norm"])
+
+    def run(c, root, attr, key, pos):
+        x = _embed(model, root, attr, key)
+        for i, (p, meta) in enumerate(zip(layers, metas)):
+            caches = (c[f"k{i}"], c[f"v{i}"], c[f"ck{i}"], c[f"cv{i}"])
+            if not batched:
+                x = dv.decode_variant_layer_plain(x, pos, p, meta, *caches,
+                                                  k_top=k_top, **kw)
+                continue
+            x = dbv.batched_variant_layer_plain(x, pos, p, meta, *caches,
+                                                **kw)
+            if meta.ffn == "moe":
+                x = dbv.batched_variant_moe_plain(x, p, meta, k_top=k_top,
+                                                  **nkw)
+        return model.head(x)
+    return run
+
+
+def v3_teacher_forced_phase(models):
+    """16 positions of seeded random tokens through the V3 kernel step and
+    the plain step at B=1 and B=8, for 3.1 and 3.2, float32 and bfloat16.
+    float32: each path carries its own caches and every logit must agree.
+    bfloat16: the plain caches are reset to the kernel's before each step,
+    and a clip-position may leave the tolerance only rarely (a router
+    near-tie, as in teacher_forced_batch_phase)."""
+    import torch
+    from video2music_tpu_torch.decode import fused
+
+    for version, v2m in models.items():
+        dev = v2m.device
+        for B in (1, 8):
+            gen = torch.Generator().manual_seed(9 + B)
+            n_root = v2m.model.embedding_root.num_embeddings
+            n_attr = v2m.model.embedding_attr.num_embeddings
+            roots = torch.randint(n_root, (16, B), generator=gen)
+            attrs = torch.randint(n_attr, (16, B), generator=gen)
+            feats = [synthetic_features(300, 90 + b) for b in range(B)]
+            for name in ("float32", "bfloat16"):
+                dtype = getattr(torch, name)
+                model, _ = v2m._models(name)
+                f = {k: torch.stack([torch.as_tensor(x[k]) for x in feats])
+                     .to(dev, dtype) for k in feats[0]}
+                key = (torch.arange(B, device=dev) % 2).float()
+                with torch.no_grad():
+                    cross = model.prime(model.encode(**f))
+                    if B == 1:
+                        kc = fused.init_fused_variant_caches(model, cross)
+                        kernel_step = fused.make_fused_variant_step(model)
+                    else:
+                        kc = fused.init_fused_batch_variant_caches(model,
+                                                                   cross)
+                        kernel_step = fused.make_fused_batch_variant_step(
+                            model)
+                    pc = {k: v.clone() for k, v in kc.items()}
+                    plain_step = plain_variant_step(model, B > 1)
+                    worst, outliers = 0.0, []
+                    for pos in range(16):
+                        root = roots[pos].to(dev, torch.int32)
+                        attr = attrs[pos].to(dev, torch.int32)
+                        if dtype == torch.bfloat16:
+                            for k, v in kc.items():
+                                pc[k].copy_(v)
+                        got = kernel_step(kc, root, attr, key, pos)
+                        want = plain_step(pc, root, attr, key, pos)
+                        fail_unless(bool(torch.isfinite(got).all()),
+                                    f"V{version} B={B} pos {pos}: "
+                                    "non-finite logits")
+                        if dtype == torch.float32:
+                            worst = max(worst, check_close(
+                                f"V{version} teacher-forced B={B} pos {pos}",
+                                dtype, got, want, atol=F32_LOGIT_ATOL))
+                            continue
+                        for b in range(B):
+                            abs_err, rel_err = errors(got[b], want[b])
+                            worst = max(worst, abs_err)
+                            if rel_err > BF16_REL:
+                                outliers.append((pos, b, round(rel_err, 4)))
+                if dtype == torch.bfloat16:
+                    print(f"  bf16 clip-positions outside rel {BF16_REL}: "
+                          f"{len(outliers)} of {16 * B} {outliers}")
+                    fail_unless(len(outliers) * BF16_ROUTE_SHARE <= 16 * B,
+                                f"V{version} teacher-forced B={B} bf16: "
+                                f"{len(outliers)} of {16 * B} disagree")
+                print(f"V{version} teacher-forced B={B} {name}: max abs "
+                      f"logit error over 16 positions {worst:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training
 # ---------------------------------------------------------------------------
 
 def write_feature_tree(root, n_clips, n_sec, seed):
@@ -1330,17 +1840,32 @@ def main() -> int:
     print(f"built full-width Video2music (AMT 2.2 + bimamba+) in "
           f"{time.perf_counter() - t0:.1f} s")
     report = {name: {} for name in KERNELS}
-    kernel_phase(report, v2m)
-    batched_kernel_phase(report, v2m)
-    dropout_kernel_phase(report, v2m.amt_cfg)
-    slice_phase(v2m, card, report)
-    teacher_forced_phase(v2m)
-    serving_phase(v2m, card, report)
-    teacher_forced_batch_phase(v2m)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        print(f"phase {name}: {seconds[name]} s")
+        return out
+
+    phase("kernels", kernel_phase, report, v2m)
+    phase("batched kernels", batched_kernel_phase, report, v2m)
+    phase("dropout kernels", dropout_kernel_phase, report, v2m.amt_cfg)
+    phase("variant kernels", variant_kernel_phase, report, v2m)
+    phase("slice", slice_phase, v2m, card, report)
+    phase("teacher-forced", teacher_forced_phase, v2m)
+    phase("serving", serving_phase, v2m, card, report)
+    phase("teacher-forced batch", teacher_forced_batch_phase, v2m)
     del v2m
     torch.cuda.empty_cache()
-    train_phase(card, report)
-    teacher_forced_train_phase(card)
+    models = phase("V3 slice", v3_slice_phase, card, report)
+    phase("V3 teacher-forced", v3_teacher_forced_phase, models)
+    del models
+    torch.cuda.empty_cache()
+    phase("train", train_phase, card, report)
+    phase("teacher-forced train", teacher_forced_train_phase, card)
+    print(f"phase seconds: {json.dumps(seconds)}")
 
     rows = []
     for name, meta in KERNELS.items():
@@ -1355,13 +1880,16 @@ def main() -> int:
                    ms_eager=bf[1], plain_ms_eager=bf[3],
                    max_abs_err_f32=r["err"][torch.float32],
                    ms_f32=f32[0], plain_ms_f32=f32[2])
-        for key in ("ms_b16", "ms_b64", "ms_causal"):  # other shapes
+        for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h"):  # other shapes
             if key in r:
                 t = r[key][torch.bfloat16]
                 row[key], row["plain_" + key] = t[0], t[2]
                 row[key + "_f32"] = r[key][torch.float32][0]
+        if "launches_2h" in r:  # flash attention at the V3 encoder's 2H
+            row["launches_2h"] = r["launches_2h"]
         rows.append(row)
     print(f"train: {json.dumps(report['train'])}")
+    print(f"V3 decode step: {json.dumps(report['v3_step'])}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

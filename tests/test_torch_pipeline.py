@@ -143,8 +143,13 @@ v2m = Video2music(device="cpu", music_gen_version="2.2", reg_model="bimamba+",
                   motion_type=0, amt_overrides=dict(n_layers=2, num_heads=2,
                   d_model=16, d_ff=32), reg_overrides=dict(n_layers=1,
                   d_model=8, d_hidden=16))
+v3 = Video2music(device="cpu", music_gen_version="3.1", reg_model="bimamba+",
+                 motion_type=0, amt_overrides=dict(n_layers=2, num_heads=2,
+                 d_model=16, d_ff=32), reg_overrides=dict(n_layers=1,
+                 d_model=8, d_hidden=16))
 with tempfile.TemporaryDirectory() as tmp:
     assert v2m.generate(features=feats, output_dir=tmp).chord_ids.shape == (6,)
+    assert v3.generate(features=feats, output_dir=tmp).chord_ids.shape == (6,)
     batcher = DynamicBatcher(v2m, max_batch=2, max_wait_ms=10, output_dir=tmp)
     try:
         res, width = batcher.submit({"features": feats}).result(timeout=300)
@@ -176,8 +181,9 @@ print("isolated ok")
 
 def test_port_imports_no_jax():
     """With the JAX package and JAX itself blocked, the whole port imports
-    (every module, and chip_smoke.py) and runs on the CPU: a tiny
-    ``generate``, a DynamicBatcher request and one train step."""
+    (every module, and chip_smoke.py) and runs on the CPU: a tiny 2.2 and
+    a tiny V3.1 ``generate``, a DynamicBatcher request and one train
+    step."""
     out = subprocess.run([sys.executable, "-c", ISOLATED_RUN], cwd=ROOT,
                          check=True, timeout=600, capture_output=True,
                          text=True)
@@ -201,7 +207,7 @@ def test_outside_the_slice_raises(pair, tmp_path, case):
         elif case == "backbone":
             Video2music(device="cpu", **dict(KW, reg_model="bigru"))
         elif case == "wiring":
-            Video2music(device="cpu", **dict(KW, music_gen_version="3.1"))
+            Video2music(device="cpu", **dict(KW, music_gen_version="1.1"))
         else:
             kw = ({"kv_quant": "int8"} if case == "kv_quant"
                   else {"quantize": "int8"})

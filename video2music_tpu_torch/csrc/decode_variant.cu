@@ -1,0 +1,460 @@
+// One decoder-layer step of the variant wirings (every decoder the V2
+// kernels do not cover: base AMT, V1, V3), at B=1 and for a batch of clips
+// at one shared position.
+//
+// Replaces three TPU kernels:
+//   * video2music_tpu/ops/pallas_decode_variant.py:decode_variant_layer_step
+//     (one whole B=1 layer: v2m_variant_layer);
+//   * video2music_tpu/ops/pallas_decode_batch_variant.py:
+//     batched_variant_layer_step (the attention half of a B>1 layer, plus
+//     the FFN of a shallow one: v2m_variant_batched_layer);
+//   * video2music_tpu/ops/pallas_decode_batch_variant.py:
+//     batched_variant_moe_ffn (the MoE half: v2m_variant_batched_moe).
+// Every wiring of the Pallas kernels but int8: vanilla, RPR (Shaw/Huang
+// relative bias on the unscaled q.k) or differential attention (2H query/key
+// heads against H value heads, p_even - lambda * p_odd, a per-head RMSNorm
+// with eps 1e-5 and the packed subln row), optional pairwise RoPE; ReLU,
+// SwiGLU or top-k MoE feed-forwards with GLU or SiLU-MLP experts, with or
+// without the shared expert; LayerNorm (eps 1e-5) or RMSNorm (eps 1e-6);
+// post- or pre-norm residuals. The Pallas kernels' one-hot head, pair and
+// shift matmuls, sublane-stacked slabs and diagonal probe answer Mosaic
+// limits and are not carried over: each attention block reads its own head
+// of its own clip, its pair of query heads and its RPR rows by address.
+//
+// Rounding follows each Pallas kernel. B=1: matmul inputs rounded to the
+// compute dtype T, q, the probabilities and the attention output in f32,
+// the residual stream in f32 up to the layer output. Batched: as B=1, and
+// q, the cache rows' probabilities and RPR biases, the value products, the
+// differential combine and the attention output rounded to T (the current
+// row's probability and bias stay f32); a deep layer's x2 leaves as T. The
+// B=1 MoE adds the routed experts in selection order, the batched one in
+// expert order, as their Pallas kernels do. Unlike the Pallas kernels,
+// this step's K/V rows are written IN PLACE into the self caches at
+// (b, pos), at B=1 and B>1.
+//
+// What bounds it on the H100: bytes. A deep V3 layer at B=1, pos 150, bf16
+// reads ~6.5 MB of attention weights and ~4.2 MB of routed and shared
+// experts, the self caches (2D-wide K: 0.5 MB) and the cross K/V (0.9 MB):
+// ~12 MB, ~3.6 us at 3.35 TB/s (computed from the shapes, not measured).
+// At B=16 the cross and self caches of the clips (~25 MB) set the pace. The
+// design is that of csrc/decode_batch.cu: the GEMVs of csrc/batch_decode.cuh
+// read each weight row once per step for up to 16 clips, with the norms
+// folded into their input staging; attention is one block per (value head,
+// clip) that holds both query heads of a differential pair, so it reads
+// the shared value head once for both and finishes the pair combine and
+// subln in the block; a layer is a chain of ~8-14 launches on one stream.
+// Plain FMA and warp shuffles, no tensor cores.
+#include "batch_decode.cuh"
+
+namespace v2m {
+namespace variant {
+
+using namespace batch;
+
+enum AttnKind : int { kVanilla = 0, kRpr = 1, kDiff = 2 };
+enum FfnKind : int { kReluFfn = 0, kSwigluFfn = 1, kMoeFfn = 2 };
+
+// Field order must match VariantArgs in kernels.py. Weights (out, in)
+// row-major in T; lam / subw / er in f32.
+struct V2MVariant {
+  const void *x; void *y;
+  const void *wqkv, *bqkv, *wo, *bo;
+  const float *lam, *subw, *er;
+  const void *cwq, *cbq, *cwo, *cbo;
+  const float *clam, *csubw;
+  const void *norm_scale, *norm_bias;
+  const void *fw1g, *fb1g, *fw2, *fb2;
+  const void *gate_w, *gate_b, *sw1g, *sb1g, *sw2, *sb2;
+  const void *ew1g, *eb1g, *ew2, *eb2;
+  const float *rope_cos, *rope_sin;
+  void *k_cache, *v_cache;
+  const void *k_cross, *v_cross;
+  float *work;
+  int *sel;
+  int B, D, H, S, Sm, pos, er_len;
+  int attn, cross, ffn, expert, F, Fe, E, k_top, rms, pre_norm;
+};
+
+// f32 workspace of the attention half, in rows of B x D (the FFN
+// activations (B, F) follow): x0, q (2), attn, r1, x1, cq (2), cattn, r2,
+// x2, r3 — as decode_variant.py:layer_workspace_size.
+constexpr int kLayerRows = 12;
+
+// ---------------------------------------------------------------------------
+// the launch chains
+// ---------------------------------------------------------------------------
+
+static inline int norm_kind(const V2MVariant& a) {
+  return a.rms ? kRmsNorm : kLayerNorm;
+}
+
+// The MoE half: xn = round(norm3(x2)) (pre-norm) or round(x2); router;
+// the shared expert (slot 0, when present) and every routed expert's
+// first layer (GLU pair or SiLU MLP) and second layer for the clips it
+// serves; y = x2 + combine (pre-norm) or norm3(x2 + combine).
+template <typename T>
+static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
+                   int sel_order, float* work, cudaStream_t st) {
+  const int B = a.B, D = a.D, E = a.E, Fe = a.Fe;
+  if (a.k_top < 1 || a.k_top > kMaxTop || a.k_top > E || E > kMaxExperts)
+    return (int)cudaErrorInvalidValue;
+  const size_t BD = (size_t)B * D;
+  // f32 workspace, as in decode_variant.py:moe_workspace_size
+  float* xn = work;                                  // (B, D)
+  float* selw = xn + BD;                             // (B, kMaxTop)
+  float* act = selw + (size_t)B * kMaxTop;           // (E + 1, B, Fe)
+  float* ye = act + (size_t)(E + 1) * B * Fe;        // (E + 1, B, D)
+  // int workspace, as in decode_variant.py:moe_route_size
+  int* counts = a.sel + (size_t)B * kMaxTop;         // (32) clips per expert
+  int* lists = counts + 32;                          // (E, B) their ids
+  const T* ns = (const T*)a.norm_scale;
+  const T* nb = (const T*)a.norm_bias;
+  const bool shared = a.sw1g != nullptr;
+  int err;
+  {
+    Close c = {};
+    c.x = x2;
+    c.x_is_t = x2_is_t;
+    c.norm = a.pre_norm ? norm_kind(a) : kNoNorm;
+    c.g = ns + 2 * D;
+    c.bn = nb + 2 * D;
+    c.out_f = xn;
+    c.round_f = 1;
+    c.B = B;
+    c.K = D;
+    if ((err = close_rows<T>(c, st))) return err;
+  }
+  if ((err = (int)cudaMemsetAsync(counts, 0, E * sizeof(int), st))) return err;
+  router_kernel<T, float><<<B, kThreads, (size_t)D * sizeof(float), st>>>(
+      xn, (const T*)a.gate_w, (const T*)a.gate_b, B, D, E, a.k_top, a.sel,
+      selw, counts, lists);
+  V2M_CHECK_LAUNCH();
+  {  // first layer of the shared expert (slot 0) and of each routed expert
+    BGemv g = {};
+    g.in.x = xn;
+    g.w = a.sw1g;
+    g.bias = a.sb1g;
+    g.ew = a.ew1g;
+    g.eb = a.eb1g;
+    g.counts = counts;
+    g.lists = lists;
+    g.B = B;
+    g.K = D;
+    g.units = Fe;
+    g.out_f = act;
+    if (a.expert == 0) {  // GLU: rows j and Fe + j -> h * silu(g)
+      g.n_rows = 2 * Fe;
+      g.F = Fe;
+      if ((err = gemv<T, kSwiglu>(g, E + 1, st))) return err;
+    } else {              // MLP: silu(w1 . x + b1)
+      g.n_rows = Fe;
+      g.act = kSilu;
+      if ((err = gemv<T, kPlain>(g, E + 1, st))) return err;
+    }
+  }
+  {  // second layer of each slot over its own activations
+    BGemv g = {};
+    g.in.x = act;
+    g.in.slot_stride = (size_t)B * Fe;
+    g.w = a.sw2;
+    g.bias = a.sb2;
+    g.ew = a.ew2;
+    g.eb = a.eb2;
+    g.counts = counts;
+    g.lists = lists;
+    g.B = B;
+    g.K = Fe;
+    g.n_rows = D;
+    g.units = D;
+    g.out_f = ye;
+    if ((err = gemv<T, kPlain>(g, E + 1, st))) return err;
+  }
+  Close c = {};
+  c.x = x2;
+  c.x_is_t = x2_is_t;
+  c.ye = ye;
+  c.shared = shared;
+  c.sel_order = sel_order;
+  c.sel = a.sel;
+  c.selw = selw;
+  c.k_top = a.k_top;
+  c.E = E;
+  c.norm = a.pre_norm ? kNoNorm : norm_kind(a);
+  c.g = ns + 2 * D;
+  c.bn = nb + 2 * D;
+  c.out_t = a.y;
+  c.B = B;
+  c.K = D;
+  return close_rows<T>(c, st);
+}
+
+// One layer. batched = false: the whole B=1 layer (a deep layer finishes
+// with run_moe, its x2 in f32). batched = true: the attention half, plus
+// the FFN of a shallow layer; a deep layer returns x2 as T.
+template <typename T>
+static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
+  const int B = a.B, D = a.D, H = a.H, hd = D / a.H, F = a.F;
+  const bool pre = a.pre_norm != 0;
+  const bool rope = a.rope_cos != nullptr;
+  const int nq = a.attn == kDiff ? 2 : 1;   // self query/key width / D
+  const int nc = a.cross == kDiff ? 2 : 1;  // cross query/key width / D
+  const size_t BD = (size_t)B * D;
+  float* x0 = a.work;          // layer input (f32 copy, post-norm)
+  float* q = x0 + BD;          // self query (nq D)
+  float* attn = q + 2 * BD;
+  float* r1 = attn + BD;       // residual + self block
+  float* x1 = r1 + BD;         // norm1(r1) (post-norm)
+  float* cq = x1 + BD;         // cross query (nc D)
+  float* cattn = cq + 2 * BD;
+  float* r2 = cattn + BD;      // residual + cross block
+  float* x2 = r2 + BD;         // norm2(r2) (post-norm)
+  float* r3 = x2 + BD;         // x2 + FFN (post-norm)
+  float* act = r3 + BD;        // (B, F) FFN activations
+  const T* ns = (const T*)a.norm_scale;
+  const T* nb = (const T*)a.norm_bias;
+  // fold norm row i into a GEMV's input staging (f32 result into out)
+  auto fold = [&](RowsIn& in, int i, float* out) {
+    in.ln_g = ns + (size_t)i * D;
+    in.ln_b = nb + (size_t)i * D;
+    in.rms = a.rms;
+    in.norm_out = out;
+  };
+  int err;
+  {  // q | k | v (+ RoPE at pos); K/V rows into the caches at (b, pos)
+    BGemv g = {};
+    g.in.x = a.x;
+    g.in.x_is_t = 1;
+    if (pre) {
+      fold(g.in, 0, nullptr);
+    } else {
+      g.in.norm_out = x0;
+    }
+    g.w = a.wqkv;
+    g.bias = a.bqkv;
+    g.B = B;
+    g.K = D;
+    g.units = (2 * nq + 1) * D / 2;
+    g.cos = a.rope_cos;
+    g.sin = a.rope_sin;
+    g.pos = a.pos;
+    g.hd = hd;
+    g.rope_rows = rope ? 2 * nq * D : 0;
+    g.q_rows = nq * D;
+    g.k_rows = nq * D;
+    g.q_f32 = !batched;
+    g.D = D;
+    g.S = a.S;
+    g.out_f = q;
+    g.k_cache = a.k_cache;
+    g.v_cache = a.v_cache;
+    if ((err = gemv<T, kRope>(g, 1, st))) return err;
+  }
+  {  // self-attention over rows <= pos, row pos kept f32
+    Attn t = {};
+    t.q = q;
+    t.k = a.k_cache;
+    t.v = a.v_cache;
+    t.out = attn;
+    t.lam = a.lam;
+    t.subw = a.subw;
+    t.er = a.attn == kRpr ? a.er : nullptr;
+    t.rows = a.pos + 1;
+    t.stride_rows = a.S;
+    t.D = D;
+    t.hd = hd;
+    t.diff = a.attn == kDiff;
+    t.er_len = a.er_len;
+    t.pos = a.pos;
+    t.cur = a.pos;
+    t.batched = batched;
+    t.scale = 1.f / sqrtf((float)hd);
+    if ((err = attention<T>(t, B, H, st))) return err;
+  }
+  {  // r1 = residual + (wo . attn + bo); the residual is x0 or, pre-norm, x
+    BGemv g = {};
+    g.in.x = attn;
+    g.w = a.wo;
+    g.bias = a.bo;
+    g.B = B;
+    g.K = D;
+    g.units = D;
+    if (pre) {
+      g.residual_t = a.x;
+    } else {
+      g.residual = x0;
+    }
+    g.out_f = r1;
+    if ((err = gemv<T, kPlain>(g, 1, st))) return err;
+  }
+  {  // cross query of norm1(r1) (post: kept as x1) or norm2(r1) (pre)
+    BGemv g = {};
+    g.in.x = r1;
+    fold(g.in, pre ? 1 : 0, pre ? nullptr : x1);
+    g.w = a.cwq;
+    g.bias = a.cbq;
+    g.B = B;
+    g.K = D;
+    g.units = nc * D / 2;
+    g.cos = a.rope_cos;
+    g.sin = a.rope_sin;
+    g.pos = a.pos;
+    g.hd = hd;
+    g.rope_rows = rope ? nc * D : 0;
+    g.q_rows = nc * D;
+    g.q_f32 = !batched;
+    g.D = D;
+    g.S = a.S;
+    g.out_f = cq;
+    if ((err = gemv<T, kRope>(g, 1, st))) return err;
+  }
+  {  // cross-attention over each clip's Sm primed rows
+    Attn t = {};
+    t.q = cq;
+    t.k = a.k_cross;
+    t.v = a.v_cross;
+    t.out = cattn;
+    t.lam = a.clam;
+    t.subw = a.csubw;
+    t.rows = a.Sm;
+    t.stride_rows = a.Sm;
+    t.D = D;
+    t.hd = hd;
+    t.diff = a.cross == kDiff;
+    t.pos = a.pos;
+    t.cur = -1;
+    t.batched = batched;
+    t.scale = 1.f / sqrtf((float)hd);
+    if ((err = attention<T>(t, B, H, st))) return err;
+  }
+  const bool deep = a.ffn == kMoeFfn;
+  {  // r2 = residual + (cwo . cattn + cbo)
+    BGemv g = {};
+    g.in.x = cattn;
+    g.w = a.cwo;
+    g.bias = a.cbo;
+    g.B = B;
+    g.K = D;
+    g.units = D;
+    g.residual = pre ? r1 : x1;
+    if (pre && deep && batched) {
+      g.out_t = a.y;  // the batched deep layer's x2, finished by the MoE
+    } else {
+      g.out_f = r2;
+    }
+    if ((err = gemv<T, kPlain>(g, 1, st))) return err;
+  }
+  Close c = {};
+  c.B = B;
+  c.K = D;
+  c.norm = norm_kind(a);
+  if (deep) {
+    if (pre && batched) return 0;
+    if (batched) {  // x2 = norm2(r2) as T
+      c.x = r2;
+      c.g = ns + D;
+      c.bn = nb + D;
+      c.out_t = a.y;
+      return close_rows<T>(c, st);
+    }
+    const float* x2f = r2;  // B=1: the MoE half on x2 in f32
+    if (!pre) {
+      c.x = r2;
+      c.g = ns + D;
+      c.bn = nb + D;
+      c.out_f = x2;
+      if ((err = close_rows<T>(c, st))) return err;
+      x2f = x2;
+    }
+    return run_moe<T>(a, x2f, 0, 1,
+                      a.work + kLayerRows * BD + (size_t)B * F, st);
+  }
+  {  // FFN first layer on norm2(r2) (post: kept as x2) or norm3(r2) (pre)
+    BGemv g = {};
+    g.in.x = r2;
+    fold(g.in, pre ? 2 : 1, pre ? nullptr : x2);
+    g.w = a.fw1g;
+    g.bias = a.fb1g;
+    g.B = B;
+    g.K = D;
+    g.units = F;
+    g.out_f = act;
+    if (a.ffn == kSwigluFfn) {
+      g.F = F;
+      if ((err = gemv<T, kSwiglu>(g, 1, st))) return err;
+    } else {
+      g.act = kRelu;
+      if ((err = gemv<T, kPlain>(g, 1, st))) return err;
+    }
+  }
+  {  // + w2 . act + b2 over the residual x2 (post) or r2 (pre)
+    BGemv g = {};
+    g.in.x = act;
+    g.w = a.fw2;
+    g.bias = a.fb2;
+    g.B = B;
+    g.K = F;
+    g.units = D;
+    g.residual = pre ? r2 : x2;
+    if (pre) {
+      g.out_t = a.y;
+    } else {
+      g.out_f = r3;
+    }
+    if ((err = gemv<T, kPlain>(g, 1, st))) return err;
+  }
+  if (pre) return 0;
+  c.x = r3;  // y = norm3(r3)
+  c.g = ns + 2 * D;
+  c.bn = nb + 2 * D;
+  c.out_t = a.y;
+  return close_rows<T>(c, st);
+}
+
+// The widths the kernels hold; `heads`: the attention's head split too.
+static bool widths_ok(const V2MVariant& a, bool heads) {
+  if (a.D > kMaxK || a.F > kMaxK || a.Fe > kMaxK) return false;
+  return !heads || (a.H > 0 && a.D % a.H == 0 && a.D / a.H <= kThreads);
+}
+
+}  // namespace variant
+}  // namespace v2m
+
+// Launch one B=1 layer (attention, FFN or MoE, norms) on `stream`. Returns
+// a cudaError_t code; never synchronises.
+extern "C" int v2m_variant_layer(int dtype, const v2m::variant::V2MVariant* a,
+                                 void* stream) {
+  using namespace v2m;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!variant::widths_ok(*a, true)) return (int)cudaErrorInvalidValue;
+  if (dtype == kF32) return variant::run_layer<float>(*a, false, st);
+  if (dtype == kBF16) return variant::run_layer<bf16>(*a, false, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launch one batched layer's attention half (+ the FFN of a shallow layer)
+// on `stream`. Returns a cudaError_t code; never synchronises.
+extern "C" int v2m_variant_batched_layer(int dtype,
+                                         const v2m::variant::V2MVariant* a,
+                                         void* stream) {
+  using namespace v2m;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!variant::widths_ok(*a, true)) return (int)cudaErrorInvalidValue;
+  if (dtype == kF32) return variant::run_layer<float>(*a, true, st);
+  if (dtype == kBF16) return variant::run_layer<bf16>(*a, true, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launch one batched MoE half (x2 = a->x as T, out a->y) on `stream`.
+// Returns a cudaError_t code; never synchronises.
+extern "C" int v2m_variant_batched_moe(int dtype,
+                                       const v2m::variant::V2MVariant* a,
+                                       void* stream) {
+  using namespace v2m;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!variant::widths_ok(*a, false)) return (int)cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return variant::run_moe<float>(*a, a->x, 1, 0, a->work, st);
+  if (dtype == kBF16)
+    return variant::run_moe<bf16>(*a, a->x, 1, 0, a->work, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,17 +1,27 @@
-"""Fused decode steps (counterpart of decode/fused.py): the product's B=1
-``"ends"`` backend (``init_fused_caches`` / ``make_fused_ends_step``) and
-its batched (B>1) ``ends=True`` form (``init_fused_batch_caches`` /
+"""Fused decode steps (counterpart of decode/fused.py).
+
+The V2 family (AMT 2.x with RoPE): the product's B=1 ``"ends"`` backend
+(``init_fused_caches`` / ``make_fused_ends_step``) and its batched (B>1)
+``ends=True`` form (``init_fused_batch_caches`` /
 ``make_fused_batch_step``).
+  * B=1: the first layer runs with the chord-embedding prologue folded in,
+    the middle layers as plain decode-layer steps, the last layer with the
+    final-LayerNorm + head epilogue (ops/decode_layer.py).
+  * B>1: every layer runs the batched attention step (ops/decode_batch.py),
+    the first with the embedding prologue; every MoE layer finishes with
+    the batched MoE step, which routes in the kernel, and the last one
+    emits the logits.
 
-B=1: the first layer runs with the chord-embedding prologue folded in, the
-middle layers as plain decode-layer steps, the last layer with the
-final-LayerNorm + head epilogue (ops/decode_layer.py).
+The variant wirings (the V3 family in this port): one variant kernel per
+layer at B=1 (``init_fused_variant_caches`` / ``make_fused_variant_step``,
+ops/decode_variant.py) and the batched pair at B>1
+(``init_fused_batch_variant_caches`` / ``make_fused_batch_variant_step``,
+ops/decode_batch_variant.py). The embedding and the final norm + head are
+plain PyTorch glue around the kernels, as the JAX steps keep them in XLA;
+differential layers carry 2D-wide K caches.
 
-B>1: every layer runs the batched attention step (ops/decode_batch.py),
-the first with the embedding prologue; every MoE layer finishes with the
-batched MoE step, which routes in the kernel, and the last one emits the
-logits. The whole-step monolith (``split=False``), the stack and variant
-backends, int8 KV caches and cache segmentation are not ported.
+Not ported: the whole-step monolith (``split=False``), the stack backend,
+int8 weights and KV caches, cache segmentation.
 """
 
 from __future__ import annotations
@@ -21,8 +31,12 @@ from typing import Dict
 import torch
 
 from ..ops.decode_batch import batched_layer_step, batched_moe_ffn
+from ..ops.decode_batch_variant import (batched_variant_layer_step,
+                                        batched_variant_moe_ffn)
 from ..ops.decode_layer import (decode_ends_step, decode_layer_step,
                                 pack_decoder_layers, pack_ends)
+from ..ops.decode_variant import (decode_variant_layer_step,
+                                  pack_variant_layers)
 from ..ops.embeddings import rope_table
 
 
@@ -131,5 +145,86 @@ def make_fused_batch_step(model):
                 x = batched_moe_ffn(x, layer, k_top=k_top,
                                     head_pack=head if i == L - 1 else None)
         return x
+
+    return step_logits
+
+
+def init_fused_variant_caches(model, cross) -> Dict[str, torch.Tensor]:
+    """Variant analogue of :func:`init_fused_caches`: zero self caches
+    k{i} (S, Dk) / v{i} (S, D), where Dk = 2D for a differential layer,
+    beside the primed cross K/V ck{i} / cv{i} of one clip."""
+    caches = init_fused_batch_variant_caches(model, cross)
+    if caches["k0"].shape[0] != 1:
+        raise ValueError("the fused variant step decodes one clip (B=1)")
+    return {k: v[0] for k, v in caches.items()}
+
+
+def init_fused_batch_variant_caches(model, cross) -> Dict[str, torch.Tensor]:
+    """Zero (B, S, Dk) / (B, S, D) self caches beside the primed (B, Sm, .)
+    cross K/V, heads concatenated along the width."""
+    S = model.cfg.max_seq_chord
+    caches = {}
+    for i, (layer, (ck, cv)) in enumerate(zip(model.decoder_layers, cross)):
+        B, _, D = cv.shape
+        caches[f"k{i}"] = cv.new_zeros(B, S, layer.self_attn.qk_dim)
+        caches[f"v{i}"] = cv.new_zeros(B, S, D)
+        caches[f"ck{i}"] = ck.contiguous()
+        caches[f"cv{i}"] = cv.contiguous()
+    return caches
+
+
+def _variant_setup(model):
+    """Packed layers, metas and the step's keyword arguments."""
+    cfg = model.cfg
+    layers, metas = pack_variant_layers(model)
+    kw = dict(n_heads=cfg.num_heads, norm=cfg.norm, pre_norm=cfg.pre_norm,
+              rope=rope_tables(model, layers[0]["wqkv"].device))
+    return layers, metas, kw
+
+
+def _embed(model, token_root, token_attr, key):
+    """The chord embedding of the current tokens: (B,) ids -> (B, D)."""
+    return model._embed_chords(token_root.reshape(-1, 1),
+                               token_attr.reshape(-1, 1), key)[:, 0]
+
+
+def make_fused_variant_step(model):
+    """Returns ``step_logits(caches, token_root, token_attr, key, pos)`` ->
+    (1, CHORD_SIZE) logits in the model dtype for a variant wiring at B=1:
+    the embedding, one variant kernel per layer, the final norm and head.
+    token_root / token_attr / key are (1,) tensors on the model's device,
+    pos a host int; the self caches are written in place."""
+    layers, metas, kw = _variant_setup(model)
+    k_top = model.cfg.moe.n_experts_per_token
+
+    def step_logits(caches, token_root, token_attr, key, pos: int):
+        x = _embed(model, token_root, token_attr, key)
+        for i, (p, meta) in enumerate(zip(layers, metas)):
+            x = decode_variant_layer_step(
+                x, pos, p, meta, caches[f"k{i}"], caches[f"v{i}"],
+                caches[f"ck{i}"], caches[f"cv{i}"], k_top=k_top, **kw)
+        return model.head(x)
+
+    return step_logits
+
+
+def make_fused_batch_variant_step(model):
+    """Batched (B>1) analogue of :func:`make_fused_variant_step`: each layer
+    runs the batched variant attention step, a deep layer then the batched
+    variant MoE step. Returns (B, CHORD_SIZE) logits; pos is shared by every
+    clip."""
+    layers, metas, kw = _variant_setup(model)
+    k_top = model.cfg.moe.n_experts_per_token
+    norm = dict(norm=kw["norm"], pre_norm=kw["pre_norm"])
+
+    def step_logits(caches, token_root, token_attr, key, pos: int):
+        x = _embed(model, token_root, token_attr, key)
+        for i, (p, meta) in enumerate(zip(layers, metas)):
+            x = batched_variant_layer_step(
+                x, pos, p, meta, caches[f"k{i}"], caches[f"v{i}"],
+                caches[f"ck{i}"], caches[f"cv{i}"], **kw)
+            if meta.ffn == "moe":
+                x = batched_variant_moe_ffn(x, p, meta, k_top=k_top, **norm)
+        return model.head(x)
 
     return step_logits

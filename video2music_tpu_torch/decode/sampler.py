@@ -14,9 +14,12 @@ Sampling semantics kept from the JAX sampler:
     drawn for all T - 1 steps and B clips at once.
 The token, its root/attr ids and the sequence advance on the device: the
 loop never reads a device value back, and gen_seq is fetched by the caller.
-The first step runs outside the loop, as in the JAX sampler. B=1 decodes
-through the fused ends step, B>1 through the batched fused step
-(decode/fused.py), as the JAX sampler routes them. Cache segmentation
+The first step runs outside the loop, as in the JAX sampler. The steps are
+routed as the JAX sampler routes them (decode/sampler.py:298-371): the V2
+family through the fused ends step at B=1 and the batched fused step at
+B>1, the variant wirings (V3) through the variant kernels at B=1 and the
+batched variant pair at B>1 (decode/fused.py); any other wiring raises
+NotImplementedError. Cache segmentation
 (``GenerateConfig.cache_segments``) is not ported: the JAX sampler is
 bit-exact with one segment, and the kernels read only rows <= pos.
 """
@@ -31,8 +34,28 @@ import torch
 from ..core import constants as C
 from ..core.vocab import chord_to_root_attr_tables
 
-from .fused import (init_fused_batch_caches, init_fused_caches,
-                    make_fused_batch_step, make_fused_ends_step)
+from ..ops.attention import not_ported
+from ..ops.decode_layer import fused_decode_eligible
+from ..ops.decode_variant import fused_variant_eligible
+from .fused import (init_fused_batch_caches,
+                    init_fused_batch_variant_caches, init_fused_caches,
+                    init_fused_variant_caches, make_fused_batch_step,
+                    make_fused_batch_variant_step, make_fused_ends_step,
+                    make_fused_variant_step)
+
+
+def fused_backend(cfg, B: int):
+    """(init_caches, make_step) of the fused step that decodes ``cfg`` at
+    batch ``B``."""
+    if fused_decode_eligible(cfg):
+        return ((init_fused_caches, make_fused_ends_step) if B == 1 else
+                (init_fused_batch_caches, make_fused_batch_step))
+    if fused_variant_eligible(cfg):
+        return ((init_fused_variant_caches, make_fused_variant_step)
+                if B == 1 else (init_fused_batch_variant_caches,
+                                make_fused_batch_variant_step))
+    raise not_ported(f"decoding the AMT {cfg.version!r} wiring",
+                     "Queue 1 item 12")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,12 +169,9 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
         memory = model.encode(semantic, scene_offset, motion, emotion)
         t1 = mark()
         cross = model.prime(memory)
-        if B == 1:
-            caches = init_fused_caches(model, cross)
-            step_logits = make_fused_ends_step(model)
-        else:
-            caches = init_fused_batch_caches(model, cross)
-            step_logits = make_fused_batch_step(model)
+        init_caches, make_step = fused_backend(model.cfg, B)
+        caches = init_caches(model, cross)
+        step_logits = make_step(model)
         t2 = mark()
 
         def step(pos: int):

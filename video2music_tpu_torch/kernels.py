@@ -25,8 +25,9 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu",
-           "decode_batch.cu", "flash_attention_dropout.cu")
-HEADERS = ("common.cuh",)
+           "decode_batch.cu", "flash_attention_dropout.cu",
+           "decode_variant.cu")
+HEADERS = ("common.cuh", "batch_decode.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -136,6 +137,21 @@ class BatchMoeArgs(ctypes.Structure):
             "B", "D", "F", "E", "k_top", "n_out")]
 
 
+class VariantArgs(ctypes.Structure):
+    """Mirror of ``V2MVariant`` in csrc/decode_variant.cu (same order)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x", "y", "wqkv", "bqkv", "wo", "bo", "lam", "subw", "er",
+        "cwq", "cbq", "cwo", "cbo", "clam", "csubw",
+        "norm_scale", "norm_bias", "fw1g", "fb1g", "fw2", "fb2",
+        "gate_w", "gate_b", "sw1g", "sb1g", "sw2", "sb2",
+        "ew1g", "eb1g", "ew2", "eb2", "rope_cos", "rope_sin",
+        "k_cache", "v_cache", "k_cross", "v_cross", "work", "sel")] + [
+        (name, ctypes.c_int) for name in (
+            "B", "D", "H", "S", "Sm", "pos", "er_len", "attn", "cross",
+            "ffn", "expert", "F", "Fe", "E", "k_top", "rms", "pre_norm")]
+
+
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.v2m_flash_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
@@ -155,6 +171,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               p, p, i, i, i, i, i, f, u, f, i,
                                               p]
     lib.v2m_attention_dropout_bwd.restype = i
+    for name in ("v2m_variant_layer", "v2m_variant_batched_layer",
+                 "v2m_variant_batched_moe"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, ctypes.POINTER(VariantArgs), p]
+        fn.restype = i
     return lib
 
 

@@ -1,4 +1,5 @@
-"""Models of the port: AMT 2.2 and the bimamba+ regression."""
+"""Models of the port: AMT 2.x (RoPE) and 3.x, and the bimamba+
+regression."""
 
 from .amt import VideoMusicTransformer
 from .regression import VideoRegression

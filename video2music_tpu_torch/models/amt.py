@@ -1,12 +1,16 @@
-"""VideoMusicTransformer for the AMT 2.2 wiring (counterpart of
-models/amt.py), built from the JAX package's ``core.config.amt_config``.
+"""VideoMusicTransformer for the AMT 2.x (RoPE) and 3.x wirings
+(counterpart of models/amt.py), built from the port's copy of
+``core.config.amt_config``.
 
 Chord tokens embed as emb_root(x_root) + emb_attr(x_attr), the scalar key
 is appended and Linear_chord projects; video features
 [semantic | scene_offset | motion | emotion] project by Linear_vis; no
-additive positions (RoPE sits inside attention); post-norm encoder over the
-video tokens, causal post-norm decoder with cross-attention; final norms
-and the 159-way head.
+additive positions (RoPE sits inside attention); an encoder over the video
+tokens, a causal decoder with cross-attention, final norms and the 159-way
+head. 2.x: post-norm LayerNorm, vanilla attention. 3.0: RMSNorm,
+differential decoder attention; 3.1 differential attention everywhere; 3.2
+as 3.1 in the pre-norm wiring (models/layers.py). Base AMT, V1, 2.0 and KAN
+2.3 are not ported yet.
 
 Decoding is ``encode -> prime -> decode_step``; the product decode loop
 runs the fused kernel step of decode/fused.py instead of
@@ -28,20 +32,19 @@ from ..core import constants as C
 from ..core.config import AMTConfig
 
 from ..ops.attention import not_ported
-from ..ops.norms import LayerNorm
+from ..ops.norms import make_norm
 from .layers import DecoderLayer, EncoderLayer
 
 
 def check_supported(cfg: AMTConfig) -> None:
     """Raise NotImplementedError for wirings this port does not cover yet
-    (everything but the V2 family with RoPE, e.g. 2.2 and 2.1)."""
+    (everything but the V2 family with RoPE, e.g. 2.2 and 2.1, and the V3
+    family 3.0 / 3.1 / 3.2)."""
     problems = []
-    if cfg.version is None or not cfg.version.startswith("2."):
+    if cfg.version is None or not cfg.version.startswith(("2.", "3.")):
         problems.append(f"AMT version {cfg.version!r}")
     if cfg.pos_encoding != "none":
         problems.append(f"{cfg.pos_encoding!r} position encoding")
-    if cfg.norm != "layernorm" or cfg.pre_norm:
-        problems.append("RMSNorm / pre-norm layers")
     if cfg.chord_embed or cfg.scene_embed or cfg.separated:
         problems.append("chord / scene embedding tables or separated heads")
     if cfg.kv_heads is not None:
@@ -62,11 +65,13 @@ class VideoMusicTransformer(nn.Module):
         self.linear_chord = nn.Linear(D + 1, D)
         self.linear_vis = nn.Linear(cfg.total_vf_dim, D)
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(spec, cfg) for spec in cfg.encoder_layers)
+            EncoderLayer(spec, cfg, depth=i)
+            for i, spec in enumerate(cfg.encoder_layers))
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(spec, cfg) for spec in cfg.decoder_layers)
-        self.encoder_norm = LayerNorm(D)
-        self.decoder_norm = LayerNorm(D)
+            DecoderLayer(spec, cfg, depth=i)
+            for i, spec in enumerate(cfg.decoder_layers))
+        self.encoder_norm = make_norm(cfg.norm, D)
+        self.decoder_norm = make_norm(cfg.norm, D)
         self.wout = nn.Linear(D, C.CHORD_SIZE)
 
     # -- embeddings ---------------------------------------------------------
@@ -94,16 +99,18 @@ class VideoMusicTransformer(nn.Module):
         return self.encoder_norm(vf)
 
     def prime(self, memory) -> List[tuple]:
-        """Every decoder layer's cross-attention (K, V), each (B, Sm, D)."""
+        """Every decoder layer's cross-attention (K, V), (B, Sm, qk_dim)
+        and (B, Sm, D)."""
         return [layer.prime(memory) for layer in self.decoder_layers]
 
     def init_cache(self, cross: List[tuple]) -> List[Dict[str, torch.Tensor]]:
-        """Cache for :meth:`decode_step`: zero self K/V (B, S, D) per layer
-        beside the primed cross K/V."""
-        B, _, D = cross[0][0].shape
+        """Cache for :meth:`decode_step`: zero self K (B, S, qk_dim) and V
+        (B, S, D) per layer beside the primed cross K/V."""
         S = self.cfg.max_seq_chord
-        return [dict(k=ck.new_zeros(B, S, D), v=ck.new_zeros(B, S, D),
-                     ck=ck, cv=cv) for ck, cv in cross]
+        return [dict(k=cv.new_zeros(cv.shape[0], S, layer.self_attn.qk_dim),
+                     v=cv.new_zeros(cv.shape[0], S, cv.shape[2]), ck=ck,
+                     cv=cv)
+                for layer, (ck, cv) in zip(self.decoder_layers, cross)]
 
     def decode_step(self, token, token_root, token_attr, key, pos: int,
                     cache):

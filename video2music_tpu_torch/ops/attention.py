@@ -1,6 +1,6 @@
-"""Multi-head attention for the AMT 2.2 wiring (counterpart of
-ops/attention.py:MultiHeadAttention): vanilla MHA with biases and optional
-pairwise RoPE.
+"""Multi-head attention (counterpart of ops/attention.py:MultiHeadAttention):
+vanilla MHA with or without biases and differential attention, each with
+optional pairwise RoPE.
 
 Modes, as in the JAX module:
   * "full": dense attention over the sequence (encoder; the decoder's full
@@ -12,12 +12,21 @@ Modes, as in the JAX module:
   * "step": one query; self-attention writes its K/V at ``pos`` into the
     caller's cache (in place) and attends over rows <= pos, cross-attention
     reads the primed K/V.
-K/V are kept as (B, S, D), heads concatenated along D. Softmax is f32 and
-masked logits are -1e9. RPR, differential and grouped-query attention are
-not ported yet.
+K/V are kept as (B, S, width), heads concatenated along the width. Softmax
+is f32 and masked logits are -1e9.
+
+Differential attention (ops/attention.py:269-284): 2H query/key heads
+against H value heads (K is 2D wide, V D wide); query heads 2h and 2h + 1
+both read value head h, so the full mode runs :func:`flash_attention` at 2H
+heads with V repeated per pair; the outputs combine as
+out_2h - lambda * out_2h+1, then the per-head ``subln`` RMSNorm (eps 1e-5)
+and the (1 - lambda_init) scale. RPR and grouped-query attention are not
+ported yet, nor training through differential attention.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -28,6 +37,7 @@ from ..core.config import AttentionConfig
 from .embeddings import apply_rope
 from .flash_attention import NEG_INF, flash_attention
 from .flash_attention_dropout import flash_attention_dropout
+from .norms import SUBLN_EPS, RMSNorm
 
 
 def not_ported(what: str, queue_item: str) -> NotImplementedError:
@@ -46,20 +56,35 @@ def dot_product_attention(q, k, v, *, mask=None):
     return torch.einsum("bhls,bhsd->bhld", w, v)
 
 
+def lambda_init_fn(depth: int) -> float:
+    """DIFF-Transformer lambda schedule (the JAX package's
+    ops/attention.py:lambda_init_fn)."""
+    return 0.8 - 0.6 * math.exp(-0.3 * depth)
+
+
 class MultiHeadAttention(nn.Module):
-    """``in_proj`` holds the q | k | v rows (3D, D); ``out_proj`` (D, D)."""
+    """``in_proj`` holds the q | k | v rows (qk_dim + qk_dim + D, D), where
+    qk_dim is D, or 2D for differential attention; ``out_proj`` (D, D). Both
+    carry biases when ``cfg.bias``. Differential attention adds
+    ``lambda_q1/k1/q2/k2`` (head_dim,) and ``subln`` (an RMSNorm over the
+    head dim); ``depth`` (the layer index) sets its lambda_init."""
 
     def __init__(self, cfg: AttentionConfig, d_model: int, *,
                  is_cross: bool = False, max_cache_len: int = 300,
-                 max_query_len: int = 0, dropout_rate: float = 0.0):
+                 max_query_len: int = 0, dropout_rate: float = 0.0,
+                 depth: int = 0):
         super().__init__()
-        if cfg.kind != "vanilla":
+        if cfg.kind not in ("vanilla", "differential"):
             raise not_ported(f"{cfg.kind!r} attention",
                              "Queue 1, variant wirings")
-        if cfg.kv_heads not in (None, cfg.num_heads) or not cfg.bias:
-            raise not_ported("grouped-query / bias-free attention",
+        if cfg.kv_heads not in (None, cfg.num_heads):
+            raise not_ported("grouped-query attention",
                              "Queue 1, variant wirings")
         self.num_heads = cfg.num_heads
+        self.head_dim = d_model // cfg.num_heads
+        self.diff = cfg.kind == "differential"
+        self.qk_heads = 2 * cfg.num_heads if self.diff else cfg.num_heads
+        self.qk_dim = self.qk_heads * self.head_dim
         self.rope = cfg.rope
         self.d_model = d_model
         self.is_cross = is_cross
@@ -69,56 +94,95 @@ class MultiHeadAttention(nn.Module):
         # cross-attention, whose K/V are memory rows); values per position
         # do not depend on the table length
         self.max_query_len = max(max_cache_len, max_query_len)
-        self.in_proj = nn.Linear(d_model, 3 * d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.in_proj = nn.Linear(d_model, 2 * self.qk_dim + d_model,
+                                 bias=cfg.bias)
+        self.out_proj = nn.Linear(d_model, d_model, bias=cfg.bias)
+        if self.diff:
+            hd = self.head_dim
+            self.lambda_q1, self.lambda_k1, self.lambda_q2, self.lambda_k2 = (
+                nn.Parameter(torch.zeros(hd)) for _ in range(4))
+            self.subln = RMSNorm(hd, eps=SUBLN_EPS)
+            self.lambda_init = lambda_init_fn(depth)
 
-    def _heads(self, x):  # (B, L, D) -> (B, H, L, hd)
+    def diff_lambda(self) -> torch.Tensor:
+        """The learned scalar lambda, in the parameters' dtype."""
+        return (torch.exp((self.lambda_q1 * self.lambda_k1).sum())
+                - torch.exp((self.lambda_q2 * self.lambda_k2).sum())
+                + self.lambda_init)
+
+    def _heads(self, x, n):  # (B, L, n * hd) -> (B, n, L, hd)
         B, L, _ = x.shape
-        return x.view(B, L, self.num_heads, -1).transpose(1, 2)
+        return x.view(B, L, n, -1).transpose(1, 2)
 
-    def _merge(self, x):  # (B, H, L, hd) -> (B, L, D)
-        B, H, L, hd = x.shape
-        return x.transpose(1, 2).reshape(B, L, H * hd)
+    def _merge(self, x):  # (B, n, L, hd) -> (B, L, n * hd)
+        B, n, L, hd = x.shape
+        return x.transpose(1, 2).reshape(B, L, n * hd)
 
     def _proj(self, x, part: int):
-        D = self.d_model
-        return F.linear(x, self.in_proj.weight[part * D:(part + 1) * D],
-                        self.in_proj.bias[part * D:(part + 1) * D])
+        lo = (0, self.qk_dim, 2 * self.qk_dim)[part]
+        hi = lo + (self.d_model if part == 2 else self.qk_dim)
+        bias = self.in_proj.bias
+        return F.linear(x, self.in_proj.weight[lo:hi],
+                        None if bias is None else bias[lo:hi])
 
-    def _rope(self, x, positions, max_len):  # x (B, L, D)
+    def _rope(self, x, positions, max_len):  # x (B, L, qk_dim)
         if not self.rope:
             return x
-        return self._merge(apply_rope(self._heads(x), positions=positions,
-                                      max_len=max_len))
+        return self._merge(apply_rope(self._heads(x, self.qk_heads),
+                                      positions=positions, max_len=max_len))
+
+    def _attend(self, q, k, v, **kw):
+        """q (B, L, qk_dim), k (B, S, qk_dim), v (B, S, D) -> (B, L, D):
+        attention over the heads, the differential pair combine and
+        subln, then out_proj. ``kw``: ``mask`` for the cached step, else
+        the full-mode ``causal`` / ``generator``."""
+        q, k, v = (self._heads(t, n).contiguous() for t, n in (
+            (q, self.qk_heads), (k, self.qk_heads), (v, self.num_heads)))
+        if self.diff:
+            v = v.repeat_interleave(2, dim=1)
+        if "mask" in kw:
+            attn = dot_product_attention(q, k, v, mask=kw["mask"])
+        elif kw["generator"] is not None and self.dropout_rate > 0.0:
+            if self.diff:
+                raise not_ported("training through differential attention",
+                                 "Queue 1 item 12")
+            # the seed stays on the device: no host sync per call
+            seed = torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=kw["generator"],
+                                 device=q.device, dtype=torch.int32)
+            attn = flash_attention_dropout(
+                q, k, v, causal=kw["causal"],
+                dropout_rate=self.dropout_rate, seed=seed)
+        else:
+            attn = flash_attention(q, k, v, causal=kw["causal"])
+        if self.diff:
+            B, _, L, hd = attn.shape
+            attn = attn.view(B, self.num_heads, 2, L, hd)
+            lam = self.diff_lambda().to(attn.dtype)
+            attn = self.subln(attn[:, :, 0] - lam * attn[:, :, 1])
+            attn = attn * (1.0 - self.lambda_init)
+        return self.out_proj(self._merge(attn))
 
     def project_kv(self, x):
-        """Memory / sequence -> (k roped at 0..L-1, v), each (B, L, D)."""
+        """Memory / sequence -> (k roped at 0..L-1, v), (B, L, qk_dim) and
+        (B, L, D)."""
         return (self._rope(self._proj(x, 1), None, self.max_cache_len),
                 self._proj(x, 2))
 
     def forward(self, query, key_value=None, *, causal: bool = False,
                 mode: str = "full", cache=None, pos: int = 0,
                 generator=None):
-        """cache: "step" mode only — (k, v) tensors (B, S, D); written in
-        place for self-attention, read for cross-attention. generator: a
-        torch.Generator on the query's device makes a "full" call a
-        training call (attention dropout at ``dropout_rate``)."""
+        """cache: "step" mode only — (k, v) tensors (B, S, qk_dim) and
+        (B, S, D); written in place for self-attention, read for
+        cross-attention. generator: a torch.Generator on the query's device
+        makes a "full" call a training call (attention dropout at
+        ``dropout_rate``)."""
         if mode == "prime":
             return self.project_kv(key_value)
         if mode == "full":
             q = self._rope(self._proj(query, 0), None, self.max_query_len)
             k, v = self.project_kv(key_value if self.is_cross else query)
-            q, k, v = (self._heads(t).contiguous() for t in (q, k, v))
-            if generator is not None and self.dropout_rate > 0.0:
-                # the seed stays on the device: no host sync per call
-                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                     device=query.device, dtype=torch.int32)
-                attn = flash_attention_dropout(
-                    q, k, v, causal=causal, dropout_rate=self.dropout_rate,
-                    seed=seed)
-            else:
-                attn = flash_attention(q, k, v, causal=causal)
-            return self.out_proj(self._merge(attn))
+            return self._attend(q, k, v, causal=causal, generator=generator)
         if mode != "step":
             raise ValueError(f"unknown attention mode {mode!r}")
         positions = torch.tensor([pos], device=query.device)
@@ -132,6 +196,4 @@ class MultiHeadAttention(nn.Module):
             v_all[:, pos] = self._proj(query, 2)[:, 0].to(v_all.dtype)
             mask = (torch.arange(k_all.shape[1], device=query.device)
                     <= pos)[None, None, None, :]
-        attn = dot_product_attention(self._heads(q), self._heads(k_all),
-                                     self._heads(v_all), mask=mask)
-        return self.out_proj(self._merge(attn))
+        return self._attend(q, k_all, v_all, mask=mask)

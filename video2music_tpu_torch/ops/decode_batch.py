@@ -45,31 +45,14 @@ import torch
 
 from .. import kernels
 from .decode_layer import (MAX_TOP_K, _dot, _layer_norm, _rope_at, _rotate,
-                           _swiglu, embed_plain)
+                           _swiglu, attend, embed_plain)
 
-MAX_K = 1024  # csrc/decode_batch.cu kMaxK: longest row a warp holds
+MAX_K = 1024  # csrc/batch_decode.cuh kMaxK: longest row a warp holds
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
-
-def _attention_rows(q, k, v, n_heads: int, cur: Optional[int]):
-    """q (B, D) in the compute dtype over k/v (B, R, D) -> (B, D) in the
-    compute dtype. f32 logits and softmax; probabilities rounded to the
-    compute dtype before P.V except the current row ``cur``."""
-    B, R, D = k.shape
-    hd = D // n_heads
-    dt = k.dtype
-    logits = torch.einsum("bhd,bshd->bhs", q.float().view(B, n_heads, hd),
-                          k.float().view(B, R, n_heads, hd)) * hd ** -0.5
-    p = torch.softmax(logits, dim=-1)
-    pr = p.to(dt).float()
-    if cur is not None:
-        pr[..., cur] = p[..., cur]
-    out = torch.einsum("bhs,bshd->bhd", pr, v.float().view(B, R, n_heads, hd))
-    return out.reshape(B, D).to(dt)
-
 
 def batched_layer_step_plain(x, pos: int, p, k_cache, v_cache, k_cross,
                              v_cross, *, n_heads: int, rope=None,
@@ -86,14 +69,15 @@ def batched_layer_step_plain(x, pos: int, p, k_cache, v_cache, k_cross,
         q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
     k_cache[:, pos] = k.to(dt)
     v_cache[:, pos] = v.to(dt)
-    attn = _attention_rows(q.to(dt), k_cache[:, :pos + 1],
-                           v_cache[:, :pos + 1], n_heads, pos)
+    attn = attend(q.to(dt).float(), k_cache[:, :pos + 1],
+                  v_cache[:, :pos + 1], n_heads, cur=pos, batched=True)
     x1 = _layer_norm(x.float() + (_dot(attn, p["wo"]) + p["bo"].float()),
                      p["norm_scale"][0], p["norm_bias"][0])
     cq = _dot(x1, p["cwq"]) + p["cbq"].float()
     if rope is not None:
         cq = _rotate(cq, cos, sin)
-    cattn = _attention_rows(cq.to(dt), k_cross, v_cross, n_heads, None)
+    cattn = attend(cq.to(dt).float(), k_cross, v_cross, n_heads,
+                   batched=True)
     x2 = _layer_norm(x1 + (_dot(cattn, p["cwo"]) + p["cbo"].float()),
                      p["norm_scale"][1], p["norm_bias"][1])
     if "gate_w" not in p:

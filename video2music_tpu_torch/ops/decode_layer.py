@@ -32,15 +32,43 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .. import kernels
-from .norms import LN_EPS
+from .norms import LN_EPS, SUBLN_EPS
 
 MAX_TOP_K = 8  # csrc/decode_layer.cu kMaxTop
 _DEEP_KEYS = ("gate_w", "gate_b", "ew1g", "eb1g", "ew2", "eb2")
 
 
 # ---------------------------------------------------------------------------
-# packing
+# eligibility and packing
 # ---------------------------------------------------------------------------
+
+def fused_decode_eligible(cfg) -> bool:
+    """True when the decoder wiring is the V2 family these kernels cover
+    (the JAX package's predicate, pallas_decode.py:554-580): post-norm
+    LayerNorm blocks, vanilla (optionally RoPE) MHA with biases, SwiGLU or
+    shared-GLU-MoE FFN, no position add, no temperature quirk."""
+    if cfg.version is None or cfg.separated or cfg.chord_embed:
+        return False
+    if cfg.pos_encoding != "none" or cfg.pre_norm or cfg.norm != "layernorm":
+        return False
+    if cfg.moe.temperature_schedule or cfg.moe.expert != "glu":
+        return False
+    if cfg.kv_heads is not None:
+        return False
+    if cfg.d_model % cfg.num_heads or (cfg.d_model // cfg.num_heads) % 2:
+        return False
+    for spec in cfg.decoder_layers:
+        for att in (spec.attn, spec.cross_attn):
+            if att is None or att.kind != "vanilla" or not att.bias:
+                return False
+            if att.rope != cfg.decoder_layers[0].attn.rope:
+                return False
+        if spec.ffn not in ("swiglu", "moe"):
+            return False
+        if spec.ffn == "moe" and not cfg.moe.shared_expert:
+            return False
+    return True
+
 
 def pack_decoder_layers(model) -> List[Dict[str, torch.Tensor]]:
     """Per-layer weight dicts of a port VideoMusicTransformer, as views of
@@ -113,15 +141,50 @@ def _rotate(y, cos, sin):
                        dim=-1).reshape(y.shape)
 
 
-def _cached_attention(q, k, v, n_heads: int, rows: int):
-    """q (D,) f32 over cache rows [0, rows) of k/v (S, D) -> (D,) f32."""
-    D = q.shape[0]
-    hd = D // n_heads
-    kk = k[:rows].float().view(rows, n_heads, hd)
-    vv = v[:rows].float().view(rows, n_heads, hd)
-    logits = torch.einsum("hd,shd->hs", q.view(n_heads, hd), kk) * hd ** -0.5
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("hs,shd->hd", p, vv).reshape(D)
+def attend(q, k, v, n_heads: int, *, lam=None, subw=None, er=None,
+           pos: int = 0, cur: Optional[int] = None, batched: bool = False):
+    """q (B, nq D) f32 over the rows of k (B, R, nq D) / v (B, R, D), nq = 2
+    for differential attention (``lam`` given) -> (B, D) f32. ``er``: the
+    RPR table, its bias for row j = q . er[er_len - 1 - pos + j] added to
+    the unscaled logits. ``batched``: round the RPR table and biases, the
+    probabilities (not row ``cur``), the value products and the
+    differential combine to the cache dtype, as the batched kernel does."""
+    B, R, Dk = k.shape
+    D = v.shape[-1]
+    H = n_heads
+    hd = D // H
+    nq = Dk // D
+    dt = k.dtype
+
+    def rnd(t):
+        return t.to(dt).float() if batched else t
+
+    logits = torch.einsum("bhd,bshd->bhs", q.view(B, nq * H, hd),
+                          k.float().view(B, R, nq * H, hd))
+    if er is not None:
+        rows = er.shape[0] - 1 - pos + torch.arange(R, device=er.device)
+        rel = rnd(er[rows].float()).view(R, H, hd)
+        bias = torch.einsum("bhd,shd->bhs", q.view(B, H, hd), rel)
+        if batched:
+            exact = bias[..., cur].clone()
+            bias = rnd(bias)
+            bias[..., cur] = exact
+        logits = logits + bias
+    p = torch.softmax(logits * hd ** -0.5, dim=-1)
+    if batched:
+        pr = rnd(p)
+        if cur is not None:
+            pr[..., cur] = p[..., cur]
+        p = pr
+    vv = v.float().view(B, R, H, hd)
+    if nq == 2:
+        vv = vv.repeat_interleave(2, dim=2)
+    pv = torch.einsum("bhs,bshd->bhd", p, vv)
+    if lam is None:
+        return rnd(pv).reshape(B, D)
+    c = rnd(rnd(pv[:, 0::2]) - lam.float() * rnd(pv[:, 1::2]))
+    c = c * torch.rsqrt(c.square().mean(-1, keepdim=True) + SUBLN_EPS)
+    return (c * subw.float().view(H, hd)).reshape(B, D)
 
 
 def _swiglu(x, w1g, b1g, w2, b2):
@@ -175,13 +238,14 @@ def decode_layer_plain(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
         q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
     k_cache[pos] = k.to(dt)
     v_cache[pos] = v.to(dt)
-    attn = _cached_attention(q, k_cache, v_cache, n_heads, pos + 1)
+    attn = attend(q[None], k_cache[None, :pos + 1], v_cache[None, :pos + 1],
+                  n_heads)[0]
     x1 = _layer_norm(x0.float() + (_dot(attn, p["wo"]) + p["bo"].float()),
                      p["norm_scale"][0], p["norm_bias"][0])
     cq = _dot(x1, p["cwq"]) + p["cbq"].float()
     if rope is not None:
         cq = _rotate(cq, cos, sin)
-    cattn = _cached_attention(cq, k_cross, v_cross, n_heads, k_cross.shape[0])
+    cattn = attend(cq[None], k_cross[None], v_cross[None], n_heads)[0]
     x2 = _layer_norm(x1 + (_dot(cattn, p["cwo"]) + p["cbo"].float()),
                      p["norm_scale"][1], p["norm_bias"][1])
     if "gate_w" in p:

@@ -12,9 +12,12 @@ port's copies of the JAX package's), ``inst.csv``, and a FluidSynth render
 where FluidSynth exists. ``generate`` is a batch of one; the
 DynamicBatcher of pipeline/serving.py drives ``generate_batch``.
 
-Not ported yet, and raising NotImplementedError: raw-video feature
-extraction (``video=``, ``extract_features_batch``), orbax checkpoints,
-int8 (``quantize``, ``kv_quant``), and every wiring but AMT 2.x + bimamba+.
+The wirings: AMT 2.x with RoPE (2.1, 2.2; the default) and 3.0 / 3.1 / 3.2
+(``music_gen_version``), each with the bimamba+ regression. Not ported
+yet, and raising NotImplementedError: raw-video feature extraction
+(``video=``, ``extract_features_batch``), orbax checkpoints, int8
+(``quantize``, ``kv_quant``), the other AMT wirings (base, 1.x, 2.0, KAN
+2.3) and regression backbones.
 Weights come from :mod:`video2music_tpu_torch.weights`: random from a seed,
 or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`).
 """

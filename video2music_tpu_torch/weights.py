@@ -7,7 +7,8 @@ dict that ``load_state_dict`` takes with ``strict=True``. flax Dense
 kernels are (in, out); the port keeps nn.Linear's (out, in). The port also
 fuses what the kernels read as one block: attention q|k|v rows into
 ``in_proj``, SwiGLU linear1|gate rows into ``w1g``, and per-expert w1|wg
-into ``w1g`` (E, 2F, D).
+into ``w1g`` (E, 2F, D). Bias-free projections (differential attention)
+stay bias-free; RMSNorms carry only ``weight``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from torch import nn
 from .models.mamba import MambaBlock
 from .ops.attention import MultiHeadAttention
 from .ops.moe import SharedMoE
-from .ops.norms import LayerNorm
+from .ops.norms import LayerNorm, RMSNorm
 
 
 def _t(a) -> torch.Tensor:
@@ -30,23 +31,37 @@ def _t(a) -> torch.Tensor:
 
 
 def _dense(p):
-    """flax Dense -> (weight (out, in), bias)."""
-    return _t(p["kernel"]).t().contiguous(), _t(p["bias"])
+    """flax Dense -> (weight (out, in), bias or None)."""
+    bias = _t(p["bias"]) if "bias" in p else None
+    return _t(p["kernel"]).t().contiguous(), bias
 
 
 def _put_linear(sd, prefix, p):
-    sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _dense(p)
+    sd[f"{prefix}.weight"], bias = _dense(p)
+    if bias is not None:
+        sd[f"{prefix}.bias"] = bias
 
 
 def _put_norm(sd, prefix, p):
-    sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _t(p["scale"]), _t(p["bias"])
+    """flax LayerNorm (scale, bias) or the JAX package's RMSNorm
+    (weight)."""
+    if "weight" in p:
+        sd[f"{prefix}.weight"] = _t(p["weight"])
+    else:
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = (_t(p["scale"]),
+                                                        _t(p["bias"]))
 
 
 def _put_attention(sd, prefix, p):
     parts = [_dense(p[name]) for name in ("q_proj", "k_proj", "v_proj")]
     sd[f"{prefix}.in_proj.weight"] = torch.cat([w for w, _ in parts])
-    sd[f"{prefix}.in_proj.bias"] = torch.cat([b for _, b in parts])
+    if parts[0][1] is not None:
+        sd[f"{prefix}.in_proj.bias"] = torch.cat([b for _, b in parts])
     _put_linear(sd, f"{prefix}.out_proj", p["out_proj"])
+    if "subln" in p:  # differential attention
+        for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
+            sd[f"{prefix}.{name}"] = _t(p[name])
+        _put_norm(sd, f"{prefix}.subln", p["subln"])
 
 
 def _put_swiglu(sd, prefix, w1, b1, wg, bg, w2, b2):
@@ -73,10 +88,13 @@ def _put_ffn(sd, prefix, p):
                 s["bg"][0], s["w2"][0], s["b2"][0])
 
 
-def amt_from_jax(params) -> Dict[str, torch.Tensor]:
+def amt_from_jax(params, moe_state=None) -> Dict[str, torch.Tensor]:
     """State dict of a port VideoMusicTransformer from the flax params of a
     JAX VideoMusicTransformer of the same config. Linear_chord's extra input
-    row (the appended key) becomes column D of ``linear_chord.weight``."""
+    row (the appended key) becomes column D of ``linear_chord.weight``.
+    ``moe_state``: the model's "moe_state" collection, which a config with
+    MoE balancing (V3) has; its ``balance_bias`` vectors become the
+    SharedMoE buffers of that name."""
     sd: Dict[str, torch.Tensor] = {}
     sd["embedding_root.weight"] = _t(params["embedding_root"]["embedding"])
     sd["embedding_attr.weight"] = _t(params["embedding_attr"]["embedding"])
@@ -102,6 +120,12 @@ def amt_from_jax(params) -> Dict[str, torch.Tensor]:
         for n in ("norm1", "norm2", "norm3"):
             _put_norm(sd, f"{pre}.{n}", p[n])
         i += 1
+    for name, state in (moe_state or {}).items():
+        kind, i = name.split("_")
+        stack = {"enc": "encoder_layers", "dec": "decoder_layers"}[kind]
+        if "balance_bias" in state.get("ffn", {}):
+            sd[f"{stack}.{i}.ffn.balance_bias"] = _t(
+                state["ffn"]["balance_bias"])
     return sd
 
 
@@ -172,18 +196,28 @@ def _uniform_(t, lo, hi, gen):
 def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     """Initialise every parameter from ``gen`` (a CPU generator), in module
     order, with the JAX package's schemes: LeCun-normal dense and expert
-    weights, Xavier-uniform attention projections, zero biases, unit
-    LayerNorms, and the Mamba dt / A / D initialisers. Returns ``model``."""
+    weights, Xavier-uniform attention projections (each of q, k, v and out
+    on its own fans), zero biases, unit norms, normal(0.1) differential
+    lambdas, and the Mamba dt / A / D initialisers. Returns ``model``."""
     done = set()
     for mod in model.modules():
         if isinstance(mod, MultiHeadAttention):
+            D, qk, w = mod.d_model, mod.qk_dim, mod.in_proj.weight
+            # (block, fan_out of one projection): q, k and v share their
+            # fans unless q and k are 2D wide
+            blocks = [(w, D)] if qk == D else [
+                (w[:qk], qk), (w[qk:2 * qk], qk), (w[2 * qk:], D)]
+            for block, fan_out in blocks + [(mod.out_proj.weight, D)]:
+                lim = math.sqrt(6.0 / (D + fan_out))
+                _uniform_(block, -lim, lim, gen)
             for lin in (mod.in_proj, mod.out_proj):
-                D_in = lin.weight.shape[1]
-                # xavier per (D, D) projection block
-                lim = math.sqrt(6.0 / (D_in + D_in))
-                _uniform_(lin.weight, -lim, lim, gen)
-                nn.init.zeros_(lin.bias)
-                done.update((id(lin.weight), id(lin.bias)))
+                if lin.bias is not None:
+                    nn.init.zeros_(lin.bias)
+                done.add(id(lin.weight))
+            if mod.diff:
+                for lam in (mod.lambda_q1, mod.lambda_k1, mod.lambda_q2,
+                            mod.lambda_k2):
+                    _normal_(lam, 0.1, gen)
         elif isinstance(mod, SharedMoE):
             D, F = mod.w1g.shape[2], mod.w2.shape[2]
             _normal_(mod.w1g, D ** -0.5, gen)
@@ -216,4 +250,6 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
         elif isinstance(mod, LayerNorm):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+        elif isinstance(mod, RMSNorm):
+            nn.init.ones_(mod.weight)
     return model
