@@ -19,13 +19,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ReLU + LayerNorm, V1.0 / V1.1 shared-less MLP / GLU experts, V3.1 and
      V3.2 differential + RMSNorm, post- and pre-norm): the B=1 layer and
      the batched pair at B=16 (the 3.1 deep layer timed at B=64 too), and
-     flash attention at the V3 encoder's 2H = 16 heads;
+     flash attention at the V3 encoder's 2H = 16 heads; the cooperative
+     whole-run kernel (csrc/decode_stack.cu) behind its three wrappers,
+     all six layers with the embed and head folded, a two-layer middle
+     run, the MoE and SwiGLU segments and the monolith over (L, S, D)
+     caches, and the decode layer with int8 weights;
   3. slice: a full-width Video2music (AMT 2.2 + bimamba+, random weights
      from seed 0) in bfloat16 answers three requests from seeded synthetic
      features; the outputs are checked, and each kernel's launch count over
      those requests must equal what the path implies;
   4. teacher-forced: 16 decode steps of the kernel path against the plain
      path on the card, float32 and bfloat16;
+  4b. B=1 backends: the same bf16 model decodes one 300 s request through
+     generate_chords for each B=1 backend ("layer", "stack", "monolith",
+     the whole step as one launch (split=False), int8 "layer", and "ends"
+     for comparison) and one Video2music.generate(quantize="int8"); every
+     clip is checked, each backend's launches must equal its path's, and
+     a torch.profiler window reads each backend's step;
+  4c. teacher-forced backends: 16 steps of each of those backends against
+     its plain counterpart, float32 and bfloat16;
   5. serving: the same Video2music decodes batches through generate_batch
      at B=16 and B=64 and through a DynamicBatcher (max_batch 16) fed 24
      requests at once; every clip is checked, and the launch counts must
@@ -113,6 +125,15 @@ KERNELS = {
     "batched_variant_moe_ffn": dict(
         source="video2music_tpu_torch/csrc/decode_variant.cu",
         replaces="video2music_tpu/ops/pallas_decode_batch_variant.py:479"),
+    "decode_monolith": dict(
+        source="video2music_tpu_torch/csrc/decode_stack.cu",
+        replaces="video2music_tpu/ops/pallas_decode_stack.py:624"),
+    "decode_segment": dict(
+        source="video2music_tpu_torch/csrc/decode_stack.cu",
+        replaces="video2music_tpu/ops/pallas_decode_stack.py:699"),
+    "decode_flat_monolith": dict(
+        source="video2music_tpu_torch/csrc/decode_stack.cu",
+        replaces="video2music_tpu/ops/pallas_decode_stack.py:519"),
 }
 # the kernels of the B=1 slice and of batched serving
 SLICE_KERNELS = ("flash_attention", "decode_layer", "decode_ends",
@@ -124,6 +145,15 @@ TRAIN_KERNELS = ("flash_attention_dropout_fwd", "flash_attention_dropout_bwd")
 V3_KERNELS = ("flash_attention", "decode_variant_layer",
               "batched_variant_layer_step", "batched_variant_moe_ffn",
               "selective_scan")
+# the B=1 backends of generate_chords: (fused, quantize, split) and the
+# decode kernel each launches per step
+BACKENDS = {"ends": ("auto", None, True, None),
+            "layer": ("layer", None, True, "decode_layer"),
+            "stack": ("stack", None, True, "decode_segment"),
+            "monolith": ("monolith", None, True, "decode_monolith"),
+            "whole": ("auto", None, False, "decode_flat_monolith"),
+            "int8": ("auto", "int8", True, "decode_layer")}
+STACK_KERNELS = ("decode_monolith", "decode_segment", "decode_flat_monolith")
 
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -270,6 +300,7 @@ def note_bound(report, name, n_bytes, flops, peak=PEAK_BF16):
 
 
 EXPERT_KEYS = ("ew1g", "eb1g", "ew2", "eb2")
+EXPERT_SCALES = ("ew1g_s", "ew2_s")  # the experts' int8 row scales
 
 
 def layer_work(p, keys, expert_rows=None):
@@ -279,7 +310,7 @@ def layer_work(p, keys, expert_rows=None):
     b = f = 0
     for key in keys:
         t = p[key]
-        if key in EXPERT_KEYS:
+        if key in EXPERT_KEYS + EXPERT_SCALES:
             per = t[0].numel()
             used = int((expert_rows > 0).sum())
             b += used * per * t.element_size()
@@ -437,6 +468,183 @@ def kernel_phase(report, v2m):
                        nbytes(xs, dt, A, Bm, Cm, Dv, xs), 8 * L * ED * N,
                        peak=PEAK_F32)
             report["selective_scan"]["library_ms"] = None
+
+
+def run_work(layers, pos, Sm, el):
+    """(bytes, flops) of a run of packed layers at one position: every
+    weight read once (the experts: two per MoE layer, what top-2 reads),
+    the self cache rows 0..pos, all cross rows and the new K/V rows."""
+    import torch
+    b = f = 0
+    for p in layers:
+        D = p["wqkv"].shape[-1]
+        rows = None
+        if "gate_w" in p:
+            rows = torch.zeros(p["gate_w"].shape[0])
+            rows[:2] = 1
+        w_b, w_f = layer_work(p, p.keys(), rows)
+        b += w_b + 2 * (pos + 1) * D * el + 2 * Sm * D * el + 2 * D * el
+        f += w_f + 4 * (pos + 1) * D + 4 * Sm * D
+    return b, f
+
+
+def stack_kernel_phase(report, v2m):
+    """The cooperative whole-run kernel behind its three wrappers, on the
+    full-width 2.2 model's packed weights (random from seed 0), pos 150,
+    random caches: all six layers with the embed and head folded and a
+    two-layer middle run (decode_flat_monolith_step), the SwiGLU and MoE
+    segments (decode_segment_step), the monolith over (L, S, D) caches;
+    then the decode layer with int8 weights, shallow and deep."""
+    import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops import decode_stack as ds
+
+    dev = v2m.device
+    cfg = v2m.amt_cfg
+    D, H, S, Sm = cfg.d_model, cfg.num_heads, cfg.max_seq_chord, \
+        cfg.max_seq_video
+    L = len(cfg.decoder_layers)
+    pos = S // 2
+    gen = torch.Generator().manual_seed(4321)
+    root = torch.tensor([3], device=dev, dtype=torch.int32)
+    attr = torch.tensor([5], device=dev, dtype=torch.int32)
+    key = torch.tensor([1.0], device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        print(f"stack kernels, {dtype}:")
+        model, _ = v2m._models(name)
+        kw = dict(n_heads=H, k_top=cfg.moe.n_experts_per_token,
+                  rope=rope_tables(model, dev))
+        packed = ds.pack_monolith(model)
+        layers = packed["layers"]
+        el = torch.finfo(dtype).bits // 8
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+        kc, vc = rnd(L, S, D), rnd(L, S, D)
+        kx, vx = rnd(L, Sm, D), rnd(L, Sm, D)
+        x = rnd(1, D)
+
+        def flat_caches(k, v, idx):
+            return [(k[i], v[i], kx[i], vx[i]) for i in idx]
+
+        # the whole run: six layers, embed and head folded
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got = ds.decode_flat_monolith_step(root, attr, key, pos, layers,
+                                           packed, flat_caches(k1, v1,
+                                                               range(L)),
+                                           **kw)
+        want = ds.decode_flat_monolith_plain(root, attr, key, pos, layers,
+                                             packed, flat_caches(k2, v2,
+                                                                 range(L)),
+                                             **kw)
+        err = check_close("decode_flat_monolith all layers", dtype, got,
+                          want)
+        check_close("decode_flat_monolith caches", dtype, k1, k2)
+        note_error(report, "decode_flat_monolith", dtype, err)
+        plans = {}
+        caches = flat_caches(k1, v1, range(L))
+        note_times(report, "decode_flat_monolith", dtype,
+                   lambda: ds.decode_flat_monolith_step(
+                       root, attr, key, pos, layers, packed, caches,
+                       plans=plans, **kw),
+                   lambda: ds.decode_flat_monolith_plain(
+                       root, attr, key, pos, layers, packed,
+                       flat_caches(k2, v2, range(L)), **kw), plain_iters=5)
+        # a middle run, a SwiGLU and a MoE layer, no ends
+        mid = [L // 2 - 1, L // 2]
+        got = ds.decode_flat_monolith_step(
+            None, None, None, pos, [layers[i] for i in mid], None,
+            flat_caches(k1, v1, mid), embed=False, fold_head=False, x=x,
+            **kw)
+        want = ds.decode_flat_monolith_plain(
+            None, None, None, pos, [layers[i] for i in mid], None,
+            flat_caches(k2, v2, mid), embed=False, fold_head=False, x=x,
+            **kw)
+        note_error(report, "decode_flat_monolith", dtype, check_close(
+            "decode_flat_monolith middle run", dtype, got, want))
+        # the monolith over stacked caches
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got = ds.decode_monolith_step(root, attr, key, pos, packed, k1, v1,
+                                      kx, vx, **kw)
+        want = ds.decode_monolith_plain(root, attr, key, pos, packed, k2,
+                                        v2, kx, vx, **kw)
+        note_error(report, "decode_monolith", dtype, check_close(
+            "decode_monolith", dtype, got, want))
+        check_close("decode_monolith caches", dtype, v1, v2)
+        plans_m = {}
+        note_times(report, "decode_monolith", dtype,
+                   lambda: ds.decode_monolith_step(
+                       root, attr, key, pos, packed, k1, v1, kx, vx,
+                       plans=plans_m, **kw),
+                   lambda: ds.decode_monolith_plain(
+                       root, attr, key, pos, packed, k2, v2, kx, vx, **kw),
+                   plain_iters=5)
+        # the segments: SwiGLU then MoE (the MoE one timed)
+        segs = ds.pack_decoder_segments(model)
+        for seg in segs:
+            idx = slice(seg["start"], seg["start"] + len(seg["layers"]))
+            sk1, sv1 = kc[idx].clone(), vc[idx].clone()
+            sk2, sv2 = kc[idx].clone(), vc[idx].clone()
+            skx, svx = kx[idx].contiguous(), vx[idx].contiguous()
+            got = ds.decode_segment_step(x, pos, seg, sk1, sv1, skx, svx,
+                                         **kw)
+            want = ds.decode_segment_plain(x, pos, seg, sk2, sv2, skx, svx,
+                                           **kw)
+            note_error(report, "decode_segment", dtype, check_close(
+                f"decode_segment {seg['kind']}", dtype, got, want))
+            check_close(f"decode_segment {seg['kind']} caches", dtype, sk1,
+                        sk2)
+            if seg["kind"] == "moe":
+                plans_s = {}
+                note_times(report, "decode_segment", dtype,
+                           lambda: ds.decode_segment_step(
+                               x, pos, seg, sk1, sv1, skx, svx,
+                               plans=plans_s, **kw),
+                           lambda: ds.decode_segment_plain(
+                               x, pos, seg, sk2, sv2, skx, svx, **kw),
+                           plain_iters=5)
+                seg_work = run_work(seg["layers"], pos, Sm, el)
+        # int8 decode layer, shallow and deep (the deep one timed)
+        q_layers = dl.pack_decoder_layers(model, quantize="int8")
+        for i in (0, L - 1):
+            p = q_layers[i]
+            k1, v1 = kc[i].clone(), vc[i].clone()
+            k2, v2 = kc[i].clone(), vc[i].clone()
+            got = dl.decode_layer_step(x, pos, p, k1, v1, kx[i], vx[i], **kw)
+            want = dl.decode_layer_plain(x, pos, p, k2, v2, kx[i], vx[i],
+                                         **kw)
+            tag = "deep" if i else "shallow"
+            err = check_close(f"decode_layer int8 {tag}", dtype, got, want)
+            errs = report["decode_layer"].setdefault("err_int8", {})
+            errs[dtype] = max(err, errs.get(dtype, 0.0))
+            if i:
+                note_times(report, "decode_layer", dtype,
+                           lambda: dl.decode_layer_step(
+                               x, pos, p, k1, v1, kx[i], vx[i], **kw),
+                           lambda: dl.decode_layer_plain(
+                               x, pos, p, k2, v2, kx[i], vx[i], **kw),
+                           key="ms_int8")
+                q_work = run_work([p], pos, Sm, el)
+        if dtype == torch.bfloat16:
+            # the ends: two embedding rows, Linear_chord, the final norm
+            # and the head
+            h_b, h_f = layer_work(packed, ("lc_w", "lc_krow", "lc_b",
+                                           "dn_scale", "dn_bias", "wout",
+                                           "bout"))
+            h_b += 2 * D * el
+            w_b, w_f = run_work(layers, pos, Sm, el)
+            for name in ("decode_flat_monolith", "decode_monolith"):
+                note_bound(report, name, w_b + h_b + 159 * el, w_f + h_f)
+                report[name]["library_ms"] = None
+            note_bound(report, "decode_segment",
+                       seg_work[0] + 2 * nbytes(x), seg_work[1])
+            report["decode_segment"]["library_ms"] = None
+            report["decode_layer"]["bound_ms_int8"] = max(
+                (q_work[0] + 2 * nbytes(x)) / HBM_BYTES_PER_S * 1e3,
+                q_work[1] / PEAK_BF16 * 1e3)
 
 
 def batched_kernel_phase(report, v2m):
@@ -695,6 +903,7 @@ def wrappers():
     from video2music_tpu_torch.ops import decode_batch as db
     from video2music_tpu_torch.ops import decode_batch_variant as dbv
     from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops import decode_stack as ds
     from video2music_tpu_torch.ops import decode_variant as dv
     from video2music_tpu_torch.ops import flash_attention_dropout as fad
     from video2music_tpu_torch.ops.flash_attention import flash_attention
@@ -709,22 +918,33 @@ def wrappers():
             "flash_attention_dropout_bwd": fad.flash_attention_dropout_bwd,
             "decode_variant_layer": dv.decode_variant_layer_step,
             "batched_variant_layer_step": dbv.batched_variant_layer_step,
-            "batched_variant_moe_ffn": dbv.batched_variant_moe_ffn}
+            "batched_variant_moe_ffn": dbv.batched_variant_moe_ffn,
+            "decode_monolith": ds.decode_monolith_step,
+            "decode_segment": ds.decode_segment_step,
+            "decode_flat_monolith": ds.decode_flat_monolith_step}
 
 
-def path_launches(v2m, width: int, T: int = 300):
+def path_launches(v2m, width: int, T: int = 300, backend: str = "ends",
+                  regression: bool = True):
     """Kernel launches one generate call of ``width`` clips implies: the
-    B=1 kernels at width 1, the batched ones above; the V2 kernels for the
-    V2 family, the variant kernels for the others (V3)."""
+    B=1 kernels at width 1 (of ``backend``, a key of BACKENDS), the batched
+    ones above; the V2 kernels for the V2 family, the variant kernels for
+    the others (V3); the scan unless ``regression`` is False (a bare
+    generate_chords)."""
     from video2music_tpu_torch.ops.decode_layer import fused_decode_eligible
+    from video2music_tpu_torch.ops.decode_stack import decoder_segments
     cfg, rcfg = v2m.amt_cfg, v2m.reg_cfg
     L = len(cfg.decoder_layers)
     n_deep = sum(spec.ffn == "moe" for spec in cfg.decoder_layers)
     out = dict.fromkeys(KERNELS, 0)
     out.update(flash_attention=len(cfg.encoder_layers),
-               selective_scan=2 * rcfg.n_layers)
+               selective_scan=2 * rcfg.n_layers if regression else 0)
     v2 = fused_decode_eligible(cfg)
-    if width == 1 and v2:
+    per_step = {"layer": L, "int8": L, "stack": len(decoder_segments(cfg)),
+                "monolith": 1, "whole": 1}
+    if width == 1 and v2 and backend != "ends":
+        out[BACKENDS[backend][3]] = (T - 1) * per_step[backend]
+    elif width == 1 and v2:
         out.update(decode_layer=(T - 1) * (L - 2), decode_ends=(T - 1) * 2)
     elif v2:
         out.update(batched_layer_step=(T - 1) * L,
@@ -737,13 +957,15 @@ def path_launches(v2m, width: int, T: int = 300):
     return out
 
 
-def check_launches(report, v2m, widths, names, record, key="launches"):
-    """Compare the counters with what generate calls of ``widths`` imply;
-    every kernel of ``names`` must have launched; record the launches of
-    ``record`` under ``key`` (added to what an earlier run recorded)."""
+def check_launches(report, v2m, widths, names, record, key="launches",
+                   **path):
+    """Compare the counters with what generate calls of ``widths`` imply
+    (``path``: path_launches' backend / regression); every kernel of
+    ``names`` must have launched; record the launches of ``record`` under
+    ``key`` (added to what an earlier run recorded)."""
     counts = {name: fn.launches for name, fn in wrappers().items()}
     for name in KERNELS:
-        want = sum(path_launches(v2m, w)[name] for w in widths)
+        want = sum(path_launches(v2m, w, **path)[name] for w in widths)
         print(f"  launches {name}: {counts[name]} (path implies {want})")
         fail_unless(counts[name] == want,
                     f"{name}: {counts[name]} launches, path implies {want}")
@@ -753,11 +975,12 @@ def check_launches(report, v2m, widths, names, record, key="launches"):
         report[name][key] = report[name].get(key, 0) + counts[name]
 
 
-def check_clip(tag, res, primer, n, inst=None, ln_nd=None):
-    """The repo's own checks of one rendered clip."""
+def check_ids(tag, ids, primer, n):
+    """The repo's own checks of one clip's chord ids: n ids in [1, 157),
+    the primer kept, no three equal tokens in a row after it."""
     import numpy as np
     from video2music_tpu_torch.pipeline.primer import parse_primer
-    ids = np.asarray(res.chord_ids)
+    ids = np.asarray(ids)
     fail_unless(ids.shape == (n,), f"{tag}: {ids.shape} ids")
     fail_unless(((ids >= 1) & (ids < CHORD_END)).all(),
                 f"{tag}: chord ids outside [1, 157)")
@@ -769,6 +992,12 @@ def check_clip(tag, res, primer, n, inst=None, ln_nd=None):
     triples = (gen_part[2:] == gen_part[1:-1]) & \
         (gen_part[1:-1] == gen_part[:-2])
     fail_unless(not triples.any(), f"{tag}: three equal consecutive tokens")
+
+
+def check_clip(tag, res, primer, n, inst=None, ln_nd=None):
+    """The repo's own checks of one rendered clip."""
+    import numpy as np
+    check_ids(tag, res.chord_ids, primer, n)
     fail_unless(np.isfinite(res.instruments).all(),
                 f"{tag}: non-finite instruments")
     fail_unless(os.path.getsize(res.midi_path) > 0, f"{tag}: empty output.mid")
@@ -877,6 +1106,196 @@ def teacher_forced_phase(v2m):
                     atol=F32_LOGIT_ATOL))
         print(f"teacher-forced {name}: max abs logit error over 16 "
               f"positions {worst:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phases 4b and 4c: the B=1 backends
+# ---------------------------------------------------------------------------
+
+def request_inputs(v2m, feats, primer, dtype):
+    """generate_chords' arguments for one request, as generate_batch makes
+    them (features padded to 300 s, key and primer resolved)."""
+    import torch
+    from video2music_tpu_torch.core import constants as C
+    from video2music_tpu_torch.pipeline.api import _FEATURES, _prepare
+    p = _prepare(feats, None, primer)
+    dev = v2m.device
+    ids = torch.full((1, 300), C.CHORD_PAD, dtype=torch.int32, device=dev)
+    roots = torch.full_like(ids, C.CHORD_ROOT_PAD)
+    attrs = torch.full_like(ids, C.CHORD_ATTR_PAD)
+    n = len(p["primer_ids"])
+    for t, k in ((ids, "primer_ids"), (roots, "primer_roots"),
+                 (attrs, "primer_attrs")):
+        t[0, :n] = torch.as_tensor(p[k], dtype=torch.int32)
+    out = {k: torch.as_tensor(p[k], device=dev)[None].to(dtype)
+           for k in _FEATURES}
+    out.update(key=torch.tensor([[p["key_feature"]]], device=dev,
+                                dtype=dtype),
+               primer=ids, primer_root=roots, primer_attr=attrs,
+               num_primer=n)
+    return out
+
+
+def backends_phase(v2m, card, report):
+    """One 300 s request through generate_chords for each B=1 backend on
+    the full-width bf16 2.2 model (ends for comparison), then
+    Video2music.generate(quantize="int8"): every clip checked, each
+    backend's launches equal to its path's, ms/token, and a torch.profiler
+    window over each backend's step."""
+    import torch
+    from video2music_tpu_torch.decode.sampler import (GenerateConfig,
+                                                      generate_chords)
+    T = 300
+    model, _ = v2m._models("bfloat16")
+    primer = "C Am F G"
+    inputs = request_inputs(v2m, synthetic_features(T, 11), primer,
+                            torch.bfloat16)
+    report["backends"] = {}
+    for name, (fused, quantize, split, kernel) in BACKENDS.items():
+        kw = dict(fused=fused, quantize=quantize, split=split, **inputs)
+        generate_chords(model, gcfg=GenerateConfig(target_seq_length=8),
+                        generator=torch.Generator(device=v2m.device)
+                        .manual_seed(0), **kw)  # warm-up
+        for fn in wrappers().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = generate_chords(model, generator=torch.Generator(
+            device=v2m.device).manual_seed(5), **kw)
+        ids = out["gen_seq"][0].cpu().numpy()
+        wall = time.perf_counter() - t0
+        check_ids(f"backend {name}", ids, primer, T)
+        ms = out["timings_ms"]["decode"] / (T - 1)
+        report["backends"][name] = ms
+        print(f"backend {name} (fused={fused!r}, quantize={quantize!r}, "
+              f"split={split}): 300 s request, wall {wall:.3f} s, decode "
+              f"{out['timings_ms']['decode']:.1f} ms = {ms:.4f} ms/token "
+              f"[{card}]")
+        check_launches(report, v2m, [1], (kernel,) if kernel else (),
+                       (kernel,) if kernel in STACK_KERNELS else (),
+                       backend=name, regression=False)
+        if name == "int8":
+            report["decode_layer"]["launches_int8"] = \
+                wrappers()["decode_layer"].launches
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in wrappers().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = v2m.generate(features=synthetic_features(T, 12),
+                           primer=primer, quantize="int8", seed=3,
+                           output_dir=os.path.join(tmp, "int8"))
+        wall = time.perf_counter() - t0
+        check_clip("generate(quantize='int8')", res, primer, T,
+                   v2m.last_regression["instrument"],
+                   v2m.last_regression["ln_nd"])
+        tm = v2m.last_timings
+        print(f"Video2music.generate(quantize='int8'): 300 s request, wall "
+              f"{wall:.3f} s, decode {tm['decode']:.1f} ms = "
+              f"{tm['decode'] / (T - 1):.4f} ms/token [{card}]")
+        check_launches(report, v2m, [1], ("decode_layer",), (),
+                       backend="int8")
+    report["b1_step"] = {
+        name: profile_steps(model, 1, card, fused=fused, quantize=quantize,
+                            split=split)
+        for name, (fused, quantize, split, _) in BACKENDS.items()}
+
+
+def plain_backend_step(model, backend):
+    """The plain counterpart of a B=1 backend's step, on its caches."""
+    from video2music_tpu_torch.decode.fused import _embed, rope_tables
+    from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops import decode_stack as ds
+
+    cfg = model.cfg
+    kw = dict(n_heads=cfg.num_heads, k_top=cfg.moe.n_experts_per_token,
+              rope=rope_tables(model, model.wout.weight.device))
+    if backend == "monolith":
+        packed = ds.pack_monolith(model)
+        return lambda c, r, a, k, pos: ds.decode_monolith_plain(
+            r, a, k, pos, packed, c["k"], c["v"], c["ck"], c["cv"], **kw)
+    if backend == "whole":
+        layers, head = dl.pack_decoder_layers(model), dl.pack_ends(model)
+        return lambda c, r, a, k, pos: ds.decode_flat_monolith_plain(
+            r, a, k, pos, layers, head,
+            [(c[f"k{i}"], c[f"v{i}"], c[f"ck{i}"], c[f"cv{i}"])
+             for i in range(len(layers))], **kw)
+    if backend == "stack":
+        segs = ds.pack_decoder_segments(model)
+
+        def run_stack(c, r, a, k, pos):
+            x = _embed(model, r, a, k)
+            for s, seg in enumerate(segs):
+                x = ds.decode_segment_plain(x, pos, seg, c[f"sk{s}"],
+                                            c[f"sv{s}"], c[f"sck{s}"],
+                                            c[f"scv{s}"], **kw)
+            return model.head(x)
+        return run_stack
+    layers = dl.pack_decoder_layers(
+        model, quantize="int8" if backend == "int8" else None)
+
+    def run_layers(c, r, a, k, pos):
+        x = _embed(model, r, a, k)
+        for i, p in enumerate(layers):
+            x = dl.decode_layer_plain(x, pos, p, c[f"k{i}"], c[f"v{i}"],
+                                      c[f"ck{i}"], c[f"cv{i}"], **kw)
+        return model.head(x)
+    return run_layers
+
+
+def teacher_forced_backends_phase(v2m):
+    """16 positions of seeded random tokens through each new B=1 backend's
+    kernel step and its plain counterpart, float32 and bfloat16. In bf16
+    at most one position in BF16_ROUTE_SHARE may leave BF16_REL (a router
+    near-tie flipped by a one-ulp input difference); after such a position
+    the plain caches take the kernel's, so the flip is counted once."""
+    import torch
+    from video2music_tpu_torch.decode.sampler import fused_backend
+
+    gen = torch.Generator().manual_seed(8)
+    roots = torch.randint(13, (16,), generator=gen)
+    attrs = torch.randint(14, (16,), generator=gen)
+    feats = synthetic_features(300, 8)
+    dev = v2m.device
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        model, _ = v2m._models(name)
+        f = {k: torch.as_tensor(a, device=dev).to(dtype)[None]
+             for k, a in feats.items()}
+        key = torch.tensor([1.0], device=dev)
+        with torch.no_grad():
+            cross = model.prime(model.encode(**f))
+            for backend in ("layer", "stack", "monolith", "whole", "int8"):
+                fused, quantize, split, _ = BACKENDS[backend]
+                init_caches, make_step = fused_backend(model.cfg, 1, fused,
+                                                       quantize, split)
+                kernel_caches = init_caches(model, cross)
+                plain_caches = {k: v.clone()
+                                for k, v in kernel_caches.items()}
+                kernel_step = make_step(model)
+                plain_step = plain_backend_step(model, backend)
+                worst, outliers = 0.0, []
+                for pos in range(16):
+                    root = roots[pos:pos + 1].to(dev, torch.int32)
+                    attr = attrs[pos:pos + 1].to(dev, torch.int32)
+                    got = kernel_step(kernel_caches, root, attr, key, pos)
+                    want = plain_step(plain_caches, root, attr, key, pos)
+                    abs_err, rel_err = errors(got, want)
+                    if dtype == torch.float32:
+                        fail_unless(abs_err <= F32_LOGIT_ATOL,
+                                    f"teacher-forced {backend} [{name}] pos "
+                                    f"{pos}: max abs {abs_err:.3e}")
+                    elif rel_err > BF16_REL:
+                        outliers.append((pos, round(rel_err, 4)))
+                        for k, v in plain_caches.items():
+                            v.copy_(kernel_caches[k])
+                        continue
+                    worst = max(worst, abs_err)
+                print(f"teacher-forced {backend} {name}: max abs logit "
+                      f"error over 16 positions {worst:.3e}" + (
+                          f"; positions outside rel {BF16_REL}: {outliers}"
+                          if outliers else ""))
+                fail_unless(len(outliers) * BF16_ROUTE_SHARE <= 16,
+                            f"teacher-forced {backend} [{name}]: "
+                            f"{len(outliers)} of 16 positions disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1391,25 +1810,29 @@ def v3_slice_phase(card, report):
         report["flash_attention"]["launches_2h"] = \
             report["flash_attention"].get("launches_2h", 0) + fl
         if version == "3.1":  # after the launch check: the profile launches
-            report["v3_step"] = {f"B={B}": profile_v3_steps(v2m, B, card)
+            model, _ = v2m._models("bfloat16")
+            report["v3_step"] = {f"B={B}": profile_steps(model, B, card)
                                  for B in (1, 16)}
     return models
 
 
-def profile_v3_steps(v2m, B, card, n=20):
-    """The bf16 V3 decode step alone (no sampler) at width B: ms/step from
-    CUDA events over n steps, then torch.profiler over n more: device time
-    per step, the device's busy share and the largest kernels."""
+def profile_steps(model, B, card, n=20, fused="auto", quantize=None,
+                  split=True):
+    """The decode step of ``model`` alone (no sampler) at width B and
+    backend (``fused``, ``quantize``, ``split`` as generate_chords takes
+    them): ms/step from CUDA events over n steps, then
+    torch.profiler over n more: device time per step, the device's busy
+    share, launches per step and the largest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from video2music_tpu_torch.decode.sampler import fused_backend
 
-    model, _ = v2m._models("bfloat16")
     feats = [synthetic_features(300, 40 + b) for b in range(B)]
     f = {k: torch.stack([torch.as_tensor(x[k]) for x in feats])
          .to("cuda", torch.bfloat16) for k in feats[0]}
-    init_caches, make_step = fused_backend(model.cfg, B)
+    init_caches, make_step = fused_backend(model.cfg, B, fused, quantize,
+                                           split)
     ids = torch.arange(B, device="cuda", dtype=torch.int32) % 12 + 1
     key = torch.zeros(B, device="cuda")
     with torch.no_grad():
@@ -1437,14 +1860,17 @@ def profile_v3_steps(v2m, B, card, n=20):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"V{model.cfg.version} decode step B={B} (bf16, no sampler): "
-          f"{ms:.4f} ms/step (CUDA events, {n} steps); profiler on: wall "
-          f"{wall:.4f} ms/step, device {busy:.4f} ms/step in "
-          f"{sum(r[1] for r in rows):.0f} kernels and copies, busy share "
+    launches = sum(r[1] for r in rows)
+    print(f"V{model.cfg.version} decode step B={B}, fused={fused!r}, "
+          f"quantize={quantize!r}, split={split} (bf16, no sampler): "
+          f"{ms:.4f} ms/step (CUDA events, {n} steps); "
+          f"profiler on: wall {wall:.4f} ms/step, device {busy:.4f} ms/step "
+          f"in {launches:.0f} kernels and copies, busy share "
           f"{busy / wall:.3f} [{card}]")
     for t, count, name in rows[:8]:
         print(f"  {t:8.4f} ms/step  {count:5.0f} calls/step  {name[:90]}")
-    return dict(ms_step=ms, device_ms=busy, busy=busy / wall)
+    return dict(ms_step=ms, device_ms=busy, busy=busy / wall,
+                launches_step=launches)
 
 
 def plain_variant_step(model, batched):
@@ -1850,11 +2276,14 @@ def main() -> int:
         return out
 
     phase("kernels", kernel_phase, report, v2m)
+    phase("stack kernels", stack_kernel_phase, report, v2m)
     phase("batched kernels", batched_kernel_phase, report, v2m)
     phase("dropout kernels", dropout_kernel_phase, report, v2m.amt_cfg)
     phase("variant kernels", variant_kernel_phase, report, v2m)
     phase("slice", slice_phase, v2m, card, report)
     phase("teacher-forced", teacher_forced_phase, v2m)
+    phase("B=1 backends", backends_phase, v2m, card, report)
+    phase("teacher-forced backends", teacher_forced_backends_phase, v2m)
     phase("serving", serving_phase, v2m, card, report)
     phase("teacher-forced batch", teacher_forced_batch_phase, v2m)
     del v2m
@@ -1880,16 +2309,24 @@ def main() -> int:
                    ms_eager=bf[1], plain_ms_eager=bf[3],
                    max_abs_err_f32=r["err"][torch.float32],
                    ms_f32=f32[0], plain_ms_f32=f32[2])
-        for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h"):  # other shapes
+        for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h",
+                    "ms_int8"):  # other shapes, int8 weights
             if key in r:
                 t = r[key][torch.bfloat16]
                 row[key], row["plain_" + key] = t[0], t[2]
                 row[key + "_f32"] = r[key][torch.float32][0]
         if "launches_2h" in r:  # flash attention at the V3 encoder's 2H
             row["launches_2h"] = r["launches_2h"]
+        if "err_int8" in r:  # the decode layer with int8 weights
+            row.update(max_abs_err_int8=r["err_int8"][torch.bfloat16],
+                       max_abs_err_int8_f32=r["err_int8"][torch.float32],
+                       bound_ms_int8=r["bound_ms_int8"],
+                       launches_int8=r["launches_int8"])
         rows.append(row)
     print(f"train: {json.dumps(report['train'])}")
     print(f"V3 decode step: {json.dumps(report['v3_step'])}")
+    print(f"B=1 backends, ms/token: {json.dumps(report['backends'])}")
+    print(f"B=1 decode step: {json.dumps(report['b1_step'])}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

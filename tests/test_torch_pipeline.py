@@ -104,6 +104,22 @@ def test_generate_matches_jax_pipeline(pair, tmp_path):
                                np.asarray(inst)[0], rtol=2e-4, atol=2e-5)
 
 
+def test_generate_int8_matches_jax_pipeline(pair, tmp_path):
+    """quantize="int8" at B=1: the port's int8 "layer" backend against the
+    JAX pipeline (on the CPU its fake-quantized XLA step), chord for chord
+    and byte for byte."""
+    jv, pv = pair
+    feats = _features(20, 6)
+    kw = dict(primer="Am F", features=feats, seed=2, temperature=1.0,
+              compute_dtype="float32", quantize="int8")
+    want = jv.generate(output_dir=str(tmp_path / "jax"), **kw)
+    got = pv.generate(output_dir=str(tmp_path / "port"),
+                      _gumbel=_jax_gumbel(2), **kw)
+    np.testing.assert_array_equal(got.chord_ids, want.chord_ids)
+    jax_files = _files(tmp_path / "jax")
+    assert _files(tmp_path / "port") == jax_files and jax_files
+
+
 def test_cpu_generate_launches_no_kernel(pair, tmp_path):
     _, pv = pair
     fns = (flash_attention, port_decode.decode_layer_step,
@@ -199,8 +215,9 @@ def test_outside_the_slice_raises(pair, tmp_path, case):
     with pytest.raises(NotImplementedError, match="not ported"):
         if case == "video":
             pv.generate(video="clip.mp4", output_dir=str(tmp_path))
-        elif case == "quantize":
-            pv.generate(features=feats, quantize="int8",
+        elif case == "quantize":  # int8 is ported for 2.x only
+            v3 = Video2music(device="cpu", **dict(KW, music_gen_version="3.1"))
+            v3.generate(features=feats, quantize="int8",
                         output_dir=str(tmp_path))
         elif case == "checkpoint":
             Video2music(device="cpu", amt_checkpoint="ckpt", **KW)
@@ -208,11 +225,13 @@ def test_outside_the_slice_raises(pair, tmp_path, case):
             Video2music(device="cpu", **dict(KW, reg_model="bigru"))
         elif case == "wiring":
             Video2music(device="cpu", **dict(KW, music_gen_version="1.1"))
-        else:
-            kw = ({"kv_quant": "int8"} if case == "kv_quant"
-                  else {"quantize": "int8"})
+        elif case == "kv_quant":
             pv.generate_batch([{"features": feats}] * 2,
-                              output_dir=str(tmp_path), **kw)
+                              output_dir=str(tmp_path), kv_quant="int8")
+        else:  # batch_quantize: a 3.x batch with int8 weights
+            v3 = Video2music(device="cpu", **dict(KW, music_gen_version="3.1"))
+            v3.generate_batch([{"features": feats}] * 2,
+                              output_dir=str(tmp_path), quantize="int8")
 
 
 def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):

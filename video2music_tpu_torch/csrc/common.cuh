@@ -19,6 +19,9 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
+  return (float)v;  // an int8 weight; its row scale is applied to the dot
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -83,6 +86,7 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
 template <> struct Vec<bf16> { static constexpr int N = 8; };
+template <> struct Vec<int8_t> { static constexpr int N = 16; };
 
 // One lane's share of dot(w[0:K], xs[0:K]): lanes stride over K in 16-byte
 // vectors of w (row 16-byte aligned, K a multiple of Vec<T>::N), xs in shared

@@ -1,16 +1,30 @@
 """Fused decode steps (counterpart of decode/fused.py).
 
-The V2 family (AMT 2.x with RoPE): the product's B=1 ``"ends"`` backend
-(``init_fused_caches`` / ``make_fused_ends_step``) and its batched (B>1)
-``ends=True`` form (``init_fused_batch_caches`` /
-``make_fused_batch_step``).
-  * B=1: the first layer runs with the chord-embedding prologue folded in,
-    the middle layers as plain decode-layer steps, the last layer with the
-    final-LayerNorm + head epilogue (ops/decode_layer.py).
-  * B>1: every layer runs the batched attention step (ops/decode_batch.py),
-    the first with the embedding prologue; every MoE layer finishes with
-    the batched MoE step, which routes in the kernel, and the last one
-    emits the logits.
+The V2 family (AMT 2.x with RoPE) has every B=1 backend of the JAX
+sampler, each a ``step_logits(caches, token_root, token_attr, key, pos)``
+closure beside the ``init_*caches`` it decodes on:
+  * "ends" (``init_fused_caches`` / ``make_fused_ends_step``), the product
+    default: the first layer runs with the chord-embedding prologue folded
+    in, the middle layers as decode-layer steps, the last layer with the
+    final-LayerNorm + head epilogue (ops/decode_layer.py). With
+    ``split=False`` the whole step is one launch of the cooperative kernel
+    (ops/decode_stack.py ``decode_flat_monolith_step``) over all layers;
+  * "layer" / "on" (``make_fused_step``, on the same caches): one
+    decode-layer step per layer, the embedding and the final norm + head as
+    plain PyTorch glue (``model._embed_chords``, ``model.head``), as the
+    JAX step keeps them in XLA; ``quantize="int8"`` reads int8 weights;
+  * "stack" (``init_fused_stack_caches`` / ``make_fused_stack_step``): one
+    cooperative-kernel launch per run of same-kind layers over (n, S, D)
+    caches (two for 2.2), the same glue around them;
+  * "monolith" (``init_fused_monolith_caches`` /
+    ``make_fused_monolith_step``): the whole step in one launch over
+    (L, S, D) caches, the embed and head folded as in "ends".
+At B>1 the batched step (``init_fused_batch_caches`` /
+``make_fused_batch_step``): every layer runs the batched attention step
+(ops/decode_batch.py); every MoE layer finishes with the batched MoE step,
+which routes in the kernel. ``ends=True`` folds the embedding into the
+first step and the head into the last MoE step; ``ends=False`` keeps both
+as plain glue.
 
 The variant wirings (the V3 family in this port): one variant kernel per
 layer at B=1 (``init_fused_variant_caches`` / ``make_fused_variant_step``,
@@ -20,8 +34,8 @@ ops/decode_batch_variant.py). The embedding and the final norm + head are
 plain PyTorch glue around the kernels, as the JAX steps keep them in XLA;
 differential layers carry 2D-wide K caches.
 
-Not ported: the whole-step monolith (``split=False``), the stack backend,
-int8 weights and KV caches, cache segmentation.
+Not ported: int8 KV caches, int8 weights of the variant wirings, cache
+segmentation.
 """
 
 from __future__ import annotations
@@ -35,6 +49,10 @@ from ..ops.decode_batch_variant import (batched_variant_layer_step,
                                         batched_variant_moe_ffn)
 from ..ops.decode_layer import (decode_ends_step, decode_layer_step,
                                 pack_decoder_layers, pack_ends)
+from ..ops.decode_stack import (decode_flat_monolith_step,
+                                decode_monolith_step, decode_segment_step,
+                                decoder_segments, pack_decoder_segments,
+                                pack_monolith)
 from ..ops.decode_variant import (decode_variant_layer_step,
                                   pack_variant_layers)
 from ..ops.embeddings import rope_table
@@ -67,21 +85,36 @@ def init_fused_caches(model, cross) -> Dict[str, torch.Tensor]:
     return caches
 
 
-def make_fused_ends_step(model):
+def _kw(model, layers):
+    cfg = model.cfg
+    return dict(n_heads=cfg.num_heads, k_top=cfg.moe.n_experts_per_token,
+                rope=rope_tables(model, layers[0]["wqkv"].device))
+
+
+def make_fused_ends_step(model, split: bool = True):
     """Returns ``step_logits(caches, token_root, token_attr, key, pos)`` ->
     (1, CHORD_SIZE) logits in the model dtype; token_root / token_attr /
     key are (1,) tensors on the model's device, pos a host int. The self
-    caches are written in place."""
-    cfg = model.cfg
+    caches are written in place. ``split=False``: the whole step, embed and
+    head folded, as one cooperative-kernel launch over every layer."""
     layers = pack_decoder_layers(model)
     head = pack_ends(model)
     L = len(layers)
-    kw = dict(n_heads=cfg.num_heads, k_top=cfg.moe.n_experts_per_token,
-              rope=rope_tables(model, layers[0]["wqkv"].device))
+    kw = _kw(model, layers)
 
     def kv(caches, i):
         return (caches[f"k{i}"], caches[f"v{i}"], caches[f"ck{i}"],
                 caches[f"cv{i}"])
+
+    if not split:
+        plans = {}
+
+        def whole_step(caches, token_root, token_attr, key, pos: int):
+            return decode_flat_monolith_step(
+                token_root, token_attr, key, pos, layers, head,
+                [kv(caches, i) for i in range(L)], plans=plans, **kw)
+
+        return whole_step
 
     def step_logits(caches, token_root, token_attr, key, pos: int):
         x = decode_ends_step(token_root, token_attr, key, pos, layers[0],
@@ -94,6 +127,94 @@ def make_fused_ends_step(model):
         return decode_ends_step(None, None, None, pos, layers[-1], head,
                                 *kv(caches, L - 1), embed=False,
                                 fold_head=True, x=x, **kw)
+
+    return step_logits
+
+
+def make_fused_step(model, quantize=None):
+    """The "layer" backend on :func:`init_fused_caches` caches: the chord
+    embedding as plain glue (``model._embed_chords``), one decode-layer step
+    per layer, the final norm + head as plain glue (``model.head``).
+    ``quantize="int8"``: the layers read int8 weights with per-row scales
+    (ops/decode_layer.py). Same step_logits contract as
+    :func:`make_fused_ends_step`."""
+    layers = pack_decoder_layers(model, quantize=quantize)
+    kw = _kw(model, layers)
+
+    def step_logits(caches, token_root, token_attr, key, pos: int):
+        x = _embed(model, token_root, token_attr, key)
+        for i, layer in enumerate(layers):
+            x = decode_layer_step(x, pos, layer, caches[f"k{i}"],
+                                  caches[f"v{i}"], caches[f"ck{i}"],
+                                  caches[f"cv{i}"], **kw)
+        return model.head(x)
+
+    return step_logits
+
+
+def init_fused_stack_caches(model, cross) -> Dict[str, torch.Tensor]:
+    """Per segment (ops/decode_stack.decoder_segments) zero self caches
+    sk{s} / sv{s} (n, S, D) beside the stacked primed cross K/V sck{s} /
+    scv{s} (n, Sm, D) of one clip."""
+    if cross[0][0].shape[0] != 1:
+        raise ValueError("the fused stack step decodes one clip (B=1)")
+    S = model.cfg.max_seq_chord
+    caches = {}
+    for s, seg in enumerate(decoder_segments(model.cfg)):
+        ck = torch.stack([cross[i][0][0] for i in seg["layers"]])
+        cv = torch.stack([cross[i][1][0] for i in seg["layers"]])
+        n, _, D = ck.shape
+        caches[f"sk{s}"] = ck.new_zeros(n, S, D)
+        caches[f"sv{s}"] = ck.new_zeros(n, S, D)
+        caches[f"sck{s}"] = ck.contiguous()
+        caches[f"scv{s}"] = cv.contiguous()
+    return caches
+
+
+def make_fused_stack_step(model):
+    """The "stack" backend on :func:`init_fused_stack_caches` caches: one
+    :func:`decode_segment_step` launch per segment between the plain embed
+    and head glue of :func:`make_fused_step`."""
+    segs = pack_decoder_segments(model)
+    kw = _kw(model, segs[0]["layers"])
+    plans = [{} for _ in segs]
+
+    def step_logits(caches, token_root, token_attr, key, pos: int):
+        x = _embed(model, token_root, token_attr, key)
+        for s, seg in enumerate(segs):
+            x = decode_segment_step(x, pos, seg, caches[f"sk{s}"],
+                                    caches[f"sv{s}"], caches[f"sck{s}"],
+                                    caches[f"scv{s}"], plans=plans[s], **kw)
+        return model.head(x)
+
+    return step_logits
+
+
+def init_fused_monolith_caches(model, cross) -> Dict[str, torch.Tensor]:
+    """(L, S, D) zero self caches k / v beside the (L, Sm, D) stacked
+    primed cross K/V ck / cv of one clip."""
+    if cross[0][0].shape[0] != 1:
+        raise ValueError("the fused monolith step decodes one clip (B=1)")
+    ck = torch.stack([c[0][0] for c in cross])
+    cv = torch.stack([c[1][0] for c in cross])
+    L, _, D = ck.shape
+    S = model.cfg.max_seq_chord
+    return {"k": ck.new_zeros(L, S, D), "v": ck.new_zeros(L, S, D),
+            "ck": ck.contiguous(), "cv": cv.contiguous()}
+
+
+def make_fused_monolith_step(model):
+    """The "monolith" backend on :func:`init_fused_monolith_caches` caches:
+    the whole step (embed, every layer, final norm, head) as one
+    :func:`decode_monolith_step` launch."""
+    packed = pack_monolith(model)
+    kw = _kw(model, packed["layers"])
+    plans = {}
+
+    def step_logits(caches, token_root, token_attr, key, pos: int):
+        return decode_monolith_step(token_root, token_attr, key, pos, packed,
+                                    caches["k"], caches["v"], caches["ck"],
+                                    caches["cv"], plans=plans, **kw)
 
     return step_logits
 
@@ -113,18 +234,20 @@ def init_fused_batch_caches(model, cross) -> Dict[str, torch.Tensor]:
     return caches
 
 
-def make_fused_batch_step(model):
+def make_fused_batch_step(model, ends: bool = True):
     """Returns ``step_logits(caches, token_root, token_attr, key, pos)`` ->
     (B, CHORD_SIZE) logits in the model dtype; token_root / token_attr /
     key are (B,) tensors on the model's device, pos a host int shared by
     every clip. The self caches are written in place.
 
-    The embedding prologue folds into layer 0's attention step; each MoE
-    layer routes inside its MoE step; the last layer, a MoE layer in every
-    2.x wiring, emits the logits (the JAX ``ends=True`` form)."""
+    Each MoE layer routes inside its MoE step. ``ends=True`` (the JAX
+    form of "auto" / "ends"): the embedding prologue folds into layer 0's
+    attention step and the last layer, a MoE layer in every 2.x wiring,
+    emits the logits. ``ends=False`` ("on" at B>1): the embedding and the
+    final norm + head run as plain glue around the kernels."""
     cfg = model.cfg
     layers = pack_decoder_layers(model)
-    if "gate_w" not in layers[-1]:
+    if ends and "gate_w" not in layers[-1]:
         raise ValueError("the batched step folds the head into a last MoE "
                          "layer; this wiring ends with a SwiGLU layer")
     head = pack_ends(model)
@@ -134,17 +257,19 @@ def make_fused_batch_step(model):
     rope = rope_tables(model, layers[0]["wqkv"].device)
 
     def step_logits(caches, token_root, token_attr, key, pos: int):
-        x = None
+        x = None if ends else _embed(model, token_root, token_attr, key)
         for i, layer in enumerate(layers):
-            tokens = (token_root, token_attr, key) if i == 0 else None
+            fold = ends and i == 0
             x = batched_layer_step(
                 x, pos, layer, caches[f"k{i}"], caches[f"v{i}"],
                 caches[f"ck{i}"], caches[f"cv{i}"], n_heads=H, rope=rope,
-                tokens=tokens, embed_pack=head if i == 0 else None)
+                tokens=(token_root, token_attr, key) if fold else None,
+                embed_pack=head if fold else None)
             if "gate_w" in layer:
-                x = batched_moe_ffn(x, layer, k_top=k_top,
-                                    head_pack=head if i == L - 1 else None)
-        return x
+                x = batched_moe_ffn(
+                    x, layer, k_top=k_top,
+                    head_pack=head if ends and i == L - 1 else None)
+        return x if ends else model.head(x)
 
     return step_logits
 

@@ -14,12 +14,30 @@ Sampling semantics kept from the JAX sampler:
     drawn for all T - 1 steps and B clips at once.
 The token, its root/attr ids and the sequence advance on the device: the
 loop never reads a device value back, and gen_seq is fetched by the caller.
-The first step runs outside the loop, as in the JAX sampler. The steps are
-routed as the JAX sampler routes them (decode/sampler.py:298-371): the V2
-family through the fused ends step at B=1 and the batched fused step at
-B>1, the variant wirings (V3) through the variant kernels at B=1 and the
-batched variant pair at B>1 (decode/fused.py); any other wiring raises
-NotImplementedError. Cache segmentation
+The first step runs outside the loop, as in the JAX sampler.
+
+The step backend is routed as the JAX sampler routes it
+(decode/sampler.py:292-436; ``fused_backend``), every backend in
+decode/fused.py:
+  * the V2 family at B=1: "auto" / "ends" the ends-folded per-layer
+    kernels (``split=False``: the whole step in one cooperative-kernel
+    launch), "on" / "layer" one decode-layer kernel per layer, "stack" one
+    launch per run of same-kind layers, "monolith" the whole step in one
+    launch; ``quantize="int8"`` takes the "layer" backend with int8 weights
+    whatever ``fused`` says, except "off";
+  * the V2 family at B>1: "auto" / "ends" the batched step with the embed
+    and head folded, every other value but "off" the batched step with
+    them as plain glue; ``quantize="int8"`` decodes on the plain step with
+    fake-quantized weights (and warns unless ``fused="auto"``);
+  * the variant wirings (V3): the variant kernels at B=1 and the batched
+    variant pair at B>1; "ends", "stack" and "monolith" raise ValueError,
+    ``quantize`` raises NotImplementedError;
+  * "off": the model's plain ``decode_step``, the counterpart of the XLA
+    step path.
+"auto" means the kernels on a CUDA tensor and their plain versions on a
+CPU tensor (the wrappers dispatch by device); the JAX sampler's TPU checks
+(``_use_pallas``, the Mosaic tiling checks) have no counterpart here. Any
+other wiring raises NotImplementedError. Cache segmentation
 (``GenerateConfig.cache_segments``) is not ported: the JAX sampler is
 bit-exact with one segment, and the kernels read only rows <= pos.
 """
@@ -28,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import torch
 
@@ -35,22 +54,79 @@ from ..core import constants as C
 from ..core.vocab import chord_to_root_attr_tables
 
 from ..ops.attention import not_ported
-from ..ops.decode_layer import fused_decode_eligible
+from ..ops.decode_layer import (fake_quantize_decoder_params,
+                                fused_decode_eligible)
 from ..ops.decode_variant import fused_variant_eligible
 from .fused import (init_fused_batch_caches,
                     init_fused_batch_variant_caches, init_fused_caches,
+                    init_fused_monolith_caches, init_fused_stack_caches,
                     init_fused_variant_caches, make_fused_batch_step,
                     make_fused_batch_variant_step, make_fused_ends_step,
-                    make_fused_variant_step)
+                    make_fused_monolith_step, make_fused_stack_step,
+                    make_fused_step, make_fused_variant_step)
+
+FUSED = ("auto", "ends", "on", "layer", "stack", "monolith", "off")
 
 
-def fused_backend(cfg, B: int):
-    """(init_caches, make_step) of the fused step that decodes ``cfg`` at
-    batch ``B``."""
+def _init_plain_caches(model, cross):
+    return model.init_cache(cross)
+
+
+def _make_plain_step(model):
+    """The model's plain decode_step as a step_logits closure."""
+    def step_logits(cache, token_root, token_attr, key, pos: int):
+        return model.decode_step(None, token_root[:, None],
+                                 token_attr[:, None], key, pos, cache)
+    return step_logits
+
+
+def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
+                  split: bool = True):
+    """(init_caches(model, cross), make_step(model)) of the step that
+    decodes ``cfg`` at batch ``B`` for the sampler's ``fused`` and
+    ``quantize`` arguments (see the module docstring)."""
+    if fused not in FUSED:
+        raise ValueError(f"fused must be one of {FUSED}, got {fused!r}")
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     if fused_decode_eligible(cfg):
-        return ((init_fused_caches, make_fused_ends_step) if B == 1 else
-                (init_fused_batch_caches, make_fused_batch_step))
+        if quantize is not None and (B > 1 or fused == "off"):
+            if B > 1 and fused != "auto":
+                warnings.warn(
+                    f"fused={fused!r} with quantize='int8' at B={B}: int8 "
+                    "weights are a B=1 fused feature; decoding on the plain "
+                    "step with fake-quantized weights", stacklevel=3)
+            return _init_plain_caches, lambda model: _make_plain_step(
+                fake_quantize_decoder_params(model))
+        if fused == "off":
+            return _init_plain_caches, _make_plain_step
+        if B > 1:
+            ends = fused in ("auto", "ends")
+            return init_fused_batch_caches, lambda model: \
+                make_fused_batch_step(model, ends=ends)
+        if quantize is not None:
+            return init_fused_caches, lambda model: make_fused_step(
+                model, quantize=quantize)
+        if fused in ("auto", "ends"):
+            return init_fused_caches, lambda model: make_fused_ends_step(
+                model, split=split)
+        if fused == "stack":
+            return init_fused_stack_caches, make_fused_stack_step
+        if fused == "monolith":
+            return init_fused_monolith_caches, make_fused_monolith_step
+        return init_fused_caches, make_fused_step
     if fused_variant_eligible(cfg):
+        if fused in ("ends", "stack", "monolith"):
+            raise ValueError(
+                f"fused={fused!r} requires the V2-family decoder wiring "
+                "(ops/decode_layer.fused_decode_eligible); this config "
+                "routes through the per-layer variant kernels: use "
+                "fused='on' or 'auto'")
+        if quantize is not None:
+            raise not_ported(f"int8 decode of the AMT {cfg.version!r} "
+                             "wiring (quantize=)", "Queue 1 item 7")
+        if fused == "off":
+            return _init_plain_caches, _make_plain_step
         return ((init_fused_variant_caches, make_fused_variant_step)
                 if B == 1 else (init_fused_batch_variant_caches,
                                 make_fused_batch_variant_step))
@@ -108,7 +184,8 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
                     primer, primer_root, primer_attr, num_primer,
                     generator: torch.Generator = None,
                     gcfg: GenerateConfig = GenerateConfig(),
-                    temperature=None, _gumbel=None):
+                    temperature=None, fused: str = "auto", quantize=None,
+                    split: bool = True, _gumbel=None):
     """Generate a (B, target_seq_length) chord-id sequence.
 
     Args:
@@ -124,6 +201,10 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
         device).
       temperature: sampling temperature, a float or a (B,) / (B, 1) tensor
         of per-clip values (default gcfg.temperature).
+      fused: the step backend, one of FUSED (the module docstring).
+      quantize: None or "int8" (weight-only int8 decode of the V2 family).
+      split: with the "ends" backend at B=1, False runs the whole step as
+        one cooperative-kernel launch (make_fused_ends_step(split=False)).
       _gumbel: test seam — (T-1, B, CHORD_END) noise used instead of the
         generator's.
     Returns:
@@ -131,6 +212,8 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
       the device, and ``timings_ms``: encode / prime / decode stage times.
     """
     B = semantic.shape[0]
+    init_caches, make_step = fused_backend(model.cfg, B, fused, quantize,
+                                           split)
     device = semantic.device
     T = gcfg.target_seq_length
     if temperature is None:
@@ -169,7 +252,6 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
         memory = model.encode(semantic, scene_offset, motion, emotion)
         t1 = mark()
         cross = model.prime(memory)
-        init_caches, make_step = fused_backend(model.cfg, B)
         caches = init_caches(model, cross)
         step_logits = make_step(model)
         t2 = mark()

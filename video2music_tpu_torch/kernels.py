@@ -26,8 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu",
            "decode_batch.cu", "flash_attention_dropout.cu",
-           "decode_variant.cu")
-HEADERS = ("common.cuh", "batch_decode.cuh")
+           "decode_variant.cu", "decode_stack.cu")
+HEADERS = ("common.cuh", "batch_decode.cuh", "decode_step.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -106,9 +106,38 @@ class DecodeLayerArgs(ctypes.Structure):
         "work", "sel",
         "token_root", "token_attr", "key",
         "emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b",
-        "dn_scale", "dn_bias", "wout", "bout", "logits")] + [
+        "dn_scale", "dn_bias", "wout", "bout", "logits",
+        "wqkv_s", "wo_s", "cwq_s", "cwo_s", "w1g_s", "w2_s", "ew1g_s",
+        "ew2_s")] + [
         (name, ctypes.c_int) for name in (
             "D", "H", "F", "E", "k_top", "Sm", "n_out", "pos")]
+
+
+MAX_STACK_LAYERS = 16  # csrc/decode_stack.cu kMaxLayers
+
+
+class StackLayerArgs(ctypes.Structure):
+    """Mirror of ``V2MStackLayer`` in csrc/decode_stack.cu (same order)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
+        "norm_scale", "norm_bias", "w1g", "b1g", "w2", "b2",
+        "gate_w", "gate_b", "ew1g", "eb1g", "ew2", "eb2",
+        "k_cache", "v_cache", "k_cross", "v_cross")]
+
+
+class StackArgs(ctypes.Structure):
+    """Mirror of ``V2MStack`` in csrc/decode_stack.cu (same order)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x", "y", "rope_cos", "rope_sin", "work", "sel",
+        "token_root", "token_attr", "key",
+        "emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b",
+        "dn_scale", "dn_bias", "wout", "bout", "logits")] + [
+        (name, ctypes.c_int) for name in (
+            "D", "H", "F", "E", "k_top", "S", "Sm", "n_out", "pos",
+            "n_layers", "grid", "smem")] + [
+        ("layers", StackLayerArgs * MAX_STACK_LAYERS)]
 
 
 class BatchLayerArgs(ctypes.Structure):
@@ -171,6 +200,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               p, p, i, i, i, i, i, f, u, f, i,
                                               p]
     lib.v2m_attention_dropout_bwd.restype = i
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, pi, pi]
+    lib.v2m_decode_stack_grid.restype = i
+    lib.v2m_decode_stack.argtypes = [i, ctypes.POINTER(StackArgs), p]
+    lib.v2m_decode_stack.restype = i
     for name in ("v2m_variant_layer", "v2m_variant_batched_layer",
                  "v2m_variant_batched_moe"):
         fn = getattr(lib, name)

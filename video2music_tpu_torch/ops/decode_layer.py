@@ -10,7 +10,17 @@ Counterparts:
     uses it (a one-layer run with the embed prologue or the final-LN + head
     epilogue) -> :func:`decode_ends_step`;
   * ops/pallas_decode.py:pack_decoder_layers -> :func:`pack_decoder_layers`
-    (and pack_monolith's embed/head keys -> :func:`pack_ends`).
+    (and pack_monolith's embed/head keys -> :func:`pack_ends`);
+  * ops/pallas_decode.py:quantize_weight / dequantize /
+    fake_quantize_decoder_params -> the same names here, on the port's
+    (out, in) layout.
+
+int8 weights: ``pack_decoder_layers(model, quantize="int8")`` stores the
+layer's large matmul weights as int8 with an f32 scale per output row
+(``<key>_s``); :func:`decode_layer_step` then reads int8 rows, scales each
+f32 dot by its row's scale and adds the bias (the Pallas ``_scaled_dot``).
+:func:`decode_ends_step` takes compute-dtype weights only, as in the JAX
+package.
 
 Both wrappers run the plain PyTorch versions on CPU tensors and launch the
 CUDA chain on CUDA tensors. The self-attention caches are updated IN PLACE
@@ -34,8 +44,12 @@ import torch
 from .. import kernels
 from .norms import LN_EPS, SUBLN_EPS
 
-MAX_TOP_K = 8  # csrc/decode_layer.cu kMaxTop
+MAX_TOP_K = 8  # csrc/decode_step.cuh kMaxTop
 _DEEP_KEYS = ("gate_w", "gate_b", "ew1g", "eb1g", "ew2", "eb2")
+# the weights int8 decode quantizes (pallas_decode.py:544-549): attention
+# and the SwiGLU (the shared expert in a MoE layer), then the experts
+QUANT_KEYS = ("wqkv", "wo", "cwq", "cwo", "w1g", "w2")
+QUANT_DEEP_KEYS = ("ew1g", "ew2")
 
 
 # ---------------------------------------------------------------------------
@@ -70,14 +84,64 @@ def fused_decode_eligible(cfg) -> bool:
     return True
 
 
-def pack_decoder_layers(model) -> List[Dict[str, torch.Tensor]]:
+def quantize_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per output row: w (..., out, in) -> (int8 (..., out,
+    in), f32 scales (..., out)); a row's scale is max|w| over its inputs /
+    127, at least 1e-12, and q = round(w / scale), half to even (the JAX
+    quantize_weight on its (in, out) layout)."""
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(dim=-1) / 127.0, min=1e-12)
+    return torch.round(wf / s.unsqueeze(-1)).to(torch.int8), s
+
+
+def dequantize(q, s) -> torch.Tensor:
+    """Inverse of :func:`quantize_weight`, in f32."""
+    return q.float() * s.unsqueeze(-1)
+
+
+def _fake_quant(w) -> torch.Tensor:
+    return dequantize(*quantize_weight(w)).to(w.dtype)
+
+
+def fake_quantize_decoder_params(model):
+    """A copy of ``model`` whose decoder weights that int8 decode quantizes
+    went through int8 and back (dequantize(quantize(w))): the self-attention
+    projections, the cross-attention query rows and out-projection (the
+    cross K/V rows prime in full precision), the SwiGLU and the experts. The
+    biases, norms, MoE gate, embeddings and head stay. The plain decode step
+    with this copy is the numerical oracle of the int8 kernels."""
+    import copy
+
+    out = copy.deepcopy(model)
+    D = model.cfg.d_model
+    with torch.no_grad():
+        for layer in out.decoder_layers:
+            sa, ca, ffn = layer.self_attn, layer.cross_attn, layer.ffn
+            for lin in (sa.in_proj, sa.out_proj, ca.out_proj):
+                lin.weight.copy_(_fake_quant(lin.weight))
+            ca.in_proj.weight[:D] = _fake_quant(ca.in_proj.weight[:D])
+            swiglu = getattr(ffn, "shared", ffn)
+            for lin in (swiglu.w1g, swiglu.linear2):
+                lin.weight.copy_(_fake_quant(lin.weight))
+            if swiglu is not ffn:  # SharedMoE
+                ffn.w1g.copy_(_fake_quant(ffn.w1g))
+                ffn.w2.copy_(_fake_quant(ffn.w2))
+    return out
+
+
+def pack_decoder_layers(model, quantize: Optional[str] = None
+                        ) -> List[Dict[str, torch.Tensor]]:
     """Per-layer weight dicts of a port VideoMusicTransformer, as views of
     its parameters (the cross-attention query rows are a slice of
     ``in_proj``): wqkv (3D, D), bqkv, wo, bo, cwq (D, D), cbq, cwo, cbo,
     norm_scale / norm_bias (3, D), and w1g (2F, D) = [linear1; gate],
     b1g, w2 (D, F), b2 of the SwiGLU — the shared expert in a MoE layer,
     which adds gate_w (E, D), gate_b, ew1g (E, 2F, D), eb1g, ew2 (E, D, F),
-    eb2."""
+    eb2. ``quantize="int8"`` replaces the weights of QUANT_KEYS (and
+    QUANT_DEEP_KEYS) by int8 copies and adds their row scales under
+    ``<key>_s``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
     layers = []
     D = model.cfg.d_model
     with torch.no_grad():
@@ -97,7 +161,12 @@ def pack_decoder_layers(model) -> List[Dict[str, torch.Tensor]]:
             if swiglu is not ffn:  # SharedMoE
                 p.update(gate_w=ffn.gate.weight, gate_b=ffn.gate.bias,
                          ew1g=ffn.w1g, eb1g=ffn.b1g, ew2=ffn.w2, eb2=ffn.b2)
-            layers.append({k: v.detach() for k, v in p.items()})
+            p = {k: v.detach() for k, v in p.items()}
+            if quantize == "int8":
+                for key in QUANT_KEYS + (QUANT_DEEP_KEYS if "gate_w" in p
+                                         else ()):
+                    p[key], p[key + "_s"] = quantize_weight(p[key])
+            layers.append(p)
     return layers
 
 
@@ -122,9 +191,13 @@ def pack_ends(model) -> Dict[str, torch.Tensor]:
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _dot(x, w):
-    """x (..., K) rounded to w's dtype, times w (N, K)^T, accumulated f32."""
-    return x.to(w.dtype).float() @ w.float().t()
+def _dot(x, w, s=None, dt=None):
+    """x (..., K) rounded to w's dtype, times w (N, K)^T, accumulated f32.
+    With int8 w: x rounded to the compute dtype ``dt`` and the f32 dot
+    scaled by the row scales ``s`` (N,)."""
+    if s is None:
+        return x.to(w.dtype).float() @ w.float().t()
+    return (x.to(dt).float() @ w.float().t()) * s.float()
 
 
 def _layer_norm(x, g, b):
@@ -187,19 +260,19 @@ def attend(q, k, v, n_heads: int, *, lam=None, subw=None, er=None,
     return (c * subw.float().view(H, hd)).reshape(B, D)
 
 
-def _swiglu(x, w1g, b1g, w2, b2):
+def _swiglu(x, w1g, b1g, w2, b2, s1g=None, s2=None, dt=None):
     F = w2.shape[-1]
-    hg = _dot(x, w1g) + b1g.float()
+    hg = _dot(x, w1g, s1g, dt) + b1g.float()
     h, g = hg[..., :F], hg[..., F:]
     h = h * (g * torch.sigmoid(g))
-    return _dot(h, w2) + b2.float()
+    return _dot(h, w2, s2, dt) + b2.float()
 
 
-def _moe(x2, p, k_top: int):
+def _moe(x2, p, k_top: int, dt=None):
     """Top-k shared-expert MoE at one token: first index wins a tie,
     softmax over the selected raw logits, shared expert divided by k.
     Expert ids stay on the device (no host read), so the function can be
-    captured into a CUDA graph."""
+    captured into a CUDA graph. ``dt``: the compute dtype of int8 packs."""
     logits = _dot(x2, p["gate_w"]) + p["gate_b"].float()
     remaining = logits.clone()
     sel, vals = [], []
@@ -211,11 +284,14 @@ def _moe(x2, p, k_top: int):
     vals = torch.cat(vals)
     exps = torch.exp(vals - vals[0])
     w = exps / exps.sum()
-    h = _swiglu(x2, p["w1g"], p["b1g"], p["w2"], p["b2"]) / float(k_top)
+    h = _swiglu(x2, p["w1g"], p["b1g"], p["w2"], p["b2"], p.get("w1g_s"),
+                p.get("w2_s"), dt) / float(k_top)
+    quant = "ew1g_s" in p
     for j, e in enumerate(sel):
-        expert = [p[k].index_select(0, e)[0]
-                  for k in ("ew1g", "eb1g", "ew2", "eb2")]
-        h = h + w[j] * _swiglu(x2, *expert)
+        keys = ("ew1g", "eb1g", "ew2", "eb2") + (
+            ("ew1g_s", "ew2_s") if quant else ())
+        expert = [p[k].index_select(0, e)[0] for k in keys]
+        h = h + w[j] * _swiglu(x2, *expert, dt=dt)
     return h
 
 
@@ -231,7 +307,11 @@ def decode_layer_plain(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     dt = k_cache.dtype
     x0 = x.reshape(-1)
     D = x0.shape[0]
-    qkv = _dot(x0, p["wqkv"]) + p["bqkv"].float()
+
+    def mm(v, key):  # against layer weight `key`, int8 or not
+        return _dot(v, p[key], p.get(key + "_s"), dt)
+
+    qkv = mm(x0, "wqkv") + p["bqkv"].float()
     q, k, v = qkv[:D], qkv[D:2 * D], qkv[2 * D:]
     if rope is not None:
         cos, sin = _rope_at(rope, pos, D)
@@ -240,18 +320,19 @@ def decode_layer_plain(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     v_cache[pos] = v.to(dt)
     attn = attend(q[None], k_cache[None, :pos + 1], v_cache[None, :pos + 1],
                   n_heads)[0]
-    x1 = _layer_norm(x0.float() + (_dot(attn, p["wo"]) + p["bo"].float()),
+    x1 = _layer_norm(x0.float() + (mm(attn, "wo") + p["bo"].float()),
                      p["norm_scale"][0], p["norm_bias"][0])
-    cq = _dot(x1, p["cwq"]) + p["cbq"].float()
+    cq = mm(x1, "cwq") + p["cbq"].float()
     if rope is not None:
         cq = _rotate(cq, cos, sin)
     cattn = attend(cq[None], k_cross[None], v_cross[None], n_heads)[0]
-    x2 = _layer_norm(x1 + (_dot(cattn, p["cwo"]) + p["cbo"].float()),
+    x2 = _layer_norm(x1 + (mm(cattn, "cwo") + p["cbo"].float()),
                      p["norm_scale"][1], p["norm_bias"][1])
     if "gate_w" in p:
-        h = _moe(x2, p, k_top)
+        h = _moe(x2, p, k_top, dt)
     else:
-        h = _swiglu(x2, p["w1g"], p["b1g"], p["w2"], p["b2"])
+        h = _swiglu(x2, p["w1g"], p["b1g"], p["w2"], p["b2"], p.get("w1g_s"),
+                    p.get("w2_s"), dt)
     y = _layer_norm(x2 + h, p["norm_scale"][2], p["norm_bias"][2])
     return y.to(dt).reshape(1, D)
 
@@ -289,7 +370,7 @@ def decode_ends_plain(token_root, token_attr, key, pos: int, p, head,
 # ---------------------------------------------------------------------------
 
 def workspace_size(D: int, F: int, k_top: int) -> int:
-    """f32 scratch of one layer step (csrc/decode_layer.cu run_layer)."""
+    """f32 scratch of one layer step (csrc/decode_step.cuh Work)."""
     return 10 * D + MAX_TOP_K + (k_top + 1) * F
 
 
@@ -313,7 +394,24 @@ def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     kernels.require(0 <= pos < S, what, f"pos {pos} outside cache of {S}")
     kernels.require(not deep or (1 <= k_top <= min(E, MAX_TOP_K) and E <= 32),
                     what, f"k_top={k_top} E={E} not supported")
-    tensors = dict(p, k_cache=k_cache, v_cache=v_cache, k_cross=k_cross,
+    qkeys = (QUANT_KEYS + (QUANT_DEEP_KEYS if deep else ())
+             if "wqkv_s" in p else ())
+    for name in qkeys:  # int8 rows, f32 scales
+        q, sc = p[name], p[name + "_s"]
+        kernels.require(ends is None, what, "int8 weights run through "
+                        "decode_layer_step only")
+        kernels.require(D % 16 == 0 and F % 16 == 0, what,
+                        f"int8 rows need D={D} and F={F} multiples of 16")
+        kernels.require(q.dtype == torch.int8 and q.device == dev
+                        and q.is_contiguous(), what,
+                        f"{name} must be a contiguous int8 tensor on {dev}")
+        kernels.require(sc.dtype == torch.float32 and sc.device == dev
+                        and sc.is_contiguous()
+                        and sc.shape == q.shape[:-1], what,
+                        f"{name}_s must be contiguous f32 row scales")
+    quant = set(qkeys) | {name + "_s" for name in qkeys}
+    tensors = {k: v for k, v in p.items() if k not in quant}
+    tensors.update(k_cache=k_cache, v_cache=v_cache, k_cross=k_cross,
                    v_cross=v_cross)
     if x is not None:
         tensors["x"] = x
@@ -337,6 +435,8 @@ def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     if deep:
         for name in _DEEP_KEYS:
             setattr(a, name, P(p[name]).value)
+    for name in qkeys:
+        setattr(a, name + "_s", P(p[name + "_s"]).value)
     if rope is not None:
         cos, sin = (t.to(device=dev, dtype=torch.float32).contiguous()
                     for t in rope)
@@ -380,7 +480,7 @@ def decode_layer_step(x, pos: int, layer, k_cache, v_cache, k_cross,
     Args:
       x: (1, D) layer input in the compute dtype.
       pos: position of the current token (a host int: the loop index).
-      layer: one dict of :func:`pack_decoder_layers`.
+      layer: one dict of :func:`pack_decoder_layers`, int8 or not.
       k_cache, v_cache: (S, D) self-attention caches, written in place at
         row ``pos``.
       k_cross, v_cross: (Sm, D) primed memory K/V.

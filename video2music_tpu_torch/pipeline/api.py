@@ -13,11 +13,14 @@ where FluidSynth exists. ``generate`` is a batch of one; the
 DynamicBatcher of pipeline/serving.py drives ``generate_batch``.
 
 The wirings: AMT 2.x with RoPE (2.1, 2.2; the default) and 3.0 / 3.1 / 3.2
-(``music_gen_version``), each with the bimamba+ regression. Not ported
-yet, and raising NotImplementedError: raw-video feature extraction
-(``video=``, ``extract_features_batch``), orbax checkpoints, int8
-(``quantize``, ``kv_quant``), the other AMT wirings (base, 1.x, 2.0, KAN
-2.3) and regression backbones.
+(``music_gen_version``), each with the bimamba+ regression.
+``quantize="int8"`` (weight-only int8 decode) covers the 2.x family: at
+B=1 the decode-layer kernels read int8 weights, at B>1 the plain step runs
+on fake-quantized weights, as in the JAX package (decode/sampler.py). Not
+ported yet, and raising NotImplementedError: raw-video feature extraction
+(``video=``, ``extract_features_batch``), orbax checkpoints, int8 for the
+3.x family (``quantize``) and int8 KV caches (``kv_quant``), the other AMT
+wirings (base, 1.x, 2.0, KAN 2.3) and regression backbones.
 Weights come from :mod:`video2music_tpu_torch.weights`: random from a seed,
 or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`).
 """
@@ -263,6 +266,8 @@ class Video2music:
             ``primer``, ``key``, ``transposition_value``, ``sound_font``,
             ``output_dir`` (default ``output_dir/clip_{i:03d}``).
           temperature: one float for the batch, or one per request.
+          quantize: None or "int8", weight-only int8 decode (2.x family).
+          kv_quant: int8 KV caches, not ported (raises).
           n_real: only the first ``n_real`` requests are real; the rest are
             padding clones that decode but are not rendered or returned.
           on_decoded: optional ``fn(i, {"chords", "chord_ids", "key"})``,
@@ -278,11 +283,8 @@ class Video2music:
         ``last_timings`` holds the batch's encode / prime / decode /
         regression times, and postprocess / total once rendered.
         """
-        if quantize is not None:
-            raise not_ported("int8 decode (quantize=)", "Queue 1, int8 decode")
         if kv_quant is not None:
-            raise not_ported("int8 KV caches (kv_quant=)",
-                             "Queue 1, int8 decode")
+            raise not_ported("int8 KV caches (kv_quant=)", "Queue 1 item 7")
         if not requests:
             return (lambda: []) if defer_render else []
         if any("video" in req for req in requests):
@@ -323,7 +325,7 @@ class Video2music:
                                     device=dev),
             generator=gen, gcfg=_GCFG,
             temperature=torch.as_tensor(temps, device=dev),
-            _gumbel=_gumbel, **feats)
+            quantize=quantize, _gumbel=_gumbel, **feats)
         gen_host = out["gen_seq"].cpu().numpy()
         if on_decoded is not None:
             inv = chord_inv_dict()
