@@ -23,7 +23,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      whole-run kernel (csrc/decode_stack.cu) behind its three wrappers,
      all six layers with the embed and head folded, a two-layer middle
      run, the MoE and SwiGLU segments and the monolith over (L, S, D)
-     caches, and the decode layer with int8 weights;
+     caches, and the decode layer with int8 weights; the int8-KV form of
+     the batched layer at B=16 (timed at B=64 too), shallow with the embed
+     and deep, on int8 caches filled to pos 150: the output, and the int8
+     K/V rows and scales it writes at pos; the variant layer with int8
+     weights on the deep 3.1 and 3.2 layers at B=1;
   3. slice: a full-width Video2music (AMT 2.2 + bimamba+, random weights
      from seed 0) in bfloat16 answers three requests from seeded synthetic
      features; the outputs are checked, and each kernel's launch count over
@@ -42,15 +46,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      at B=16 and B=64 and through a DynamicBatcher (max_batch 16) fed 24
      requests at once; every clip is checked, and the launch counts must
      equal what the widths that ran imply;
+  5b. int8 KV: generate_batch(kv_quant="int8") at B=16 beside the same
+     batch on bf16 caches, every clip checked, launches equal to the
+     path's, clips/s and ms/step of both;
   6. teacher-forced batch: 16 steps of the batched kernel step against the
-     batched plain step at B=8, float32 and bfloat16;
+     batched plain step at B=8, float32 and bfloat16, and the same on int8
+     KV caches, with the expert ids every router chose compared too;
   7. V3 slice: full-width bfloat16 Video2music at 3.1 (three requests at
      B=1, generate_batch at B=16) and at 3.2 (one request, one B=16
      batch); every clip is checked, and the launches of the variant
      kernels, flash attention (at 2H heads) and the scan must equal what
      the V3 path implies;
+  7b. V3 int8: at 3.1, generate(quantize="int8") for one 300 s request
+     (the int8 variant layer) and generate_batch(quantize="int8") at B=16
+     (the plain step on fake-quantized weights: no decode kernel), each
+     beside the same call in bf16, with their launches, ms/token, clips/s;
   8. V3 teacher-forced: 16 steps of the variant kernel step against the
      plain step at B=1 and B=8, for 3.1 and 3.2, float32 and bfloat16;
+     then the int8-weight B=1 step of each, expert ids compared too;
+  8b. deep model: a full-width 2.2 with 20 decoder layers, 16
+     teacher-forced steps of "monolith", "stack" and split=False against
+     their plain steps, float32 and bfloat16; the cooperative kernel takes
+     at most 16 layers, so each step launches it once per run (2, 3, 2);
   9. train: a full-width AMT 2.2 (total_vf_dim 1287, motion_type 1) on a
      synthetic feature tree of 32 clips of 300 s that the script writes:
      one train_amt epoch at B=16 (bf16 mixed precision, AdamW lr 1e-4)
@@ -90,6 +107,10 @@ BF16_ROUTE_SHARE = 16
 # the sampler emits chord ids in [1, CHORD_END): "N" (0) is banned and the
 # end / pad ids lie at CHORD_END and above
 CHORD_END = 157
+# int8 rows a kernel writes against its plain version's: at most this share
+# of the elements one quantum apart (an f32 value on a rounding boundary of
+# x / s, which the two sum orders put on either side), none further
+INT8_QUANTUM_SHARE = 1e-3
 
 KERNELS = {
     "flash_attention": dict(
@@ -198,6 +219,19 @@ def check_close(name, dtype, got, want, atol=F32_ATOL):
           f"max_rel {rel_err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
     fail_unless(ok, f"{name} [{dtype}] disagrees with its plain version")
     return abs_err
+
+
+def check_int8_rows(name, got, want):
+    """int8 rows a kernel wrote against its plain version's: equal, or at
+    most INT8_QUANTUM_SHARE of the elements one quantum apart."""
+    d = (got.int() - want.int()).abs()
+    worst = int(d.max().item())
+    share = (d > 0).float().mean().item()
+    ok = worst <= 1 and share <= INT8_QUANTUM_SHARE
+    print(f"  {name}: {'equal' if worst == 0 else f'max {worst} quanta'}, "
+          f"share one quantum apart {share:.2e} (limit {INT8_QUANTUM_SHARE})"
+          f" {'ok' if ok else 'FAIL'}")
+    fail_unless(ok, f"{name}: int8 rows differ from the plain version's")
 
 
 def eager_ms(fn, iters=20):
@@ -774,6 +808,93 @@ def batched_kernel_phase(report, v2m):
                    plain_iters=3, key="ms_b16")
 
 
+def int8_kv_kernel_phase(report, v2m):
+    """The int8-KV form of batched_layer_step at B=16 (timed at B=64 too),
+    product widths, float32 and bfloat16: the shallow layer with the embed
+    prologue and the deep layer, on int8 self caches whose rows 0..149 hold
+    quantized random rows (pos 150) and int8 cross K/V, against the plain
+    version: the output, the int8 K/V rows and the scales written at pos,
+    and the rows before pos untouched."""
+    import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_batch as db
+
+    dev = v2m.device
+    cfg = v2m.amt_cfg
+    D, F, E, H = cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.num_heads
+    S, Sm = cfg.max_seq_chord, cfg.max_seq_video
+    pos = S // 2
+    gen = torch.Generator().manual_seed(1357)
+    kw = dict(n_heads=H, rope=rope_tables(v2m.model, dev))
+    r = report["batched_layer_step"]
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"int8-KV batched layer, {dtype}:")
+        head = random_head(gen, D, dtype, dev)
+        shallow = random_layer(gen, D, F, E, False, dtype, dev)
+        deep = random_layer(gen, D, F, E, True, dtype, dev)
+        for B in (16, 64):
+            def quantized(rows, filled):
+                q, s = db.quantize_kv_rows(
+                    torch.randn(B, rows, D, generator=gen).to(dev))
+                q[:, filled:] = 0
+                s[:, filled:] = 0
+                return q, s
+            (kc, ks), (vc, vs) = quantized(S, pos), quantized(S, pos)
+            (kx, kxs), (vx, vxs) = quantized(Sm, Sm), quantized(Sm, Sm)
+            x = torch.randn(B, D, generator=gen).to(dev, dtype)
+            tokens = (torch.randint(15, (B,), generator=gen).to(dev),
+                      torch.randint(16, (B,), generator=gen).to(dev),
+                      torch.randint(2, (B,), generator=gen).to(dev).float())
+            key = "ms_int8" if B == 16 else f"ms_int8_b{B}"
+            for tag, p, x_in, tok in (("shallow+embed", shallow, None, tokens),
+                                      ("deep", deep, x, None)):
+                one, two = ([t.clone() for t in (kc, vc, ks, vs)]
+                            for _ in range(2))
+                lkw = dict(kw, tokens=tok, embed_pack=head if tok else None)
+                got = db.batched_layer_step(
+                    x_in, pos, p, one[0], one[1], kx, vx,
+                    kv_scales=(one[2], one[3], kxs, vxs), **lkw)
+                want = db.batched_layer_step_plain(
+                    x_in, pos, p, two[0], two[1], kx, vx,
+                    kv_scales=(two[2], two[3], kxs, vxs), **lkw)
+                name = f"batched_layer_step int8 KV {tag} B={B}"
+                err = check_close(name, dtype, got, want)
+                for i, row in enumerate(("k", "v")):
+                    check_int8_rows(f"{name} {row} row", one[i][:, pos],
+                                    two[i][:, pos])
+                    check_close(f"{name} {row} scale", torch.float32,
+                                one[i + 2][:, pos], two[i + 2][:, pos])
+                fail_unless(all(torch.equal(a[:, :pos], b[:, :pos])
+                                for a, b in zip(one, two)),
+                            f"{name}: cache rows other than pos changed")
+                if B == 16:
+                    errs = r.setdefault("err_int8", {})
+                    errs[dtype] = max(err, errs.get(dtype, 0.0))
+                if tag != "deep":
+                    continue
+                scales = (one[2], one[3], kxs, vxs)
+                note_times(report, "batched_layer_step", dtype,
+                           lambda: db.batched_layer_step(
+                               x, pos, p, one[0], one[1], kx, vx,
+                               kv_scales=scales, **kw),
+                           lambda: db.batched_layer_step_plain(
+                               x, pos, p, two[0], two[1], kx, vx,
+                               kv_scales=(two[2], two[3], kxs, vxs), **kw),
+                           key=key)
+                if B == 16 and dtype == torch.bfloat16:
+                    # the attention block's weights once for the batch; per
+                    # clip self rows 0..pos and all cross rows at one byte
+                    # an element and four a row scale; x in, y and the new
+                    # int8 rows with their scales out
+                    w_b, w_f = layer_work(p, db._LAYER_KEYS)
+                    c_b = B * (2 * (pos + 1) * (D + 4) + 2 * Sm * (D + 4))
+                    r["bound_ms_int8"] = max(
+                        (w_b + c_b + 2 * nbytes(x) + 2 * B * (D + 4))
+                        / HBM_BYTES_PER_S * 1e3,
+                        B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D)
+                        / PEAK_BF16 * 1e3)
+
+
 def dropout_kernel_phase(report, cfg):
     """The dropout attention kernels at the training shape (B=16, H=8,
     L=S=300, D=64, rate 0.1), causal and not, f32 and bf16, plus a small
@@ -925,11 +1046,12 @@ def wrappers():
 
 
 def path_launches(v2m, width: int, T: int = 300, backend: str = "ends",
-                  regression: bool = True):
+                  regression: bool = True, plain_decode: bool = False):
     """Kernel launches one generate call of ``width`` clips implies: the
     B=1 kernels at width 1 (of ``backend``, a key of BACKENDS), the batched
     ones above; the V2 kernels for the V2 family, the variant kernels for
-    the others (V3); the scan unless ``regression`` is False (a bare
+    the others (V3), none with ``plain_decode`` (int8 weights at B>1 decode
+    on the plain step); the scan unless ``regression`` is False (a bare
     generate_chords)."""
     from video2music_tpu_torch.ops.decode_layer import fused_decode_eligible
     from video2music_tpu_torch.ops.decode_stack import decoder_segments
@@ -942,7 +1064,9 @@ def path_launches(v2m, width: int, T: int = 300, backend: str = "ends",
     v2 = fused_decode_eligible(cfg)
     per_step = {"layer": L, "int8": L, "stack": len(decoder_segments(cfg)),
                 "monolith": 1, "whole": 1}
-    if width == 1 and v2 and backend != "ends":
+    if plain_decode:
+        pass
+    elif width == 1 and v2 and backend != "ends":
         out[BACKENDS[backend][3]] = (T - 1) * per_step[backend]
     elif width == 1 and v2:
         out.update(decode_layer=(T - 1) * (L - 2), decode_ends=(T - 1) * 2)
@@ -1243,10 +1367,49 @@ def plain_backend_step(model, backend):
 
 def teacher_forced_backends_phase(v2m):
     """16 positions of seeded random tokens through each new B=1 backend's
-    kernel step and its plain counterpart, float32 and bfloat16. In bf16
-    at most one position in BF16_ROUTE_SHARE may leave BF16_REL (a router
-    near-tie flipped by a one-ulp input difference); after such a position
-    the plain caches take the kernel's, so the flip is counted once."""
+    kernel step and its plain counterpart, float32 and bfloat16 (see
+    teacher_force_backends)."""
+    teacher_force_backends(
+        {name: v2m._models(name)[0] for name in ("float32", "bfloat16")},
+        ("layer", "stack", "monolith", "whole", "int8"))
+
+
+def deep_model_phase(card):
+    """A full-width AMT 2.2 with 20 decoder layers (3 SwiGLU + 17 MoE;
+    random weights from seed 0; encoder as deep), B=1: 16 teacher-forced
+    steps of "monolith", "stack" and split=False against their plain
+    steps, float32 and bfloat16. The cooperative kernel takes at most 16
+    layers a launch, so a step launches it once per run: 2 for "monolith"
+    and split=False (16 + 4 layers), 3 for "stack" (3; 16 + 1)."""
+    import copy
+
+    import torch
+    from video2music_tpu_torch.core.config import amt_config
+    from video2music_tpu_torch.models import VideoMusicTransformer
+    from video2music_tpu_torch.weights import init_weights_
+
+    t0 = time.perf_counter()
+    cfg = amt_config("2.2", n_layers=20, total_vf_dim=768 + 1 + 512 + 6)
+    model = init_weights_(VideoMusicTransformer(cfg),
+                          torch.Generator().manual_seed(0)).to("cuda").eval()
+    models = {"float32": model,
+              "bfloat16": copy.deepcopy(model).to(torch.bfloat16)}
+    print(f"built a full-width AMT 2.2 with {len(cfg.decoder_layers)} "
+          f"decoder layers in {time.perf_counter() - t0:.1f} s [{card}]")
+    teacher_force_backends(models, ("monolith", "stack", "whole"),
+                           runs={"monolith": 2, "stack": 3, "whole": 2},
+                           reset=True)
+
+
+def teacher_force_backends(models, backends, runs=None, reset=False):
+    """16 positions of seeded random tokens through each B=1 backend of
+    ``backends`` (keys of BACKENDS) on ``models`` (dtype name -> model): its
+    kernel step against its plain counterpart. In bf16 at most one
+    position in BF16_ROUTE_SHARE may leave BF16_REL (a router near-tie
+    flipped by a one-ulp input difference); after such a position the plain
+    caches take the kernel's, so the flip is counted once (``reset``: before
+    every bf16 step, as the batched phases do). ``runs``: the launches of
+    its kernel each backend's step must make."""
     import torch
     from video2music_tpu_torch.decode.sampler import fused_backend
 
@@ -1254,17 +1417,16 @@ def teacher_forced_backends_phase(v2m):
     roots = torch.randint(13, (16,), generator=gen)
     attrs = torch.randint(14, (16,), generator=gen)
     feats = synthetic_features(300, 8)
-    dev = v2m.device
-    for name in ("float32", "bfloat16"):
+    for name, model in models.items():
         dtype = getattr(torch, name)
-        model, _ = v2m._models(name)
+        dev = model.wout.weight.device
         f = {k: torch.as_tensor(a, device=dev).to(dtype)[None]
              for k, a in feats.items()}
         key = torch.tensor([1.0], device=dev)
         with torch.no_grad():
             cross = model.prime(model.encode(**f))
-            for backend in ("layer", "stack", "monolith", "whole", "int8"):
-                fused, quantize, split, _ = BACKENDS[backend]
+            for backend in backends:
+                fused, quantize, split, kernel = BACKENDS[backend]
                 init_caches, make_step = fused_backend(model.cfg, 1, fused,
                                                        quantize, split)
                 kernel_caches = init_caches(model, cross)
@@ -1273,9 +1435,13 @@ def teacher_forced_backends_phase(v2m):
                 kernel_step = make_step(model)
                 plain_step = plain_backend_step(model, backend)
                 worst, outliers = 0.0, []
+                wrappers()[kernel].launches = 0
                 for pos in range(16):
                     root = roots[pos:pos + 1].to(dev, torch.int32)
                     attr = attrs[pos:pos + 1].to(dev, torch.int32)
+                    if reset and dtype == torch.bfloat16:
+                        for k, v in plain_caches.items():
+                            v.copy_(kernel_caches[k])
                     got = kernel_step(kernel_caches, root, attr, key, pos)
                     want = plain_step(plain_caches, root, attr, key, pos)
                     abs_err, rel_err = errors(got, want)
@@ -1289,13 +1455,18 @@ def teacher_forced_backends_phase(v2m):
                             v.copy_(kernel_caches[k])
                         continue
                     worst = max(worst, abs_err)
+                n = wrappers()[kernel].launches
                 print(f"teacher-forced {backend} {name}: max abs logit "
                       f"error over 16 positions {worst:.3e}" + (
                           f"; positions outside rel {BF16_REL}: {outliers}"
-                          if outliers else ""))
+                          if outliers else "") + f"; {n} launches of "
+                      f"{kernel}")
                 fail_unless(len(outliers) * BF16_ROUTE_SHARE <= 16,
                             f"teacher-forced {backend} [{name}]: "
                             f"{len(outliers)} of 16 positions disagree")
+                fail_unless(runs is None or n == 16 * runs[backend],
+                            f"{kernel}: {n} launches in 16 steps, the path "
+                            f"implies {16 * (runs or {}).get(backend, 0)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1397,11 +1568,129 @@ def serving_phase(v2m, card, report):
                    SERVING_KERNELS[1:3])
 
 
+def run_batch(tag, v2m, card, reqs, temps, out_dir, **kw):
+    """One checked generate_batch call: (clips/s, decode ms/step)."""
+    T = 300
+    t0 = time.perf_counter()
+    results = v2m.generate_batch(reqs, temperature=temps, seed=len(reqs),
+                                 output_dir=out_dir, **kw)
+    wall = time.perf_counter() - t0
+    fail_unless(len(results) == len(reqs), f"{tag}: {len(results)} results")
+    check_batch(tag, v2m, reqs, results)
+    tm = v2m.last_timings
+    ms_step = tm["decode"] / (T - 1)
+    print(f"{tag}: wall {wall:.3f} s = {len(reqs) / wall:.2f} clips/s, decode "
+          f"{tm['decode']:.1f} ms = {ms_step:.4f} ms/step, postprocess "
+          f"{tm['postprocess']:.1f} ms [{card}]")
+    return len(reqs) / wall, ms_step
+
+
+def int8_kv_phase(v2m, card, report):
+    """generate_batch(kv_quant="int8") at B=16 on the bf16 2.2 model beside
+    the same batch on bf16 caches: every clip checked, the launches of each
+    equal to the batched path's (the int8-KV form launches through
+    batched_layer_step), clips/s and decode ms/step of both."""
+    B = 16
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reqs, temps = serving_requests(2, 500)  # warm-up of the int8 path
+        v2m.generate_batch(reqs, temperature=temps, kv_quant="int8",
+                           output_dir=os.path.join(tmp, "warm_up"))
+        reqs, temps = serving_requests(B, 9000)
+        for kv in ("int8", None):
+            for fn in wrappers().values():
+                fn.launches = 0
+            rates[kv] = run_batch(
+                f"generate_batch B={B} kv_quant={kv!r}", v2m, card, reqs,
+                temps, os.path.join(tmp, str(kv)), kv_quant=kv)
+            check_launches(report, v2m, [B], SERVING_KERNELS, ())
+            if kv:
+                report["batched_layer_step"]["launches_int8"] = \
+                    wrappers()["batched_layer_step"].launches
+    report["int8_kv_b16"] = {str(k): dict(clips_s=v[0], ms_step=v[1])
+                             for k, v in rates.items()}
+    print(f"generate_batch B={B}: int8 KV caches {rates['int8'][0]:.2f} "
+          f"clips/s, {rates['int8'][1]:.4f} ms/step; bf16 caches "
+          f"{rates[None][0]:.2f} clips/s, {rates[None][1]:.4f} ms/step "
+          f"[{card}]")
+
+
+def v3_int8_phase(v2m, card, report):
+    """At 3.1 (bf16 model): generate(quantize="int8") for one 300 s request,
+    which runs the int8 variant layer, beside the same request with bf16
+    weights; then generate_batch(quantize="int8") at B=16, which decodes on
+    the plain step with fake-quantized weights (no decode kernel), beside
+    the same batch in bf16. Every clip checked, launches equal to each
+    path's; ms/token and clips/s of each."""
+    T = 300
+    B = 16
+    primer = "C Am F G"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        v2m.generate(features=synthetic_features(30, 99), quantize="int8",
+                     output_dir=os.path.join(tmp, "warm_up"))  # warm-up
+        for q in ("int8", None):
+            for fn in wrappers().values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = v2m.generate(features=synthetic_features(T, 13),
+                               primer=primer, quantize=q, seed=4,
+                               output_dir=os.path.join(tmp, f"b1_{q}"))
+            wall = time.perf_counter() - t0
+            check_clip(f"V3.1 generate(quantize={q!r})", res, primer, T,
+                       v2m.last_regression["instrument"],
+                       v2m.last_regression["ln_nd"])
+            ms = v2m.last_timings["decode"] / (T - 1)
+            out[f"b1_{q}_ms_token"] = ms
+            print(f"V3.1 generate(quantize={q!r}): 300 s request, wall "
+                  f"{wall:.3f} s, decode {ms:.4f} ms/token [{card}]")
+            check_launches(report, v2m, [1], ("decode_variant_layer",), ())
+            if q:
+                report["decode_variant_layer"]["launches_int8"] = \
+                    wrappers()["decode_variant_layer"].launches
+        reqs, temps = serving_requests(B, 11000)
+        for q in ("int8", None):
+            for fn in wrappers().values():
+                fn.launches = 0
+            out[f"b16_{q}"] = run_batch(
+                f"V3.1 generate_batch B={B} quantize={q!r}", v2m, card, reqs,
+                temps, os.path.join(tmp, f"b16_{q}"), quantize=q)
+            check_launches(report, v2m, [B], ("flash_attention",), (),
+                           plain_decode=q is not None)
+    report["v3_int8"] = out
+    print(f"V3.1 int8 weights: B=1 {out['b1_int8_ms_token']:.4f} ms/token "
+          f"(bf16 {out['b1_None_ms_token']:.4f}); B={B} "
+          f"{out['b16_int8'][0]:.2f} clips/s (bf16 {out['b16_None'][0]:.2f})"
+          f" [{card}]")
+
+
 # ---------------------------------------------------------------------------
 # phase 6: teacher-forced batched kernel step against the plain step
 # ---------------------------------------------------------------------------
 
-def plain_batch_step(model):
+def routed_step(step, caches, root, attr, key, pos):
+    """step's logits, and the expert ids each of its MoE routers chose, in
+    layer order ((B, k) each, sorted)."""
+    from video2music_tpu_torch.ops import decode_batch as db
+    db.route_log = []
+    try:
+        logits = step(caches, root, attr, key, pos)
+        routes = [r.long().sort(dim=-1).values for r in db.route_log]
+    finally:
+        db.route_log = None
+    return logits, routes
+
+
+def route_diffs(pos, got, want):
+    """(pos, MoE layer, clip) of every router choice of the kernel step
+    ``got`` that differs from the plain step's ``want``."""
+    fail_unless(len(got) == len(want) > 0,
+                f"pos {pos}: {len(got)} kernel routes, {len(want)} plain")
+    return [(pos, layer, b) for layer, (g, w) in enumerate(zip(got, want))
+            for b in (g != w).any(-1).nonzero().flatten().tolist()]
+
+
+def plain_batch_step(model, kv_quant=None):
     """decode/fused.make_fused_batch_step through the plain versions."""
     from video2music_tpu_torch.decode.fused import rope_tables
     from video2music_tpu_torch.ops import decode_batch as db
@@ -1420,7 +1709,10 @@ def plain_batch_step(model):
             x = db.batched_layer_step_plain(
                 x, pos, p, c[f"k{i}"], c[f"v{i}"], c[f"ck{i}"], c[f"cv{i}"],
                 tokens=(root, attr, key) if i == 0 else None,
-                embed_pack=head if i == 0 else None, **kw)
+                embed_pack=head if i == 0 else None,
+                kv_scales=None if kv_quant is None else tuple(
+                    c[f"{n}{i}"] for n in ("ksc", "vsc", "cksc", "cvsc")),
+                **kw)
             if "gate_w" in p:
                 x = db.batched_moe_ffn_plain(
                     x, p, k_top=k_top,
@@ -1429,15 +1721,23 @@ def plain_batch_step(model):
     return run
 
 
-def teacher_forced_batch_phase(v2m, B=8):
+def teacher_forced_batch_phase(v2m, B=8, kv_quant=None):
     """16 positions of seeded random (root, attr) tokens for B clips
-    through the batched kernel step and the batched plain step. float32:
-    each path carries its own caches and every logit must agree. bfloat16:
-    the plain caches are reset to the kernel's before each step, and a
-    clip-position may leave the tolerance only rarely (at most one in
-    BF16_ROUTE_SHARE): a near-tie in a router's gate logits, which a
-    one-ulp difference of its bf16 input can flip, sends that clip to
-    other experts."""
+    through the batched kernel step and the batched plain step, comparing
+    the expert ids of every router too. float32: each path carries its own
+    caches and every logit must agree. bfloat16: the plain caches are reset
+    to the kernel's before each step, and a clip-position may leave the
+    tolerance only rarely (at most one in BF16_ROUTE_SHARE): a near-tie in
+    a router's gate logits, which a one-ulp difference of its bf16 input
+    can flip, sends that clip to other experts. ``kv_quant="int8"``: int8
+    caches, reset before each step in both dtypes. In float32 the int8
+    rows a step writes are at most one quantum apart, rarely (as
+    check_int8_rows), and a clip whose row took the other side of a
+    rounding tie may leave the float32 tolerance, counted under the
+    one-in-BF16_ROUTE_SHARE rule and held to BF16_REL. (In bfloat16 a
+    deeper layer's input already differs by a bf16 ulp between the two
+    steps, so its rows may differ by more; the kernel phase holds the rows
+    on equal inputs.)"""
     import torch
     from video2music_tpu_torch.decode.fused import (init_fused_batch_caches,
                                                     make_fused_batch_step)
@@ -1449,6 +1749,7 @@ def teacher_forced_batch_phase(v2m, B=8):
                           generator=gen)
     feats = [synthetic_features(300, 70 + b) for b in range(B)]
     dev = v2m.device
+    tag = "teacher-forced batch" + (" int8 KV" if kv_quant else "")
     for name in ("float32", "bfloat16"):
         dtype = getattr(torch, name)
         model, _ = v2m._models(name)
@@ -1457,39 +1758,67 @@ def teacher_forced_batch_phase(v2m, B=8):
         key = (torch.arange(B, device=dev) % 2).float()
         with torch.no_grad():
             cross = model.prime(model.encode(**f))
-            kernel_caches = init_fused_batch_caches(model, cross)
+            kernel_caches = init_fused_batch_caches(model, cross, kv_quant)
             plain_caches = {k: v.clone() for k, v in kernel_caches.items()}
-            kernel_step = make_fused_batch_step(model)
-            plain_step = plain_batch_step(model)
-            worst, outliers = 0.0, []
+            kernel_step = make_fused_batch_step(model, kv_quant=kv_quant)
+            plain_step = plain_batch_step(model, kv_quant)
+            worst, outliers, diffs = 0.0, [], []
+            quanta = [0, 0]  # int8 row elements one quantum apart, of all
             for pos in range(16):
                 root = roots[pos].to(dev, torch.int32)
                 attr = attrs[pos].to(dev, torch.int32)
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 or kv_quant:
                     for k, v in kernel_caches.items():
                         plain_caches[k].copy_(v)
-                got = kernel_step(kernel_caches, root, attr, key, pos)
-                want = plain_step(plain_caches, root, attr, key, pos)
+                got, k_routes = routed_step(kernel_step, kernel_caches, root,
+                                            attr, key, pos)
+                want, p_routes = routed_step(plain_step, plain_caches, root,
+                                             attr, key, pos)
+                diffs += route_diffs(pos, k_routes, p_routes)
                 fail_unless(bool(torch.isfinite(got).all()),
-                            f"teacher-forced batch pos {pos}: non-finite")
-                if dtype == torch.float32:
-                    worst = max(worst, check_close(
-                        f"teacher-forced batch logits pos {pos}", dtype, got,
-                        want, atol=F32_LOGIT_ATOL))
-                    continue
+                            f"{tag} pos {pos}: non-finite")
+                tied = set()  # clips whose new int8 rows differ (f32)
+                check_rows = kv_quant and dtype == torch.float32
+                for i in range(len(model.decoder_layers) if check_rows
+                               else 0):
+                    for c in (f"k{i}", f"v{i}"):
+                        d = (kernel_caches[c][:, pos].int()
+                             - plain_caches[c][:, pos].int()).abs()
+                        fail_unless(d.max().item() <= 1,
+                                    f"{tag} pos {pos} {c}: int8 rows "
+                                    f"{d.max().item()} quanta apart")
+                        tied |= set(d.any(-1).nonzero().flatten().tolist())
+                        quanta[0] += int((d > 0).sum())
+                        quanta[1] += d.numel()
                 for b in range(B):
                     abs_err, rel_err = errors(got[b], want[b])
-                    worst = max(worst, abs_err)
-                    if rel_err > BF16_REL:
+                    if dtype == torch.float32:
+                        ok = torch.allclose(got[b], want[b], rtol=F32_RTOL,
+                                            atol=F32_LOGIT_ATOL)
+                        fail_unless(ok or (b in tied and rel_err <= BF16_REL),
+                                    f"{tag} pos {pos} clip {b} [{name}]: max "
+                                    f"abs {abs_err:.3e}, rel {rel_err:.3e}")
+                    else:
+                        ok = rel_err <= BF16_REL
+                    if ok:
+                        worst = max(worst, abs_err)
+                    else:
                         outliers.append((pos, b, round(rel_err, 4)))
-        if dtype == torch.bfloat16:
-            print(f"  bf16 clip-positions outside rel {BF16_REL}: "
-                  f"{len(outliers)} of {16 * B} {outliers}")
-            fail_unless(len(outliers) * BF16_ROUTE_SHARE <= 16 * B,
-                        f"teacher-forced batch bf16: {len(outliers)} of "
-                        f"{16 * B} clip-positions disagree")
-        print(f"teacher-forced batch B={B} {name}: max abs logit error over "
-              f"16 positions {worst:.3e}")
+        if kv_quant and dtype == torch.float32:
+            share = quanta[0] / max(quanta[1], 1)
+            print(f"  {name} int8 rows written: {quanta[0]} of {quanta[1]} "
+                  f"elements one quantum apart ({share:.2e}, limit "
+                  f"{INT8_QUANTUM_SHARE})")
+            fail_unless(share <= INT8_QUANTUM_SHARE,
+                        f"{tag} {name}: int8 rows differ")
+        print(f"  {name} clip-positions outside the tolerance: "
+              f"{len(outliers)} of {16 * B} {outliers}; expert ids differing "
+              f"(pos, MoE layer, clip): {diffs}")
+        fail_unless(len(outliers) * BF16_ROUTE_SHARE <= 16 * B,
+                    f"{tag} {name}: {len(outliers)} of {16 * B} "
+                    f"clip-positions disagree")
+        print(f"{tag} B={B} {name}: max abs logit error over 16 positions "
+              f"{worst:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -1662,6 +1991,10 @@ def variant_kernel_phase(report, v2m):
                                    w_b + e_b + a_b + 2 * nbytes(x),
                                    w_f + e_f + a_f)
                         report["decode_variant_layer"]["library_ms"] = None
+                if deep and name in ("3.1", "3.2"):
+                    variant_int8_layer(report, name, dtype, p, meta,
+                                       (x, pos, kc, vc, kx, vx),
+                                       dict(kw, k_top=k_top))
                 # B=16 (and B=64 for the timed layer): the batched pair
                 for B in (16, 64) if name == "3.1" and deep else (16,):
                     kc, vc = (torch.randn(B, S, w * D, generator=gen)
@@ -1739,6 +2072,50 @@ def variant_kernel_phase(report, v2m):
                                    B * s_f + e_f)
                         report["batched_variant_moe_ffn"]["library_ms"] = \
                             None
+
+
+def variant_int8_layer(report, name, dtype, p, meta, inputs, kw):
+    """The B=1 variant layer with int8 weights (every QUANT_KEYS weight of
+    the packed layer ``p`` quantized per output row) against its plain
+    version; on the deep 3.1 layer its times and bound too."""
+    import torch
+    from video2music_tpu_torch.ops import decode_variant as dv
+    from video2music_tpu_torch.ops.decode_layer import quantize_weight
+
+    x, pos, kc, vc, kx, vx = inputs
+    q = dict(p)
+    for key in dv.QUANT_KEYS:
+        if key in q:
+            q[key], q[key + "_s"] = quantize_weight(q[key])
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    args1 = (x, pos, q, meta, k1, v1, kx, vx)
+    args2 = (x, pos, q, meta, k2, v2, kx, vx)
+    tag = f"decode_variant_layer int8 {name} {meta.attn}/{meta.ffn}"
+    err = check_close(tag, dtype, dv.decode_variant_layer_step(*args1, **kw),
+                      dv.decode_variant_layer_plain(*args2, **kw))
+    check_close(tag + " k row", dtype, k1[pos], k2[pos])
+    r = report["decode_variant_layer"]
+    errs = r.setdefault("err_int8", {})
+    errs[dtype] = max(err, errs.get(dtype, 0.0))
+    if name != "3.1":
+        return
+    note_times(report, "decode_variant_layer", dtype,
+               lambda: dv.decode_variant_layer_step(*args1, **kw),
+               lambda: dv.decode_variant_layer_plain(*args2, **kw),
+               key="ms_int8")
+    if dtype == torch.bfloat16:
+        # the int8 weights at a byte each with their f32 row scales, the
+        # two experts its router picks; the caches as the bf16 layer's
+        rows = torch.zeros(q["gate_w"].shape[0])
+        rows[:kw["k_top"]] = 1
+        own = tuple(k for k in q if k not in EXPERT_KEYS + EXPERT_SCALES)
+        w_b, w_f = layer_work(q, own)
+        e_b, e_f = layer_work(q, EXPERT_KEYS + EXPERT_SCALES, rows)
+        a_b, a_f = variant_attention_work(q, 1, pos, kx.shape[0],
+                                          x.shape[-1], x.element_size())
+        r["bound_ms_int8"] = max(
+            (w_b + e_b + a_b + 2 * nbytes(x)) / HBM_BYTES_PER_S * 1e3,
+            (w_f + e_f + a_f) / PEAK_BF16 * 1e3)
 
 
 def v3_slice_phase(card, report):
@@ -1873,14 +2250,14 @@ def profile_steps(model, B, card, n=20, fused="auto", quantize=None,
                 launches_step=launches)
 
 
-def plain_variant_step(model, batched):
+def plain_variant_step(model, batched, quantize=None):
     """decode/fused.make_fused_(batch_)variant_step through the plain
     versions."""
     from video2music_tpu_torch.decode.fused import _embed, _variant_setup
     from video2music_tpu_torch.ops import decode_batch_variant as dbv
     from video2music_tpu_torch.ops import decode_variant as dv
 
-    layers, metas, kw = _variant_setup(model)
+    layers, metas, kw = _variant_setup(model, quantize)
     k_top = model.cfg.moe.n_experts_per_token
     nkw = dict(norm=kw["norm"], pre_norm=kw["pre_norm"])
 
@@ -1901,19 +2278,23 @@ def plain_variant_step(model, batched):
     return run
 
 
-def v3_teacher_forced_phase(models):
+def v3_teacher_forced_phase(models, cases=((1, None), (8, None))):
     """16 positions of seeded random tokens through the V3 kernel step and
-    the plain step at B=1 and B=8, for 3.1 and 3.2, float32 and bfloat16.
-    float32: each path carries its own caches and every logit must agree.
-    bfloat16: the plain caches are reset to the kernel's before each step,
-    and a clip-position may leave the tolerance only rarely (a router
-    near-tie, as in teacher_forced_batch_phase)."""
+    the plain step for each (B, quantize) of ``cases`` (B=1 and B=8; the
+    int8-weight step at B=1), for 3.1 and 3.2, float32 and bfloat16,
+    comparing the expert ids of every router too. float32: each path
+    carries its own caches and every logit must agree. bfloat16: the plain
+    caches are reset to the kernel's before each step, and a clip-position
+    may leave the tolerance only rarely (a router near-tie, as in
+    teacher_forced_batch_phase)."""
     import torch
     from video2music_tpu_torch.decode import fused
 
     for version, v2m in models.items():
         dev = v2m.device
-        for B in (1, 8):
+        for B, quantize in cases:
+            tag = f"V{version} teacher-forced B={B}" + (
+                f" quantize={quantize!r}" if quantize else "")
             gen = torch.Generator().manual_seed(9 + B)
             n_root = v2m.model.embedding_root.num_embeddings
             n_attr = v2m.model.embedding_attr.num_embeddings
@@ -1930,30 +2311,33 @@ def v3_teacher_forced_phase(models):
                     cross = model.prime(model.encode(**f))
                     if B == 1:
                         kc = fused.init_fused_variant_caches(model, cross)
-                        kernel_step = fused.make_fused_variant_step(model)
+                        kernel_step = fused.make_fused_variant_step(
+                            model, quantize=quantize)
                     else:
                         kc = fused.init_fused_batch_variant_caches(model,
                                                                    cross)
                         kernel_step = fused.make_fused_batch_variant_step(
                             model)
                     pc = {k: v.clone() for k, v in kc.items()}
-                    plain_step = plain_variant_step(model, B > 1)
-                    worst, outliers = 0.0, []
+                    plain_step = plain_variant_step(model, B > 1, quantize)
+                    worst, outliers, diffs = 0.0, [], []
                     for pos in range(16):
                         root = roots[pos].to(dev, torch.int32)
                         attr = attrs[pos].to(dev, torch.int32)
                         if dtype == torch.bfloat16:
                             for k, v in kc.items():
                                 pc[k].copy_(v)
-                        got = kernel_step(kc, root, attr, key, pos)
-                        want = plain_step(pc, root, attr, key, pos)
+                        got, k_routes = routed_step(kernel_step, kc, root,
+                                                    attr, key, pos)
+                        want, p_routes = routed_step(plain_step, pc, root,
+                                                     attr, key, pos)
+                        diffs += route_diffs(pos, k_routes, p_routes)
                         fail_unless(bool(torch.isfinite(got).all()),
-                                    f"V{version} B={B} pos {pos}: "
-                                    "non-finite logits")
+                                    f"{tag} pos {pos}: non-finite logits")
                         if dtype == torch.float32:
                             worst = max(worst, check_close(
-                                f"V{version} teacher-forced B={B} pos {pos}",
-                                dtype, got, want, atol=F32_LOGIT_ATOL))
+                                f"{tag} pos {pos}", dtype, got, want,
+                                atol=F32_LOGIT_ATOL))
                             continue
                         for b in range(B):
                             abs_err, rel_err = errors(got[b], want[b])
@@ -1964,10 +2348,11 @@ def v3_teacher_forced_phase(models):
                     print(f"  bf16 clip-positions outside rel {BF16_REL}: "
                           f"{len(outliers)} of {16 * B} {outliers}")
                     fail_unless(len(outliers) * BF16_ROUTE_SHARE <= 16 * B,
-                                f"V{version} teacher-forced B={B} bf16: "
-                                f"{len(outliers)} of {16 * B} disagree")
-                print(f"V{version} teacher-forced B={B} {name}: max abs "
-                      f"logit error over 16 positions {worst:.3e}")
+                                f"{tag} bf16: {len(outliers)} of {16 * B} "
+                                f"disagree")
+                print(f"{tag} {name}: max abs logit error over 16 positions "
+                      f"{worst:.3e}; expert ids differing (pos, MoE layer, "
+                      f"clip): {diffs}")
 
 
 # ---------------------------------------------------------------------------
@@ -2278,6 +2663,7 @@ def main() -> int:
     phase("kernels", kernel_phase, report, v2m)
     phase("stack kernels", stack_kernel_phase, report, v2m)
     phase("batched kernels", batched_kernel_phase, report, v2m)
+    phase("int8 KV kernels", int8_kv_kernel_phase, report, v2m)
     phase("dropout kernels", dropout_kernel_phase, report, v2m.amt_cfg)
     phase("variant kernels", variant_kernel_phase, report, v2m)
     phase("slice", slice_phase, v2m, card, report)
@@ -2285,12 +2671,19 @@ def main() -> int:
     phase("B=1 backends", backends_phase, v2m, card, report)
     phase("teacher-forced backends", teacher_forced_backends_phase, v2m)
     phase("serving", serving_phase, v2m, card, report)
+    phase("int8 KV", int8_kv_phase, v2m, card, report)
     phase("teacher-forced batch", teacher_forced_batch_phase, v2m)
+    phase("teacher-forced int8 KV", teacher_forced_batch_phase, v2m, 8,
+          "int8")
     del v2m
     torch.cuda.empty_cache()
     models = phase("V3 slice", v3_slice_phase, card, report)
-    phase("V3 teacher-forced", v3_teacher_forced_phase, models)
+    phase("V3 int8", v3_int8_phase, models["3.1"], card, report)
+    phase("V3 teacher-forced", v3_teacher_forced_phase, models,
+          ((1, None), (8, None), (1, "int8")))
     del models
+    torch.cuda.empty_cache()
+    phase("deep model", deep_model_phase, card)
     torch.cuda.empty_cache()
     phase("train", train_phase, card, report)
     phase("teacher-forced train", teacher_forced_train_phase, card)
@@ -2309,15 +2702,15 @@ def main() -> int:
                    ms_eager=bf[1], plain_ms_eager=bf[3],
                    max_abs_err_f32=r["err"][torch.float32],
                    ms_f32=f32[0], plain_ms_f32=f32[2])
-        for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h",
-                    "ms_int8"):  # other shapes, int8 weights
+        for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h", "ms_int8",
+                    "ms_int8_b64"):  # other shapes; int8 weights or caches
             if key in r:
                 t = r[key][torch.bfloat16]
                 row[key], row["plain_" + key] = t[0], t[2]
                 row[key + "_f32"] = r[key][torch.float32][0]
         if "launches_2h" in r:  # flash attention at the V3 encoder's 2H
             row["launches_2h"] = r["launches_2h"]
-        if "err_int8" in r:  # the decode layer with int8 weights
+        if "err_int8" in r:  # int8 weights (decode layers), int8 KV caches
             row.update(max_abs_err_int8=r["err_int8"][torch.bfloat16],
                        max_abs_err_int8_f32=r["err_int8"][torch.float32],
                        bound_ms_int8=r["bound_ms_int8"],
@@ -2326,6 +2719,8 @@ def main() -> int:
     print(f"train: {json.dumps(report['train'])}")
     print(f"V3 decode step: {json.dumps(report['v3_step'])}")
     print(f"B=1 backends, ms/token: {json.dumps(report['backends'])}")
+    print(f"int8 KV at B=16: {json.dumps(report['int8_kv_b16'])}")
+    print(f"V3.1 int8 weights: {json.dumps(report['v3_int8'])}")
     print(f"B=1 decode step: {json.dumps(report['b1_step'])}")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -166,6 +166,9 @@ v3 = Video2music(device="cpu", music_gen_version="3.1", reg_model="bimamba+",
 with tempfile.TemporaryDirectory() as tmp:
     assert v2m.generate(features=feats, output_dir=tmp).chord_ids.shape == (6,)
     assert v3.generate(features=feats, output_dir=tmp).chord_ids.shape == (6,)
+    pair = v2m.generate_batch([{"features": feats}] * 2, output_dir=tmp,
+                              kv_quant="int8")
+    assert [r.chord_ids.shape for r in pair] == [(6,), (6,)]
     batcher = DynamicBatcher(v2m, max_batch=2, max_wait_ms=10, output_dir=tmp)
     try:
         res, width = batcher.submit({"features": feats}).result(timeout=300)
@@ -198,40 +201,27 @@ print("isolated ok")
 def test_port_imports_no_jax():
     """With the JAX package and JAX itself blocked, the whole port imports
     (every module, and chip_smoke.py) and runs on the CPU: a tiny 2.2 and
-    a tiny V3.1 ``generate``, a DynamicBatcher request and one train
-    step."""
+    a tiny V3.1 ``generate``, a 2.2 ``generate_batch(kv_quant="int8")`` at
+    B=2, a DynamicBatcher request and one train step."""
     out = subprocess.run([sys.executable, "-c", ISOLATED_RUN], cwd=ROOT,
                          check=True, timeout=600, capture_output=True,
                          text=True)
     assert "isolated ok" in out.stdout
 
 
-@pytest.mark.parametrize("case", ["video", "quantize", "checkpoint",
-                                  "backbone", "wiring", "kv_quant",
-                                  "batch_quantize"])
+@pytest.mark.parametrize("case", ["video", "checkpoint", "backbone",
+                                  "wiring"])
 def test_outside_the_slice_raises(pair, tmp_path, case):
     _, pv = pair
-    feats = _features(4, 0)
     with pytest.raises(NotImplementedError, match="not ported"):
         if case == "video":
             pv.generate(video="clip.mp4", output_dir=str(tmp_path))
-        elif case == "quantize":  # int8 is ported for 2.x only
-            v3 = Video2music(device="cpu", **dict(KW, music_gen_version="3.1"))
-            v3.generate(features=feats, quantize="int8",
-                        output_dir=str(tmp_path))
         elif case == "checkpoint":
             Video2music(device="cpu", amt_checkpoint="ckpt", **KW)
         elif case == "backbone":
             Video2music(device="cpu", **dict(KW, reg_model="bigru"))
-        elif case == "wiring":
+        else:  # wiring
             Video2music(device="cpu", **dict(KW, music_gen_version="1.1"))
-        elif case == "kv_quant":
-            pv.generate_batch([{"features": feats}] * 2,
-                              output_dir=str(tmp_path), kv_quant="int8")
-        else:  # batch_quantize: a 3.x batch with int8 weights
-            v3 = Video2music(device="cpu", **dict(KW, music_gen_version="3.1"))
-            v3.generate_batch([{"features": feats}] * 2,
-                              output_dir=str(tmp_path), quantize="int8")
 
 
 def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):

@@ -462,15 +462,15 @@ def _tiny_port(version):
 
 @pytest.mark.parametrize("fused_mode,quantize,error", [
     ("stack", None, ValueError), ("monolith", None, ValueError),
-    ("ends", None, ValueError), ("auto", "int8", NotImplementedError)])
+    ("ends", None, ValueError), ("monolith", "int8", ValueError)])
 def test_variant_rejects_v2_only_backends(models, fused_mode, quantize,
                                           error):
     """A V3 wiring with a V2-only backend is a clear error (the JAX
-    sampler's ValueError), and its int8 decode is not ported yet."""
+    sampler's ValueError), with int8 weights too."""
     pm = _tiny_port("3.1")
     t = {k: torch.from_numpy(v[:1]) for k, v in models["feats"].items()}
     p = torch.ones(1, 2, dtype=torch.int32)
-    with pytest.raises(error, match="V2-family|not ported"):
+    with pytest.raises(error, match="V2-family"):
         generate_chords(pm, primer=p, primer_root=p, primer_attr=p,
                         num_primer=1, gcfg=GenerateConfig(target_seq_length=L),
                         fused=fused_mode, quantize=quantize, **t)

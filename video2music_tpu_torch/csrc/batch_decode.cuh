@@ -16,9 +16,17 @@
 // RPR or differential), the MoE router and the per-clip closing residual +
 // norm follow the GEMV.
 //
+// int8 forms, each its own template instance beside the T one: the GEMV
+// with int8 weight rows (W = int8_t: 16 weights a load, the f32 sum times
+// the row's scale before the bias), and attention over int8 cache rows
+// (C = int8_t: one f32 scale per row, folded into the logit and the
+// probability; the current row from its dequantized copy).
+//
 // Plain FMA and warp shuffles, no tensor cores. The kernels are static:
 // each source that includes this header builds its own instances.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -216,7 +224,8 @@ __device__ __forceinline__ void dot_tile(const float (&r0)[kRegs],
   }
 }
 
-enum Epi : int { kPlain = 0, kRope = 1, kSwiglu = 2 };
+// kRopeF: kRope whose K / V rows go to the f32 rows kv_f (int8 KV caches)
+enum Epi : int { kPlain = 0, kRope = 1, kSwiglu = 2, kRopeF = 3 };
 enum Act : int { kNone = 0, kRelu = 1, kSilu = 2 };
 
 __device__ __forceinline__ float silu(float g) {
@@ -225,10 +234,12 @@ __device__ __forceinline__ float silu(float g) {
 
 struct BGemv {
   RowsIn in;
-  const void* w;        // slot 0: (n_rows, K) T, row-major; null: no slot 0
+  const void* w;        // slot 0: (n_rows, K) W, row-major; null: no slot 0
   const void* bias;     // slot 0: (n_rows) T
   const void* ew;       // slots >= 1: expert slot - 1 of (E, n_rows, K)
   const void* eb;       // (E, n_rows)
+  const float* ws;      // int8 weights: slot 0's row scales (n_rows)
+  const float* ews;     // and the experts' (E, n_rows)
   const int* counts;    // slot >= 1 computes only the counts[slot - 1]
   const int* lists;     // clips lists[(slot - 1) * B + i] routed to it
   int B, K, n_rows;
@@ -248,21 +259,26 @@ struct BGemv {
   // rope (row pairs): rows < rope_rows rotate at pos; rows [0, q_rows) ->
   // out_f (B, q_rows), rounded to T unless q_f32; rows [q_rows, q_rows +
   // k_rows) -> k_cache (B, S, k_rows) and the rest -> v_cache (B, S, D),
-  // both at (b, pos)
+  // both at (b, pos); kRopeF: the K | V rows to kv_f (B, k_rows + D) in f32
   const float* cos;
   const float* sin;
   int pos, hd, rope_rows, q_rows, k_rows, q_f32, D, S;
   void* k_cache;
   void* v_cache;
+  float* kv_f;
   // swiglu (row pairs j, F + j): out_f[slot, b, j] = h * silu(g)
   int F;
 };
 
-template <typename T>
+template <typename T, bool F32KV>
 __device__ __forceinline__ void rope_store(const BGemv& a, int b, int r,
                                            float y) {
   if (r < a.q_rows) {
     a.out_f[(size_t)b * a.q_rows + r] = a.q_f32 ? y : round_t<T>(y);
+    return;
+  }
+  if constexpr (F32KV) {
+    a.kv_f[(size_t)b * (a.k_rows + a.D) + (r - a.q_rows)] = y;
   } else if (r < a.q_rows + a.k_rows) {
     ((T*)a.k_cache)[((size_t)b * a.S + a.pos) * a.k_rows + (r - a.q_rows)] =
         from_f<T>(y);
@@ -294,21 +310,26 @@ __device__ __forceinline__ void plain_store(const BGemv& a, size_t out_slot,
 // weight rows of one unit of one slot in registers (plain: row u; rope: the
 // rotated pair 2u, 2u + 1; swiglu: rows u and F + u) and computes them for
 // the clips of its group, reading each staged input value once for both
-// rows of a pair.
-template <typename T, int EPI>
+// rows of a pair. W: the weights' type, T or int8_t (then each row's f32
+// sum is multiplied by its scale before the bias, as the Pallas _dot does).
+template <typename T, int EPI, typename W = T>
 static __global__ void __launch_bounds__(kThreads) bgemv_kernel(BGemv a) {
   constexpr bool kTwo = EPI != kPlain;
+  constexpr bool kRopeAny = EPI == kRope || EPI == kRopeF;
+  constexpr bool kQ = std::is_same<W, int8_t>::value;
   extern __shared__ __align__(16) float xs[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int slot = blockIdx.y;
   if (slot == 0 && a.w == nullptr) return;  // a MoE without a shared expert
   const int unit = blockIdx.x * kWarps + warp;
   const bool active = unit < a.units;
-  const T* w = (const T*)a.w;
+  const W* w = (const W*)a.w;
   const T* bias = (const T*)a.bias;
+  const float* ws = a.ws;
   if (slot > 0) {
-    w = (const T*)a.ew + (size_t)(slot - 1) * a.n_rows * a.K;
+    w = (const W*)a.ew + (size_t)(slot - 1) * a.n_rows * a.K;
     bias = (const T*)a.eb + (size_t)(slot - 1) * a.n_rows;
+    if constexpr (kQ) ws = a.ews + (size_t)(slot - 1) * a.n_rows;
   }
   const int* map = nullptr;  // expert slots walk the clips routed to them
   int n = a.B;
@@ -319,19 +340,22 @@ static __global__ void __launch_bounds__(kThreads) bgemv_kernel(BGemv a) {
   const int begin = blockIdx.z * a.group;
   if (begin >= n) return;  // no clips of this group (the whole block)
   const int end = min(n, begin + a.group);
-  const int r0 = EPI == kRope ? 2 * unit : unit;
-  const int r1 = EPI == kRope ? r0 + 1 : a.F + unit;
+  const int r0 = kRopeAny ? 2 * unit : unit;
+  const int r1 = kRopeAny ? r0 + 1 : a.F + unit;
   float w0[kRegs], w1[kRegs];
   float b0 = 0.f, b1 = 0.f, kr = 0.f, rc = 1.f, rs = 0.f;
+  float s0 = 1.f, s1 = 1.f;  // int8 rows' scales
   if (active) {
-    load_row<T>(w + (size_t)r0 * a.K, a.K, lane, w0);
+    load_row<W>(w + (size_t)r0 * a.K, a.K, lane, w0);
     b0 = to_f<T>(bias[r0]);
+    if constexpr (kQ) s0 = ws[r0];
     if (kTwo) {
-      load_row<T>(w + (size_t)r1 * a.K, a.K, lane, w1);
+      load_row<W>(w + (size_t)r1 * a.K, a.K, lane, w1);
       b1 = to_f<T>(bias[r1]);
+      if constexpr (kQ) s1 = ws[r1];
     }
     if (EPI == kPlain && a.key != nullptr) kr = to_f<T>(((const T*)a.krow)[r0]);
-    if (EPI == kRope && r0 < a.rope_rows) {
+    if (kRopeAny && r0 < a.rope_rows) {
       const size_t f = (size_t)a.pos * (a.hd / 2) + ((r0 % a.hd) >> 1);
       rc = a.cos[f];
       rs = a.sin[f];
@@ -348,7 +372,7 @@ static __global__ void __launch_bounds__(kThreads) bgemv_kernel(BGemv a) {
     for (int t = 0; t < nc; t += kTile) {
       const int nt = min(kTile, nc - t);
       float acc0[kTile], acc1[kTile];
-      dot_tile<T, kTwo>(w0, w1, xs + (size_t)t * a.K, nt, a.K, lane, acc0,
+      dot_tile<W, kTwo>(w0, w1, xs + (size_t)t * a.K, nt, a.K, lane, acc0,
                         acc1);
       // every lane holds every sum: lane i finishes row t + i, so the
       // epilogues' loads and stores run side by side
@@ -360,18 +384,22 @@ static __global__ void __launch_bounds__(kThreads) bgemv_kernel(BGemv a) {
           if (kTwo) y1 = acc1[i];
         }
       }
+      if constexpr (kQ) {  // dequantize the dot, then the bias
+        y0 *= s0;
+        y1 *= s1;
+      }
       if (lane < nt) {
         const int r = c0 + t + lane;
         const int b = map != nullptr ? map[r] : r;
         if (EPI == kPlain) {
           plain_store<T>(a, out_slot, b, r0, y0, b0, kr);
-        } else if (EPI == kRope) {
+        } else if (kRopeAny) {
           y0 += b0;
           y1 += b1;
           const float t0r = y0 * rc - y1 * rs;  // rc = 1, rs = 0: no rotation
           const float t1r = y1 * rc + y0 * rs;
-          rope_store<T>(a, b, r0, t0r);
-          rope_store<T>(a, b, r1, t1r);
+          rope_store<T, EPI == kRopeF>(a, b, r0, t0r);
+          rope_store<T, EPI == kRopeF>(a, b, r1, t1r);
         } else {  // kSwiglu: y0 = h, y1 = g
           y0 += b0;
           y1 += b1;
@@ -398,12 +426,12 @@ constexpr int kGroup = 16;
 // (a multiple of kTile, at most the group) as fit.
 constexpr size_t kStageBytes = 64 * 1024;
 
-template <typename T, int EPI>
+template <typename T, int EPI, typename W = T>
 static int gemv(BGemv g, int slots, cudaStream_t st) {
   static bool opted_in = false;  // per instantiation
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bgemv_kernel<T, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bgemv_kernel<T, EPI, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kStageBytes);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
@@ -412,8 +440,8 @@ static int gemv(BGemv g, int slots, cudaStream_t st) {
   g.group = kGroup;
   g.chunk = min(fit, ceil_div(min(g.B, kGroup), kTile) * kTile);
   const dim3 grid(ceil_div(g.units, kWarps), slots, ceil_div(g.B, kGroup));
-  bgemv_kernel<T, EPI><<<grid, kThreads,
-                         (size_t)g.chunk * g.K * sizeof(float), st>>>(g);
+  bgemv_kernel<T, EPI, W><<<grid, kThreads,
+                            (size_t)g.chunk * g.K * sizeof(float), st>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -428,14 +456,22 @@ constexpr int kMaxExperts = 32;
 
 struct Attn {
   const float* q;     // (B, nq * D) f32; rounded to T in batched mode
-  const void* k;      // (B, stride_rows, nq * D) T
-  const void* v;      // (B, stride_rows, D) T
+  const void* k;      // (B, stride_rows, nq * D) C
+  const void* v;      // (B, stride_rows, D) C
   float* out;         // (B, D) f32
   const float* lam;   // differential: lambda (1,) and the subln row (D,)
   const float* subw;
   const float* er;    // RPR: (er_len, D) f32 head-tiled table, or null
   int rows, stride_rows, D, hd, diff, er_len, pos, cur, batched;
   float scale;
+  // int8 caches (C = int8_t): the rows' f32 scales (B, stride_rows), and
+  // row `cur` read from its dequantized K / V (f32, rounded to T) at
+  // k_cur / v_cur + b * cur_stride instead of the cache
+  const float* k_scale;
+  const float* v_scale;
+  const float* k_cur;
+  const float* v_cur;
+  int cur_stride;
 };
 
 // grid (H, B): one block per (value head h, clip b). Query/key heads h
@@ -446,11 +482,15 @@ struct Attn {
 // Vanilla / RPR: out = sum_s p_s v_s. Differential: c = pv_even - lambda *
 // pv_odd, then out = c * rsqrt(mean(c^2) + 1e-5) * subw over the head.
 // Logits: a thread owns a row; P.V: a thread owns V consecutive dims of a
-// row group, the groups summed in shared memory. Needs hd % Vec<T>::N == 0
-// and hd <= kThreads.
-template <typename T>
+// row group, the groups summed in shared memory. Needs hd % Vec<C>::N == 0
+// and hd <= kThreads. C = int8_t (vanilla, batched): a cached row's logit
+// is (q . k) * scale * k_scale[s], its probability times v_scale[s] is
+// rounded to T before P.V over the integer V; row `cur` uses k_cur / v_cur
+// with no scale and an f32 probability (the Pallas _wide_attention).
+template <typename T, typename C = T>
 static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
-  constexpr int V = Vec<T>::N;
+  constexpr int V = Vec<C>::N;
+  constexpr bool kQ = std::is_same<C, int8_t>::value;
   extern __shared__ __align__(16) float sm[];
   __shared__ float red[32];
   const int nq = a.diff ? 2 : 1;
@@ -459,26 +499,39 @@ static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
   float* qs = sm;                 // (nq, hd)
   float* p = qs + nq * hd;        // (nq, rows)
   float* part = p + nq * rows;    // (groups, nq, hd)
-  const T* k = (const T*)a.k + (size_t)b * a.stride_rows * kw + h * nq * hd;
-  const T* v = (const T*)a.v + (size_t)b * a.stride_rows * D + h * hd;
+  const C* k = (const C*)a.k + (size_t)b * a.stride_rows * kw + h * nq * hd;
+  const C* v = (const C*)a.v + (size_t)b * a.stride_rows * D + h * hd;
+  const float* ksc = nullptr;
+  const float* vsc = nullptr;
+  if constexpr (kQ) {
+    ksc = a.k_scale + (size_t)b * a.stride_rows;
+    vsc = a.v_scale + (size_t)b * a.stride_rows;
+  }
   for (int i = tid; i < nq * hd; i += blockDim.x)
     qs[i] = a.q[(size_t)b * kw + h * nq * hd + i];
   __syncthreads();
   float lmax0 = -INFINITY, lmax1 = -INFINITY;
   for (int s = tid; s < rows; s += blockDim.x) {
-    const T* kr = k + (size_t)s * kw;
+    const C* kr = k + (size_t)s * kw;
     float acc0 = 0.f, acc1 = 0.f;
-    for (int d = 0; d < hd; d += V) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kr + d));
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc0 = fmaf(qs[d + i], to_f<T>(e[i]), acc0);
-      if (nq == 2) {
-        const uint4 raw1 = __ldg(reinterpret_cast<const uint4*>(kr + hd + d));
-        const T* e1 = reinterpret_cast<const T*>(&raw1);
+    if (kQ && s == a.cur) {  // the current row: its dequantized K
+      const float* kc = a.k_cur + (size_t)b * a.cur_stride + h * hd;
+      for (int d = 0; d < hd; ++d) acc0 = fmaf(qs[d], kc[d], acc0);
+    } else {
+      for (int d = 0; d < hd; d += V) {
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kr + d));
+        const C* e = reinterpret_cast<const C*>(&raw);
 #pragma unroll
         for (int i = 0; i < V; ++i)
-          acc1 = fmaf(qs[hd + d + i], to_f<T>(e1[i]), acc1);
+          acc0 = fmaf(qs[d + i], to_f<C>(e[i]), acc0);
+        if (nq == 2) {
+          const uint4 raw1 =
+              __ldg(reinterpret_cast<const uint4*>(kr + hd + d));
+          const C* e1 = reinterpret_cast<const C*>(&raw1);
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            acc1 = fmaf(qs[hd + d + i], to_f<C>(e1[i]), acc1);
+        }
       }
     }
     if (a.er != nullptr) {  // RPR: q . Er[er_len - 1 - (pos - s)]
@@ -490,6 +543,9 @@ static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
       acc0 += (a.batched && s != a.cur) ? round_t<T>(bias) : bias;
     }
     acc0 *= a.scale;
+    if constexpr (kQ) {
+      if (s != a.cur) acc0 *= ksc[s];
+    }
     p[s] = acc0;
     lmax0 = fmaxf(lmax0, acc0);
     if (nq == 2) {
@@ -515,7 +571,10 @@ static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
   const float inv1 = nq == 2 ? 1.f / block_sum(ls1, red) : 0.f;
   for (int s = tid; s < rows; s += blockDim.x) {
     const bool rnd = a.batched && s != a.cur;
-    const float w0 = p[s] * inv0;
+    float w0 = p[s] * inv0;
+    if constexpr (kQ) {
+      if (s != a.cur) w0 *= vsc[s];
+    }
     p[s] = rnd ? round_t<T>(w0) : w0;
     if (nq == 2) {
       const float w1 = p[rows + s] * inv1;
@@ -531,14 +590,21 @@ static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
   for (int i = 0; i < V; ++i) acc0[i] = acc1[i] = 0.f;
   if (g < groups) {
     for (int s = g; s < rows; s += groups) {
+      if (kQ && s == a.cur) {  // the current row: its dequantized V
+        const float* vc = a.v_cur + (size_t)b * a.cur_stride + h * hd + c * V;
+        const float p0 = p[s];
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc0[i] = fmaf(p0, vc[i], acc0[i]);
+        continue;
+      }
       const uint4 raw =
           __ldg(reinterpret_cast<const uint4*>(v + (size_t)s * D + c * V));
-      const T* e = reinterpret_cast<const T*>(&raw);
+      const C* e = reinterpret_cast<const C*>(&raw);
       const float p0 = p[s];
       const float p1 = nq == 2 ? p[rows + s] : 0.f;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float ve = to_f<T>(e[i]);
+        const float ve = to_f<C>(e[i]);
         acc0[i] = fmaf(p0, ve, acc0[i]);
         if (nq == 2) acc1[i] = fmaf(p1, ve, acc1[i]);
       }
@@ -578,22 +644,26 @@ static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
 
 constexpr size_t kAttnSmemMax = 96 * 1024;
 
-template <typename T>
+template <typename T, typename C = T>
 static int attention(const Attn& t, int B, int H, cudaStream_t st) {
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kAttnSmemMax);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
+  // the int8 form: vanilla batched attention, heads of whole 16-byte loads
+  if (std::is_same<C, int8_t>::value &&
+      (t.diff || t.er != nullptr || !t.batched || t.hd % Vec<C>::N))
+    return (int)cudaErrorInvalidValue;
   const int nq = t.diff ? 2 : 1;
-  const int groups = kThreads / (t.hd / Vec<T>::N);
+  const int groups = kThreads / (t.hd / Vec<C>::N);
   const size_t smem =
       (size_t)(nq * t.hd + nq * t.rows + groups * nq * t.hd) * sizeof(float);
   if (smem > kAttnSmemMax) return (int)cudaErrorInvalidValue;
-  attn_kernel<T><<<dim3(H, B), kThreads, smem, st>>>(t);
+  attn_kernel<T, C><<<dim3(H, B), kThreads, smem, st>>>(t);
   return (int)cudaGetLastError();
 }
 

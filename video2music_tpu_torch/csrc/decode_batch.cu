@@ -22,6 +22,20 @@
 // Unlike the Pallas kernel, this step's K/V rows are written IN PLACE into
 // the (B, S, D) self caches at (b, pos).
 //
+// The int8-KV form (quant = 1, kv_quant="int8"; the Pallas kernel's
+// quant=True with _quant_rows and the k / v scale folds of
+// _wide_attention): the four caches are int8 with an f32 scale per row.
+// A row's scale needs the max over all D lanes, which the QKV GEMV spreads
+// over warps and blocks, so the GEMV leaves the f32 roped K | V rows in the
+// workspace and quant_rows_kernel (one block per clip and K or V) reduces
+// the max, writes the int8 row and its scale at (b, pos) with IEEE
+// divisions and round-half-to-even (quantize_kv_rows bit for bit), and
+// keeps the dequantized row, rounded to T, for the current row's term.
+// Attention then runs its int8 instance (attn_kernel<T, int8_t>): 16 cache
+// values a load, the scales folded into the logits and probabilities.
+// Halving the cache bytes halves the part of the step's bytes the caches
+// are; the step runs ~10x above its byte bound, so that may buy little.
+//
 // What bounds it on the H100: bytes. One step at B=16 reads, per layer, the
 // clips' cross K/V (16 x 300 x 512 x 2 x 2 B = 9.8 MB in bf16), their self
 // K/V up to pos (~5 MB at pos 150) and the layer's weights (6.3 MB shallow,
@@ -66,8 +80,39 @@ struct V2MBatchLayer {
   const int *token_root, *token_attr;
   const float *key;
   const void *emb_root, *emb_attr, *lc_w, *lc_krow, *lc_b;
-  int shallow, B, D, H, F, S, Sm, pos;
+  float *k_scale, *v_scale;             // int8 KV: (B, S) row scales
+  const float *ck_scale, *cv_scale;     // and the cross K/V's (B, Sm)
+  int shallow, B, D, H, F, S, Sm, pos, quant;
 };
+
+// grid (B, 2): block (b, 0) quantizes clip b's K row, (b, 1) its V row,
+// from the f32 rows kv (B, 2, D) the QKV GEMV left: s = max|x| / 127 (1 for
+// an all-zero row), q = round(x / s) half to even, both divisions IEEE
+// (ops/decode_batch.py quantize_kv_rows bit for bit). Writes q at (b, pos)
+// of the int8 cache and s at (b, pos) of its scales, and the dequantized
+// row round_t(q * s) to deq (B, 2, D) for the current row's attention term.
+template <typename T>
+static __global__ void __launch_bounds__(kThreads)
+quant_rows_kernel(const float* __restrict__ kv, int D, int S, int pos,
+                  int8_t* k_cache, int8_t* v_cache, float* k_scale,
+                  float* v_scale, float* __restrict__ deq) {
+  __shared__ float red[32];
+  const int b = blockIdx.x, which = blockIdx.y;
+  const float* x = kv + ((size_t)b * 2 + which) * D;
+  float m = 0.f;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) m = fmaxf(m, fabsf(x[d]));
+  m = block_max(m, red);
+  float s = __fdiv_rn(m, 127.f);
+  if (s == 0.f) s = 1.f;
+  int8_t* row = (which ? v_cache : k_cache) + ((size_t)b * S + pos) * D;
+  float* out = deq + ((size_t)b * 2 + which) * D;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    const float q = rintf(__fdiv_rn(x[d], s));
+    row[d] = (int8_t)q;
+    out[d] = round_t<T>(q * s);
+  }
+  if (threadIdx.x == 0) (which ? v_scale : k_scale)[(size_t)b * S + pos] = s;
+}
 
 // Field order must match BatchMoeArgs in kernels.py.
 struct V2MBatchMoe {
@@ -97,9 +142,12 @@ static int run_layer(const V2MBatchLayer& a, cudaStream_t st) {
   float* x2 = r2 + BD;     // LN2
   float* r3 = x2 + BD;     // x2 + ffn (pre-LN)
   float* act = r3 + BD;    // (B, F) SwiGLU activations
+  float* kv = act + (size_t)B * F;  // int8 KV: (B, 2, D) f32 K | V rows
+  float* deq = kv + 2 * BD;         // and their dequantized copies
   const T* norm_g = (const T*)a.norm_scale;
   const T* norm_b = (const T*)a.norm_bias;
   const bool embed = a.token_root != nullptr;
+  const bool quant = a.quant != 0;
   int err;
 
   if (embed) {  // x0 = round(lc_w . round(emb) + key * lc_krow + lc_b)
@@ -141,7 +189,16 @@ static int run_layer(const V2MBatchLayer& a, cudaStream_t st) {
     g.out_f = q;
     g.k_cache = a.k_cache;
     g.v_cache = a.v_cache;
-    if ((err = gemv<T, kRope>(g, 1, st))) return err;
+    if (quant) {  // f32 K | V rows, quantized into the caches next
+      g.kv_f = kv;
+      if ((err = gemv<T, kRopeF>(g, 1, st))) return err;
+      quant_rows_kernel<T><<<dim3(B, 2), kThreads, 0, st>>>(
+          kv, D, a.S, a.pos, (int8_t*)a.k_cache, (int8_t*)a.v_cache,
+          a.k_scale, a.v_scale, deq);
+      V2M_CHECK_LAUNCH();
+    } else if ((err = gemv<T, kRope>(g, 1, st))) {
+      return err;
+    }
   }
   Attn t = {};  // self-attention over rows <= pos, row pos kept f32
   t.q = q;
@@ -155,7 +212,17 @@ static int run_layer(const V2MBatchLayer& a, cudaStream_t st) {
   t.cur = a.pos;
   t.batched = 1;
   t.scale = 1.f / sqrtf((float)hd);
-  if ((err = attention<T>(t, B, a.H, st))) return err;
+  if (quant) {
+    t.k_scale = a.k_scale;
+    t.v_scale = a.v_scale;
+    t.k_cur = deq;
+    t.v_cur = deq + D;
+    t.cur_stride = 2 * D;
+    err = attention<T, int8_t>(t, B, a.H, st);
+  } else {
+    err = attention<T>(t, B, a.H, st);
+  }
+  if (err) return err;
   {  // r1 = x0 + (wo . attn + bo)
     BGemv g = {};
     g.in.x = attn;
@@ -196,7 +263,14 @@ static int run_layer(const V2MBatchLayer& a, cudaStream_t st) {
   t.out = cattn;
   t.rows = t.stride_rows = a.Sm;
   t.cur = -1;
-  if ((err = attention<T>(t, B, a.H, st))) return err;
+  if (quant) {
+    t.k_scale = a.ck_scale;
+    t.v_scale = a.cv_scale;
+    err = attention<T, int8_t>(t, B, a.H, st);
+  } else {
+    err = attention<T>(t, B, a.H, st);
+  }
+  if (err) return err;
   {  // r2 = x1 + (cwo . cattn + cbo)
     BGemv g = {};
     g.in.x = cattn;
@@ -354,6 +428,9 @@ extern "C" int v2m_batched_layer(int dtype,
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
   if (args->D > batch::kMaxK || args->F > batch::kMaxK)
+    return (int)cudaErrorInvalidValue;
+  if (args->quant && (args->D % Vec<int8_t>::N || args->H <= 0 ||
+                      (args->D / args->H) % Vec<int8_t>::N))
     return (int)cudaErrorInvalidValue;
   if (dtype == kF32) return batch::run_layer<float>(*args, st);
   if (dtype == kBF16) return batch::run_layer<bf16>(*args, st);

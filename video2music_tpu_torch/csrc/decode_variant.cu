@@ -10,16 +10,23 @@
 //     the FFN of a shallow one: v2m_variant_batched_layer);
 //   * video2music_tpu/ops/pallas_decode_batch_variant.py:
 //     batched_variant_moe_ffn (the MoE half: v2m_variant_batched_moe).
-// Every wiring of the Pallas kernels but int8: vanilla, RPR (Shaw/Huang
-// relative bias on the unscaled q.k) or differential attention (2H query/key
-// heads against H value heads, p_even - lambda * p_odd, a per-head RMSNorm
-// with eps 1e-5 and the packed subln row), optional pairwise RoPE; ReLU,
-// SwiGLU or top-k MoE feed-forwards with GLU or SiLU-MLP experts, with or
-// without the shared expert; LayerNorm (eps 1e-5) or RMSNorm (eps 1e-6);
-// post- or pre-norm residuals. The Pallas kernels' one-hot head, pair and
-// shift matmuls, sublane-stacked slabs and diagonal probe answer Mosaic
-// limits and are not carried over: each attention block reads its own head
-// of its own clip, its pair of query heads and its RPR rows by address.
+// Every wiring of the Pallas kernels: vanilla, RPR (Shaw/Huang relative
+// bias on the unscaled q.k) or differential attention (2H query/key heads
+// against H value heads, p_even - lambda * p_odd, a per-head RMSNorm with
+// eps 1e-5 and the packed subln row), optional pairwise RoPE; ReLU, SwiGLU
+// or top-k MoE feed-forwards with GLU or SiLU-MLP experts, with or without
+// the shared expert; LayerNorm (eps 1e-5) or RMSNorm (eps 1e-6); post- or
+// pre-norm residuals; and, at B=1, int8 weights (the Pallas kernel's
+// QUANT_KEYS with their <key>_s scales, :165-174 and :305-320): every GEMV
+// of the layer runs its int8 instance (W = int8_t in batch_decode.cuh),
+// which reads 16 weights a load and multiplies each row's f32 sum by its
+// scale before the bias; a routed expert's scale rows are read by its id,
+// like its weights. The GEMVs are latency-bound at B=1, so halving their
+// weight bytes is expected to buy little time. The Pallas kernels' one-hot
+// head, pair and shift matmuls, sublane-stacked slabs and diagonal probe
+// answer Mosaic limits and are not carried over: each attention block reads
+// its own head of its own clip, its pair of query heads and its RPR rows by
+// address.
 //
 // Rounding follows each Pallas kernel. B=1: matmul inputs rounded to the
 // compute dtype T, q, the probabilities and the attention output in f32,
@@ -55,7 +62,8 @@ enum AttnKind : int { kVanilla = 0, kRpr = 1, kDiff = 2 };
 enum FfnKind : int { kReluFfn = 0, kSwigluFfn = 1, kMoeFfn = 2 };
 
 // Field order must match VariantArgs in kernels.py. Weights (out, in)
-// row-major in T; lam / subw / er in f32.
+// row-major in T, or int8 with the f32 row scales <key>_s (null in a T
+// pack); lam / subw / er in f32.
 struct V2MVariant {
   const void *x; void *y;
   const void *wqkv, *bqkv, *wo, *bo;
@@ -71,6 +79,8 @@ struct V2MVariant {
   const void *k_cross, *v_cross;
   float *work;
   int *sel;
+  const float *wqkv_s, *wo_s, *cwq_s, *cwo_s, *fw1g_s, *fw2_s, *sw1g_s,
+      *sw2_s, *ew1g_s, *ew2_s;
   int B, D, H, S, Sm, pos, er_len;
   int attn, cross, ffn, expert, F, Fe, E, k_top, rms, pre_norm;
 };
@@ -92,7 +102,7 @@ static inline int norm_kind(const V2MVariant& a) {
 // the shared expert (slot 0, when present) and every routed expert's
 // first layer (GLU pair or SiLU MLP) and second layer for the clips it
 // serves; y = x2 + combine (pre-norm) or norm3(x2 + combine).
-template <typename T>
+template <typename T, typename W>
 static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
                    int sel_order, float* work, cudaStream_t st) {
   const int B = a.B, D = a.D, E = a.E, Fe = a.Fe;
@@ -133,6 +143,8 @@ static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
     BGemv g = {};
     g.in.x = xn;
     g.w = a.sw1g;
+    g.ws = a.sw1g_s;  // int8 weights: the row scales
+    g.ews = a.ew1g_s;
     g.bias = a.sb1g;
     g.ew = a.ew1g;
     g.eb = a.eb1g;
@@ -145,11 +157,11 @@ static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
     if (a.expert == 0) {  // GLU: rows j and Fe + j -> h * silu(g)
       g.n_rows = 2 * Fe;
       g.F = Fe;
-      if ((err = gemv<T, kSwiglu>(g, E + 1, st))) return err;
+      if ((err = gemv<T, kSwiglu, W>(g, E + 1, st))) return err;
     } else {              // MLP: silu(w1 . x + b1)
       g.n_rows = Fe;
       g.act = kSilu;
-      if ((err = gemv<T, kPlain>(g, E + 1, st))) return err;
+      if ((err = gemv<T, kPlain, W>(g, E + 1, st))) return err;
     }
   }
   {  // second layer of each slot over its own activations
@@ -157,6 +169,8 @@ static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
     g.in.x = act;
     g.in.slot_stride = (size_t)B * Fe;
     g.w = a.sw2;
+    g.ws = a.sw2_s;
+    g.ews = a.ew2_s;
     g.bias = a.sb2;
     g.ew = a.ew2;
     g.eb = a.eb2;
@@ -167,7 +181,7 @@ static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
     g.n_rows = D;
     g.units = D;
     g.out_f = ye;
-    if ((err = gemv<T, kPlain>(g, E + 1, st))) return err;
+    if ((err = gemv<T, kPlain, W>(g, E + 1, st))) return err;
   }
   Close c = {};
   c.x = x2;
@@ -191,7 +205,7 @@ static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
 // One layer. batched = false: the whole B=1 layer (a deep layer finishes
 // with run_moe, its x2 in f32). batched = true: the attention half, plus
 // the FFN of a shallow layer; a deep layer returns x2 as T.
-template <typename T>
+template <typename T, typename W>
 static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
   const int B = a.B, D = a.D, H = a.H, hd = D / a.H, F = a.F;
   const bool pre = a.pre_norm != 0;
@@ -230,6 +244,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
       g.in.norm_out = x0;
     }
     g.w = a.wqkv;
+    g.ws = a.wqkv_s;
     g.bias = a.bqkv;
     g.B = B;
     g.K = D;
@@ -247,7 +262,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
     g.out_f = q;
     g.k_cache = a.k_cache;
     g.v_cache = a.v_cache;
-    if ((err = gemv<T, kRope>(g, 1, st))) return err;
+    if ((err = gemv<T, kRope, W>(g, 1, st))) return err;
   }
   {  // self-attention over rows <= pos, row pos kept f32
     Attn t = {};
@@ -274,6 +289,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
     BGemv g = {};
     g.in.x = attn;
     g.w = a.wo;
+    g.ws = a.wo_s;
     g.bias = a.bo;
     g.B = B;
     g.K = D;
@@ -284,13 +300,14 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
       g.residual = x0;
     }
     g.out_f = r1;
-    if ((err = gemv<T, kPlain>(g, 1, st))) return err;
+    if ((err = gemv<T, kPlain, W>(g, 1, st))) return err;
   }
   {  // cross query of norm1(r1) (post: kept as x1) or norm2(r1) (pre)
     BGemv g = {};
     g.in.x = r1;
     fold(g.in, pre ? 1 : 0, pre ? nullptr : x1);
     g.w = a.cwq;
+    g.ws = a.cwq_s;
     g.bias = a.cbq;
     g.B = B;
     g.K = D;
@@ -305,7 +322,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
     g.D = D;
     g.S = a.S;
     g.out_f = cq;
-    if ((err = gemv<T, kRope>(g, 1, st))) return err;
+    if ((err = gemv<T, kRope, W>(g, 1, st))) return err;
   }
   {  // cross-attention over each clip's Sm primed rows
     Attn t = {};
@@ -331,6 +348,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
     BGemv g = {};
     g.in.x = cattn;
     g.w = a.cwo;
+    g.ws = a.cwo_s;
     g.bias = a.cbo;
     g.B = B;
     g.K = D;
@@ -341,7 +359,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
     } else {
       g.out_f = r2;
     }
-    if ((err = gemv<T, kPlain>(g, 1, st))) return err;
+    if ((err = gemv<T, kPlain, W>(g, 1, st))) return err;
   }
   Close c = {};
   c.B = B;
@@ -365,7 +383,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
       if ((err = close_rows<T>(c, st))) return err;
       x2f = x2;
     }
-    return run_moe<T>(a, x2f, 0, 1,
+    return run_moe<T, W>(a, x2f, 0, 1,
                       a.work + kLayerRows * BD + (size_t)B * F, st);
   }
   {  // FFN first layer on norm2(r2) (post: kept as x2) or norm3(r2) (pre)
@@ -373,6 +391,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
     g.in.x = r2;
     fold(g.in, pre ? 2 : 1, pre ? nullptr : x2);
     g.w = a.fw1g;
+    g.ws = a.fw1g_s;
     g.bias = a.fb1g;
     g.B = B;
     g.K = D;
@@ -380,16 +399,17 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
     g.out_f = act;
     if (a.ffn == kSwigluFfn) {
       g.F = F;
-      if ((err = gemv<T, kSwiglu>(g, 1, st))) return err;
+      if ((err = gemv<T, kSwiglu, W>(g, 1, st))) return err;
     } else {
       g.act = kRelu;
-      if ((err = gemv<T, kPlain>(g, 1, st))) return err;
+      if ((err = gemv<T, kPlain, W>(g, 1, st))) return err;
     }
   }
   {  // + w2 . act + b2 over the residual x2 (post) or r2 (pre)
     BGemv g = {};
     g.in.x = act;
     g.w = a.fw2;
+    g.ws = a.fw2_s;
     g.bias = a.fb2;
     g.B = B;
     g.K = F;
@@ -400,7 +420,7 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
     } else {
       g.out_f = r3;
     }
-    if ((err = gemv<T, kPlain>(g, 1, st))) return err;
+    if ((err = gemv<T, kPlain, W>(g, 1, st))) return err;
   }
   if (pre) return 0;
   c.x = r3;  // y = norm3(r3)
@@ -411,23 +431,33 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
 }
 
 // The widths the kernels hold; `heads`: the attention's head split too.
+// int8 rows load 16 weights at a time.
 static bool widths_ok(const V2MVariant& a, bool heads) {
   if (a.D > kMaxK || a.F > kMaxK || a.Fe > kMaxK) return false;
+  constexpr int N8 = Vec<int8_t>::N;
+  if (a.wqkv_s != nullptr && (a.D % N8 || a.F % N8 || a.Fe % N8))
+    return false;
   return !heads || (a.H > 0 && a.D % a.H == 0 && a.D / a.H <= kThreads);
 }
 
 }  // namespace variant
 }  // namespace v2m
 
-// Launch one B=1 layer (attention, FFN or MoE, norms) on `stream`. Returns
-// a cudaError_t code; never synchronises.
+// Launch one B=1 layer (attention, FFN or MoE, norms) on `stream`, with int8
+// weights when the pack carries their row scales. Returns a cudaError_t
+// code; never synchronises.
 extern "C" int v2m_variant_layer(int dtype, const v2m::variant::V2MVariant* a,
                                  void* stream) {
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
   if (!variant::widths_ok(*a, true)) return (int)cudaErrorInvalidValue;
-  if (dtype == kF32) return variant::run_layer<float>(*a, false, st);
-  if (dtype == kBF16) return variant::run_layer<bf16>(*a, false, st);
+  const bool q8 = a->wqkv_s != nullptr;
+  if (dtype == kF32)
+    return q8 ? variant::run_layer<float, int8_t>(*a, false, st)
+              : variant::run_layer<float, float>(*a, false, st);
+  if (dtype == kBF16)
+    return q8 ? variant::run_layer<bf16, int8_t>(*a, false, st)
+              : variant::run_layer<bf16, bf16>(*a, false, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -438,9 +468,10 @@ extern "C" int v2m_variant_batched_layer(int dtype,
                                          void* stream) {
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!variant::widths_ok(*a, true)) return (int)cudaErrorInvalidValue;
-  if (dtype == kF32) return variant::run_layer<float>(*a, true, st);
-  if (dtype == kBF16) return variant::run_layer<bf16>(*a, true, st);
+  if (!variant::widths_ok(*a, true) || a->wqkv_s != nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == kF32) return variant::run_layer<float, float>(*a, true, st);
+  if (dtype == kBF16) return variant::run_layer<bf16, bf16>(*a, true, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -451,10 +482,11 @@ extern "C" int v2m_variant_batched_moe(int dtype,
                                        void* stream) {
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!variant::widths_ok(*a, false)) return (int)cudaErrorInvalidValue;
+  if (!variant::widths_ok(*a, false) || a->wqkv_s != nullptr)
+    return (int)cudaErrorInvalidValue;
   if (dtype == kF32)
-    return variant::run_moe<float>(*a, a->x, 1, 0, a->work, st);
+    return variant::run_moe<float, float>(*a, a->x, 1, 0, a->work, st);
   if (dtype == kBF16)
-    return variant::run_moe<bf16>(*a, a->x, 1, 0, a->work, st);
+    return variant::run_moe<bf16, bf16>(*a, a->x, 1, 0, a->work, st);
   return (int)cudaErrorInvalidValue;
 }

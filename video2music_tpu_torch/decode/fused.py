@@ -19,32 +19,42 @@ closure beside the ``init_*caches`` it decodes on:
   * "monolith" (``init_fused_monolith_caches`` /
     ``make_fused_monolith_step``): the whole step in one launch over
     (L, S, D) caches, the embed and head folded as in "ends".
+The cooperative kernel takes at most ``kernels.MAX_STACK_LAYERS`` (16)
+layers a launch, so "monolith", ``split=False`` and each segment of
+"stack" cut a longer run into chunks of at most 16 layers, one launch
+each: the embed folds into the first chunk, the head into the last, and a
+chunk hands the next its output in the model dtype, where the JAX kernels
+round the residual stream after every layer too.
 At B>1 the batched step (``init_fused_batch_caches`` /
 ``make_fused_batch_step``): every layer runs the batched attention step
 (ops/decode_batch.py); every MoE layer finishes with the batched MoE step,
 which routes in the kernel. ``ends=True`` folds the embedding into the
 first step and the head into the last MoE step; ``ends=False`` keeps both
-as plain glue.
+as plain glue. ``kv_quant="int8"`` keeps every self and cross cache as
+int8 rows with f32 row scales (``ksc{i}`` / ``vsc{i}`` / ``cksc{i}`` /
+``cvsc{i}``), which the attention step reads and appends to.
 
 The variant wirings (the V3 family in this port): one variant kernel per
 layer at B=1 (``init_fused_variant_caches`` / ``make_fused_variant_step``,
-ops/decode_variant.py) and the batched pair at B>1
-(``init_fused_batch_variant_caches`` / ``make_fused_batch_variant_step``,
-ops/decode_batch_variant.py). The embedding and the final norm + head are
-plain PyTorch glue around the kernels, as the JAX steps keep them in XLA;
-differential layers carry 2D-wide K caches.
+ops/decode_variant.py; ``quantize="int8"`` reads int8 weights) and the
+batched pair at B>1 (``init_fused_batch_variant_caches`` /
+``make_fused_batch_variant_step``, ops/decode_batch_variant.py). The
+embedding and the final norm + head are plain PyTorch glue around the
+kernels, as the JAX steps keep them in XLA; differential layers carry
+2D-wide K caches.
 
-Not ported: int8 KV caches, int8 weights of the variant wirings, cache
-segmentation.
+Not ported: cache segmentation.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.decode_batch import batched_layer_step, batched_moe_ffn
+from .. import kernels
+from ..ops.decode_batch import (batched_layer_step, batched_moe_ffn,
+                                quantize_kv_rows)
 from ..ops.decode_batch_variant import (batched_variant_layer_step,
                                         batched_variant_moe_ffn)
 from ..ops.decode_layer import (decode_ends_step, decode_layer_step,
@@ -91,12 +101,25 @@ def _kw(model, layers):
                 rope=rope_tables(model, layers[0]["wqkv"].device))
 
 
+def _chunks(n: int) -> List[Tuple[int, int]]:
+    """[a, b) runs of at most kernels.MAX_STACK_LAYERS of n layers, in
+    order: one cooperative-kernel launch each."""
+    m = kernels.MAX_STACK_LAYERS
+    return [(a, min(a + m, n)) for a in range(0, n, m)]
+
+
+def _rows(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Layers [a, b) of stacked caches (a view; t itself when whole)."""
+    return t if (a, b) == (0, t.shape[0]) else t[a:b]
+
+
 def make_fused_ends_step(model, split: bool = True):
     """Returns ``step_logits(caches, token_root, token_attr, key, pos)`` ->
     (1, CHORD_SIZE) logits in the model dtype; token_root / token_attr /
     key are (1,) tensors on the model's device, pos a host int. The self
     caches are written in place. ``split=False``: the whole step, embed and
-    head folded, as one cooperative-kernel launch over every layer."""
+    head folded, as one cooperative-kernel launch over every layer (one per
+    chunk of 16 layers beyond 16)."""
     layers = pack_decoder_layers(model)
     head = pack_ends(model)
     L = len(layers)
@@ -107,12 +130,17 @@ def make_fused_ends_step(model, split: bool = True):
                 caches[f"cv{i}"])
 
     if not split:
-        plans = {}
+        runs = [(a, b, layers[a:b]) for a, b in _chunks(L)]
+        plans = [{} for _ in runs]
 
         def whole_step(caches, token_root, token_attr, key, pos: int):
-            return decode_flat_monolith_step(
-                token_root, token_attr, key, pos, layers, head,
-                [kv(caches, i) for i in range(L)], plans=plans, **kw)
+            x = None
+            for (a, b, chunk), plan in zip(runs, plans):
+                x = decode_flat_monolith_step(
+                    token_root, token_attr, key, pos, chunk, head,
+                    [kv(caches, i) for i in range(a, b)], embed=a == 0,
+                    fold_head=b == L, x=x, plans=plan, **kw)
+            return x
 
         return whole_step
 
@@ -173,18 +201,23 @@ def init_fused_stack_caches(model, cross) -> Dict[str, torch.Tensor]:
 
 def make_fused_stack_step(model):
     """The "stack" backend on :func:`init_fused_stack_caches` caches: one
-    :func:`decode_segment_step` launch per segment between the plain embed
-    and head glue of :func:`make_fused_step`."""
+    :func:`decode_segment_step` launch per segment (per chunk of 16 layers
+    of a longer one) between the plain embed and head glue of
+    :func:`make_fused_step`."""
     segs = pack_decoder_segments(model)
     kw = _kw(model, segs[0]["layers"])
-    plans = [{} for _ in segs]
+    runs = [(s, a, b, dict(seg, layers=seg["layers"][a:b]))
+            for s, seg in enumerate(segs)
+            for a, b in _chunks(len(seg["layers"]))]
+    plans = [{} for _ in runs]
 
     def step_logits(caches, token_root, token_attr, key, pos: int):
         x = _embed(model, token_root, token_attr, key)
-        for s, seg in enumerate(segs):
-            x = decode_segment_step(x, pos, seg, caches[f"sk{s}"],
-                                    caches[f"sv{s}"], caches[f"sck{s}"],
-                                    caches[f"scv{s}"], plans=plans[s], **kw)
+        for (s, a, b, seg), plan in zip(runs, plans):
+            x = decode_segment_step(
+                x, pos, seg, *(_rows(caches[f"{n}{s}"], a, b)
+                               for n in ("sk", "sv", "sck", "scv")),
+                plans=plan, **kw)
         return model.head(x)
 
     return step_logits
@@ -206,35 +239,58 @@ def init_fused_monolith_caches(model, cross) -> Dict[str, torch.Tensor]:
 def make_fused_monolith_step(model):
     """The "monolith" backend on :func:`init_fused_monolith_caches` caches:
     the whole step (embed, every layer, final norm, head) as one
-    :func:`decode_monolith_step` launch."""
+    :func:`decode_monolith_step` launch (one per chunk of 16 layers of a
+    deeper model, over views of the stacked caches)."""
     packed = pack_monolith(model)
     kw = _kw(model, packed["layers"])
-    plans = {}
+    L = len(packed["layers"])
+    runs = [(a, b, dict(packed, layers=packed["layers"][a:b]))
+            for a, b in _chunks(L)]
+    plans = [{} for _ in runs]
 
     def step_logits(caches, token_root, token_attr, key, pos: int):
-        return decode_monolith_step(token_root, token_attr, key, pos, packed,
-                                    caches["k"], caches["v"], caches["ck"],
-                                    caches["cv"], plans=plans, **kw)
+        x = None
+        for (a, b, chunk), plan in zip(runs, plans):
+            x = decode_monolith_step(
+                token_root, token_attr, key, pos, chunk,
+                *(_rows(caches[n], a, b) for n in ("k", "v", "ck", "cv")),
+                embed=a == 0, fold_head=b == L, x=x, plans=plan, **kw)
+        return x
 
     return step_logits
 
 
-def init_fused_batch_caches(model, cross) -> Dict[str, torch.Tensor]:
+def init_fused_batch_caches(model, cross, kv_quant: Optional[str] = None
+                            ) -> Dict[str, torch.Tensor]:
     """Batched analogue of :func:`init_fused_caches`: zero (B, S, D) self
     caches k{i}/v{i} beside the primed (B, Sm, D) cross K/V ck{i}/cv{i},
-    heads concatenated along D."""
+    heads concatenated along D. ``kv_quant="int8"``: every cache is int8,
+    the self caches with (B, S, 1) f32 row scales ksc{i}/vsc{i} that start
+    at zero, the primed cross K/V quantized here once (quantize_kv_rows)
+    with their scales cksc{i}/cvsc{i} (JAX decode/fused.py:421-457)."""
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
     S = model.cfg.max_seq_chord
     caches = {}
     for i, (ck, cv) in enumerate(cross):
         B, _, D = ck.shape
-        caches[f"k{i}"] = ck.new_zeros(B, S, D)
-        caches[f"v{i}"] = ck.new_zeros(B, S, D)
-        caches[f"ck{i}"] = ck.contiguous()
-        caches[f"cv{i}"] = cv.contiguous()
+        if kv_quant is None:
+            caches[f"k{i}"] = ck.new_zeros(B, S, D)
+            caches[f"v{i}"] = ck.new_zeros(B, S, D)
+            caches[f"ck{i}"] = ck.contiguous()
+            caches[f"cv{i}"] = cv.contiguous()
+            continue
+        for name in ("k", "v"):
+            caches[f"{name}{i}"] = torch.zeros(B, S, D, dtype=torch.int8,
+                                               device=ck.device)
+            caches[f"{name}sc{i}"] = torch.zeros(B, S, 1, device=ck.device)
+        caches[f"ck{i}"], caches[f"cksc{i}"] = quantize_kv_rows(ck)
+        caches[f"cv{i}"], caches[f"cvsc{i}"] = quantize_kv_rows(cv)
     return caches
 
 
-def make_fused_batch_step(model, ends: bool = True):
+def make_fused_batch_step(model, ends: bool = True,
+                          kv_quant: Optional[str] = None):
     """Returns ``step_logits(caches, token_root, token_attr, key, pos)`` ->
     (B, CHORD_SIZE) logits in the model dtype; token_root / token_attr /
     key are (B,) tensors on the model's device, pos a host int shared by
@@ -244,7 +300,11 @@ def make_fused_batch_step(model, ends: bool = True):
     form of "auto" / "ends"): the embedding prologue folds into layer 0's
     attention step and the last layer, a MoE layer in every 2.x wiring,
     emits the logits. ``ends=False`` ("on" at B>1): the embedding and the
-    final norm + head run as plain glue around the kernels."""
+    final norm + head run as plain glue around the kernels.
+    ``kv_quant="int8"``: the caches of :func:`init_fused_batch_caches`
+    with ``kv_quant="int8"``, their scales passed to every layer."""
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
     cfg = model.cfg
     layers = pack_decoder_layers(model)
     if ends and "gate_w" not in layers[-1]:
@@ -264,7 +324,10 @@ def make_fused_batch_step(model, ends: bool = True):
                 x, pos, layer, caches[f"k{i}"], caches[f"v{i}"],
                 caches[f"ck{i}"], caches[f"cv{i}"], n_heads=H, rope=rope,
                 tokens=(token_root, token_attr, key) if fold else None,
-                embed_pack=head if fold else None)
+                embed_pack=head if fold else None,
+                kv_scales=None if kv_quant is None else tuple(
+                    caches[f"{n}{i}"] for n in ("ksc", "vsc", "cksc",
+                                                "cvsc")))
             if "gate_w" in layer:
                 x = batched_moe_ffn(
                     x, layer, k_top=k_top,
@@ -298,10 +361,10 @@ def init_fused_batch_variant_caches(model, cross) -> Dict[str, torch.Tensor]:
     return caches
 
 
-def _variant_setup(model):
+def _variant_setup(model, quantize: Optional[str] = None):
     """Packed layers, metas and the step's keyword arguments."""
     cfg = model.cfg
-    layers, metas = pack_variant_layers(model)
+    layers, metas = pack_variant_layers(model, quantize=quantize)
     kw = dict(n_heads=cfg.num_heads, norm=cfg.norm, pre_norm=cfg.pre_norm,
               rope=rope_tables(model, layers[0]["wqkv"].device))
     return layers, metas, kw
@@ -313,13 +376,15 @@ def _embed(model, token_root, token_attr, key):
                                token_attr.reshape(-1, 1), key)[:, 0]
 
 
-def make_fused_variant_step(model):
+def make_fused_variant_step(model, quantize: Optional[str] = None):
     """Returns ``step_logits(caches, token_root, token_attr, key, pos)`` ->
     (1, CHORD_SIZE) logits in the model dtype for a variant wiring at B=1:
     the embedding, one variant kernel per layer, the final norm and head.
     token_root / token_attr / key are (1,) tensors on the model's device,
-    pos a host int; the self caches are written in place."""
-    layers, metas, kw = _variant_setup(model)
+    pos a host int; the self caches are written in place.
+    ``quantize="int8"``: the layers read int8 weights with per-row scales
+    (ops/decode_variant.py)."""
+    layers, metas, kw = _variant_setup(model, quantize)
     k_top = model.cfg.moe.n_experts_per_token
 
     def step_logits(caches, token_root, token_attr, key, pos: int):

@@ -27,13 +27,19 @@ decode/fused.py:
     whatever ``fused`` says, except "off";
   * the V2 family at B>1: "auto" / "ends" the batched step with the embed
     and head folded, every other value but "off" the batched step with
-    them as plain glue; ``quantize="int8"`` decodes on the plain step with
+    them as plain glue; ``kv_quant="int8"`` keeps its caches as int8 rows
+    with row scales; ``quantize="int8"`` decodes on the plain step with
     fake-quantized weights (and warns unless ``fused="auto"``);
-  * the variant wirings (V3): the variant kernels at B=1 and the batched
-    variant pair at B>1; "ends", "stack" and "monolith" raise ValueError,
-    ``quantize`` raises NotImplementedError;
+  * the variant wirings (V3): the variant kernels at B=1 (with int8
+    weights for ``quantize="int8"``) and the batched variant pair at B>1;
+    "ends", "stack" and "monolith" raise ValueError; ``quantize="int8"``
+    at B>1 or with "off" decodes on the plain step with fake-quantized
+    weights (and warns at B>1 unless ``fused="auto"``); ``kv_quant`` at
+    B>1 warns and keeps full-precision caches;
   * "off": the model's plain ``decode_step``, the counterpart of the XLA
     step path.
+``kv_quant`` is None or "int8", excludes ``quantize`` (ValueError), and is
+ignored at B=1 and with "off", as in the JAX sampler.
 "auto" means the kernels on a CUDA tensor and their plain versions on a
 CPU tensor (the wrappers dispatch by device); the JAX sampler's TPU checks
 (``_use_pallas``, the Mosaic tiling checks) have no counterpart here. Any
@@ -80,30 +86,44 @@ def _make_plain_step(model):
     return step_logits
 
 
+def _fake_quant_backend(B: int, fused: str):
+    """The plain step on fake-quantized weights: int8 decode where no int8
+    kernel runs (B>1, "off"); warns at B>1 unless fused="auto"."""
+    if B > 1 and fused != "auto":
+        warnings.warn(
+            f"fused={fused!r} with quantize='int8' at B={B}: int8 weights "
+            "are a B=1 fused feature; decoding on the plain step with "
+            "fake-quantized weights", stacklevel=4)
+    return _init_plain_caches, lambda model: _make_plain_step(
+        fake_quantize_decoder_params(model))
+
+
 def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
-                  split: bool = True):
+                  split: bool = True, kv_quant=None):
     """(init_caches(model, cross), make_step(model)) of the step that
-    decodes ``cfg`` at batch ``B`` for the sampler's ``fused`` and
-    ``quantize`` arguments (see the module docstring)."""
+    decodes ``cfg`` at batch ``B`` for the sampler's ``fused``,
+    ``quantize`` and ``kv_quant`` arguments (see the module docstring)."""
     if fused not in FUSED:
         raise ValueError(f"fused must be one of {FUSED}, got {fused!r}")
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
+    if kv_quant is not None and quantize is not None:
+        raise ValueError(
+            "kv_quant and quantize are mutually exclusive (int8 weights are "
+            "a B=1 feature, int8 KV caches a B>1 feature)")
     if fused_decode_eligible(cfg):
         if quantize is not None and (B > 1 or fused == "off"):
-            if B > 1 and fused != "auto":
-                warnings.warn(
-                    f"fused={fused!r} with quantize='int8' at B={B}: int8 "
-                    "weights are a B=1 fused feature; decoding on the plain "
-                    "step with fake-quantized weights", stacklevel=3)
-            return _init_plain_caches, lambda model: _make_plain_step(
-                fake_quantize_decoder_params(model))
+            return _fake_quant_backend(B, fused)
         if fused == "off":
             return _init_plain_caches, _make_plain_step
         if B > 1:
             ends = fused in ("auto", "ends")
-            return init_fused_batch_caches, lambda model: \
-                make_fused_batch_step(model, ends=ends)
+            return (lambda model, cross: init_fused_batch_caches(
+                model, cross, kv_quant=kv_quant),
+                lambda model: make_fused_batch_step(
+                    model, ends=ends, kv_quant=kv_quant))
         if quantize is not None:
             return init_fused_caches, lambda model: make_fused_step(
                 model, quantize=quantize)
@@ -122,14 +142,19 @@ def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
                 "(ops/decode_layer.fused_decode_eligible); this config "
                 "routes through the per-layer variant kernels: use "
                 "fused='on' or 'auto'")
-        if quantize is not None:
-            raise not_ported(f"int8 decode of the AMT {cfg.version!r} "
-                             "wiring (quantize=)", "Queue 1 item 7")
+        if kv_quant is not None and B > 1 and fused != "off":
+            warnings.warn(
+                "kv_quant='int8' covers the V2-family batched kernels "
+                "(ops/decode_batch.py); this variant config decodes with "
+                "full-precision KV caches", stacklevel=3)
+        if quantize is not None and (B > 1 or fused == "off"):
+            return _fake_quant_backend(B, fused)
         if fused == "off":
             return _init_plain_caches, _make_plain_step
-        return ((init_fused_variant_caches, make_fused_variant_step)
-                if B == 1 else (init_fused_batch_variant_caches,
-                                make_fused_batch_variant_step))
+        if B == 1:
+            return init_fused_variant_caches, lambda model: \
+                make_fused_variant_step(model, quantize=quantize)
+        return init_fused_batch_variant_caches, make_fused_batch_variant_step
     raise not_ported(f"decoding the AMT {cfg.version!r} wiring",
                      "Queue 1 item 12")
 
@@ -185,7 +210,7 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
                     generator: torch.Generator = None,
                     gcfg: GenerateConfig = GenerateConfig(),
                     temperature=None, fused: str = "auto", quantize=None,
-                    split: bool = True, _gumbel=None):
+                    split: bool = True, kv_quant=None, _gumbel=None):
     """Generate a (B, target_seq_length) chord-id sequence.
 
     Args:
@@ -202,9 +227,12 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
       temperature: sampling temperature, a float or a (B,) / (B, 1) tensor
         of per-clip values (default gcfg.temperature).
       fused: the step backend, one of FUSED (the module docstring).
-      quantize: None or "int8" (weight-only int8 decode of the V2 family).
+      quantize: None or "int8" (weight-only int8 decode: the int8 kernels
+        at B=1, fake-quantized weights on the plain step elsewhere).
       split: with the "ends" backend at B=1, False runs the whole step as
         one cooperative-kernel launch (make_fused_ends_step(split=False)).
+      kv_quant: None or "int8": int8 KV caches with row scales on the
+        batched V2 step (the module docstring).
       _gumbel: test seam — (T-1, B, CHORD_END) noise used instead of the
         generator's.
     Returns:
@@ -213,7 +241,7 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
     """
     B = semantic.shape[0]
     init_caches, make_step = fused_backend(model.cfg, B, fused, quantize,
-                                           split)
+                                           split, kv_quant)
     device = semantic.device
     T = gcfg.target_seq_length
     if temperature is None:

@@ -150,9 +150,10 @@ class BatchLayerArgs(ctypes.Structure):
         "rope_cos", "rope_sin",
         "k_cache", "v_cache", "k_cross", "v_cross", "work",
         "token_root", "token_attr", "key",
-        "emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b")] + [
+        "emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b",
+        "k_scale", "v_scale", "ck_scale", "cv_scale")] + [
         (name, ctypes.c_int) for name in (
-            "shallow", "B", "D", "H", "F", "S", "Sm", "pos")]
+            "shallow", "B", "D", "H", "F", "S", "Sm", "pos", "quant")]
 
 
 class BatchMoeArgs(ctypes.Structure):
@@ -175,7 +176,9 @@ class VariantArgs(ctypes.Structure):
         "norm_scale", "norm_bias", "fw1g", "fb1g", "fw2", "fb2",
         "gate_w", "gate_b", "sw1g", "sb1g", "sw2", "sb2",
         "ew1g", "eb1g", "ew2", "eb2", "rope_cos", "rope_sin",
-        "k_cache", "v_cache", "k_cross", "v_cross", "work", "sel")] + [
+        "k_cache", "v_cache", "k_cross", "v_cross", "work", "sel",
+        "wqkv_s", "wo_s", "cwq_s", "cwo_s", "fw1g_s", "fw2_s", "sw1g_s",
+        "sw2_s", "ew1g_s", "ew2_s")] + [
         (name, ctypes.c_int) for name in (
             "B", "D", "H", "S", "Sm", "pos", "er_len", "attn", "cross",
             "ffn", "expert", "F", "Fe", "E", "k_top", "rms", "pre_norm")]

@@ -7,7 +7,8 @@ Counterparts:
     at one shared ``pos``: the optional chord-embedding prologue, fused
     QKV + pairwise RoPE, masked self-attention over each clip's cache,
     cross-attention over its primed memory, and the SwiGLU FFN of a
-    shallow layer);
+    shallow layer; with ``kv_scales`` over int8 caches);
+  * ops/pallas_decode_batch.py:quantize_kv_rows -> :func:`quantize_kv_rows`;
   * ops/pallas_decode_batch.py:batched_moe_ffn (``gate=True``) ->
     :func:`batched_moe_ffn` (per-row router, shared expert / k, the
     routed experts weighted by their combine weights with every expert's
@@ -31,9 +32,20 @@ to the compute dtype (the current row's probability stays f32); the deep
 layer's output x2 leaves the attention half rounded, and the MoE residual
 adds that rounded x2. In float32 every rounding is a no-op.
 
+int8 KV caches (``kv_scales=``, the Pallas kernel's ``quant=True`` form,
+kv_quant="int8" of the sampler): the four caches hold int8 rows with one
+f32 scale per row (:func:`quantize_kv_rows`). This step quantizes its K/V
+rows from the f32 roped rows and writes them and their scales in place at
+``pos``. A cached row's logit is (q . k_int) / sqrt(hd) times its K scale,
+and its probability times its V scale is rounded to the compute dtype
+before P.V over the integer V (the Pallas ``_wide_attention``); the
+current row attends with its dequantized K/V rounded to the compute dtype
+and an f32 probability, as the Pallas kernel's (C, C) probe does.
+
 Layouts: weights (out, in) row-major, the dicts of
 ops/decode_layer.py:pack_decoder_layers / pack_ends; caches (B, S, D) and
-(B, Sm, D) with the heads concatenated along D.
+(B, Sm, D) with the heads concatenated along D; scales (B, S, 1) and
+(B, Sm, 1).
 """
 
 from __future__ import annotations
@@ -49,16 +61,67 @@ from .decode_layer import (MAX_TOP_K, _dot, _layer_norm, _rope_at, _rotate,
 
 MAX_K = 1024  # csrc/batch_decode.cuh kMaxK: longest row a warp holds
 
+# When a list, every MoE router of the decode steps, kernel or plain, at
+# B=1 or B>1 (here and in ops/decode_variant.py), appends the (B, k) expert
+# ids it chose in selection order, left on the device. chip_smoke.py sets
+# it to compare a kernel step's choices with its plain step's.
+route_log: Optional[list] = None
+
+
+def log_route(ids) -> None:
+    if route_log is not None:
+        route_log.append(ids)
+
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def quantize_kv_rows(x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 of KV-cache rows (JAX quantize_kv_rows):
+    (..., D) -> (int8 (..., D), f32 scales (..., 1)). s = max|x| / 127 as
+    an IEEE division (1 for an all-zero row), q = round(x / s), half to
+    even. The divisors are tensors: PyTorch turns a division by a Python
+    scalar on the card into a product with its reciprocal."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s = amax / torch.full_like(amax, 127.0)
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    return torch.round(xf / s).to(torch.int8), s
+
+
+def attend_int8(q, k, v, k_scale, v_scale, n_heads: int, dt, k_cur=None,
+                v_cur=None):
+    """The int8-KV attention of the batched kernel: q (B, D) f32, already
+    rounded to ``dt``, over the int8 rows of k / v (B, R, D) with their
+    (B, R, 1) f32 scales and, for self-attention, the current row k_cur /
+    v_cur (B, D) f32 (dequantized and rounded to dt) -> (B, D) f32 rounded
+    to dt. A cached row's logit is (q . k) / sqrt(hd) * k_scale and its
+    probability times v_scale is rounded to dt before P.V; the current
+    row's logit is q . k_cur / sqrt(hd) and its probability stays f32."""
+    B, R, D = k.shape
+    hd = D // n_heads
+    qh = q.view(B, n_heads, hd)
+    logits = torch.einsum("bhd,bshd->bhs", qh,
+                          k.float().view(B, R, n_heads, hd)) * hd ** -0.5 \
+        * k_scale.view(B, 1, R)
+    if k_cur is not None:
+        cur = torch.einsum("bhd,bhd->bh", qh, k_cur.view(B, n_heads, hd)) \
+            * hd ** -0.5
+        logits = torch.cat([logits, cur[..., None]], dim=-1)
+    p = torch.softmax(logits, dim=-1)
+    pv = (p[..., :R] * v_scale.view(B, 1, R)).to(dt).float()
+    out = torch.einsum("bhs,bshd->bhd", pv, v.float().view(B, R, n_heads, hd))
+    if v_cur is not None:
+        out = out + p[..., R:] * v_cur.view(B, n_heads, hd)
+    return out.to(dt).float().reshape(B, D)
+
+
 def batched_layer_step_plain(x, pos: int, p, k_cache, v_cache, k_cross,
                              v_cross, *, n_heads: int, rope=None,
-                             tokens=None, embed_pack=None):
+                             tokens=None, embed_pack=None, kv_scales=None):
     """Plain version of :func:`batched_layer_step`."""
-    dt = k_cache.dtype
+    dt = p["wqkv"].dtype
     D = k_cache.shape[-1]
     if tokens is not None:
         x = embed_plain(*tokens, embed_pack, dt)
@@ -67,17 +130,34 @@ def batched_layer_step_plain(x, pos: int, p, k_cache, v_cache, k_cross,
     if rope is not None:
         cos, sin = _rope_at(rope, pos, D)
         q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
-    k_cache[:, pos] = k.to(dt)
-    v_cache[:, pos] = v.to(dt)
-    attn = attend(q.to(dt).float(), k_cache[:, :pos + 1],
-                  v_cache[:, :pos + 1], n_heads, cur=pos, batched=True)
+    if kv_scales is None:
+        k_cache[:, pos] = k.to(dt)
+        v_cache[:, pos] = v.to(dt)
+        attn = attend(q.to(dt).float(), k_cache[:, :pos + 1],
+                      v_cache[:, :pos + 1], n_heads, cur=pos, batched=True)
+    else:
+        k_scale, v_scale = kv_scales[:2]
+        current = []
+        for row, cache, scale in ((k, k_cache, k_scale),
+                                  (v, v_cache, v_scale)):
+            q8, s = quantize_kv_rows(row)
+            cache[:, pos] = q8
+            scale[:, pos] = s
+            current.append((q8.float() * s).to(dt).float())
+        attn = attend_int8(q.to(dt).float(), k_cache[:, :pos],
+                           v_cache[:, :pos], k_scale[:, :pos],
+                           v_scale[:, :pos], n_heads, dt, *current)
     x1 = _layer_norm(x.float() + (_dot(attn, p["wo"]) + p["bo"].float()),
                      p["norm_scale"][0], p["norm_bias"][0])
     cq = _dot(x1, p["cwq"]) + p["cbq"].float()
     if rope is not None:
         cq = _rotate(cq, cos, sin)
-    cattn = attend(cq.to(dt).float(), k_cross, v_cross, n_heads,
-                   batched=True)
+    if kv_scales is None:
+        cattn = attend(cq.to(dt).float(), k_cross, v_cross, n_heads,
+                       batched=True)
+    else:
+        cattn = attend_int8(cq.to(dt).float(), k_cross, v_cross,
+                            kv_scales[2], kv_scales[3], n_heads, dt)
     x2 = _layer_norm(x1 + (_dot(cattn, p["cwo"]) + p["cbo"].float()),
                      p["norm_scale"][1], p["norm_bias"][1])
     if "gate_w" not in p:
@@ -98,6 +178,7 @@ def route_plain(x2, gate_w, gate_b, k_top: int):
         idx.append(e)
         vals.append(logits.gather(-1, e))
         remaining = remaining.scatter(-1, e, float("-inf"))
+    log_route(torch.cat(idx, dim=-1))
     exps = [torch.exp(v - vals[0]) for v in vals]
     denom = sum(exps)
     cw = torch.zeros_like(logits)
@@ -142,10 +223,11 @@ def _require_widths(D: int, F: int, what: str) -> None:
                     f"D={D} and F={F} must be at most {MAX_K}")
 
 
-def layer_workspace_size(B: int, D: int, F: int) -> int:
+def layer_workspace_size(B: int, D: int, F: int, quant: bool = False) -> int:
     """f32 scratch of one batched layer step (csrc/decode_batch.cu
-    run_layer)."""
-    return B * (10 * D + F)
+    run_layer); the int8-KV form adds the f32 K/V rows and their
+    dequantized copies, (B, 2D) each."""
+    return B * (10 * D + F + (4 * D if quant else 0))
 
 
 def moe_workspace_size(B: int, D: int, F: int, E: int) -> int:
@@ -160,14 +242,17 @@ def moe_route_size(B: int, E: int) -> int:
 
 
 def _launch_layer(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
-                  n_heads: int, rope, tokens, embed_pack, what: str):
+                  n_heads: int, rope, tokens, embed_pack, kv_scales,
+                  what: str):
     B, S, D = k_cache.shape
     F = p["w2"].shape[-1]
-    dev, dt = k_cache.device, k_cache.dtype
-    code = kernels.dtype_code(k_cache, what)
+    dev, dt = k_cache.device, p["wqkv"].dtype
+    code = kernels.dtype_code(p["wqkv"], what)
     hd = D // n_heads if n_heads else 0
+    quant = kv_scales is not None
     kernels.require(n_heads > 0 and D % n_heads == 0 and hd % 8 == 0
-                    and hd <= 256, what, f"bad head split D={D} H={n_heads}")
+                    and hd <= 256 and (not quant or hd % 16 == 0), what,
+                    f"bad head split D={D} H={n_heads}")
     _require_widths(D, F, what)
     kernels.require(0 <= pos < S, what, f"pos {pos} outside cache of {S}")
     kernels.require(k_cross.dim() == 3 and k_cross.shape[0] == B
@@ -177,24 +262,47 @@ def _launch_layer(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
                     "caches must be (B, S, D) and cross K/V (B, Sm, D)")
     shallow = "gate_w" not in p
     tensors = {k: p[k] for k in _LAYER_KEYS + (_FFN_KEYS if shallow else ())}
-    tensors.update(k_cache=k_cache, v_cache=v_cache, k_cross=k_cross,
-                   v_cross=v_cross)
+    caches = dict(k_cache=k_cache, v_cache=v_cache, k_cross=k_cross,
+                  v_cross=v_cross)
+    if quant:  # int8 caches beside f32 row scales, checked apart
+        Sm = k_cross.shape[1]
+        kernels.require(len(kv_scales) == 4, what,
+                        "kv_scales must be (k, v, ck, cv) scales")
+        for name, t in caches.items():
+            kernels.require(t.dtype == torch.int8 and t.device == dev
+                            and t.is_contiguous(), what,
+                            f"{name} must be a contiguous int8 tensor on "
+                            f"{dev}")
+        scales = dict(zip(("k_scale", "v_scale", "ck_scale", "cv_scale"),
+                          kv_scales))
+        for (name, t), rows in zip(scales.items(), (S, S, Sm, Sm)):
+            kernels.require(t.dtype == torch.float32 and t.device == dev
+                            and t.is_contiguous()
+                            and tuple(t.shape) == (B, rows, 1), what,
+                            f"{name} must be a contiguous float32 "
+                            f"({B}, {rows}, 1) tensor on {dev}")
+    else:
+        tensors.update(caches)
     if tokens is None:
         kernels.require(x is not None and x.shape == (B, D), what,
                         "x must be (B, D) without the embed prologue")
         tensors["x"] = x
     else:
         tensors.update({k: embed_pack[k] for k in _EMBED_KEYS})
-    kernels.require_like(tensors, k_cache, what)
+    kernels.require_like(tensors, p["wqkv"], what)
     kernels.require(p["wqkv"].shape == (3 * D, D), what,
                     "wqkv must be (3D, D)")
-    work = torch.empty(layer_workspace_size(B, D, F), device=dev,
+    work = torch.empty(layer_workspace_size(B, D, F, quant), device=dev,
                        dtype=torch.float32)
     y = torch.empty(B, D, device=dev, dtype=dt)
     a = kernels.BatchLayerArgs()
     P = kernels.ptr
     for name, t in tensors.items():
         setattr(a, name, P(t).value)
+    if quant:
+        for name, t in {**caches, **scales}.items():
+            setattr(a, name, P(t).value)
+        a.quant = 1
     if rope is not None:
         cos, sin = (t.to(device=dev, dtype=torch.float32).contiguous()
                     for t in rope)
@@ -223,7 +331,8 @@ def _launch_layer(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
 def batched_layer_step(x, pos: int, layer, k_cache, v_cache, k_cross,
                        v_cross, *, n_heads: int, rope=None,
                        tokens: Optional[Tuple] = None,
-                       embed_pack: Optional[Dict[str, torch.Tensor]] = None):
+                       embed_pack: Optional[Dict[str, torch.Tensor]] = None,
+                       kv_scales: Optional[Tuple] = None):
     """Attention half (plus the SwiGLU FFN of a shallow layer) of one
     batched decoder-layer step.
 
@@ -238,19 +347,24 @@ def batched_layer_step(x, pos: int, layer, k_cache, v_cache, k_cross,
       tokens: optional (token_root, token_attr, key), each (B,) on the
         device: folds the chord-embedding prologue into this layer; needs
         ``embed_pack`` (ops/decode_layer.py:pack_ends).
+      kv_scales: optional (k_scale, v_scale, ck_scale, cv_scale), f32
+        (B, S, 1), (B, S, 1), (B, Sm, 1), (B, Sm, 1): the four caches are
+        then int8 (:func:`quantize_kv_rows`), and this step's int8 rows
+        and their scales are written in place at ``pos``.
     Returns:
-      (B, D) in the compute dtype: the layer output of a shallow layer, or
-      the post-norm2 activation of a deep (MoE) layer, which
-      :func:`batched_moe_ffn` finishes.
+      (B, D) in the compute dtype (the layer's): the layer output of a
+      shallow layer, or the post-norm2 activation of a deep (MoE) layer,
+      which :func:`batched_moe_ffn` finishes.
     """
     what = "batched_layer_step"
     if kernels.use_plain(k_cache, what):
         return batched_layer_step_plain(
             x, pos, layer, k_cache, v_cache, k_cross, v_cross,
-            n_heads=n_heads, rope=rope, tokens=tokens, embed_pack=embed_pack)
+            n_heads=n_heads, rope=rope, tokens=tokens, embed_pack=embed_pack,
+            kv_scales=kv_scales)
     y = _launch_layer(x, pos, layer, k_cache, v_cache, k_cross, v_cross,
                       n_heads=n_heads, rope=rope, tokens=tokens,
-                      embed_pack=embed_pack, what=what)
+                      embed_pack=embed_pack, kv_scales=kv_scales, what=what)
     batched_layer_step.launches += 1
     return y
 
@@ -311,6 +425,7 @@ def batched_moe_ffn(x2, layer, *, k_top: int = 2,
                                                kernels.stream_of(x2))
     kernels.check(status, what)
     batched_moe_ffn.launches += 1
+    log_route(sel[:B * MAX_TOP_K].view(B, MAX_TOP_K)[:, :k_top])
     return out
 
 

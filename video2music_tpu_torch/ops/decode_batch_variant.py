@@ -48,7 +48,7 @@ def batched_variant_moe_plain(x2, p, meta: VariantLayerMeta, *, k_top: int,
     """Plain version of :func:`batched_variant_moe_ffn`."""
     ns, nb = p["norm_scale"], p["norm_bias"]
     xn = _norm(x2, ns[2], nb[2], norm).to(x2.dtype) if pre_norm else x2
-    x3 = x2.float() + _moe_expert_order(xn, p, meta, k_top)
+    x3 = x2.float() + _moe_expert_order(xn, p, meta, k_top, x2.dtype)
     if not pre_norm:
         x3 = _norm(x3, ns[2], nb[2], norm)
     return x3.to(x2.dtype)

@@ -88,9 +88,12 @@ def quantize_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per output row: w (..., out, in) -> (int8 (..., out,
     in), f32 scales (..., out)); a row's scale is max|w| over its inputs /
     127, at least 1e-12, and q = round(w / scale), half to even (the JAX
-    quantize_weight on its (in, out) layout)."""
+    quantize_weight on its (in, out) layout). The divisor is a tensor: on
+    the card PyTorch turns a division by a Python scalar into a product
+    with its reciprocal, which is not the same f32 value."""
     wf = w.float()
-    s = torch.clamp(wf.abs().amax(dim=-1) / 127.0, min=1e-12)
+    amax = wf.abs().amax(dim=-1)
+    s = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
     return torch.round(wf / s.unsqueeze(-1)).to(torch.int8), s
 
 
@@ -106,20 +109,22 @@ def _fake_quant(w) -> torch.Tensor:
 def fake_quantize_decoder_params(model):
     """A copy of ``model`` whose decoder weights that int8 decode quantizes
     went through int8 and back (dequantize(quantize(w))): the self-attention
-    projections, the cross-attention query rows and out-projection (the
-    cross K/V rows prime in full precision), the SwiGLU and the experts. The
-    biases, norms, MoE gate, embeddings and head stay. The plain decode step
-    with this copy is the numerical oracle of the int8 kernels."""
+    projections, the cross-attention query rows (2D of them for
+    differential attention) and out-projection (the cross K/V rows prime in
+    full precision), the SwiGLU and the experts with their shared expert.
+    The biases, norms, MoE gate, differential lambda / subln, embeddings
+    and head stay. The plain decode step with this copy is the numerical
+    oracle of the int8 kernels, in the V2 and the variant wirings."""
     import copy
 
     out = copy.deepcopy(model)
-    D = model.cfg.d_model
     with torch.no_grad():
         for layer in out.decoder_layers:
             sa, ca, ffn = layer.self_attn, layer.cross_attn, layer.ffn
             for lin in (sa.in_proj, sa.out_proj, ca.out_proj):
                 lin.weight.copy_(_fake_quant(lin.weight))
-            ca.in_proj.weight[:D] = _fake_quant(ca.in_proj.weight[:D])
+            Dq = ca.qk_dim
+            ca.in_proj.weight[:Dq] = _fake_quant(ca.in_proj.weight[:Dq])
             swiglu = getattr(ffn, "shared", ffn)
             for lin in (swiglu.w1g, swiglu.linear2):
                 lin.weight.copy_(_fake_quant(lin.weight))

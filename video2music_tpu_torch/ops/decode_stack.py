@@ -114,12 +114,13 @@ def decode_segment_plain(x, pos: int, seg, k_cache, v_cache, k_cross,
 
 def decode_monolith_plain(token_root, token_attr, key, pos: int, packed,
                           k_cache, v_cache, k_cross, v_cross, *,
-                          n_heads: int, k_top: int = 2, rope=None):
+                          n_heads: int, k_top: int = 2, rope=None,
+                          embed: bool = True, fold_head: bool = True, x=None):
     """Plain version of :func:`decode_monolith_step`."""
     return decode_flat_monolith_plain(
         token_root, token_attr, key, pos, packed["layers"], packed,
         _stacked(k_cache, v_cache, k_cross, v_cross), n_heads=n_heads,
-        k_top=k_top, rope=rope)
+        k_top=k_top, rope=rope, embed=embed, fold_head=fold_head, x=x)
 
 
 # ---------------------------------------------------------------------------
@@ -264,11 +265,20 @@ class _Run:
         return out
 
 
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b address the same elements: the same tensor, or views with
+    one start, shape and strides (a step's chunk of stacked caches makes a
+    new view each call)."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype
+                      and a.device == b.device)
+
+
 def _cached_run(plans: Optional[dict], tensors: Tuple) -> Optional[_Run]:
     """The caller's run when it was built for these very cache tensors."""
     run = plans.get("run") if plans is not None else None
     if (run is None or len(run.tensors) != len(tensors)
-            or any(a is not b for a, b in zip(run.tensors, tensors))):
+            or not all(_same(a, b) for a, b in zip(run.tensors, tensors))):
         return None
     return run
 
@@ -374,17 +384,22 @@ decode_segment_step.launches = 0
 def decode_monolith_step(token_root, token_attr, key, pos: int, packed: Dict,
                          k_cache, v_cache, k_cross, v_cross, *,
                          n_heads: int, k_top: int = 2, rope=None,
+                         embed: bool = True, fold_head: bool = True, x=None,
                          plans: Optional[dict] = None):
     """One whole decode step (embed, every layer, final norm, head) as one
     kernel launch.
 
     Args:
       token_root, token_attr, key: (1,) ids and key on the device.
-      packed: :func:`pack_monolith` of the model.
+      packed: :func:`pack_monolith` of the model, or of a run of its
+        layers (its "layers" one per cache row).
       k_cache, v_cache: (L, S, D) stacked self caches, written in place.
       k_cross, v_cross: (L, Sm, D) stacked primed memory K/V.
+      embed, fold_head, x: as :func:`decode_flat_monolith_step` takes them,
+        for a step cut into runs of at most ``kernels.MAX_STACK_LAYERS``
+        layers (decode/fused.py); the whole step folds both ends.
     Returns:
-      logits (1, n_out) in the compute dtype.
+      logits (1, n_out) in the compute dtype, or y (1, D) without the head.
     """
     what = "decode_monolith_step"
     tensors = (k_cache, v_cache, k_cross, v_cross)
@@ -392,16 +407,17 @@ def decode_monolith_step(token_root, token_attr, key, pos: int, packed: Dict,
     if run is None:
         caches = _stacked(*tensors)
         _check_run(what, packed["layers"], caches, packed, n_heads=n_heads,
-                   k_top=k_top, embed=True, fold_head=True, x=None)
+                   k_top=k_top, embed=embed, fold_head=fold_head, x=x)
         if kernels.use_plain(k_cache, what):
             return decode_monolith_plain(token_root, token_attr, key, pos,
                                          packed, k_cache, v_cache, k_cross,
                                          v_cross, n_heads=n_heads,
-                                         k_top=k_top, rope=rope)
+                                         k_top=k_top, rope=rope, embed=embed,
+                                         fold_head=fold_head, x=x)
         run = _new_run(plans, tensors, what, packed["layers"], caches,
                        packed, n_heads=n_heads, k_top=k_top, rope=rope,
-                       embed=True, fold_head=True)
-    out = run.launch(pos, tokens=(token_root, token_attr, key))
+                       embed=embed, fold_head=fold_head)
+    out = run.launch(pos, x=x, tokens=(token_root, token_attr, key))
     decode_monolith_step.launches += 1
     return out
 

@@ -8,10 +8,18 @@ Counterparts:
     vanilla or differential cross-attention, optional pairwise RoPE; a
     ReLU, SwiGLU or top-k MoE feed-forward with GLU or SiLU-MLP experts,
     with or without the shared expert; LayerNorm or RMSNorm; post- or
-    pre-norm residuals; int8 is not ported);
-  * its ``VariantLayerMeta``, ``pack_variant_layers`` and
+    pre-norm residuals; bf16 / f32 or int8 weights);
+  * its ``VariantLayerMeta``, ``QUANT_KEYS``, ``pack_variant_layers`` and
     ``fused_variant_eligible`` -> the same names here (the packing reads a
     port VideoMusicTransformer, whose modules cover the V2 and V3 wirings).
+
+int8 weights: ``pack_variant_layers(model, quantize="int8")`` stores each
+``QUANT_KEYS`` weight as int8 with an f32 scale per output row under
+``<key>_s`` (ops/decode_layer.py:quantize_weight; expert scales (E, G) and
+(E, D)); the RPR table and the differential lambda / subln rows stay f32.
+Each dot of such a weight reads int8 rows, multiplies its f32 sum by the
+row's scale, then adds the bias (the Pallas ``_dot``). Only the B=1 layer
+takes int8 weights, as in the JAX package.
 
 The wrapper runs the plain PyTorch version on CPU tensors and launches the
 CUDA chain on CUDA tensors. The self caches are updated IN PLACE at row
@@ -40,21 +48,25 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .. import kernels
 from ..core.config import AMTConfig
-from .decode_batch import MAX_K, route_plain
+from .decode_batch import MAX_K, log_route, route_plain
 from .decode_layer import (MAX_TOP_K, _dot, _layer_norm, _rope_at, _rotate,
-                           attend)
+                           attend, quantize_weight)
 from .norms import RMS_EPS, LayerNorm
 
 MAX_EXPERTS = 32   # csrc/batch_decode.cuh kMaxExperts
 LAYER_ROWS = 12    # csrc/decode_variant.cu kLayerRows
 ATTN = {"vanilla": 0, "rpr": 1, "differential": 2}
 FFN = {"relu": 0, "swiglu": 1, "moe": 2}
+# the weights int8 decode quantizes (pallas_decode_variant.py:474): every
+# large matmul; the RPR er table and the differential rows stay f32
+QUANT_KEYS = ("wqkv", "wo", "cwq", "cwo", "fw1g", "fw2",
+              "sw1g", "sw2", "ew1g", "ew2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,12 +139,16 @@ def _attention_pack(attn, prefix: str, n_heads: int) -> Dict:
     return {prefix + "lam": lam, prefix + "subw": subw}
 
 
-def pack_variant_layers(model) -> Tuple[List[Dict[str, torch.Tensor]],
-                                        List[VariantLayerMeta]]:
+def pack_variant_layers(model, quantize: Optional[str] = None
+                        ) -> Tuple[List[Dict[str, torch.Tensor]],
+                                   List[VariantLayerMeta]]:
     """Per-layer packed dicts (module docstring) and metas of a port
     VideoMusicTransformer whose config is :func:`fused_variant_eligible`.
     Views of the parameters where the layout allows; zero rows for absent
-    biases."""
+    biases. ``quantize="int8"`` replaces the weights of QUANT_KEYS by int8
+    copies and adds their row scales under ``<key>_s``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
     cfg = model.cfg
     if not fused_variant_eligible(cfg):
         raise ValueError("pack_variant_layers: the decoder wiring is not "
@@ -174,7 +190,12 @@ def pack_variant_layers(model) -> Tuple[List[Dict[str, torch.Tensor]],
             else:
                 p.update(fw1g=ffn.w1g.weight, fb1g=ffn.w1g.bias,
                          fw2=ffn.linear2.weight, fb2=ffn.linear2.bias)
-            layers.append({k: v.detach().contiguous() for k, v in p.items()})
+            p = {k: v.detach().contiguous() for k, v in p.items()}
+            if quantize == "int8":
+                for key in QUANT_KEYS:
+                    if key in p:
+                        p[key], p[key + "_s"] = quantize_weight(p[key])
+            layers.append(p)
             metas.append(meta)
     return layers, metas
 
@@ -192,10 +213,11 @@ def _norm(x, scale, bias, kind: str):
         * scale.float()
 
 
-def _ffn(x, w1g, b1g, w2, b2, act: str):
+def _ffn(x, w1g, b1g, w2, b2, act: str, s1g=None, s2=None, dt=None):
     """Two-matmul feed-forward, f32 out. act: "glu" (w1g = [linear1; gate],
-    h * silu(g)), "silu" or "relu"."""
-    hg = _dot(x, w1g) + b1g.float()
+    h * silu(g)), "silu" or "relu". s1g / s2: the row scales of int8
+    weights, whose inputs round to the compute dtype ``dt``."""
+    hg = _dot(x, w1g, s1g, dt) + b1g.float()
     if act == "glu":
         F = w2.shape[-1]
         h, g = hg[..., :F], hg[..., F:]
@@ -204,10 +226,24 @@ def _ffn(x, w1g, b1g, w2, b2, act: str):
         h = hg * torch.sigmoid(hg)
     else:
         h = torch.relu(hg)
-    return _dot(h, w2) + b2.float()
+    return _dot(h, w2, s2, dt) + b2.float()
 
 
-def _moe_selection_order(xn, p, meta: VariantLayerMeta, k_top: int):
+def _shared_ffn(xn, p, act: str, dt):
+    return _ffn(xn, p["sw1g"], p["sb1g"], p["sw2"], p["sb2"], act,
+                p.get("sw1g_s"), p.get("sw2_s"), dt)
+
+
+def _expert(p, e) -> List[torch.Tensor]:
+    """Expert e's (w1g, b1g, w2, b2, and the int8 row scales or None),
+    e a python int or a (1,) index tensor left on the device."""
+    keys = ("ew1g", "eb1g", "ew2", "eb2", "ew1g_s", "ew2_s")
+    if isinstance(e, int):
+        return [p[k][e] if k in p else None for k in keys]
+    return [p[k].index_select(0, e)[0] if k in p else None for k in keys]
+
+
+def _moe_selection_order(xn, p, meta: VariantLayerMeta, k_top: int, dt):
     """Top-k MoE of one row xn (1, D): router over the raw gate logits
     (first index wins a tie), softmax over the selected logits, the shared
     expert / k (when present) plus each selected expert in selection order.
@@ -221,32 +257,33 @@ def _moe_selection_order(xn, p, meta: VariantLayerMeta, k_top: int):
         sel.append(e)
         vals.append(logits.gather(-1, e[:, None]))
         remaining = remaining.scatter(-1, e[:, None], float("-inf"))
+    log_route(torch.stack(sel, dim=-1))
     exps = [torch.exp(v - vals[0]) for v in vals]
     denom = sum(exps)
     if meta.shared:
-        h = _ffn(xn, p["sw1g"], p["sb1g"], p["sw2"], p["sb2"], act) / k_top
+        h = _shared_ffn(xn, p, act, dt) / k_top
     else:
         h = torch.zeros(xn.shape, device=xn.device)
     for j, e in enumerate(sel):
-        expert = [p[k].index_select(0, e)[0]
-                  for k in ("ew1g", "eb1g", "ew2", "eb2")]
-        h = h + (exps[j] / denom) * _ffn(xn, *expert, act)
+        w1g, b1g, w2, b2, s1g, s2 = _expert(p, e)
+        h = h + (exps[j] / denom) * _ffn(xn, w1g, b1g, w2, b2, act, s1g, s2,
+                                         dt)
     return h
 
 
-def _moe_expert_order(xn, p, meta: VariantLayerMeta, k_top: int):
+def _moe_expert_order(xn, p, meta: VariantLayerMeta, k_top: int, dt):
     """The same MoE for B rows as the batched kernel sums it: the shared
     expert / k, then every expert in expert order with its combine weight
     (zero where it was not selected)."""
     act = "glu" if meta.expert == "glu" else "silu"
     cw = route_plain(xn, p["gate_w"], p["gate_b"], k_top)
     if meta.shared:
-        acc = _ffn(xn, p["sw1g"], p["sb1g"], p["sw2"], p["sb2"], act) / k_top
+        acc = _shared_ffn(xn, p, act, dt) / k_top
     else:
         acc = torch.zeros(xn.shape, device=xn.device)
     for e in range(p["gate_w"].shape[0]):
-        y = _ffn(xn, p["ew1g"][e], p["eb1g"][e], p["ew2"][e], p["eb2"][e],
-                 act)
+        w1g, b1g, w2, b2, s1g, s2 = _expert(p, e)
+        y = _ffn(xn, w1g, b1g, w2, b2, act, s1g, s2, dt)
         acc = acc + cw[:, e:e + 1] * y
     return acc
 
@@ -259,7 +296,8 @@ def layer_plain(x, pos: int, p, meta: VariantLayerMeta, k_cache, v_cache,
     batched=False: the B=1 kernel's arithmetic, the whole layer.
     batched=True: the batched kernel's, the attention half (+ the FFN of a
     shallow layer); a deep layer returns x2 for the MoE half
-    (ops/decode_batch_variant.py:batched_variant_moe_plain)."""
+    (ops/decode_batch_variant.py:batched_variant_moe_plain). Weights of an
+    int8 pack go through their row scales."""
     dt = k_cache.dtype
     ns, nb = p["norm_scale"], p["norm_bias"]
     Dq = k_cache.shape[-1]
@@ -267,11 +305,14 @@ def layer_plain(x, pos: int, p, meta: VariantLayerMeta, k_cache, v_cache,
     def nrm(t, i):
         return _norm(t, ns[i], nb[i], norm)
 
+    def mm(t, key):  # against weight `key`, int8 or not
+        return _dot(t, p[key], p.get(key + "_s"), dt)
+
     def query(t):  # the batched kernel rounds q to the compute dtype
         return t.to(dt).float() if batched else t
 
     def self_block(xin):
-        qkv = _dot(xin, p["wqkv"]) + p["bqkv"].float()
+        qkv = mm(xin, "wqkv") + p["bqkv"].float()
         q, k, v = qkv[:, :Dq], qkv[:, Dq:2 * Dq], qkv[:, 2 * Dq:]
         if rope is not None:
             cos, sin = _rope_at(rope, pos, Dq)
@@ -284,10 +325,10 @@ def layer_plain(x, pos: int, p, meta: VariantLayerMeta, k_cache, v_cache,
                       subw=p["subw"] if diff else None,
                       er=p["er"] if meta.attn == "rpr" else None, pos=pos,
                       cur=pos, batched=batched)
-        return _dot(attn, p["wo"]) + p["bo"].float()
+        return mm(attn, "wo") + p["bo"].float()
 
     def cross_block(xin):
-        cq = _dot(xin, p["cwq"]) + p["cbq"].float()
+        cq = mm(xin, "cwq") + p["cbq"].float()
         if rope is not None:
             cos, sin = _rope_at(rope, pos, cq.shape[-1])
             cq = _rotate(cq, cos, sin)
@@ -295,7 +336,7 @@ def layer_plain(x, pos: int, p, meta: VariantLayerMeta, k_cache, v_cache,
         attn = attend(query(cq), k_cross, v_cross, n_heads,
                       lam=p["clam"] if diff else None,
                       subw=p["csubw"] if diff else None, batched=batched)
-        return _dot(attn, p["cwo"]) + p["cbo"].float()
+        return mm(attn, "cwo") + p["cbo"].float()
 
     if pre_norm:
         x0 = x.float()
@@ -308,10 +349,11 @@ def layer_plain(x, pos: int, p, meta: VariantLayerMeta, k_cache, v_cache,
         return x2.to(dt)
     xn = nrm(x2, 2) if pre_norm else x2
     if meta.ffn == "moe":
-        h = _moe_selection_order(xn, p, meta, k_top)
+        h = _moe_selection_order(xn, p, meta, k_top, dt)
     else:
         h = _ffn(xn, p["fw1g"], p["fb1g"], p["fw2"], p["fb2"],
-                 "glu" if meta.ffn == "swiglu" else "relu")
+                 "glu" if meta.ffn == "swiglu" else "relu", p.get("fw1g_s"),
+                 p.get("fw2_s"), dt)
     x3 = x2 + h if pre_norm else nrm(x2 + h, 2)
     return x3.to(dt)
 
@@ -385,9 +427,22 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
             + (() if deep else _NEEDS["ffn"])
     if with_moe and meta.shared:
         keys += _SHARED
-    tensors = {k: p[k] for k in keys}
+    quantizable = [k for k in keys if k in QUANT_KEYS]
+    qkeys = [k for k in quantizable if k + "_s" in p]
+    kernels.require(len(qkeys) in (0, len(quantizable)), what,
+                    "an int8 pack quantizes every weight of QUANT_KEYS")
+    f32 = {k + "_s": p[k + "_s"] for k in qkeys}
+    for name in qkeys:  # int8 rows, f32 row scales
+        q, sc = p[name], p[name + "_s"]
+        kernels.require(entry == "layer", what,
+                        "int8 weights run through the B=1 layer only")
+        kernels.require(q.dtype == torch.int8 and q.device == dev
+                        and q.is_contiguous(), what,
+                        f"{name} must be a contiguous int8 tensor on {dev}")
+        kernels.require(sc.shape == q.shape[:-1], what,
+                        f"{name}_s must be the row scales of {name}")
+    tensors = {k: p[k] for k in keys if k not in qkeys}
     tensors["x"] = x
-    f32 = {}
     if not moe_only:
         if entry == "layer":
             kernels.require(k_cache.dim() == 2, what, "caches must be (S, .)")
@@ -423,10 +478,11 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
     F = 0 if deep else p["fw2"].shape[-1]
     E = p["gate_w"].shape[0] if deep else 0
     Fe = p["ew2"].shape[-1] if deep else 0
+    mult = 16 if qkeys else 8  # an int8 row loads 16 weights at a time
     for n in (D, F, Fe):
-        kernels.require(n % 8 == 0 and n <= MAX_K, what,
-                        f"widths {D}, {F}, {Fe} must be multiples of 8 and "
-                        f"at most {MAX_K}")
+        kernels.require(n % mult == 0 and n <= MAX_K, what,
+                        f"widths {D}, {F}, {Fe} must be multiples of {mult} "
+                        f"and at most {MAX_K}")
     if with_moe:
         kernels.require(1 <= k_top <= min(E - 1, MAX_TOP_K)
                         and E <= MAX_EXPERTS, what,
@@ -439,7 +495,7 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
                       dtype=torch.int32)
     y = torch.empty(B, D, device=dev, dtype=dt)
     a = kernels.VariantArgs()
-    for name, t in {**tensors, **f32}.items():
+    for name, t in {**tensors, **f32, **{k: p[k] for k in qkeys}}.items():
         setattr(a, name, kernels.ptr(t).value)
     if rope is not None and not moe_only:
         cos, sin = (t.to(device=dev, dtype=torch.float32).contiguous()
@@ -458,6 +514,8 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
     a.rms, a.pre_norm = int(norm == "rmsnorm"), int(pre_norm)
     fn = getattr(kernels.library(), "v2m_variant_" + entry)
     kernels.check(fn(code, ctypes.byref(a), kernels.stream_of(x)), what)
+    if with_moe:
+        log_route(sel[:B * MAX_TOP_K].view(B, MAX_TOP_K)[:, :k_top])
     return y
 
 

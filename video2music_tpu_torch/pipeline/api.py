@@ -14,13 +14,14 @@ DynamicBatcher of pipeline/serving.py drives ``generate_batch``.
 
 The wirings: AMT 2.x with RoPE (2.1, 2.2; the default) and 3.0 / 3.1 / 3.2
 (``music_gen_version``), each with the bimamba+ regression.
-``quantize="int8"`` (weight-only int8 decode) covers the 2.x family: at
-B=1 the decode-layer kernels read int8 weights, at B>1 the plain step runs
-on fake-quantized weights, as in the JAX package (decode/sampler.py). Not
-ported yet, and raising NotImplementedError: raw-video feature extraction
-(``video=``, ``extract_features_batch``), orbax checkpoints, int8 for the
-3.x family (``quantize``) and int8 KV caches (``kv_quant``), the other AMT
-wirings (base, 1.x, 2.0, KAN 2.3) and regression backbones.
+``quantize="int8"`` (weight-only int8 decode) covers the 2.x and 3.x
+families: at B=1 the decode kernels read int8 weights, at B>1 the plain
+step runs on fake-quantized weights, as in the JAX package
+(decode/sampler.py). ``kv_quant="int8"`` (``generate_batch``) keeps the
+batched 2.x step's KV caches as int8 rows with row scales. Not ported yet,
+and raising NotImplementedError: raw-video feature extraction (``video=``,
+``extract_features_batch``), orbax checkpoints, the other AMT wirings
+(base, 1.x, 2.0, KAN 2.3) and regression backbones.
 Weights come from :mod:`video2music_tpu_torch.weights`: random from a seed,
 or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`).
 """
@@ -266,8 +267,10 @@ class Video2music:
             ``primer``, ``key``, ``transposition_value``, ``sound_font``,
             ``output_dir`` (default ``output_dir/clip_{i:03d}``).
           temperature: one float for the batch, or one per request.
-          quantize: None or "int8", weight-only int8 decode (2.x family).
-          kv_quant: int8 KV caches, not ported (raises).
+          quantize: None or "int8", weight-only int8 decode.
+          kv_quant: None or "int8", int8 KV caches of the batched 2.x step
+            (ignored at B=1; a 3.x batch warns and keeps full-precision
+            caches; exclusive with ``quantize``).
           n_real: only the first ``n_real`` requests are real; the rest are
             padding clones that decode but are not rendered or returned.
           on_decoded: optional ``fn(i, {"chords", "chord_ids", "key"})``,
@@ -283,8 +286,6 @@ class Video2music:
         ``last_timings`` holds the batch's encode / prime / decode /
         regression times, and postprocess / total once rendered.
         """
-        if kv_quant is not None:
-            raise not_ported("int8 KV caches (kv_quant=)", "Queue 1 item 7")
         if not requests:
             return (lambda: []) if defer_render else []
         if any("video" in req for req in requests):
@@ -325,7 +326,7 @@ class Video2music:
                                     device=dev),
             generator=gen, gcfg=_GCFG,
             temperature=torch.as_tensor(temps, device=dev),
-            quantize=quantize, _gumbel=_gumbel, **feats)
+            quantize=quantize, kv_quant=kv_quant, _gumbel=_gumbel, **feats)
         gen_host = out["gen_seq"].cpu().numpy()
         if on_decoded is not None:
             inv = chord_inv_dict()
