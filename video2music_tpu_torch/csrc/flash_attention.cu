@@ -4,46 +4,57 @@
 // flash_attention (_attn_kernel, _flash_forward). Semantics kept: f32
 // logits and softmax, the optional (B, H, L, S) additive bias, masked
 // logits set to -1e9 (not -inf), and the causal mask start-aligned
-// (key column <= query row), valid only for L == S (the wrapper checks).
+// (key column <= query row), valid only for L == S (the wrapper checks);
+// the normalized weights are rounded to v's dtype before the product.
 //
 // What bounds it on the H100: at the product shape (B*H = 8, L = S = 300,
-// head_dim 64) the whole problem is 8 * 300 * 300 * 64 * 2 * 2 = 0.18
-// GFLOP and 0.6 MB of q/k/v, far under a microsecond of either roofline, so
-// the kernel is bound by latency and by the few blocks in flight (8 heads x
-// 5 query tiles = 40 blocks on 132 SMs). The Pallas kernel held a whole K/V
-// panel in VMEM; here K/V stream through shared memory in 32-row tiles with
-// an online softmax (running max and sum in registers), so nothing of size
-// (L, S) is ever written. Each thread owns one query row: q and the output
-// accumulator live in registers (2 * head_dim floats), the K/V tile is read
-// from shared memory as a broadcast. Plain FMA, no tensor cores: a later
-// change can move the two products onto mma/wgmma.
-#include "common.cuh"
+// head_dim 64) the call moves 4 * 8 * 300 * 64 * 2 bytes = 1.2 MB in bf16
+// (0.37 us at 3.35 TB/s) and does 4 * 8 * 300^2 * 64 = 0.18 GFLOP (0.19 us
+// of bf16 tensor-core peak): far under a microsecond of either roofline,
+// so latency and the blocks in flight set the time.
+//
+// bf16 (the product path) runs the tensor-core forward of
+// attention_mma.cuh: a warp per 16 query rows, blocks of 2 warps at B=1
+// (80 blocks at B*H = 8, L = 300) and 4 at larger batches; q k^T and p v
+// as mma.sync m16n8k16 with f32 accumulators; K/V chunks of 64 rows
+// double-buffered in shared memory by cp.async; two passes over the keys
+// (row max and sum, then the rounded weights times V) so the weights are
+// rounded at the Pallas kernel's point. The first design, kept for f32
+// (the parity path: TF32 tensor cores would keep ~3 digits), had one
+// thread per query row, 64 dependent FMAs per key for q.k and 64 more for
+// the accumulator, 40 blocks at B=1, and no tensor cores: 0.133 ms at B=1
+// against the 0.0098 ms of F.scaled_dot_product_attention (chip run, an
+// H100 80GB HBM3 at 700 W).
+#include "attention_mma.cuh"
 
 namespace v2m {
 
 constexpr int kAttnRows = 64;  // query rows per block (one per thread)
 constexpr int kAttnTile = 32;  // K/V rows per shared-memory tile
 
-template <typename T, int HD>
+// f32 only (bf16 runs the tensor-core forward of attention_mma.cuh).
+template <int HD>
 __global__ void __launch_bounds__(kAttnRows)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
-                       const float* __restrict__ bias, T* __restrict__ out,
-                       int L, int S, int causal, float scale) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ bias,
+                       float* __restrict__ out, int L, int S, int causal,
+                       float scale) {
   __shared__ float ks[kAttnTile][HD];
   __shared__ float vs[kAttnTile][HD];
   const int bh = blockIdx.y;
   const int row = blockIdx.x * kAttnRows + threadIdx.x;
   const bool live = row < L;
-  const T* qb = q + (size_t)bh * L * HD;
-  const T* kb = k + (size_t)bh * S * HD;
-  const T* vb = v + (size_t)bh * S * HD;
+  const float* qb = q + (size_t)bh * L * HD;
+  const float* kb = k + (size_t)bh * S * HD;
+  const float* vb = v + (size_t)bh * S * HD;
   const float* brow = bias ? bias + ((size_t)bh * L + row) * S : nullptr;
 
   float qr[HD], acc[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c) {
-    qr[c] = live ? to_f<T>(qb[(size_t)row * HD + c]) : 0.f;
+    qr[c] = live ? qb[(size_t)row * HD + c] : 0.f;
     acc[c] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -51,8 +62,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int s0 = 0; s0 < S; s0 += kAttnTile) {
     for (int i = threadIdx.x; i < kAttnTile * HD; i += kAttnRows) {
       const int r = i / HD, c = i % HD, s = s0 + r;
-      ks[r][c] = s < S ? to_f<T>(kb[(size_t)s * HD + c]) : 0.f;
-      vs[r][c] = s < S ? to_f<T>(vb[(size_t)s * HD + c]) : 0.f;
+      ks[r][c] = s < S ? kb[(size_t)s * HD + c] : 0.f;
+      vs[r][c] = s < S ? vb[(size_t)s * HD + c] : 0.f;
     }
     __syncthreads();
     if (live) {
@@ -91,30 +102,29 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (live) {
     const float inv = 1.f / l;
-    T* o = out + ((size_t)bh * L + row) * HD;
+    float* o = out + ((size_t)bh * L + row) * HD;
 #pragma unroll
-    for (int c = 0; c < HD; ++c) o[c] = from_f<T>(acc[c] * inv);
+    for (int c = 0; c < HD; ++c) o[c] = acc[c] * inv;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 static void launch(const void* q, const void* k, const void* v,
                    const float* bias, void* out, int BH, int L, int S,
                    int causal, float scale, cudaStream_t st) {
   dim3 grid((L + kAttnRows - 1) / kAttnRows, BH);
-  flash_attention_kernel<T, HD><<<grid, kAttnRows, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (T*)out, L, S, causal,
-      scale);
+  flash_attention_kernel<HD><<<grid, kAttnRows, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, bias, (float*)out,
+      L, S, causal, scale);
 }
 
-template <typename T>
-static int dispatch(const void* q, const void* k, const void* v,
-                    const float* bias, void* out, int BH, int L, int S, int D,
-                    int causal, float scale, cudaStream_t st) {
+static int launch_f32(const void* q, const void* k, const void* v,
+                      const float* bias, void* out, int BH, int L, int S,
+                      int D, int causal, float scale, cudaStream_t st) {
   switch (D) {
-    case 16: launch<T, 16>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
-    case 32: launch<T, 32>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
-    case 64: launch<T, 64>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 16: launch<16>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 32: launch<32>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 64: launch<64>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -132,8 +142,13 @@ extern "C" int v2m_flash_attention(int dtype, const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   const float* b = (const float*)bias;
   if (dtype == kF32)
-    return dispatch<float>(q, k, v, b, out, BH, L, S, D, causal, scale, st);
-  if (dtype == kBF16)
-    return dispatch<bf16>(q, k, v, b, out, BH, L, S, D, causal, scale, st);
+    return launch_f32(q, k, v, b, out, BH, L, S, D, causal, scale, st);
+  if (dtype == kBF16) {
+    mma::FwdArgs a{};
+    a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v;
+    a.bias = b; a.out = (bf16*)out;
+    a.L = L; a.S = S; a.scale = scale;
+    return mma::run_fwd_mma<false>(a, BH, D, causal, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

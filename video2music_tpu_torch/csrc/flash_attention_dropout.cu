@@ -7,33 +7,48 @@
 // optional (B, H, L, S) f32 bias, masked logits -1e9, the start-aligned
 // causal mask (L == S, the wrapper checks), and the dropout mask of
 // _drop_mask: a murmur3-style hash of (seed, b*H + h, absolute row, column)
-// in u32 arithmetic, kept iff the hash exceeds u32(rate * 0xFFFFFFFF), kept
-// entries scaled by 1/(1-rate). The mask is a pure function of its
-// coordinates, so the backward replays it bit for bit and the (L, S)
-// probabilities never reach device memory. The forward rounds the dropped
-// probabilities to v's dtype before the product with v (as the Pallas
-// kernel's astype); the backward is all f32 (dv = (w*mask)^T do,
-// dw = (do v^T) * mask, dlogits = w * (dw - rowsum(dw * w)),
-// dq = dlogits k * scale, dk = dlogits^T q * scale, dbias = dlogits).
+// in u32 arithmetic (drop_hash, attention_mma.cuh), kept iff the hash
+// exceeds u32(rate * 0xFFFFFFFF), kept entries scaled by 1/(1-rate). The
+// mask is a pure function of its coordinates, so the backward replays it
+// bit for bit and the (L, S) probabilities never reach device memory. The
+// forward rounds the dropped probabilities to v's dtype before the product
+// with v (as the Pallas kernel's astype) and saves each row's softmax max m
+// and sum l.
 //
 // What bounds it on the H100: at the training shape (B*H = 128,
-// L = S = 300, head_dim 64) the forward is ~3 GFLOP on ~20 MB (bf16) and
-// the backward about twice that on ~35 MB: microseconds of either roofline.
-// This first design is bound by its plain-FMA inner loops, not by bytes:
-//   * forward: one block per (b*h, 64 query rows), one thread per query
-//     row (q and the output accumulator in registers), K/V streamed
-//     through shared memory in 32-row tiles. Two passes over K: the first
-//     takes the row max m and sum l, the second forms exp(s - m) / l
-//     exactly as the Pallas kernel does (so the rounding to bf16 happens on
-//     the same value) and accumulates the dropped, rounded weights times V.
-//     (m, l) per row are saved for the backward.
-//   * backward, two kernels: dQ with one thread per query row (a first
-//     pass forms D = rowsum(dw * w), a second dlogits, dq and dbias), then
-//     dK/dV with one thread per key row, looping over 16-row tiles of
-//     q / dO / (m, l, D). Nothing of size (L, S) is stored but dbias.
-// Under causal attention, tiles that lie wholly in the masked triangle add
-// exact zeros and are skipped. Tensor cores (mma / wgmma) are later work.
-#include "common.cuh"
+// L = S = 300, head_dim 64, bf16) the forward moves 19.7 MB (5.9 us at
+// 3.35 TB/s) and does two (L, S, D) products, 2.9 GFLOP; the backward
+// moves 34.4 MB (10.3 us) and does five, 7.4 GFLOP (7.5 us of bf16
+// tensor-core peak). Both are microseconds of either roofline.
+//
+// bf16 (the training path) runs on the tensor cores (mma.sync m16n8k16,
+// f32 accumulators; building blocks in attention_mma.cuh):
+//   * forward: attention_mma.cuh's attention_fwd_mma, a warp per 16 query
+//     rows, two passes over 64-key chunks double-buffered by cp.async
+//     (m and l, then the dropped weights rounded to bf16 times V);
+//   * backward, two kernels and no atomics (the gradients are the same
+//     run to run). First dQ (attention_dq_mma), a warp per 16 query rows
+//     and one pass over the key chunks: D = rowsum(dO * O) from the
+//     forward's output (equal in exact arithmetic to sum_j w_j mask_j
+//     (dO . v_j), since O = (w * mask) V), then per chunk S = Q K^T and
+//     dP = dO V^T, P from (m, l), dS = P * (dP * mask - D) (stored as dbias
+//     when there is a bias), dQ += dS K. Then dK/dV (attention_dkv_mma), a
+//     warp per 16 key rows over chunks of 64 queries (from the diagonal
+//     chunk under causal) with their m, l and D staged in shared memory:
+//     S^T = K Q^T, dP^T = V dO^T, dV += (P * mask)^T dO, dK += dS^T Q.
+//   Rounding: the Pallas backward and the plain version are all f32; here
+//   P * mask and dS are rounded to bf16 as operands of the products and D
+//   comes from the bf16 output, so the gradients agree with the plain
+//   backward within 2e-2 of each one's largest value (chip_smoke.py's
+//   bf16 bound), not to f32 precision.
+// The first design, kept for f32 (the parity path: TF32 tensor cores would
+// keep ~3 digits), has one thread per query (or key) row and plain FMA for
+// every product: the forward took 0.43 ms and the backward 3.32 ms at the
+// training shape against 0.065 / 0.56 ms of F.scaled_dot_product_attention
+// with dropout (chip run, an H100 80GB HBM3 at 700 W). Under causal
+// attention, chunks (f32: tiles) wholly in the masked triangle add exact
+// zeros and are skipped.
+#include "attention_mma.cuh"
 
 namespace v2m {
 
@@ -41,25 +56,6 @@ constexpr int kDropRows = 64;   // query (or key) rows per block, one per thread
 constexpr int kDropTile = 32;   // K/V rows per shared-memory tile
 constexpr int kDropQTile = 16;  // q / dO rows per shared-memory tile (dK/dV)
 constexpr float kDropNegInf = -1e9f;
-
-struct DropoutSpec {
-  unsigned int threshold;  // keep iff hash > threshold
-  float keep_scale;        // 1 / (1 - rate), rounded to f32
-  int apply;               // rate > 0 (rate 0 applies no mask at all)
-};
-
-// _drop_mask's hash of one (row, column); salt = u32(seed) + bh * 0xC2B2AE35.
-__device__ __forceinline__ unsigned int drop_hash(unsigned int row,
-                                                  unsigned int col,
-                                                  unsigned int salt) {
-  unsigned int x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA6Bu) ^ salt;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 __device__ __forceinline__ float drop_factor(const DropoutSpec& d, int row,
                                              int col, unsigned int salt) {
@@ -77,22 +73,26 @@ __device__ __forceinline__ float drop_logit(float dot, float scale,
   return (causal && col > row) ? kDropNegInf : s;
 }
 
-template <typename T, int HD>
+// The f32 kernels (bf16 runs the tensor-core kernels below and in
+// attention_mma.cuh).
+template <int HD>
 __device__ __forceinline__ void load_tile(float (*dst)[HD],
-                                          const T* __restrict__ src, int r0,
+                                          const float* __restrict__ src, int r0,
                                           int nrows, int limit) {
   for (int i = threadIdx.x; i < nrows * HD; i += blockDim.x) {
     const int r = i / HD, c = i % HD;
-    dst[r][c] = r0 + r < limit ? to_f<T>(src[(size_t)(r0 + r) * HD + c]) : 0.f;
+    dst[r][c] = r0 + r < limit ? src[(size_t)(r0 + r) * HD + c] : 0.f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kDropRows)
-attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v,
+attention_dropout_fwd_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
                              const float* __restrict__ bias,
-                             const int* __restrict__ seed, T* __restrict__ out,
+                             const int* __restrict__ seed,
+                             float* __restrict__ out,
                              float* __restrict__ stats, int L, int S,
                              int causal, float scale, DropoutSpec drop) {
   __shared__ float ks[kDropTile][HD];
@@ -101,8 +101,8 @@ attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = blockIdx.x * kDropRows;
   const int row = row0 + threadIdx.x;
   const bool live = row < L;
-  const T* kb = k + (size_t)bh * S * HD;
-  const T* vb = v + (size_t)bh * S * HD;
+  const float* kb = k + (size_t)bh * S * HD;
+  const float* vb = v + (size_t)bh * S * HD;
   const float* brow = bias && live ? bias + ((size_t)bh * L + row) * S : nullptr;
   const unsigned int salt = (unsigned int)seed[0] + (unsigned int)bh * 0xC2B2AE35u;
   const int s_end = causal ? min(S, row0 + kDropRows) : S;
@@ -110,12 +110,12 @@ attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c)
-    qr[c] = live ? to_f<T>(q[((size_t)bh * L + row) * HD + c]) : 0.f;
+    qr[c] = live ? q[((size_t)bh * L + row) * HD + c] : 0.f;
 
   // pass 1: row max and sum of exponentials
   float m = -INFINITY, l = 0.f;
   for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
-    load_tile<T, HD>(ks, kb, s0, kDropTile, S);
+    load_tile<HD>(ks, kb, s0, kDropTile, S);
     __syncthreads();
     if (live) {
       const int n = min(kDropTile, s_end - s0);
@@ -140,13 +140,13 @@ attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  // pass 2: dropped weights, rounded to T, times V
+  // pass 2: dropped weights times V
   float acc[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c) acc[c] = 0.f;
   for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
-    load_tile<T, HD>(ks, kb, s0, kDropTile, S);
-    load_tile<T, HD>(vs, vb, s0, kDropTile, S);
+    load_tile<HD>(ks, kb, s0, kDropTile, S);
+    load_tile<HD>(vs, vb, s0, kDropTile, S);
     __syncthreads();
     if (live) {
       const int n = min(kDropTile, s_end - s0);
@@ -156,8 +156,7 @@ attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < HD; ++c) d = fmaf(qr[c], ks[j][c], d);
         const int col = s0 + j;
         const float s = drop_logit(d, scale, brow, row, col, causal);
-        const float w = round_t<T>(expf(s - m) / l *
-                                   drop_factor(drop, row, col, salt));
+        const float w = expf(s - m) / l * drop_factor(drop, row, col, salt);
 #pragma unroll
         for (int c = 0; c < HD; ++c) acc[c] = fmaf(w, vs[j][c], acc[c]);
       }
@@ -165,24 +164,25 @@ attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
   if (live) {
-    T* o = out + ((size_t)bh * L + row) * HD;
+    float* o = out + ((size_t)bh * L + row) * HD;
 #pragma unroll
-    for (int c = 0; c < HD; ++c) o[c] = from_f<T>(acc[c]);
+    for (int c = 0; c < HD; ++c) o[c] = acc[c];
     stats[((size_t)bh * L + row) * 2] = m;
     stats[((size_t)bh * L + row) * 2 + 1] = l;
   }
 }
 
 // dQ, D = rowsum(dw * w) and dbias: one thread per query row.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kDropRows)
-attention_dropout_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
+attention_dropout_dq_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
                             const float* __restrict__ bias,
                             const int* __restrict__ seed,
-                            const T* __restrict__ dout,
+                            const float* __restrict__ dout,
                             const float* __restrict__ stats,
-                            T* __restrict__ dq, float* __restrict__ dsum,
+                            float* __restrict__ dq, float* __restrict__ dsum,
                             float* __restrict__ dbias, int L, int S,
                             int causal, float scale, DropoutSpec drop) {
   __shared__ float ks[kDropTile][HD];
@@ -192,8 +192,8 @@ attention_dropout_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = blockIdx.x * kDropRows;
   const int row = row0 + threadIdx.x;
   const bool live = row < L;
-  const T* kb = k + (size_t)bh * S * HD;
-  const T* vb = v + (size_t)bh * S * HD;
+  const float* kb = k + (size_t)bh * S * HD;
+  const float* vb = v + (size_t)bh * S * HD;
   const size_t rix = (size_t)bh * L + row;
   const float* brow = bias && live ? bias + rix * S : nullptr;
   float* dbrow = dbias && live ? dbias + rix * S : nullptr;
@@ -203,8 +203,8 @@ attention_dropout_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c) {
-    qr[c] = live ? to_f<T>(q[rix * HD + c]) : 0.f;
-    dos[threadIdx.x][c] = live ? to_f<T>(dout[rix * HD + c]) : 0.f;
+    qr[c] = live ? q[rix * HD + c] : 0.f;
+    dos[threadIdx.x][c] = live ? dout[rix * HD + c] : 0.f;
   }
   const float m = live ? stats[rix * 2] : 0.f;
   const float l = live ? stats[rix * 2 + 1] : 1.f;
@@ -212,8 +212,8 @@ attention_dropout_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // pass 1: D = sum_j w_j * mask_j * (do . v_j)
   float dsumr = 0.f;
   for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
-    load_tile<T, HD>(ks, kb, s0, kDropTile, S);
-    load_tile<T, HD>(vs, vb, s0, kDropTile, S);
+    load_tile<HD>(ks, kb, s0, kDropTile, S);
+    load_tile<HD>(vs, vb, s0, kDropTile, S);
     __syncthreads();
     if (live) {
       const int n = min(kDropTile, s_end - s0);
@@ -238,8 +238,8 @@ attention_dropout_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < HD; ++c) dqa[c] = 0.f;
   for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
-    load_tile<T, HD>(ks, kb, s0, kDropTile, S);
-    load_tile<T, HD>(vs, vb, s0, kDropTile, S);
+    load_tile<HD>(ks, kb, s0, kDropTile, S);
+    load_tile<HD>(vs, vb, s0, kDropTile, S);
     __syncthreads();
     if (live) {
       const int n = min(kDropTile, s_end - s0);
@@ -263,7 +263,7 @@ attention_dropout_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (live) {
 #pragma unroll
-    for (int c = 0; c < HD; ++c) dq[rix * HD + c] = from_f<T>(dqa[c] * scale);
+    for (int c = 0; c < HD; ++c) dq[rix * HD + c] = dqa[c] * scale;
     dsum[rix] = dsumr;
     if (dbrow)  // the skipped causal columns: dlogits is exactly 0 there
       for (int col = s_end; col < S; ++col) dbrow[col] = 0.f;
@@ -271,17 +271,18 @@ attention_dropout_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dK and dV: one thread per key row, looping over tiles of query rows.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kDropRows)
-attention_dropout_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v,
+attention_dropout_dkv_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
                              const float* __restrict__ bias,
                              const int* __restrict__ seed,
-                             const T* __restrict__ dout,
+                             const float* __restrict__ dout,
                              const float* __restrict__ stats,
                              const float* __restrict__ dsum,
-                             T* __restrict__ dk, T* __restrict__ dv, int L,
-                             int S, int causal, float scale,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int L, int S, int causal, float scale,
                              DropoutSpec drop) {
   __shared__ float kss[kDropRows][HD + 1];  // own row per thread, padded
   __shared__ float vss[kDropRows][HD + 1];
@@ -292,16 +293,16 @@ attention_dropout_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int col0 = blockIdx.x * kDropRows;
   const int col = col0 + threadIdx.x;
   const bool live = col < S;
-  const T* qb = q + (size_t)bh * L * HD;
-  const T* dob = dout + (size_t)bh * L * HD;
+  const float* qb = q + (size_t)bh * L * HD;
+  const float* dob = dout + (size_t)bh * L * HD;
   const unsigned int salt = (unsigned int)seed[0] + (unsigned int)bh * 0xC2B2AE35u;
 
   for (int i = threadIdx.x; i < kDropRows * HD; i += blockDim.x) {
     const int r = i / HD, c = i % HD;
     const bool in = col0 + r < S;
     const size_t at = ((size_t)bh * S + col0 + r) * HD + c;
-    kss[r][c] = in ? to_f<T>(k[at]) : 0.f;
-    vss[r][c] = in ? to_f<T>(v[at]) : 0.f;
+    kss[r][c] = in ? k[at] : 0.f;
+    vss[r][c] = in ? v[at] : 0.f;
   }
   float dka[HD], dva[HD];
 #pragma unroll
@@ -310,8 +311,8 @@ attention_dropout_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // rows above the block's first key see none of its keys under causal
   for (int r0 = causal ? col0 : 0; r0 < L; r0 += kDropQTile) {
     __syncthreads();
-    load_tile<T, HD>(qs, qb, r0, kDropQTile, L);
-    load_tile<T, HD>(dos, dob, r0, kDropQTile, L);
+    load_tile<HD>(qs, qb, r0, kDropQTile, L);
+    load_tile<HD>(dos, dob, r0, kDropQTile, L);
     if (threadIdx.x < kDropQTile) {
       const int r = r0 + threadIdx.x;
       const size_t rix = (size_t)bh * L + r;
@@ -347,11 +348,340 @@ attention_dropout_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t at = ((size_t)bh * S + col) * HD;
 #pragma unroll
     for (int c = 0; c < HD; ++c) {
-      dk[at + c] = from_f<T>(dka[c] * scale);
-      dv[at + c] = from_f<T>(dva[c]);
+      dk[at + c] = dka[c] * scale;
+      dv[at + c] = dva[c];
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core backward (the forward is attention_mma.cuh's)
+// ---------------------------------------------------------------------------
+
+namespace mma {
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *out, *dout;
+  const float* bias;   // (BH, L, S) or null
+  const int* seed;
+  const float* stats;  // (BH, L, 2): the forward's row max and sum
+  bf16 *dq, *dk, *dv;
+  float* dbias;        // (BH, L, S) when there is a bias, else null
+  float* dsum;         // (BH, L): D, written by dQ, read by dK/dV
+  int L, S;
+  float scale;
+  DropoutSpec drop;
+};
+
+constexpr int kBwdWarps = 4;  // 64 query (dQ) or key (dK/dV) rows a block
+// Both backward kernels are held to 170 registers, three blocks an SM: left
+// free, ptxas takes 234 (dQ) and 179-197 (dK/dV), two blocks an SM, and
+// the 640 blocks of the training shape run in ~2.4 waves, slower on the
+// H100. The forward is left free: held to 128 registers it spills and
+// slows down.
+constexpr int kBwdMinBlocks = 3;
+
+// dQ, D and dbias: a warp per 16 query rows, one pass over the key chunks.
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
+attention_dq_mma(BwdArgs a) {
+  constexpr int kNT = kChunk / 8;
+  constexpr int kDT = HD / 8;
+  __shared__ __align__(16) bf16 ks[2][Chunk<HD>::kElems];
+  __shared__ __align__(16) bf16 vs[2][Chunk<HD>::kElems];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int blk0 = blockIdx.x * kBwdWarps * 16;
+  const int r0 = blk0 + warp * 16;
+  const int ra = r0 + (lane >> 2), rb = ra + 8;
+  const int c2 = (lane & 3) * 2;
+  const int L = a.L, S = a.S;
+  const size_t qoff = (size_t)bh * L * HD;
+  const bf16* kb = a.k + (size_t)bh * S * HD;
+  const bf16* vb = a.v + (size_t)bh * S * HD;
+  const size_t ia = (size_t)bh * L + ra, ib = (size_t)bh * L + rb;
+  const float* ba = a.bias && ra < L ? a.bias + ia * S : nullptr;
+  const float* bb = a.bias && rb < L ? a.bias + ib * S : nullptr;
+  float* dba = a.dbias && ra < L ? a.dbias + ia * S : nullptr;
+  float* dbb = a.dbias && rb < L ? a.dbias + ib * S : nullptr;
+
+  int n_chunks = (S + kChunk - 1) / kChunk;
+  if (CAUSAL) n_chunks = min(n_chunks, (blk0 + kBwdWarps * 16 - 1) / kChunk + 1);
+  int mine = CAUSAL ? min(n_chunks, (r0 + 15) / kChunk + 1) : n_chunks;
+  if (r0 >= L) mine = 0;
+
+  auto issue = [&](int c) {
+    load_chunk<HD, kBwdWarps * 32>(ks[c & 1], kb, c * kChunk, S);
+    load_chunk<HD, kBwdWarps * 32>(vs[c & 1], vb, c * kChunk, S);
+    cp_async_commit();
+  };
+  issue(0);
+
+  uint32_t qf[HD / 16][4], df[HD / 16][4];
+  load_a<HD>(qf, a.q + qoff, r0, L, lane);
+  load_a<HD>(df, a.dout + qoff, r0, L, lane);
+  float Da = 0.f, Db = 0.f;  // D = rowsum(dO * O), f32 from bf16
+  {
+    uint32_t of[HD / 16][4];
+    load_a<HD>(of, a.out + qoff, r0, L, lane);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&df[kk][e]));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&of[kk][e]));
+        const float d = fmaf(x.x, y.x, x.y * y.y);
+        if (e & 1) Db += d; else Da += d;
+      }
+    }
+    Da = quad_sum(Da);
+    Db = quad_sum(Db);
+  }
+  // m log2(e) and 1 / l of each row, from the forward's stats
+  float ma2 = 0.f, mb2 = 0.f, inva = 1.f, invb = 1.f;
+  if (ra < L) { ma2 = a.stats[ia * 2] * kLog2e; inva = 1.f / a.stats[ia * 2 + 1]; }
+  if (rb < L) { mb2 = a.stats[ib * 2] * kLog2e; invb = 1.f / a.stats[ib * 2 + 1]; }
+  const bool drop = a.drop.apply != 0;
+  unsigned int rta = 0, rtb = 0;
+  if (drop) {
+    const unsigned int salt = drop_salt(a.seed, bh);
+    rta = row_term(ra, salt);
+    rtb = row_term(rb, salt);
+  }
+
+  float dq[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      issue(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (c < mine) {
+      const int c0 = c * kChunk;
+      float s[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_a_rowsT<HD, kNT>(s, qf, ks[c & 1], lane);
+      mma_a_rowsT<HD, kNT>(dp, df, vs[c & 1], lane);
+      to_logits<kNT, CAUSAL>(s, a.scale, ba, bb, r0, c0, S, lane);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool top = e < 2;
+          const int col = c0 + j * 8 + c2 + (e & 1);
+          // exactly 0 past the last key and (in f32) above the diagonal
+          const float p =
+              exp_from(s[j][e], top ? ma2 : mb2) * (top ? inva : invb);
+          const float f =
+              drop ? keep_factor(a.drop, top ? rta : rtb, col_term(col)) : 1.f;
+          s[j][e] = p * (dp[j][e] * f - (top ? Da : Db));
+        }
+        const int col = c0 + j * 8 + c2;
+        if (dba && col < S) dba[col] = s[j][0];
+        if (dba && col + 1 < S) dba[col + 1] = s[j][1];
+        if (dbb && col < S) dbb[col] = s[j][2];
+        if (dbb && col + 1 < S) dbb[col + 1] = s[j][3];
+      }
+      uint32_t ds[kNT / 2][4];
+      pack_a<kNT>(ds, s);
+      mma_a_rows<HD, kNT / 2>(dq, ds, ks[c & 1], lane);
+    }
+    __syncthreads();
+  }
+
+  if (mine == 0) return;
+  bf16* dqb = a.dq + qoff;
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    const int col = j * 8 + c2;
+    if (ra < L)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)ra * HD + col) =
+          __floats2bfloat162_rn(dq[j][0] * a.scale, dq[j][1] * a.scale);
+    if (rb < L)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)rb * HD + col) =
+          __floats2bfloat162_rn(dq[j][2] * a.scale, dq[j][3] * a.scale);
+  }
+  if ((lane & 3) == 0) {
+    if (ra < L) a.dsum[ia] = Da;
+    if (rb < L) a.dsum[ib] = Db;
+  }
+  // the key chunks this warp skipped under causal: dS is exactly 0 there
+  for (int col = mine * kChunk + (lane & 3); col < S; col += 4) {
+    if (dba) dba[col] = 0.f;
+    if (dbb) dbb[col] = 0.f;
+  }
+}
+
+// dK and dV: a warp per 16 key rows, over chunks of 64 queries, each taken
+// in two halves of 32 (the accumulators of both products stay in
+// registers).
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
+attention_dkv_mma(BwdArgs a) {
+  constexpr int kSub = 32;       // queries a product
+  constexpr int kNT = kSub / 8;  // query tiles
+  constexpr int kDT = HD / 8;
+  __shared__ __align__(16) bf16 qs[2][Chunk<HD>::kElems];
+  __shared__ __align__(16) bf16 dos[2][Chunk<HD>::kElems];
+  __shared__ __align__(16) float2 mls[2][kChunk];  // (m, l) a query
+  __shared__ __align__(16) float dds[2][kChunk];   // D a query
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int blk0 = blockIdx.x * kBwdWarps * 16;
+  const int k0 = blk0 + warp * 16;
+  const int ka = k0 + (lane >> 2), kb = ka + 8;
+  const int c2 = (lane & 3) * 2;
+  const int L = a.L, S = a.S;
+  const size_t qoff = (size_t)bh * L * HD, koff = (size_t)bh * S * HD;
+  const bf16* qb = a.q + qoff;
+  const bf16* dob = a.dout + qoff;
+  const float* stb = a.stats + (size_t)bh * L * 2;
+  const float* dsb = a.dsum + (size_t)bh * L;
+  const float* bias = a.bias ? a.bias + (size_t)bh * L * S : nullptr;
+
+  // queries above the block's first key see none of its keys under causal
+  const int n_q = (L + kChunk - 1) / kChunk;
+  const int first = CAUSAL ? blk0 / kChunk : 0;
+  auto issue = [&](int c) {
+    const int buf = (c - first) & 1;
+    load_chunk<HD, kBwdWarps * 32>(qs[buf], qb, c * kChunk, L);
+    load_chunk<HD, kBwdWarps * 32>(dos[buf], dob, c * kChunk, L);
+    if (threadIdx.x < kChunk) {
+      const int r = c * kChunk + threadIdx.x;
+      const bool ok = r < L;
+      cp_async_small<8>(&mls[buf][threadIdx.x], stb + (size_t)(ok ? r : 0) * 2, ok);
+      cp_async_small<4>(&dds[buf][threadIdx.x], dsb + (ok ? r : 0), ok);
+    }
+    cp_async_commit();
+  };
+  if (first < n_q) issue(first);
+
+  uint32_t kf[HD / 16][4], vf[HD / 16][4];
+  load_a<HD>(kf, a.k + koff, k0, S, lane);
+  load_a<HD>(vf, a.v + koff, k0, S, lane);
+  const bool drop = a.drop.apply != 0;
+  const unsigned int salt = drop ? drop_salt(a.seed, bh) : 0u;
+  const unsigned int cta = col_term(ka), ctb = col_term(kb);
+
+  float dk[kDT][4], dv[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int c = first; c < n_q; ++c) {
+    const int buf = (c - first) & 1;
+    if (c + 1 < n_q) {
+      issue(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int h = 0; h < kChunk / kSub; ++h) {
+      const int q0 = c * kChunk + h * kSub;
+      // a dead warp; queries past L; or every pair above the diagonal
+      if (k0 >= S || q0 >= L || (CAUSAL && q0 + kSub - 1 < k0)) continue;
+      const bf16* qrows = qs[buf] + h * kSub * Chunk<HD>::kStride;
+      const bf16* drows = dos[buf] + h * kSub * Chunk<HD>::kStride;
+      float st[kNT][4], dpt[kNT][4];  // S^T, then (P * mask)^T; dP^T, then dS^T
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      mma_a_rowsT<HD, kNT>(st, kf, qrows, lane);
+      mma_a_rowsT<HD, kNT>(dpt, vf, drows, lane);
+      // the diagonal crosses this half: some key above some query
+      const bool diag = CAUSAL && k0 + 15 > q0;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {  // this lane's two queries of tile j
+          const int qi = h * kSub + j * 8 + c2 + u;  // in the chunk
+          const int row = c * kChunk + qi;           // the query
+          const float2 ml = mls[buf][qi];
+          const float ml2 = ml.x * kLog2e, inv = 1.f / ml.y, D = dds[buf][qi];
+          const unsigned int rt = drop ? row_term(row, salt) : 0u;
+#pragma unroll
+          for (int e = u; e < 4; e += 2) {
+            const int key = e < 2 ? ka : kb;
+            float pm = 0.f, ds = 0.f;
+            if (row < L) {
+              float x = st[j][e] * a.scale;
+              if (bias && key < S) x += bias[(size_t)row * S + key];
+              if (diag && key > row) x = kNegInf;
+              const float p = exp_from(x, ml2) * inv;
+              const float f =
+                  drop ? keep_factor(a.drop, rt, e < 2 ? cta : ctb) : 1.f;
+              pm = p * f;
+              ds = p * (dpt[j][e] * f - D);
+            }
+            st[j][e] = pm;
+            dpt[j][e] = ds;
+          }
+        }
+      }
+      uint32_t pa[kNT / 2][4], sa[kNT / 2][4];
+      pack_a<kNT>(pa, st);
+      pack_a<kNT>(sa, dpt);
+      mma_a_rows<HD, kNT / 2>(dv, pa, drows, lane);
+      mma_a_rows<HD, kNT / 2>(dk, sa, qrows, lane);
+    }
+    __syncthreads();
+  }
+
+  bf16* dkb = a.dk + koff;
+  bf16* dvb = a.dv + koff;
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    const int col = j * 8 + c2;
+    if (ka < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)ka * HD + col) =
+          __floats2bfloat162_rn(dk[j][0] * a.scale, dk[j][1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)ka * HD + col) =
+          __floats2bfloat162_rn(dv[j][0], dv[j][1]);
+    }
+    if (kb < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kb * HD + col) =
+          __floats2bfloat162_rn(dk[j][2] * a.scale, dk[j][3] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kb * HD + col) =
+          __floats2bfloat162_rn(dv[j][2], dv[j][3]);
+    }
+  }
+}
+
+template <int HD, bool CAUSAL>
+inline void launch_bwd_pair(const BwdArgs& a, int BH, cudaStream_t st) {
+  constexpr int kRows = kBwdWarps * 16;
+  attention_dq_mma<HD, CAUSAL>
+      <<<dim3((a.L + kRows - 1) / kRows, BH), kBwdWarps * 32, 0, st>>>(a);
+  attention_dkv_mma<HD, CAUSAL>
+      <<<dim3((a.S + kRows - 1) / kRows, BH), kBwdWarps * 32, 0, st>>>(a);
+}
+
+template <int HD>
+inline void launch_bwd_mma(const BwdArgs& a, int BH, int causal,
+                           cudaStream_t st) {
+  causal ? launch_bwd_pair<HD, true>(a, BH, st)
+         : launch_bwd_pair<HD, false>(a, BH, st);
+}
+
+}  // namespace mma
+
+// ---------------------------------------------------------------------------
+// Entry points: f32 runs the first design above, bf16 the tensor cores
+// ---------------------------------------------------------------------------
 
 struct DropoutArgs {
   const void *q, *k, *v, *bias, *seed, *dout, *stats;
@@ -361,38 +691,64 @@ struct DropoutArgs {
   DropoutSpec drop;
 };
 
-template <typename T, int HD>
+template <int HD>
 static void launch_fwd(const DropoutArgs& a, cudaStream_t st) {
   dim3 grid((a.L + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_fwd_kernel<T, HD><<<grid, kDropRows, 0, st>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.bias,
-      (const int*)a.seed, (T*)a.out, (float*)a.stats, a.L, a.S, a.causal,
-      a.scale, a.drop);
+  attention_dropout_fwd_kernel<HD><<<grid, kDropRows, 0, st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.bias, (const int*)a.seed, (float*)a.out,
+      (float*)a.stats, a.L, a.S, a.causal, a.scale, a.drop);
 }
 
-template <typename T, int HD>
+template <int HD>
 static void launch_bwd(const DropoutArgs& a, cudaStream_t st) {
   dim3 grid_q((a.L + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_dq_kernel<T, HD><<<grid_q, kDropRows, 0, st>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.bias,
-      (const int*)a.seed, (const T*)a.dout, (const float*)a.stats,
-      (T*)a.dq, (float*)a.dsum, (float*)a.dbias, a.L, a.S, a.causal,
-      a.scale, a.drop);
+  attention_dropout_dq_kernel<HD><<<grid_q, kDropRows, 0, st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.bias, (const int*)a.seed, (const float*)a.dout,
+      (const float*)a.stats, (float*)a.dq, (float*)a.dsum,
+      (float*)a.dbias, a.L, a.S, a.causal, a.scale, a.drop);
   dim3 grid_k((a.S + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_dkv_kernel<T, HD><<<grid_k, kDropRows, 0, st>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.bias,
-      (const int*)a.seed, (const T*)a.dout, (const float*)a.stats,
-      (const float*)a.dsum, (T*)a.dk, (T*)a.dv, a.L, a.S, a.causal, a.scale,
-      a.drop);
+  attention_dropout_dkv_kernel<HD><<<grid_k, kDropRows, 0, st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.bias, (const int*)a.seed, (const float*)a.dout,
+      (const float*)a.stats, (const float*)a.dsum, (float*)a.dk,
+      (float*)a.dv, a.L, a.S, a.causal, a.scale, a.drop);
 }
 
-template <typename T>
-static int dispatch(const DropoutArgs& a, int D, bool backward,
-                    cudaStream_t st) {
+static int dispatch_f32(const DropoutArgs& a, int D, bool backward,
+                        cudaStream_t st) {
   switch (D) {
-    case 16: backward ? launch_bwd<T, 16>(a, st) : launch_fwd<T, 16>(a, st); break;
-    case 32: backward ? launch_bwd<T, 32>(a, st) : launch_fwd<T, 32>(a, st); break;
-    case 64: backward ? launch_bwd<T, 64>(a, st) : launch_fwd<T, 64>(a, st); break;
+    case 16: backward ? launch_bwd<16>(a, st) : launch_fwd<16>(a, st); break;
+    case 32: backward ? launch_bwd<32>(a, st) : launch_fwd<32>(a, st); break;
+    case 64: backward ? launch_bwd<64>(a, st) : launch_fwd<64>(a, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+static int dispatch_bf16(const DropoutArgs& a, int D, bool backward,
+                         cudaStream_t st) {
+  if (!backward) {
+    mma::FwdArgs f{};
+    f.q = (const bf16*)a.q; f.k = (const bf16*)a.k; f.v = (const bf16*)a.v;
+    f.bias = (const float*)a.bias; f.seed = (const int*)a.seed;
+    f.out = (bf16*)a.out; f.stats = (float*)a.stats;
+    f.L = a.L; f.S = a.S; f.scale = a.scale; f.drop = a.drop;
+    return mma::run_fwd_mma<true>(f, a.BH, D, a.causal, st);
+  }
+  mma::BwdArgs b{};
+  b.q = (const bf16*)a.q; b.k = (const bf16*)a.k; b.v = (const bf16*)a.v;
+  b.out = (const bf16*)a.out; b.dout = (const bf16*)a.dout;
+  b.bias = (const float*)a.bias; b.seed = (const int*)a.seed;
+  b.stats = (const float*)a.stats;
+  b.dq = (bf16*)a.dq; b.dk = (bf16*)a.dk; b.dv = (bf16*)a.dv;
+  b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
+  b.L = a.L; b.S = a.S; b.scale = a.scale; b.drop = a.drop;
+  switch (D) {
+    case 16: mma::launch_bwd_mma<16>(b, a.BH, a.causal, st); break;
+    case 32: mma::launch_bwd_mma<32>(b, a.BH, a.causal, st); break;
+    case 64: mma::launch_bwd_mma<64>(b, a.BH, a.causal, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -401,8 +757,8 @@ static int dispatch(const DropoutArgs& a, int D, bool backward,
 static int run(int dtype, const DropoutArgs& a, int D, bool backward,
                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kF32) return dispatch<float>(a, D, backward, st);
-  if (dtype == kBF16) return dispatch<bf16>(a, D, backward, st);
+  if (dtype == kF32) return dispatch_f32(a, D, backward, st);
+  if (dtype == kBF16) return dispatch_bf16(a, D, backward, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -424,19 +780,21 @@ extern "C" int v2m_attention_dropout_fwd(
   return v2m::run(dtype, a, D, false, stream);
 }
 
-// The backward of v2m_attention_dropout_fwd from its stats: dq (BH, L, D),
-// dk/dv (BH, S, D) of q's dtype, dbias (BH, L, S) f32 when bias is given
-// (else null), dsum (BH, L) f32 scratch. Returns a cudaError_t code.
+// The backward of v2m_attention_dropout_fwd from its stats and its output
+// `out` (read by bf16 for D = rowsum(dout * out); f32 recomputes D): dq
+// (BH, L, D), dk/dv (BH, S, D) of q's dtype, dbias (BH, L, S) f32 when bias
+// is given (else null), dsum (BH, L) f32 scratch. Returns a cudaError_t
+// code.
 extern "C" int v2m_attention_dropout_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
-    const void* seed, const void* dout, const void* stats, void* dq,
-    void* dk, void* dv, void* dbias, void* dsum, int BH, int L, int S, int D,
-    int causal, float scale, unsigned int threshold, float keep_scale,
-    int apply, void* stream) {
+    const void* seed, const void* dout, const void* stats, const void* out,
+    void* dq, void* dk, void* dv, void* dbias, void* dsum, int BH, int L,
+    int S, int D, int causal, float scale, unsigned int threshold,
+    float keep_scale, int apply, void* stream) {
   v2m::DropoutArgs a{};
   a.q = q; a.k = k; a.v = v; a.bias = bias; a.seed = seed; a.dout = dout;
-  a.stats = stats; a.dq = dq; a.dk = dk; a.dv = dv; a.dbias = dbias;
-  a.dsum = dsum;
+  a.stats = stats; a.out = const_cast<void*>(out);
+  a.dq = dq; a.dk = dk; a.dv = dv; a.dbias = dbias; a.dsum = dsum;
   a.BH = BH; a.L = L; a.S = S; a.causal = causal; a.scale = scale;
   a.drop = v2m::DropoutSpec{threshold, keep_scale, apply};
   return v2m::run(dtype, a, D, true, stream);

@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu",
            "decode_batch.cu", "flash_attention_dropout.cu",
            "decode_variant.cu", "decode_stack.cu")
-HEADERS = ("common.cuh", "batch_decode.cuh", "decode_step.cuh")
+HEADERS = ("common.cuh", "batch_decode.cuh", "decode_step.cuh",
+           "attention_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -200,8 +201,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               i, i, f, u, f, i, p]
     lib.v2m_attention_dropout_fwd.restype = i
     lib.v2m_attention_dropout_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
-                                              p, p, i, i, i, i, i, f, u, f, i,
-                                              p]
+                                              p, p, p, i, i, i, i, i, f, u, f,
+                                              i, p]
     lib.v2m_attention_dropout_bwd.restype = i
     pi = ctypes.POINTER(ctypes.c_int)
     lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, pi, pi]
@@ -264,6 +265,14 @@ def check(status: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def aligned(t):
+    """t, contiguous, with its data at a multiple of 16 bytes: the bf16
+    attention kernels copy rows in 16-byte pieces. A copy is made only of
+    a tensor that is not (a view at an odd offset)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ptr(t) -> ctypes.c_void_p:

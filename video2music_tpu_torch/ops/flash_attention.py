@@ -56,6 +56,7 @@ def _forward(q, k, v, bias, causal: bool):
         kernels.require(bias.shape == (B, H, L, S), what,
                         f"bias shape {tuple(bias.shape)} != {(B, H, L, S)}")
         bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    q, k, v = (kernels.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     lib = kernels.library()
     status = lib.v2m_flash_attention(

@@ -11,8 +11,9 @@ probabilities are never stored, and the port draws JAX's mask bit for bit.
 
 ``flash_attention_dropout`` is a ``torch.autograd.Function``: on CUDA
 tensors the forward launches the forward kernel (which also saves each
-row's softmax max and sum) and the backward the backward kernel; on CPU
-tensors both run the plain versions below. The seed is an int32 scalar,
+row's softmax max and sum) and the backward the backward kernel, which
+takes the forward's output as well (the bf16 kernel's D = rowsum(do *
+out)); on CPU tensors both run the plain versions below. The seed is an int32 scalar,
 a Python int or a tensor on the device, so a training step draws it there
 without a host sync.
 """
@@ -167,6 +168,7 @@ def flash_attention_dropout_fwd(q, k, v, bias, seed, causal: bool,
             q, k, v, bias=bias, causal=causal, dropout_rate=rate,
             seed=seed), None
     code = _check(q, k, v, bias, seed, what)
+    q, k, v = (kernels.aligned(t) for t in (q, k, v))
     B, H, L, D = q.shape
     out = torch.empty_like(q)
     stats = torch.empty(B, H, L, 2, device=q.device, dtype=torch.float32)
@@ -180,29 +182,33 @@ def flash_attention_dropout_fwd(q, k, v, bias, seed, causal: bool,
     return out, stats
 
 
-def flash_attention_dropout_bwd(q, k, v, bias, do, seed, stats,
+def flash_attention_dropout_bwd(q, k, v, bias, do, seed, stats, out,
                                 causal: bool, rate: float):
     """The backward wrapper: (dq, dk, dv, dbias or None). CPU tensors: the
-    plain backward. CUDA tensors: the backward kernel, which replays the
-    mask and recomputes the probabilities from the forward's stats."""
+    plain backward (stats and out unused). CUDA tensors: the backward
+    kernel, which replays the mask and recomputes the probabilities from
+    the forward's stats; in bf16 it takes each row's rowsum(do * out) from
+    the forward's output ``out``."""
     what = "flash_attention_dropout backward"
     if kernels.use_plain(q, what):
         return flash_attention_dropout_plain_bwd(
             q, k, v, do, bias=bias, causal=causal, dropout_rate=rate,
             seed=seed)
     code = _check(q, k, v, bias, seed, what)
-    kernels.require_like({"do": do}, q, what)
+    kernels.require_like({"do": do, "out": out}, q, what)
     B, H, L, D = q.shape
-    kernels.require(do.shape == q.shape and stats is not None
-                    and stats.shape == (B, H, L, 2), what,
-                    "do must match q and stats come from the forward kernel")
+    kernels.require(do.shape == q.shape and out.shape == q.shape
+                    and stats is not None and stats.shape == (B, H, L, 2),
+                    what, "do and out must match q and stats come from the "
+                    "forward kernel")
+    q, k, v, do, out = (kernels.aligned(t) for t in (q, k, v, do, out))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = None if bias is None else torch.empty_like(bias)
     dsum = torch.empty(B, H, L, device=q.device, dtype=torch.float32)
     status = kernels.library().v2m_attention_dropout_bwd(
         code, kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
         kernels.ptr(bias), kernels.ptr(seed), kernels.ptr(do),
-        kernels.ptr(stats), kernels.ptr(dq), kernels.ptr(dk),
+        kernels.ptr(stats), kernels.ptr(out), kernels.ptr(dq), kernels.ptr(dk),
         kernels.ptr(dv), kernels.ptr(dbias), kernels.ptr(dsum), B * H, L,
         k.shape[2], D, int(causal), D ** -0.5, *_drop_args(rate),
         kernels.stream_of(q))
@@ -220,15 +226,16 @@ class _AttentionDropout(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, seed, causal, rate):
         out, stats = flash_attention_dropout_fwd(q, k, v, bias, seed, causal,
                                                  rate)
-        ctx.save_for_backward(q, k, v, bias, seed, stats)
+        ctx.save_for_backward(q, k, v, bias, seed, stats, out)
         ctx.causal, ctx.rate = causal, rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, seed, stats = ctx.saved_tensors
+        q, k, v, bias, seed, stats, out = ctx.saved_tensors
         dq, dk, dv, dbias = flash_attention_dropout_bwd(
-            q, k, v, bias, g.contiguous(), seed, stats, ctx.causal, ctx.rate)
+            q, k, v, bias, kernels.aligned(g), seed, stats, out, ctx.causal,
+            ctx.rate)
         return dq, dk, dv, dbias, None, None, None
 
 
