@@ -28,6 +28,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and deep, on int8 caches filled to pos 150: the output, and the int8
      K/V rows and scales it writes at pos; the variant layer with int8
      weights on the deep 3.1 and 3.2 layers at B=1;
+  2b. decode breakdown: one bf16 call of row 8 (the deep 3.1 layer, B=1)
+     and of row 6 (the deep batched layer, B=16 and B=64) at pos 150 by
+     CUDA-graph replay under torch.profiler, each kernel of the chain with
+     its launches and microseconds per call, a line each ("breakdown
+     row ..."); the batched GEMV alone at the QKV shape (1536 x 512, bf16,
+     B=16 and B=64) beside torch.nn.functional.linear ("gemv yardstick");
+     rows 6-10 at d_ff 2048 against their plain versions, f32 and bf16;
   3. slice: a full-width Video2music (AMT 2.2 + bimamba+, random weights
      from seed 0) in bfloat16 answers three requests from seeded synthetic
      features; the outputs are checked, and each kernel's launch count over
@@ -177,15 +184,37 @@ BACKENDS = {"ends": ("auto", None, True, None),
             "int8": ("auto", "int8", True, "decode_layer")}
 STACK_KERNELS = ("decode_monolith", "decode_segment", "decode_flat_monolith")
 
-# bf16 device ms of the kernels before their tensor-core redesign (the
-# first, plain-FMA designs), from an earlier chip_smoke.py run on an NVIDIA
-# H100 80GB HBM3 at 700.00 W (PERF.md): not measured by this run, so they
-# stay out of the kernels line and are printed on a line of their own,
-# marked so, beside this run's times
+# bf16 device ms of the redesigned kernels before their redesign (the
+# first, plain-FMA designs and chains), from earlier chip_smoke.py runs on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md): not measured by this run,
+# so they stay out of the kernels line and are printed on a line of their
+# own, marked so, beside this run's times
 PREV_MS = {
     "flash_attention": dict(ms=0.1330, ms_b16=0.3117, ms_2h=0.1325),
     "flash_attention_dropout_fwd": dict(ms=0.4301, ms_causal=0.4121),
     "flash_attention_dropout_bwd": dict(ms=3.3249, ms_causal=2.2283),
+    "batched_layer_step": dict(ms=0.0539, ms_b64=0.0998, ms_int8=0.0589),
+    "decode_variant_layer": dict(ms=0.0613, ms_int8=0.0646),
+}
+# per-launch breakdown of rows 8 and 6 on the FMA chains before their
+# redesign (decode_breakdown_phase, PERF.md; NVIDIA H100 80GB HBM3,
+# 700.00 W; us per call, launches): not measured by this run, printed on a
+# line of its own
+PREV_BREAKDOWN = {
+    "row 8 decode_variant_layer 3.1 deep B=1": dict(
+        total_us=60.25, launches=13, kernels=[
+            ["attn_kernel", 2, 20.186], ["bgemv plain", 3, 10.775],
+            ["bgemv rope", 2, 9.435], ["close_kernel", 3, 8.797],
+            ["bgemv swiglu", 1, 6.64], ["router_kernel", 1, 3.487],
+            ["Memset", 1, 0.931]]),
+    "row 6 batched_layer_step deep B=16": dict(
+        total_us=52.95, launches=7, kernels=[
+            ["bgemv rope", 2, 19.619], ["bgemv plain", 2, 16.124],
+            ["attn_kernel", 2, 14.045], ["close_kernel", 1, 3.158]]),
+    "row 6 batched_layer_step deep B=64": dict(
+        total_us=97.07, launches=7, kernels=[
+            ["attn_kernel", 2, 36.503], ["bgemv rope", 2, 34.217],
+            ["bgemv plain", 2, 21.5], ["close_kernel", 1, 4.847]]),
 }
 
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
@@ -2110,6 +2139,233 @@ def variant_kernel_phase(report, v2m):
                             None
 
 
+def short_kernel_name(name: str) -> str:
+    """A profiler kernel name without its namespaces, return type and
+    argument list: bgemv_kernel<__nv_bfloat16, 1, __nv_bfloat16>."""
+    name = name.replace("void ", "").replace("v2m::batch::", "")
+    name = name.replace("v2m::variant::", "").replace("v2m::", "")
+    depth, out = 0, []
+    for ch in name:  # drop the top-level argument list
+        if ch == "(" and depth == 0:
+            break
+        depth += ch == "<"
+        depth -= ch == ">"
+        out.append(ch)
+    return "".join(out).strip()
+
+
+def graph_breakdown(fn, iters=20):
+    """(rows, span us) of one call of fn: iters calls captured into one
+    CUDA graph, the graph replayed once under torch.profiler. Each device
+    kernel (and copy or memset) by name with its launches and its
+    microseconds per call: the part of its span that no earlier kernel
+    covers, since a kernel launched with programmatic dependent launch
+    starts (and waits) while the one before it runs; the rows add up to the
+    device's busy span. Largest first."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    own, count = collections.defaultdict(float), collections.Counter()
+    covered, early = -float("inf"), 0
+    for e in events:
+        name = short_kernel_name(e.name)
+        start, end = e.time_range.start, e.time_range.end
+        own[name] += max(0.0, end - max(start, covered))
+        count[name] += 1
+        early += start < covered  # started before the one before it ended
+        covered = max(covered, end)
+    rows = [(n, count[n] / iters, own[n] / iters) for n in own]
+    rows.sort(key=lambda r: -r[2])
+    fail_unless(rows, "the profiler saw no device time in the graph replay")
+    return rows, sum(r[2] for r in rows), early / max(1, len(events))
+
+
+def decode_breakdown_phase(report, v2m, card):
+    """Per-launch breakdown of one bf16 call of row 8 (the deep V3.1 layer
+    at B=1, pos 150) and of row 6 (the deep batched layer at B=16 and B=64,
+    pos 150), product widths: each kernel of the chain with its launches
+    and microseconds per call, from graph_breakdown. One line each."""
+    import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_variant as dv
+
+    dev, dtype = v2m.device, torch.bfloat16
+    cfg = v2m.amt_cfg
+    D, F, E, H = cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.num_heads
+    S, Sm = cfg.max_seq_chord, cfg.max_seq_video
+    k_top = cfg.moe.n_experts_per_token
+    pos = S // 2
+    rope = rope_tables(v2m.model, dev)
+    gen = torch.Generator().manual_seed(8642)
+    _, metas, norm, pre_norm, _ = VARIANT_CASES[3]  # 3.1
+    meta = dv.VariantLayerMeta(*metas[1])           # its deep layer
+    p = random_variant_layer(gen, meta, D, H, F, E, S, dtype, dev)
+    kc = torch.randn(S, 2 * D, generator=gen).to(dev, dtype)
+    vc = torch.randn(S, D, generator=gen).to(dev, dtype)
+    kx = torch.randn(Sm, 2 * D, generator=gen).to(dev, dtype)
+    vx = torch.randn(Sm, D, generator=gen).to(dev, dtype)
+    x = torch.randn(1, D, generator=gen).to(dev, dtype)
+    calls = {"row 8 decode_variant_layer 3.1 deep B=1": (
+        lambda: dv.decode_variant_layer_step(
+            x, pos, p, meta, kc, vc, kx, vx, n_heads=H, rope=rope,
+            k_top=k_top, norm=norm, pre_norm=pre_norm))}
+    deep = random_layer(gen, D, F, E, True, dtype, dev)
+    for B in (16, 64):
+        kcb, vcb, kxb, vxb = (torch.randn(B, n, D, generator=gen)
+                              .to(dev, dtype) for n in (S, S, Sm, Sm))
+        xb = torch.randn(B, D, generator=gen).to(dev, dtype)
+        calls[f"row 6 batched_layer_step deep B={B}"] = (
+            lambda kcb=kcb, vcb=vcb, kxb=kxb, vxb=vxb, xb=xb:
+            db.batched_layer_step(xb, pos, deep, kcb, vcb, kxb, vxb,
+                                  n_heads=H, rope=rope))
+    out = report.setdefault("breakdown", {})
+    for label, fn in calls.items():
+        rows, total, early = graph_breakdown(fn)
+        out[label] = dict(total_us=total, launches=sum(r[1] for r in rows),
+                          overlapped=early,
+                          kernels=[[n, c, round(t, 3)] for n, c, t in rows])
+        print(f"breakdown {label} bf16 pos {pos} (this run, CUDA-graph "
+              f"replay under torch.profiler, per call): {total:.2f} us in "
+              f"{out[label]['launches']:.0f} launches, {early:.2f} of them "
+              f"started before the previous ended (PDL) "
+              f"{json.dumps(out[label]['kernels'])} [{card}]")
+
+
+def gemv_yardstick_phase(report, card):
+    """The batched GEMV alone at the QKV shape (1536 x 512, bf16; the
+    tensor-core instance) at B=16 and B=64 beside torch.nn.functional.linear
+    on the same tensors, both by CUDA-graph replay: a yardstick of the block,
+    not a row's library_ms."""
+    import torch
+    from video2music_tpu_torch.ops import decode_batch as db
+
+    gen = torch.Generator().manual_seed(975)
+    N, K = 1536, 512
+    w = (torch.randn(N, K, generator=gen) * K ** -0.5).to("cuda",
+                                                         torch.bfloat16)
+    bias = (0.1 * torch.randn(N, generator=gen)).to("cuda", torch.bfloat16)
+    out = report.setdefault("gemv_qkv", {})
+    for B in (16, 64):
+        x = torch.randn(B, K, generator=gen).to("cuda", torch.bfloat16)
+        check_close(f"batched_gemv {N}x{K} B={B}", torch.bfloat16,
+                    db.batched_gemv(x, w, bias),
+                    db.batched_gemv_plain(x, w, bias))
+        ms = time_ms(lambda: db.batched_gemv(x, w, bias))[0]
+        lib = time_ms(lambda: torch.nn.functional.linear(x, w, bias))[0]
+        bound = (nbytes(w, bias) + 2 * nbytes(x)) / HBM_BYTES_PER_S * 1e3
+        out[f"B={B}"] = dict(ms=ms, linear_ms=lib, bound_ms=bound)
+        print(f"gemv yardstick {N}x{K} B={B} bf16: kernel {ms:.4f} ms, "
+              f"F.linear {lib:.4f} ms, bytes bound {bound:.4f} ms (this "
+              f"run, CUDA-graph replay) [{card}]")
+
+
+def wide_ffn_phase(report, v2m):
+    """Rows 6-10 at d_ff 2048 (product d_model 512, 8 heads, 6 experts
+    top-2, pos 150) against their plain versions, float32 and bfloat16: the
+    batched pair at B=16 (shallow with the embed, deep), the deep V3.1
+    variant layer at B=1 and the batched variant pair at B=16. The kernels
+    carry no width limit; the JAX kernels take such a model."""
+    import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
+    from video2music_tpu_torch.ops import decode_variant as dv
+
+    dev = v2m.device
+    cfg = v2m.amt_cfg
+    D, E, H = cfg.d_model, cfg.moe.n_experts, cfg.num_heads
+    F = 2048
+    S, Sm = cfg.max_seq_chord, cfg.max_seq_video
+    k_top = cfg.moe.n_experts_per_token
+    pos = S // 2
+    rope = rope_tables(v2m.model, dev)
+    gen = torch.Generator().manual_seed(2048)
+    _, metas, norm, pre_norm, _ = VARIANT_CASES[3]  # 3.1
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"d_ff {F}, {dtype}:")
+        B = 16
+        head = random_head(gen, D, dtype, dev)
+        x = torch.randn(B, D, generator=gen).to(dev, dtype)
+        tokens = (torch.randint(15, (B,), generator=gen).to(dev),
+                  torch.randint(16, (B,), generator=gen).to(dev),
+                  torch.randint(2, (B,), generator=gen).to(dev).float())
+        kc, vc, kx, vx = (torch.randn(B, n, D, generator=gen).to(dev, dtype)
+                          for n in (S, S, Sm, Sm))
+        for tag, deep, x_in, tok in (("shallow+embed", False, None, tokens),
+                                     ("deep", True, x, None)):
+            p = random_layer(gen, D, F, E, deep, dtype, dev)
+            c1, c2 = (kc.clone(), vc.clone()), (kc.clone(), vc.clone())
+            lkw = dict(n_heads=H, rope=rope, tokens=tok,
+                       embed_pack=head if tok else None)
+            got = db.batched_layer_step(x_in, pos, p, *c1, kx, vx, **lkw)
+            want = db.batched_layer_step_plain(x_in, pos, p, *c2, kx, vx,
+                                               **lkw)
+            check_close(f"batched_layer_step d_ff {F} {tag}", dtype, got,
+                        want)
+            check_close(f"batched_layer_step d_ff {F} {tag} k row", dtype,
+                        c1[0][:, pos], c2[0][:, pos])
+            if deep:
+                check_close(f"batched_moe_ffn d_ff {F}", dtype,
+                            db.batched_moe_ffn(want, p, k_top=k_top,
+                                               head_pack=head),
+                            db.batched_moe_ffn_plain(want, p, k_top=k_top,
+                                                     head_pack=head))
+        for fields in metas:
+            meta = dv.VariantLayerMeta(*fields)
+            p = random_variant_layer(gen, meta, D, H, F, E, S, dtype, dev)
+            kw = dict(n_heads=H, rope=rope, norm=norm, pre_norm=pre_norm)
+            tag = f"3.1 {meta.attn}/{meta.ffn} d_ff {F}"
+            kc1, vc1, kx1, vx1 = (torch.randn(n, w * D, generator=gen)
+                                  .to(dev, dtype)
+                                  for n, w in ((S, 2), (S, 1), (Sm, 2),
+                                               (Sm, 1)))
+            x1 = torch.randn(1, D, generator=gen).to(dev, dtype)
+            a1 = (x1, pos, p, meta, kc1.clone(), vc1.clone(), kx1, vx1)
+            a2 = (x1, pos, p, meta, kc1.clone(), vc1.clone(), kx1, vx1)
+            check_close(f"decode_variant_layer {tag}", dtype,
+                        dv.decode_variant_layer_step(*a1, k_top=k_top, **kw),
+                        dv.decode_variant_layer_plain(*a2, k_top=k_top,
+                                                      **kw))
+            kcb, vcb, kxb, vxb = (torch.randn(B, n, w * D, generator=gen)
+                                  .to(dev, dtype)
+                                  for n, w in ((S, 2), (S, 1), (Sm, 2),
+                                               (Sm, 1)))
+            b1 = (x, pos, p, meta, kcb.clone(), vcb.clone(), kxb, vxb)
+            b2 = (x, pos, p, meta, kcb.clone(), vcb.clone(), kxb, vxb)
+            got = dbv.batched_variant_layer_step(*b1, **kw)
+            want = dbv.batched_variant_layer_plain(*b2, **kw)
+            check_close(f"batched_variant_layer_step {tag} B={B}", dtype,
+                        got, want)
+            if meta.ffn == "moe":
+                mkw = dict(k_top=k_top, norm=norm, pre_norm=pre_norm)
+                check_close(f"batched_variant_moe_ffn {tag} B={B}", dtype,
+                            dbv.batched_variant_moe_ffn(want, p, meta, **mkw),
+                            dbv.batched_variant_moe_plain(want, p, meta,
+                                                          **mkw))
+
+
 def variant_int8_layer(report, name, dtype, p, meta, inputs, kw):
     """The B=1 variant layer with int8 weights (every QUANT_KEYS weight of
     the packed layer ``p`` quantized per output row) against its plain
@@ -2776,6 +3032,9 @@ def main() -> int:
     phase("int8 KV kernels", int8_kv_kernel_phase, report, v2m)
     phase("dropout kernels", dropout_kernel_phase, report, v2m.amt_cfg)
     phase("variant kernels", variant_kernel_phase, report, v2m)
+    phase("decode breakdown", decode_breakdown_phase, report, v2m, card)
+    phase("gemv yardstick", gemv_yardstick_phase, report, card)
+    phase("d_ff 2048", wide_ffn_phase, report, v2m)
     phase("slice", slice_phase, v2m, card, report)
     phase("teacher-forced", teacher_forced_phase, v2m)
     phase("B=1 backends", backends_phase, v2m, card, report)
@@ -2833,9 +3092,14 @@ def main() -> int:
     for row in rows:  # the redesigned kernels: this run's times
         for key in PREV_MS.get(row["name"], {}):
             lib = row.get("library_" + key if key != "ms" else "library_ms")
+            lib = "none" if lib is None else f"{lib:.4f} ms"
             print(f"redesigned {row['name']} {key}: {row[key]:.4f} ms, "
-                  f"library {lib:.4f} ms [{card}]; earlier design "
+                  f"library {lib} [{card}]; earlier design "
                   f"{PREV_MS[row['name']][key]:.4f} ms (not this run)")
+    print(f"breakdown before the redesign (an earlier run's, PERF.md; not "
+          f"measured by this run): {json.dumps(PREV_BREAKDOWN)}")
+    print(f"breakdown after (this run): {json.dumps(report['breakdown'])}")
+    print(f"gemv yardstick (this run): {json.dumps(report['gemv_qkv'])}")
     print(f"train: {json.dumps(report['train'])}")
     print(f"V3 decode step: {json.dumps(report['v3_step'])}")
     print(f"B=1 backends, ms/token: {json.dumps(report['backends'])}")

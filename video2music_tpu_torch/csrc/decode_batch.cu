@@ -33,35 +33,28 @@
 // keeps the dequantized row, rounded to T, for the current row's term.
 // Attention then runs its int8 instance (attn_kernel<T, int8_t>): 16 cache
 // values a load, the scales folded into the logits and probabilities.
-// Halving the cache bytes halves the part of the step's bytes the caches
-// are; the step runs ~10x above its byte bound, so that may buy little.
 //
-// What bounds it on the H100: bytes. One step at B=16 reads, per layer, the
-// clips' cross K/V (16 x 300 x 512 x 2 x 2 B = 9.8 MB in bf16), their self
-// K/V up to pos (~5 MB at pos 150) and the layer's weights (6.3 MB shallow,
-// 25 MB deep with all six experts): ~180 MB per step of six layers, ~55 us
-// at 3.35 TB/s (computed from the shapes, not measured). From B ~ 16 up the
-// cache reads, not the weights, set the pace. What the design does:
-//   * attention: one block per (head, clip), so B x 8 blocks are in flight;
-//     16-byte loads along D, a row per thread for the logits and row groups
-//     for P.V (the B=1 kernel's scheme with a clip index);
-//   * GEMMs: one warp per output row (or row pair) holds its weight row in
-//     registers and walks a group of 16 clips' input rows staged in shared
-//     memory (loaded by every thread with many loads in flight, a LayerNorm
-//     of the rows folded into the staging), kTile rows at a time with
-//     independent sums, so their loads, FMAs and shuffles overlap; a RoPE
-//     or SwiGLU warp holds its two weight rows and reads each staged value
-//     once for both; lane i then finishes row i. Each weight row is read
-//     from device memory once per step: the blocks of the other clip groups
-//     (B > 16) find it in L2;
+// What bounds it on the H100: bytes. One deep layer's attention half at
+// B=16, pos 150, bf16 reads the attention block's weights once (2.6 MB),
+// the clips' self K/V up to pos (4.9 MB) and cross K/V (9.8 MB): ~17 MB,
+// ~5.4 us at 3.35 TB/s (computed from the shapes, not measured); from B ~ 16
+// up the caches, not the weights, set the pace. A chain of 7 launches (4
+// GEMVs, 2 attentions, the closing norm) pays each launch's fixed latency
+// on top. What the design does (csrc/batch_decode.cuh):
+//   * the bf16 GEMVs run on the tensor cores (mma.sync, the weights as the
+//     A operand, the clips as the B operand, K split over a block's warps),
+//     16 clips a block (the other groups' blocks read the weights from
+//     L2); f32 keeps the FMA kernel;
+//   * attention: one block per (head, clip), so B x 8 blocks are in
+//     flight; 16-byte loads along D, a row per thread for the logits and
+//     row groups for P.V (a B=1 call splits each head over a cluster);
+//   * every launch uses programmatic dependent launch: a GEMV fetches its
+//     weights before it waits for the previous kernel, overlapping that
+//     kernel's tail and the launch gap;
 //   * experts: blockIdx.y picks the shared expert (0) or expert e (e + 1);
 //     each expert's weights are read once for the batch, and it stages and
 //     computes only the clips the router listed for it (expert ids and
-//     lists stay in device memory);
-//   * a short chain of launches per layer on one stream (10-11 for a shallow
-//     layer, 8 for the attention half of a deep one, 4-5 for the MoE half).
-// Plain FMA and warp shuffles, no tensor cores (mma / wgmma, TMA and CUDA
-// graphs are later work).
+//     lists stay in device memory).
 #include "batch_decode.cuh"
 
 namespace v2m {
@@ -98,6 +91,7 @@ quant_rows_kernel(const float* __restrict__ kv, int D, int S, int pos,
                   float* v_scale, float* __restrict__ deq) {
   __shared__ float red[32];
   const int b = blockIdx.x, which = blockIdx.y;
+  pdl_wait();
   const float* x = kv + ((size_t)b * 2 + which) * D;
   float m = 0.f;
   for (int d = threadIdx.x; d < D; d += blockDim.x) m = fmaxf(m, fabsf(x[d]));
@@ -192,10 +186,10 @@ static int run_layer(const V2MBatchLayer& a, cudaStream_t st) {
     if (quant) {  // f32 K | V rows, quantized into the caches next
       g.kv_f = kv;
       if ((err = gemv<T, kRopeF>(g, 1, st))) return err;
-      quant_rows_kernel<T><<<dim3(B, 2), kThreads, 0, st>>>(
-          kv, D, a.S, a.pos, (int8_t*)a.k_cache, (int8_t*)a.v_cache,
-          a.k_scale, a.v_scale, deq);
-      V2M_CHECK_LAUNCH();
+      if ((err = launch(quant_rows_kernel<T>, dim3(B, 2), kThreads, 0, st, 0,
+                        (const float*)kv, D, a.S, a.pos, (int8_t*)a.k_cache,
+                        (int8_t*)a.v_cache, a.k_scale, a.v_scale, deq)))
+        return err;
     } else if ((err = gemv<T, kRope>(g, 1, st))) {
       return err;
     }
@@ -338,10 +332,10 @@ static int run_moe(const V2MBatchMoe& a, cudaStream_t st) {
   int* lists = counts + 32;                         // (E, B) their ids
   int err;
   if ((err = (int)cudaMemsetAsync(counts, 0, E * sizeof(int), st))) return err;
-  router_kernel<T, T><<<B, kThreads, (size_t)D * sizeof(float), st>>>(
-      (const T*)a.x2, (const T*)a.gate_w, (const T*)a.gate_b, B, D, E,
-      a.k_top, a.sel, selw, counts, lists);
-  V2M_CHECK_LAUNCH();
+  if ((err = route<T, T>((const T*)a.x2, (const T*)a.gate_w,
+                         (const T*)a.gate_b, B, D, E, a.k_top, a.sel, selw,
+                         counts, lists, st)))
+    return err;
   {  // [w1|wg] of the shared expert (slot 0) and every expert (slot e + 1)
     BGemv g = {};
     g.in.x = a.x2;
@@ -427,8 +421,6 @@ extern "C" int v2m_batched_layer(int dtype,
                                  void* stream) {
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
-  if (args->D > batch::kMaxK || args->F > batch::kMaxK)
-    return (int)cudaErrorInvalidValue;
   if (args->quant && (args->D % Vec<int8_t>::N || args->H <= 0 ||
                       (args->D / args->H) % Vec<int8_t>::N))
     return (int)cudaErrorInvalidValue;
@@ -443,9 +435,29 @@ extern "C" int v2m_batched_moe(int dtype, const v2m::batch::V2MBatchMoe* args,
                                void* stream) {
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
-  if (args->D > batch::kMaxK || args->F > batch::kMaxK)
-    return (int)cudaErrorInvalidValue;
   if (dtype == kF32) return batch::run_moe<float>(*args, st);
   if (dtype == kBF16) return batch::run_moe<bf16>(*args, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// y = x . w^T + bias for B rows of x (B, K) and w (N, K), T out: the GEMV
+// of the chains above alone (the tensor cores for bf16 at B >= 2), for
+// timing it beside one library call. Returns a cudaError_t code.
+extern "C" int v2m_batched_gemv(int dtype, const void* x, const void* w,
+                                const void* bias, void* y, int B, int K,
+                                int N, void* stream) {
+  using namespace v2m;
+  cudaStream_t st = (cudaStream_t)stream;
+  batch::BGemv g = {};
+  g.in.x = x;
+  g.in.x_is_t = 1;
+  g.w = w;
+  g.bias = bias;
+  g.B = B;
+  g.K = K;
+  g.units = N;
+  g.out_t = y;
+  if (dtype == kF32) return batch::gemv<float, batch::kPlain>(g, 1, st);
+  if (dtype == kBF16) return batch::gemv<bf16, batch::kPlain>(g, 1, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -43,14 +43,19 @@
 // reads ~6.5 MB of attention weights and ~4.2 MB of routed and shared
 // experts, the self caches (2D-wide K: 0.5 MB) and the cross K/V (0.9 MB):
 // ~12 MB, ~3.6 us at 3.35 TB/s (computed from the shapes, not measured).
-// At B=16 the cross and self caches of the clips (~25 MB) set the pace. The
-// design is that of csrc/decode_batch.cu: the GEMVs of csrc/batch_decode.cuh
-// read each weight row once per step for up to 16 clips, with the norms
-// folded into their input staging; attention is one block per (value head,
-// clip) that holds both query heads of a differential pair, so it reads
-// the shared value head once for both and finishes the pair combine and
-// subln in the block; a layer is a chain of ~8-14 launches on one stream.
-// Plain FMA and warp shuffles, no tensor cores.
+// At B=16 the cross and self caches of the clips (~25 MB) set the pace. At
+// B=1 each launch of the chain moves 0.3-2.6 MB, well under a microsecond of
+// bytes, so the launches' fixed latency sets the time. The design is that
+// of csrc/decode_batch.cu (csrc/batch_decode.cuh): the GEMVs read each
+// weight row once per step, the bf16 ones at B >= 2 on the tensor cores,
+// with the norms folded into their input staging; attention splits each
+// (value head, clip) over a cluster of blocks (4-8 at B=1, so 32-64 blocks
+// work where one per head did) that holds both query heads of a
+// differential pair, so the shared value head is read once for both, and
+// whose first block finishes the pair combine and subln (a vanilla or RPR
+// head at B >= 2: one block per (value head, clip)); every
+// launch uses programmatic dependent launch, so a GEMV's weight fetch
+// overlaps the previous kernel. A deep layer at B=1 is 13 launches.
 #include "batch_decode.cuh"
 
 namespace v2m {
@@ -135,10 +140,9 @@ static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
     if ((err = close_rows<T>(c, st))) return err;
   }
   if ((err = (int)cudaMemsetAsync(counts, 0, E * sizeof(int), st))) return err;
-  router_kernel<T, float><<<B, kThreads, (size_t)D * sizeof(float), st>>>(
-      xn, (const T*)a.gate_w, (const T*)a.gate_b, B, D, E, a.k_top, a.sel,
-      selw, counts, lists);
-  V2M_CHECK_LAUNCH();
+  if ((err = route<T, float>(xn, (const T*)a.gate_w, (const T*)a.gate_b, B, D,
+                             E, a.k_top, a.sel, selw, counts, lists, st)))
+    return err;
   {  // first layer of the shared expert (slot 0) and of each routed expert
     BGemv g = {};
     g.in.x = xn;
@@ -433,7 +437,6 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
 // The widths the kernels hold; `heads`: the attention's head split too.
 // int8 rows load 16 weights at a time.
 static bool widths_ok(const V2MVariant& a, bool heads) {
-  if (a.D > kMaxK || a.F > kMaxK || a.Fe > kMaxK) return false;
   constexpr int N8 = Vec<int8_t>::N;
   if (a.wqkv_s != nullptr && (a.D % N8 || a.F % N8 || a.Fe % N8))
     return false;

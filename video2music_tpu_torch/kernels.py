@@ -197,6 +197,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.v2m_batched_layer.restype = i
     lib.v2m_batched_moe.argtypes = [i, ctypes.POINTER(BatchMoeArgs), p]
     lib.v2m_batched_moe.restype = i
+    lib.v2m_batched_gemv.argtypes = [i, p, p, p, p, i, i, i, p]
+    lib.v2m_batched_gemv.restype = i
     lib.v2m_attention_dropout_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
                                               i, i, f, u, f, i, p]
     lib.v2m_attention_dropout_fwd.restype = i

@@ -59,8 +59,6 @@ from .. import kernels
 from .decode_layer import (MAX_TOP_K, _dot, _layer_norm, _rope_at, _rotate,
                            _swiglu, attend, embed_plain)
 
-MAX_K = 1024  # csrc/batch_decode.cuh kMaxK: longest row a warp holds
-
 # When a list, every MoE router of the decode steps, kernel or plain, at
 # B=1 or B>1 (here and in ops/decode_variant.py), appends the (B, k) expert
 # ids it chose in selection order, left on the device. chip_smoke.py sets
@@ -204,9 +202,39 @@ def batched_moe_ffn_plain(x2, p, *, k_top: int = 2, head_pack=None):
     return (_dot(xf, head_pack["wout"]) + head_pack["bout"].float()).to(dt)
 
 
+def batched_gemv_plain(x, w, bias):
+    """Plain version of :func:`batched_gemv`."""
+    return (_dot(x, w) + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+def batched_gemv(x, w, bias):
+    """y = x . w^T + bias for x (B, K), w (N, K), bias (N,), all in one
+    compute dtype, accumulated in f32 -> (B, N) in that dtype: the GEMV of
+    the batched decode chains alone (csrc/batch_decode.cuh; for bf16 at
+    B >= 2 the tensor-core instance), a yardstick for the block."""
+    what = "batched_gemv"
+    if kernels.use_plain(x, what):
+        return batched_gemv_plain(x, w, bias)
+    B, K = x.shape
+    N = w.shape[0]
+    code = kernels.dtype_code(x, what)
+    kernels.require(K % 8 == 0 and w.shape == (N, K) and bias.shape == (N,),
+                    what, "x (B, K), w (N, K), bias (N,), K a multiple of 8")
+    kernels.require_like(dict(x=x, w=w, bias=bias), x, what)
+    y = torch.empty(B, N, device=x.device, dtype=x.dtype)
+    P = kernels.ptr
+    kernels.check(kernels.library().v2m_batched_gemv(
+        code, P(x), P(w), P(bias), P(y), B, K, N, kernels.stream_of(x)), what)
+    batched_gemv.launches += 1
+    return y
+
+
+batched_gemv.launches = 0
+
 
 _LAYER_KEYS = ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
                "norm_scale", "norm_bias")
@@ -219,8 +247,6 @@ _HEAD_KEYS = ("dn_scale", "dn_bias", "wout", "bout")
 def _require_widths(D: int, F: int, what: str) -> None:
     kernels.require(D % 8 == 0 and F % 8 == 0, what,
                     f"D={D} and F={F} must be multiples of 8")
-    kernels.require(D <= MAX_K and F <= MAX_K, what,
-                    f"D={D} and F={F} must be at most {MAX_K}")
 
 
 def layer_workspace_size(B: int, D: int, F: int, quant: bool = False) -> int:

@@ -54,7 +54,7 @@ import torch
 
 from .. import kernels
 from ..core.config import AMTConfig
-from .decode_batch import MAX_K, log_route, route_plain
+from .decode_batch import log_route, route_plain
 from .decode_layer import (MAX_TOP_K, _dot, _layer_norm, _rope_at, _rotate,
                            attend, quantize_weight)
 from .norms import RMS_EPS, LayerNorm
@@ -480,9 +480,8 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
     Fe = p["ew2"].shape[-1] if deep else 0
     mult = 16 if qkeys else 8  # an int8 row loads 16 weights at a time
     for n in (D, F, Fe):
-        kernels.require(n % mult == 0 and n <= MAX_K, what,
-                        f"widths {D}, {F}, {Fe} must be multiples of {mult} "
-                        f"and at most {MAX_K}")
+        kernels.require(n % mult == 0, what,
+                        f"widths {D}, {F}, {Fe} must be multiples of {mult}")
     if with_moe:
         kernels.require(1 <= k_top <= min(E - 1, MAX_TOP_K)
                         and E <= MAX_EXPERTS, what,
