@@ -28,13 +28,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and deep, on int8 caches filled to pos 150: the output, and the int8
      K/V rows and scales it writes at pos; the variant layer with int8
      weights on the deep 3.1 and 3.2 layers at B=1;
-  2b. decode breakdown: one bf16 call of row 8 (the deep 3.1 layer, B=1)
-     and of row 6 (the deep batched layer, B=16 and B=64) at pos 150 by
-     CUDA-graph replay under torch.profiler, each kernel of the chain with
-     its launches and microseconds per call, a line each ("breakdown
+  2b. decode breakdown: one bf16 call of row 8 (the deep 3.1 layer, B=1),
+     row 6 (the deep batched layer, B=16 and B=64), row 2 (the deep 2.2
+     layer, B=1), row 7 (the batched MoE half with the head, B=16 and
+     B=64) and row 10 (the 3.1 MoE half, B=16) at pos 150 by CUDA-graph
+     replay under torch.profiler, each kernel of the chain with its
+     launches and microseconds per call, a line each ("breakdown
      row ..."); the batched GEMV alone at the QKV shape (1536 x 512, bf16,
      B=16 and B=64) beside torch.nn.functional.linear ("gemv yardstick");
      rows 6-10 at d_ff 2048 against their plain versions, f32 and bf16;
+     rows 1 and 11 at head sizes 48, 96, 128 and 256 (output, mask,
+     gradients; timed at 128); the B=1 layer, the one-layer cooperative
+     run, the batched MoE half (B=16 and B=4) and the 3.1 variant layer
+     and MoE half at 40 experts, top-10; the bf16 MoE halves (rows 7 and
+     10) with their experts dense and routed side by side at B = 2-8, 6
+     experts top-2 and 40 top-10 ("expert cut", the readings behind
+     decode_batch.dense_experts);
   3. slice: a full-width Video2music (AMT 2.2 + bimamba+, random weights
      from seed 0) in bfloat16 answers three requests from seeded synthetic
      features; the outputs are checked, and each kernel's launch count over
@@ -94,6 +103,7 @@ Imports no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -184,10 +194,11 @@ BACKENDS = {"ends": ("auto", None, True, None),
             "int8": ("auto", "int8", True, "decode_layer")}
 STACK_KERNELS = ("decode_monolith", "decode_segment", "decode_flat_monolith")
 
-# bf16 device ms of the redesigned kernels before their redesign (the
-# first, plain-FMA designs and chains), from earlier chip_smoke.py runs on
-# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md): not measured by this run,
-# so they stay out of the kernels line and are printed on a line of their
+# bf16 device ms of the redesigned kernels before their redesign, from
+# earlier chip_smoke.py runs on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md): rows 1, 11, 6 and 8 on their first designs, rows 2, 3 (one
+# layer), 7 and 10 on the tree at 04068b2; not measured by this run, so
+# they stay out of the kernels line and are printed on a line of their
 # own, marked so, beside this run's times
 PREV_MS = {
     "flash_attention": dict(ms=0.1330, ms_b16=0.3117, ms_2h=0.1325),
@@ -195,12 +206,40 @@ PREV_MS = {
     "flash_attention_dropout_bwd": dict(ms=3.3249, ms_causal=2.2283),
     "batched_layer_step": dict(ms=0.0539, ms_b64=0.0998, ms_int8=0.0589),
     "decode_variant_layer": dict(ms=0.0613, ms_int8=0.0646),
+    "decode_layer": dict(ms=0.0432, ms_int8=0.0440),
+    "decode_ends": dict(ms=0.0467),
+    "batched_moe_ffn": dict(ms=0.0603, ms_b64=0.1337),
+    "batched_variant_moe_ffn": dict(ms=0.0515, ms_b64=0.1290),
 }
-# per-launch breakdown of rows 8 and 6 on the FMA chains before their
-# redesign (decode_breakdown_phase, PERF.md; NVIDIA H100 80GB HBM3,
-# 700.00 W; us per call, launches): not measured by this run, printed on a
-# line of its own
+# per-launch breakdowns before a redesign (decode_breakdown_phase,
+# PERF.md; NVIDIA H100 80GB HBM3, 700.00 W; us per call, launches): rows 8
+# and 6 on their first FMA chains, rows 2, 7 and 10 on the tree at
+# 04068b2; not measured by this run, printed on a line of their own
 PREV_BREAKDOWN = {
+    "row 2 decode_layer_step deep B=1": dict(
+        total_us=39.50, launches=10, kernels=[
+            ["cached_attention_kernel", 2, 10.864],
+            ["gemv_kernel rope", 2, 7.469], ["moe_down_kernel", 1, 5.651],
+            ["gemv_kernel plain", 2, 4.643], ["router_kernel", 1, 4.416],
+            ["moe_up_kernel", 1, 3.676], ["layernorm_kernel", 1, 2.777]]),
+    "row 7 batched_moe_ffn +head B=16": dict(
+        total_us=56.58, launches=6, kernels=[
+            ["bgemv plain (w2 slots)", 1, 21.005],
+            ["bgemv swiglu (w1g slots)", 1, 18.273],
+            ["mgemv plain (head)", 1, 7.707], ["close_kernel", 1, 5.088],
+            ["router_kernel", 1, 3.637], ["Memset", 1, 0.869]]),
+    "row 7 batched_moe_ffn +head B=64": dict(
+        total_us=129.50, launches=6, kernels=[
+            ["bgemv swiglu (w1g slots)", 1, 63.005],
+            ["bgemv plain (w2 slots)", 1, 47.924],
+            ["mgemv plain (head)", 1, 8.806], ["close_kernel", 1, 5.122],
+            ["router_kernel", 1, 3.695], ["Memset", 1, 0.944]]),
+    "row 10 batched_variant_moe_ffn 3.1 B=16": dict(
+        total_us=50.18, launches=6, kernels=[
+            ["bgemv plain (w2 slots)", 1, 20.982],
+            ["bgemv swiglu (w1g slots)", 1, 18.601],
+            ["close_kernel", 2, 6.052], ["router_kernel", 1, 3.62],
+            ["Memset", 1, 0.929]]),
     "row 8 decode_variant_layer 3.1 deep B=1": dict(
         total_us=60.25, launches=13, kernels=[
             ["attn_kernel", 2, 20.186], ["bgemv plain", 3, 10.775],
@@ -2202,13 +2241,17 @@ def graph_breakdown(fn, iters=20):
 
 
 def decode_breakdown_phase(report, v2m, card):
-    """Per-launch breakdown of one bf16 call of row 8 (the deep V3.1 layer
-    at B=1, pos 150) and of row 6 (the deep batched layer at B=16 and B=64,
-    pos 150), product widths: each kernel of the chain with its launches
-    and microseconds per call, from graph_breakdown. One line each."""
+    """Per-launch breakdown of one bf16 call, product widths, pos 150, of
+    row 8 (the deep V3.1 layer at B=1), row 6 (the deep batched layer at
+    B=16 and B=64), row 2 (the deep 2.2 layer at B=1), row 7 (the batched
+    MoE half with the head at B=16 and B=64) and row 10 (the 3.1 MoE half
+    at B=16): each kernel of the chain with its launches and microseconds
+    per call, from graph_breakdown. One line each."""
     import torch
     from video2music_tpu_torch.decode.fused import rope_tables
     from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
+    from video2music_tpu_torch.ops import decode_layer as dl
     from video2music_tpu_torch.ops import decode_variant as dv
 
     dev, dtype = v2m.device, torch.bfloat16
@@ -2231,15 +2274,35 @@ def decode_breakdown_phase(report, v2m, card):
         lambda: dv.decode_variant_layer_step(
             x, pos, p, meta, kc, vc, kx, vx, n_heads=H, rope=rope,
             k_top=k_top, norm=norm, pre_norm=pre_norm))}
-    deep = random_layer(gen, D, F, E, True, dtype, dev)
+    deep6 = random_layer(gen, D, F, E, True, dtype, dev)
     for B in (16, 64):
         kcb, vcb, kxb, vxb = (torch.randn(B, n, D, generator=gen)
                               .to(dev, dtype) for n in (S, S, Sm, Sm))
         xb = torch.randn(B, D, generator=gen).to(dev, dtype)
         calls[f"row 6 batched_layer_step deep B={B}"] = (
             lambda kcb=kcb, vcb=vcb, kxb=kxb, vxb=vxb, xb=xb:
-            db.batched_layer_step(xb, pos, deep, kcb, vcb, kxb, vxb,
+            db.batched_layer_step(xb, pos, deep6, kcb, vcb, kxb, vxb,
                                   n_heads=H, rope=rope))
+    # row 2: the deep 2.2 layer at B=1 (the chain of the "ends" backend)
+    deep1 = random_layer(gen, D, F, E, True, dtype, dev)
+    kc1, vc1 = (torch.randn(S, D, generator=gen).to(dev, dtype)
+                for _ in range(2))
+    kx1, vx1 = (torch.randn(Sm, D, generator=gen).to(dev, dtype)
+                for _ in range(2))
+    calls["row 2 decode_layer_step deep B=1"] = (
+        lambda: dl.decode_layer_step(x, pos, deep1, kc1, vc1, kx1, vx1,
+                                     n_heads=H, k_top=k_top, rope=rope))
+    deep = random_layer(gen, D, F, E, True, dtype, dev)
+    head = random_head(gen, D, dtype, dev)
+    for B in (16, 64):  # row 7: the MoE half with the head, as the path
+        xb = torch.randn(B, D, generator=gen).to(dev, dtype)
+        calls[f"row 7 batched_moe_ffn +head B={B}"] = (
+            lambda xb=xb: db.batched_moe_ffn(xb, deep, k_top=k_top,
+                                             head_pack=head))
+    xv = torch.randn(16, D, generator=gen).to(dev, dtype)
+    calls["row 10 batched_variant_moe_ffn 3.1 B=16"] = (
+        lambda: dbv.batched_variant_moe_ffn(xv, p, meta, k_top=k_top,
+                                            norm=norm, pre_norm=pre_norm))
     out = report.setdefault("breakdown", {})
     for label, fn in calls.items():
         rows, total, early = graph_breakdown(fn)
@@ -2364,6 +2427,218 @@ def wide_ffn_phase(report, v2m):
                             dbv.batched_variant_moe_ffn(want, p, meta, **mkw),
                             dbv.batched_variant_moe_plain(want, p, meta,
                                                           **mkw))
+
+
+HEAD_SIZES = (48, 96, 128, 256)  # padded (48, 96) and built (128, 256)
+
+
+def head_size_phase(report, card):
+    """Rows 1 and 11 at head sizes the product does not use (the JAX
+    kernels take any): encoder flash attention (plain, +bias, +causal) and
+    the dropout attention (output, mask entry for entry, gradients) at
+    48, 96 (zero-padded to 64 / 128 in the wrappers), 128 and 256, f32 and
+    bf16, against the plain versions; both timed at 128 (d_model 512 at 4
+    heads): flash attention at B=1, the dropout pair at B=16, L=S=300."""
+    import torch
+    from video2music_tpu_torch.ops import flash_attention_dropout as fad
+    from video2music_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    dev, H, L, rate = "cuda", 4, 300, 0.1
+    gen = torch.Generator().manual_seed(128)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    fwd_name, bwd_name = TRAIN_KERNELS
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"head sizes, {dtype}:")
+        for D in HEAD_SIZES:
+            q, k, v, do = (torch.randn(2, H, L, D, generator=gen)
+                           .to(dev, dtype) for _ in range(4))
+            bias = torch.randn(2, H, L, L, generator=gen).to(dev)
+            for tag, kw in (("", {}), ("+bias", dict(bias=bias)),
+                            ("+causal", dict(causal=True))):
+                check_close(f"flash_attention D={D}{tag}", dtype,
+                            flash_attention(q, k, v, **kw),
+                            flash_attention_plain(q, k, v, **kw))
+            for causal in (False, True):
+                tag = f" D={D}" + (" causal" if causal else "")
+                out, stats = fad.flash_attention_dropout_fwd(
+                    q, k, v, None, seed, causal, rate)
+                dkw = dict(causal=causal, dropout_rate=rate, seed=seed)
+                check_close(f"{fwd_name}{tag}", dtype, out,
+                            fad.flash_attention_dropout_plain(q, k, v, **dkw))
+                grads = fad.flash_attention_dropout_bwd(
+                    q, k, v, None, do, seed, stats, out, causal, rate)
+                wants = fad.flash_attention_dropout_plain_bwd(q, k, v, do,
+                                                              **dkw)
+                for gname, g, w in zip(("dq", "dk", "dv"), grads, wants):
+                    check_close(f"{bwd_name} {gname}{tag}", dtype, g, w)
+                got = fad.extract_dropped_probs(q, k, causal=causal,
+                                                dropout_rate=rate, seed=seed)
+                ref = fad._probs(q, k, None, causal) * fad.dropout_mask(
+                    2, H, L, L, rate, seed, dev)
+                fail_unless(torch.equal(got == 0, ref == 0),
+                            f"dropout mask{tag} [{dtype}] differs from the "
+                            "plain version's")
+        D = 128
+        q, k, v = (torch.randn(1, H, L, D, generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        note_times(report, "flash_attention", dtype,
+                   lambda: flash_attention(q, k, v),
+                   lambda: flash_attention_plain(q, k, v), key="ms_d128")
+        q, k, v, do = (torch.randn(16, H, L, D, generator=gen).to(dev, dtype)
+                       for _ in range(4))
+        out, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
+                                                     False, rate)
+        dkw = dict(dropout_rate=rate, seed=seed)
+        note_times(report, fwd_name, dtype,
+                   lambda: fad.flash_attention_dropout_fwd(
+                       q, k, v, None, seed, False, rate),
+                   lambda: fad.flash_attention_dropout_plain(q, k, v, **dkw),
+                   plain_iters=5, key="ms_d128")
+        note_times(report, bwd_name, dtype,
+                   lambda: fad.flash_attention_dropout_bwd(
+                       q, k, v, None, do, seed, stats, out, False, rate),
+                   lambda: fad.flash_attention_dropout_plain_bwd(
+                       q, k, v, do, **dkw),
+                   plain_iters=5, key="ms_d128")
+
+
+def many_experts_phase(report, v2m):
+    """The decode kernels at 40 experts, top-10 (product d_model 512, 8
+    heads, d_ff 1024, pos 150) against their plain versions, float32 and
+    bfloat16: the deep B=1 layer (decode_layer_step) and a one-layer run of
+    the cooperative kernel (decode_flat_monolith_step), the batched MoE
+    half at B=16 (dense expert slots in bf16) and B=4 (routed), the deep
+    3.1 variant layer at B=1 and the batched variant MoE half at B=16 and
+    B=3. The routers keep no fixed-size selection; the JAX kernels take
+    any E and k_top."""
+    import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
+    from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops import decode_stack as ds
+    from video2music_tpu_torch.ops import decode_variant as dv
+
+    dev = v2m.device
+    cfg = v2m.amt_cfg
+    D, F, H = cfg.d_model, cfg.d_ff, cfg.num_heads
+    E, k_top = 40, 10
+    S, Sm = cfg.max_seq_chord, cfg.max_seq_video
+    pos = S // 2
+    rope = rope_tables(v2m.model, dev)
+    gen = torch.Generator().manual_seed(40)
+    _, metas, norm, pre_norm, _ = VARIANT_CASES[3]  # 3.1
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"{E} experts top-{k_top}, {dtype}:")
+        p = random_layer(gen, D, F, E, True, dtype, dev)
+        kc, vc = (torch.randn(S, D, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        kx, vx = (torch.randn(Sm, D, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+        x = torch.randn(1, D, generator=gen).to(dev, dtype)
+        kw = dict(n_heads=H, k_top=k_top, rope=rope)
+        c1, c2 = (kc.clone(), vc.clone()), (kc.clone(), vc.clone())
+        check_close(f"decode_layer E={E} k={k_top}", dtype,
+                    dl.decode_layer_step(x, pos, p, *c1, kx, vx, **kw),
+                    dl.decode_layer_plain(x, pos, p, *c2, kx, vx, **kw))
+        c1, c2 = (kc.clone(), vc.clone()), (kc.clone(), vc.clone())
+        rkw = dict(embed=False, fold_head=False, x=x, **kw)
+        check_close(f"decode_flat_monolith E={E} k={k_top}", dtype,
+                    ds.decode_flat_monolith_step(
+                        None, None, None, pos, [p], None, [(*c1, kx, vx)],
+                        **rkw),
+                    ds.decode_flat_monolith_plain(
+                        None, None, None, pos, [p], None, [(*c2, kx, vx)],
+                        **rkw))
+        for B in (16, 4):
+            xb = torch.randn(B, D, generator=gen).to(dev, dtype)
+            check_close(f"batched_moe_ffn E={E} k={k_top} B={B}", dtype,
+                        db.batched_moe_ffn(xb, p, k_top=k_top),
+                        db.batched_moe_ffn_plain(xb, p, k_top=k_top))
+        meta = dv.VariantLayerMeta(*metas[1])  # the deep 3.1 layer
+        pv = random_variant_layer(gen, meta, D, H, F, E, S, dtype, dev)
+        vkw = dict(n_heads=H, rope=rope, norm=norm, pre_norm=pre_norm)
+        kc1, vc1, kx1, vx1 = (torch.randn(n, w * D, generator=gen)
+                              .to(dev, dtype)
+                              for n, w in ((S, 2), (S, 1), (Sm, 2), (Sm, 1)))
+        a1 = (x, pos, pv, meta, kc1.clone(), vc1.clone(), kx1, vx1)
+        a2 = (x, pos, pv, meta, kc1.clone(), vc1.clone(), kx1, vx1)
+        check_close(f"decode_variant_layer 3.1 E={E} k={k_top}", dtype,
+                    dv.decode_variant_layer_step(*a1, k_top=k_top, **vkw),
+                    dv.decode_variant_layer_plain(*a2, k_top=k_top, **vkw))
+        mkw = dict(k_top=k_top, norm=norm, pre_norm=pre_norm)
+        for B in (16, 3):
+            xb = torch.randn(B, D, generator=gen).to(dev, dtype)
+            check_close(f"batched_variant_moe_ffn 3.1 E={E} k={k_top} B={B}",
+                        dtype, dbv.batched_variant_moe_ffn(xb, pv, meta, **mkw),
+                        dbv.batched_variant_moe_plain(xb, pv, meta, **mkw))
+
+
+@contextlib.contextmanager
+def experts_forced(dense: bool):
+    """Every MoE step runs its experts dense (True) or routed (False),
+    whatever decode_batch.dense_experts would choose."""
+    from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_variant as dv
+    saved = db.dense_experts, dv.dense_experts
+    db.dense_experts = dv.dense_experts = lambda *args: dense
+    try:
+        yield
+    finally:
+        db.dense_experts, dv.dense_experts = saved
+
+
+def expert_cut_phase(report, v2m, card):
+    """The bf16 MoE halves with their experts dense and routed, side by
+    side, at B = 2, 3, 4, 6 and 8, for the product's 6 experts top-2 and
+    for 40 experts top-10 (product widths): batched_moe_ffn (row 7) and the
+    3.1 batched_variant_moe_ffn (row 10), each path held to the plain
+    version and timed by CUDA-graph replay. These lines set
+    decode_batch.dense_experts."""
+    import torch
+    from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
+    from video2music_tpu_torch.ops import decode_variant as dv
+
+    dev, dtype = v2m.device, torch.bfloat16
+    cfg = v2m.amt_cfg
+    D, F, H, S = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.max_seq_chord
+    gen = torch.Generator().manual_seed(2468)
+    _, metas, norm, pre_norm, _ = VARIANT_CASES[3]  # 3.1
+    meta = dv.VariantLayerMeta(*metas[1])           # its deep layer
+    out = report.setdefault("expert_cut", {})
+    for E, k_top in ((cfg.moe.n_experts, cfg.moe.n_experts_per_token),
+                     (40, 10)):
+        p = random_layer(gen, D, F, E, True, dtype, dev)
+        pv = random_variant_layer(gen, meta, D, H, F, E, S, dtype, dev)
+        for B in (2, 3, 4, 5, 6, 8):
+            xb = torch.randn(B, D, generator=gen).to(dev, dtype)
+            calls = {
+                "batched_moe_ffn": (
+                    lambda: db.batched_moe_ffn(xb, p, k_top=k_top),
+                    lambda: db.batched_moe_ffn_plain(xb, p, k_top=k_top)),
+                "batched_variant_moe_ffn 3.1": (
+                    lambda: dbv.batched_variant_moe_ffn(
+                        xb, pv, meta, k_top=k_top, norm=norm,
+                        pre_norm=pre_norm),
+                    lambda: dbv.batched_variant_moe_plain(
+                        xb, pv, meta, k_top=k_top, norm=norm,
+                        pre_norm=pre_norm))}
+            for name, (fn, plain) in calls.items():
+                label = f"{name} E={E} k={k_top} B={B}"
+                ms = {}
+                for dense in (True, False):
+                    path = "dense" if dense else "routed"
+                    with experts_forced(dense):
+                        check_close(f"{label} {path}", dtype, fn(), plain())
+                        ms[path] = time_ms(fn)[0]
+                chosen = db.dense_experts(B, E, k_top, dtype)
+                out[label] = dict(ms, chosen="dense" if chosen else "routed")
+                print(f"expert cut {label} bf16: dense {ms['dense']:.4f} ms, "
+                      f"routed {ms['routed']:.4f} ms, dense_experts picks "
+                      f"{out[label]['chosen']} (this run, CUDA-graph "
+                      f"replay) [{card}]")
 
 
 def variant_int8_layer(report, name, dtype, p, meta, inputs, kw):
@@ -3035,6 +3310,9 @@ def main() -> int:
     phase("decode breakdown", decode_breakdown_phase, report, v2m, card)
     phase("gemv yardstick", gemv_yardstick_phase, report, card)
     phase("d_ff 2048", wide_ffn_phase, report, v2m)
+    phase("head sizes", head_size_phase, report, card)
+    phase("40 experts", many_experts_phase, report, v2m)
+    phase("expert cut", expert_cut_phase, report, v2m, card)
     phase("slice", slice_phase, v2m, card, report)
     phase("teacher-forced", teacher_forced_phase, v2m)
     phase("B=1 backends", backends_phase, v2m, card, report)
@@ -3072,7 +3350,8 @@ def main() -> int:
                    max_abs_err_f32=r["err"][torch.float32],
                    ms_f32=f32[0], plain_ms_f32=f32[2])
         for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h", "ms_int8",
-                    "ms_int8_b64"):  # other shapes; int8 weights or caches
+                    "ms_int8_b64", "ms_d128"):  # other shapes; int8
+            # weights or caches; head size 128
             if key in r:
                 t = r[key][torch.bfloat16]
                 row[key], row["plain_" + key] = t[0], t[2]
@@ -3100,6 +3379,7 @@ def main() -> int:
           f"measured by this run): {json.dumps(PREV_BREAKDOWN)}")
     print(f"breakdown after (this run): {json.dumps(report['breakdown'])}")
     print(f"gemv yardstick (this run): {json.dumps(report['gemv_qkv'])}")
+    print(f"expert cut (this run): {json.dumps(report['expert_cut'])}")
     print(f"train: {json.dumps(report['train'])}")
     print(f"V3 decode step: {json.dumps(report['v3_step'])}")
     print(f"B=1 backends, ms/token: {json.dumps(report['backends'])}")

@@ -28,6 +28,31 @@ namespace mma {
 constexpr int kChunk = 64;           // key / query rows per shared chunk
 constexpr float kNegInf = -1e9f;     // a masked logit, as the Pallas kernels
 
+// Dynamic shared memory of the attention kernels, one declaration for all
+// of them: at a head size of 128 or 256 their tiles pass the 48 KB a
+// kernel may declare statically.
+extern __shared__ __align__(16) unsigned char attn_smem[];
+
+// The unroll count of the f32 FMA kernels' loops over a head row: whole
+// rows up to 64 (registers), 8 at a time above (the rows spill to local
+// memory whatever the unroll, and whole 128- and 256-wide rows would
+// multiply the compile time).
+__host__ __device__ constexpr int unroll_hd(int hd) {
+  return hd <= 64 ? hd : 8;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory, once per instance
+// (`done`); returns a cudaError_t code.
+template <typename K>
+inline int smem_opt_in(K kernel, size_t bytes, bool& done) {
+  if (done || bytes <= 48 * 1024) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
 template <int HD> struct Chunk {
   static constexpr int kStride = HD + 8;           // bf16 per padded row
   static constexpr int kElems = kChunk * kStride;  // bf16 per chunk
@@ -311,8 +336,10 @@ __global__ void __launch_bounds__(WARPS * 32)
 attention_fwd_mma(FwdArgs a) {
   constexpr int kNT = kChunk / 8;  // key tiles of a chunk
   constexpr int kDT = HD / 8;      // head-dim tiles
-  __shared__ __align__(16) bf16 ks[2][Chunk<HD>::kElems];
-  __shared__ __align__(16) bf16 vs[2][Chunk<HD>::kElems];
+  // K and V chunks, two of each (fwd_smem bytes)
+  bf16 (*ks)[Chunk<HD>::kElems] =
+      reinterpret_cast<bf16 (*)[Chunk<HD>::kElems]>(attn_smem);
+  bf16 (*vs)[Chunk<HD>::kElems] = ks + 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
   const int blk0 = blockIdx.x * WARPS * 16;
@@ -452,37 +479,54 @@ inline int fwd_warps(int BH, int L) {
   return BH * ((L + 63) / 64) >= 2 * 132 ? 4 : 2;
 }
 
-template <int HD, int WARPS, bool DROPOUT>
-inline void launch_fwd_mma(const FwdArgs& a, int BH, int causal,
-                           cudaStream_t st) {
-  dim3 grid((a.L + WARPS * 16 - 1) / (WARPS * 16), BH);
-  if (causal)
-    attention_fwd_mma<HD, WARPS, true, DROPOUT><<<grid, WARPS * 32, 0, st>>>(a);
-  else
-    attention_fwd_mma<HD, WARPS, false, DROPOUT><<<grid, WARPS * 32, 0, st>>>(a);
+template <int HD>
+constexpr size_t fwd_smem() {
+  return 4 * Chunk<HD>::kElems * sizeof(bf16);
 }
 
-// Launches the bf16 forward for head_dim D; returns a cudaError_t code.
+template <int HD, int WARPS, bool CAUSAL, bool DROPOUT>
+inline int launch_fwd_inst(const FwdArgs& a, dim3 grid, cudaStream_t st) {
+  static bool opted_in = false;
+  const int err = smem_opt_in(attention_fwd_mma<HD, WARPS, CAUSAL, DROPOUT>,
+                              fwd_smem<HD>(), opted_in);
+  if (err) return err;
+  attention_fwd_mma<HD, WARPS, CAUSAL, DROPOUT>
+      <<<grid, WARPS * 32, fwd_smem<HD>(), st>>>(a);
+  return 0;
+}
+
+template <int HD, int WARPS, bool DROPOUT>
+inline int launch_fwd_mma(const FwdArgs& a, int BH, int causal,
+                          cudaStream_t st) {
+  dim3 grid((a.L + WARPS * 16 - 1) / (WARPS * 16), BH);
+  return causal ? launch_fwd_inst<HD, WARPS, true, DROPOUT>(a, grid, st)
+                : launch_fwd_inst<HD, WARPS, false, DROPOUT>(a, grid, st);
+}
+
+template <int HD, bool DROPOUT>
+inline int launch_fwd_hd(const FwdArgs& a, int BH, int causal,
+                         cudaStream_t st) {
+  return fwd_warps(BH, a.L) == 4
+             ? launch_fwd_mma<HD, 4, DROPOUT>(a, BH, causal, st)
+             : launch_fwd_mma<HD, 2, DROPOUT>(a, BH, causal, st);
+}
+
+// Launches the bf16 forward for head_dim D (16, 32, 64, 128 or 256; the
+// wrappers pad other head sizes with zero columns); returns a cudaError_t
+// code.
 template <bool DROPOUT>
 inline int run_fwd_mma(const FwdArgs& a, int BH, int D, int causal,
                        cudaStream_t st) {
-  const bool wide = fwd_warps(BH, a.L) == 4;
+  int err;
   switch (D) {
-    case 16:
-      wide ? launch_fwd_mma<16, 4, DROPOUT>(a, BH, causal, st)
-           : launch_fwd_mma<16, 2, DROPOUT>(a, BH, causal, st);
-      break;
-    case 32:
-      wide ? launch_fwd_mma<32, 4, DROPOUT>(a, BH, causal, st)
-           : launch_fwd_mma<32, 2, DROPOUT>(a, BH, causal, st);
-      break;
-    case 64:
-      wide ? launch_fwd_mma<64, 4, DROPOUT>(a, BH, causal, st)
-           : launch_fwd_mma<64, 2, DROPOUT>(a, BH, causal, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: err = launch_fwd_hd<16, DROPOUT>(a, BH, causal, st); break;
+    case 32: err = launch_fwd_hd<32, DROPOUT>(a, BH, causal, st); break;
+    case 64: err = launch_fwd_hd<64, DROPOUT>(a, BH, causal, st); break;
+    case 128: err = launch_fwd_hd<128, DROPOUT>(a, BH, causal, st); break;
+    case 256: err = launch_fwd_hd<256, DROPOUT>(a, BH, causal, st); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 

@@ -6,17 +6,18 @@
 //
 // The GEMV, y[b] = W . x[b] (+ epilogue), has two instances, picked by the
 // launcher (gemv) by dtype and shape:
-//   * bf16 at B >= 2 with one weight (slot 0, no expert lists) runs on the
-//     tensor cores (mgemv_kernel): the weights (out, in) row-major are the
-//     A operand of mma.sync.m16n8k16, 16 output rows a tile, streamed in
-//     64-wide k chunks by 16-byte cp.async into a ring of stages per warp
-//     and read with ldmatrix; the staged clips (B, K) are the B operand
-//     ("col" layout, no transpose), 16 clips a block, padded with zero
-//     rows; the block's 8 warps split K and reduce their f32 partials in
-//     shared memory in warp order; the epilogues (RoPE pairs across lanes 4
-//     apart by one shuffle, SwiGLU pairs as two A tiles, bias, residual,
-//     activation) run on the C fragments;
-//   * everything else (f32, int8 weights, B=1, the MoE's expert slots) runs
+//   * bf16 at B >= 2 where every slot takes every clip (one weight, or a
+//     MoE's dense expert slots, blockIdx.z the slot) runs
+//     on the tensor cores (mgemv_kernel): the weights (out, in) row-major
+//     are the A operand of mma.sync.m16n8k16, 16 output rows a tile,
+//     streamed in 64-wide k chunks by 16-byte cp.async into a ring of
+//     stages per warp and read with ldmatrix; the staged clips (B, K) are
+//     the B operand ("col" layout, no transpose), 16 clips a block, padded
+//     with zero rows; the block's 8 warps split K and reduce their f32
+//     partials in shared memory in warp order; the epilogues (RoPE pairs
+//     across lanes 4 apart by one shuffle, SwiGLU pairs as two A tiles,
+//     bias, residual, activation) run on the C fragments;
+//   * everything else (f32, int8 weights, B=1, routed expert slots) runs
 //     the FMA kernel (bgemv_kernel): a warp holds one weight row (or a row
 //     pair) in registers, 1024 values at a time (longer rows in chunks),
 //     and walks the clips' rows staged in shared memory kTile at a time
@@ -79,8 +80,6 @@ constexpr int kTile = 8;          // staged rows a warp sums side by side
 constexpr int kRowChunk = 1024;   // weight values a warp holds in registers
 constexpr float kLnEps = 1e-5f;   // LayerNorm
 constexpr float kRmsEps = 1e-6f;  // RMSNorm
-constexpr int kMaxTop = 8;
-constexpr int kMaxExperts = 32;
 constexpr size_t kSmemMax = 227 * 1024;  // dynamic shared memory a block may use
 
 // ---------------------------------------------------------------------------
@@ -736,8 +735,8 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
   }
 }
 
-// grid (ceil(rows / 16), ceil(B / kTcClips)): a block computes 16 output
-// rows (plain, rope: W rows t0 .. t0 + 15, a RoPE pair never split;
+// grid (ceil(rows / 16), ceil(B / kTcClips), slots): a block computes 16
+// output rows (plain, rope: W rows t0 .. t0 + 15, a RoPE pair never split;
 // swiglu: units j0 .. j0 + 15 from the two A tiles of rows j and F + j)
 // for up to kTcClips clips. Warp w takes the 64-wide k chunks w, w + 8, ...: they stream
 // into its ring of `stages` chunks by cp.async, the first ones before the
@@ -748,8 +747,11 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 // fragments. The warps' fragments are summed in shared memory in warp order
 // and warp j finishes n-tile j: lane l holds rows l / 4 and l / 4 + 8,
 // clips 2 (l % 4) + {0, 1}; a RoPE pair's rows sit on lanes 4 apart.
+// blockIdx.z picks the slot (the weight, or a MoE's dense expert slots).
+// Held to three blocks an SM (85 registers), as before the expert slots
+// came in: left free ptxas takes 93-106 and the SM holds two.
 template <int EPI>
-static __global__ void __launch_bounds__(kTcThreads) mgemv_kernel(BGemv a) {
+static __global__ void __launch_bounds__(kTcThreads, 3) mgemv_kernel(BGemv a) {
   using T = bf16;
   constexpr int NA = EPI == kSwiglu ? 2 : 1;
   constexpr bool kRopeAny = EPI == kRope || EPI == kRopeF;
@@ -762,8 +764,15 @@ static __global__ void __launch_bounds__(kTcThreads) mgemv_kernel(BGemv a) {
   const int NT = ceil_div(nclip, 16) * 2;     // n-tiles of 8 clips, even
   const int t0 = blockIdx.x * 16;
   const int n_valid = kRopeAny ? 2 * a.units : a.units;
+  const int slot = blockIdx.z;  // 0: the weight (a MoE's shared expert)
+  if (slot == 0 && a.w == nullptr) return;  // a MoE without a shared expert
   const T* W = (const T*)a.w;
   const T* bias = (const T*)a.bias;
+  if (slot > 0) {  // expert slot - 1, for every clip
+    W = (const T*)a.ew + (size_t)(slot - 1) * a.n_rows * K;
+    bias = (const T*)a.eb + (size_t)(slot - 1) * a.n_rows;
+  }
+  const size_t out_slot = (size_t)slot * a.B * a.units;
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
   bf16* mine = ring + (size_t)warp * S * NA * kTcChunk;
   bf16* xsm = ring + (size_t)kTcWarps * S * NA * kTcChunk;
@@ -822,8 +831,9 @@ static __global__ void __launch_bounds__(kTcThreads) mgemv_kernel(BGemv a) {
 #pragma unroll
         for (int j = 0; j < kStatRegs; ++j) {
           const int c = min(lane + 32 * j, K4 - 1);
-          ra[j] = load_raw4<T, KIND>(in, 0, c0 + i, K, 4 * c);
-          rb[j] = load_raw4<T, KIND>(in, 0, c0 + min(i2, nclip - 1), K, 4 * c);
+          ra[j] = load_raw4<T, KIND>(in, slot, c0 + i, K, 4 * c);
+          rb[j] = load_raw4<T, KIND>(in, slot, c0 + min(i2, nclip - 1), K,
+                                     4 * c);
         }
         float4 va[kStatRegs], vb[kStatRegs];
 #pragma unroll
@@ -840,11 +850,12 @@ static __global__ void __launch_bounds__(kTcThreads) mgemv_kernel(BGemv a) {
   } else if (ln) {  // wider rows: from device memory, pass by pass
     for (int i = warp; i < nclip; i += kTcWarps) {
       const int b = c0 + i;
-      stats[i] = row_stats([&](int c) { return input4<T>(in, 0, b, K, 4 * c); },
-                           K, in.rms, lane);
+      stats[i] = row_stats(
+          [&](int c) { return input4<T>(in, slot, b, K, 4 * c); }, K, in.rms,
+          lane);
     }
   }
-  float* norm = blockIdx.x == 0 ? in.norm_out : nullptr;
+  float* norm = blockIdx.x == 0 && slot == 0 ? in.norm_out : nullptr;
   float acc[NA][kTcNT][4];
 #pragma unroll
   for (int at = 0; at < NA; ++at)
@@ -866,7 +877,7 @@ static __global__ void __launch_bounds__(kTcThreads) mgemv_kernel(BGemv a) {
         for (int u = 0; u < kStageUnroll; ++u) {
           const int idx = min(base + u * kTcThreads, total - 1);
           const int i = idx / pw4, k = p0 + 4 * (idx - i * pw4);
-          raw[u] = load_raw4<T, KIND>(in, 0, c0 + min(i, nclip - 1), K,
+          raw[u] = load_raw4<T, KIND>(in, slot, c0 + min(i, nclip - 1), K,
                                       min(k, K - 4));
         }
 #pragma unroll
@@ -956,7 +967,7 @@ static __global__ void __launch_bounds__(kTcThreads) mgemv_kernel(BGemv a) {
     const int r = t0 + (lane >> 2) + 8 * (e >> 1);
     const int cl = 8 * j + 2 * (lane & 3) + (e & 1);
     res[e] = EPI == kPlain && r < n_valid && cl < nclip
-                 ? residual_at<T>(a, (size_t)(c0 + cl) * a.units + r)
+                 ? residual_at<T>(a, out_slot + (size_t)(c0 + cl) * a.units + r)
                  : 0.f;
   }
 #pragma unroll
@@ -974,16 +985,17 @@ static __global__ void __launch_bounds__(kTcThreads) mgemv_kernel(BGemv a) {
       if (ok) rope_store<T, EPI == kRopeF>(a, b, r, t);
     } else if constexpr (EPI == kSwiglu) {
       if (ok)
-        a.out_f[(size_t)b * a.units + r] =
+        a.out_f[out_slot + (size_t)b * a.units + r] =
             (v[0][e] + bv[0][h]) * silu(v[NA - 1][e] + bv[NA - 1][h]);
     } else {
-      if (ok) plain_store<T>(a, 0, b, r, v[0][e], bv[0][h], kr[h], res[e]);
+      if (ok)
+        plain_store<T>(a, out_slot, b, r, v[0][e], bv[0][h], kr[h], res[e]);
     }
   }
 }
 
 template <int EPI>
-static int gemv_tc(BGemv g, cudaStream_t st) {
+static int gemv_tc(BGemv g, int slots, cudaStream_t st) {
   constexpr int NA = EPI == kSwiglu ? 2 : 1;
   static bool opted_in = false;  // per instantiation
   int err;
@@ -1002,8 +1014,8 @@ static int gemv_tc(BGemv g, cudaStream_t st) {
       std::max(ring + (size_t)rows_pad * (g.panel + 8) * 2 + stats, red);
   const int rows = (EPI == kRope || EPI == kRopeF) ? 2 * g.units : g.units;
   return launch(mgemv_kernel<EPI>,
-                dim3(ceil_div(rows, 16), ceil_div(g.B, kTcClips)), kTcThreads,
-                smem, st, 0, g);
+                dim3(ceil_div(rows, 16), ceil_div(g.B, kTcClips), slots),
+                kTcThreads, smem, st, 0, g);
 }
 
 // Clips per FMA GEMV block (blockIdx.z picks the group). Each group's block
@@ -1030,13 +1042,13 @@ static int gemv_fma(BGemv g, int slots, cudaStream_t st) {
                 (size_t)g.chunk * row, st, 0, g);
 }
 
-// One GEMV launch: the tensor cores for bf16 at B >= 2 with one weight
-// (slot 0, no lists), the FMA kernel otherwise.
+// One GEMV launch: the tensor cores for bf16 at B >= 2 where every slot
+// takes every clip (one weight, or a MoE's dense slots: no lists), the FMA
+// kernel otherwise.
 template <typename T, int EPI, typename W = T>
 static int gemv(BGemv g, int slots, cudaStream_t st) {
   if constexpr (std::is_same<T, bf16>::value && std::is_same<W, bf16>::value) {
-    if (g.B >= 2 && slots == 1 && g.lists == nullptr)
-      return gemv_tc<EPI>(g, st);
+    if (g.B >= 2 && g.lists == nullptr) return gemv_tc<EPI>(g, slots, st);
   }
   if (g.K > kRowChunk) return gemv_fma<T, EPI, W, true>(g, slots, st);
   return gemv_fma<T, EPI, W, false>(g, slots, st);
@@ -1634,10 +1646,12 @@ static int attention(Attn t, int B, int H, cudaStream_t st) {
 // ---------------------------------------------------------------------------
 
 // Per-clip router, one block per clip: E gate logits of the row xn[b] (T,
-// or f32 already rounded to T; a warp per expert), top-k with the first index
-// winning a tie, softmax over the k selected raw logits. Writes sel / selw
-// (kMaxTop per clip) in selection order and appends the clip to each
-// selected expert's list (counts start at 0).
+// or f32; rounded to T, the gate's matmul input; a warp per expert), top-k
+// with the first index winning a tie (expert_rank: any E, any k_top <= E),
+// softmax over the k selected raw logits. Writes sel / selw (k_top per
+// clip) in selection order and, with `counts`, appends the clip to each
+// selected expert's list (counts start at 0). Shared memory: the row (K
+// floats), the logits (E) and the selection (k_top values, k_top ids).
 template <typename T, typename X>
 static __global__ void __launch_bounds__(kThreads)
 router_kernel(const X* __restrict__ xn, const T* __restrict__ gate_w,
@@ -1645,12 +1659,14 @@ router_kernel(const X* __restrict__ xn, const T* __restrict__ gate_w,
               int* __restrict__ sel, float* __restrict__ selw,
               int* __restrict__ counts, int* __restrict__ lists) {
   extern __shared__ __align__(16) float row[];
-  __shared__ float logit[kMaxExperts];
+  float* logit = row + K;
+  float* sv = logit + E;
+  int* sid = reinterpret_cast<int*>(sv + k_top);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x;
   pdl_wait();
   for (int k = threadIdx.x; k < K; k += blockDim.x)
-    row[k] = to_f<X>(xn[(size_t)b * K + k]);
+    row[k] = round_t<T>(to_f<X>(xn[(size_t)b * K + k]));
   __syncthreads();
   for (int e = warp; e < E; e += kWarps) {
     const float d =
@@ -1658,31 +1674,22 @@ router_kernel(const X* __restrict__ xn, const T* __restrict__ gate_w,
     if (lane == 0) logit[e] = d + to_f<T>(gate_b[e]);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int chosen[kMaxTop];
-    float val[kMaxTop];
-    unsigned used = 0u;
-    for (int j = 0; j < k_top; ++j) {
-      int best = -1;
-      float bv = 0.f;
-      for (int e = 0; e < E; ++e) {
-        if ((used >> e) & 1u) continue;
-        if (best < 0 || logit[e] > bv) {
-          best = e;
-          bv = logit[e];
-        }
-      }
-      used |= 1u << best;
-      chosen[j] = best;
-      val[j] = bv;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int rank = expert_rank(logit, E, e);
+    if (rank < k_top) {
+      sid[rank] = e;
+      sv[rank] = logit[e];
     }
-    float den = 0.f;
-    for (int j = 0; j < k_top; ++j) den += expf(val[j] - val[0]);
-    for (int j = 0; j < k_top; ++j) {
-      sel[b * kMaxTop + j] = chosen[j];
-      selw[b * kMaxTop + j] = expf(val[j] - val[0]) / den;
-      lists[(size_t)chosen[j] * B + atomicAdd(counts + chosen[j], 1)] = b;
-    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < k_top; j += blockDim.x) {
+    float den = 0.f;  // the same sum, in the same order, in every thread
+    for (int i = 0; i < k_top; ++i) den += expf(sv[i] - sv[0]);
+    const int e = sid[j];
+    sel[(size_t)b * k_top + j] = e;
+    selw[(size_t)b * k_top + j] = expf(sv[j] - sv[0]) / den;
+    if (counts != nullptr)
+      lists[(size_t)e * B + atomicAdd(counts + e, 1)] = b;
   }
 }
 
@@ -1694,8 +1701,8 @@ static int route(const X* xn, const T* gate_w, const T* gate_b, int B, int K,
   int err;
   if ((err = allow_smem(router_kernel<T, X>, opted_in))) return err;
   return launch(router_kernel<T, X>, dim3(B), kThreads,
-                (size_t)K * sizeof(float), st, 0, xn, gate_w, gate_b, B, K, E,
-                k_top, sel, selw, counts, lists);
+                (size_t)(K + E + 2 * k_top) * sizeof(float), st, 0, xn,
+                gate_w, gate_b, B, K, E, k_top, sel, selw, counts, lists);
 }
 
 // Per-clip closing step, one block per clip (the row in shared memory):
@@ -1708,9 +1715,9 @@ struct Close {
   int x_is_t;
   const float* ye;      // (E + 1, B, K) expert outputs, or null
   int shared, sel_order;
-  const int* sel;
+  const int* sel;       // (B, k_top) expert ids and their weights
   const float* selw;
-  int k_top, E;
+  int k_top;
   const void* g;        // norm weight (T), and the LayerNorm shift
   const void* bn;
   int norm;             // NormKind
@@ -1722,28 +1729,25 @@ struct Close {
 
 template <typename T>
 static __global__ void __launch_bounds__(kThreads) close_kernel(Close a) {
-  extern __shared__ __align__(16) float vrow[];
+  extern __shared__ __align__(16) float vrow[];  // K, then the selection
   __shared__ float red[32];
-  __shared__ float cw[kMaxExperts];
-  __shared__ int sid[kMaxTop];
-  __shared__ float sw[kMaxTop];
-  __shared__ unsigned routed_mask;
+  const int k_top = a.ye != nullptr ? a.k_top : 0;
+  float* sw = vrow + a.K;                            // k_top weights
+  int* sid = reinterpret_cast<int*>(sw + k_top);     // their experts
+  int* ord = sid + k_top;  // the selection in expert order
   const int b = blockIdx.x;
   pdl_wait();
-  if (threadIdx.x == 0) {
-    unsigned m = 0u;
-    if (a.ye != nullptr) {
-      for (int j = 0; j < a.k_top; ++j) {
-        const int e = a.sel[b * kMaxTop + j];
-        m |= 1u << e;
-        cw[e] = sw[j] = a.selw[b * kMaxTop + j];
-        sid[j] = e;
-      }
-    }
-    routed_mask = m;
+  for (int j = threadIdx.x; j < k_top; j += blockDim.x) {
+    sid[j] = a.sel[(size_t)b * k_top + j];
+    sw[j] = a.selw[(size_t)b * k_top + j];
   }
   __syncthreads();
-  const unsigned mask = routed_mask;
+  for (int j = threadIdx.x; j < k_top; j += blockDim.x) {
+    int at = 0;
+    for (int i = 0; i < k_top; ++i) at += sid[i] < sid[j];
+    ord[at] = j;
+  }
+  __syncthreads();
   const size_t slot = (size_t)a.B * a.K;
   float s = 0.f, sq = 0.f;
   for (int k = threadIdx.x; k < a.K; k += kThreads) {
@@ -1751,12 +1755,9 @@ static __global__ void __launch_bounds__(kThreads) close_kernel(Close a) {
     float x = a.x_is_t ? to_f<T>(((const T*)a.x)[o]) : ((const float*)a.x)[o];
     if (a.ye != nullptr) {
       float acc = a.shared ? a.ye[o] / (float)a.k_top : 0.f;
-      if (a.sel_order) {
-        for (int i = 0; i < a.k_top; ++i)
-          acc += sw[i] * a.ye[(size_t)(sid[i] + 1) * slot + o];
-      } else {
-        for (int e = 0; e < a.E; ++e)
-          if ((mask >> e) & 1u) acc += cw[e] * a.ye[(size_t)(e + 1) * slot + o];
+      for (int i = 0; i < k_top; ++i) {
+        const int j = a.sel_order ? i : ord[i];
+        acc += sw[j] * a.ye[(size_t)(sid[j] + 1) * slot + o];
       }
       x = x + acc;
     }
@@ -1796,8 +1797,9 @@ static int close_rows(const Close& c, cudaStream_t st) {
   static bool opted_in = false;
   int err;
   if ((err = allow_smem(close_kernel<T>, opted_in))) return err;
+  const int k_top = c.ye != nullptr ? c.k_top : 0;
   return launch(close_kernel<T>, dim3(c.B), kThreads,
-                (size_t)c.K * sizeof(float), st, 0, c);
+                (size_t)(c.K + 3 * k_top) * sizeof(float), st, 0, c);
 }
 
 }  // namespace batch

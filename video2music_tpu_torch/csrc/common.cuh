@@ -82,6 +82,30 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return red[0];
 }
 
+// The router's order of expert o (logit u) against expert e (logit v):
+// larger logit first, the lower index first among equal logits (the
+// Pallas top-k loop, whose argmax keeps the first maximal index), a NaN
+// after every number. A strict total order, so the ranks of E experts
+// (the experts ordered before each) are 0 .. E - 1 and the experts of
+// rank < k are the top k, in selection order.
+__device__ __forceinline__ bool ranks_before(float u, int o, float v, int e) {
+  const bool nu = u != u, nv = v != v;
+  if (nu != nv) return nv;
+  if (!nu && u != v) return u > v;
+  return o < e;
+}
+
+__device__ __forceinline__ int expert_rank(const float* logit, int E, int e) {
+  const float v = logit[e];
+  int rank = 0;
+  for (int o = 0; o < E; ++o) rank += ranks_before(logit[o], o, v, e);
+  return rank;
+}
+
+// Floats of n router weights in a workspace: n rounded up to a multiple of
+// 4, so the f32 rows after them stay 16-byte aligned.
+__host__ __device__ constexpr int selw_floats(int n) { return (n + 3) / 4 * 4; }
+
 // Elements of T in one 16-byte load.
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };

@@ -51,10 +51,14 @@
 //   * every launch uses programmatic dependent launch: a GEMV fetches its
 //     weights before it waits for the previous kernel, overlapping that
 //     kernel's tail and the launch gap;
-//   * experts: blockIdx.y picks the shared expert (0) or expert e (e + 1);
-//     each expert's weights are read once for the batch, and it stages and
-//     computes only the clips the router listed for it (expert ids and
-//     lists stay in device memory).
+//   * experts: a slot is the shared expert (0) or expert e (e + 1), each
+//     expert's weights read once for the batch. Dense (a.dense, chosen by
+//     decode_batch.py dense_experts), every slot takes every clip on the
+//     tensor cores, with no clip lists, and the close adds only the
+//     selected experts' outputs; routed, a slot stages and computes only
+//     the clips the router listed for it on the FMA kernel (expert ids and
+//     lists stay in device memory). The router keeps no fixed-size
+//     selection: any E, any k_top <= E.
 #include "batch_decode.cuh"
 
 namespace v2m {
@@ -118,6 +122,7 @@ struct V2MBatchMoe {
   float *work;
   int *sel;
   int B, D, F, E, k_top, n_out;
+  int dense;  // decode_batch.py dense_experts
 };
 
 template <typename T>
@@ -320,18 +325,21 @@ static int run_layer(const V2MBatchLayer& a, cudaStream_t st) {
 template <typename T>
 static int run_moe(const V2MBatchMoe& a, cudaStream_t st) {
   const int B = a.B, D = a.D, F = a.F, E = a.E;
-  if (a.k_top < 1 || a.k_top > kMaxTop || a.k_top > E || E > kMaxExperts)
-    return (int)cudaErrorInvalidValue;
+  if (a.k_top < 1 || a.k_top > E) return (int)cudaErrorInvalidValue;
   // f32 workspace, laid out as in decode_batch.py:moe_workspace_size
-  float* selw = a.work;                             // (B, kMaxTop)
-  float* act = selw + (size_t)B * kMaxTop;          // (E + 1, B, F)
+  float* selw = a.work;                             // (B, k_top)
+  float* act = selw + selw_floats(B * a.k_top);     // (E + 1, B, F)
   float* ye = act + (size_t)(E + 1) * B * F;        // (E + 1, B, D)
   float* x3 = ye + (size_t)(E + 1) * B * D;         // (B, D) for the head
   // int workspace, as in decode_batch.py:moe_route_size
-  int* counts = a.sel + (size_t)B * kMaxTop;        // (32) clips per expert
-  int* lists = counts + 32;                         // (E, B) their ids
+  int* counts = a.sel + (size_t)B * a.k_top;        // (E) clips per expert
+  int* lists = counts + E;                          // (E, B) their ids
+  const bool dense = a.dense != 0;
+  if (dense) counts = lists = nullptr;
   int err;
-  if ((err = (int)cudaMemsetAsync(counts, 0, E * sizeof(int), st))) return err;
+  if (!dense &&
+      (err = (int)cudaMemsetAsync(counts, 0, E * sizeof(int), st)))
+    return err;
   if ((err = route<T, T>((const T*)a.x2, (const T*)a.gate_w,
                          (const T*)a.gate_b, B, D, E, a.k_top, a.sel, selw,
                          counts, lists, st)))
@@ -381,7 +389,6 @@ static int run_moe(const V2MBatchMoe& a, cudaStream_t st) {
     ln.sel = a.sel;
     ln.selw = selw;
     ln.k_top = a.k_top;
-    ln.E = E;
     ln.g = (const T*)a.norm_scale + 2 * D;
     ln.bn = (const T*)a.norm_bias + 2 * D;
     ln.norm = kLayerNorm;

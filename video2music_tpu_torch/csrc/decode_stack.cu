@@ -69,7 +69,7 @@ struct V2MStack {
   void *y;         // (1, D) output when there is no head
   const float *rope_cos, *rope_sin;
   float *work;     // decode_layer.py:workspace_size floats
-  int *sel;        // kMaxTop expert ids
+  int *sel;        // k_top expert ids
   const int *token_root, *token_attr;
   const float *key;
   const void *emb_root, *emb_attr, *lc_w, *lc_krow, *lc_b;  // null: no embed
@@ -95,14 +95,11 @@ __global__ void __launch_bounds__(kThreads) decode_stack_kernel(
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float sm[];
   __shared__ float red[32];
-  __shared__ float logit[32];
-  __shared__ int sel_s[kMaxTop];
-  __shared__ float selw_s[kMaxTop];
   const int D = a.D, F = a.F, hd = D / a.H;
   const float scale = 1.f / sqrtf((float)hd);
   const int warp0 = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int wstride = gridDim.x * kWarps;
-  const Work w(a.work, D);
+  const Work w(a.work, D, a.k_top);
   const bool embed = a.token_root != nullptr;
 
   if (embed) {  // 0. x0 = round(lc_w . round(emb) + key * lc_krow + lc_b)
@@ -231,13 +228,20 @@ __global__ void __launch_bounds__(kThreads) decode_stack_kernel(
       g.out_f = w.act;
       gemv_phase<T, kSwiglu>(g, sm, red);
     } else if (blockIdx.x * kWarps < (a.k_top + 1) * F) {
+      // the router's scratch after the staged input: E logits, then the
+      // k_top expert ids and weights
+      float* logit = sm + D;
+      int* sel_s = reinterpret_cast<int*>(logit + a.E);
+      float* selw_s = reinterpret_cast<float*>(sel_s + a.k_top);
       load_input<T>(ln2, D, sm, red);
       route<T>(sm, D, (const T*)l.gate_w, (const T*)l.gate_b, a.E, a.k_top,
                logit, sel_s, selw_s);
       __syncthreads();
-      if (blockIdx.x == 0 && threadIdx.x < a.k_top) {
-        a.sel[threadIdx.x] = sel_s[threadIdx.x];
-        w.selw[threadIdx.x] = selw_s[threadIdx.x];
+      if (blockIdx.x == 0) {
+        for (int j = threadIdx.x; j < a.k_top; j += blockDim.x) {
+          a.sel[j] = sel_s[j];
+          w.selw[j] = selw_s[j];
+        }
       }
       const MoeWeights<T, T> m = {
           (const T*)l.w1g, (const T*)l.b1g, nullptr,
@@ -265,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) decode_stack_kernel(
           (const T*)l.w2, (const T*)l.b2, nullptr,
           (const T*)l.ew1g, (const T*)l.eb1g, nullptr,
           (const T*)l.ew2, (const T*)l.eb2, nullptr};
-      stage_act<T, false>(w.act, (a.k_top + 1) * F, sm);
+      stage_act<T>(w.act, (a.k_top + 1) * F, sm);
       moe_down_units<T, T>(sm, F, D, a.k_top, m, a.sel, w.selw, w.x2, w.r3,
                            warp0, wstride);
     }
@@ -330,7 +334,7 @@ static int launch_stack(const V2MStack& a, cudaStream_t st) {
 // for a run of this shape: the wrapper calls it once per run and keeps both
 // in the argument struct.
 extern "C" int v2m_decode_stack_grid(int dtype, int D, int H, int F,
-                                     int k_top, int rows, int* smem,
+                                     int E, int k_top, int rows, int* smem,
                                      int* blocks) {
   using namespace v2m;
   const int hd = D / H;
@@ -338,6 +342,7 @@ extern "C" int v2m_decode_stack_grid(int dtype, int D, int H, int F,
   int floats = D;
   if (F > floats) floats = F;
   if ((k_top + 1) * F > floats) floats = (k_top + 1) * F;
+  if (D + E + 2 * k_top > floats) floats = D + E + 2 * k_top;  // router
   const int attn = hd + kThreads * vec + rows;
   if (attn > floats) floats = attn;
   *smem = floats * (int)sizeof(float);
@@ -353,8 +358,7 @@ extern "C" int v2m_decode_stack(int dtype, const v2m::V2MStack* args,
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
   if (args->n_layers < 1 || args->n_layers > kMaxLayers ||
-      args->k_top < 1 || args->k_top > kMaxTop || args->E > 32 ||
-      args->k_top > (args->E > 0 ? args->E : kMaxTop))
+      args->k_top < 1 || (args->E > 0 && args->k_top > args->E))
     return (int)cudaErrorInvalidValue;
   if (dtype == kF32) return launch_stack<float>(*args, st);
   if (dtype == kBF16) return launch_stack<bf16>(*args, st);

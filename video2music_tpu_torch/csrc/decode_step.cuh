@@ -1,22 +1,20 @@
 // Device code of one B=1 decoder-layer step of AMT 2.2 (post-norm V2
-// wiring), shared by the launch chain of decode_layer.cu and the cooperative
-// whole-run kernel of decode_stack.cu.
+// wiring): the pieces of the cooperative whole-run kernel of
+// decode_stack.cu, several of which (the GEMV arguments and epilogues, the
+// workspace layout, the int8 dot) the launch chain of decode_layer.cu
+// shares.
 //
-// The GEMVs come as one work unit (a row or a row pair) for a warp: a
-// chain kernel launches a warp per unit and calls that; the cooperative
-// kernel walks the units of a phase with all its warps (the *_units
-// loops). No piece returns from a kernel, so a cooperative kernel can put
-// a grid barrier after any of them.
+// The GEMVs come as one work unit (a row or a row pair) for a warp: the
+// cooperative kernel walks the units of a phase with all its warps (the
+// *_units loops). No piece returns from a kernel, so a cooperative kernel
+// can put a grid barrier after any of them.
 //
 // Loads: weights and the primed cross K/V are read-only while a kernel runs
 // and go through the read-only cache (__ldg). The self-attention caches are
 // written at row pos by the QKV phase of the same cooperative kernel that
-// reads them, so that kernel reads them with __ldcg (L2, coherent); the
-// chain, which writes and reads them in different launches, keeps __ldg.
-// Work vectors written in a kernel are read with plain loads, never through
-// const __restrict__ pointers (which may compile to non-coherent loads); the
-// chain reads the ones an earlier launch wrote through the read-only cache
-// (the kRO flag of the MoE pieces).
+// reads them, so that kernel reads them with __ldcg (L2, coherent). Work
+// vectors written in a kernel are read with plain loads, never through
+// const __restrict__ pointers (which may compile to non-coherent loads).
 //
 // int8 weights (W = int8_t): a GEMV reads int8 rows with 16-byte loads,
 // multiplies the f32 dot by the row's f32 scale and then adds the bias, as
@@ -32,7 +30,6 @@ namespace v2m {
 constexpr int kWarps = 8;  // GEMV rows (or row pairs) per block
 constexpr int kThreads = kWarps * 32;
 constexpr float kLnEps = 1e-5f;
-constexpr int kMaxTop = 8;
 
 // The input vector a GEMV block stages in shared memory.
 struct VecIn {
@@ -157,51 +154,67 @@ __device__ __forceinline__ void rope_store(const GemvArgs& a, int r, float y) {
   }
 }
 
+// The rows of GEMV unit `unit`: plain: the row; rope: the pair 2u, 2u + 1;
+// swiglu: rows u and F + u.
+template <int EPI>
+__device__ __forceinline__ int2 unit_rows(const GemvArgs& a, int unit) {
+  if (EPI == kPlain) return make_int2(unit, unit);
+  if (EPI == kRope) return make_int2(2 * unit, 2 * unit + 1);
+  return make_int2(unit, a.F + unit);
+}
+
+// The epilogue of one GEMV unit from the (dequantized) dots d0 and d1 of
+// its rows, every lane holding both; lane 0 stores.
+template <typename T, int EPI>
+__device__ __forceinline__ void unit_epilogue(const GemvArgs& a, int unit,
+                                              float d0, float d1, int lane) {
+  const T* b = (const T*)a.bias;
+  if (EPI == kPlain) {
+    if (lane == 0) {
+      float y = d0;
+      if (a.key != nullptr) y += *a.key * to_f<T>(((const T*)a.krow)[unit]);
+      y += to_f<T>(b[unit]);
+      if (a.residual != nullptr) y = a.residual[unit] + y;
+      if (a.out_t != nullptr) {
+        ((T*)a.out_t)[unit] = from_f<T>(y);
+      } else {
+        a.out_f[unit] = a.round_out ? round_t<T>(y) : y;
+      }
+    }
+  } else if (EPI == kRope) {
+    const int r0 = 2 * unit, r1 = r0 + 1;
+    float y0 = d0 + to_f<T>(b[r0]);
+    float y1 = d1 + to_f<T>(b[r1]);
+    if (lane == 0) {
+      if (r0 < a.rope_rows) {
+        const int f = (r0 % a.hd) >> 1;
+        const float c = a.cos[(size_t)a.pos * (a.hd / 2) + f];
+        const float s = a.sin[(size_t)a.pos * (a.hd / 2) + f];
+        const float t0 = y0 * c - y1 * s;
+        const float t1 = y1 * c + y0 * s;
+        y0 = t0;
+        y1 = t1;
+      }
+      rope_store<T>(a, r0, y0);
+      rope_store<T>(a, r1, y1);
+    }
+  } else {  // kSwiglu
+    const float h = d0 + to_f<T>(b[unit]);
+    const float g = d1 + to_f<T>(b[a.F + unit]);
+    if (lane == 0) a.out_f[unit] = h * (g * (1.f / (1.f + expf(-g))));
+  }
+}
+
 // One GEMV unit (a row, or a row pair) over the input staged in xs.
 template <typename T, typename W, int EPI>
 __device__ __forceinline__ void gemv_unit(const GemvArgs& a, const float* xs,
                                           int unit) {
   const int lane = threadIdx.x & 31;
   const W* w = (const W*)a.w;
-  const T* b = (const T*)a.bias;
-  {
-    if (EPI == kPlain) {
-      float y = wdot<W>(w, a.scale, unit, xs, a.K, lane);
-      if (lane == 0) {
-        if (a.key != nullptr) y += *a.key * to_f<T>(((const T*)a.krow)[unit]);
-        y += to_f<T>(b[unit]);
-        if (a.residual != nullptr) y = a.residual[unit] + y;
-        if (a.out_t != nullptr) {
-          ((T*)a.out_t)[unit] = from_f<T>(y);
-        } else {
-          a.out_f[unit] = a.round_out ? round_t<T>(y) : y;
-        }
-      }
-    } else if (EPI == kRope) {
-      const int r0 = 2 * unit, r1 = r0 + 1;
-      float y0 = wdot<W>(w, a.scale, r0, xs, a.K, lane) + to_f<T>(b[r0]);
-      float y1 = wdot<W>(w, a.scale, r1, xs, a.K, lane) + to_f<T>(b[r1]);
-      if (lane == 0) {
-        if (r0 < a.rope_rows) {
-          const int f = (r0 % a.hd) >> 1;
-          const float c = a.cos[(size_t)a.pos * (a.hd / 2) + f];
-          const float s = a.sin[(size_t)a.pos * (a.hd / 2) + f];
-          const float t0 = y0 * c - y1 * s;
-          const float t1 = y1 * c + y0 * s;
-          y0 = t0;
-          y1 = t1;
-        }
-        rope_store<T>(a, r0, y0);
-        rope_store<T>(a, r1, y1);
-      }
-    } else {  // kSwiglu
-      const float h = wdot<W>(w, a.scale, unit, xs, a.K, lane) +
-                      to_f<T>(b[unit]);
-      const float g = wdot<W>(w, a.scale, a.F + unit, xs, a.K, lane) +
-                      to_f<T>(b[a.F + unit]);
-      if (lane == 0) a.out_f[unit] = h * (g * (1.f / (1.f + expf(-g))));
-    }
-  }
+  const int2 r = unit_rows<EPI>(a, unit);
+  const float d0 = wdot<W>(w, a.scale, r.x, xs, a.K, lane);
+  const float d1 = EPI == kPlain ? 0.f : wdot<W>(w, a.scale, r.y, xs, a.K, lane);
+  unit_epilogue<T, EPI>(a, unit, d0, d1, lane);
 }
 
 // The GEMV units [unit0, units) in steps of stride.
@@ -210,14 +223,6 @@ __device__ __forceinline__ void gemv_units(const GemvArgs& a, const float* xs,
                                            int unit0, int stride) {
   for (int unit = unit0; unit < a.units; unit += stride)
     gemv_unit<T, W, EPI>(a, xs, unit);
-}
-
-// A load through the read-only cache (kRO: written before this kernel
-// began) or a plain one.
-template <bool kRO, typename V>
-__device__ __forceinline__ V ld(const V* p) {
-  if constexpr (kRO) return __ldg(p);
-  return *p;
 }
 
 // One 16-byte load of a K/V cache row: read-only cache, or L2 only for a
@@ -304,44 +309,35 @@ __host__ __device__ constexpr int attention_smem_floats(int hd, int rows) {
   return hd + kThreads * Vec<T>::N + rows;
 }
 
-// MoE router at B=1 over the input staged in xs: E gate logits, top-k with
-// the first index winning a tie, softmax over the k selected raw logits.
-// Thread 0 writes the expert ids to sel and their weights to selw (shared
-// or global memory); sync the block before reading them.
+// MoE router at B=1 over the input staged in xs: E gate logits into
+// logit (E floats of scratch), top-k with the first index winning a tie
+// (expert_rank: any E, any k_top <= E), softmax over the k selected raw
+// logits. Writes the expert ids to sel and their weights to selw (k_top
+// each, shared or global memory); sync the block before reading them.
 template <typename T>
 __device__ __forceinline__ void route(const float* xs, int K, const T* gate_w,
                       const T* gate_b, int E, int k_top, float* logit,
                       int* sel, float* selw) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int e = warp; e < E; e += kWarps) {
+  const int nw = blockDim.x >> 5;
+  for (int e = warp; e < E; e += nw) {
     const float acc = row_dot<T>(gate_w, e, xs, K, lane);
     if (lane == 0) logit[e] = acc + to_f<T>(gate_b[e]);
   }
   __syncthreads();
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int rank = expert_rank(logit, E, e);
+    if (rank < k_top) {
+      sel[rank] = e;
+      selw[rank] = logit[e];  // the raw logit until the softmax below
+    }
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    int chosen[kMaxTop];
-    float val[kMaxTop];
-    unsigned used = 0u;
-    for (int j = 0; j < k_top; ++j) {
-      int best = -1;
-      float bv = 0.f;
-      for (int e = 0; e < E; ++e) {
-        if ((used >> e) & 1u) continue;
-        if (best < 0 || logit[e] > bv) {
-          best = e;
-          bv = logit[e];
-        }
-      }
-      used |= 1u << best;
-      chosen[j] = best;
-      val[j] = bv;
-    }
+    const float v0 = selw[0];
     float den = 0.f;
-    for (int j = 0; j < k_top; ++j) den += expf(val[j] - val[0]);
-    for (int j = 0; j < k_top; ++j) {
-      sel[j] = chosen[j];
-      selw[j] = expf(val[j] - val[0]) / den;
-    }
+    for (int j = 0; j < k_top; ++j) den += expf(selw[j] - v0);
+    for (int j = 0; j < k_top; ++j) selw[j] = expf(selw[j] - v0) / den;
   }
 }
 
@@ -357,7 +353,7 @@ struct MoeWeights {
 // [w1|wg] rows of the shared expert (slot 0) and the selected experts
 // (slots 1..k, ids read from sel): act[slot * F + j] = h_j * silu(g_j) for
 // unit slot * F + j.
-template <typename T, typename W, bool kRO>
+template <typename T, typename W>
 __device__ __forceinline__ void moe_up_unit(const float* xs, int K, int F,
                                             const MoeWeights<T, W>& m,
                                             const int* sel, float* act,
@@ -369,7 +365,7 @@ __device__ __forceinline__ void moe_up_unit(const float* xs, int K, int F,
     const T* b = m.sb1g;
     const float* s = m.ss1g;
     if (slot > 0) {
-      const int e = ld<kRO>(sel + slot - 1);
+      const int e = sel[slot - 1];
       w = m.ew1g + (size_t)e * 2 * F * K;
       b = m.eb1g + (size_t)e * 2 * F;
       if constexpr (std::is_same<W, int8_t>::value)
@@ -381,8 +377,7 @@ __device__ __forceinline__ void moe_up_unit(const float* xs, int K, int F,
   }
 }
 
-// moe_up_unit over units [unit0, slots * F) in steps of stride, with plain
-// loads (the cooperative kernel).
+// moe_up_unit over units [unit0, slots * F) in steps of stride.
 template <typename T, typename W>
 __device__ __forceinline__ void moe_up_units(const float* xs, int K, int F,
                                              int slots,
@@ -390,21 +385,21 @@ __device__ __forceinline__ void moe_up_units(const float* xs, int K, int F,
                                              const int* sel, float* act,
                                              int unit0, int stride) {
   for (int unit = unit0; unit < slots * F; unit += stride)
-    moe_up_unit<T, W, false>(xs, K, F, m, sel, act, unit);
+    moe_up_unit<T, W>(xs, K, F, m, sel, act, unit);
 }
 
 // Stage the (k_top + 1) * F activations, rounded to T, in shared memory.
-template <typename T, bool kRO>
+template <typename T>
 __device__ __forceinline__ void stage_act(const float* act, int n,
                                           float* as) {
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    as[i] = round_t<T>(ld<kRO>(act + i));
+    as[i] = round_t<T>(act[i]);
   __syncthreads();
 }
 
 // w2 row n over the staged activations as: out[n] = x2[n] + (shared_n / k
 // + sum_j selw[j] * expert_j,n).
-template <typename T, typename W, bool kRO>
+template <typename T, typename W>
 __device__ __forceinline__ void moe_down_unit(const float* as, int F, int D,
                                               int k_top,
                                               const MoeWeights<T, W>& m,
@@ -418,34 +413,33 @@ __device__ __forceinline__ void moe_down_unit(const float* as, int F, int D,
                          to_f<T>(m.sb2[n]);
     float h = shared / (float)k_top;
     for (int j = 0; j < k_top; ++j) {
-      const int e = ld<kRO>(sel + j);
+      const int e = sel[j];
       const float* s = nullptr;
       if constexpr (std::is_same<W, int8_t>::value) s = m.es2 + (size_t)e * D;
       const float y = wdot<W>(m.ew2 + (size_t)e * D * F, s, n,
                               as + (j + 1) * F, F, lane) +
                       to_f<T>(m.eb2[(size_t)e * D + n]);
-      h += ld<kRO>(selw + j) * y;
+      h += selw[j] * y;
     }
-    if (lane == 0) out[n] = ld<kRO>(x2 + n) + h;
+    if (lane == 0) out[n] = x2[n] + h;
   }
 }
 
-// moe_down_unit over units [unit0, D) in steps of stride, with plain loads
-// (the cooperative kernel).
+// moe_down_unit over units [unit0, D) in steps of stride.
 template <typename T, typename W>
 __device__ __forceinline__ void moe_down_units(
     const float* as, int F, int D, int k_top, const MoeWeights<T, W>& m,
     const int* sel, const float* selw, const float* x2, float* out,
     int unit0, int stride) {
   for (int n = unit0; n < D; n += stride)
-    moe_down_unit<T, W, false>(as, F, D, k_top, m, sel, selw, x2, out, n);
+    moe_down_unit<T, W>(as, F, D, k_top, m, sel, selw, x2, out, n);
 }
 
 // Layout of the f32 workspace of one layer step (decode_layer.py
 // workspace_size): ten D-wide vectors, the router weights, the activations.
 struct Work {
   float *x0, *q, *attn, *r1, *x1, *cq, *cattn, *r2, *x2, *r3, *selw, *act;
-  __host__ __device__ explicit Work(float* w, int D) {
+  __host__ __device__ Work(float* w, int D, int k_top) {
     x0 = w;             // layer input (f32 copy)
     q = x0 + D;         // roped self-attention query
     attn = q + D;       // self-attention output
@@ -456,8 +450,9 @@ struct Work {
     r2 = cattn + D;     // x1 + cross block (pre-LN)
     x2 = r2 + D;        // LN2
     r3 = x2 + D;        // x2 + ffn (pre-LN)
-    selw = r3 + D;      // kMaxTop router weights
-    act = selw + kMaxTop;  // (k_top + 1) * F
+    selw = r3 + D;      // k_top router weights
+    act = selw + selw_floats(k_top);  // (k_top + 1) * F, then the
+                                      // chain's (k_top + 1) * D outputs
   }
 };
 

@@ -88,6 +88,7 @@ struct V2MVariant {
       *sw2_s, *ew1g_s, *ew2_s;
   int B, D, H, S, Sm, pos, er_len;
   int attn, cross, ffn, expert, F, Fe, E, k_top, rms, pre_norm;
+  int dense;  // the MoE's experts dense (decode_batch.py dense_experts)
 };
 
 // f32 workspace of the attention half, in rows of B x D (the FFN
@@ -103,34 +104,38 @@ static inline int norm_kind(const V2MVariant& a) {
   return a.rms ? kRmsNorm : kLayerNorm;
 }
 
-// The MoE half: xn = round(norm3(x2)) (pre-norm) or round(x2); router;
-// the shared expert (slot 0, when present) and every routed expert's
-// first layer (GLU pair or SiLU MLP) and second layer for the clips it
-// serves; y = x2 + combine (pre-norm) or norm3(x2 + combine).
+// The MoE half: xn = round(norm3(x2)) (pre-norm; post-norm: x2, which the
+// router and the GEMV's staging round); router; the shared expert (slot 0,
+// when present) and every expert's first layer (GLU pair or SiLU MLP) and
+// second layer, for the clips its router listed or (a.dense) for
+// every clip; y = x2 + combine (pre-norm) or norm3(x2 + combine).
 template <typename T, typename W>
 static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
                    int sel_order, float* work, cudaStream_t st) {
   const int B = a.B, D = a.D, E = a.E, Fe = a.Fe;
-  if (a.k_top < 1 || a.k_top > kMaxTop || a.k_top > E || E > kMaxExperts)
-    return (int)cudaErrorInvalidValue;
+  if (a.k_top < 1 || a.k_top > E) return (int)cudaErrorInvalidValue;
   const size_t BD = (size_t)B * D;
   // f32 workspace, as in decode_variant.py:moe_workspace_size
   float* xn = work;                                  // (B, D)
-  float* selw = xn + BD;                             // (B, kMaxTop)
-  float* act = selw + (size_t)B * kMaxTop;           // (E + 1, B, Fe)
+  float* selw = xn + BD;                             // (B, k_top)
+  float* act = selw + selw_floats(B * a.k_top);      // (E + 1, B, Fe)
   float* ye = act + (size_t)(E + 1) * B * Fe;        // (E + 1, B, D)
   // int workspace, as in decode_variant.py:moe_route_size
-  int* counts = a.sel + (size_t)B * kMaxTop;         // (32) clips per expert
-  int* lists = counts + 32;                          // (E, B) their ids
+  int* counts = a.sel + (size_t)B * a.k_top;         // (E) clips per expert
+  int* lists = counts + E;                           // (E, B) their ids
+  const bool dense = a.dense != 0;
+  if (dense) counts = lists = nullptr;
   const T* ns = (const T*)a.norm_scale;
   const T* nb = (const T*)a.norm_bias;
   const bool shared = a.sw1g != nullptr;
+  const void* rows = x2;  // the router's and the first layer's input
+  int rows_t = x2_is_t;
   int err;
-  {
+  if (a.pre_norm) {
     Close c = {};
     c.x = x2;
     c.x_is_t = x2_is_t;
-    c.norm = a.pre_norm ? norm_kind(a) : kNoNorm;
+    c.norm = norm_kind(a);
     c.g = ns + 2 * D;
     c.bn = nb + 2 * D;
     c.out_f = xn;
@@ -138,14 +143,23 @@ static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
     c.B = B;
     c.K = D;
     if ((err = close_rows<T>(c, st))) return err;
+    rows = xn;
+    rows_t = 0;
   }
-  if ((err = (int)cudaMemsetAsync(counts, 0, E * sizeof(int), st))) return err;
-  if ((err = route<T, float>(xn, (const T*)a.gate_w, (const T*)a.gate_b, B, D,
-                             E, a.k_top, a.sel, selw, counts, lists, st)))
+  if (!dense &&
+      (err = (int)cudaMemsetAsync(counts, 0, E * sizeof(int), st)))
     return err;
+  err = rows_t ? route<T, T>((const T*)rows, (const T*)a.gate_w,
+                             (const T*)a.gate_b, B, D, E, a.k_top, a.sel,
+                             selw, counts, lists, st)
+               : route<T, float>((const float*)rows, (const T*)a.gate_w,
+                                 (const T*)a.gate_b, B, D, E, a.k_top, a.sel,
+                                 selw, counts, lists, st);
+  if (err) return err;
   {  // first layer of the shared expert (slot 0) and of each routed expert
     BGemv g = {};
-    g.in.x = xn;
+    g.in.x = rows;
+    g.in.x_is_t = rows_t;
     g.w = a.sw1g;
     g.ws = a.sw1g_s;  // int8 weights: the row scales
     g.ews = a.ew1g_s;
@@ -196,7 +210,6 @@ static int run_moe(const V2MVariant& a, const void* x2, int x2_is_t,
   c.sel = a.sel;
   c.selw = selw;
   c.k_top = a.k_top;
-  c.E = E;
   c.norm = a.pre_norm ? kNoNorm : norm_kind(a);
   c.g = ns + 2 * D;
   c.bn = nb + 2 * D;

@@ -6,6 +6,11 @@
 // logits set to -1e9 (not -inf), and the causal mask start-aligned
 // (key column <= query row), valid only for L == S (the wrapper checks);
 // the normalized weights are rounded to v's dtype before the product.
+// Head sizes: instances at 16, 32, 64, 128 and 256; the wrapper pads any
+// other head size up to the next with zero columns (as the Pallas wrapper
+// pads D to a multiple of 128), which change neither q . k nor the kept
+// columns of P . V, and passes the unpadded scale. The tiles live in
+// dynamic shared memory (above 48 KB at 128 and 256).
 //
 // What bounds it on the H100: at the product shape (B*H = 8, L = S = 300,
 // head_dim 64) the call moves 4 * 8 * 300 * 64 * 2 bytes = 1.2 MB in bf16
@@ -41,8 +46,10 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ bias,
                        float* __restrict__ out, int L, int S, int causal,
                        float scale) {
-  __shared__ float ks[kAttnTile][HD];
-  __shared__ float vs[kAttnTile][HD];
+  constexpr int kUnrollHD = mma::unroll_hd(HD);
+  // K and V tiles (f32_smem bytes)
+  float (*ks)[HD] = reinterpret_cast<float (*)[HD]>(mma::attn_smem);
+  float (*vs)[HD] = ks + kAttnTile;
   const int bh = blockIdx.y;
   const int row = blockIdx.x * kAttnRows + threadIdx.x;
   const bool live = row < L;
@@ -52,7 +59,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const float* brow = bias ? bias + ((size_t)bh * L + row) * S : nullptr;
 
   float qr[HD], acc[HD];
-#pragma unroll
+#pragma unroll kUnrollHD
   for (int c = 0; c < HD; ++c) {
     qr[c] = live ? qb[(size_t)row * HD + c] : 0.f;
     acc[c] = 0.f;
@@ -74,7 +81,7 @@ flash_attention_kernel(const float* __restrict__ q,
       for (int j = 0; j < kAttnTile; ++j) {
         if (j < n) {
           float d = 0.f;
-#pragma unroll
+#pragma unroll kUnrollHD
           for (int c = 0; c < HD; ++c) d = fmaf(qr[c], ks[j][c], d);
           d *= scale;
           if (brow) d += brow[s0 + j];
@@ -85,14 +92,14 @@ flash_attention_kernel(const float* __restrict__ q,
       }
       const float corr = expf(m - tmax);
       l *= corr;
-#pragma unroll
+#pragma unroll kUnrollHD
       for (int c = 0; c < HD; ++c) acc[c] *= corr;
 #pragma unroll
       for (int j = 0; j < kAttnTile; ++j) {
         if (j < n) {
           const float p = expf(sc[j] - tmax);
           l += p;
-#pragma unroll
+#pragma unroll kUnrollHD
           for (int c = 0; c < HD; ++c) acc[c] = fmaf(p, vs[j][c], acc[c]);
         }
       }
@@ -103,30 +110,47 @@ flash_attention_kernel(const float* __restrict__ q,
   if (live) {
     const float inv = 1.f / l;
     float* o = out + ((size_t)bh * L + row) * HD;
-#pragma unroll
+#pragma unroll kUnrollHD
     for (int c = 0; c < HD; ++c) o[c] = acc[c] * inv;
   }
 }
 
 template <int HD>
-static void launch(const void* q, const void* k, const void* v,
-                   const float* bias, void* out, int BH, int L, int S,
-                   int causal, float scale, cudaStream_t st) {
-  dim3 grid((L + kAttnRows - 1) / kAttnRows, BH);
-  flash_attention_kernel<HD><<<grid, kAttnRows, 0, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, bias, (float*)out,
-      L, S, causal, scale);
+constexpr size_t f32_smem() {
+  return 2 * kAttnTile * HD * sizeof(float);
 }
 
+template <int HD>
+static int launch(const void* q, const void* k, const void* v,
+                  const float* bias, void* out, int BH, int L, int S,
+                  int causal, float scale, cudaStream_t st) {
+  static bool opted_in = false;
+  const int err = mma::smem_opt_in(flash_attention_kernel<HD>, f32_smem<HD>(),
+                                   opted_in);
+  if (err) return err;
+  dim3 grid((L + kAttnRows - 1) / kAttnRows, BH);
+  flash_attention_kernel<HD><<<grid, kAttnRows, f32_smem<HD>(), st>>>(
+      (const float*)q, (const float*)k, (const float*)v, bias, (float*)out,
+      L, S, causal, scale);
+  return 0;
+}
+
+// Head sizes 16, 32, 64, 128 and 256 (the wrapper pads the others with
+// zero columns). At 128 and 256 a thread's q row and accumulator pass the
+// register file and spill to local memory: right, and slow.
 static int launch_f32(const void* q, const void* k, const void* v,
                       const float* bias, void* out, int BH, int L, int S,
                       int D, int causal, float scale, cudaStream_t st) {
+  int err;
   switch (D) {
-    case 16: launch<16>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
-    case 32: launch<32>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
-    case 64: launch<64>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 16: err = launch<16>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 32: err = launch<32>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 64: err = launch<64>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 128: err = launch<128>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 256: err = launch<256>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,9 @@
 // bit for bit and the (L, S) probabilities never reach device memory. The
 // forward rounds the dropped probabilities to v's dtype before the product
 // with v (as the Pallas kernel's astype) and saves each row's softmax max m
-// and sum l.
+// and sum l. Head sizes: instances at 16, 32, 64, 128 and 256, the wrappers
+// padding the others with zero columns (flash_attention.cu); the mask
+// hashes rows and columns only, so padding leaves it as it is.
 //
 // What bounds it on the H100: at the training shape (B*H = 128,
 // L = S = 300, head_dim 64, bf16) the forward moves 19.7 MB (5.9 us at
@@ -95,8 +97,10 @@ attention_dropout_fwd_kernel(const float* __restrict__ q,
                              float* __restrict__ out,
                              float* __restrict__ stats, int L, int S,
                              int causal, float scale, DropoutSpec drop) {
-  __shared__ float ks[kDropTile][HD];
-  __shared__ float vs[kDropTile][HD];
+  constexpr int kUnrollHD = mma::unroll_hd(HD);
+  // K and V tiles (fwd_f32_smem bytes)
+  float (*ks)[HD] = reinterpret_cast<float (*)[HD]>(mma::attn_smem);
+  float (*vs)[HD] = ks + kDropTile;
   const int bh = blockIdx.y;
   const int row0 = blockIdx.x * kDropRows;
   const int row = row0 + threadIdx.x;
@@ -108,7 +112,7 @@ attention_dropout_fwd_kernel(const float* __restrict__ q,
   const int s_end = causal ? min(S, row0 + kDropRows) : S;
 
   float qr[HD];
-#pragma unroll
+#pragma unroll kUnrollHD
   for (int c = 0; c < HD; ++c)
     qr[c] = live ? q[((size_t)bh * L + row) * HD + c] : 0.f;
 
@@ -125,7 +129,7 @@ attention_dropout_fwd_kernel(const float* __restrict__ q,
       for (int j = 0; j < kDropTile; ++j) {
         if (j < n) {
           float d = 0.f;
-#pragma unroll
+#pragma unroll kUnrollHD
           for (int c = 0; c < HD; ++c) d = fmaf(qr[c], ks[j][c], d);
           sc[j] = drop_logit(d, scale, brow, row, s0 + j, causal);
           tmax = fmaxf(tmax, sc[j]);
@@ -142,7 +146,7 @@ attention_dropout_fwd_kernel(const float* __restrict__ q,
 
   // pass 2: dropped weights times V
   float acc[HD];
-#pragma unroll
+#pragma unroll kUnrollHD
   for (int c = 0; c < HD; ++c) acc[c] = 0.f;
   for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
     load_tile<HD>(ks, kb, s0, kDropTile, S);
@@ -152,12 +156,12 @@ attention_dropout_fwd_kernel(const float* __restrict__ q,
       const int n = min(kDropTile, s_end - s0);
       for (int j = 0; j < n; ++j) {
         float d = 0.f;
-#pragma unroll
+#pragma unroll kUnrollHD
         for (int c = 0; c < HD; ++c) d = fmaf(qr[c], ks[j][c], d);
         const int col = s0 + j;
         const float s = drop_logit(d, scale, brow, row, col, causal);
         const float w = expf(s - m) / l * drop_factor(drop, row, col, salt);
-#pragma unroll
+#pragma unroll kUnrollHD
         for (int c = 0; c < HD; ++c) acc[c] = fmaf(w, vs[j][c], acc[c]);
       }
     }
@@ -165,7 +169,7 @@ attention_dropout_fwd_kernel(const float* __restrict__ q,
   }
   if (live) {
     float* o = out + ((size_t)bh * L + row) * HD;
-#pragma unroll
+#pragma unroll kUnrollHD
     for (int c = 0; c < HD; ++c) o[c] = acc[c];
     stats[((size_t)bh * L + row) * 2] = m;
     stats[((size_t)bh * L + row) * 2 + 1] = l;
@@ -185,9 +189,11 @@ attention_dropout_dq_kernel(const float* __restrict__ q,
                             float* __restrict__ dq, float* __restrict__ dsum,
                             float* __restrict__ dbias, int L, int S,
                             int causal, float scale, DropoutSpec drop) {
-  __shared__ float ks[kDropTile][HD];
-  __shared__ float vs[kDropTile][HD];
-  __shared__ float dos[kDropRows][HD + 1];  // own row per thread, padded
+  constexpr int kUnrollHD = mma::unroll_hd(HD);
+  // K and V tiles, then each thread's own dO row, padded (dq_f32_smem)
+  float (*ks)[HD] = reinterpret_cast<float (*)[HD]>(mma::attn_smem);
+  float (*vs)[HD] = ks + kDropTile;
+  float (*dos)[HD + 1] = reinterpret_cast<float (*)[HD + 1]>(vs + kDropTile);
   const int bh = blockIdx.y;
   const int row0 = blockIdx.x * kDropRows;
   const int row = row0 + threadIdx.x;
@@ -201,7 +207,7 @@ attention_dropout_dq_kernel(const float* __restrict__ q,
   const int s_end = causal ? min(S, row0 + kDropRows) : S;
 
   float qr[HD];
-#pragma unroll
+#pragma unroll kUnrollHD
   for (int c = 0; c < HD; ++c) {
     qr[c] = live ? q[rix * HD + c] : 0.f;
     dos[threadIdx.x][c] = live ? dout[rix * HD + c] : 0.f;
@@ -219,7 +225,7 @@ attention_dropout_dq_kernel(const float* __restrict__ q,
       const int n = min(kDropTile, s_end - s0);
       for (int j = 0; j < n; ++j) {
         float d = 0.f, dp = 0.f;
-#pragma unroll
+#pragma unroll kUnrollHD
         for (int c = 0; c < HD; ++c) {
           d = fmaf(qr[c], ks[j][c], d);
           dp = fmaf(dos[threadIdx.x][c], vs[j][c], dp);
@@ -235,7 +241,7 @@ attention_dropout_dq_kernel(const float* __restrict__ q,
 
   // pass 2: dlogits = w * (dp * mask - D); dq += dlogits * k; dbias
   float dqa[HD];
-#pragma unroll
+#pragma unroll kUnrollHD
   for (int c = 0; c < HD; ++c) dqa[c] = 0.f;
   for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
     load_tile<HD>(ks, kb, s0, kDropTile, S);
@@ -245,7 +251,7 @@ attention_dropout_dq_kernel(const float* __restrict__ q,
       const int n = min(kDropTile, s_end - s0);
       for (int j = 0; j < n; ++j) {
         float d = 0.f, dp = 0.f;
-#pragma unroll
+#pragma unroll kUnrollHD
         for (int c = 0; c < HD; ++c) {
           d = fmaf(qr[c], ks[j][c], d);
           dp = fmaf(dos[threadIdx.x][c], vs[j][c], dp);
@@ -255,14 +261,14 @@ attention_dropout_dq_kernel(const float* __restrict__ q,
             expf(drop_logit(d, scale, brow, row, col, causal) - m) / l;
         const float dl = w * (dp * drop_factor(drop, row, col, salt) - dsumr);
         if (dbrow) dbrow[col] = dl;
-#pragma unroll
+#pragma unroll kUnrollHD
         for (int c = 0; c < HD; ++c) dqa[c] = fmaf(dl, ks[j][c], dqa[c]);
       }
     }
     __syncthreads();
   }
   if (live) {
-#pragma unroll
+#pragma unroll kUnrollHD
     for (int c = 0; c < HD; ++c) dq[rix * HD + c] = dqa[c] * scale;
     dsum[rix] = dsumr;
     if (dbrow)  // the skipped causal columns: dlogits is exactly 0 there
@@ -284,10 +290,13 @@ attention_dropout_dkv_kernel(const float* __restrict__ q,
                              float* __restrict__ dk, float* __restrict__ dv,
                              int L, int S, int causal, float scale,
                              DropoutSpec drop) {
-  __shared__ float kss[kDropRows][HD + 1];  // own row per thread, padded
-  __shared__ float vss[kDropRows][HD + 1];
-  __shared__ float qs[kDropQTile][HD];
-  __shared__ float dos[kDropQTile][HD];
+  constexpr int kUnrollHD = mma::unroll_hd(HD);
+  // each thread's own K and V rows, padded, then the q and dO tiles
+  // (dkv_f32_smem bytes)
+  float (*kss)[HD + 1] = reinterpret_cast<float (*)[HD + 1]>(mma::attn_smem);
+  float (*vss)[HD + 1] = kss + kDropRows;
+  float (*qs)[HD] = reinterpret_cast<float (*)[HD]>(vss + kDropRows);
+  float (*dos)[HD] = qs + kDropQTile;
   __shared__ float ms[kDropQTile], ls[kDropQTile], ds[kDropQTile];
   const int bh = blockIdx.y;
   const int col0 = blockIdx.x * kDropRows;
@@ -305,7 +314,7 @@ attention_dropout_dkv_kernel(const float* __restrict__ q,
     vss[r][c] = in ? v[at] : 0.f;
   }
   float dka[HD], dva[HD];
-#pragma unroll
+#pragma unroll kUnrollHD
   for (int c = 0; c < HD; ++c) dka[c] = dva[c] = 0.f;
 
   // rows above the block's first key see none of its keys under causal
@@ -326,7 +335,7 @@ attention_dropout_dkv_kernel(const float* __restrict__ q,
     for (int i = 0; i < n; ++i) {
       const int row = r0 + i;
       float d = 0.f, dp = 0.f;
-#pragma unroll
+#pragma unroll kUnrollHD
       for (int c = 0; c < HD; ++c) {
         d = fmaf(qs[i][c], kss[threadIdx.x][c], d);
         dp = fmaf(dos[i][c], vss[threadIdx.x][c], dp);
@@ -337,7 +346,7 @@ attention_dropout_dkv_kernel(const float* __restrict__ q,
       const float f = drop_factor(drop, row, col, salt);
       const float wd = w * f;
       const float dl = w * (dp * f - ds[i]);
-#pragma unroll
+#pragma unroll kUnrollHD
       for (int c = 0; c < HD; ++c) {
         dva[c] = fmaf(wd, dos[i][c], dva[c]);
         dka[c] = fmaf(dl, qs[i][c], dka[c]);
@@ -346,7 +355,7 @@ attention_dropout_dkv_kernel(const float* __restrict__ q,
   }
   if (live) {
     const size_t at = ((size_t)bh * S + col) * HD;
-#pragma unroll
+#pragma unroll kUnrollHD
     for (int c = 0; c < HD; ++c) {
       dk[at + c] = dka[c] * scale;
       dv[at + c] = dva[c];
@@ -380,15 +389,20 @@ constexpr int kBwdWarps = 4;  // 64 query (dQ) or key (dK/dV) rows a block
 // H100. The forward is left free: held to 128 registers it spills and
 // slows down.
 constexpr int kBwdMinBlocks = 3;
+// Above a head size of 64 the accumulators alone pass 170 registers and
+// the chunks leave room for one or two blocks an SM: no minimum.
+constexpr int bwd_min_blocks(int hd) { return hd <= 64 ? kBwdMinBlocks : 1; }
 
 // dQ, D and dbias: a warp per 16 query rows, one pass over the key chunks.
 template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
+__global__ void __launch_bounds__(kBwdWarps * 32, bwd_min_blocks(HD))
 attention_dq_mma(BwdArgs a) {
   constexpr int kNT = kChunk / 8;
   constexpr int kDT = HD / 8;
-  __shared__ __align__(16) bf16 ks[2][Chunk<HD>::kElems];
-  __shared__ __align__(16) bf16 vs[2][Chunk<HD>::kElems];
+  // K and V chunks, two of each (fwd_smem bytes)
+  bf16 (*ks)[Chunk<HD>::kElems] =
+      reinterpret_cast<bf16 (*)[Chunk<HD>::kElems]>(attn_smem);
+  bf16 (*vs)[Chunk<HD>::kElems] = ks + 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
   const int blk0 = blockIdx.x * kBwdWarps * 16;
@@ -526,13 +540,15 @@ attention_dq_mma(BwdArgs a) {
 // in two halves of 32 (the accumulators of both products stay in
 // registers).
 template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
+__global__ void __launch_bounds__(kBwdWarps * 32, bwd_min_blocks(HD))
 attention_dkv_mma(BwdArgs a) {
   constexpr int kSub = 32;       // queries a product
   constexpr int kNT = kSub / 8;  // query tiles
   constexpr int kDT = HD / 8;
-  __shared__ __align__(16) bf16 qs[2][Chunk<HD>::kElems];
-  __shared__ __align__(16) bf16 dos[2][Chunk<HD>::kElems];
+  // q and dO chunks, two of each (fwd_smem bytes)
+  bf16 (*qs)[Chunk<HD>::kElems] =
+      reinterpret_cast<bf16 (*)[Chunk<HD>::kElems]>(attn_smem);
+  bf16 (*dos)[Chunk<HD>::kElems] = qs + 2;
   __shared__ __align__(16) float2 mls[2][kChunk];  // (m, l) a query
   __shared__ __align__(16) float dds[2][kChunk];   // D a query
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -662,19 +678,29 @@ attention_dkv_mma(BwdArgs a) {
 }
 
 template <int HD, bool CAUSAL>
-inline void launch_bwd_pair(const BwdArgs& a, int BH, cudaStream_t st) {
+inline int launch_bwd_pair(const BwdArgs& a, int BH, cudaStream_t st) {
   constexpr int kRows = kBwdWarps * 16;
+  static bool dq_in = false, dkv_in = false;
+  int err;
+  if ((err = smem_opt_in(attention_dq_mma<HD, CAUSAL>, fwd_smem<HD>(),
+                         dq_in)) ||
+      (err = smem_opt_in(attention_dkv_mma<HD, CAUSAL>, fwd_smem<HD>(),
+                         dkv_in)))
+    return err;
   attention_dq_mma<HD, CAUSAL>
-      <<<dim3((a.L + kRows - 1) / kRows, BH), kBwdWarps * 32, 0, st>>>(a);
+      <<<dim3((a.L + kRows - 1) / kRows, BH), kBwdWarps * 32, fwd_smem<HD>(),
+         st>>>(a);
   attention_dkv_mma<HD, CAUSAL>
-      <<<dim3((a.S + kRows - 1) / kRows, BH), kBwdWarps * 32, 0, st>>>(a);
+      <<<dim3((a.S + kRows - 1) / kRows, BH), kBwdWarps * 32, fwd_smem<HD>(),
+         st>>>(a);
+  return 0;
 }
 
 template <int HD>
-inline void launch_bwd_mma(const BwdArgs& a, int BH, int causal,
-                           cudaStream_t st) {
-  causal ? launch_bwd_pair<HD, true>(a, BH, st)
-         : launch_bwd_pair<HD, false>(a, BH, st);
+inline int launch_bwd_mma(const BwdArgs& a, int BH, int causal,
+                          cudaStream_t st) {
+  return causal ? launch_bwd_pair<HD, true>(a, BH, st)
+                : launch_bwd_pair<HD, false>(a, BH, st);
 }
 
 }  // namespace mma
@@ -692,38 +718,77 @@ struct DropoutArgs {
 };
 
 template <int HD>
-static void launch_fwd(const DropoutArgs& a, cudaStream_t st) {
-  dim3 grid((a.L + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_fwd_kernel<HD><<<grid, kDropRows, 0, st>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.bias, (const int*)a.seed, (float*)a.out,
-      (float*)a.stats, a.L, a.S, a.causal, a.scale, a.drop);
+constexpr size_t fwd_f32_smem() {
+  return 2 * kDropTile * HD * sizeof(float);
+}
+template <int HD>
+constexpr size_t dq_f32_smem() {
+  return (2 * kDropTile * HD + kDropRows * (HD + 1)) * sizeof(float);
+}
+template <int HD>
+constexpr size_t dkv_f32_smem() {
+  return (2 * kDropRows * (HD + 1) + 2 * kDropQTile * HD) * sizeof(float);
 }
 
 template <int HD>
-static void launch_bwd(const DropoutArgs& a, cudaStream_t st) {
+static int launch_fwd(const DropoutArgs& a, cudaStream_t st) {
+  static bool opted_in = false;
+  int err;
+  if ((err = mma::smem_opt_in(attention_dropout_fwd_kernel<HD>,
+                              fwd_f32_smem<HD>(), opted_in)))
+    return err;
+  dim3 grid((a.L + kDropRows - 1) / kDropRows, a.BH);
+  attention_dropout_fwd_kernel<HD><<<grid, kDropRows, fwd_f32_smem<HD>(),
+                                     st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.bias, (const int*)a.seed, (float*)a.out,
+      (float*)a.stats, a.L, a.S, a.causal, a.scale, a.drop);
+  return 0;
+}
+
+template <int HD>
+static int launch_bwd(const DropoutArgs& a, cudaStream_t st) {
+  static bool dq_in = false, dkv_in = false;
+  int err;
+  if ((err = mma::smem_opt_in(attention_dropout_dq_kernel<HD>,
+                              dq_f32_smem<HD>(), dq_in)) ||
+      (err = mma::smem_opt_in(attention_dropout_dkv_kernel<HD>,
+                              dkv_f32_smem<HD>(), dkv_in)))
+    return err;
   dim3 grid_q((a.L + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_dq_kernel<HD><<<grid_q, kDropRows, 0, st>>>(
+  attention_dropout_dq_kernel<HD><<<grid_q, kDropRows, dq_f32_smem<HD>(),
+                                    st>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
       (const float*)a.bias, (const int*)a.seed, (const float*)a.dout,
       (const float*)a.stats, (float*)a.dq, (float*)a.dsum,
       (float*)a.dbias, a.L, a.S, a.causal, a.scale, a.drop);
   dim3 grid_k((a.S + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_dkv_kernel<HD><<<grid_k, kDropRows, 0, st>>>(
+  attention_dropout_dkv_kernel<HD><<<grid_k, kDropRows, dkv_f32_smem<HD>(),
+                                     st>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
       (const float*)a.bias, (const int*)a.seed, (const float*)a.dout,
       (const float*)a.stats, (const float*)a.dsum, (float*)a.dk,
       (float*)a.dv, a.L, a.S, a.causal, a.scale, a.drop);
+  return 0;
+}
+
+template <int HD>
+static int launch_f32(const DropoutArgs& a, bool backward, cudaStream_t st) {
+  return backward ? launch_bwd<HD>(a, st) : launch_fwd<HD>(a, st);
 }
 
 static int dispatch_f32(const DropoutArgs& a, int D, bool backward,
                         cudaStream_t st) {
+  int err;
   switch (D) {
-    case 16: backward ? launch_bwd<16>(a, st) : launch_fwd<16>(a, st); break;
-    case 32: backward ? launch_bwd<32>(a, st) : launch_fwd<32>(a, st); break;
-    case 64: backward ? launch_bwd<64>(a, st) : launch_fwd<64>(a, st); break;
+    case 16: err = launch_f32<16>(a, backward, st); break;
+    case 32: err = launch_f32<32>(a, backward, st); break;
+    case 64: err = launch_f32<64>(a, backward, st); break;
+    case 128: err = launch_f32<128>(a, backward, st); break;
+    case 256: err = launch_f32<256>(a, backward, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 
@@ -745,12 +810,16 @@ static int dispatch_bf16(const DropoutArgs& a, int D, bool backward,
   b.dq = (bf16*)a.dq; b.dk = (bf16*)a.dk; b.dv = (bf16*)a.dv;
   b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
   b.L = a.L; b.S = a.S; b.scale = a.scale; b.drop = a.drop;
+  int err;
   switch (D) {
-    case 16: mma::launch_bwd_mma<16>(b, a.BH, a.causal, st); break;
-    case 32: mma::launch_bwd_mma<32>(b, a.BH, a.causal, st); break;
-    case 64: mma::launch_bwd_mma<64>(b, a.BH, a.causal, st); break;
+    case 16: err = mma::launch_bwd_mma<16>(b, a.BH, a.causal, st); break;
+    case 32: err = mma::launch_bwd_mma<32>(b, a.BH, a.causal, st); break;
+    case 64: err = mma::launch_bwd_mma<64>(b, a.BH, a.causal, st); break;
+    case 128: err = mma::launch_bwd_mma<128>(b, a.BH, a.causal, st); break;
+    case 256: err = mma::launch_bwd_mma<256>(b, a.BH, a.causal, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import tempfile
 import threading
@@ -75,12 +76,17 @@ def build() -> str:
             procs.append((name, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name),
                  "-o", obj], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)))
+                stderr=subprocess.STDOUT, text=True,
+                start_new_session=True)))
         logs = []
         for name, p in procs:
             out, _ = p.communicate()
             logs.append(f"== {name}\n{out}")
             if p.returncode != 0:
+                for _, other in procs:  # leave no compiler running
+                    if other.poll() is None:
+                        os.killpg(other.pid, signal.SIGKILL)
+                        other.wait()
                 raise RuntimeError(f"nvcc failed on {name}:\n{out}")
         tmp_so = os.path.join(tmp, "lib.so")
         link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], *objs,
@@ -165,7 +171,7 @@ class BatchMoeArgs(ctypes.Structure):
         "ew1g", "eb1g", "ew2", "eb2", "norm_scale", "norm_bias",
         "dn_scale", "dn_bias", "wout", "bout", "work", "sel")] + [
         (name, ctypes.c_int) for name in (
-            "B", "D", "F", "E", "k_top", "n_out")]
+            "B", "D", "F", "E", "k_top", "n_out", "dense")]
 
 
 class VariantArgs(ctypes.Structure):
@@ -182,7 +188,8 @@ class VariantArgs(ctypes.Structure):
         "sw2_s", "ew1g_s", "ew2_s")] + [
         (name, ctypes.c_int) for name in (
             "B", "D", "H", "S", "Sm", "pos", "er_len", "attn", "cross",
-            "ffn", "expert", "F", "Fe", "E", "k_top", "rms", "pre_norm")]
+            "ffn", "expert", "F", "Fe", "E", "k_top", "rms", "pre_norm",
+            "dense")]
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -207,7 +214,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               i, p]
     lib.v2m_attention_dropout_bwd.restype = i
     pi = ctypes.POINTER(ctypes.c_int)
-    lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, pi, pi]
+    lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, i, pi, pi]
     lib.v2m_decode_stack_grid.restype = i
     lib.v2m_decode_stack.argtypes = [i, ctypes.POINTER(StackArgs), p]
     lib.v2m_decode_stack.restype = i
@@ -275,6 +282,34 @@ def aligned(t):
     a tensor that is not (a view at an odd offset)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# the head sizes the attention kernels are built for
+# (csrc/flash_attention.cu, csrc/flash_attention_dropout.cu,
+# csrc/attention_mma.cuh)
+HEAD_SIZES = (16, 32, 64, 128, 256)
+
+
+def head_instance(D: int, what: str) -> int:
+    """The attention kernel instance that takes head size D: the smallest
+    of HEAD_SIZES at least D (the wrappers pad q, k, v (and dO, O) with
+    zero columns up to it, as the Pallas wrappers pad D to a multiple of
+    128: zero columns change neither q . k nor the kept columns of P . V)."""
+    for n in HEAD_SIZES:
+        if D <= n:
+            return n
+    raise ValueError(
+        f"{what}: head_dim {D} above {HEAD_SIZES[-1]}: the widest instance "
+        f"keeps two {HEAD_SIZES[-1]}-wide K/V chunks of 64 rows in shared "
+        f"memory and a q row per thread in registers; a wider head needs "
+        f"the head dimension split across blocks")
+
+
+def pad_head(t, Dp: int):
+    """t (..., D) with zero columns up to Dp (t itself when D == Dp)."""
+    import torch
+    D = t.shape[-1]
+    return t if D == Dp else torch.nn.functional.pad(t, (0, Dp - D))
 
 
 def ptr(t) -> ctypes.c_void_p:

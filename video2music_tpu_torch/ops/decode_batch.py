@@ -56,8 +56,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import kernels
-from .decode_layer import (MAX_TOP_K, _dot, _layer_norm, _rope_at, _rotate,
-                           _swiglu, attend, embed_plain)
+from .decode_layer import (_dot, _layer_norm, _rope_at, _rotate,
+                           _swiglu, attend, embed_plain, selw_floats)
 
 # When a list, every MoE router of the decode steps, kernel or plain, at
 # B=1 or B>1 (here and in ops/decode_variant.py), appends the (B, k) expert
@@ -256,15 +256,32 @@ def layer_workspace_size(B: int, D: int, F: int, quant: bool = False) -> int:
     return B * (10 * D + F + (4 * D if quant else 0))
 
 
-def moe_workspace_size(B: int, D: int, F: int, E: int) -> int:
-    """f32 scratch of one batched MoE step (csrc/decode_batch.cu run_moe)."""
-    return B * (MAX_TOP_K + (E + 1) * (F + D) + D)
+def moe_workspace_size(B: int, D: int, F: int, E: int, k_top: int) -> int:
+    """f32 scratch of one batched MoE step (csrc/decode_batch.cu run_moe):
+    the router weights (B, k_top), padded to a multiple of 4, the
+    activations (E + 1, B, F), the expert outputs (E + 1, B, D) and the
+    closing rows (B, D)."""
+    return selw_floats(B * k_top) + B * ((E + 1) * (F + D) + D)
 
 
-def moe_route_size(B: int, E: int) -> int:
+def dense_experts(B: int, E: int, k_top: int, dtype) -> bool:
+    """Whether a MoE step runs its experts densely (csrc/decode_batch.cu
+    run_moe: every expert slot takes every clip on the tensor-core GEMV,
+    no clip lists; the close reads only the selected experts' outputs, so
+    an unselected one never reaches the sum) rather than routed (each
+    expert slot stages and computes only the clips its router listed, on
+    the FMA kernel). The tensor cores take bf16 at B >= 2 only. The cut,
+    2 B k_top >= 3 E, is where the two crossed on an H100 (chip_smoke.py
+    "expert cut", PERF.md: dense ~0.029 ms at B=2-8 for 6 experts top-2,
+    routed 0.023 at B=2 rising to 0.034 at B=8, equal near B=4-5; at 40
+    experts top-10 dense ~0.11 ms, routed 0.07 at B=2, equal at B=6)."""
+    return dtype == torch.bfloat16 and B >= 2 and 2 * B * k_top >= 3 * E
+
+
+def moe_route_size(B: int, E: int, k_top: int) -> int:
     """int32 scratch of one batched MoE step: the experts each clip chose
-    (B, MAX_TOP_K), clips per expert (32) and their lists (E, B)."""
-    return B * MAX_TOP_K + 32 + E * B
+    (B, k_top), clips per expert (E) and their lists (E, B)."""
+    return B * k_top + E + E * B
 
 
 def _launch_layer(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
@@ -424,8 +441,8 @@ def batched_moe_ffn(x2, layer, *, k_top: int = 2,
     dev, dt = x2.device, x2.dtype
     code = kernels.dtype_code(x2, what)
     _require_widths(D, F, what)
-    kernels.require(1 <= k_top <= min(E, MAX_TOP_K) and E <= 32, what,
-                    f"k_top={k_top} E={E} not supported")
+    kernels.require(1 <= k_top <= E, what,
+                    f"k_top={k_top} must be in [1, E={E}]")
     tensors = {k: layer[k] for k in _EXPERT_KEYS + _FFN_KEYS
                + ("norm_scale", "norm_bias")}
     if head_pack is not None:
@@ -436,9 +453,10 @@ def batched_moe_ffn(x2, layer, *, k_top: int = 2,
                     and layer["gate_w"].shape == (E, D), what,
                     "expert weights must be (E, 2F, D) / (E, D, F)")
     n_out = head_pack["wout"].shape[0] if head_pack is not None else D
-    work = torch.empty(moe_workspace_size(B, D, F, E), device=dev,
+    work = torch.empty(moe_workspace_size(B, D, F, E, k_top), device=dev,
                        dtype=torch.float32)
-    sel = torch.empty(moe_route_size(B, E), device=dev, dtype=torch.int32)
+    sel = torch.empty(moe_route_size(B, E, k_top), device=dev,
+                      dtype=torch.int32)
     out = torch.empty(B, n_out, device=dev, dtype=dt)
     a = kernels.BatchMoeArgs()
     P = kernels.ptr
@@ -447,11 +465,12 @@ def batched_moe_ffn(x2, layer, *, k_top: int = 2,
     a.out, a.work, a.sel = P(out).value, P(work).value, P(sel).value
     a.B, a.D, a.F, a.E, a.k_top = B, D, F, E, k_top
     a.n_out = n_out if head_pack is not None else 0
+    a.dense = int(dense_experts(B, E, k_top, dt))
     status = kernels.library().v2m_batched_moe(code, ctypes.byref(a),
                                                kernels.stream_of(x2))
     kernels.check(status, what)
     batched_moe_ffn.launches += 1
-    log_route(sel[:B * MAX_TOP_K].view(B, MAX_TOP_K)[:, :k_top])
+    log_route(sel[:B * k_top].view(B, k_top))
     return out
 
 

@@ -44,7 +44,6 @@ import torch
 from .. import kernels
 from .norms import LN_EPS, SUBLN_EPS
 
-MAX_TOP_K = 8  # csrc/decode_step.cuh kMaxTop
 _DEEP_KEYS = ("gate_w", "gate_b", "ew1g", "eb1g", "ew2", "eb2")
 # the weights int8 decode quantizes (pallas_decode.py:544-549): attention
 # and the SwiGLU (the shared expert in a MoE layer), then the experts
@@ -374,9 +373,18 @@ def decode_ends_plain(token_root, token_attr, key, pos: int, p, head,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def selw_floats(k_top: int) -> int:
+    """Floats of the router weights in a workspace: k_top rounded up to a
+    multiple of 4 (csrc/decode_step.cuh selw_floats)."""
+    return -(-k_top // 4) * 4
+
+
 def workspace_size(D: int, F: int, k_top: int) -> int:
-    """f32 scratch of one layer step (csrc/decode_step.cuh Work)."""
-    return 10 * D + MAX_TOP_K + (k_top + 1) * F
+    """f32 scratch of one layer step (csrc/decode_step.cuh Work): ten
+    D-wide rows, the router weights, the (k_top + 1, F) expert activations
+    and, for the chain (csrc/decode_layer.cu), the (k_top + 1, D) expert
+    outputs and the closing LayerNorm's block counter (one int)."""
+    return 10 * D + selw_floats(k_top) + (k_top + 1) * (F + D) + 1
 
 
 def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
@@ -397,8 +405,8 @@ def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     kernels.require(D % 8 == 0 and F % 8 == 0, what,
                     f"D={D} and F={F} must be multiples of 8")
     kernels.require(0 <= pos < S, what, f"pos {pos} outside cache of {S}")
-    kernels.require(not deep or (1 <= k_top <= min(E, MAX_TOP_K) and E <= 32),
-                    what, f"k_top={k_top} E={E} not supported")
+    kernels.require(not deep or 1 <= k_top <= E, what,
+                    f"k_top={k_top} must be in [1, E={E}]")
     qkeys = (QUANT_KEYS + (QUANT_DEEP_KEYS if deep else ())
              if "wqkv_s" in p else ())
     for name in qkeys:  # int8 rows, f32 scales
@@ -430,7 +438,7 @@ def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
                     what, "cross K/V must be (Sm, D)")
     work = torch.empty(workspace_size(D, F, k_top), device=dev,
                        dtype=torch.float32)
-    sel = torch.empty(MAX_TOP_K, device=dev, dtype=torch.int32)
+    sel = torch.empty(max(k_top, 1), device=dev, dtype=torch.int32)
     y = torch.empty(1, D, device=dev, dtype=dt)
     a = kernels.DecodeLayerArgs()
     P = kernels.ptr

@@ -37,7 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import kernels
-from .decode_layer import (MAX_TOP_K, decode_layer_plain, embed_plain,
+from .decode_layer import (decode_layer_plain, embed_plain,
                            head_plain, pack_decoder_layers, pack_ends,
                            workspace_size)
 
@@ -153,8 +153,8 @@ def _check_run(what: str, layers, caches, head, *, n_heads: int, k_top: int,
                         "int8 weights run through decode_layer_step")
         if "gate_w" in layer:
             E = layer["gate_w"].shape[0]
-            kernels.require(1 <= k_top <= min(E, MAX_TOP_K) and E <= 32,
-                            what, f"k_top={k_top} E={E} not supported")
+            kernels.require(1 <= k_top <= E, what,
+                            f"k_top={k_top} must be in [1, E={E}]")
     if not embed:
         kernels.require(x is not None and tuple(x.shape) in ((1, D), (D,)),
                         what, f"x must be (1, D) = (1, {D}) without the "
@@ -218,7 +218,7 @@ class _Run:
             self.keep.append((cos, sin))
         self.work = torch.empty(workspace_size(D, F, k_top), device=dev,
                                 dtype=torch.float32)
-        self.sel = torch.empty(MAX_TOP_K, device=dev, dtype=torch.int32)
+        self.sel = torch.empty(k_top, device=dev, dtype=torch.int32)
         a.work, a.sel = P(self.work), P(self.sel)
         Sm = caches[0][2].shape[0]
         self.n_out = head["wout"].shape[0] if fold_head else D
@@ -227,8 +227,9 @@ class _Run:
         self.S, self.D, self.dev, self.dt = S, D, dev, dt
         lib = kernels.library()
         smem, blocks = ctypes.c_int(), ctypes.c_int()
-        status = lib.v2m_decode_stack_grid(self.code, D, n_heads, F, k_top,
-                                           max(S, Sm), ctypes.byref(smem),
+        status = lib.v2m_decode_stack_grid(self.code, D, n_heads, F, E,
+                                           k_top, max(S, Sm),
+                                           ctypes.byref(smem),
                                            ctypes.byref(blocks))
         kernels.check(status, what)
         a.smem, a.grid = smem.value, blocks.value

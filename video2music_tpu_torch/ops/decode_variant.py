@@ -54,12 +54,11 @@ import torch
 
 from .. import kernels
 from ..core.config import AMTConfig
-from .decode_batch import log_route, route_plain
-from .decode_layer import (MAX_TOP_K, _dot, _layer_norm, _rope_at, _rotate,
-                           attend, quantize_weight)
+from .decode_batch import dense_experts, log_route, route_plain
+from .decode_layer import (_dot, _layer_norm, _rope_at, _rotate,
+                           attend, quantize_weight, selw_floats)
 from .norms import RMS_EPS, LayerNorm
 
-MAX_EXPERTS = 32   # csrc/batch_decode.cuh kMaxExperts
 LAYER_ROWS = 12    # csrc/decode_variant.cu kLayerRows
 ATTN = {"vanilla": 0, "rpr": 1, "differential": 2}
 FFN = {"relu": 0, "swiglu": 1, "moe": 2}
@@ -382,15 +381,18 @@ def layer_workspace_size(B: int, D: int, F: int) -> int:
     return B * (LAYER_ROWS * D + F)
 
 
-def moe_workspace_size(B: int, D: int, Fe: int, E: int) -> int:
-    """f32 scratch of the MoE half (csrc/decode_variant.cu run_moe)."""
-    return B * (D + MAX_TOP_K + (E + 1) * (Fe + D))
+def moe_workspace_size(B: int, D: int, Fe: int, E: int, k_top: int) -> int:
+    """f32 scratch of the MoE half (csrc/decode_variant.cu run_moe): the
+    normalised rows (B, D), the router weights (B, k_top) padded to a
+    multiple of 4, the activations (E + 1, B, Fe) and the expert outputs
+    (E + 1, B, D)."""
+    return B * D + selw_floats(B * k_top) + B * (E + 1) * (Fe + D)
 
 
-def moe_route_size(B: int, E: int) -> int:
+def moe_route_size(B: int, E: int, k_top: int) -> int:
     """int32 scratch of the MoE half: the experts each clip chose
-    (B, MAX_TOP_K), clips per expert (32) and their lists (E, B)."""
-    return B * MAX_TOP_K + 32 + E * B
+    (B, k_top), clips per expert (E) and their lists (E, B)."""
+    return B * k_top + E + E * B
 
 
 _NEEDS = {"self": ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
@@ -483,15 +485,15 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
         kernels.require(n % mult == 0, what,
                         f"widths {D}, {F}, {Fe} must be multiples of {mult}")
     if with_moe:
-        kernels.require(1 <= k_top <= min(E - 1, MAX_TOP_K)
-                        and E <= MAX_EXPERTS, what,
-                        f"k_top={k_top} E={E} not supported")
+        kernels.require(1 <= k_top < E, what,
+                        f"k_top={k_top} must be in [1, E={E}) (the JAX "
+                        "kernel's top-k loop assumes k < E)")
     n_work = 0 if moe_only else layer_workspace_size(B, D, F)
     if with_moe:
-        n_work += moe_workspace_size(B, D, Fe, E)
+        n_work += moe_workspace_size(B, D, Fe, E, k_top)
     work = torch.empty(n_work, device=dev, dtype=torch.float32)
-    sel = torch.empty(moe_route_size(B, E) if deep else 1, device=dev,
-                      dtype=torch.int32)
+    sel = torch.empty(moe_route_size(B, E, k_top) if deep else 1,
+                      device=dev, dtype=torch.int32)
     y = torch.empty(B, D, device=dev, dtype=dt)
     a = kernels.VariantArgs()
     for name, t in {**tensors, **f32, **{k: p[k] for k in qkeys}}.items():
@@ -511,10 +513,11 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
     a.ffn, a.expert = FFN[meta.ffn], int(meta.expert == "mlp")
     a.F, a.Fe, a.E, a.k_top = F, Fe, E, k_top
     a.rms, a.pre_norm = int(norm == "rmsnorm"), int(pre_norm)
+    a.dense = int(with_moe and dense_experts(B, E, k_top, dt))
     fn = getattr(kernels.library(), "v2m_variant_" + entry)
     kernels.check(fn(code, ctypes.byref(a), kernels.stream_of(x)), what)
     if with_moe:
-        log_route(sel[:B * MAX_TOP_K].view(B, MAX_TOP_K)[:, :k_top])
+        log_route(sel[:B * k_top].view(B, k_top))
     return y
 
 

@@ -50,22 +50,21 @@ def _forward(q, k, v, bias, causal: bool):
                     "q, k and v must share one dtype")
     kernels.require(all(t.is_cuda and t.is_contiguous() for t in (q, k, v)),
                     what, "q, k and v must be contiguous CUDA tensors")
-    kernels.require(D in (16, 32, 64), what,
-                    f"head_dim {D} not built (16, 32 or 64)")
+    Dp = kernels.head_instance(D, what)
     if bias is not None:
         kernels.require(bias.shape == (B, H, L, S), what,
                         f"bias shape {tuple(bias.shape)} != {(B, H, L, S)}")
         bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
-    q, k, v = (kernels.aligned(t) for t in (q, k, v))
+    q, k, v = (kernels.aligned(kernels.pad_head(t, Dp)) for t in (q, k, v))
     out = torch.empty_like(q)
     lib = kernels.library()
     status = lib.v2m_flash_attention(
         code, kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
-        kernels.ptr(bias), kernels.ptr(out), B * H, L, S, D, int(causal),
+        kernels.ptr(bias), kernels.ptr(out), B * H, L, S, Dp, int(causal),
         D ** -0.5, kernels.stream_of(q))
     kernels.check(status, what)
     flash_attention.launches += 1
-    return out
+    return out if Dp == D else out[..., :D].contiguous()
 
 
 class _Attention(torch.autograd.Function):

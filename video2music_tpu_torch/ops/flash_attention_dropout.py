@@ -137,8 +137,7 @@ def _check(q, k, v, bias, seed, what):
                     f"match q {tuple(q.shape)}")
     kernels.require_like({"k": k, "v": v}, q, what)
     kernels.require(q.is_contiguous(), what, "q must be contiguous")
-    kernels.require(D in (16, 32, 64), what,
-                    f"head_dim {D} not built (16, 32 or 64)")
+    kernels.head_instance(D, what)
     kernels.require(isinstance(seed, torch.Tensor) and seed.numel() == 1
                     and seed.dtype == torch.int32 and seed.device == q.device,
                     what, "seed must be one int32 on q's device")
@@ -168,18 +167,19 @@ def flash_attention_dropout_fwd(q, k, v, bias, seed, causal: bool,
             q, k, v, bias=bias, causal=causal, dropout_rate=rate,
             seed=seed), None
     code = _check(q, k, v, bias, seed, what)
-    q, k, v = (kernels.aligned(t) for t in (q, k, v))
     B, H, L, D = q.shape
+    Dp = kernels.head_instance(D, what)
+    q, k, v = (kernels.aligned(kernels.pad_head(t, Dp)) for t in (q, k, v))
     out = torch.empty_like(q)
     stats = torch.empty(B, H, L, 2, device=q.device, dtype=torch.float32)
     status = kernels.library().v2m_attention_dropout_fwd(
         code, kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
         kernels.ptr(bias), kernels.ptr(seed), kernels.ptr(out),
-        kernels.ptr(stats), B * H, L, k.shape[2], D, int(causal),
+        kernels.ptr(stats), B * H, L, k.shape[2], Dp, int(causal),
         D ** -0.5, *_drop_args(rate), kernels.stream_of(q))
     kernels.check(status, what)
     flash_attention_dropout_fwd.launches += 1
-    return out, stats
+    return (out if Dp == D else out[..., :D].contiguous()), stats
 
 
 def flash_attention_dropout_bwd(q, k, v, bias, do, seed, stats, out,
@@ -201,7 +201,9 @@ def flash_attention_dropout_bwd(q, k, v, bias, do, seed, stats, out,
                     and stats is not None and stats.shape == (B, H, L, 2),
                     what, "do and out must match q and stats come from the "
                     "forward kernel")
-    q, k, v, do, out = (kernels.aligned(t) for t in (q, k, v, do, out))
+    Dp = kernels.head_instance(D, what)
+    q, k, v, do, out = (kernels.aligned(kernels.pad_head(t, Dp))
+                        for t in (q, k, v, do, out))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = None if bias is None else torch.empty_like(bias)
     dsum = torch.empty(B, H, L, device=q.device, dtype=torch.float32)
@@ -210,10 +212,12 @@ def flash_attention_dropout_bwd(q, k, v, bias, do, seed, stats, out,
         kernels.ptr(bias), kernels.ptr(seed), kernels.ptr(do),
         kernels.ptr(stats), kernels.ptr(out), kernels.ptr(dq), kernels.ptr(dk),
         kernels.ptr(dv), kernels.ptr(dbias), kernels.ptr(dsum), B * H, L,
-        k.shape[2], D, int(causal), D ** -0.5, *_drop_args(rate),
+        k.shape[2], Dp, int(causal), D ** -0.5, *_drop_args(rate),
         kernels.stream_of(q))
     kernels.check(status, what)
     flash_attention_dropout_bwd.launches += 1
+    if Dp != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv, dbias
 
 
