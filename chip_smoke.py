@@ -28,6 +28,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and deep, on int8 caches filled to pos 150: the output, and the int8
      K/V rows and scales it writes at pos; the variant layer with int8
      weights on the deep 3.1 and 3.2 layers at B=1;
+  2a. scan shapes: the selective scan at b in {1, 16}, d_state N in {12,
+     16, 64, 1024} and L in {1, 65, 300} against its plain version, f32
+     and bf16, timed at L = 300; stack positions: the cooperative kernel
+     (the whole six-layer step) at pos 0, 1, 150, S - 1 with Sm = 300 and
+     37, and with splits of several tiles (Sm = 1500, a 1100-row self
+     cache), f32 and bf16, the routers' expert ids compared; stack
+     breakdown: the cooperative kernel's probe instance on the six-layer
+     bf16 run at pos 150, microseconds per phase kind summed over the
+     layers and of the grid barriers' waits, with block 0's and the last
+     block's stamps inside layer 1, beside the first design's breakdown
+     (PREV_STACK_BREAKDOWN);
   2b. decode breakdown: one bf16 call of row 8 (the deep 3.1 layer, B=1),
      row 6 (the deep batched layer, B=16 and B=64), row 2 (the deep 2.2
      layer, B=1), row 7 (the batched MoE half with the head, B=16 and
@@ -57,7 +68,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      clip is checked, each backend's launches must equal its path's, and
      a torch.profiler window reads each backend's step;
   4c. teacher-forced backends: 16 steps of each of those backends against
-     its plain counterpart, float32 and bfloat16;
+     its plain counterpart, float32 and bfloat16, with the expert ids every
+     router chose compared (the positions and layers where they differ);
   5. serving: the same Video2music decodes batches through generate_batch
      at B=16 and B=64 and through a DynamicBatcher (max_batch 16) fed 24
      requests at once; every clip is checked, and the launch counts must
@@ -197,7 +209,8 @@ STACK_KERNELS = ("decode_monolith", "decode_segment", "decode_flat_monolith")
 # bf16 device ms of the redesigned kernels before their redesign, from
 # earlier chip_smoke.py runs on an NVIDIA H100 80GB HBM3 at 700.00 W
 # (PERF.md): rows 1, 11, 6 and 8 on their first designs, rows 2, 3 (one
-# layer), 7 and 10 on the tree at 04068b2; not measured by this run, so
+# layer), 7 and 10 on the tree at 04068b2, rows 3-5 (the cooperative
+# kernel) and 12 on the tree at e773164; not measured by this run, so
 # they stay out of the kernels line and are printed on a line of their
 # own, marked so, beside this run's times
 PREV_MS = {
@@ -210,6 +223,11 @@ PREV_MS = {
     "decode_ends": dict(ms=0.0467),
     "batched_moe_ffn": dict(ms=0.0603, ms_b64=0.1337),
     "batched_variant_moe_ffn": dict(ms=0.0515, ms_b64=0.1290),
+    # rows 3-5 and 12 on the tree at e773164 (PERF.md)
+    "decode_flat_monolith": dict(ms=0.3105),
+    "decode_monolith": dict(ms=0.3097),
+    "decode_segment": dict(ms=0.1574),
+    "selective_scan": dict(ms=0.1439, ms_b16=0.1481),
 }
 # per-launch breakdowns before a redesign (decode_breakdown_phase,
 # PERF.md; NVIDIA H100 80GB HBM3, 700.00 W; us per call, launches): rows 8
@@ -759,6 +777,170 @@ def stack_kernel_phase(report, v2m):
             report["decode_layer"]["bound_ms_int8"] = max(
                 (q_work[0] + 2 * nbytes(x)) / HBM_BYTES_PER_S * 1e3,
                 q_work[1] / PEAK_BF16 * 1e3)
+
+
+def stack_positions_phase(report, v2m):
+    """The cooperative kernel over the whole six-layer step with the embed
+    and the head (decode_monolith_step) against its plain version at pos
+    0, 1, 150 and S - 1, with Sm = 300 and an odd Sm = 37, and at two
+    shapes whose attention splits take several tiles each (Sm = 1500 at
+    pos 150; a 1100-row self cache at pos 1099); float32 and bfloat16,
+    random caches: the logits, and the K / V rows written at pos. Every
+    router's expert ids are compared too: in bfloat16 a case whose ids
+    differ (a near-tie flipped by a one-ulp difference) may leave the
+    tolerance, at most one case in BF16_ROUTE_SHARE and at least one."""
+    import torch
+    from video2music_tpu_torch.ops import decode_stack as ds
+    from video2music_tpu_torch.ops.embeddings import rope_table
+
+    dev = v2m.device
+    cfg = v2m.amt_cfg
+    D, H, S, Sm = cfg.d_model, cfg.num_heads, cfg.max_seq_chord, \
+        cfg.max_seq_video
+    L = len(cfg.decoder_layers)
+    gen = torch.Generator().manual_seed(1357)
+    tokens = (torch.tensor([3], device=dev, dtype=torch.int32),
+              torch.tensor([5], device=dev, dtype=torch.int32),
+              torch.tensor([1.0], device=dev))
+    cases = [(S, m, pos) for m in (Sm, 37) for pos in (0, 1, S // 2, S - 1)]
+    cases += [(S, 1500, S // 2), (1100, Sm, 1099)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        model, _ = v2m._models(name)
+        packed = ds.pack_monolith(model)
+        outliers = []
+        for S_, Sm_, pos in cases:
+            table = rope_table(max(S_, Sm_), D // H, dev)
+            kw = dict(n_heads=H, k_top=cfg.moe.n_experts_per_token,
+                      rope=(table[..., 0].contiguous(),
+                            table[..., 1].contiguous()))
+            kc, vc = (torch.randn(L, S_, D, generator=gen).to(dev, dtype)
+                      for _ in range(2))
+            kx, vx = (torch.randn(L, Sm_, D, generator=gen).to(dev, dtype)
+                      for _ in range(2))
+            k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            got, k_routes = routed_step(
+                lambda *_: ds.decode_monolith_step(
+                    *tokens, pos, packed, k1, v1, kx, vx, **kw),
+                None, None, None, None, pos)
+            want, p_routes = routed_step(
+                lambda *_: ds.decode_monolith_plain(
+                    *tokens, pos, packed, k2, v2, kx, vx, **kw),
+                None, None, None, None, pos)
+            tag = f"decode_monolith S={S_} Sm={Sm_} pos={pos}"
+            diffs = route_diffs(pos, k_routes, p_routes)
+            if dtype == torch.bfloat16 and diffs:
+                abs_err, rel_err = errors(got, want)
+                outliers.append((S_, Sm_, pos, round(rel_err, 4)))
+                print(f"  {tag} [{name}] expert ids differ {diffs}: max_rel "
+                      f"{rel_err:.3e}, counted as a router near-tie")
+                continue
+            note_error(report, "decode_monolith", dtype,
+                       check_close(tag, dtype, got, want))
+            for c1, c2, kv in ((k1, k2, "k"), (v1, v2, "v")):
+                check_close(f"{tag} {kv} rows at pos", dtype, c1[:, pos],
+                            c2[:, pos])
+        fail_unless(len(outliers) * BF16_ROUTE_SHARE <= max(16, len(cases)),
+                    f"stack positions [{name}]: {len(outliers)} of "
+                    f"{len(cases)} cases took other experts {outliers}")
+
+
+# the selective scan's shapes beyond the product's: batch rows, d_state N
+# (12: odd; 16: the product's bimamba+; 64; 1024: moemamba's d_state =
+# d_hidden) and L (one step, the kernel's chunk + 1, a 300 s clip)
+SCAN_CASES = dict(b=(1, 16), N=(12, 16, 64, 1024), L=(1, 65, 300))
+
+
+def scan_shapes_phase(report, v2m):
+    """The selective scan against its plain version at every (b, N, L) of
+    SCAN_CASES, ED the bimamba+ block's d_inner, float32 and bfloat16; the
+    kernel's device ms at L = 300 for each (b, N), bfloat16 and float32."""
+    import itertools
+
+    import torch
+    from video2music_tpu_torch.ops.scan import (selective_scan,
+                                                selective_scan_plain)
+
+    dev = v2m.device
+    ED = v2m.model_reg.backbone.layers[0].mamba_forward.cfg.d_inner
+    gen = torch.Generator().manual_seed(2468)
+    out = report.setdefault("scan_shapes", {})
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for b, N, L in itertools.product(*SCAN_CASES.values()):
+            x = torch.randn(b, L, ED, generator=gen).to(dev, dtype)
+            dt = (torch.rand(b, L, ED, generator=gen) * 0.1).to(dev, dtype)
+            A = (-0.5 - 4 * torch.rand(ED, N, generator=gen)).to(dev)
+            Bm, Cm = (torch.randn(b, L, N, generator=gen).to(dev, dtype)
+                      for _ in range(2))
+            Dv = torch.randn(ED, generator=gen).to(dev)
+            got = selective_scan(x, dt, A, Bm, Cm, Dv)
+            want = selective_scan_plain(x, dt, A, Bm, Cm, Dv)
+            note_error(report, "selective_scan", dtype, check_close(
+                f"selective_scan b={b} N={N} L={L}", dtype, got, want))
+            if L == 300:
+                ms = time_ms(lambda: selective_scan(x, dt, A, Bm, Cm, Dv))[0]
+                out[f"{name} b={b} N={N}"] = ms
+                print(f"  selective_scan b={b} N={N} L={L} [{name}] kernel "
+                      f"{ms:.4f} ms device")
+            del got, want
+
+
+# the probe's breakdown of the cooperative kernel before its redesign
+# (stack_breakdown_phase on the tree at e773164 with the probe added, an
+# earlier run, PERF.md; NVIDIA H100 80GB HBM3, 700.00 W; us summed over
+# the six layers, the mean of 10 launches; 8 grid barriers a layer); not
+# measured by this run
+PREV_STACK_BREAKDOWN = {
+    "embed": 3.933, "qkv": 33.798, "self_attention": 40.24, "wo": 16.989,
+    "cross_q": 33.571, "cross_attention": 61.274, "cwo": 17.098,
+    "ffn_up_router": 45.376, "down": 40.886, "head": 7.466,
+    "barrier_wait": 43.61, "total": 344.24}
+
+
+def stack_breakdown_phase(report, v2m, card):
+    """The cooperative kernel's probe instance (ops/decode_stack.py
+    _Run.probe) on the six-layer bf16 run with the embed and the head at
+    pos 150, full width, random caches: microseconds of each phase kind
+    summed over the layers (from the previous boundary to the last block
+    finishing it), of the embed and the head, and of the grid barriers'
+    waits; the means of 10 launches, one line, beside the first design's
+    (PREV_STACK_BREAKDOWN)."""
+    import torch
+    from video2music_tpu_torch.decode.fused import rope_tables
+    from video2music_tpu_torch.ops import decode_stack as ds
+
+    dev, dtype = v2m.device, torch.bfloat16
+    cfg = v2m.amt_cfg
+    D, S, Sm = cfg.d_model, cfg.max_seq_chord, cfg.max_seq_video
+    L = len(cfg.decoder_layers)
+    pos = S // 2
+    model, _ = v2m._models("bfloat16")
+    kw = dict(n_heads=cfg.num_heads, k_top=cfg.moe.n_experts_per_token,
+              rope=rope_tables(model, dev))
+    packed = ds.pack_monolith(model)
+    gen = torch.Generator().manual_seed(97)
+    caches = [tuple(torch.randn(n, D, generator=gen).to(dev, dtype)
+                    for n in (S, S, Sm, Sm)) for _ in range(L)]
+    tokens = (torch.tensor([3], device=dev, dtype=torch.int32),
+              torch.tensor([5], device=dev, dtype=torch.int32),
+              torch.tensor([1.0], device=dev))
+    plans = {}
+    ds.decode_flat_monolith_step(*tokens, pos, packed["layers"], packed,
+                                 caches, plans=plans, **kw)
+    reads = [plans["run"].probe(pos, tokens=tokens) for _ in range(10)]
+    mean = {k: round(sum(r[k] for r in reads) / len(reads), 3)
+            for k in reads[0] if not k.startswith("marks")}
+    for k in ("marks_block0", "marks_last"):
+        mean[k] = [None if r0 is None else round(
+            sum(r[k][j] for r in reads) / len(reads), 2)
+            for j, r0 in enumerate(reads[0][k])]
+    report["stack_breakdown"] = mean
+    print(f"stack breakdown bf16 {L} layers + embed + head pos {pos} (this "
+          f"run, probe instance, mean of 10 launches, us): "
+          f"{json.dumps(mean)} [{card}]")
+    print(f"stack breakdown before the redesign (an earlier run's, PERF.md; "
+          f"not measured by this run): {json.dumps(PREV_STACK_BREAKDOWN)}")
 
 
 def batched_kernel_phase(report, v2m):
@@ -1508,8 +1690,11 @@ def teacher_force_backends(models, backends, runs=None, reset=False):
     position in BF16_ROUTE_SHARE may leave BF16_REL (a router near-tie
     flipped by a one-ulp input difference); after such a position the plain
     caches take the kernel's, so the flip is counted once (``reset``: before
-    every bf16 step, as the batched phases do). ``runs``: the launches of
-    its kernel each backend's step must make."""
+    every bf16 step, as the batched phases do). The expert ids each MoE
+    router chose (route_log) are compared with the plain step's, and the
+    (position, MoE layer) pairs that differ are printed, so a near-tie
+    that a kernel's other summation order flips shows by name. ``runs``:
+    the launches of its kernel each backend's step must make."""
     import torch
     from video2music_tpu_torch.decode.sampler import fused_backend
 
@@ -1534,7 +1719,7 @@ def teacher_force_backends(models, backends, runs=None, reset=False):
                                 for k, v in kernel_caches.items()}
                 kernel_step = make_step(model)
                 plain_step = plain_backend_step(model, backend)
-                worst, outliers = 0.0, []
+                worst, outliers, diffs = 0.0, [], []
                 wrappers()[kernel].launches = 0
                 for pos in range(16):
                     root = roots[pos:pos + 1].to(dev, torch.int32)
@@ -1542,8 +1727,12 @@ def teacher_force_backends(models, backends, runs=None, reset=False):
                     if reset and dtype == torch.bfloat16:
                         for k, v in plain_caches.items():
                             v.copy_(kernel_caches[k])
-                    got = kernel_step(kernel_caches, root, attr, key, pos)
-                    want = plain_step(plain_caches, root, attr, key, pos)
+                    got, k_routes = routed_step(kernel_step, kernel_caches,
+                                                root, attr, key, pos)
+                    want, p_routes = routed_step(plain_step, plain_caches,
+                                                 root, attr, key, pos)
+                    diffs += [(p, layer) for p, layer, _ in
+                              route_diffs(pos, k_routes, p_routes)]
                     abs_err, rel_err = errors(got, want)
                     if dtype == torch.float32:
                         fail_unless(abs_err <= F32_LOGIT_ATOL,
@@ -1559,7 +1748,8 @@ def teacher_force_backends(models, backends, runs=None, reset=False):
                 print(f"teacher-forced {backend} {name}: max abs logit "
                       f"error over 16 positions {worst:.3e}" + (
                           f"; positions outside rel {BF16_REL}: {outliers}"
-                          if outliers else "") + f"; {n} launches of "
+                          if outliers else "") + f"; expert ids differing "
+                      f"(pos, MoE layer): {diffs}; {n} launches of "
                       f"{kernel}")
                 fail_unless(len(outliers) * BF16_ROUTE_SHARE <= 16,
                             f"teacher-forced {backend} [{name}]: "
@@ -1771,13 +1961,13 @@ def v3_int8_phase(v2m, card, report):
 def routed_step(step, caches, root, attr, key, pos):
     """step's logits, and the expert ids each of its MoE routers chose, in
     layer order ((B, k) each, sorted)."""
-    from video2music_tpu_torch.ops import decode_batch as db
-    db.route_log = []
+    from video2music_tpu_torch.ops import decode_layer as dl
+    dl.route_log = []
     try:
         logits = step(caches, root, attr, key, pos)
-        routes = [r.long().sort(dim=-1).values for r in db.route_log]
+        routes = [r.long().sort(dim=-1).values for r in dl.route_log]
     finally:
-        db.route_log = None
+        dl.route_log = None
     return logits, routes
 
 
@@ -3302,7 +3492,10 @@ def main() -> int:
         return out
 
     phase("kernels", kernel_phase, report, v2m)
+    phase("scan shapes", scan_shapes_phase, report, v2m)
     phase("stack kernels", stack_kernel_phase, report, v2m)
+    phase("stack positions", stack_positions_phase, report, v2m)
+    phase("stack breakdown", stack_breakdown_phase, report, v2m, card)
     phase("batched kernels", batched_kernel_phase, report, v2m)
     phase("int8 KV kernels", int8_kv_kernel_phase, report, v2m)
     phase("dropout kernels", dropout_kernel_phase, report, v2m.amt_cfg)
@@ -3380,6 +3573,8 @@ def main() -> int:
     print(f"breakdown after (this run): {json.dumps(report['breakdown'])}")
     print(f"gemv yardstick (this run): {json.dumps(report['gemv_qkv'])}")
     print(f"expert cut (this run): {json.dumps(report['expert_cut'])}")
+    print(f"scan shapes (this run, device ms): "
+          f"{json.dumps(report['scan_shapes'])}")
     print(f"train: {json.dumps(report['train'])}")
     print(f"V3 decode step: {json.dumps(report['v3_step'])}")
     print(f"B=1 backends, ms/token: {json.dumps(report['backends'])}")

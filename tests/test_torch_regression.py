@@ -6,6 +6,7 @@ regression_from_jax."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from video2music_tpu.core.config import RegressionConfig
@@ -13,7 +14,7 @@ from video2music_tpu.models import VideoRegression as JaxRegression
 from video2music_tpu.ops.pallas_scan import selective_scan_pallas
 from video2music_tpu.ops.scan import selective_scan as jax_scan
 from video2music_tpu_torch.models import VideoRegression
-from video2music_tpu_torch.ops.scan import selective_scan
+from video2music_tpu_torch.ops.scan import MAX_D_STATE, selective_scan
 from video2music_tpu_torch.weights import regression_from_jax
 
 torch.set_num_threads(1)
@@ -34,6 +35,34 @@ def test_selective_scan_matches_pallas_and_associative(rng):
                  jax_scan(*args)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,L", [(12, 1), (12, 63), (12, 65), (64, 1),
+                                 (64, 63), (64, 65), (1024, 3)])
+def test_selective_scan_any_d_state(N, L):
+    """The plain scan at d_state 12 and 64 (odd widths, and wider than a
+    warp) and at moemamba's d_state = d_hidden = 1024 (the most the CUDA
+    kernel takes: MAX_D_STATE), over L = 1 and around the kernel's chunks,
+    against the Pallas kernel in interpret mode (which pads N to 128) and
+    the associative-scan path."""
+    assert MAX_D_STATE >= 1024
+    rng = np.random.default_rng(N * 1000 + L)
+    b, ED = 2, 8
+    x = rng.standard_normal((b, L, ED)).astype(np.float32)
+    delta = rng.uniform(0.01, 0.5, (b, L, ED)).astype(np.float32)
+    A = -rng.uniform(0.5, 4.0, (ED, N)).astype(np.float32)
+    B, C = (rng.standard_normal((b, L, N)).astype(np.float32)
+            for _ in range(2))
+    D = rng.standard_normal(ED).astype(np.float32)
+    got = selective_scan(*(torch.from_numpy(a) for a in (x, delta, A, B, C, D)))
+    assert got.shape == (b, L, ED)
+    args = tuple(jnp.asarray(a) for a in (x, delta, A, B, C, D))
+    # another association order than the sequential walk, over up to 1024
+    # terms of C . h: atol 1e-5 scaled by sqrt(N / 4)
+    for want in (selective_scan_pallas(*args, interpret=True),
+                 jax_scan(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=1e-5 * max(1.0, (N / 4) ** 0.5))
 
 
 def test_bimamba_plus_regression_matches_jax(rng):

@@ -532,3 +532,38 @@ def test_stack_wrappers_validate(models, case):
                                          embed=False, fold_head=False,
                                          x=torch.zeros(1, 16, device="meta"),
                                          **kw)
+
+
+def test_route_log_lists_every_moe_router(models):
+    """With ops.decode_layer.route_log a list, the plain B=1 step appends
+    each MoE layer's (1, k_top) expert ids in layer order (the layer chain
+    and the cooperative kernel append theirs the same way on the card, for
+    chip_smoke.py to compare with these); with it None, nothing is kept."""
+    m = models
+    cfg = m["cfg"]
+    E = cfg.moe.n_experts
+    kc, vc, kx, vx = _stack_caches(m, range(len(cfg.decoder_layers)),
+                                   np.random.default_rng(5))
+    pp = ds.pack_monolith(m["pm"])
+
+    def step():
+        return ds.decode_monolith_plain(
+            torch.tensor([1]), torch.tensor([2]), torch.tensor([1.0]), 3, pp,
+            torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy()),
+            torch.from_numpy(kx), torch.from_numpy(vx), **_kw(cfg))
+
+    dl.route_log = []
+    try:
+        want = step()
+        routes = dl.route_log
+    finally:
+        dl.route_log = None
+    moe = [i for i, spec in enumerate(cfg.decoder_layers)
+           if spec.ffn == "moe"]
+    assert len(routes) == len(moe) > 0
+    for ids in routes:
+        assert ids.shape == (1, 2)
+        assert len(set(ids.flatten().tolist())) == 2
+        assert all(0 <= e < E for e in ids.flatten().tolist())
+    torch.testing.assert_close(step(), want, rtol=0, atol=0)
+    assert dl.route_log is None

@@ -95,9 +95,7 @@ __device__ __forceinline__ void pdl_wait() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-}
+using v2m::prefetch_l2;
 
 // kernel<<<grid, threads, smem, st>>>(args...) with programmatic dependent
 // launch allowed, as clusters of `cluster` blocks along x when cluster > 0.

@@ -106,6 +106,11 @@ __device__ __forceinline__ int expert_rank(const float* logit, int E, int e) {
 // 4, so the f32 rows after them stay 16-byte aligned.
 __host__ __device__ constexpr int selw_floats(int n) { return (n + 3) / 4 * 4; }
 
+// The L2 line of p, prefetched.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
 // Elements of T in one 16-byte load.
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };

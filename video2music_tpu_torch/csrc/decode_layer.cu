@@ -69,12 +69,15 @@
 // With int8 weights (pack_decoder_layers(quantize="int8"), the Pallas
 // kernel's int8 form) the layer's GEMVs read int8 rows and scale each f32
 // dot by its row's scale before the bias: half the weight bytes of bf16.
-// The embed and head GEMVs stay in the compute dtype. The GEMV epilogues,
-// router and MoE pieces are decode_step.cuh's, shared with the cooperative
-// kernel of decode_stack.cu. Rounding is the Pallas kernel's (q, the
+// The embed and head GEMVs stay in the compute dtype. The GEMV arguments
+// and epilogues, MoE weights and workspace layout are decode_step.cuh's,
+// the weight rows and staged, normalised inputs decode_rows.cuh's, shared
+// with the cooperative kernel of decode_stack.cu. Rounding is the Pallas
+// kernel's (q, the
 // probabilities and the attention output f32; every matmul input rounded
 // to the compute dtype; the residual stream f32).
 #include "batch_decode.cuh"
+#include "decode_rows.cuh"
 #include "decode_step.cuh"
 
 namespace v2m {
@@ -101,183 +104,6 @@ struct V2MDecodeLayer {
   const float *wqkv_s, *wo_s, *cwq_s, *cwo_s, *w1g_s, *w2_s, *ew1g_s, *ew2_s;
   int D, H, F, E, k_top, Sm, n_out, pos;
 };
-
-// 16-byte vectors of a weight row a lane holds in registers: rows of up to
-// 32 * kRowVecs * Vec<W>::N values (bf16 1024, f32 512, int8 2048).
-constexpr int kRowVecs = 4;
-
-// Rows of one GEMV fit in a warp's registers.
-template <typename W>
-__host__ __device__ constexpr bool fits_regs(int K) {
-  return K <= 32 * kRowVecs * Vec<W>::N;
-}
-
-// A warp's weight row in registers: lane l holds vectors l, l + 32, ...;
-// every load is issued before any is used.
-template <typename W>
-struct RowRegs {
-  uint4 v[kRowVecs];
-  __device__ __forceinline__ void load(const W* row, int K, int lane) {
-    constexpr int V = Vec<W>::N;
-#pragma unroll
-    for (int i = 0; i < kRowVecs; ++i) {
-      const int k = (lane + 32 * i) * V;
-      if (k < K) v[i] = __ldg(reinterpret_cast<const uint4*>(row + k));
-    }
-  }
-  // dot(row, xs[0:K]) summed over the warp, every lane holding it
-  __device__ __forceinline__ float dot(const float* xs, int K,
-                                       int lane) const {
-    constexpr int V = Vec<W>::N;
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRowVecs; ++i) {
-      const int k = (lane + 32 * i) * V;
-      if (k < K) {
-        const W* e = reinterpret_cast<const W*>(&v[i]);
-#pragma unroll
-        for (int j = 0; j < V; j += 4) {
-          const float4 xv = *reinterpret_cast<const float4*>(xs + k + j);
-          acc = fmaf(to_f<W>(e[j]), xv.x, acc);
-          acc = fmaf(to_f<W>(e[j + 1]), xv.y, acc);
-          acc = fmaf(to_f<W>(e[j + 2]), xv.z, acc);
-          acc = fmaf(to_f<W>(e[j + 3]), xv.w, acc);
-        }
-      }
-    }
-    return warp_sum(acc);
-  }
-};
-
-// dot(w[0:K], xs[0:K]) summed over the warp, every lane holding it:
-// decode_step.cuh dot_partial's order with four vectors' loads in flight
-// (w 16-byte aligned, K a multiple of Vec<W>::N).
-template <typename W>
-__device__ __forceinline__ float dot_row(const W* __restrict__ w,
-                                         const float* xs, int K, int lane) {
-  constexpr int V = Vec<W>::N;
-  float acc = 0.f;
-#pragma unroll 4
-  for (int k = lane * V; k < K; k += 32 * V) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(w + k));
-    const W* e = reinterpret_cast<const W*>(&raw);
-#pragma unroll
-    for (int i = 0; i < V; i += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(xs + k + i);
-      acc = fmaf(to_f<W>(e[i]), xv.x, acc);
-      acc = fmaf(to_f<W>(e[i + 1]), xv.y, acc);
-      acc = fmaf(to_f<W>(e[i + 2]), xv.z, acc);
-      acc = fmaf(to_f<W>(e[i + 3]), xv.w, acc);
-    }
-  }
-  return warp_sum(acc);
-}
-
-// The L2 lines of a weight row of K values.
-template <typename W>
-__device__ __forceinline__ void prefetch_row(const W* row, int K, int lane) {
-  const char* p = reinterpret_cast<const char*>(row);
-  const int bytes = K * (int)sizeof(W);
-  for (int o = lane * 128; o < bytes; o += 32 * 128) batch::prefetch_l2(p + o);
-}
-
-// One weight row of a warp: held in registers when it fits (REGS), else
-// prefetched to L2 and read in the dot. fetch() before the dependency
-// wait for weights known then, after it for a routed expert's.
-template <typename W, bool REGS>
-struct Row {
-  const W* row = nullptr;
-  RowRegs<W> regs;
-  __device__ __forceinline__ void fetch(const W* r, int K, int lane) {
-    row = r;
-    if constexpr (REGS) {
-      regs.load(r, K, lane);
-    } else {
-      prefetch_row<W>(r, K, lane);
-    }
-  }
-  __device__ __forceinline__ float dot(const float* xs, int K,
-                                       int lane) const {
-    if constexpr (REGS) return regs.dot(xs, K, lane);
-    return dot_row<W>(row, xs, K, lane);
-  }
-};
-
-template <typename W>
-__device__ __forceinline__ float scaled(float d, const float* scale, int row) {
-  if constexpr (std::is_same<W, int8_t>::value) return d * scale[row];
-  return d;
-}
-
-// LayerNorm of xs[0:K] in place (xs 16-byte aligned, K a multiple of 4),
-// f32, two-pass mean / variance, as decode_step.cuh layer_norm_smem, with
-// the statistics summed by every warp over the whole row (16-byte shared
-// loads, warp shuffles, no block reduction): one barrier before the row is
-// rewritten.
-template <typename T>
-__device__ __forceinline__ void layer_norm_warps(float* xs, int K, const T* g,
-                                                 const T* b) {
-  const int lane = threadIdx.x & 31;
-  const float4* x4 = reinterpret_cast<const float4*>(xs);
-  const int K4 = K / 4;
-  float s = 0.f;
-#pragma unroll 4
-  for (int c = lane; c < K4; c += 32) {
-    const float4 v = x4[c];
-    s += (v.x + v.y) + (v.z + v.w);
-  }
-  const float mean = warp_sum(s) / K;
-  float q = 0.f;
-#pragma unroll 4
-  for (int c = lane; c < K4; c += 32) {
-    const float4 v = x4[c];
-    const float a = v.x - mean, b2 = v.y - mean, c2 = v.z - mean,
-                d = v.w - mean;
-    q += (a * a + b2 * b2) + (c2 * c2 + d * d);
-  }
-  const float var = warp_sum(q) / K;
-  const float rs = 1.f / sqrtf(var + kLnEps);
-  __syncthreads();  // every warp has read the row
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    xs[k] = (xs[k] - mean) * rs * to_f<T>(g[k]) + to_f<T>(b[k]);
-}
-
-// decode_step.cuh load_input for the chain (no second norm), the LayerNorm
-// by layer_norm_warps: stage the input in xs (K floats), normalise, copy
-// out the f32 row (block 0), round to T.
-template <typename T>
-__device__ __forceinline__ void stage_input(const VecIn& in, int K,
-                                            float* xs) {
-#pragma unroll 4
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float v;
-    if (in.x == nullptr) {
-      const int r = *in.root, a = *in.attr;
-      v = to_f<T>(((const T*)in.emb_root)[(size_t)r * K + k]) +
-          to_f<T>(((const T*)in.emb_attr)[(size_t)a * K + k]);
-    } else if (in.x_is_t) {
-      v = to_f<T>(((const T*)in.x)[k]);
-    } else {
-      v = ((const float*)in.x)[k];
-    }
-    xs[k] = v;
-  }
-  if (in.ln_g != nullptr) {
-    __syncthreads();
-    layer_norm_warps<T>(xs, K, (const T*)in.ln_g, (const T*)in.ln_b);
-  }
-  if (in.norm_out != nullptr && blockIdx.x == 0)
-    for (int k = threadIdx.x; k < K; k += blockDim.x) in.norm_out[k] = xs[k];
-  for (int k = threadIdx.x; k < K; k += blockDim.x) xs[k] = round_t<T>(xs[k]);
-  __syncthreads();
-}
-
-// The L2 lines of `bytes` bytes at p, spread over the block's threads.
-__device__ __forceinline__ void prefetch_bytes(const void* p, int bytes) {
-  if (p == nullptr) return;
-  for (int o = threadIdx.x * 128; o < bytes; o += blockDim.x * 128)
-    batch::prefetch_l2(reinterpret_cast<const char*>(p) + o);
-}
 
 // The closing LayerNorm of a layer, run once its grid is done by the block
 // that finishes last (a ticket): the n-wide row r, or the MoE combine
@@ -331,7 +157,7 @@ __device__ __forceinline__ void run_tail(const Tail& t, float* xs) {
   for (int k = threadIdx.x; k < D; k += blockDim.x) {
     if (t.ye == nullptr) {
       xs[k] = __ldcg(t.r + k);
-    } else {  // decode_step.cuh moe_down_unit's sum, in its order
+    } else {  // shared / k, then each selected expert's w_j y_j, in order
       float h = __ldcg(t.ye + k) / (float)t.k_top;
       for (int j = 0; j < t.k_top; ++j)
         h += __ldcg(t.selw + j) * __ldcg(t.ye + (size_t)(j + 1) * D + k);
@@ -388,9 +214,10 @@ __global__ void __launch_bounds__(NW * 32) chain_gemv_kernel(GemvArgs a,
   run_tail<T>(t, xs);
 }
 
-// Attention of one head a block of THREADS threads, with the arithmetic
-// of decode_step.cuh attention_head (f32 logits and exponentials, their
-// sum dividing P.V at the end) and its latency cut: a thread a row for the
+// Attention of one head a block of THREADS threads: f32 logits q . k
+// times the scale, exponentials of their difference from the maximum, P.V
+// divided by their sum at the end (the plain version's softmax), with
+// the latency cut: a thread a row for the
 // logits (one round: THREADS >= rows up to 512), the row's 16-byte loads
 // issued together; P.V by row groups with eight rows' loads in flight;
 // the groups' partials summed in a two-level tree. The K / V rows are
@@ -489,8 +316,9 @@ struct MoeUp {
 };
 
 // The MoE's first GEMV with the router folded in. Every block normalises
-// r2 (LayerNorm 2), rounds it to T and routes it (decode_step.cuh route:
-// E logits, the rank top-k, softmax over the selected raw logits; block 0
+// r2 (LayerNorm 2), rounds it to T and routes it (E logits, the rank
+// top-k of common.cuh expert_rank, softmax over the selected raw logits
+// from the first one's; block 0
 // stores x2, the ids and the weights for the second GEMV), then a warp a
 // unit s F + j: rows j and F + j of the shared expert's (slot 0) or the
 // s-th selected expert's [w1|wg], act[unit] = h * silu(g). Before the
@@ -546,7 +374,7 @@ chain_moe_up_kernel(MoeUp u, MoeWeights<T, W> m) {
   }
   __syncthreads();
   if (blockIdx.x == 0) {
-    float den = 0.f;  // route()'s softmax, in its order
+    float den = 0.f;  // the softmax's sum, in selection order
     for (int i = 0; i < u.k_top; ++i) den += expf(sv[i] - sv[0]);
     for (int i = threadIdx.x; i < u.k_top; i += blockDim.x) {
       u.sel[i] = sid[i];

@@ -29,7 +29,7 @@ SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu",
            "decode_batch.cu", "flash_attention_dropout.cu",
            "decode_variant.cu", "decode_stack.cu")
 HEADERS = ("common.cuh", "batch_decode.cuh", "decode_step.cuh",
-           "attention_mma.cuh")
+           "decode_rows.cuh", "attention_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,6 +121,13 @@ class DecodeLayerArgs(ctypes.Structure):
 
 
 MAX_STACK_LAYERS = 16  # csrc/decode_stack.cu kMaxLayers
+MAX_STACK_SPLITS = 16  # csrc/decode_stack.cu kMaxSplits
+STACK_TILE_ROWS = 64   # csrc/decode_stack.cu kTileRows
+# csrc/decode_stack.cu's probe: phase kinds a layer (Kind) and the u64
+# stamps and u32 counters of its buffer (kProbeSlots)
+STACK_PROBE_KINDS = ("qkv", "self_attention", "wo", "cross_q",
+                     "cross_attention", "cwo", "ffn_up_router", "down")
+STACK_PROBE_SLOTS = len(STACK_PROBE_KINDS) * MAX_STACK_LAYERS + 2
 
 
 class StackLayerArgs(ctypes.Structure):
@@ -137,13 +144,13 @@ class StackArgs(ctypes.Structure):
     """Mirror of ``V2MStack`` in csrc/decode_stack.cu (same order)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "y", "rope_cos", "rope_sin", "work", "sel",
+        "x", "y", "rope_cos", "rope_sin", "work", "attn", "sync", "sel",
         "token_root", "token_attr", "key",
         "emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b",
-        "dn_scale", "dn_bias", "wout", "bout", "logits")] + [
+        "dn_scale", "dn_bias", "wout", "bout", "logits", "probe")] + [
         (name, ctypes.c_int) for name in (
             "D", "H", "F", "E", "k_top", "S", "Sm", "n_out", "pos",
-            "n_layers", "grid", "smem")] + [
+            "n_layers", "grid", "smem", "max_splits")] + [
         ("layers", StackLayerArgs * MAX_STACK_LAYERS)]
 
 

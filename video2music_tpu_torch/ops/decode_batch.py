@@ -57,18 +57,8 @@ import torch
 
 from .. import kernels
 from .decode_layer import (_dot, _layer_norm, _rope_at, _rotate,
-                           _swiglu, attend, embed_plain, selw_floats)
-
-# When a list, every MoE router of the decode steps, kernel or plain, at
-# B=1 or B>1 (here and in ops/decode_variant.py), appends the (B, k) expert
-# ids it chose in selection order, left on the device. chip_smoke.py sets
-# it to compare a kernel step's choices with its plain step's.
-route_log: Optional[list] = None
-
-
-def log_route(ids) -> None:
-    if route_log is not None:
-        route_log.append(ids)
+                           _swiglu, attend, embed_plain, log_route,
+                           selw_floats)
 
 
 # ---------------------------------------------------------------------------

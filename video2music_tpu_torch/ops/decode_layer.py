@@ -272,6 +272,23 @@ def _swiglu(x, w1g, b1g, w2, b2, s1g=None, s2=None, dt=None):
     return _dot(h, w2, s2, dt) + b2.float()
 
 
+# When a list, every MoE router of the decode steps, kernel or plain, at
+# B=1 or B>1 (here, in ops/decode_stack.py, ops/decode_batch.py and
+# ops/decode_variant.py), appends the (B, k) expert ids it chose in
+# selection order, left on the device. chip_smoke.py sets it to compare a
+# kernel step's choices with its plain step's.
+route_log: Optional[list] = None
+
+
+def log_route(ids) -> None:
+    if route_log is not None:
+        route_log.append(ids)
+
+
+def logging_routes() -> bool:
+    return route_log is not None
+
+
 def _moe(x2, p, k_top: int, dt=None):
     """Top-k shared-expert MoE at one token: first index wins a tie,
     softmax over the selected raw logits, shared expert divided by k.
@@ -285,6 +302,7 @@ def _moe(x2, p, k_top: int, dt=None):
         sel.append(e)
         vals.append(remaining.gather(0, e))
         remaining = remaining.index_fill(0, e, float("-inf"))
+    log_route(torch.cat(sel).view(1, k_top))
     vals = torch.cat(vals)
     exps = torch.exp(vals - vals[0])
     w = exps / exps.sum()
@@ -483,6 +501,8 @@ def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     status = kernels.library().v2m_decode_layer(code, ctypes.byref(a),
                                                 kernels.stream_of(k_cache))
     kernels.check(status, what)
+    if deep:
+        log_route(sel[:k_top].view(1, k_top))
     return y, logits
 
 

@@ -38,8 +38,8 @@ import torch
 
 from .. import kernels
 from .decode_layer import (decode_layer_plain, embed_plain,
-                           head_plain, pack_decoder_layers, pack_ends,
-                           workspace_size)
+                           head_plain, log_route, logging_routes,
+                           pack_decoder_layers, pack_ends, workspace_size)
 
 _LAYER_KEYS = ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
                "norm_scale", "norm_bias", "w1g", "b1g", "w2", "b2")
@@ -126,6 +126,13 @@ def decode_monolith_plain(token_root, token_attr, key, pos: int, packed,
 # ---------------------------------------------------------------------------
 # the kernel's launch
 # ---------------------------------------------------------------------------
+
+def attention_floats(D: int, n_heads: int) -> int:
+    """f32 scratch of the kernel's split attention (csrc/decode_stack.cu
+    V2MStack.attn): for the self and the cross attention, each head's up
+    to kernels.MAX_STACK_SPLITS splits of (o[head_dim], m, l, 2 pad)."""
+    return 2 * n_heads * kernels.MAX_STACK_SPLITS * (D // n_heads + 4)
+
 
 def _check_run(what: str, layers, caches, head, *, n_heads: int, k_top: int,
                embed: bool, fold_head: bool, x) -> None:
@@ -216,25 +223,83 @@ class _Run:
                             what, "rope tables must be (>=S, head_dim/2)")
             a.rope_cos, a.rope_sin = P(cos), P(sin)
             self.keep.append((cos, sin))
+        # the f32 workspace, the attention splits' triples, the arrival
+        # counters (zero between launches: the kernel zeroes them at its
+        # end) and each layer's expert ids
         self.work = torch.empty(workspace_size(D, F, k_top), device=dev,
                                 dtype=torch.float32)
-        self.sel = torch.empty(k_top, device=dev, dtype=torch.int32)
-        a.work, a.sel = P(self.work), P(self.sel)
+        self.attn = torch.empty(attention_floats(D, n_heads), device=dev,
+                                dtype=torch.float32)
+        self.sync = torch.zeros(2 * n_heads + 6, device=dev,
+                                dtype=torch.int32)
+        self.sel = torch.empty(len(layers) * k_top, device=dev,
+                               dtype=torch.int32)
+        self.moe_layers = [i for i, l in enumerate(layers) if "gate_w" in l]
+        a.work, a.attn, a.sync, a.sel = (P(self.work), P(self.attn),
+                                         P(self.sync), P(self.sel))
         Sm = caches[0][2].shape[0]
         self.n_out = head["wout"].shape[0] if fold_head else D
         a.D, a.H, a.F, a.E, a.k_top = D, n_heads, F, E, k_top
         a.S, a.Sm, a.n_out, a.n_layers = S, Sm, self.n_out, len(layers)
-        self.S, self.D, self.dev, self.dt = S, D, dev, dt
+        self.S, self.D, self.dev, self.dt, self.k_top = S, D, dev, dt, k_top
+        # the splits of a head's attention: one a kernels.STACK_TILE_ROWS
+        # rows of the longer cache, at most kernels.MAX_STACK_SPLITS
+        a.max_splits = min(kernels.MAX_STACK_SPLITS,
+                           -(-max(S, Sm) // kernels.STACK_TILE_ROWS))
         lib = kernels.library()
         smem, blocks = ctypes.c_int(), ctypes.c_int()
         status = lib.v2m_decode_stack_grid(self.code, D, n_heads, F, E,
-                                           k_top, max(S, Sm),
+                                           k_top, a.max_splits,
                                            ctypes.byref(smem),
                                            ctypes.byref(blocks))
         kernels.check(status, what)
         a.smem, a.grid = smem.value, blocks.value
         self.lib = lib
         self.tensors = ()  # the caller's cache tensors (_new_run)
+
+    def probe(self, pos: int, x=None, tokens=None) -> Dict[str, float]:
+        """One launch of the kernel's probe instance (csrc/decode_stack.cu
+        Probe): microseconds of each phase kind summed over the run's
+        layers (from the previous boundary to the last block finishing
+        it), of the embed and the head, and of the grid barriers' waits
+        (from the last block's arrival to block 0's release); and, under
+        "marks_block0" / "marks_last", block 0's and the last block's
+        stamps at the points mark() numbers inside layer 1, in us from
+        block 0's first (None where that block did not pass). Not counted
+        as a launch of the wrapper."""
+        n = kernels.STACK_PROBE_SLOTS
+        marks = 1 + 2 * n + (n + 1) // 2
+        buf = torch.zeros(marks + 64, device=self.dev, dtype=torch.int64)
+        self.args.probe = buf.data_ptr()
+        try:
+            self.launch(pos, x=x, tokens=tokens)
+        finally:
+            self.args.probe = None
+        t = buf.cpu().tolist()
+        kinds = kernels.STACK_PROBE_KINDS
+        slots = [(name, i * len(kinds) + k)
+                 for i in range(self.args.n_layers)
+                 for k, name in enumerate(kinds)]
+        embed_slot = len(kinds) * kernels.MAX_STACK_LAYERS
+        if self.embed:
+            slots.insert(0, ("embed", embed_slot))
+        slots.append(("head" if self.fold_head else "output", embed_slot + 1))
+        out = {name: 0.0 for name, _ in slots}
+        out["barrier_wait"] = 0.0
+        prev = t[0]
+        for name, s in slots:
+            done, left = t[1 + 2 * s], t[2 + 2 * s]
+            out[name] += (done - prev) / 1e3
+            if left:
+                out["barrier_wait"] += (left - done) / 1e3
+            prev = left or done
+        out["total"] = (prev - t[0]) / 1e3
+        m0 = t[marks]
+        out["marks_block0"] = [(v - m0) / 1e3 if v else None
+                               for v in t[marks:marks + 32]]
+        out["marks_last"] = [(v - m0) / 1e3 if v else None
+                             for v in t[marks + 32:marks + 64]]
+        return out
 
     def launch(self, pos: int, x=None, tokens=None) -> torch.Tensor:
         what, a = self.what, self.args
@@ -263,6 +328,10 @@ class _Run:
         status = self.lib.v2m_decode_stack(self.code, ctypes.byref(a),
                                            kernels.stream_of(out))
         kernels.check(status, what)
+        if logging_routes():  # the run's sel is rewritten at every launch
+            k = self.k_top
+            for i in self.moe_layers:
+                log_route(self.sel[i * k:(i + 1) * k].clone().view(1, k))
         return out
 
 

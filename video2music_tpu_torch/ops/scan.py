@@ -12,6 +12,9 @@ import torch
 
 from .. import kernels
 
+# csrc/selective_scan.cu kMaxState: 32 lanes x 32 states a lane
+MAX_D_STATE = 1024
+
 
 def selective_scan_plain(x, delta, A, B, C, D):
     """h[t] = exp(delta[t] A) h[t-1] + delta[t] B[t] x[t];
@@ -48,8 +51,10 @@ def selective_scan(x, delta, A, B, C, D):
     kernels.require(all(t.is_cuda and t.is_contiguous()
                         for t in (x, delta, B, C)), what,
                     "x, delta, B and C must be contiguous CUDA tensors")
-    kernels.require(N in (4, 8, 16, 32), what,
-                    f"d_state {N} not built (4, 8, 16 or 32)")
+    kernels.require(1 <= N <= MAX_D_STATE, what,
+                    f"d_state {N} outside 1..{MAX_D_STATE}: a channel's "
+                    f"states are spread over the 32 lanes of a warp, "
+                    f"{MAX_D_STATE // 32} a lane in registers")
     A32 = A.to(device=x.device, dtype=torch.float32).contiguous()
     D32 = D.to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)
