@@ -92,7 +92,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   8. V3 teacher-forced: 16 steps of the variant kernel step against the
      plain step at B=1 and B=8, for 3.1 and 3.2, float32 and bfloat16;
      then the int8-weight B=1 step of each, expert ids compared too;
-  8b. deep model: a full-width 2.2 with 20 decoder layers, 16
+  8a. wirings: full-width bf16 Video2music for the base AMT, 1.1,
+     1.3.4, 2.0, KAN 2.3 and 2.2 with grouped-query attention (kv_heads
+     2), random weights from seed 0: where the variant kernels cover the
+     wiring, 16 teacher-forced steps of the kernel step against the plain
+     step at B=1 and B=8 (float32 and bfloat16, expert ids compared) and
+     rows 8-10 on the wiring's own packed layers (the base AMT's RPR +
+     ReLU layer, the 1.3.4 MLP-expert layer without a shared expert:
+     ms_rpr / ms_mlp with their bounds); for each, one 300 s generate and
+     one generate_batch at B=16 (every clip checked, ms/token, clips/s),
+     the launches of those two calls equal to what the path implies (no
+     decode kernel for 2.3 and GQA, which decode on the plain step), and
+     the decode step profiled at B=1 and B=16;
+  8b. regression zoo: every Mamba-family backbone (mamba, mamba+,
+     moemamba with d_state 1024, bimamba, bimamba+, moe_bimamba+,
+     sharedmoe_bimamba+, and mamba with use_kan) at full width, float32
+     and bfloat16, B=1 and B=16: the forward through the scan kernel
+     against the same weights through the plain scan (bfloat16: at most
+     one position in BF16_ROUTE_SHARE outside BF16_REL, for the MoE
+     routers' near-ties), the scan's launches, the forward ms; the scan on
+     moemamba's own inputs against its plain version (ms_moemamba); the
+     gradients through the scan's wrapper against the plain scan's at
+     d_state 16 and 1024, on the scan alone and through every parameter
+     of mamba and moemamba;
+  8c. deep model: a full-width 2.2 with 20 decoder layers, 16
      teacher-forced steps of "monolith", "stack" and split=False against
      their plain steps, float32 and bfloat16; the cooperative kernel takes
      at most 16 layers, so each step launches it once per run (2, 3, 2);
@@ -1628,7 +1651,7 @@ def plain_backend_step(model, backend):
         segs = ds.pack_decoder_segments(model)
 
         def run_stack(c, r, a, k, pos):
-            x = _embed(model, r, a, k)
+            x = _embed(model, None, r, a, k, pos)
             for s, seg in enumerate(segs):
                 x = ds.decode_segment_plain(x, pos, seg, c[f"sk{s}"],
                                             c[f"sv{s}"], c[f"sck{s}"],
@@ -1639,7 +1662,7 @@ def plain_backend_step(model, backend):
         model, quantize="int8" if backend == "int8" else None)
 
     def run_layers(c, r, a, k, pos):
-        x = _embed(model, r, a, k)
+        x = _embed(model, None, r, a, k, pos)
         for i, p in enumerate(layers):
             x = dl.decode_layer_plain(x, pos, p, c[f"k{i}"], c[f"v{i}"],
                                       c[f"ck{i}"], c[f"cv{i}"], **kw)
@@ -1971,10 +1994,11 @@ def routed_step(step, caches, root, attr, key, pos):
     return logits, routes
 
 
-def route_diffs(pos, got, want):
+def route_diffs(pos, got, want, routed=True):
     """(pos, MoE layer, clip) of every router choice of the kernel step
-    ``got`` that differs from the plain step's ``want``."""
-    fail_unless(len(got) == len(want) > 0,
+    ``got`` that differs from the plain step's ``want``; ``routed``: the
+    step has MoE layers (else neither may log a route)."""
+    fail_unless(len(got) == len(want) and (len(got) > 0) == routed,
                 f"pos {pos}: {len(got)} kernel routes, {len(want)} plain")
     return [(pos, layer, b) for layer, (g, w) in enumerate(zip(got, want))
             for b in (g != w).any(-1).nonzero().flatten().tolist()]
@@ -3018,8 +3042,8 @@ def plain_variant_step(model, batched, quantize=None):
     k_top = model.cfg.moe.n_experts_per_token
     nkw = dict(norm=kw["norm"], pre_norm=kw["pre_norm"])
 
-    def run(c, root, attr, key, pos):
-        x = _embed(model, root, attr, key)
+    def run(c, root, attr, key, pos, token=None):
+        x = _embed(model, token, root, attr, key, pos)
         for i, (p, meta) in enumerate(zip(layers, metas)):
             caches = (c[f"k{i}"], c[f"v{i}"], c[f"ck{i}"], c[f"cv{i}"])
             if not batched:
@@ -3049,6 +3073,7 @@ def v3_teacher_forced_phase(models, cases=((1, None), (8, None))):
 
     for version, v2m in models.items():
         dev = v2m.device
+        routed = any(spec.ffn == "moe" for spec in v2m.amt_cfg.decoder_layers)
         for B, quantize in cases:
             tag = f"V{version} teacher-forced B={B}" + (
                 f" quantize={quantize!r}" if quantize else "")
@@ -3088,7 +3113,8 @@ def v3_teacher_forced_phase(models, cases=((1, None), (8, None))):
                                                     attr, key, pos)
                         want, p_routes = routed_step(plain_step, pc, root,
                                                      attr, key, pos)
-                        diffs += route_diffs(pos, k_routes, p_routes)
+                        diffs += route_diffs(pos, k_routes, p_routes,
+                                             routed)
                         fail_unless(bool(torch.isfinite(got).all()),
                                     f"{tag} pos {pos}: non-finite logits")
                         if dtype == torch.float32:
@@ -3110,6 +3136,421 @@ def v3_teacher_forced_phase(models, cases=((1, None), (8, None))):
                 print(f"{tag} {name}: max abs logit error over 16 positions "
                       f"{worst:.3e}; expert ids differing (pos, MoE layer, "
                       f"clip): {diffs}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8a: the variant wirings at full width
+# ---------------------------------------------------------------------------
+
+# (label, music_gen_version, amt_overrides): full-width wirings; each
+# decodes through the variant kernels where fused_variant_eligible holds
+# (the base AMT, 1.1, 1.3.4, 2.0) and on the plain step where it does not
+# (KAN 2.3, grouped-query attention), as in the JAX sampler
+WIRINGS = (("AMT", None, {}), ("1.1", "1.1", {}), ("1.3.4", "1.3.4", {}),
+           ("2.0", "2.0", {}), ("2.3", "2.3", {}),
+           ("2.2 GQA", "2.2", dict(kv_heads=2)))
+WIRING_KERNELS = ("flash_attention", "decode_variant_layer",
+                  "batched_variant_layer_step", "batched_variant_moe_ffn")
+# (label, decoder layer, key): the layer forms of rows 8-10 timed on a
+# wiring's own packed weights: the base AMT's RPR + ReLU layer and the
+# 1.3.4 deep layer (SiLU-MLP experts, no shared expert)
+WIRING_FORMS = (("AMT", 0, "ms_rpr"), ("1.3.4", -1, "ms_mlp"))
+
+
+def form_bound(n_bytes, flops, peak=PEAK_BF16):
+    """(bound ms, "bytes" or "operations") as note_bound computes them."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wiring_form_phase(report, v2m, layer_idx, key):
+    """Rows 8-10 on one packed decoder layer of ``v2m``'s model against
+    their plain versions at pos 150 on random caches, float32 and
+    bfloat16: the B=1 layer and the batched layer (and the MoE half of a
+    deep layer) at B=16, times and bounds kept under ``key`` (a row's
+    ms_rpr / ms_mlp beside its main ms)."""
+    import torch
+    from video2music_tpu_torch.decode.fused import _variant_setup
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
+    from video2music_tpu_torch.ops import decode_variant as dv
+    from video2music_tpu_torch.ops.decode_batch import route_plain
+
+    cfg, dev = v2m.amt_cfg, v2m.device
+    D, S, Sm = cfg.d_model, cfg.max_seq_chord, cfg.max_seq_video
+    k_top = cfg.moe.n_experts_per_token
+    pos = S // 2
+    gen = torch.Generator().manual_seed(97)
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        el = torch.tensor([], dtype=dtype).element_size()
+        model, _ = v2m._models(name)
+        layers, metas, kw = _variant_setup(model)
+        p, meta = layers[layer_idx], metas[layer_idx]
+        tag = f"{key[3:]} ({meta.attn}/{meta.ffn}/{meta.expert}" \
+              f"{'' if meta.shared else ', no shared expert'})"
+        deep = meta.ffn == "moe"
+        nkw = dict(norm=kw["norm"], pre_norm=kw["pre_norm"])
+        keys = [k for k in VARIANT_ATTN_KEYS if k in p]
+        ffn = VARIANT_SHARED_KEYS if deep else ("fw1g", "fb1g", "fw2", "fb2")
+        ffn = [k for k in ffn if k in p]
+        rpr = (pos + 1) * D * 4 if "er" in p else 0  # the Er rows read
+        for B in (1, 16):
+            lead = () if B == 1 else (B,)
+            kc, vc = (torch.randn(*lead, S, D, generator=gen).to(dev, dtype)
+                      for _ in range(2))
+            kx, vx = (torch.randn(*lead, Sm, D, generator=gen).to(dev, dtype)
+                      for _ in range(2))
+            x = torch.randn(B, D, generator=gen).to(dev, dtype)
+            k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            args1 = (x, pos, p, meta, k1, v1, kx, vx)
+            args2 = (x, pos, p, meta, k2, v2, kx, vx)
+            if B == 1:
+                rows = torch.zeros(cfg.moe.n_experts)
+                rows[:k_top] = 1
+                kernel = lambda: dv.decode_variant_layer_step(
+                    *args1, k_top=k_top, **kw)
+                plain = lambda: dv.decode_variant_layer_plain(
+                    *args2, k_top=k_top, **kw)
+                rname = "decode_variant_layer"
+                w_b, w_f = layer_work(p, keys + ffn)
+                e_b, e_f = layer_work(p, EXPERT_KEYS, rows) if deep \
+                    else (0, 0)
+                a_b, a_f = variant_attention_work(p, 1, pos, Sm, D, el)
+                work = (w_b + e_b + a_b + rpr + 2 * nbytes(x),
+                        w_f + e_f + a_f + 2 * (pos + 1) * D)
+            else:
+                kernel = lambda: dbv.batched_variant_layer_step(*args1, **kw)
+                plain = lambda: dbv.batched_variant_layer_plain(*args2, **kw)
+                rname = "batched_variant_layer_step"
+                w_b, w_f = layer_work(p, keys + ([] if deep else ffn))
+                a_b, a_f = variant_attention_work(p, B, pos, Sm, D, el)
+                work = (w_b + a_b + rpr + 2 * nbytes(x),
+                        B * w_f + a_f + B * 2 * (pos + 1) * D)
+            got, want = kernel(), plain()
+            err = check_close(f"{rname} {tag} B={B}", dtype, got, want)
+            check_close(f"{rname} {tag} B={B} k row", dtype, k1[..., pos, :],
+                        k2[..., pos, :])
+            note_error(report, rname, dtype, err)
+            note_times(report, rname, dtype, kernel, plain, key=key)
+            if dtype == torch.bfloat16:
+                report[rname]["form_bound_" + key] = form_bound(*work)
+            if B == 1 or not deep:
+                continue
+            kernel = lambda: dbv.batched_variant_moe_ffn(
+                want, p, meta, k_top=k_top, **nkw)
+            plain = lambda: dbv.batched_variant_moe_plain(
+                want, p, meta, k_top=k_top, **nkw)
+            err = check_close(f"batched_variant_moe_ffn {tag} B={B}", dtype,
+                              kernel(), plain())
+            note_error(report, "batched_variant_moe_ffn", dtype, err)
+            note_times(report, "batched_variant_moe_ffn", dtype, kernel,
+                       plain, key=key)
+            if dtype == torch.bfloat16:
+                rows = (route_plain(want, p["gate_w"], p["gate_b"], k_top)
+                        != 0).sum(0).cpu()
+                s_b, s_f = layer_work(p, [k for k in VARIANT_SHARED_KEYS
+                                          if k in p] + ["norm_scale",
+                                                        "norm_bias"])
+                e_b, e_f = layer_work(p, EXPERT_KEYS, rows)
+                report["batched_variant_moe_ffn"]["form_bound_" + key] = \
+                    form_bound(s_b + e_b + 2 * nbytes(want), B * s_f + e_f)
+
+
+def wirings_phase(card, report):
+    """Each wiring of WIRINGS at full width (d_model 512, 8 heads, d_ff
+    1024, 6 + 6 layers, 300 positions, 6 experts top-2; bimamba+
+    regression), random weights from seed 0, bfloat16 serving: the kernel
+    step held to the plain step under teacher forcing at B=1 and B=8 (f32
+    and bf16, expert ids compared) where a kernel covers the wiring; one
+    300 s generate and one generate_batch at B=16, every clip checked,
+    ms/token and clips/s; the kernel launches of those two calls equal to
+    what the path implies (none of the decode kernels for a plain-step
+    wiring); each wiring's decode step profiled at B=1 and B=16; rows 8-10
+    in the base AMT's RPR + ReLU form and the 1.3.4 MLP-expert form
+    (WIRING_FORMS)."""
+    import torch
+    from video2music_tpu_torch.ops.decode_variant import (
+        fused_variant_eligible)
+    from video2music_tpu_torch.pipeline.api import Video2music
+
+    T = 300
+    out = report.setdefault("wirings", {})
+    for label, version, over in WIRINGS:
+        t0 = time.perf_counter()
+        v2m = Video2music(music_gen_version=version, seed=0, device="cuda",
+                          amt_overrides=over or None)
+        eligible = fused_variant_eligible(v2m.amt_cfg)
+        print(f"built full-width Video2music (AMT {label} + bimamba+) in "
+              f"{time.perf_counter() - t0:.1f} s; decode through "
+              f"{'the variant kernels' if eligible else 'the plain step'}")
+        if eligible:
+            v3_teacher_forced_phase({label: v2m}, ((1, None), (8, None)))
+        for form_label, layer_idx, key in WIRING_FORMS:
+            if form_label == label:
+                wiring_form_phase(report, v2m, layer_idx, key)
+        row = out[label] = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            v2m.generate(features=synthetic_features(30, 99),  # warm-up
+                         output_dir=os.path.join(tmp, "warm_up"))
+            reqs, temps = serving_requests(2, 500)
+            v2m.generate_batch(reqs, temperature=temps,
+                               output_dir=os.path.join(tmp, "warm_up_b"))
+            for fn in wrappers().values():
+                fn.launches = 0
+            req = REQUESTS[0]
+            t0 = time.perf_counter()
+            res = v2m.generate(primer=req["primer"], key=req["key"],
+                               temperature=req["temperature"],
+                               features=synthetic_features(T, 7),
+                               output_dir=os.path.join(tmp, "clip"), seed=7)
+            wall = time.perf_counter() - t0
+            check_clip(f"{label} request", res, req["primer"], T,
+                       v2m.last_regression["instrument"],
+                       v2m.last_regression["ln_nd"])
+            tm = v2m.last_timings
+            row["ms_token"] = tm["decode"] / (T - 1)
+            row["b1_wall_s"] = wall
+            print(f"{label} request (300 s, primer {req['primer']!r}): wall "
+                  f"{wall:.3f} s, encode {tm['encode']:.3f} ms, decode "
+                  f"{tm['decode']:.1f} ms = {row['ms_token']:.4f} ms/token, "
+                  f"regression {tm['regression']:.3f} ms [{card}]")
+            B = 16
+            reqs, temps = serving_requests(B, 3000 + B)
+            t0 = time.perf_counter()
+            results = v2m.generate_batch(reqs, temperature=temps, seed=B,
+                                         output_dir=os.path.join(tmp, "b16"))
+            wall = time.perf_counter() - t0
+            fail_unless(len(results) == B, f"B={B}: {len(results)} results")
+            check_batch(f"{label} generate_batch B={B}", v2m, reqs, results)
+            tm = v2m.last_timings
+            row["clips_s_b16"] = B / wall
+            row["ms_step_b16"] = tm["decode"] / (T - 1)
+            print(f"{label} generate_batch B={B}: wall {wall:.3f} s = "
+                  f"{B / wall:.2f} clips/s, decode {tm['decode']:.1f} ms = "
+                  f"{row['ms_step_b16']:.4f} ms/step [{card}]")
+        implied = [path_launches(v2m, w, plain_decode=not eligible)
+                   for w in (1, B)]
+        names = tuple(n for n in WIRING_KERNELS + ("selective_scan",)
+                      if any(i[n] for i in implied))
+        check_launches(report, v2m, [1, B], names, names,
+                       key="launches_wirings", plain_decode=not eligible)
+        model, _ = v2m._models("bfloat16")
+        row["step"] = {f"B={b}": profile_steps(model, b, card)
+                       for b in (1, 16)}
+        del v2m, model
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the Mamba-family regression backbones at full width
+# ---------------------------------------------------------------------------
+
+# (reg_model, use_kan): every Mamba-family backbone, and the KAN
+# projections on mamba
+ZOO = (("mamba", False), ("mamba+", False), ("moemamba", False),
+       ("bimamba", False), ("bimamba+", False), ("moe_bimamba+", False),
+       ("sharedmoe_bimamba+", False), ("mamba", True))
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """Run the Mamba blocks through the plain scan (the comparison's
+    reference) while the context is open."""
+    from video2music_tpu_torch.models import mamba
+    from video2music_tpu_torch.ops.scan import selective_scan_plain
+    kernel = mamba.selective_scan
+    mamba.selective_scan = selective_scan_plain
+    try:
+        yield
+    finally:
+        mamba.selective_scan = kernel
+
+
+def bf16_positions(name, got, want):
+    """bf16 regression outputs (B, L, n) against the plain scan's: a
+    position (clip, second) may leave BF16_REL, relative to the largest
+    magnitude, only rarely (at most one in BF16_ROUTE_SHARE): the scan's
+    one-ulp differences can flip a MoE router's near-tie and send that
+    position to other experts, as in the teacher-forced phases."""
+    scale = max(want.float().abs().max().item(), 1e-30)
+    rel = (got.float() - want.float()).abs().amax(-1) / scale
+    outliers = int((rel > BF16_REL).sum())
+    n = rel.numel()
+    ok = outliers * BF16_ROUTE_SHARE <= n
+    print(f"  {name} [bfloat16] max_rel {rel.max().item():.3e}, positions "
+          f"outside rel {BF16_REL}: {outliers} of {n} "
+          f"{'ok' if ok else 'FAIL'}")
+    fail_unless(ok, f"{name} [bfloat16]: {outliers} of {n} positions "
+                f"disagree with the plain scan's")
+
+
+def scan_grads(fn, args, g):
+    import torch
+    leaves = [a.detach().requires_grad_() for a in args]
+    y = fn(*leaves)
+    return y, torch.autograd.grad(y, leaves, g)
+
+
+def regression_zoo_phase(card, report):
+    """Each ZOO backbone at full width (RegressionConfig defaults: d_model
+    64, 2 layers, d_hidden 1024, so moemamba runs d_state 1024 with d_conv
+    8), random weights from seed 0, over a 300 s clip at B=1 and B=16:
+    the forward through the scan kernel against the same weights through
+    the plain scan, float32 and bfloat16, the scan's launches per forward,
+    the forward ms (CUDA events); the scan inside moemamba on the inputs
+    the path gives it against its plain version (times under
+    ms_moemamba); then torch.autograd.grad through the kernel's wrapper
+    against the plain scan's gradients at d_state 16 and 1024, on the scan
+    alone and through the mamba and moemamba models (every parameter's
+    gradient)."""
+    import copy
+
+    import torch
+    from video2music_tpu_torch.core.config import RegressionConfig
+    from video2music_tpu_torch.models import VideoRegression, mamba
+    from video2music_tpu_torch.ops.scan import (selective_scan,
+                                                selective_scan_plain)
+    from video2music_tpu_torch.weights import init_weights_
+
+    dev = torch.device("cuda")
+    out = report.setdefault("zoo", {})
+    feats = [synthetic_features(300, 60 + b) for b in range(16)]
+    selective_scan.launches = 0
+    launches = 0
+    for rm, use_kan in ZOO:
+        tag = rm + (" use_kan" if use_kan else "")
+        cfg = RegressionConfig(reg_model=rm, total_vf_dim=768 + 6,
+                               use_kan=use_kan)
+        model = init_weights_(VideoRegression(cfg),
+                              torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+        per_forward = cfg.n_layers * (2 if "bimamba" in rm else 1)
+        row = out[tag] = {}
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            m = model if dtype == torch.float32 else \
+                copy.deepcopy(model).to(dtype)
+            for B in (1, 16):
+                sem = torch.stack([torch.as_tensor(f["semantic"])
+                                   for f in feats[:B]]).to(dev, dtype)
+                emo = torch.stack([torch.as_tensor(f["emotion"])
+                                   for f in feats[:B]]).to(dev, dtype)
+                with torch.no_grad():
+                    n0 = selective_scan.launches
+                    got = m(sem, None, None, emo)
+                    fail_unless(selective_scan.launches - n0 == per_forward,
+                                f"{tag}: {selective_scan.launches - n0} scan"
+                                f" launches a forward, {per_forward} implied")
+                    launches += per_forward
+                    with plain_scan():
+                        want = m(sem, None, None, emo)
+                for i, part in enumerate(("ln_nd", "instrument")):
+                    fail_unless(bool(torch.isfinite(got[i]).all()),
+                                f"{tag}: non-finite {part}")
+                    if dtype == torch.float32:
+                        check_close(f"regression {tag} B={B} {part}", dtype,
+                                    got[i], want[i])
+                    else:
+                        bf16_positions(f"regression {tag} B={B} {part}",
+                                       got[i], want[i])
+                with torch.no_grad():
+                    n0 = selective_scan.launches
+                    ms = eager_ms(lambda: m(sem, None, None, emo), iters=10)
+                    selective_scan.launches = n0  # timing, not the path
+                row[f"ms_b{B}_{name}"] = ms
+                print(f"  regression {tag} forward B={B} [{name}]: "
+                      f"{ms:.3f} ms (eager, CUDA events) [{card}]")
+        if rm == "moemamba":  # row 12 on the path's own inputs
+            seen = []
+            record = lambda *a: seen.append(a) or selective_scan_plain(*a)
+            for name in ("float32", "bfloat16"):
+                dtype = getattr(torch, name)
+                m = model if dtype == torch.float32 else \
+                    copy.deepcopy(model).to(dtype)
+                sem = torch.as_tensor(feats[0]["semantic"])[None].to(dev,
+                                                                     dtype)
+                emo = torch.as_tensor(feats[0]["emotion"])[None].to(dev,
+                                                                    dtype)
+                seen.clear()
+                mamba.selective_scan, kernel = record, mamba.selective_scan
+                try:
+                    with torch.no_grad():
+                        m(sem, None, None, emo)
+                finally:
+                    mamba.selective_scan = kernel
+                args = seen[0]
+                n0 = selective_scan.launches
+                err = check_close(
+                    f"selective_scan in moemamba {tuple(args[0].shape)} "
+                    f"N={args[2].shape[1]}", dtype, selective_scan(*args),
+                    selective_scan_plain(*args))
+                note_error(report, "selective_scan", dtype, err)
+                note_times(report, "selective_scan", dtype,
+                           lambda: selective_scan(*args),
+                           lambda: selective_scan_plain(*args),
+                           plain_iters=3, key="ms_moemamba")
+                selective_scan.launches = n0
+                if dtype == torch.bfloat16:
+                    x, _, A, Bm, _, _ = args
+                    b, L, ED = x.shape
+                    N = A.shape[1]
+                    # as the kernels phase: 8 f32 operations a (step,
+                    # channel, state)
+                    report["selective_scan"]["form_bound_ms_moemamba"] = \
+                        form_bound(nbytes(*args) + nbytes(x),
+                                   8 * b * L * ED * N, PEAK_F32)
+        del model
+    fail_unless(selective_scan.launches == launches,
+                f"selective_scan: {selective_scan.launches} launches over the"
+                f" zoo's forwards, {launches} implied")
+    report["selective_scan"]["launches_zoo"] = launches
+    # gradients through the wrapper (CUDA forward, recomputed backward)
+    gen = torch.Generator().manual_seed(31)
+    for N in (16, 1024):
+        b, L, ED = 2, 300, 128
+        x = torch.randn(b, L, ED, generator=gen).to(dev)
+        dt = (torch.rand(b, L, ED, generator=gen) * 0.1).to(dev)
+        A = (-0.5 - 4 * torch.rand(ED, N, generator=gen)).to(dev)
+        Bm, Cm = (torch.randn(b, L, N, generator=gen).to(dev)
+                  for _ in range(2))
+        Dv = torch.randn(ED, generator=gen).to(dev)
+        g = torch.randn(b, L, ED, generator=gen).to(dev)
+        y, got = scan_grads(selective_scan, (x, dt, A, Bm, Cm, Dv), g)
+        fail_unless(y.grad_fn is not None,
+                    "selective_scan on CUDA tensors: no grad_fn")
+        _, want = scan_grads(selective_scan_plain, (x, dt, A, Bm, Cm, Dv), g)
+        for part, a, w in zip(("x", "delta", "A", "B", "C", "D"), got, want):
+            check_close(f"selective_scan grad d{part} N={N}", torch.float32,
+                        a, w, atol=F32_RTOL * w.abs().max().item())
+    for rm in ("mamba", "moemamba"):
+        cfg = RegressionConfig(reg_model=rm, total_vf_dim=768 + 6)
+        model = init_weights_(VideoRegression(cfg),
+                              torch.Generator().manual_seed(0)).to(dev)
+        sem = torch.as_tensor(feats[0]["semantic"])[None].to(dev)
+        emo = torch.as_tensor(feats[0]["emotion"])[None].to(dev)
+        params = [p for p in model.parameters() if p.requires_grad]
+
+        def grads():
+            ln_nd, inst = model(sem, None, None, emo)
+            return torch.autograd.grad(ln_nd.square().mean() + inst.mean(),
+                                       params)
+        got = grads()
+        with plain_scan():
+            want = grads()
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        worst = 0.0
+        for n, a, w in zip(names, got, want):
+            fail_unless(bool(torch.isfinite(a).all()) and
+                        (a.abs().max() > 0 or w.abs().max() == 0),
+                        f"{rm} grad {n}: missing or non-finite")
+            abs_err, rel = errors(a, w)
+            worst = max(worst, rel)
+            fail_unless(rel <= 1e-3, f"{rm} grad {n}: relative error {rel}")
+        print(f"  {rm} gradients through the scan kernel against the plain "
+              f"scan: {len(names)} parameters, worst relative error "
+              f"{worst:.3e} (limit 1e-3)")
+        del model
 
 
 # ---------------------------------------------------------------------------
@@ -3523,6 +3964,9 @@ def main() -> int:
           ((1, None), (8, None), (1, "int8")))
     del models
     torch.cuda.empty_cache()
+    phase("wirings", wirings_phase, card, report)
+    phase("regression zoo", regression_zoo_phase, card, report)
+    torch.cuda.empty_cache()
     phase("deep model", deep_model_phase, card)
     torch.cuda.empty_cache()
     phase("train", train_phase, card, report)
@@ -3543,16 +3987,24 @@ def main() -> int:
                    max_abs_err_f32=r["err"][torch.float32],
                    ms_f32=f32[0], plain_ms_f32=f32[2])
         for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h", "ms_int8",
-                    "ms_int8_b64", "ms_d128"):  # other shapes; int8
-            # weights or caches; head size 128
+                    "ms_int8_b64", "ms_d128", "ms_rpr", "ms_mlp",
+                    "ms_moemamba"):  # other shapes; int8 weights or
+            # caches; head size 128; the RPR / MLP-expert layer forms and
+            # the scan inside moemamba, each with its own bound
             if key in r:
                 t = r[key][torch.bfloat16]
                 row[key], row["plain_" + key] = t[0], t[2]
                 row[key + "_f32"] = r[key][torch.float32][0]
             if "library_" + key in r:
                 row["library_" + key] = r["library_" + key]
-        if "launches_2h" in r:  # flash attention at the V3 encoder's 2H
-            row["launches_2h"] = r["launches_2h"]
+            if "form_bound_" + key in r:  # (ms, "bytes" / "operations")
+                row["bound_" + key], row["bound_by_" + key] = \
+                    r["form_bound_" + key]
+        # flash attention at the V3 encoder's 2H; the launches of the
+        # wirings' and the regression zoo's paths
+        for key in ("launches_2h", "launches_wirings", "launches_zoo"):
+            if key in r:
+                row[key] = r[key]
         if "err_int8" in r:  # int8 weights (decode layers), int8 KV caches
             row.update(max_abs_err_int8=r["err_int8"][torch.bfloat16],
                        max_abs_err_int8_f32=r["err_int8"][torch.float32],
@@ -3581,6 +4033,9 @@ def main() -> int:
     print(f"int8 KV at B=16: {json.dumps(report['int8_kv_b16'])}")
     print(f"V3.1 int8 weights: {json.dumps(report['v3_int8'])}")
     print(f"B=1 decode step: {json.dumps(report['b1_step'])}")
+    print(f"wirings (this run): {json.dumps(report['wirings'])}")
+    print(f"regression zoo, forward ms (this run): "
+          f"{json.dumps(report['zoo'])}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

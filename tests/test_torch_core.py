@@ -105,3 +105,33 @@ def test_serving_module_is_a_copy():
     with open(os.path.join(ROOT, "video2music_tpu_torch", "pipeline",
                            "serving.py")) as f:
         assert f.read() == want
+
+
+@pytest.mark.parametrize("path", [("features", "chord2vec.py"),
+                                  ("assets", "chord_word2vec.npz")])
+def test_chord_table_files_are_copies(path):
+    """The port's chord2vec module (its imports already relative) and the
+    trained chord table asset, byte for byte."""
+    with open(os.path.join(ROOT, "video2music_tpu", *path), "rb") as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "video2music_tpu_torch", *path), "rb") as f:
+        assert f.read() == want
+
+
+@pytest.mark.parametrize("table", ["word2vec", "word2vec_keyed",
+                                   "deterministic"])
+def test_chord_tables_equal(table):
+    """The tables the port's model loads for ``chord_table`` (512-d, and
+    the deterministic table the JAX model takes at other dims) equal the
+    JAX package's."""
+    from video2music_tpu.features import chord2vec as JW
+    from video2music_tpu_torch.models.amt import chord_table
+    for dim in (512, 24):
+        cfg = PCFG.amt_config("1.1", chord_embed=True, chord_embed_dim=dim,
+                              chord_table=table)
+        if table == "deterministic" or dim != 512:
+            want = JW.deterministic_chord_table(dim)
+        else:
+            want = JW.word2vec_chord_table(
+                dim, positional=table == "word2vec")
+        np.testing.assert_array_equal(chord_table(cfg).numpy(), want)

@@ -17,7 +17,7 @@ from video2music_tpu.ops.pallas_attention import flash_attention as jax_flash
 from video2music_tpu_torch.ops import decode_layer as port_decode
 from video2music_tpu_torch.ops.embeddings import apply_rope
 from video2music_tpu_torch.ops.flash_attention import flash_attention
-from video2music_tpu_torch.ops.moe import SharedMoE
+from video2music_tpu_torch.ops.moe import MoELayer as SharedMoE
 from video2music_tpu_torch.ops.norms import LayerNorm
 from video2music_tpu_torch.ops.scan import selective_scan
 from video2music_tpu_torch.weights import _put_ffn

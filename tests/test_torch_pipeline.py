@@ -220,8 +220,15 @@ def test_outside_the_slice_raises(pair, tmp_path, case):
             Video2music(device="cpu", amt_checkpoint="ckpt", **KW)
         elif case == "backbone":
             Video2music(device="cpu", **dict(KW, reg_model="bigru"))
-        else:  # wiring
-            Video2music(device="cpu", **dict(KW, music_gen_version="1.1"))
+        else:  # wiring: every wiring serves; training through
+            # differential attention is not ported
+            model = Video2music(device="cpu", **dict(
+                KW, music_gen_version="3.1")).model.train()
+            L = 5
+            ids = torch.zeros(1, L, dtype=torch.long)
+            model(ids, ids, ids, torch.zeros(1, L, 768), torch.zeros(1, 1),
+                  torch.zeros(1, L), torch.zeros(1, L), torch.zeros(1, L, 6),
+                  deterministic=False, generator=torch.Generator())
 
 
 def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):

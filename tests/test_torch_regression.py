@@ -1,7 +1,8 @@
-"""The port's bimamba+ regression against the JAX package (CPU, f32): the
-plain selective scan against the Pallas kernel in interpret mode and the
-associative-scan path, and the full-default VideoRegression through
-regression_from_jax."""
+"""The port's Mamba-family regression against the JAX package (CPU, f32):
+the plain selective scan against the Pallas kernel in interpret mode and
+the associative-scan path, the scan wrapper's gradients against jax.vjp,
+the full-default bimamba+ VideoRegression and every other Mamba-family
+backbone (and use_kan on mamba) through regression_from_jax."""
 
 import jax
 import jax.numpy as jnp
@@ -89,3 +90,72 @@ def test_bimamba_plus_regression_matches_jax(rng):
                                rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(inst.numpy(), np.asarray(want_inst),
                                rtol=2e-4, atol=2e-5)
+
+
+# (reg_model, use_kan): the six Mamba-family backbones besides bimamba+,
+# and the KAN projections on mamba
+ZOO = [("mamba", False), ("mamba+", False), ("moemamba", False),
+       ("bimamba", False), ("moe_bimamba+", False),
+       ("sharedmoe_bimamba+", False), ("mamba", True)]
+
+
+@pytest.mark.parametrize("reg_model,use_kan", ZOO,
+                         ids=lambda v: str(v))
+def test_regression_backbone_matches_jax(reg_model, use_kan, rng):
+    """Each backbone at d_model 16, d_hidden 32 (so moemamba runs d_state
+    32, d_conv 8, and its MoE experts the odd width 2 d_model + 1 = 33), 2
+    layers, over a 24-second clip, through regression_from_jax."""
+    cfg = RegressionConfig(reg_model=reg_model, total_vf_dim=10 + 6,
+                           d_model=16, d_hidden=32, use_kan=use_kan)
+    L = 24
+    sem = rng.standard_normal((2, L, 10)).astype(np.float32)
+    emo = rng.uniform(size=(2, L, 6)).astype(np.float32)
+    jr = JaxRegression(cfg=cfg)
+    zeros = np.zeros((2, L), np.float32)
+    variables = jr.init({"params": jax.random.PRNGKey(2)}, sem, zeros,
+                        zeros, emo)
+    (want_ln, want_inst), _ = jr.apply(variables, sem, zeros, zeros, emo,
+                                       mutable=["moe_state", "metrics"])
+    pr = VideoRegression(cfg).eval()
+    pr.load_state_dict(regression_from_jax(jax.device_get(
+        variables["params"])))
+    with torch.no_grad():
+        ln, inst = pr(torch.from_numpy(sem), None, None,
+                      torch.from_numpy(emo))
+    assert ln.shape == (2, L, 2) and inst.shape == (2, L, 40)
+    np.testing.assert_allclose(ln.numpy(), np.asarray(want_ln),
+                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(inst.numpy(), np.asarray(want_inst),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("reg_model", ["bilstm", "gru", "cnnbigru", "mingru"])
+def test_unported_backbones_raise(reg_model):
+    with pytest.raises(NotImplementedError, match="RNN and minGRU"):
+        VideoRegression(RegressionConfig(reg_model=reg_model))
+
+
+@pytest.mark.parametrize("N", [4, 16])
+def test_selective_scan_gradients_match_jax_vjp(N):
+    """The scan wrapper's backward (autograd through the plain scan,
+    recomputed) against jax.vjp of the JAX associative scan, for all six
+    inputs."""
+    rng = np.random.default_rng(N)
+    b, L, ED = 2, 13, 6
+    x = rng.standard_normal((b, L, ED)).astype(np.float32)
+    delta = rng.uniform(0.01, 0.5, (b, L, ED)).astype(np.float32)
+    A = -rng.uniform(0.5, 4.0, (ED, N)).astype(np.float32)
+    B, C = (rng.standard_normal((b, L, N)).astype(np.float32)
+            for _ in range(2))
+    D = rng.standard_normal(ED).astype(np.float32)
+    g = rng.standard_normal((b, L, ED)).astype(np.float32)
+    args = (x, delta, A, B, C, D)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    y = selective_scan(*leaves)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(g))
+    _, vjp = jax.vjp(jax_scan, *(jnp.asarray(a) for a in args))
+    want = vjp(jnp.asarray(g))
+    for name, a, w in zip(("x", "delta", "A", "B", "C", "D"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)

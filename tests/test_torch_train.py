@@ -37,7 +37,7 @@ from video2music_tpu_torch.data.loader import device_prefetch
 from video2music_tpu_torch.ops import losses as PL
 from video2music_tpu_torch.ops.flash_attention_dropout import (
     flash_attention_dropout_bwd, flash_attention_dropout_fwd)
-from video2music_tpu_torch.ops.moe import SharedMoE
+from video2music_tpu_torch.ops.moe import MoELayer as SharedMoE
 from video2music_tpu_torch.train import (CSV_HEADER, LoopConfig,
                                          create_train_state,
                                          make_amt_eval_step,

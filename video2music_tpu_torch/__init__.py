@@ -7,7 +7,7 @@ the JAX package: the framework-free modules it needs (``core``, ``midi``,
 ``pipeline/serving.py``) are its own copies.
 
 The slices ported so far are product inference from precomputed features
-with AMT 2.2 and the bimamba+ regression: one clip
+with every AMT wiring and the Mamba-family regressions: one clip
 (``pipeline.api.Video2music.generate(features=...)``), a batch of clips
 (``Video2music.generate_batch``) and dynamic batching
 (``pipeline.serving.DynamicBatcher``); and AMT 2.2 training

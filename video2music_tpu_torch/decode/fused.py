@@ -34,14 +34,17 @@ as plain glue. ``kv_quant="int8"`` keeps every self and cross cache as
 int8 rows with f32 row scales (``ksc{i}`` / ``vsc{i}`` / ``cksc{i}`` /
 ``cvsc{i}``), which the attention step reads and appends to.
 
-The variant wirings (the V3 family in this port): one variant kernel per
-layer at B=1 (``init_fused_variant_caches`` / ``make_fused_variant_step``,
-ops/decode_variant.py; ``quantize="int8"`` reads int8 weights) and the
-batched pair at B>1 (``init_fused_batch_variant_caches`` /
-``make_fused_batch_variant_step``, ops/decode_batch_variant.py). The
-embedding and the final norm + head are plain PyTorch glue around the
-kernels, as the JAX steps keep them in XLA; differential layers carry
-2D-wide K caches.
+The variant wirings (the base AMT, V1.x, 2.0 and V3): one variant kernel
+per layer at B=1 (``init_fused_variant_caches`` /
+``make_fused_variant_step``, ops/decode_variant.py; ``quantize="int8"``
+reads int8 weights) and the batched pair at B>1
+(``init_fused_batch_variant_caches`` / ``make_fused_batch_variant_step``,
+ops/decode_batch_variant.py). The embedding (through the frozen chord
+table where the wiring has one, so these steps take the current chord ids
+as ``token=``), the sinusoidal or learned position row at ``pos``, and the
+final norm + head are plain PyTorch glue around the kernels, as the JAX
+steps keep them in XLA (decode/fused.py:352-377); differential layers
+carry 2D-wide K caches.
 
 Not ported: cache segmentation.
 """
@@ -170,7 +173,7 @@ def make_fused_step(model, quantize=None):
     kw = _kw(model, layers)
 
     def step_logits(caches, token_root, token_attr, key, pos: int):
-        x = _embed(model, token_root, token_attr, key)
+        x = _embed(model, None, token_root, token_attr, key, pos)
         for i, layer in enumerate(layers):
             x = decode_layer_step(x, pos, layer, caches[f"k{i}"],
                                   caches[f"v{i}"], caches[f"ck{i}"],
@@ -212,7 +215,7 @@ def make_fused_stack_step(model):
     plans = [{} for _ in runs]
 
     def step_logits(caches, token_root, token_attr, key, pos: int):
-        x = _embed(model, token_root, token_attr, key)
+        x = _embed(model, None, token_root, token_attr, key, pos)
         for (s, a, b, seg), plan in zip(runs, plans):
             x = decode_segment_step(
                 x, pos, seg, *(_rows(caches[f"{n}{s}"], a, b)
@@ -317,7 +320,8 @@ def make_fused_batch_step(model, ends: bool = True,
     rope = rope_tables(model, layers[0]["wqkv"].device)
 
     def step_logits(caches, token_root, token_attr, key, pos: int):
-        x = None if ends else _embed(model, token_root, token_attr, key)
+        x = None if ends else _embed(model, None, token_root, token_attr,
+                                     key, pos)
         for i, layer in enumerate(layers):
             fold = ends and i == 0
             x = batched_layer_step(
@@ -370,25 +374,30 @@ def _variant_setup(model, quantize: Optional[str] = None):
     return layers, metas, kw
 
 
-def _embed(model, token_root, token_attr, key):
-    """The chord embedding of the current tokens: (B,) ids -> (B, D)."""
-    return model._embed_chords(token_root.reshape(-1, 1),
-                               token_attr.reshape(-1, 1), key)[:, 0]
+def _embed(model, token, token_root, token_attr, key, pos: int):
+    """The decoder input of the current tokens at ``pos``: (B,) ids -> (B,
+    D), the chord embedding plus the position row (model.embed_step)."""
+    ids = [None if t is None else t.reshape(-1, 1)
+           for t in (token, token_root, token_attr)]
+    return model.embed_step(*ids, key, pos)[:, 0]
 
 
 def make_fused_variant_step(model, quantize: Optional[str] = None):
-    """Returns ``step_logits(caches, token_root, token_attr, key, pos)`` ->
-    (1, CHORD_SIZE) logits in the model dtype for a variant wiring at B=1:
-    the embedding, one variant kernel per layer, the final norm and head.
-    token_root / token_attr / key are (1,) tensors on the model's device,
-    pos a host int; the self caches are written in place.
+    """Returns ``step_logits(caches, token_root, token_attr, key, pos,
+    token=None)`` -> (1, CHORD_SIZE) logits in the model dtype for a variant
+    wiring at B=1: the embedding and position row, one variant kernel per
+    layer, the final norm and head. token_root / token_attr / key (and the
+    chord ids ``token``, read with the chord table only) are (1,) tensors
+    on the model's device, pos a host int; the self caches are written in
+    place.
     ``quantize="int8"``: the layers read int8 weights with per-row scales
     (ops/decode_variant.py)."""
     layers, metas, kw = _variant_setup(model, quantize)
     k_top = model.cfg.moe.n_experts_per_token
 
-    def step_logits(caches, token_root, token_attr, key, pos: int):
-        x = _embed(model, token_root, token_attr, key)
+    def step_logits(caches, token_root, token_attr, key, pos: int,
+                    token=None):
+        x = _embed(model, token, token_root, token_attr, key, pos)
         for i, (p, meta) in enumerate(zip(layers, metas)):
             x = decode_variant_layer_step(
                 x, pos, p, meta, caches[f"k{i}"], caches[f"v{i}"],
@@ -407,8 +416,9 @@ def make_fused_batch_variant_step(model):
     k_top = model.cfg.moe.n_experts_per_token
     norm = dict(norm=kw["norm"], pre_norm=kw["pre_norm"])
 
-    def step_logits(caches, token_root, token_attr, key, pos: int):
-        x = _embed(model, token_root, token_attr, key)
+    def step_logits(caches, token_root, token_attr, key, pos: int,
+                    token=None):
+        x = _embed(model, token, token_root, token_attr, key, pos)
         for i, (p, meta) in enumerate(zip(layers, metas)):
             x = batched_variant_layer_step(
                 x, pos, p, meta, caches[f"k{i}"], caches[f"v{i}"],

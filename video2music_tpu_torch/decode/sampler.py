@@ -30,20 +30,27 @@ decode/fused.py:
     them as plain glue; ``kv_quant="int8"`` keeps its caches as int8 rows
     with row scales; ``quantize="int8"`` decodes on the plain step with
     fake-quantized weights (and warns unless ``fused="auto"``);
-  * the variant wirings (V3): the variant kernels at B=1 (with int8
+  * the variant wirings (``fused_variant_eligible``: the base AMT, V1.x,
+    2.0 and V3): the variant kernels at B=1 (with int8
     weights for ``quantize="int8"``) and the batched variant pair at B>1;
     "ends", "stack" and "monolith" raise ValueError; ``quantize="int8"``
     at B>1 or with "off" decodes on the plain step with fake-quantized
     weights (and warns at B>1 unless ``fused="auto"``); ``kv_quant`` at
     B>1 warns and keeps full-precision caches;
+  * a wiring no kernel covers (KAN 2.3, grouped-query attention, odd head
+    dims): the plain step whatever ``fused`` says, as in the JAX sampler;
+    ``quantize="int8"`` raises ValueError;
   * "off": the model's plain ``decode_step``, the counterpart of the XLA
     step path.
+A wiring with the frozen chord table reads the current chord ids too
+(``step_logits(..., token=)``); separated root / attr heads raise
+NotImplementedError, as in the JAX sampler.
 ``kv_quant`` is None or "int8", excludes ``quantize`` (ValueError), and is
 ignored at B=1 and with "off", as in the JAX sampler.
 "auto" means the kernels on a CUDA tensor and their plain versions on a
 CPU tensor (the wrappers dispatch by device); the JAX sampler's TPU checks
-(``_use_pallas``, the Mosaic tiling checks) have no counterpart here. Any
-other wiring raises NotImplementedError. Cache segmentation
+(``_use_pallas``, the Mosaic tiling checks) have no counterpart here. Cache
+segmentation
 (``GenerateConfig.cache_segments``) is not ported: the JAX sampler is
 bit-exact with one segment, and the kernels read only rows <= pos.
 """
@@ -59,7 +66,6 @@ import torch
 from ..core import constants as C
 from ..core.vocab import chord_to_root_attr_tables
 
-from ..ops.attention import not_ported
 from ..ops.decode_layer import (fake_quantize_decoder_params,
                                 fused_decode_eligible)
 from ..ops.decode_variant import fused_variant_eligible
@@ -80,9 +86,11 @@ def _init_plain_caches(model, cross):
 
 def _make_plain_step(model):
     """The model's plain decode_step as a step_logits closure."""
-    def step_logits(cache, token_root, token_attr, key, pos: int):
-        return model.decode_step(None, token_root[:, None],
-                                 token_attr[:, None], key, pos, cache)
+    def step_logits(cache, token_root, token_attr, key, pos: int,
+                    token=None):
+        return model.decode_step(None if token is None else token[:, None],
+                                 token_root[:, None], token_attr[:, None],
+                                 key, pos, cache)
     return step_logits
 
 
@@ -155,8 +163,14 @@ def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
             return init_fused_variant_caches, lambda model: \
                 make_fused_variant_step(model, quantize=quantize)
         return init_fused_batch_variant_caches, make_fused_batch_variant_step
-    raise not_ported(f"decoding the AMT {cfg.version!r} wiring",
-                     "Queue 1 item 12")
+    # no kernel covers the wiring (KAN experts, grouped-query attention,
+    # odd head dims): the plain step, as the JAX sampler's XLA path
+    if quantize is not None:
+        raise ValueError(
+            "quantize='int8' covers the fused-decode-eligible configs "
+            "(V2-family or variant decoder wirings); got an ineligible "
+            "config")
+    return _init_plain_caches, _make_plain_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,6 +253,12 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
       dict of gen_seq / gen_seq_root / gen_seq_attr (B, T) int32 tensors on
       the device, and ``timings_ms``: encode / prime / decode stage times.
     """
+    if model.cfg.separated:
+        raise NotImplementedError(
+            "generate_chords needs the 159-way chord head; separated "
+            "(root/attr) models have no generate path in the reference "
+            "either (its generate slices the chord softmax, "
+            "video_music_transformer.py:1070-1073)")
     B = semantic.shape[0]
     init_caches, make_step = fused_backend(model.cfg, B, fused, quantize,
                                            split, kv_quant)
@@ -287,7 +307,10 @@ def generate_chords(model, *, semantic, key, scene_offset, motion, emotion,
         def step(pos: int):
             root = gen_root[:, pos].contiguous()
             attr = gen_attr[:, pos].contiguous()
-            logits = step_logits(caches, root, attr, key, pos)
+            # the chord ids, for a wiring with the frozen chord table
+            tok = ({"token": gen_seq[:, pos].contiguous()}
+                   if model.cfg.chord_embed else {})
+            logits = step_logits(caches, root, attr, key, pos, **tok)
             nxt = _sample_next(logits, gen_seq, pos, gcfg, temperature,
                                noise[pos])
             keep = pos + 1 < num_primer[:, 0]  # the primer token stays

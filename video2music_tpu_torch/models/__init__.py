@@ -1,5 +1,5 @@
-"""Models of the port: AMT 2.x (RoPE) and 3.x, and the bimamba+
-regression."""
+"""Models of the port: every AMT wiring of ``amt_config`` and the
+Mamba-family regressions."""
 
 from .amt import VideoMusicTransformer
 from .regression import VideoRegression

@@ -4,35 +4,64 @@ x = norm(x + ffn(x)) or the pre-norm wiring (AMT 3.2)
 x = x + attn(norm1(x)); [x = x + cross(norm2(x))]; x = x + ffn(norm(x)),
 with LayerNorm or RMSNorm as the config says. A ``generator`` makes a
 forward a training call: the attention and feed-forward dropouts draw from
-it. Residual dropout is not ported yet (only the base AMT uses it: the JAX
-model sets ``residual_dropout`` only for it, models/amt.py:111)."""
+it, and, with ``residual_dropout`` (the base AMT's torch layers: the JAX
+model sets it for ``version is None`` only, models/amt.py:107), so does a
+dropout on each sublayer output before its residual add."""
 
 from __future__ import annotations
 
 from torch import nn
+from torch.nn import functional as F
 
 from ..core.config import AMTConfig, LayerSpec
 
-from ..ops.attention import MultiHeadAttention, not_ported
-from ..ops.moe import SharedMoE, SwiGLU
+from ..ops.attention import MultiHeadAttention
+from ..ops.dropout import dropout
+from ..ops.moe import MoELayer, SwiGLU
 from ..ops.norms import make_norm
 
-__all__ = ["SwiGLU", "EncoderLayer", "DecoderLayer", "make_ffn"]
+__all__ = ["ReluFFN", "SwiGLU", "EncoderLayer", "DecoderLayer", "make_ffn"]
+
+
+class ReluFFN(nn.Module):
+    """torch TransformerEncoderLayer feed-forward: linear1, ReLU, dropout
+    in a training call, linear2 (models/layers.py:62-74)."""
+
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.linear1 = nn.Linear(d_model, d_ff)
+        self.linear2 = nn.Linear(d_ff, d_model)
+
+    def forward(self, x, generator=None):
+        return self.linear2(dropout(F.relu(self.linear1(x)),
+                                    self.dropout_rate, generator))
 
 
 def make_ffn(spec: LayerSpec, cfg: AMTConfig) -> nn.Module:
+    if spec.ffn == "relu_mlp":
+        return ReluFFN(cfg.d_model, cfg.d_ff, cfg.dropout)
     if spec.ffn == "swiglu":
         return SwiGLU(cfg.d_model, cfg.d_ff, cfg.dropout)
     if spec.ffn == "moe":
-        return SharedMoE(cfg.moe, cfg.d_model, cfg.d_ff, cfg.dropout)
-    raise not_ported(f"the {spec.ffn!r} feed-forward",
-                     "Queue 1, variant wirings")
+        return MoELayer(cfg.moe, cfg.d_model, cfg.d_ff, cfg.dropout)
+    raise ValueError(f"unknown ffn kind {spec.ffn!r}")
 
 
-class EncoderLayer(nn.Module):
-    def __init__(self, spec: LayerSpec, cfg: AMTConfig, depth: int = 0):
+class _Layer(nn.Module):
+    def __init__(self, cfg: AMTConfig, residual_dropout: bool):
         super().__init__()
         self.pre_norm = cfg.pre_norm
+        self.residual_rate = cfg.dropout if residual_dropout else 0.0
+
+    def _drop(self, x, generator):
+        return dropout(x, self.residual_rate, generator)
+
+
+class EncoderLayer(_Layer):
+    def __init__(self, spec: LayerSpec, cfg: AMTConfig, depth: int = 0,
+                 residual_dropout: bool = False):
+        super().__init__(cfg, residual_dropout)
         self.self_attn = MultiHeadAttention(spec.attn, cfg.d_model,
                                             max_cache_len=cfg.max_seq_video,
                                             dropout_rate=cfg.dropout,
@@ -42,17 +71,18 @@ class EncoderLayer(nn.Module):
         self.norm2 = make_norm(cfg.norm, cfg.d_model)
 
     def forward(self, x, generator=None):
+        g = generator
         if self.pre_norm:
-            x = x + self.self_attn(self.norm1(x), generator=generator)
-            return x + self.ffn(self.norm2(x), generator)
-        x = self.norm1(x + self.self_attn(x, generator=generator))
-        return self.norm2(x + self.ffn(x, generator))
+            x = x + self._drop(self.self_attn(self.norm1(x), generator=g), g)
+            return x + self._drop(self.ffn(self.norm2(x), g), g)
+        x = self.norm1(x + self._drop(self.self_attn(x, generator=g), g))
+        return self.norm2(x + self._drop(self.ffn(x, g), g))
 
 
-class DecoderLayer(nn.Module):
-    def __init__(self, spec: LayerSpec, cfg: AMTConfig, depth: int = 0):
-        super().__init__()
-        self.pre_norm = cfg.pre_norm
+class DecoderLayer(_Layer):
+    def __init__(self, spec: LayerSpec, cfg: AMTConfig, depth: int = 0,
+                 residual_dropout: bool = False):
+        super().__init__(cfg, residual_dropout)
         self.self_attn = MultiHeadAttention(spec.attn, cfg.d_model,
                                             max_cache_len=cfg.max_seq_chord,
                                             dropout_rate=cfg.dropout,
@@ -67,29 +97,31 @@ class DecoderLayer(nn.Module):
         self.norm3 = make_norm(cfg.norm, cfg.d_model)
 
     def prime(self, memory):
-        """Cross-attention K/V of the encoder memory, (B, Sm, qk_dim) and
-        (B, Sm, D)."""
+        """Cross-attention K/V of the encoder memory, (B, Sm, k_dim) and
+        (B, Sm, v_dim)."""
         return self.cross_attn(None, memory, mode="prime")
 
-    def _wire(self, x, sa, ca, ffn):
+    def _wire(self, x, sa, ca, ffn, g=None):
+        d = lambda h: self._drop(h, g)
         if self.pre_norm:
-            x = x + sa(self.norm1(x))
-            x = x + ca(self.norm2(x))
-            return x + ffn(self.norm3(x))
-        x = self.norm1(x + sa(x))
-        x = self.norm2(x + ca(x))
-        return self.norm3(x + ffn(x))
+            x = x + d(sa(self.norm1(x)))
+            x = x + d(ca(self.norm2(x)))
+            return x + d(ffn(self.norm3(x)))
+        x = self.norm1(x + d(sa(x)))
+        x = self.norm2(x + d(ca(x)))
+        return self.norm3(x + d(ffn(x)))
 
     def forward(self, x, memory, generator=None):
         """Full sequence: causal self-attention, cross-attention to memory."""
         return self._wire(
             x, lambda h: self.self_attn(h, causal=True, generator=generator),
             lambda h: self.cross_attn(h, memory, generator=generator),
-            lambda h: self.ffn(h, generator))
+            lambda h: self.ffn(h, generator), generator)
 
     def step(self, x, pos: int, cache):
-        """One cached step. cache: dict with self "k"/"v" (B, S, qk_dim) /
-        (B, S, D), written in place at ``pos``, and primed cross "ck"/"cv"."""
+        """One cached step. cache: dict with self "k"/"v" (B, S, k_dim) /
+        (B, S, v_dim), written in place at ``pos``, and primed cross
+        "ck"/"cv"."""
         return self._wire(
             x, lambda h: self.self_attn(h, mode="step", pos=pos,
                                         cache=(cache["k"], cache["v"])),

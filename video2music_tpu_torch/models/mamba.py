@@ -1,5 +1,7 @@
-"""Mamba selective-state-space block (counterpart of models/mamba.py:
-MambaBlock).
+"""Mamba selective-state-space blocks (counterpart of models/mamba.py):
+``MambaBlock``, the ``ResidualBlock`` x + block(RMSNorm(x)), the ``Mamba``
+stack of them and ``MoEMamba`` (each layer a residual block, then an
+RMSNorm'd residual MoE).
 
 Kept as in the JAX block: depthwise causal conv1d of width d_conv (left pad
 d_conv - 1), SiLU, x_proj into (delta, B, C), softplus(dt_proj(delta)),
@@ -7,7 +9,10 @@ A = -exp(A_log), the selective scan, and for mamba+ (use_version=1) the
 output y * z + xb * (1 - sigmoid(z)) where z is ALREADY silu(z) — the
 reference's quirk, kept. ``dt_proj`` holds the effective weight: the JAX
 parameter is stored unshifted and shifted by -dt_rank**-0.5 at use
-(weights.regression_from_jax applies the shift).
+(weights.regression_from_jax applies the shift). With ``use_kan`` the
+in / x / out projections are KANLinear layers (no bias). The block's
+output dropout is a training feature and not ported (these backbones
+serve).
 """
 
 from __future__ import annotations
@@ -18,22 +23,29 @@ from torch.nn import functional as F
 
 from ..core.config import MambaBackboneConfig
 
+from ..ops.kan import KANLinear
+from ..ops.norms import RMSNorm
 from ..ops.scan import selective_scan
 
 
 class MambaBlock(nn.Module):
-    def __init__(self, cfg: MambaBackboneConfig):
+    def __init__(self, cfg: MambaBackboneConfig, use_kan: bool = False):
         super().__init__()
         self.cfg = cfg
         ED, R, N = cfg.d_inner, cfg.resolved_dt_rank, cfg.d_state
-        self.in_proj = nn.Linear(cfg.d_model, 2 * ED, bias=cfg.bias)
+        if use_kan:
+            self.in_proj = KANLinear(cfg.d_model, 2 * ED)
+            self.x_proj = KANLinear(ED, R + 2 * N)
+            self.out_proj = KANLinear(ED, cfg.d_model)
+        else:
+            self.in_proj = nn.Linear(cfg.d_model, 2 * ED, bias=cfg.bias)
+            self.x_proj = nn.Linear(ED, R + 2 * N, bias=False)
+            self.out_proj = nn.Linear(ED, cfg.d_model, bias=cfg.bias)
         self.conv = nn.Conv1d(ED, ED, cfg.d_conv, groups=ED,
                               bias=cfg.conv_bias)
-        self.x_proj = nn.Linear(ED, R + 2 * N, bias=False)
         self.dt_proj = nn.Linear(R, ED)
         self.A_log = nn.Parameter(torch.zeros(ED, N))
         self.D = nn.Parameter(torch.ones(ED))
-        self.out_proj = nn.Linear(ED, cfg.d_model, bias=cfg.bias)
 
     def forward(self, x):  # (B, L, d_model)
         cfg = self.cfg
@@ -54,3 +66,50 @@ class MambaBlock(nn.Module):
         else:
             out = y * z
         return self.out_proj(out)
+
+
+class ResidualBlock(nn.Module):
+    """x + mixer(norm(x)), the RMSNorm at ``cfg.rms_norm_eps``."""
+
+    def __init__(self, cfg: MambaBackboneConfig, use_kan: bool = False):
+        super().__init__()
+        self.norm = RMSNorm(cfg.d_model, cfg.rms_norm_eps)
+        self.mixer = MambaBlock(cfg, use_kan)
+
+    def forward(self, x):
+        return self.mixer(self.norm(x)) + x
+
+
+class Mamba(nn.Module):
+    """n_layers residual Mamba blocks (models/mamba.py:146-160)."""
+
+    def __init__(self, cfg: MambaBackboneConfig, n_layers: int,
+                 use_kan: bool = False):
+        super().__init__()
+        self.layers = nn.ModuleList(ResidualBlock(cfg, use_kan)
+                                    for _ in range(n_layers))
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class MoEMamba(nn.Module):
+    """Per layer a residual Mamba block, then moe(moe_norm(x)) + x
+    (models/mamba.py:163-174); ``moe_maker()`` builds each MoE."""
+
+    def __init__(self, cfg: MambaBackboneConfig, n_layers: int,
+                 use_kan: bool, moe_maker):
+        super().__init__()
+        self.mamba = nn.ModuleList(ResidualBlock(cfg, use_kan)
+                                   for _ in range(n_layers))
+        self.moe_norm = nn.ModuleList(RMSNorm(cfg.d_model, cfg.rms_norm_eps)
+                                      for _ in range(n_layers))
+        self.moe = nn.ModuleList(moe_maker() for _ in range(n_layers))
+
+    def forward(self, x):
+        for block, norm, moe in zip(self.mamba, self.moe_norm, self.moe):
+            x = block(x)
+            x = moe(norm(x)) + x
+        return x

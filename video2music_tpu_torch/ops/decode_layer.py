@@ -110,9 +110,11 @@ def fake_quantize_decoder_params(model):
     went through int8 and back (dequantize(quantize(w))): the self-attention
     projections, the cross-attention query rows (2D of them for
     differential attention) and out-projection (the cross K/V rows prime in
-    full precision), the SwiGLU and the experts with their shared expert.
-    The biases, norms, MoE gate, differential lambda / subln, embeddings
-    and head stay. The plain decode step with this copy is the numerical
+    full precision), the ReLU / SwiGLU feed-forward, and the GLU or MLP
+    experts with their shared expert where there is one (the JAX
+    fake_quantize_decoder_params, pallas_decode.py:466-479). The biases,
+    norms, MoE gate, RPR table, differential lambda / subln, embeddings and
+    head stay. The plain decode step with this copy is the numerical
     oracle of the int8 kernels, in the V2 and the variant wirings."""
     import copy
 
@@ -124,12 +126,16 @@ def fake_quantize_decoder_params(model):
                 lin.weight.copy_(_fake_quant(lin.weight))
             Dq = ca.qk_dim
             ca.in_proj.weight[:Dq] = _fake_quant(ca.in_proj.weight[:Dq])
-            swiglu = getattr(ffn, "shared", ffn)
-            for lin in (swiglu.w1g, swiglu.linear2):
-                lin.weight.copy_(_fake_quant(lin.weight))
-            if swiglu is not ffn:  # SharedMoE
-                ffn.w1g.copy_(_fake_quant(ffn.w1g))
-                ffn.w2.copy_(_fake_quant(ffn.w2))
+            dense = [ffn]  # a feed-forward of nn.Linear layers
+            if hasattr(ffn, "gate"):  # MoE
+                dense = [ffn.shared] if ffn.shared is not None else []
+                if hasattr(ffn, "w1g"):  # GLU / MLP experts, not KAN
+                    ffn.w1g.copy_(_fake_quant(ffn.w1g))
+                    ffn.w2.copy_(_fake_quant(ffn.w2))
+            for mod in dense:
+                for lin in mod.children():
+                    if isinstance(lin, torch.nn.Linear):
+                        lin.weight.copy_(_fake_quant(lin.weight))
     return out
 
 

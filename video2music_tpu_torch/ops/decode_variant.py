@@ -11,7 +11,8 @@ Counterparts:
     pre-norm residuals; bf16 / f32 or int8 weights);
   * its ``VariantLayerMeta``, ``QUANT_KEYS``, ``pack_variant_layers`` and
     ``fused_variant_eligible`` -> the same names here (the packing reads a
-    port VideoMusicTransformer, whose modules cover the V2 and V3 wirings).
+    port VideoMusicTransformer of any eligible wiring: the base AMT, V1.x,
+    2.0, RoPE V2 and V3).
 
 int8 weights: ``pack_variant_layers(model, quantize="int8")`` stores each
 ``QUANT_KEYS`` weight as int8 with an f32 scale per output row under
@@ -180,14 +181,18 @@ def pack_variant_layers(model, quantize: Optional[str] = None
                     else torch.zeros_like(n.weight) for n in norms]))
             p.update(_attention_pack(sa, "", H))
             p.update(_attention_pack(ca, "c", H))
+            if meta.attn == "rpr":  # Er (er_len, hd) tiled over the heads
+                p["er"] = sa.Er.float().repeat(1, H)
             if meta.ffn == "moe":
                 p.update(gate_w=ffn.gate.weight, gate_b=ffn.gate.bias,
-                         ew1g=ffn.w1g, eb1g=ffn.b1g, ew2=ffn.w2, eb2=ffn.b2,
-                         sw1g=ffn.shared.w1g.weight, sb1g=ffn.shared.w1g.bias,
-                         sw2=ffn.shared.linear2.weight,
-                         sb2=ffn.shared.linear2.bias)
-            else:
-                p.update(fw1g=ffn.w1g.weight, fb1g=ffn.w1g.bias,
+                         ew1g=ffn.w1g, eb1g=ffn.b1g, ew2=ffn.w2, eb2=ffn.b2)
+                if ffn.shared is not None:
+                    sh = ffn.shared
+                    p.update(sw1g=sh.w1g.weight, sb1g=sh.w1g.bias,
+                             sw2=sh.linear2.weight, sb2=sh.linear2.bias)
+            else:  # ReLU ([linear1] rows) or SwiGLU ([linear1; gate] rows)
+                w1g = ffn.linear1 if meta.ffn == "relu" else ffn.w1g
+                p.update(fw1g=w1g.weight, fb1g=w1g.bias,
                          fw2=ffn.linear2.weight, fb2=ffn.linear2.bias)
             p = {k: v.detach().contiguous() for k, v in p.items()}
             if quantize == "int8":

@@ -1,5 +1,7 @@
-"""Rotary position embedding, pairwise (counterpart of ops/embeddings.py
-``rope_cache`` / ``apply_rope``).
+"""Positional information (counterpart of ops/embeddings.py): the
+sinusoidal table and ``SinusoidalPE`` (base AMT), the learned
+``LearnedPE`` table (V1, V2.0), and the pairwise rotary embedding
+(``rope_cache`` / ``apply_rope``, V2.1+ and V3).
 
 The pairing is the torchtune one the JAX package uses: the head dim is
 viewed as consecutive pairs (x0, x1) and each pair is rotated by
@@ -13,6 +15,60 @@ import functools
 
 import numpy as np
 import torch
+from torch import nn
+
+from .dropout import dropout
+
+
+@functools.lru_cache(maxsize=None)
+def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
+    """(max_len, d_model) float32 sin/cos table (Vaswani et al.), the JAX
+    package's ``sinusoidal_table``."""
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                      * (-np.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+class SinusoidalPE(nn.Module):
+    """x + table[:L] in x's dtype, then the embedding dropout in a training
+    call (``generator`` given). No parameters."""
+
+    def __init__(self, d_model: int, max_len: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.d_model, self.max_len = d_model, max_len
+        self.dropout_rate = dropout_rate
+
+    def row(self, pos: int, device) -> torch.Tensor:
+        """The table's row at ``pos``, float32 (D,)."""
+        table = sinusoidal_table(self.max_len, self.d_model)
+        return torch.from_numpy(table[pos]).to(device)
+
+    def forward(self, x, generator=None):
+        table = sinusoidal_table(self.max_len, self.d_model)[:x.shape[-2]]
+        x = x + torch.from_numpy(table).to(device=x.device, dtype=x.dtype)
+        return dropout(x, self.dropout_rate, generator)
+
+
+class LearnedPE(nn.Module):
+    """Learned absolute positions ``embedding`` (max_len, D) added to x;
+    ``position`` selects one row for the cached decode step (x of length
+    1)."""
+
+    def __init__(self, d_model: int, max_len: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(max_len, d_model))
+
+    def row(self, pos: int, device=None) -> torch.Tensor:
+        return self.embedding[pos]
+
+    def forward(self, x, position=None):
+        if position is None:
+            return x + self.embedding[:x.shape[-2]].to(x.dtype)
+        return x + self.embedding[position].to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)

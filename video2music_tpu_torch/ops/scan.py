@@ -3,7 +3,11 @@ ops/pallas_scan.py:selective_scan_pallas), kernel 4 of the port:
 csrc/selective_scan.cu.
 
 ``selective_scan`` runs :func:`selective_scan_plain` on CPU tensors and
-launches the CUDA kernel on CUDA tensors.
+launches the CUDA kernel on CUDA tensors. It is differentiable: the
+backward recomputes through :func:`selective_scan_plain` under autograd
+(the pattern of ops/flash_attention.py ``_Attention``), as the JAX model
+differentiates its associative scan (the Pallas scan has no VJP); a
+backward kernel is left to the training slice of the regression.
 """
 
 from __future__ import annotations
@@ -35,8 +39,7 @@ def selective_scan_plain(x, delta, A, B, C, D):
     return (y + D.float() * xf).to(x.dtype)
 
 
-def selective_scan(x, delta, A, B, C, D):
-    """Selective scan (same signature as :func:`selective_scan_plain`)."""
+def _forward(x, delta, A, B, C, D):
     what = "selective_scan"
     if kernels.use_plain(x, what):
         return selective_scan_plain(x, delta, A, B, C, D)
@@ -66,6 +69,26 @@ def selective_scan(x, delta, A, B, C, D):
     kernels.check(status, what)
     selective_scan.launches += 1
     return y
+
+
+class _Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, delta, A, B, C, D):
+        ctx.save_for_backward(x, delta, A, B, C, D)
+        return _forward(x, delta, A, B, C, D)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y = selective_scan_plain(*leaves)
+            return torch.autograd.grad(y, leaves, g)
+
+
+def selective_scan(x, delta, A, B, C, D):
+    """Selective scan (same signature as :func:`selective_scan_plain`),
+    differentiable in every input."""
+    return _Scan.apply(x, delta, A, B, C, D)
 
 
 selective_scan.launches = 0

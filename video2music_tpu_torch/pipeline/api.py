@@ -12,16 +12,22 @@ port's copies of the JAX package's), ``inst.csv``, and a FluidSynth render
 where FluidSynth exists. ``generate`` is a batch of one; the
 DynamicBatcher of pipeline/serving.py drives ``generate_batch``.
 
-The wirings: AMT 2.x with RoPE (2.1, 2.2; the default) and 3.0 / 3.1 / 3.2
-(``music_gen_version``), each with the bimamba+ regression.
-``quantize="int8"`` (weight-only int8 decode) covers the 2.x and 3.x
-families: at B=1 the decode kernels read int8 weights, at B>1 the plain
+The wirings: every AMT version ``amt_config`` builds (``music_gen_version``
+None for the base AMT, the V1.x strings, 2.0-2.3 with 2.2 the default,
+3.0-3.2; ``amt_overrides`` such as ``kv_heads`` on top), each with a
+Mamba-family regression (``reg_model`` mamba, mamba+, moemamba, bimamba,
+bimamba+ the default, moe_bimamba+, sharedmoe_bimamba+). Where a decode
+kernel covers the wiring the decode runs through it (decode/sampler.py);
+KAN 2.3 and grouped-query attention decode on the plain step, as in the
+JAX package.
+``quantize="int8"`` (weight-only int8 decode) covers the wirings with a
+decode kernel: at B=1 the decode kernels read int8 weights, at B>1 the plain
 step runs on fake-quantized weights, as in the JAX package
 (decode/sampler.py). ``kv_quant="int8"`` (``generate_batch``) keeps the
 batched 2.x step's KV caches as int8 rows with row scales. Not ported yet,
 and raising NotImplementedError: raw-video feature extraction (``video=``,
-``extract_features_batch``), orbax checkpoints, the other AMT wirings
-(base, 1.x, 2.0, KAN 2.3) and regression backbones.
+``extract_features_batch``), orbax checkpoints, and the RNN, CNN-GRU and
+minGRU regression backbones.
 Weights come from :mod:`video2music_tpu_torch.weights`: random from a seed,
 or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`).
 """

@@ -6,9 +6,11 @@ dicts of arrays, the ``"params"`` collection) and return a float32 state
 dict that ``load_state_dict`` takes with ``strict=True``. flax Dense
 kernels are (in, out); the port keeps nn.Linear's (out, in). The port also
 fuses what the kernels read as one block: attention q|k|v rows into
-``in_proj``, SwiGLU linear1|gate rows into ``w1g``, and per-expert w1|wg
-into ``w1g`` (E, 2F, D). Bias-free projections (differential attention)
-stay bias-free; RMSNorms carry only ``weight``.
+``in_proj`` (narrower k|v blocks under grouped-query attention), SwiGLU
+linear1|gate rows into ``w1g``, and per-expert w1|wg into ``w1g`` (E, 2F,
+D) (an MLP expert's w1 alone). Bias-free projections (differential
+attention) stay bias-free; RMSNorms carry only ``weight``; KANLinear
+keeps the JAX layout.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from torch import nn
 
 from .models.mamba import MambaBlock
 from .ops.attention import MultiHeadAttention
-from .ops.moe import SharedMoE
+from .ops.embeddings import LearnedPE
+from .ops.kan import KANLinear
+from .ops.moe import MoELayer
 from .ops.norms import LayerNorm, RMSNorm
 
 
@@ -58,6 +62,10 @@ def _put_attention(sd, prefix, p):
     if parts[0][1] is not None:
         sd[f"{prefix}.in_proj.bias"] = torch.cat([b for _, b in parts])
     _put_linear(sd, f"{prefix}.out_proj", p["out_proj"])
+    if "Er" in p:  # RPR
+        sd[f"{prefix}.Er"] = _t(p["Er"])
+    if "gqa_norm" in p:
+        _put_norm(sd, f"{prefix}.gqa_norm", p["gqa_norm"])
     if "subln" in p:  # differential attention
         for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
             sd[f"{prefix}.{name}"] = _t(p[name])
@@ -71,38 +79,78 @@ def _put_swiglu(sd, prefix, w1, b1, wg, bg, w2, b2):
     sd[f"{prefix}.linear2.bias"] = _t(b2)
 
 
+def _put_kan(sd, prefix, p):
+    sd[f"{prefix}.base_weight"] = _t(p["base_weight"])
+    sd[f"{prefix}.spline_weight"] = _t(p["spline_weight"])
+
+
+def _put_moe(sd, prefix, p):
+    """A JAX MoELayer: gate, GLU / MLP expert stacks or KAN experts, and
+    the shared expert where there is one."""
+    e = p["experts"]
+    _put_linear(sd, f"{prefix}.gate", p["gate"])
+    if "kan_0" in e:
+        for name, kan in e.items():
+            _put_kan(sd, f"{prefix}.kan.{name.split('_')[1]}", kan)
+        if "shared_expert" in p:
+            _put_kan(sd, f"{prefix}.shared", p["shared_expert"]["kan_0"])
+        return
+    w1g, b1g = _t(e["w1"]), _t(e["b1"])                      # (E, D, G)
+    if "wg" in e:  # GLU: [w1 | wg] columns
+        w1g = torch.cat([w1g, _t(e["wg"])], dim=2)
+        b1g = torch.cat([b1g, _t(e["bg"])], dim=1)
+    sd[f"{prefix}.w1g"] = w1g.transpose(1, 2).contiguous()   # (E, G, D)
+    sd[f"{prefix}.b1g"] = b1g
+    sd[f"{prefix}.w2"] = _t(e["w2"]).transpose(1, 2).contiguous()  # (E, D, F)
+    sd[f"{prefix}.b2"] = _t(e["b2"])
+    if "shared_expert" not in p:
+        return
+    s = p["shared_expert"]
+    if "wg" in s:
+        _put_swiglu(sd, f"{prefix}.shared", s["w1"][0], s["b1"][0],
+                    s["wg"][0], s["bg"][0], s["w2"][0], s["b2"][0])
+    else:  # a SiLU-MLP shared expert
+        sd[f"{prefix}.shared.w1g.weight"] = _t(s["w1"][0]).t().contiguous()
+        sd[f"{prefix}.shared.w1g.bias"] = _t(s["b1"][0])
+        sd[f"{prefix}.shared.linear2.weight"] = _t(s["w2"][0]).t() \
+            .contiguous()
+        sd[f"{prefix}.shared.linear2.bias"] = _t(s["b2"][0])
+
+
 def _put_ffn(sd, prefix, p):
-    if "experts" not in p:  # SwiGLU
+    if "experts" in p:
+        _put_moe(sd, prefix, p)
+    elif "Dense_0" in p:  # ReLU FFN
+        _put_linear(sd, f"{prefix}.linear1", p["Dense_0"])
+        _put_linear(sd, f"{prefix}.linear2", p["Dense_1"])
+    else:  # SwiGLU
         _put_swiglu(sd, prefix, p["linear1"]["kernel"], p["linear1"]["bias"],
                     p["gate"]["kernel"], p["gate"]["bias"],
                     p["linear2"]["kernel"], p["linear2"]["bias"])
-        return
-    e, s = p["experts"], p["shared_expert"]
-    _put_linear(sd, f"{prefix}.gate", p["gate"])
-    w1g = torch.cat([_t(e["w1"]), _t(e["wg"])], dim=2)       # (E, D, 2F)
-    sd[f"{prefix}.w1g"] = w1g.transpose(1, 2).contiguous()   # (E, 2F, D)
-    sd[f"{prefix}.b1g"] = torch.cat([_t(e["b1"]), _t(e["bg"])], dim=1)
-    sd[f"{prefix}.w2"] = _t(e["w2"]).transpose(1, 2).contiguous()  # (E, D, F)
-    sd[f"{prefix}.b2"] = _t(e["b2"])
-    _put_swiglu(sd, f"{prefix}.shared", s["w1"][0], s["b1"][0], s["wg"][0],
-                s["bg"][0], s["w2"][0], s["b2"][0])
 
 
 def amt_from_jax(params, moe_state=None) -> Dict[str, torch.Tensor]:
     """State dict of a port VideoMusicTransformer from the flax params of a
-    JAX VideoMusicTransformer of the same config. Linear_chord's extra input
-    row (the appended key) becomes column D of ``linear_chord.weight``.
+    JAX VideoMusicTransformer of the same config, any wiring. Linear_chord's
+    extra input row (the appended key) becomes its last column.
     ``moe_state``: the model's "moe_state" collection, which a config with
     MoE balancing (V3) has; its ``balance_bias`` vectors become the
-    SharedMoE buffers of that name."""
+    MoE layers' buffers of that name."""
     sd: Dict[str, torch.Tensor] = {}
-    sd["embedding_root.weight"] = _t(params["embedding_root"]["embedding"])
-    sd["embedding_attr.weight"] = _t(params["embedding_attr"]["embedding"])
+    for name in ("embedding_root", "embedding_attr", "chord_embedding",
+                 "scene_embedding"):
+        if name in params:
+            sd[f"{name}.weight"] = _t(params[name]["embedding"])
+    for name in ("pe_chord", "pe_video"):  # learned positions
+        if name in params:
+            sd[f"{name}.embedding"] = _t(params[name]["embedding"])
     _put_linear(sd, "linear_chord", params["Linear_chord"])
     _put_linear(sd, "linear_vis", params["Linear_vis"])
     _put_norm(sd, "encoder_norm", params["encoder_norm"])
     _put_norm(sd, "decoder_norm", params["decoder_norm"])
-    _put_linear(sd, "wout", params["Wout"])
+    for name in ("Wout", "Wout_root", "Wout_attr"):
+        if name in params:
+            _put_linear(sd, name.lower(), params[name])
     i = 0
     while f"enc_{i}" in params:
         p, pre = params[f"enc_{i}"], f"encoder_layers.{i}"
@@ -143,13 +191,21 @@ def load_amt_from_jax_(model: nn.Module, params) -> None:
             own[name].copy_(t)
 
 
+def _put_proj(sd, prefix, p):
+    """A flax Dense or, under ``use_kan``, a KANLinear."""
+    if "base_weight" in p:
+        _put_kan(sd, prefix, p)
+    else:
+        _put_linear(sd, prefix, p)
+
+
 def _put_mamba(sd, prefix, p):
-    _put_linear(sd, f"{prefix}.in_proj", p["in_proj"])
+    for name in ("in_proj", "x_proj", "out_proj"):
+        _put_proj(sd, f"{prefix}.{name}", p[name])
     # (d_conv, 1, ED) "HIO" -> depthwise Conv1d (ED, 1, d_conv)
     sd[f"{prefix}.conv.weight"] = _t(p["conv_kernel"]).permute(2, 1, 0) \
         .contiguous()
     sd[f"{prefix}.conv.bias"] = _t(p["conv_bias"])
-    sd[f"{prefix}.x_proj.weight"] = _t(p["x_proj"]["kernel"]).t().contiguous()
     dt_w = _t(p["dt_proj_kernel"])                     # (dt_rank, ED)
     # the JAX block uses the stored kernel shifted by -dt_rank**-0.5
     sd[f"{prefix}.dt_proj.weight"] = (dt_w - dt_w.shape[0] ** -0.5).t() \
@@ -157,25 +213,50 @@ def _put_mamba(sd, prefix, p):
     sd[f"{prefix}.dt_proj.bias"] = _t(p["dt_proj_bias"])
     sd[f"{prefix}.A_log"] = _t(p["A_log"])
     sd[f"{prefix}.D"] = _t(p["D"])
-    _put_linear(sd, f"{prefix}.out_proj", p["out_proj"])
+
+
+def _put_residual(sd, prefix, p):
+    _put_norm(sd, f"{prefix}.norm", p["norm"])
+    _put_mamba(sd, f"{prefix}.mixer", p["mixer"])
+
+
+def _put_relu_ffn(sd, prefix, p):
+    _put_linear(sd, f"{prefix}.linear1", p["Dense_0"])
+    _put_linear(sd, f"{prefix}.linear2", p["Dense_1"])
 
 
 def regression_from_jax(params) -> Dict[str, torch.Tensor]:
-    """State dict of a port VideoRegression (bimamba+) from the flax
-    params of the JAX VideoRegression of the same config."""
+    """State dict of a port VideoRegression from the flax params of the
+    JAX VideoRegression of the same config, any Mamba-family backbone."""
     sd: Dict[str, torch.Tensor] = {}
     for name in ("in_proj", "regressor", "classifier"):
         _put_linear(sd, name, params[name])
-    i = 0
-    while f"layer_{i}" in params["model"]:
-        p, pre = params["model"][f"layer_{i}"], f"backbone.layers.{i}"
+    m, i = params["model"], 0
+    if "mamba_0" in m:  # MoEMamba
+        while f"mamba_{i}" in m:
+            _put_residual(sd, f"backbone.mamba.{i}", m[f"mamba_{i}"])
+            _put_norm(sd, f"backbone.moe_norm.{i}", m[f"moe_norm_{i}"])
+            _put_moe(sd, f"backbone.moe.{i}", m[f"moe_{i}"])
+            i += 1
+        return sd
+    while f"layer_{i}" in m:
+        p, pre = m[f"layer_{i}"], f"backbone.layers.{i}"
+        i += 1
+        if "mixer" in p:  # Mamba
+            _put_residual(sd, pre, p)
+            continue
         for d in ("mamba_forward", "mamba_backward"):
             _put_mamba(sd, f"{pre}.{d}", p[d])
-        _put_linear(sd, f"{pre}.ffn.linear1", p["ffn"]["Dense_0"])
-        _put_linear(sd, f"{pre}.ffn.linear2", p["ffn"]["Dense_1"])
-        for n in ("norm1", "norm2", "norm3"):
-            _put_norm(sd, f"{pre}.{n}", p[n])
-        i += 1
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            if n in p:
+                _put_norm(sd, f"{pre}.{n}", p[n])
+        if "ffn1" in p:  # the v0 layer
+            _put_relu_ffn(sd, f"{pre}.ffn1", p["ffn1"])
+            _put_relu_ffn(sd, f"{pre}.ffn2", p["ffn2"])
+        elif "experts" in p["ffn"]:
+            _put_moe(sd, f"{pre}.ffn", p["ffn"])
+        else:
+            _put_relu_ffn(sd, f"{pre}.ffn", p["ffn"])
     return sd
 
 
@@ -198,15 +279,20 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     order, with the JAX package's schemes: LeCun-normal dense and expert
     weights, Xavier-uniform attention projections (each of q, k, v and out
     on its own fans), zero biases, unit norms, normal(0.1) differential
-    lambdas, and the Mamba dt / A / D initialisers. Returns ``model``."""
+    lambdas, normal(head_dim**-0.5) RPR tables, normal(1) learned
+    positions, the KANLinear base (uniform, fan_in / 3 variance) and spline
+    (normal(0.1 / grid_size)) weights, and the Mamba dt / A / D
+    initialisers. The frozen chord table keeps its values. Returns
+    ``model``."""
     done = set()
     for mod in model.modules():
         if isinstance(mod, MultiHeadAttention):
             D, qk, w = mod.d_model, mod.qk_dim, mod.in_proj.weight
             # (block, fan_out of one projection): q, k and v share their
             # fans unless q and k are 2D wide
-            blocks = [(w, D)] if qk == D else [
-                (w[:qk], qk), (w[qk:2 * qk], qk), (w[2 * qk:], D)]
+            kd = mod.k_dim
+            blocks = [(w, D)] if qk == kd == mod.v_dim == D else [
+                (w[:qk], qk), (w[qk:qk + kd], kd), (w[qk + kd:], mod.v_dim)]
             for block, fan_out in blocks + [(mod.out_proj.weight, D)]:
                 lim = math.sqrt(6.0 / (D + fan_out))
                 _uniform_(block, -lim, lim, gen)
@@ -218,12 +304,20 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
                 for lam in (mod.lambda_q1, mod.lambda_k1, mod.lambda_q2,
                             mod.lambda_k2):
                     _normal_(lam, 0.1, gen)
-        elif isinstance(mod, SharedMoE):
+            if mod.rpr:
+                _normal_(mod.Er, mod.head_dim ** -0.5, gen)
+        elif isinstance(mod, MoELayer) and mod.cfg.expert != "kan":
             D, F = mod.w1g.shape[2], mod.w2.shape[2]
             _normal_(mod.w1g, D ** -0.5, gen)
             _normal_(mod.w2, F ** -0.5, gen)
             for b in (mod.b1g, mod.b2):
                 nn.init.zeros_(b)
+        elif isinstance(mod, KANLinear):
+            lim = mod.in_features ** -0.5
+            _uniform_(mod.base_weight, -lim, lim, gen)
+            _normal_(mod.spline_weight, 0.1 / mod.grid_size, gen)
+        elif isinstance(mod, LearnedPE):
+            _normal_(mod.embedding, 1.0, gen)
         elif isinstance(mod, MambaBlock):
             cfg = mod.cfg
             R = cfg.resolved_dt_rank
@@ -245,7 +339,7 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             _normal_(mod.weight, mod.weight.shape[1] ** -0.5, gen)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
-        elif isinstance(mod, nn.Embedding):
+        elif isinstance(mod, nn.Embedding) and mod.weight.requires_grad:
             _normal_(mod.weight, mod.weight.shape[1] ** -0.5, gen)
         elif isinstance(mod, LayerNorm):
             nn.init.ones_(mod.weight)
