@@ -115,7 +115,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      gradients through the scan's wrapper against the plain scan's at
      d_state 16 and 1024, on the scan alone and through every parameter
      of mamba and moemamba;
-  8c. deep model: a full-width 2.2 with 20 decoder layers, 16
+  8c. raw video: row 1 in the extractors' forms (CLIP-L vision B=30,
+     H=16, L=577, D=64; CLIP text B=6, H=12, L=77, causal; MaxViT-T stage
+     0 B=1920, H=2, L=49, D=32 and stage 3 B=30, H=16, with the shared
+     relative-position bias and the scale C^-0.5) against its plain
+     version, f32 and bf16, timed beside its bound and
+     F.scaled_dot_product_attention; full-width CLIP ViT-L/14@336 and
+     MaxViT-T on seeded weights, f32 on the card against the CPU (2
+     frames) and bf16 against f32 (30 frames), with their forward ms; a
+     full-width bf16 Video2music with both extractors (motion_type 1):
+     generate(video=...) on a 62 s multi-scene clip written with cv2,
+     extract_features_batch over three clips against per-clip
+     extraction, a DynamicBatcher with four video requests, every clip
+     checked, the launches equal to the path's (row 1: 24 a CLIP chunk,
+     22 a MaxViT chunk, 6 an AMT encoder), the extraction's stage times;
+     ffmpeg and fluidsynth are missing on the H100 machine, so no audio is
+     rendered and nothing is muxed there (the line says so);
+  8d. new backbones: bilstm, bigru, lstm, gru, cnngru, cnnbigru and
+     mingru at full width behind a full-width 2.2: generate_batch at B=1
+     and B=16 in f32 and bf16, every clip checked, the f32 regression
+     outputs against the CPU's, bf16 against f32, the forward ms;
+  8e. deep model: a full-width 2.2 with 20 decoder layers, 16
      teacher-forced steps of "monolith", "stack" and split=False against
      their plain steps, float32 and bfloat16; the cooperative kernel takes
      at most 16 layers, so each step launches it once per run (2, 3, 2);
@@ -2432,13 +2452,22 @@ def graph_breakdown(fn, iters=20):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        graph.replay()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    events = []
+    for attempt in range(3):
+        # CUPTI now and then hands back a session without device events
+        # (once in four full runs on an H100 80GB HBM3): the replay is
+        # profiled again, up to three times, and fails after
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
+        print(f"  profiler: no device events in session {attempt + 1}, "
+              f"profiling the replay again")
     own, count = collections.defaultdict(float), collections.Counter()
     covered, early = -float("inf"), 0
     for e in events:
@@ -3532,6 +3561,9 @@ def regression_zoo_phase(card, report):
         params = [p for p in model.parameters() if p.requires_grad]
 
         def grads():
+            # the training forward drops in_proj's outputs (as the JAX
+            # model): the same seed gives both scans the same mask
+            torch.manual_seed(0)
             ln_nd, inst = model(sem, None, None, emo)
             return torch.autograd.grad(ln_nd.square().mean() + inst.mean(),
                                        params)
@@ -3551,6 +3583,409 @@ def regression_zoo_phase(card, report):
               f"scan: {len(names)} parameters, worst relative error "
               f"{worst:.3e} (limit 1e-3)")
         del model
+
+
+# ---------------------------------------------------------------------------
+# phases 8c-8d: raw video in (CLIP ViT-L/14@336, MaxViT-T, scene cuts) and
+# the RNN / CNN-GRU / minGRU regressions
+# ---------------------------------------------------------------------------
+
+# row 1 in the forms the extractors give it: (key, B, H, L, D, causal,
+# bias heads or 0, scale or None); MaxViT scales by its full channel width
+RAW_VIDEO_FORMS = (
+    ("ms_clip", 30, 16, 577, 64, False, 0, None),        # CLIP-L vision
+    ("ms_clip_text", 6, 12, 77, 64, True, 0, None),      # CLIP text tower
+    ("ms_maxvit_s0", 1920, 2, 49, 32, False, 2, 64 ** -0.5),
+    ("ms_maxvit_s3", 30, 16, 49, 32, False, 16, 512 ** -0.5),
+)
+# full-width extractors, f32 on the card against the CPU: 24 layers of
+# sums in another order (and the CPU's own blocking), relative to the
+# largest magnitude
+EXTRACT_F32_REL = 1e-3
+# bf16 against f32 on the card: 24 pre-LN blocks (CLIP-L) or 22 partition
+# attentions and 11 MBConvs (MaxViT-T) of bf16 rounding on random weights
+EXTRACT_BF16_REL = 6e-2
+# the clips of the pipeline phase: (seconds, scenes, seed)
+RAW_CLIPS = ((62, 4, 1), (23, 2, 2), (37, 3, 3), (51, 5, 4))
+NEW_BACKBONES = ("bilstm", "bigru", "lstm", "gru", "cnngru", "cnnbigru",
+                 "mingru")
+
+
+def write_clip(path, seconds, n_scenes, seed, fps=10.0, w=320, h=240):
+    """A multi-scene clip written with cv2: n_scenes flat colours with hard
+    cuts between them, a bar moving across each and a little noise, so
+    scene cuts, 1 fps frames and motion differences all have content."""
+    import cv2
+    import numpy as np
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                             (w, h))
+    fail_unless(writer.isOpened(), "cv2.VideoWriter cannot encode mp4v")
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(30, 225, (n_scenes, 3))
+    n = int(seconds * fps)
+    for i in range(n):
+        img = np.empty((h, w, 3), np.uint8)
+        img[:] = colors[min(i * n_scenes // n, n_scenes - 1)]
+        x = (i * 9) % (w - 40)
+        img[:, x:x + 40] = 255 - img[:, x:x + 40]
+        img = np.clip(img + rng.integers(-6, 7, img.shape), 0, 255)
+        writer.write(img.astype(np.uint8))
+    writer.release()
+    return path
+
+
+def raw_video_kernel_phase(report, card):
+    """Row 1 at the extractors' shapes against its plain version, f32 and
+    bf16, timed beside its bound and F.scaled_dot_product_attention on the
+    same call (the shared bias cast to q's dtype, as SDPA takes it)."""
+    import torch
+    import torch.nn.functional as F
+    from video2music_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(77)
+    r = report["flash_attention"]
+    n0 = flash_attention.launches
+    for key, B, H, L, D, causal, bias_heads, scale in RAW_VIDEO_FORMS:
+        bias = None if not bias_heads else \
+            (0.02 * torch.randn(1, H, L, L, generator=gen)).to(dev)
+        kw = dict(causal=causal, bias=bias, scale=scale)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(B, H, L, D, generator=gen).to(dev, dtype)
+                       for _ in range(3))
+            err = check_close(f"flash_attention {key[3:]} ({B}, {H}, {L}, "
+                              f"{D})", dtype, flash_attention(q, k, v, **kw),
+                              flash_attention_plain(q, k, v, **kw))
+            errs = r.setdefault("err_" + key, {})
+            errs[dtype] = max(err, errs.get(dtype, 0.0))
+            note_times(report, "flash_attention", dtype,
+                       lambda: flash_attention(q, k, v, **kw),
+                       lambda: flash_attention_plain(q, k, v, **kw),
+                       plain_iters=5, key=key)
+        pairs = L * (L + 1) // 2 if causal else L * L
+        r["form_bound_" + key] = form_bound(
+            nbytes(q, k, v, q, bias), 4 * B * H * pairs * D)
+        mask = None if bias is None else bias.to(q.dtype)
+        r["library_" + key] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal, scale=scale))[0]
+        t = r[key][torch.bfloat16]
+        print(f"  row 1 {key[3:]}: kernel {t[0]:.4f} ms, plain {t[2]:.4f}, "
+              f"bound {r['form_bound_' + key][0]:.4f} "
+              f"({r['form_bound_' + key][1]}), SDPA "
+              f"{r['library_' + key]:.4f} ms [bf16, {card}]")
+    flash_attention.launches = n0  # comparisons, not the path
+
+
+def seeded_extractors(dev):
+    """Full-width CLIP ViT-L/14@336 and MaxViT-T with the port's seeded
+    initialisation, as float32 state dicts on ``dev``, and the six emotion
+    text embeddings."""
+    import torch
+    from video2music_tpu_torch.features.clip import (CLIP,
+                                                     clip_vit_l14_336_config)
+    from video2music_tpu_torch.features.maxvit import MaxViT, maxvit_t_config
+    from video2music_tpu_torch.weights import init_weights_
+    gen = torch.Generator().manual_seed(0)
+    with torch.device(dev):
+        clip = CLIP(clip_vit_l14_336_config())
+        mv = MaxViT(maxvit_t_config())
+    init_weights_(clip, gen)
+    init_weights_(mv, gen)
+    text = torch.randn(6, 768, generator=gen).numpy()
+    return clip.state_dict(), mv.state_dict(), text
+
+
+def extractor_phase(card, report):
+    """CLIP-L and MaxViT-T at full width on seeded weights: float32 on the
+    card (through row 1) against the same modules on the CPU (the plain
+    attention) on 2 frames, then bf16 against f32 on the card over a
+    30-frame chunk, with the forward ms of each (CUDA events)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from video2music_tpu_torch.features.clip import (
+        CLIP, clip_vit_l14_336_config, normalize_pixels)
+    from video2music_tpu_torch.features.maxvit import (
+        MaxViT, maxvit_t_config, normalize_diff_pixels)
+    from video2music_tpu_torch.ops.flash_attention import flash_attention
+    dev = torch.device("cuda")
+    clip_sd, mv_sd, text = seeded_extractors(dev)
+    text = torch.as_tensor(text, device=dev)
+    rng = np.random.default_rng(5)
+    out = report.setdefault("extractors", {})
+    n0 = flash_attention.launches
+    for name, cls, cfg, sd, size, norm, per_call in (
+            ("CLIP ViT-L/14@336", CLIP, clip_vit_l14_336_config(), clip_sd,
+             336, normalize_pixels, 24),
+            ("MaxViT-T", MaxViT, maxvit_t_config(), mv_sd, 224,
+             normalize_diff_pixels, 22)):
+        model = cls(cfg)
+        model.load_state_dict(sd)
+        model.to(dev).eval()
+        u8 = torch.from_numpy(rng.integers(0, 256, (30, size, size, 3),
+                                           dtype=np.uint8)).to(dev)
+        fwd = (lambda m, x: m.semantic_and_emotion(
+            x, text.to(x.device))[0]) if cls is CLIP else (lambda m, x: m(x))
+        with torch.no_grad():
+            x32 = norm(u8)
+            launches = flash_attention.launches
+            got = fwd(model, x32[:2])
+            fail_unless(flash_attention.launches - launches == per_call,
+                        f"{name}: {flash_attention.launches - launches} row-1 "
+                        f"launches a forward, {per_call} implied")
+            cpu = copy.deepcopy(model).cpu()
+            want = fwd(cpu, x32[:2].cpu())
+            abs_err, rel = errors(got.cpu(), want)
+            print(f"  {name} f32 card vs CPU (2 frames): max_abs "
+                  f"{abs_err:.3e} max_rel {rel:.3e} (rel {EXTRACT_F32_REL}) "
+                  f"{'ok' if rel <= EXTRACT_F32_REL else 'FAIL'}")
+            fail_unless(rel <= EXTRACT_F32_REL,
+                        f"{name}: f32 on the card differs from the CPU")
+            del cpu
+            f32 = fwd(model, x32)
+            bf = copy.deepcopy(model).to(torch.bfloat16)
+            got = fwd(bf, x32.to(torch.bfloat16)).float()
+            abs_err, rel = errors(got, f32)
+            print(f"  {name} bf16 vs f32 on the card (30 frames): max_abs "
+                  f"{abs_err:.3e} max_rel {rel:.3e} (rel {EXTRACT_BF16_REL}) "
+                  f"{'ok' if rel <= EXTRACT_BF16_REL else 'FAIL'}")
+            fail_unless(bool(torch.isfinite(got).all())
+                        and rel <= EXTRACT_BF16_REL,
+                        f"{name}: bf16 differs from f32 on the card")
+            row = out[name] = {}
+            for dt, m, x in (("float32", model, x32),
+                             ("bfloat16", bf, x32.to(torch.bfloat16))):
+                row[f"ms_30_frames_{dt}"] = eager_ms(lambda: fwd(m, x),
+                                                     iters=3)
+            print(f"  {name} forward, 30 frames: "
+                  f"{row['ms_30_frames_bfloat16']:.2f} ms bf16, "
+                  f"{row['ms_30_frames_float32']:.2f} ms f32 (CUDA events)"
+                  f" [{card}]")
+        del model, bf
+        torch.cuda.empty_cache()
+    flash_attention.launches = n0  # the extractors alone, not the path
+
+
+class VideoLog(WidthLog):
+    """WidthLog that also records, for every extract_features_batch call,
+    the frames and motion rows it ran (which set its row-1 launches)."""
+
+    def __init__(self, v2m):
+        super().__init__(v2m)
+        self.extracts = []
+
+    def extract_features_batch(self, video_paths):
+        feats = self.v2m.extract_features_batch(video_paths)
+        self.extracts.append((sum(f["semantic"].shape[0] for f in feats),
+                              sum(f["motion"].shape[0] for f in feats)))
+        return feats
+
+
+def extract_launches(n_frames, n_motion, chunk):
+    """Row-1 launches of extracting n_frames 1 fps frames and n_motion
+    difference images in chunks of ``chunk``: 24 a CLIP-L chunk (its
+    layers), 22 a MaxViT-T chunk (two partition attentions a block)."""
+    return 24 * -(-n_frames // chunk) + 22 * -(-n_motion // chunk)
+
+
+def raw_video_phase(card, report):
+    """A full-width bf16 Video2music (AMT 2.2 + bimamba+, CLIP-L, MaxViT-T,
+    motion_type 1, seeded weights): generate(video=...) on a 62 s
+    multi-scene clip written with cv2, extract_features_batch over three
+    clips against per-clip extraction, a DynamicBatcher with four video
+    requests; every clip checked, the kernels' launches equal to what
+    the path implies (row 1: the AMT encoder's 6 a call, 24 a CLIP chunk,
+    22 a MaxViT chunk), the extraction's stage times and the walls."""
+    import numpy as np
+    import torch
+    from video2music_tpu_torch.pipeline import video_io
+    from video2music_tpu_torch.pipeline.api import MAX_SECONDS, Video2music
+    from video2music_tpu_torch.pipeline.serving import DynamicBatcher
+    print(f"  ffmpeg {'found' if video_io.has_ffmpeg() else 'missing'}, "
+          f"fluidsynth {'found' if video_io.has_fluidsynth() else 'missing'}"
+          f": {'muxing runs' if video_io.has_ffmpeg() and video_io.has_fluidsynth() else 'no audio render and no muxing on this machine (the CPU tests hold the muxing call)'}")
+    dev = torch.device("cuda")
+    clip_sd, mv_sd, text = seeded_extractors(dev)
+    v2m = Video2music(seed=0, device="cuda", motion_type=1,
+                      clip_params=clip_sd, maxvit_params=mv_sd,
+                      emotion_text_embeds=text)
+    del clip_sd, mv_sd
+    out = report.setdefault("raw_video", {})
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [write_clip(os.path.join(tmp, f"clip{i}.mp4"), s, n, seed)
+                 for i, (s, n, seed) in enumerate(RAW_CLIPS)]
+        v2m.generate(paths[1], output_dir=os.path.join(tmp, "warm_up"))
+        n_sec = RAW_CLIPS[0][0]
+        feats = v2m.extract_features(paths[0])
+        n_motion = feats["motion"].shape[0]
+        fail_unless(feats["semantic"].shape == (n_sec, 768)
+                    and feats["emotion"].shape == (n_sec, 6)
+                    and feats["motion"].shape[1] == 512
+                    and feats["scene_offset"].shape == (n_sec,),
+                    f"features of shapes "
+                    f"{[(k, v.shape) for k, v in feats.items()]}")
+        fail_unless(all(np.isfinite(v).all() for v in feats.values()),
+                    "non-finite features")
+        fail_unless(np.allclose(feats["emotion"].sum(-1), 1, atol=1e-4),
+                    "emotion rows do not sum to 1")
+        cuts = int((np.diff(feats["scene_offset"]) < 0).sum())
+        fail_unless(cuts >= RAW_CLIPS[0][1] - 1,
+                    f"{cuts} scene cuts found, {RAW_CLIPS[0][1]} scenes "
+                    f"written")
+        for fn in wrappers().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = v2m.generate(paths[0], primer="C Am", key="C major",
+                           output_dir=os.path.join(tmp, "g0"))
+        wall = time.perf_counter() - t0
+        counts = {n: fn.launches for n, fn in wrappers().items()}
+        check_clip("generate(video)", res, "C Am", n_sec,
+                   v2m.last_regression["instrument"],
+                   v2m.last_regression["ln_nd"])
+        want = path_launches(v2m, 1)
+        want["flash_attention"] += extract_launches(n_sec, n_motion - 1, 30)
+        for name in KERNELS:
+            print(f"  launches {name}: {counts[name]} (path implies "
+                  f"{want[name]})")
+            fail_unless(counts[name] == want[name],
+                        f"{name}: {counts[name]} launches, the raw-video "
+                        f"path implies {want[name]}")
+        fail_unless(counts["flash_attention"] > 0, "row 1 never launched")
+        report["flash_attention"]["launches_raw_video"] = \
+            counts["flash_attention"]
+        T = v2m.last_extract_timings
+        out["generate_b1"] = dict(wall_s=wall, n_sec=n_sec, **{
+            k: v for k, v in T.items()})
+        print(f"generate(video, {n_sec} s, {cuts} cuts): wall {wall:.3f} s; "
+              f"extract_features stages (host s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in T.items())
+              + f"; decode {v2m.last_timings.get('decode', 0):.1f} ms "
+              f"[{card}]")
+        # extract_features_batch over three clips against per-clip
+        t0 = time.perf_counter()
+        batch = v2m.extract_features_batch(paths[1:])
+        bwall = time.perf_counter() - t0
+        out["extract_batch_3"] = dict(wall_s=bwall, **v2m.last_extract_timings)
+        worst = 0.0
+        for p, got in zip(paths[1:], batch):
+            ref = v2m.extract_features(p)
+            np.testing.assert_array_equal(got["scene_offset"],
+                                          ref["scene_offset"])
+            for k in ("semantic", "emotion", "motion"):
+                fail_unless(got[k].shape == ref[k].shape,
+                            f"batch {k} {got[k].shape} != {ref[k].shape}")
+                d = float(np.abs(got[k] - ref[k]).max()
+                          / max(np.abs(ref[k]).max(), 1e-30))
+                worst = max(worst, d)
+        print(f"extract_features_batch (3 clips, {bwall:.3f} s) against "
+              f"per-clip: max_rel {worst:.3e} (rel {BF16_REL}; bf16 GEMMs "
+              f"of other widths) {'ok' if worst <= BF16_REL else 'FAIL'}; "
+              f"stages (host s): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in v2m.last_extract_timings.items())
+              + f" [{card}]")
+        fail_unless(worst <= BF16_REL, "batched extraction differs")
+        # a DynamicBatcher with four video requests
+        for fn in wrappers().values():
+            fn.launches = 0
+        log = VideoLog(v2m)
+        batcher = DynamicBatcher(log, max_batch=4, max_wait_ms=2000,
+                                 output_dir=os.path.join(tmp, "serve"))
+        try:
+            t0 = time.perf_counter()
+            futures = [batcher.submit({"video": p, "primer": "G"})
+                       for p in paths]
+            served = [f.result(timeout=600) for f in futures]
+            swall = time.perf_counter() - t0
+        finally:
+            batcher.stop()
+        for (s, _, _), (r_, width) in zip(RAW_CLIPS, served):
+            check_clip(f"batcher video request (width {width})", r_, "G", s)
+        counts = {n: fn.launches for n, fn in wrappers().items()}
+        want = dict.fromkeys(KERNELS, 0)
+        for w in log.widths:
+            for name, n in path_launches(v2m, w).items():
+                want[name] += n
+        want["flash_attention"] += sum(
+            extract_launches(nf, nm, MAX_SECONDS) for nf, nm in log.extracts)
+        for name in KERNELS:
+            fail_unless(counts[name] == want[name],
+                        f"batcher: {name} {counts[name]} launches, the path "
+                        f"implies {want[name]}")
+        out["batcher_4"] = dict(wall_s=swall, widths=log.widths,
+                                extracts=log.extracts)
+        print(f"DynamicBatcher, 4 video requests: {swall:.3f} s, batches of "
+              f"widths {log.widths}, extractions of (frames, motion rows) "
+              f"{log.extracts}; row-1 launches {counts['flash_attention']} "
+              f"(path implies {want['flash_attention']}) [{card}]")
+    del v2m
+    torch.cuda.empty_cache()
+
+
+def new_backbones_phase(card, report):
+    """The RNN, CNN-GRU and minGRU regressions at full width (the
+    RegressionConfig defaults: d_model 64, 2 layers) behind a full-width
+    2.2, seeded: one generate (B=1) and one generate_batch (B=16) each in
+    float32 and bfloat16, every clip checked; the f32 regression outputs
+    of the card against the same model on the CPU, bf16 against f32 on
+    the card; the regression forward's ms at B=1 and B=16 (CUDA events).
+    No kernel of the port runs in these backbones (cuDNN's GRU / LSTM,
+    torch.logcumsumexp)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from video2music_tpu_torch.pipeline.api import Video2music, _prepare
+    out = report.setdefault("new_backbones", {})
+    reqs, temps = serving_requests(16, 900)
+    with tempfile.TemporaryDirectory() as tmp:
+        for rm in NEW_BACKBONES:
+            v2m = Video2music(seed=0, device="cuda", reg_model=rm)
+            cpu = copy.deepcopy(v2m.model_reg).cpu()
+            row = out[rm] = {}
+            for B in (1, 16):
+                got = {}
+                for dt in ("float32", "bfloat16"):
+                    results = v2m.generate_batch(
+                        reqs[:B], temperature=temps[:B], compute_dtype=dt,
+                        output_dir=os.path.join(tmp, f"{rm}{B}{dt}"))
+                    check_batch(f"{rm} B={B} {dt}", v2m, reqs[:B], results)
+                    got[dt] = v2m.last_regression
+                prepped = [_prepare(r["features"], r.get("key"),
+                                    r.get("primer", "")) for r in reqs[:B]]
+                feats = {k: torch.as_tensor(np.stack([p[k] for p in prepped]))
+                         for k in ("semantic", "emotion")}
+                with torch.no_grad():
+                    want = [t.numpy() for t in cpu(
+                        feats["semantic"], None, None, feats["emotion"])]
+                for i, part in enumerate(("ln_nd", "instrument")):
+                    # 300 recurrent steps (minGRU: a 300-step log-space
+                    # cumsum, in a parallel order on the card): the error
+                    # scales with the largest magnitude
+                    w = torch.as_tensor(want[i])
+                    check_close(f"{rm} B={B} {part}, card vs CPU",
+                                torch.float32,
+                                torch.as_tensor(got["float32"][part]), w,
+                                atol=F32_RTOL * w.abs().max().item())
+                    check_close(f"{rm} B={B} {part}, bf16 vs f32 on the card",
+                                torch.bfloat16,
+                                torch.as_tensor(got["bfloat16"][part]),
+                                torch.as_tensor(got["float32"][part]))
+                sem = feats["semantic"].cuda()
+                emo = feats["emotion"].cuda()
+                for dt in ("float32", "bfloat16"):
+                    m = v2m._models(dt)[1]
+                    d = getattr(torch, dt)
+                    with torch.no_grad():
+                        row[f"ms_b{B}_{dt}"] = eager_ms(
+                            lambda: m(sem.to(d), None, None, emo.to(d)),
+                            iters=10)
+                print(f"  {rm} regression forward B={B}: "
+                      f"{row[f'ms_b{B}_bfloat16']:.3f} ms bf16, "
+                      f"{row[f'ms_b{B}_float32']:.3f} ms f32 (eager, CUDA "
+                      f"events) [{card}]")
+            del v2m, cpu
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3967,6 +4402,11 @@ def main() -> int:
     phase("wirings", wirings_phase, card, report)
     phase("regression zoo", regression_zoo_phase, card, report)
     torch.cuda.empty_cache()
+    phase("raw video kernels", raw_video_kernel_phase, report, card)
+    phase("extractors", extractor_phase, card, report)
+    phase("raw video", raw_video_phase, card, report)
+    phase("new backbones", new_backbones_phase, card, report)
+    torch.cuda.empty_cache()
     phase("deep model", deep_model_phase, card)
     torch.cuda.empty_cache()
     phase("train", train_phase, card, report)
@@ -3988,13 +4428,18 @@ def main() -> int:
                    ms_f32=f32[0], plain_ms_f32=f32[2])
         for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h", "ms_int8",
                     "ms_int8_b64", "ms_d128", "ms_rpr", "ms_mlp",
-                    "ms_moemamba"):  # other shapes; int8 weights or
-            # caches; head size 128; the RPR / MLP-expert layer forms and
-            # the scan inside moemamba, each with its own bound
+                    "ms_moemamba") + tuple(f[0] for f in RAW_VIDEO_FORMS):
+            # other shapes; int8 weights or caches; head size 128; the
+            # RPR / MLP-expert layer forms, the scan inside moemamba and
+            # row 1 in the extractors' forms, each with its own bound
             if key in r:
                 t = r[key][torch.bfloat16]
                 row[key], row["plain_" + key] = t[0], t[2]
                 row[key + "_f32"] = r[key][torch.float32][0]
+            if "err_" + key in r:
+                row["max_abs_err_" + key] = r["err_" + key][torch.bfloat16]
+                row["max_abs_err_" + key + "_f32"] = \
+                    r["err_" + key][torch.float32]
             if "library_" + key in r:
                 row["library_" + key] = r["library_" + key]
             if "form_bound_" + key in r:  # (ms, "bytes" / "operations")
@@ -4002,7 +4447,8 @@ def main() -> int:
                     r["form_bound_" + key]
         # flash attention at the V3 encoder's 2H; the launches of the
         # wirings' and the regression zoo's paths
-        for key in ("launches_2h", "launches_wirings", "launches_zoo"):
+        for key in ("launches_2h", "launches_wirings", "launches_zoo",
+                    "launches_raw_video"):
             if key in r:
                 row[key] = r[key]
         if "err_int8" in r:  # int8 weights (decode layers), int8 KV caches
@@ -4036,6 +4482,12 @@ def main() -> int:
     print(f"wirings (this run): {json.dumps(report['wirings'])}")
     print(f"regression zoo, forward ms (this run): "
           f"{json.dumps(report['zoo'])}")
+    print(f"extractors, forward ms of 30 frames (this run): "
+          f"{json.dumps(report['extractors'])}")
+    print(f"raw video (this run; host seconds): "
+          f"{json.dumps(report['raw_video'])}")
+    print(f"new backbones, regression forward ms (this run): "
+          f"{json.dumps(report['new_backbones'])}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's framework-free modules
-(core, midi, data.native / parsers / dataset, pipeline/serving.py) equal
+(core, midi, data.native / parsers / dataset, pipeline/serving.py,
+features/scene.py, pipeline/video_io.py) equal
 the originals: configs field for field for every AMT version, the
 TrainConfig / RegressionConfig defaults, the vocab tables, the constants,
 the MIDI helpers' output, and the serving module's source."""
@@ -96,6 +97,18 @@ def test_native_copy_builds_into_the_ports_build_dir(tmp_path):
     assert (got is None) == (want is None)
     if got is not None:
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("path", [("features", "scene.py"),
+                                  ("pipeline", "video_io.py")])
+def test_raw_video_modules_are_copies(path):
+    """Scene-cut detection and the video I/O (decode, muxing, FluidSynth)
+    are framework-free: the port keeps them byte for byte (their imports
+    are relative already: data.native's HSV scorer, features.scene)."""
+    with open(os.path.join(ROOT, "video2music_tpu", *path), "rb") as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "video2music_tpu_torch", *path), "rb") as f:
+        assert f.read() == want
 
 
 def test_serving_module_is_a_copy():

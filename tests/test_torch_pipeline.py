@@ -2,9 +2,9 @@
 ``Video2music.generate(features=...)`` with bridged weights and the JAX
 sampling noise handed in must give the same chords and byte-identical
 MIDI, stems and inst.csv. Also: the port runs with the JAX package and
-JAX blocked, CPU calls launch no kernel, the parts outside the slice raise
-NotImplementedError, and without CUDA the default device raises instead
-of falling back."""
+JAX blocked, CPU calls launch no kernel, the parts outside the port raise
+NotImplementedError (and the ones a later slice ported now run), and
+without CUDA the default device raises instead of falling back."""
 
 import os
 import subprocess
@@ -18,12 +18,16 @@ import torch
 from video2music_tpu.core import constants as C
 from video2music_tpu.pipeline import Video2music as JaxVideo2music
 from video2music_tpu.pipeline.api import smooth_emotion as jax_smooth
+from video2music_tpu_torch.features.clip import (CLIP, CLIPConfig,
+                                                 CLIPTextConfig,
+                                                 CLIPVisionConfig)
 from video2music_tpu_torch.ops import decode_layer as port_decode
 from video2music_tpu_torch.ops.flash_attention import flash_attention
 from video2music_tpu_torch.ops.scan import selective_scan
 from video2music_tpu_torch.pipeline import Video2music
 from video2music_tpu_torch.pipeline.api import _pad_to
-from video2music_tpu_torch.weights import amt_from_jax, regression_from_jax
+from video2music_tpu_torch.weights import (amt_from_jax, init_weights_,
+                                           regression_from_jax)
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -175,6 +179,34 @@ with tempfile.TemporaryDirectory() as tmp:
     finally:
         batcher.stop()
     assert res.chord_ids.shape == (6,) and width >= 1
+    # raw video in: a tiny seeded CLIP and a 512-d MaxViT, the mingru
+    # regression
+    import cv2
+    from video2music_tpu_torch.features.clip import (
+        CLIP, CLIPConfig, CLIPTextConfig, CLIPVisionConfig)
+    from video2music_tpu_torch.features.maxvit import MaxViT, MaxViTConfig
+    from video2music_tpu_torch.weights import init_weights_
+    gen = torch.Generator().manual_seed(0)
+    ccfg = CLIPConfig(vision=CLIPVisionConfig(hidden_size=16, layers=1,
+                                              heads=2, image_size=56),
+                      text=CLIPTextConfig(hidden_size=16, layers=1, heads=2,
+                                          vocab_size=40, context_length=9))
+    mcfg = MaxViTConfig(channels=(8, 512), depths=(1, 1), stem_channels=8,
+                        head_dim=8, image_size=56)
+    vid = Video2music(
+        device="cpu", music_gen_version="2.2", reg_model="mingru",
+        motion_type=1, amt_overrides=dict(n_layers=2, num_heads=2,
+        d_model=16, d_ff=32), reg_overrides=dict(n_layers=1, d_model=8),
+        clip_cfg=ccfg, maxvit_cfg=mcfg, extractor_dtype="float32",
+        clip_params=init_weights_(CLIP(ccfg), gen).state_dict(),
+        maxvit_params=init_weights_(MaxViT(mcfg), gen).state_dict(),
+        emotion_text_embeds=torch.randn(6, 768, generator=gen).numpy())
+    path = tmp + "/clip.mp4"
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 5.0, (64, 48))
+    for i in range(20):
+        w.write(np.full((48, 64, 3), 40 + 150 * (i >= 10), np.uint8))
+    w.release()
+    assert vid.generate(path, output_dir=tmp).chord_ids.shape == (4,)
 L = 8
 cfg = amt_config("2.2", n_layers=2, num_heads=2, d_model=32, d_ff=64,
                  max_seq_video=L, max_seq_chord=L, total_vf_dim=8 + 1 + 1 + 6)
@@ -200,9 +232,11 @@ print("isolated ok")
 
 def test_port_imports_no_jax():
     """With the JAX package and JAX itself blocked, the whole port imports
-    (every module, and chip_smoke.py) and runs on the CPU: a tiny 2.2 and
-    a tiny V3.1 ``generate``, a 2.2 ``generate_batch(kv_quant="int8")`` at
-    B=2, a DynamicBatcher request and one train step."""
+    (every module, the raw-video ones too, and chip_smoke.py) and runs on
+    the CPU: a tiny 2.2 and a tiny V3.1 ``generate``, a 2.2
+    ``generate_batch(kv_quant="int8")`` at B=2, a DynamicBatcher request, a
+    ``generate(video=...)`` through seeded CLIP and MaxViT with the mingru
+    regression, and one train step."""
     out = subprocess.run([sys.executable, "-c", ISOLATED_RUN], cwd=ROOT,
                          check=True, timeout=600, capture_output=True,
                          text=True)
@@ -212,14 +246,44 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("case", ["video", "checkpoint", "backbone",
                                   "wiring"])
 def test_outside_the_slice_raises(pair, tmp_path, case):
+    """Orbax checkpoints and training through differential attention are
+    still outside the port and raise NotImplementedError; raw video in and
+    the RNN backbones, outside it until they were ported, now serve: a
+    ``generate(video=...)`` through a tiny seeded CLIP, and a ``bigru``
+    regression."""
     _, pv = pair
+    if case == "video":
+        cv2 = pytest.importorskip("cv2")
+        path = str(tmp_path / "clip.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 5.0,
+                                 (64, 48))
+        for i in range(20):
+            writer.write(np.full((48, 64, 3), 40 + 150 * (i >= 10),
+                                 np.uint8))
+        writer.release()
+        cfg = CLIPConfig(vision=CLIPVisionConfig(hidden_size=16, layers=1,
+                                                 heads=2, image_size=56),
+                         text=CLIPTextConfig(hidden_size=16, layers=1,
+                                             heads=2, vocab_size=40,
+                                             context_length=9))
+        gen = torch.Generator().manual_seed(0)
+        v2m = Video2music(
+            device="cpu", clip_cfg=cfg, extractor_dtype="float32",
+            emotion_text_embeds=torch.randn(6, 768, generator=gen).numpy(),
+            clip_params=init_weights_(CLIP(cfg), gen).state_dict(), **KW)
+        res = v2m.generate(path, output_dir=str(tmp_path),
+                           compute_dtype="float32")
+        assert res.chord_ids.shape == (4,) and res.video_path is None
+        return
+    if case == "backbone":
+        res = Video2music(device="cpu", **dict(KW, reg_model="bigru")) \
+            .generate(features=_features(7, 2), output_dir=str(tmp_path),
+                      compute_dtype="float32")
+        assert res.chord_ids.shape == (7,)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        if case == "video":
-            pv.generate(video="clip.mp4", output_dir=str(tmp_path))
-        elif case == "checkpoint":
+        if case == "checkpoint":
             Video2music(device="cpu", amt_checkpoint="ckpt", **KW)
-        elif case == "backbone":
-            Video2music(device="cpu", **dict(KW, reg_model="bigru"))
         else:  # wiring: every wiring serves; training through
             # differential attention is not ported
             model = Video2music(device="cpu", **dict(

@@ -129,12 +129,6 @@ def test_regression_backbone_matches_jax(reg_model, use_kan, rng):
                                rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("reg_model", ["bilstm", "gru", "cnnbigru", "mingru"])
-def test_unported_backbones_raise(reg_model):
-    with pytest.raises(NotImplementedError, match="RNN and minGRU"):
-        VideoRegression(RegressionConfig(reg_model=reg_model))
-
-
 @pytest.mark.parametrize("N", [4, 16])
 def test_selective_scan_gradients_match_jax_vjp(N):
     """The scan wrapper's backward (autograd through the plain scan,

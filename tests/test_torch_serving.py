@@ -3,7 +3,8 @@
 keys and temperatures and the JAX sampling noise handed in must give the
 same chords and byte-identical MIDI, stems and inst.csv for every clip.
 Also: the generate_batch contract (n_real, on_decoded, defer_render, the
-empty batch), the port's DynamicBatcher, and no kernel launch on the CPU."""
+empty batch), the port's DynamicBatcher (with a raw-video request, through
+a tiny seeded CLIP), and no kernel launch on the CPU."""
 
 import os
 import threading
@@ -15,13 +16,15 @@ import torch
 
 from video2music_tpu.core import constants as C
 from video2music_tpu.pipeline import Video2music as JaxVideo2music
+from video2music_tpu_torch.features import clip as pclip
 from video2music_tpu_torch.ops import decode_batch as port_batch
 from video2music_tpu_torch.ops import decode_layer as port_decode
 from video2music_tpu_torch.ops.flash_attention import flash_attention
 from video2music_tpu_torch.ops.scan import selective_scan
 from video2music_tpu_torch.pipeline import Video2music
 from video2music_tpu_torch.pipeline.serving import DynamicBatcher
-from video2music_tpu_torch.weights import amt_from_jax, regression_from_jax
+from video2music_tpu_torch.weights import (amt_from_jax, init_weights_,
+                                           regression_from_jax)
 
 torch.set_num_threads(1)
 KW = dict(music_gen_version="2.2", reg_model="bimamba+", motion_type=0,
@@ -47,10 +50,24 @@ def _jax_gumbel(seed, n):
     return torch.from_numpy(np.stack(out))
 
 
+def _tiny_clip():
+    """A 56 px CLIP with the product's 768-d projection, seeded."""
+    cfg = pclip.CLIPConfig(
+        vision=pclip.CLIPVisionConfig(hidden_size=16, layers=1, heads=2,
+                                      image_size=56),
+        text=pclip.CLIPTextConfig(hidden_size=16, layers=1, heads=2,
+                                  vocab_size=40, context_length=9))
+    gen = torch.Generator().manual_seed(1)
+    text = torch.randn(6, 768, generator=gen).numpy()
+    return dict(clip_cfg=cfg, emotion_text_embeds=text,
+                extractor_dtype="float32", clip_params=init_weights_(
+                    pclip.CLIP(cfg), gen).state_dict())
+
+
 @pytest.fixture(scope="module")
 def pair():
     jv = JaxVideo2music(**KW)
-    pv = Video2music(device="cpu", **KW)
+    pv = Video2music(device="cpu", **_tiny_clip(), **KW)
     pv.load_state_dicts(
         amt_from_jax(jax.device_get(jv.variables["params"])),
         regression_from_jax(jax.device_get(jv.reg_variables["params"])))
@@ -133,7 +150,8 @@ def test_dynamic_batcher_over_port(pair, tmp_path):
     """Five concurrent requests with mixed temperatures through the port's
     DynamicBatcher (the JAX package's batching policy, loaded by path):
     every caller gets its clip, at least one batch is wider than 1, and a
-    raw-video request fails with NotImplementedError."""
+    raw-video request (a 6 s clip written with cv2) gets its clip through
+    extract_features_batch."""
     _, pv = pair
     batcher = DynamicBatcher(pv, max_batch=8, max_wait_ms=3000,
                              output_dir=str(tmp_path),
@@ -149,13 +167,30 @@ def test_dynamic_batcher_over_port(pair, tmp_path):
             assert os.path.getsize(res.midi_path) > 0 and width >= 1
         assert batcher.stats["batched_requests"] == 5
         assert batcher.stats["max_batch_size"] > 1
-        fut = batcher.submit({"video": "clip.mp4"})
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fut.result(timeout=600)
+        path = _write_clip(str(tmp_path / "clip.mp4"))
+        res, _ = batcher.submit({"video": path}).result(timeout=600)
+        assert res.chord_ids.shape == (6,)
+        assert ((res.chord_ids >= 1) & (res.chord_ids < C.CHORD_END)).all()
+        assert os.path.getsize(res.midi_path) > 0
     finally:
         batcher.stop()
     assert not any(t.name in ("v2m-batcher", "v2m-render") and t.is_alive()
                    for t in threading.enumerate())
+
+
+def _write_clip(path, seconds=6, fps=5.0, w=64, h=48):
+    cv2 = pytest.importorskip("cv2")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                             (w, h))
+    if not writer.isOpened():
+        pytest.skip("cv2.VideoWriter cannot encode here")
+    colors = np.random.default_rng(3).integers(0, 255, (2, 3))
+    for i in range(int(seconds * fps)):
+        img = np.empty((h, w, 3), np.uint8)
+        img[:] = colors[i * 2 // int(seconds * fps)]
+        writer.write(img)
+    writer.release()
+    return path
 
 
 def test_cpu_generate_batch_launches_no_kernel(pair, tmp_path):

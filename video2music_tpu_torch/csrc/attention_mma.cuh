@@ -278,7 +278,7 @@ __device__ __forceinline__ unsigned int drop_salt(const int* seed, int bh) {
 
 struct FwdArgs {
   const bf16 *q, *k, *v;
-  const float* bias;  // (BH, L, S) or null
+  const float* bias;  // (planes, L, S) or null; (b, h) reads plane bh % planes
   const int* seed;    // dropout only
   bf16* out;
   float* stats;       // dropout only: (BH, L, 2) row max, row sum
@@ -330,10 +330,10 @@ __device__ __forceinline__ void to_logits(float (&s)[NT][4], float scale,
 // the key chunks: pass 0 the row max m and sum l of exp(s - m); pass 1 the
 // weights exp(s - m) / l [* the dropout factor], rounded to bf16 as the A
 // operand of the product with V, as the Pallas kernels round them. DROPOUT
-// also draws the mask and writes the stats (m, l) for the backward.
+// also draws the mask and writes the stats (m, l) for the backward. The
+// body of the kernels below.
 template <int HD, int WARPS, bool CAUSAL, bool DROPOUT>
-__global__ void __launch_bounds__(WARPS * 32)
-attention_fwd_mma(FwdArgs a) {
+__device__ __forceinline__ void fwd_mma_body(FwdArgs a) {
   constexpr int kNT = kChunk / 8;  // key tiles of a chunk
   constexpr int kDT = HD / 8;      // head-dim tiles
   // K and V chunks, two of each (fwd_smem bytes)
@@ -341,7 +341,11 @@ attention_fwd_mma(FwdArgs a) {
       reinterpret_cast<bf16 (*)[Chunk<HD>::kElems]>(attn_smem);
   bf16 (*vs)[Chunk<HD>::kElems] = ks + 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
+  // grid (row blocks, bias planes, B*H / planes): (b, h) = blockIdx.z *
+  // planes + blockIdx.y reads bias plane blockIdx.y, no division in the
+  // kernel. The dropout forward keeps one plane per (b, h), and with it
+  // the code it had before shared biases.
+  const int bh = DROPOUT ? blockIdx.y : blockIdx.z * gridDim.y + blockIdx.y;
   const int blk0 = blockIdx.x * WARPS * 16;
   const int r0 = blk0 + warp * 16;
   const int ra = r0 + (lane >> 2), rb = ra + 8;
@@ -349,8 +353,9 @@ attention_fwd_mma(FwdArgs a) {
   const int L = a.L, S = a.S;
   const bf16* kb = a.k + (size_t)bh * S * HD;
   const bf16* vb = a.v + (size_t)bh * S * HD;
-  const float* ba = a.bias && ra < L ? a.bias + ((size_t)bh * L + ra) * S : nullptr;
-  const float* bb = a.bias && rb < L ? a.bias + ((size_t)bh * L + rb) * S : nullptr;
+  const size_t bp = DROPOUT ? bh : blockIdx.y;
+  const float* ba = a.bias && ra < L ? a.bias + (bp * L + ra) * S : nullptr;
+  const float* bb = a.bias && rb < L ? a.bias + (bp * L + rb) * S : nullptr;
 
   // chunks the block loads; chunks this warp computes (none past L; under
   // causal none wholly above its diagonal)
@@ -479,6 +484,21 @@ inline int fwd_warps(int BH, int L) {
   return BH * ((L + 63) / 64) >= 2 * 132 ? 4 : 2;
 }
 
+template <int HD, int WARPS, bool CAUSAL, bool DROPOUT>
+__global__ void __launch_bounds__(WARPS * 32) attention_fwd_mma(FwdArgs a) {
+  fwd_mma_body<HD, WARPS, CAUSAL, DROPOUT>(a);
+}
+
+// The plain (no causal mask, no dropout) 4-warp forward at head sizes up
+// to 64, the instance of large grids (CLIP's 30 x 16 x 577 rows, the AMT
+// encoder at B=16), held to 4 blocks an SM (at most 128 registers a
+// thread): left to the compiler it took 158 registers, 3 blocks an SM,
+// and ran 9% slower on an H100 80GB HBM3.
+template <int HD>
+__global__ void __launch_bounds__(4 * 32, 4) attention_fwd_mma_4x(FwdArgs a) {
+  fwd_mma_body<HD, 4, false, false>(a);
+}
+
 template <int HD>
 constexpr size_t fwd_smem() {
   return 4 * Chunk<HD>::kElems * sizeof(bf16);
@@ -487,43 +507,47 @@ constexpr size_t fwd_smem() {
 template <int HD, int WARPS, bool CAUSAL, bool DROPOUT>
 inline int launch_fwd_inst(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   static bool opted_in = false;
-  const int err = smem_opt_in(attention_fwd_mma<HD, WARPS, CAUSAL, DROPOUT>,
-                              fwd_smem<HD>(), opted_in);
+  void (*kernel)(FwdArgs);
+  if constexpr (WARPS == 4 && HD <= 64 && !CAUSAL && !DROPOUT)
+    kernel = attention_fwd_mma_4x<HD>;
+  else
+    kernel = attention_fwd_mma<HD, WARPS, CAUSAL, DROPOUT>;
+  const int err = smem_opt_in(kernel, fwd_smem<HD>(), opted_in);
   if (err) return err;
-  attention_fwd_mma<HD, WARPS, CAUSAL, DROPOUT>
-      <<<grid, WARPS * 32, fwd_smem<HD>(), st>>>(a);
+  kernel<<<grid, WARPS * 32, fwd_smem<HD>(), st>>>(a);
   return 0;
 }
 
 template <int HD, int WARPS, bool DROPOUT>
-inline int launch_fwd_mma(const FwdArgs& a, int BH, int causal,
+inline int launch_fwd_mma(const FwdArgs& a, int BH, int causal, int planes,
                           cudaStream_t st) {
-  dim3 grid((a.L + WARPS * 16 - 1) / (WARPS * 16), BH);
+  dim3 grid((a.L + WARPS * 16 - 1) / (WARPS * 16), planes, BH / planes);
   return causal ? launch_fwd_inst<HD, WARPS, true, DROPOUT>(a, grid, st)
                 : launch_fwd_inst<HD, WARPS, false, DROPOUT>(a, grid, st);
 }
 
 template <int HD, bool DROPOUT>
-inline int launch_fwd_hd(const FwdArgs& a, int BH, int causal,
+inline int launch_fwd_hd(const FwdArgs& a, int BH, int causal, int planes,
                          cudaStream_t st) {
   return fwd_warps(BH, a.L) == 4
-             ? launch_fwd_mma<HD, 4, DROPOUT>(a, BH, causal, st)
-             : launch_fwd_mma<HD, 2, DROPOUT>(a, BH, causal, st);
+             ? launch_fwd_mma<HD, 4, DROPOUT>(a, BH, causal, planes, st)
+             : launch_fwd_mma<HD, 2, DROPOUT>(a, BH, causal, planes, st);
 }
 
 // Launches the bf16 forward for head_dim D (16, 32, 64, 128 or 256; the
-// wrappers pad other head sizes with zero columns); returns a cudaError_t
-// code.
+// wrappers pad other head sizes with zero columns) over BH (b, h) pairs
+// whose bias has ``planes`` planes (BH, or the head count of a bias shared
+// by every batch row; the dropout forward: BH); returns a cudaError_t code.
 template <bool DROPOUT>
 inline int run_fwd_mma(const FwdArgs& a, int BH, int D, int causal,
-                       cudaStream_t st) {
+                       cudaStream_t st, int planes) {
   int err;
   switch (D) {
-    case 16: err = launch_fwd_hd<16, DROPOUT>(a, BH, causal, st); break;
-    case 32: err = launch_fwd_hd<32, DROPOUT>(a, BH, causal, st); break;
-    case 64: err = launch_fwd_hd<64, DROPOUT>(a, BH, causal, st); break;
-    case 128: err = launch_fwd_hd<128, DROPOUT>(a, BH, causal, st); break;
-    case 256: err = launch_fwd_hd<256, DROPOUT>(a, BH, causal, st); break;
+    case 16: err = launch_fwd_hd<16, DROPOUT>(a, BH, causal, planes, st); break;
+    case 32: err = launch_fwd_hd<32, DROPOUT>(a, BH, causal, planes, st); break;
+    case 64: err = launch_fwd_hd<64, DROPOUT>(a, BH, causal, planes, st); break;
+    case 128: err = launch_fwd_hd<128, DROPOUT>(a, BH, causal, planes, st); break;
+    case 256: err = launch_fwd_hd<256, DROPOUT>(a, BH, causal, planes, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;

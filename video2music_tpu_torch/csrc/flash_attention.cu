@@ -6,6 +6,11 @@
 // logits set to -1e9 (not -inf), and the causal mask start-aligned
 // (key column <= query row), valid only for L == S (the wrapper checks);
 // the normalized weights are rounded to v's dtype before the product.
+// The scale is an argument (CLIP's head_dim^-0.5, MaxViT's full channel
+// width C^-0.5), and the bias may have fewer planes than B*H: (b, h)
+// reads plane bh % bias_planes, so MaxViT's (heads, 49, 49) relative-
+// position bias serves every window without a (windows, heads, 49, 49)
+// copy (37 MB a call at stage 0 of a 30-frame chunk).
 // Head sizes: instances at 16, 32, 64, 128 and 256; the wrapper pads any
 // other head size up to the next with zero columns (as the Pallas wrapper
 // pads D to a multiple of 128), which change neither q . k nor the kept
@@ -50,13 +55,17 @@ flash_attention_kernel(const float* __restrict__ q,
   // K and V tiles (f32_smem bytes)
   float (*ks)[HD] = reinterpret_cast<float (*)[HD]>(mma::attn_smem);
   float (*vs)[HD] = ks + kAttnTile;
-  const int bh = blockIdx.y;
+  // grid (row blocks, bias planes, B*H / planes): (b, h) = blockIdx.z *
+  // planes + blockIdx.y reads bias plane blockIdx.y (bh % planes in the
+  // kernel ran 8-9% slower on an H100 80GB HBM3, with or without a bias)
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
   const int row = blockIdx.x * kAttnRows + threadIdx.x;
   const bool live = row < L;
   const float* qb = q + (size_t)bh * L * HD;
   const float* kb = k + (size_t)bh * S * HD;
   const float* vb = v + (size_t)bh * S * HD;
-  const float* brow = bias ? bias + ((size_t)bh * L + row) * S : nullptr;
+  const float* brow =
+      bias ? bias + ((size_t)blockIdx.y * L + row) * S : nullptr;
 
   float qr[HD], acc[HD];
 #pragma unroll kUnrollHD
@@ -122,13 +131,13 @@ constexpr size_t f32_smem() {
 
 template <int HD>
 static int launch(const void* q, const void* k, const void* v,
-                  const float* bias, void* out, int BH, int L, int S,
-                  int causal, float scale, cudaStream_t st) {
+                  const float* bias, int bias_planes, void* out, int BH,
+                  int L, int S, int causal, float scale, cudaStream_t st) {
   static bool opted_in = false;
   const int err = mma::smem_opt_in(flash_attention_kernel<HD>, f32_smem<HD>(),
                                    opted_in);
   if (err) return err;
-  dim3 grid((L + kAttnRows - 1) / kAttnRows, BH);
+  dim3 grid((L + kAttnRows - 1) / kAttnRows, bias_planes, BH / bias_planes);
   flash_attention_kernel<HD><<<grid, kAttnRows, f32_smem<HD>(), st>>>(
       (const float*)q, (const float*)k, (const float*)v, bias, (float*)out,
       L, S, causal, scale);
@@ -139,15 +148,16 @@ static int launch(const void* q, const void* k, const void* v,
 // zero columns). At 128 and 256 a thread's q row and accumulator pass the
 // register file and spill to local memory: right, and slow.
 static int launch_f32(const void* q, const void* k, const void* v,
-                      const float* bias, void* out, int BH, int L, int S,
-                      int D, int causal, float scale, cudaStream_t st) {
+                      const float* bias, int planes, void* out, int BH,
+                      int L, int S, int D, int causal, float scale,
+                      cudaStream_t st) {
   int err;
   switch (D) {
-    case 16: err = launch<16>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
-    case 32: err = launch<32>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
-    case 64: err = launch<64>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
-    case 128: err = launch<128>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
-    case 256: err = launch<256>(q, k, v, bias, out, BH, L, S, causal, scale, st); break;
+    case 16: err = launch<16>(q, k, v, bias, planes, out, BH, L, S, causal, scale, st); break;
+    case 32: err = launch<32>(q, k, v, bias, planes, out, BH, L, S, causal, scale, st); break;
+    case 64: err = launch<64>(q, k, v, bias, planes, out, BH, L, S, causal, scale, st); break;
+    case 128: err = launch<128>(q, k, v, bias, planes, out, BH, L, S, causal, scale, st); break;
+    case 256: err = launch<256>(q, k, v, bias, planes, out, BH, L, S, causal, scale, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
@@ -156,23 +166,27 @@ static int launch_f32(const void* q, const void* k, const void* v,
 
 }  // namespace v2m
 
-// q (BH, L, D), k/v (BH, S, D), bias (BH, L, S) f32 or null, out (BH, L, D);
-// all contiguous, q/k/v/out of dtype `dtype`. Returns a cudaError_t code.
+// q (BH, L, D), k/v (BH, S, D), bias (bias_planes, L, S) f32 or null (BH
+// a multiple of bias_planes), out (BH, L, D); all contiguous, q/k/v/out of
+// dtype `dtype`. Returns a cudaError_t code.
 extern "C" int v2m_flash_attention(int dtype, const void* q, const void* k,
-                                   const void* v, const void* bias, void* out,
-                                   int BH, int L, int S, int D, int causal,
-                                   float scale, void* stream) {
+                                   const void* v, const void* bias,
+                                   int bias_planes, void* out, int BH, int L,
+                                   int S, int D, int causal, float scale,
+                                   void* stream) {
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
   const float* b = (const float*)bias;
+  if (bias_planes <= 0 || BH % bias_planes) return (int)cudaErrorInvalidValue;
   if (dtype == kF32)
-    return launch_f32(q, k, v, b, out, BH, L, S, D, causal, scale, st);
+    return launch_f32(q, k, v, b, bias_planes, out, BH, L, S, D, causal,
+                      scale, st);
   if (dtype == kBF16) {
     mma::FwdArgs a{};
     a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v;
     a.bias = b; a.out = (bf16*)out;
     a.L = L; a.S = S; a.scale = scale;
-    return mma::run_fwd_mma<false>(a, BH, D, causal, st);
+    return mma::run_fwd_mma<false>(a, BH, D, causal, st, bias_planes);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -800,7 +800,7 @@ static int dispatch_bf16(const DropoutArgs& a, int D, bool backward,
     f.bias = (const float*)a.bias; f.seed = (const int*)a.seed;
     f.out = (bf16*)a.out; f.stats = (float*)a.stats;
     f.L = a.L; f.S = a.S; f.scale = a.scale; f.drop = a.drop;
-    return mma::run_fwd_mma<true>(f, a.BH, D, a.causal, st);
+    return mma::run_fwd_mma<true>(f, a.BH, D, a.causal, st, a.BH);
   }
   mma::BwdArgs b{};
   b.q = (const bf16*)a.q; b.k = (const bf16*)a.k; b.v = (const bf16*)a.v;

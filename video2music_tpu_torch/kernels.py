@@ -201,7 +201,8 @@ class VariantArgs(ctypes.Structure):
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    lib.v2m_flash_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.v2m_flash_attention.argtypes = [i, p, p, p, p, i, p, i, i, i, i, i,
+                                        f, p]
     lib.v2m_flash_attention.restype = i
     lib.v2m_decode_layer.argtypes = [i, ctypes.POINTER(DecodeLayerArgs), p]
     lib.v2m_decode_layer.restype = i

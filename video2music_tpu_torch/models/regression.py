@@ -1,8 +1,11 @@
-"""VideoRegression with the Mamba-family backbones (counterpart of
-models/regression.py): [semantic | emotion] -> in_proj -> backbone ->
-Dense(2) note-density/loudness regressor and sigmoid(Dense(40)) instrument
-classifier. The backbones:
+"""VideoRegression over the fourteen backbones of the JAX package
+(counterpart of models/regression.py): [semantic | emotion] -> in_proj
+(dropout in training) -> backbone -> Dense(2) note-density/loudness
+regressor and sigmoid(Dense(40)) instrument classifier, both as wide as
+the backbone's output (2 d_model for a bidirectional RNN). The backbones:
 
+  bilstm / bigru / lstm / gru   RNNStack (cuDNN nn.LSTM / nn.GRU)
+  cnngru / cnnbigru     CNNGRU: Conv1d(k 7, same) + SiLU + dropout, then GRU
   mamba / mamba+        Mamba: residual Mamba (/ mamba+) blocks
   moemamba              MoEMamba: d_state = d_hidden, d_conv 8, shared MoE
   bimamba               BiMambaEncoder of v0 layers
@@ -13,25 +16,62 @@ classifier. The backbones:
 each MoE with 6 GLU experts of width 2 d_model + 1, top-2
 (models/regression.py:61-74); ``use_kan`` makes the Mamba and MoEMamba
 projections KAN layers (the bidirectional encoders do not pass it on, as
-in the JAX package). The RNN, CNN-GRU and minGRU backbones are not ported
-yet.
+in the JAX package);
+
+  mingru                _MinGRUBackbone: RMSNorm + minGRU + FF blocks.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..core import constants as C
 from ..core.config import MambaBackboneConfig, MoEConfig, RegressionConfig
-
-from ..ops.attention import not_ported
 from ..ops.moe import MoELayer
 from .bimamba import BiMambaEncoder
 from .mamba import Mamba, MoEMamba
+from .mingru import _MinGRUBlock
+from .rnn import RNNStack
 
-NOT_PORTED = ("bilstm", "bigru", "lstm", "gru", "cnngru", "cnnbigru",
-              "mingru")
+BACKBONES = (
+    "bilstm", "bigru", "lstm", "gru", "cnngru", "cnnbigru",
+    "mamba", "mamba+", "moemamba", "bimamba", "bimamba+",
+    "moe_bimamba+", "sharedmoe_bimamba+", "mingru",
+)
+
+
+class CNNGRU(nn.Module):
+    """Conv1d(k=7, same) + SiLU + dropout -> GRU (reference :86-104)."""
+
+    def __init__(self, d_model: int, n_layers: int = 1,
+                 dropout_rate: float = 0.1, bidirectional: bool = False):
+        super().__init__()
+        self.cnn = nn.Conv1d(d_model, d_model, 7, padding=3)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.gru = RNNStack("gru", d_model, d_model, n_layers,
+                            bidirectional, dropout_rate)
+        self.out_dim = self.gru.out_dim
+
+    def forward(self, x):                                  # (B, L, d_model)
+        h = F.silu(self.cnn(x.transpose(1, 2)).transpose(1, 2))
+        return self.gru(self.dropout(h))
+
+
+class _MinGRUBackbone(nn.Module):
+    """Norm + minGRU (expansion 1.5) + FF (4 d_model, tanh GELU) residual
+    blocks at (B, L, d_model), no logits head."""
+
+    def __init__(self, d_model: int, depth: int = 2):
+        super().__init__()
+        self.blocks = nn.ModuleList(_MinGRUBlock(d_model, 1.5, 4 * d_model)
+                                    for _ in range(depth))
+
+    def forward(self, x):
+        for block in self.blocks:
+            x = block(x)
+        return x
 
 
 def _moe_maker(cfg: RegressionConfig, shared: bool):
@@ -43,9 +83,16 @@ def _moe_maker(cfg: RegressionConfig, shared: bool):
 
 def make_backbone(cfg: RegressionConfig) -> nn.Module:
     rm = cfg.reg_model
-    if rm in NOT_PORTED:
-        raise not_ported(f"the {rm!r} regression backbone",
-                         "Queue 1 item 12, RNN and minGRU backbones")
+    if rm in ("bilstm", "bigru", "lstm", "gru"):
+        return RNNStack("lstm" if "lstm" in rm else "gru", cfg.d_model,
+                        cfg.d_model, cfg.n_layers,
+                        bidirectional=rm.startswith("bi"),
+                        dropout_rate=cfg.dropout)
+    if rm in ("cnngru", "cnnbigru"):
+        return CNNGRU(cfg.d_model, cfg.n_layers, cfg.dropout,
+                      bidirectional=rm == "cnnbigru")
+    if rm == "mingru":
+        return _MinGRUBackbone(cfg.d_model, cfg.n_layers)
     mcfg = lambda **kw: MambaBackboneConfig(d_model=cfg.d_model,
                                             dropout=cfg.dropout, bias=True,
                                             **kw)
@@ -70,14 +117,16 @@ class VideoRegression(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.in_proj = nn.Linear(cfg.total_vf_dim, cfg.d_model)
+        self.dropout = nn.Dropout(cfg.dropout)
         self.backbone = make_backbone(cfg)
-        self.regressor = nn.Linear(cfg.d_model, 2)
-        self.classifier = nn.Linear(cfg.d_model, C.INSTRUMENT_SIZE)
+        d_out = getattr(self.backbone, "out_dim", cfg.d_model)
+        self.regressor = nn.Linear(d_out, 2)
+        self.classifier = nn.Linear(d_out, C.INSTRUMENT_SIZE)
 
     def forward(self, semantic, scene_offset, motion, emotion):
         """Live-path features are semantic + emotion only; returns
         (loudness/note density (B, L, 2), instrument probs (B, L, 40))."""
         del scene_offset, motion
         vf = torch.cat([semantic, emotion.to(semantic.dtype)], dim=-1)
-        out = self.backbone(self.in_proj(vf))
+        out = self.backbone(self.dropout(self.in_proj(vf)))
         return self.regressor(out), torch.sigmoid(self.classifier(out))

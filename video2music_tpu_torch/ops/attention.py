@@ -189,7 +189,7 @@ class MultiHeadAttention(nn.Module):
         elif kw["generator"] is not None and self.dropout_rate > 0.0:
             if self.diff:
                 raise not_ported("training through differential attention",
-                                 "Queue 1 item 12")
+                                 "Queue 1 item 10")
             # the seed stays on the device: no host sync per call
             seed = torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=kw["generator"],

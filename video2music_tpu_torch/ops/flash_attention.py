@@ -18,13 +18,15 @@ from .. import kernels
 NEG_INF = -1e9
 
 
-def flash_attention_plain(q, k, v, *, bias=None, causal: bool = False):
-    """softmax(q k^T / sqrt(d) + bias + causal) v in plain PyTorch, as
+def flash_attention_plain(q, k, v, *, bias=None, causal: bool = False,
+                          scale=None):
+    """softmax(q k^T * scale + bias + causal) v in plain PyTorch, as
     ops/pallas_attention.py:reference_attention: f32 logits and softmax,
     masked logits -1e9, weights rounded to v's dtype before the product.
-    q (B, H, L, D); k, v (B, H, S, D); bias (B, H, L, S) or None."""
-    D = q.shape[-1]
-    logits = torch.einsum("bhld,bhsd->bhls", q.float(), k.float()) * D ** -0.5
+    q (B, H, L, D); k, v (B, H, S, D); bias (B, H, L, S), (1, H, L, S) (one
+    bias for every batch row) or None; scale D**-0.5 unless given."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = torch.einsum("bhld,bhsd->bhls", q.float(), k.float()) * scale
     if bias is not None:
         logits = logits + bias.float()
     if causal:
@@ -36,10 +38,11 @@ def flash_attention_plain(q, k, v, *, bias=None, causal: bool = False):
     return torch.einsum("bhls,bhsd->bhld", w.float(), v.float()).to(q.dtype)
 
 
-def _forward(q, k, v, bias, causal: bool):
+def _forward(q, k, v, bias, causal: bool, scale: float):
     what = "flash_attention"
     if kernels.use_plain(q, what):
-        return flash_attention_plain(q, k, v, bias=bias, causal=causal)
+        return flash_attention_plain(q, k, v, bias=bias, causal=causal,
+                                     scale=scale)
     B, H, L, D = q.shape
     S = k.shape[2]
     code = kernels.dtype_code(q, what)
@@ -51,17 +54,20 @@ def _forward(q, k, v, bias, causal: bool):
     kernels.require(all(t.is_cuda and t.is_contiguous() for t in (q, k, v)),
                     what, "q, k and v must be contiguous CUDA tensors")
     Dp = kernels.head_instance(D, what)
+    planes = B * H
     if bias is not None:
-        kernels.require(bias.shape == (B, H, L, S), what,
-                        f"bias shape {tuple(bias.shape)} != {(B, H, L, S)}")
+        kernels.require(bias.shape in ((B, H, L, S), (1, H, L, S)), what,
+                        f"bias shape {tuple(bias.shape)} is neither "
+                        f"{(B, H, L, S)} nor {(1, H, L, S)}")
         bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+        planes = bias.shape[0] * H
     q, k, v = (kernels.aligned(kernels.pad_head(t, Dp)) for t in (q, k, v))
     out = torch.empty_like(q)
     lib = kernels.library()
     status = lib.v2m_flash_attention(
         code, kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
-        kernels.ptr(bias), kernels.ptr(out), B * H, L, S, Dp, int(causal),
-        D ** -0.5, kernels.stream_of(q))
+        kernels.ptr(bias), planes, kernels.ptr(out), B * H, L, S, Dp,
+        int(causal), scale, kernels.stream_of(q))
     kernels.check(status, what)
     flash_attention.launches += 1
     return out if Dp == D else out[..., :D].contiguous()
@@ -69,10 +75,10 @@ def _forward(q, k, v, bias, causal: bool):
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal):
+    def forward(ctx, q, k, v, bias, causal, scale):
         ctx.save_for_backward(q, k, v, bias)
-        ctx.causal = causal
-        return _forward(q, k, v, bias, causal)
+        ctx.causal, ctx.scale = causal, scale
+        return _forward(q, k, v, bias, causal, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -81,21 +87,27 @@ class _Attention(torch.autograd.Function):
             leaves = [None if t is None else t.detach().requires_grad_()
                       for t in saved]
             out = flash_attention_plain(*leaves[:3], bias=leaves[3],
-                                        causal=ctx.causal)
+                                        causal=ctx.causal, scale=ctx.scale)
             wanted = [t for t in leaves if t is not None]
             grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(None if t is None else next(grads) for t in leaves), None)
+        return (*(None if t is None else next(grads) for t in leaves), None,
+                None)
 
 
-def flash_attention(q, k, v, *, bias=None, causal: bool = False):
+def flash_attention(q, k, v, *, bias=None, causal: bool = False,
+                    scale=None):
     """Fused attention. q (B, H, L, D); k, v (B, H, S, D) (same head count);
-    bias: optional (B, H, L, S) additive logits bias. The causal mask is
-    start-aligned and needs L == S, as in the TPU kernel."""
+    bias: optional additive logits bias, (B, H, L, S) or (1, H, L, S) for
+    one bias shared by every batch row (the kernel reads it in place);
+    scale: the logits' factor, D**-0.5 unless given (MaxViT scales by its
+    full channel width). The causal mask is start-aligned and needs
+    L == S, as in the TPU kernel."""
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError(
             f"causal flash_attention requires L == S, got L={q.shape[2]} "
             f"S={k.shape[2]} (use an explicit bias mask for L != S)")
-    return _Attention.apply(q, k, v, bias, bool(causal))
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    return _Attention.apply(q, k, v, bias, bool(causal), scale)
 
 
 flash_attention.launches = 0

@@ -8,6 +8,12 @@ backward recomputes through :func:`selective_scan_plain` under autograd
 (the pattern of ops/flash_attention.py ``_Attention``), as the JAX model
 differentiates its associative scan (the Pallas scan has no VJP); a
 backward kernel is left to the training slice of the regression.
+
+Also the scans of the other regression backbones, which reach no TPU
+kernel: the Heinsen log-space scan of minGRU (``logcumsumexp``,
+``heinsen_log_scan``) and the GRU / LSTM cell loops with torch's gate
+order (``gru_scan``, ``lstm_scan``), the plain versions that
+models/rnn.py's cuDNN stacks are held to.
 """
 
 from __future__ import annotations
@@ -92,3 +98,50 @@ def selective_scan(x, delta, A, B, C, D):
 
 
 selective_scan.launches = 0
+
+
+def logcumsumexp(x, axis: int = 1):
+    """Running log-sum-exp along ``axis`` (the JAX package's associative
+    scan; a run of -inf stays -inf, never nan)."""
+    return torch.logcumsumexp(x, dim=axis)
+
+
+def heinsen_log_scan(log_coeffs, log_values, axis: int = 1):
+    """h[t] = a[t] h[t-1] + v[t] for positive a, v, in log space:
+    exp(a* + logcumsumexp(log_values - a*)) with a* = cumsum(log_coeffs)."""
+    a_star = torch.cumsum(log_coeffs, dim=axis)
+    return torch.exp(a_star + logcumsumexp(log_values - a_star, axis))
+
+
+# torch.nn.GRU weights: rows [r; z; n], n = tanh(W_in x + b_in + r (W_hn h
+# + b_hn)), h' = (1 - z) n + z h. torch.nn.LSTM weights: rows [i; f; g; o],
+# c' = f c + i g, h' = o tanh(c').
+
+def gru_scan(x, h0, w_ih, w_hh, b_ih, b_hh, reverse: bool = False):
+    """x (B, L, I); h0 (B, H); weights in torch layout (3H, I) / (3H, H).
+    Returns (B, L, H)."""
+    H = h0.shape[-1]
+    gi = x @ w_ih.t() + b_ih                                     # (B, L, 3H)
+    h, ys = h0, [None] * x.shape[1]
+    for t in (reversed(range(x.shape[1])) if reverse else range(x.shape[1])):
+        gh = h @ w_hh.t() + b_hh
+        r = torch.sigmoid(gi[:, t, :H] + gh[:, :H])
+        z = torch.sigmoid(gi[:, t, H:2 * H] + gh[:, H:2 * H])
+        n = torch.tanh(gi[:, t, 2 * H:] + r * gh[:, 2 * H:])
+        h = ys[t] = (1.0 - z) * n + z * h
+    return torch.stack(ys, dim=1)
+
+
+def lstm_scan(x, h0, c0, w_ih, w_hh, b_ih, b_hh, reverse: bool = False):
+    """x (B, L, I); h0, c0 (B, H); weights in torch layout (4H, I) /
+    (4H, H). Returns (B, L, H)."""
+    H = h0.shape[-1]
+    gi = x @ w_ih.t() + b_ih                                     # (B, L, 4H)
+    h, c, ys = h0, c0, [None] * x.shape[1]
+    for t in (reversed(range(x.shape[1])) if reverse else range(x.shape[1])):
+        g = gi[:, t] + h @ w_hh.t() + b_hh
+        i, f = torch.sigmoid(g[:, :H]), torch.sigmoid(g[:, H:2 * H])
+        o = torch.sigmoid(g[:, 3 * H:])
+        c = f * c + i * torch.tanh(g[:, 2 * H:3 * H])
+        h = ys[t] = o * torch.tanh(c)
+    return torch.stack(ys, dim=1)

@@ -1,6 +1,18 @@
-"""The product API of the port: ``Video2music().generate(features=...)``
-and ``Video2music().generate_batch(requests)`` (counterpart of
-pipeline/api.py).
+"""The product API of the port: ``Video2music().generate(video)`` (or
+``generate(features=...)``) and ``Video2music().generate_batch(requests)``
+(counterpart of pipeline/api.py).
+
+Raw video in: ``extract_features`` decodes a clip in one streaming pass
+(pipeline/video_io.py ``ClipStream``, scene scores inline), and every 30
+decoded seconds uploads a chunk of uint8 frames, normalizes it on the
+device and runs CLIP's vision tower once for semantic and emotion
+features (features/clip.py) and MaxViT on the frame differences for
+motion (features/maxvit.py), with no host sync until the final fetch;
+scene cuts come from features/scene.py. ``extract_features_batch`` does
+the same for several clips (decode in a thread pool, frames of all clips
+in shared chunks, sliced back per clip); the DynamicBatcher calls it for
+requests that carry a ``video``. A muxed mp4 with the FluidSynth render
+(and timed captions) is written where fluidsynth and ffmpeg exist.
 
 ``generate_batch`` runs, eagerly and once for B clips, the four stages the
 JAX package traces into one program — encoder, cross-K/V priming, the
@@ -24,21 +36,20 @@ JAX package.
 decode kernel: at B=1 the decode kernels read int8 weights, at B>1 the plain
 step runs on fake-quantized weights, as in the JAX package
 (decode/sampler.py). ``kv_quant="int8"`` (``generate_batch``) keeps the
-batched 2.x step's KV caches as int8 rows with row scales. Not ported yet,
-and raising NotImplementedError: raw-video feature extraction (``video=``,
-``extract_features_batch``), orbax checkpoints, and the RNN, CNN-GRU and
-minGRU regression backbones.
+batched 2.x step's KV caches as int8 rows with row scales. The regression
+takes any of the fourteen backbones (models/regression.py). Not ported
+yet, and raising NotImplementedError: orbax checkpoints.
 Weights come from :mod:`video2music_tpu_torch.weights`: random from a seed,
-or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`).
+or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`;
+``weights.clip_from_jax`` / ``maxvit_from_jax`` for the extractors).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import os
-import shutil
-import subprocess
 import time
 from typing import Dict, List, Optional
 
@@ -53,9 +64,16 @@ from ..midi import Chord, MIDIFile, add_chord, chord_offsets, voice
 from ..midi.arpeggio import density_bucket, velocity_from_loudness
 
 from ..decode.sampler import GenerateConfig, generate_chords
+from ..features import scene as scene_mod
+from ..features.clip import (CLIP, clip_vit_l14_336_config, normalize_pixels,
+                             resize_crop_frames)
+from ..features.maxvit import (MaxViT, maxvit_t_config, motion_diff_frames,
+                               normalize_diff_pixels, resize_crop_diff_frames,
+                               scalar_motion)
 from ..models import VideoMusicTransformer, VideoRegression
 from ..ops.attention import not_ported
 from ..weights import init_weights_
+from . import video_io
 from .primer import TRANSPOSE_KEY, parse_primer, resolve_key_and_primer
 
 ARPEGGIO_INSTRUMENTS = frozenset(
@@ -126,14 +144,26 @@ def _pad_to(arr: np.ndarray, length: int) -> np.ndarray:
     return np.concatenate([arr, np.zeros(pad_shape, arr.dtype)], axis=0)
 
 
-def _midi_to_audio(midi_path: str, audio_path: str,
-                   sound_font: Optional[str] = None) -> None:
-    """FluidSynth render (the JAX pipeline's video_io.midi_to_audio)."""
-    cmd = ["fluidsynth", "-ni"]
-    if sound_font:
-        cmd.append(str(sound_font))
-    cmd += [str(midi_path), "-F", str(audio_path), "-r", "44100"]
-    subprocess.run(cmd, check=True, capture_output=True)
+def _gc_quiet(fn):
+    """Run the whole extraction (decode, resize loops, device fetches)
+    under ``video_io.gc_quiet``: cyclic-GC passes over a large live heap
+    cost whole seconds inside per-frame host loops. ``ClipStream`` guards
+    its own decode loop; this extends the guard over the tail flush and
+    the fetches (reentrant)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with video_io.gc_quiet():
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def _upload(u8: np.ndarray, device) -> torch.Tensor:
+    """uint8 host frames to ``device`` without waiting for the device: from
+    pinned memory, a non-blocking copy queued behind the running chunks."""
+    t = torch.from_numpy(np.ascontiguousarray(u8))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 _FEATURES = ("semantic", "scene_offset", "motion", "emotion")
@@ -158,22 +188,36 @@ def _prepare(features, key, primer) -> dict:
 
 
 class Video2music:
-    """Video2music on PyTorch, from precomputed features.
+    """Video2music on PyTorch, from a video or from precomputed features.
 
     Models are built from the JAX package's configs, initialised from
     ``seed`` with a torch.Generator, and kept in float32 on ``device``
     ("cuda" unless given; without CUDA the constructor raises, and
     ``device="cpu"`` runs the plain versions of the kernels); a bfloat16
     copy is made at the first bfloat16 ``generate``.
+
+    The feature extractors are optional: ``clip_params`` (a state dict of
+    features.clip.CLIP, e.g. ``weights.clip_from_jax``) with
+    ``emotion_text_embeds`` (the six prompts' (6, projection_dim) text
+    embeddings), and ``maxvit_params`` (features.maxvit.MaxViT) for
+    ``motion_type`` 1 and 2. They are built on ``device`` at ``clip_cfg`` /
+    ``maxvit_cfg`` (CLIP ViT-L/14@336 and MaxViT-T unless given) and kept
+    in ``extractor_dtype`` ("bfloat16" unless "float32"). Without them,
+    ``generate`` needs ``features``. ``resize_backend``: "cv2" (the
+    serving default) or "pil" (the reference's exact preprocessing).
     """
 
     def __init__(self, *, music_gen_version: str = "2.2",
                  reg_model: str = "bimamba+", motion_type: int = 1,
                  amt_checkpoint: Optional[str] = None,
-                 reg_checkpoint: Optional[str] = None, seed: int = 0,
+                 reg_checkpoint: Optional[str] = None,
+                 clip_params=None, emotion_text_embeds=None,
+                 maxvit_params=None, seed: int = 0,
                  amt_overrides: Optional[dict] = None,
                  reg_overrides: Optional[dict] = None,
-                 device=None):
+                 extractor_dtype: str = "bfloat16",
+                 resize_backend: str = "cv2",
+                 clip_cfg=None, maxvit_cfg=None, device=None):
         if amt_checkpoint or reg_checkpoint:
             raise not_ported(
                 "orbax checkpoint loading (it needs orbax/jax; bridge params "
@@ -198,10 +242,33 @@ class Video2music:
         self.model_reg = init_weights_(VideoRegression(self.reg_cfg), gen)
         self.model.to(self.device).eval()
         self.model_reg.to(self.device).eval()
+        if extractor_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"unknown extractor_dtype {extractor_dtype!r}")
+        self.extractor_dtype = extractor_dtype
+        self.resize_backend = resize_backend
+        self._clip_cfg = clip_cfg or clip_vit_l14_336_config()
+        self._maxvit_cfg = maxvit_cfg or maxvit_t_config()
+        self.clip = self._extractor(CLIP, self._clip_cfg, clip_params)
+        self.maxvit = self._extractor(MaxViT, self._maxvit_cfg, maxvit_params)
+        self.emotion_text_embeds = None if emotion_text_embeds is None else \
+            torch.as_tensor(np.asarray(emotion_text_embeds, np.float32),
+                            device=self.device)
+        self.last_extract_timings: Dict[str, float] = {}
         self._bf16 = None
         # stage times (ms) and regression outputs of the last generate
         self.last_timings: Dict[str, float] = {}
         self.last_regression: Dict[str, np.ndarray] = {}
+
+    def _extractor(self, cls, cfg, state):
+        """An extractor built on the device from its state dict, in
+        ``extractor_dtype``, or None without one."""
+        if state is None:
+            return None
+        with torch.device(self.device):
+            model = cls(cfg)
+        model.load_state_dict(state)
+        return model.to(self.device, getattr(torch, self.extractor_dtype)) \
+            .eval()
 
     def load_state_dicts(self, amt_state=None, reg_state=None) -> None:
         """Load float32 state dicts (e.g. weights.amt_from_jax output) into
@@ -237,18 +304,21 @@ class Video2music:
         """One clip from precomputed ``features`` (semantic (n, 768),
         emotion (n, 6), scene_offset (n,), motion (n,) or (n, M)), written
         to ``output_dir``: a batch of one (:meth:`generate_batch`), which
-        decodes through the B=1 kernels. ``_gumbel`` is the sampler's test
-        seam (decode/sampler.py). ``last_regression`` holds this clip's
-        regression outputs."""
+        decodes through the B=1 kernels; or, without ``features``, from the
+        ``video`` file, whose features :meth:`extract_features` extracts
+        and onto which the render is muxed (with ``caption_overlays``)
+        where fluidsynth and ffmpeg exist. ``_gumbel`` is the sampler's
+        test seam (decode/sampler.py). ``last_regression`` holds this
+        clip's regression outputs."""
         del custom_sound_font  # the sound font is chosen by sound_font
-        del caption_overlays  # burned into a muxed video only
-        if video is not None or features is None:
-            raise not_ported("raw-video feature extraction and muxing "
-                             "(pass features=)",
-                             "Queue 1, raw-video extraction")
+        if features is None:
+            if video is None:
+                raise ValueError("need a video path or precomputed features")
+            features = self.extract_features(video)
         request = dict(features=features, primer=primer, key=key,
                        transposition_value=transposition_value,
-                       sound_font=sound_font, output_dir=output_dir)
+                       sound_font=sound_font, output_dir=output_dir,
+                       video=video, caption_overlays=caption_overlays)
         (result,) = self.generate_batch(
             [request], temperature=temperature, seed=seed,
             correct_panning=correct_panning, compute_dtype=compute_dtype,
@@ -269,8 +339,10 @@ class Video2music:
         """Decode B clips at once (the JAX ``generate_batch`` contract).
 
         Args:
-          requests: list of dicts — ``features`` (required), optional
-            ``primer``, ``key``, ``transposition_value``, ``sound_font``,
+          requests: list of dicts — ``features`` (required; the
+            DynamicBatcher extracts them for a request with a ``video``),
+            optional ``primer``, ``key``, ``transposition_value``,
+            ``video`` (muxed onto), ``sound_font``, ``caption_overlays``,
             ``output_dir`` (default ``output_dir/clip_{i:03d}``).
           temperature: one float for the batch, or one per request.
           quantize: None or "int8", weight-only int8 decode.
@@ -294,9 +366,6 @@ class Video2music:
         """
         if not requests:
             return (lambda: []) if defer_render else []
-        if any("video" in req for req in requests):
-            raise not_ported("muxing onto a video (drop the request's "
-                             "'video')", "Queue 1, raw-video extraction")
         if n_real is None:
             n_real = len(requests)
         t_start = time.perf_counter()
@@ -355,7 +424,8 @@ class Video2music:
             results = [self._postprocess(
                 gen_host[i], ln_host[i], inst_host[i], p["emotion"],
                 p["n_sec"], p["key"], req.get("transposition_value", 0),
-                p["out_dir"], correct_panning, req.get("sound_font"))
+                p["out_dir"], req.get("video"), correct_panning,
+                req.get("sound_font"), req.get("caption_overlays"))
                 for i, (req, p) in enumerate(zip(requests[:n_real],
                                                  prepped[:n_real]))]
             t_end = time.perf_counter()
@@ -365,15 +435,219 @@ class Video2music:
 
         return render if defer_render else render()
 
-    def extract_features_batch(self, video_paths):
-        """Raw-video feature extraction is not ported; the DynamicBatcher
-        calls this for requests that carry a ``video`` and no features."""
-        raise not_ported("raw-video feature extraction (pass features=)",
-                         "Queue 1, raw-video extraction")
+    # ------------------------------------------------------------------
+    # raw video in: the device stage of extraction, a function of decoded
+    # (resized) frames, then the host stages around it
+
+    def _need_extractors(self) -> None:
+        if self.clip is None or self.emotion_text_embeds is None:
+            raise ValueError(
+                "CLIP params / emotion text embeddings not loaded; pass "
+                "features= to generate() or supply clip_params + "
+                "emotion_text_embeds")
+        if self.motion_type != 0 and self.maxvit is None:
+            raise ValueError("maxvit_params required for motion_type>=1")
+
+    @torch.no_grad()
+    def clip_chunk(self, u8: np.ndarray):
+        """Resized uint8 RGB frames (n, S, S, 3) -> (semantic (n, 768),
+        emotion (n, 6)) float32 on the device, from one vision-tower pass;
+        queued, not waited for."""
+        dt = getattr(torch, self.extractor_dtype)
+        pixels = normalize_pixels(_upload(u8, self.device)).to(dt)
+        img, probs = self.clip.semantic_and_emotion(
+            pixels, self.emotion_text_embeds)
+        return img.float(), probs
+
+    @torch.no_grad()
+    def motion_chunk(self, u8: np.ndarray) -> torch.Tensor:
+        """Resized uint8 RGB difference images (n, S, S, 3) -> MaxViT
+        features (n, 512) float32 on the device; queued, not waited for."""
+        dt = getattr(torch, self.extractor_dtype)
+        return self.maxvit(normalize_diff_pixels(
+            _upload(u8, self.device)).to(dt)).float()
+
+    @_gc_quiet
+    def extract_features(self, video_path: str) -> Dict[str, np.ndarray]:
+        """Video file -> feature dict (semantic, emotion, scene_offset,
+        motion), each per second, unpadded (the JAX package's
+        ``extract_features``).
+
+        One streaming decode pass (``video_io.ClipStream``) scores scene
+        cuts inline and keeps only the frames extraction consumes; every
+        30 decoded seconds a 30-frame CLIP chunk (and a 30-pair MaxViT
+        chunk) is resized on the host, uploaded as uint8 and queued on the
+        device (:meth:`clip_chunk`, :meth:`motion_chunk`), so the device
+        works while the host decodes; one fetch at the end. Per-stage
+        host seconds of the last call are left in
+        ``last_extract_timings``."""
+        self._need_extractors()
+        T: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        tick = lambda name: T.__setitem__(name, time.perf_counter() - t0)
+        clip_size = self._clip_cfg.vision.image_size
+        mv_size = self._maxvit_cfg.image_size
+        CH = 30
+
+        buf_1fps: List[np.ndarray] = []
+        buf_pairs: List[tuple] = []
+        clip_devs: List[tuple] = []
+        motion_devs: List[torch.Tensor] = []
+        all_pairs: List[tuple] = []    # only kept for motion_type=0
+        first_motion_chunk = True
+
+        def flush_clip():
+            if buf_1fps:
+                clip_devs.append(self.clip_chunk(resize_crop_frames(
+                    np.stack(buf_1fps), clip_size,
+                    backend=self.resize_backend)))
+                buf_1fps.clear()
+
+        def flush_motion():
+            nonlocal first_motion_chunk
+            if not buf_pairs:
+                return
+            # motion_diff_frames prepends the reference's leading zero
+            # row; only the FIRST chunk keeps it
+            diffs = motion_diff_frames(buf_pairs)
+            if not first_motion_chunk:
+                diffs = diffs[1:]
+            first_motion_chunk = False
+            motion_devs.append(self.motion_chunk(resize_crop_diff_frames(
+                diffs, mv_size, backend=self.resize_backend)))
+            buf_pairs.clear()
+
+        cs = video_io.ClipStream(video_path, MAX_SECONDS)
+        for f1, pair in cs:
+            if f1 is not None:
+                buf_1fps.append(f1)
+                if len(buf_1fps) == CH:
+                    flush_clip()
+            if pair is not None:
+                if self.motion_type == 0:
+                    all_pairs.append(pair)
+                else:
+                    buf_pairs.append(pair)
+                    if len(buf_pairs) == CH:
+                        flush_motion()
+        flush_clip()
+        flush_motion()
+        tick("decode+dispatch")
+
+        t0 = time.perf_counter()
+        n_sec = sum(sem.shape[0] for sem, _ in clip_devs)
+        scene_offset = self._scene_offset(cs.scores, cs.n_frames_capped,
+                                          cs.fps, n_sec)
+        tick("scene_decisions")
+
+        t0 = time.perf_counter()
+        if self.motion_type == 0:
+            motion = scalar_motion(all_pairs)
+        elif motion_devs:
+            motion = torch.cat(motion_devs).cpu().numpy()
+        else:  # no pair (a sub-second clip): MaxViT on the leading zero row
+            motion = self.motion_chunk(resize_crop_diff_frames(
+                motion_diff_frames([]), mv_size,
+                backend=self.resize_backend)).cpu().numpy()
+        if clip_devs:
+            semantic = torch.cat([d[0] for d in clip_devs]).cpu().numpy()
+            emotion = torch.cat([d[1] for d in clip_devs]).cpu().numpy()
+        else:
+            semantic = np.zeros((0, 768), np.float32)
+            emotion = np.zeros((0, 6), np.float32)
+        tick("device_fetch")
+        self.last_extract_timings = T
+        return {"semantic": semantic, "emotion": emotion,
+                "scene_offset": scene_offset, "motion": motion}
+
+    @staticmethod
+    def _scene_offset(scores, n_frames_capped, fps, n_sec) -> np.ndarray:
+        """Per-second seconds-since-cut from the streamed scene scores, + 1
+        (the training loader's and the reference's int(sceneID) + 1; 0
+        stays the pad value)."""
+        cuts = scene_mod.detect_cuts(scores=scores)
+        spans = scene_mod.scenes_from_cuts(cuts, n_frames_capped, fps)
+        ids = scene_mod.scene_ids_per_second(spans, n_sec)
+        return np.asarray(scene_mod.scene_offsets(ids), np.float32) + 1.0
+
+    @_gc_quiet
+    def extract_features_batch(self, video_paths) -> List[Dict[str, np.ndarray]]:
+        """Feature extraction for several clips through shared extractor
+        calls (the JAX package's ``extract_features_batch``): host decode
+        in a small thread pool (cv2 releases the GIL), the frames of every
+        clip concatenated and run in chunks of up to MAX_SECONDS frames,
+        scene decisions while the device works, results sliced back per
+        clip (each with its own leading zero motion row). Returns one
+        ``extract_features``-shaped dict per path, equal to per-clip
+        extraction (frames are independent batch rows)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if not video_paths:
+            return []
+        self._need_extractors()
+        T: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        tick = lambda name: T.__setitem__(name, time.perf_counter() - t0)
+        with ThreadPoolExecutor(min(4, len(video_paths))) as pool:
+            streams = list(pool.map(
+                lambda p: video_io.stream_clip(p, MAX_SECONDS), video_paths))
+        tick("decode+scene_scores")
+
+        t0 = time.perf_counter()
+        pix = [resize_crop_frames(s["frames_1fps"],
+                                  self._clip_cfg.vision.image_size,
+                                  backend=self.resize_backend)
+               for s in streams]
+        n_secs = [p.shape[0] for p in pix]
+        all_pix = np.concatenate(pix, axis=0)
+        clip_devs = [self.clip_chunk(all_pix[s:s + MAX_SECONDS])
+                     for s in range(0, all_pix.shape[0], MAX_SECONDS)]
+        tick("resize+clip_dispatch")
+
+        t0 = time.perf_counter()
+        scene_offsets = [self._scene_offset(s["scores"],
+                                            s["n_frames_capped"], s["fps"], n)
+                         for s, n in zip(streams, n_secs)]
+        tick("scene_decisions")
+
+        t0 = time.perf_counter()
+        motion_devs = []
+        # motion_diff_frames yields len(pairs) + 1 rows a clip
+        n_mrows = [len(s["pairs"]) + 1 for s in streams]
+        if self.motion_type != 0:
+            all_diff = resize_crop_diff_frames(
+                [d for s in streams for d in motion_diff_frames(s["pairs"])],
+                self._maxvit_cfg.image_size, backend=self.resize_backend)
+            motion_devs = [self.motion_chunk(all_diff[s:s + MAX_SECONDS])
+                           for s in range(0, all_diff.shape[0], MAX_SECONDS)]
+        tick("motion_prep+dispatch")
+
+        t0 = time.perf_counter()
+        sem = torch.cat([d[0] for d in clip_devs]).cpu().numpy()
+        emo = torch.cat([d[1] for d in clip_devs]).cpu().numpy()
+        mot = torch.cat(motion_devs).cpu().numpy() if motion_devs else None
+        tick("device_fetch")
+        self.last_extract_timings = T
+
+        results = []
+        off = moff = 0
+        for s, n_sec, n_m, scene_offset in zip(streams, n_secs, n_mrows,
+                                               scene_offsets):
+            if mot is None:
+                motion = scalar_motion(s["pairs"])
+            else:
+                motion = mot[moff:moff + n_m]
+                moff += n_m
+            results.append({"semantic": sem[off:off + n_sec],
+                            "emotion": emo[off:off + n_sec],
+                            "scene_offset": scene_offset, "motion": motion})
+            off += n_sec
+        return results
 
     def _postprocess(self, chord_ids, ln_nd, inst_probs, emotion, n_sec,
-                     key, transposition_value, output_dir, correct_panning,
-                     sound_font) -> GenerateResult:
+                     key, transposition_value, output_dir, video,
+                     correct_panning, sound_font, caption_overlays
+                     ) -> GenerateResult:
         """Host-side symbolic rendering of one clip's decoded arrays
         (reference: video2music.py:849-1052), as the JAX pipeline's."""
         os.makedirs(output_dir, exist_ok=True)
@@ -463,12 +737,19 @@ class Video2music:
                    delimiter=",", fmt="%.0f")
 
         audio_path = None
-        if shutil.which("fluidsynth") is not None:
+        out_video = None
+        if video_io.has_fluidsynth():
             audio_path = os.path.join(output_dir, "output.flac")
-            _midi_to_audio(midi_path, audio_path, sound_font)
+            video_io.midi_to_audio(midi_path, audio_path, sound_font)
+            if video is not None and video_io.has_ffmpeg():
+                out_video = os.path.join(output_dir, "output.mp4")
+                # caption_overlays: timed captions burned in by ffmpeg's
+                # drawtext (video_io.chord_caption_overlays)
+                video_io.mux_audio_onto_video(video, audio_path, out_video,
+                                              overlays=caption_overlays)
 
         return GenerateResult(
             chords=chords, chord_ids=chord_ids, midi_path=midi_path,
-            audio_path=audio_path, video_path=None,
+            audio_path=audio_path, video_path=out_video,
             densities=densities, velocities=velocities,
             instruments=inst_bin, key=key)

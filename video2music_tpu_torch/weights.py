@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .features.clip import CLIP, TextTower, VisionTower
+from .features.maxvit import PartitionAttention
 from .models.mamba import MambaBlock
 from .ops.attention import MultiHeadAttention
 from .ops.embeddings import LearnedPE
@@ -225,13 +227,53 @@ def _put_relu_ffn(sd, prefix, p):
     _put_linear(sd, f"{prefix}.linear2", p["Dense_1"])
 
 
+def _put_conv(sd, prefix, p):
+    """flax Conv (spatial..., in / groups, out) -> torch (out, in / groups,
+    spatial...), and its bias where it has one."""
+    k = _t(p["kernel"])
+    sd[f"{prefix}.weight"] = k.permute(k.dim() - 1, k.dim() - 2,
+                                       *range(k.dim() - 2)).contiguous()
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _put_rnn(sd, prefix, p):
+    """The JAX RNNStack's parameters carry torch's own names."""
+    for name, a in p.items():
+        sd[f"{prefix}.{name}"] = _t(a)
+
+
+def _put_mingru_block(sd, prefix, m, i):
+    for n in ("norm", "ff_norm"):
+        sd[f"{prefix}.{n}.gamma"] = _t(m[f"{n}_{i}"]["gamma"])
+    g = m[f"mingru_{i}"]
+    for n in ("to_hidden_and_gate", "to_out"):
+        if n in g:
+            _put_linear(sd, f"{prefix}.mingru.{n}", g[n])
+    for n in ("ff1", "ff2"):
+        _put_linear(sd, f"{prefix}.{n}", m[f"{n}_{i}"])
+
+
 def regression_from_jax(params) -> Dict[str, torch.Tensor]:
     """State dict of a port VideoRegression from the flax params of the
-    JAX VideoRegression of the same config, any Mamba-family backbone."""
+    JAX VideoRegression of the same config, any of the fourteen
+    backbones."""
     sd: Dict[str, torch.Tensor] = {}
     for name in ("in_proj", "regressor", "classifier"):
         _put_linear(sd, name, params[name])
     m, i = params["model"], 0
+    if "weight_ih_l0" in m:  # RNNStack
+        _put_rnn(sd, "backbone.rnn", m)
+        return sd
+    if "cnn" in m:  # CNNGRU
+        _put_conv(sd, "backbone.cnn", m["cnn"])
+        _put_rnn(sd, "backbone.gru.rnn", m["gru"])
+        return sd
+    if "mingru_0" in m:  # _MinGRUBackbone
+        while f"mingru_{i}" in m:
+            _put_mingru_block(sd, f"backbone.blocks.{i}", m, i)
+            i += 1
+        return sd
     if "mamba_0" in m:  # MoEMamba
         while f"mamba_{i}" in m:
             _put_residual(sd, f"backbone.mamba.{i}", m[f"mamba_{i}"])
@@ -260,6 +302,71 @@ def regression_from_jax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _put_clip_block(sd, prefix, p):
+    _put_norm(sd, f"{prefix}.ln1", p["ln1"])
+    parts = [_dense(p[name]) for name in ("q_proj", "k_proj", "v_proj")]
+    sd[f"{prefix}.qkv.weight"] = torch.cat([w for w, _ in parts])
+    sd[f"{prefix}.qkv.bias"] = torch.cat([b for _, b in parts])
+    for name in ("out_proj", "fc1", "fc2"):
+        _put_linear(sd, f"{prefix}.{name}", p[name])
+    _put_norm(sd, f"{prefix}.ln2", p["ln2"])
+
+
+def clip_from_jax(params) -> Dict[str, torch.Tensor]:
+    """State dict of the port's features.clip.CLIP from the flax params of
+    the JAX CLIP (both towers and ``logit_scale``): q | k | v into one
+    ``qkv``, the patch embedding's (P, P, 3, D) kernel to (D, 3, P, P);
+    ``projection`` and the embeddings keep the JAX layout."""
+    sd: Dict[str, torch.Tensor] = {"logit_scale": _t(params["logit_scale"])}
+    for tower, norms in (("visual", ("ln_pre", "ln_post")),
+                         ("text", ("ln_final",))):
+        p = params[tower]
+        for name in ("position_embedding", "projection", "class_embedding"):
+            if name in p:
+                sd[f"{tower}.{name}"] = _t(p[name])
+        for name in norms:
+            _put_norm(sd, f"{tower}.{name}", p[name])
+        i = 0
+        while f"block_{i}" in p:
+            _put_clip_block(sd, f"{tower}.blocks.{i}", p[f"block_{i}"])
+            i += 1
+    _put_conv(sd, "visual.patch_embed", params["visual"]["patch_embed"])
+    sd["text.token_embedding.weight"] = _t(
+        params["text"]["token_embedding"]["embedding"])
+    return sd
+
+
+def maxvit_from_jax(params) -> Dict[str, torch.Tensor]:
+    """State dict of the port's features.maxvit.MaxViT from the flax params
+    of the JAX MaxViT: convolutions (stem, 1x1, depthwise 3x3, SE) to
+    torch's (out, in / groups, kh, kw), Dense to (out, in), FoldedBN's
+    ``scale`` / ``bias`` as they are, LayerNorms to ``weight`` / ``bias``,
+    and each ``rel_bias`` table as it is."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(prefix, p):
+        if "kernel" in p:
+            if np.ndim(p["kernel"]) == 2:
+                _put_linear(sd, prefix, p)
+            else:
+                _put_conv(sd, prefix, p)
+        elif "scale" in p and prefix.rsplit(".", 1)[-1].startswith("ln"):
+            _put_norm(sd, prefix, p)
+        else:
+            for name, a in p.items():
+                if isinstance(a, dict):
+                    put(f"{prefix}.{name}", a)
+                else:  # FoldedBN scale / bias, rel_bias
+                    sd[f"{prefix}.{name}"] = _t(a)
+
+    for name in ("stem_conv1", "stem_bn", "stem_conv2"):
+        put(name, params[name])
+    for name, p in params.items():
+        if name.startswith("s") and name[1].isdigit():
+            put(f"layers.{name}", p)
+    return sd
+
+
 # ---------------------------------------------------------------------------
 # random initialisation
 # ---------------------------------------------------------------------------
@@ -282,8 +389,10 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     lambdas, normal(head_dim**-0.5) RPR tables, normal(1) learned
     positions, the KANLinear base (uniform, fan_in / 3 variance) and spline
     (normal(0.1 / grid_size)) weights, and the Mamba dt / A / D
-    initialisers. The frozen chord table keeps its values. Returns
-    ``model``."""
+    initialisers; the RNNs' uniform(+-hidden**-0.5), LeCun-normal
+    convolutions, and CLIP's / MaxViT's normal(0.02) (text tower 0.01)
+    embeddings, projections and relative-position tables. The frozen chord
+    table keeps its values. Returns ``model``."""
     done = set()
     for mod in model.modules():
         if isinstance(mod, MultiHeadAttention):
@@ -334,7 +443,27 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             _normal_(mod.conv.weight, cfg.d_conv ** -0.5, gen)
             if mod.conv.bias is not None:
                 nn.init.zeros_(mod.conv.bias)
-            done.add(id(mod.dt_proj.weight))
+            done.update((id(mod.dt_proj.weight), id(mod.conv.weight)))
+        elif isinstance(mod, nn.RNNBase):
+            lim = mod.hidden_size ** -0.5  # torch's and the JAX stack's
+            for t in mod.parameters():
+                _uniform_(t, -lim, lim, gen)
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d)) \
+                and id(mod.weight) not in done:
+            _normal_(mod.weight, mod.weight[0].numel() ** -0.5, gen)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, VisionTower):
+            for t in (mod.class_embedding, mod.position_embedding,
+                      mod.projection):
+                _normal_(t, 0.02, gen)
+        elif isinstance(mod, TextTower):
+            for t in (mod.position_embedding, mod.projection):
+                _normal_(t, 0.01, gen)
+        elif isinstance(mod, CLIP):
+            nn.init.constant_(mod.logit_scale, math.log(1 / 0.07))
+        elif isinstance(mod, PartitionAttention):
+            _normal_(mod.rel_bias, 0.02, gen)
         elif isinstance(mod, nn.Linear) and id(mod.weight) not in done:
             _normal_(mod.weight, mod.weight.shape[1] ** -0.5, gen)
             if mod.bias is not None:
