@@ -145,10 +145,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      with results.csv and a checkpoint that restores, then 60 steps on one
      fixed batch (the loss must drop), ms/step from CUDA events; the
      dropout kernels must launch 18 forward and 18 backward times a step;
+     then the checkpoints served: train_regression (bimamba+, one epoch
+     at B=16) on the same tree, Video2music(amt_checkpoint=...,
+     reg_checkpoint=...) against a Video2music given the trained state
+     dicts (a 90 s request, token for token, bf16), and a seeded
+     Video2music behind a DynamicBatcher swapped to the checkpoints by
+     load_checkpoints through submit_control (its next answer the served
+     one's);
   10. teacher-forced train step: one step's loss and gradients through
      the dropout kernels against the same step through the plain dropout
      attention, from the same weights, batch and generator seed, in f32
-     and in bf16 mixed precision.
+     and in bf16 mixed precision;
+  11. train zoo: six bf16 train steps (AdamW, B=16, L=300) each of V3.1,
+     2.1 (top-k scheduler), the base AMT, the MusicTransformer, bimamba+
+     and bilstm at full width: ms/step, finite losses, the launches of
+     rows 11 and 12 equal to the path's, row 11's forms (2H heads for
+     V3.1, the full RPR bias for the base AMT and the MusicTransformer);
+     two steps of each optimizer on the card; the scan's plain-recompute
+     backward at a bimamba+ step's shapes and its share of the step.
+The "dropout forms" phase (after "dropout kernels") holds the dropout
+attention in its two training forms to its plain version in f32 and bf16
+(output, mask entry for entry, dq / dk / dv / dbias) with its times,
+bounds and F.scaled_dot_product_attention's: 2H = 16 heads with v
+repeated (V3, "ms_2h") and the causal RPR form with the full f32 bias
+("ms_rpr"), B=16, L=S=300, D=64.
 Each phase's wall seconds are printed.
 The last three lines of stdout are a JSON object listing the kernels with
 their launches, errors, times and bounds, the card's name and power limit
@@ -1289,6 +1309,135 @@ def dropout_kernel_phase(report, cfg):
                 note_bound(report, bwd_name, nbytes(q, k, v, do, q, k, v),
                            5 * flops)
             library_dropout_times(report, q, k, v, do, rate, causal)
+
+
+def dropout_forms_phase(report, cfg):
+    """Row 11 in the two forms the training zoo gives it, f32 and bf16,
+    each against its plain version (output, the mask entry for entry, dq,
+    dk, dv / dbias) and timed with its bound and the library's time:
+      * "ms_2h", differential attention (V3 training): q and k at 2H = 16
+        heads, v repeated from H to 2H per pair, B=16, L=S=300, D=64, not
+        causal (the encoder's and the cross-attention's form);
+      * "ms_rpr", the RPR decoder self-attention (base AMT,
+        MusicTransformer): B=16, H=8, L=300, causal, the full (B, H, L, L)
+        f32 bias q_scaled . Er and its dbias.
+    The library call is F.scaled_dot_product_attention with the same
+    dropout rate (its own mask) and, for RPR, the bias with the causal
+    mask folded in as a float attn_mask (its backward then also returns
+    the mask's gradient)."""
+    import torch
+    from torch.nn import functional as F
+    from video2music_tpu_torch.ops import flash_attention_dropout as fad
+    from video2music_tpu_torch.ops.rpr import rpr_bias_full
+
+    dev = "cuda"
+    B, H, L, D, rate = 16, cfg.num_heads, cfg.max_seq_chord, cfg.head_dim, \
+        cfg.dropout
+    gen = torch.Generator().manual_seed(123)
+    seed = torch.tensor([20251017], dtype=torch.int32, device=dev)
+    fwd_name, bwd_name = TRAIN_KERNELS
+    for key, heads, causal in (("ms_2h", 2 * H, False),
+                               ("ms_rpr", H, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, do = (torch.randn(B, heads, L, D, generator=gen)
+                        .to(dev, dtype) for _ in range(3))
+            if key == "ms_2h":
+                v = torch.randn(B, H, L, D, generator=gen).to(dev, dtype) \
+                    .repeat_interleave(2, dim=1)
+                bias = None
+            else:
+                v = torch.randn(B, H, L, D, generator=gen).to(dev, dtype)
+                er = (torch.randn(L, D, generator=gen) * D ** -0.5).to(dev)
+                bias = rpr_bias_full(q.float() * D ** -0.5, er).contiguous()
+            tag = f" {key[3:]} B={B} heads={heads} L={L}" + (
+                " causal" if causal else "") + (" +bias" if bias is not None
+                                                else "")
+            out, stats = fad.flash_attention_dropout_fwd(q, k, v, bias, seed,
+                                                         causal, rate)
+            kw = dict(bias=bias, causal=causal, dropout_rate=rate, seed=seed)
+            err = check_close(f"{fwd_name}{tag}", dtype, out,
+                              fad.flash_attention_dropout_plain(q, k, v,
+                                                                **kw))
+            errs = report[fwd_name].setdefault("err_" + key, {})
+            errs[dtype] = max(err, errs.get(dtype, 0.0))
+            grads = fad.flash_attention_dropout_bwd(q, k, v, bias, do, seed,
+                                                    stats, out, causal, rate)
+            wants = fad.flash_attention_dropout_plain_bwd(q, k, v, do, **kw)
+            for gname, g, w in zip(("dq", "dk", "dv", "dbias"), grads, wants):
+                if w is not None:
+                    err = check_close(f"{bwd_name} {gname}{tag}", dtype, g, w)
+                    errs = report[bwd_name].setdefault("err_" + key, {})
+                    errs[dtype] = max(err, errs.get(dtype, 0.0))
+            got = fad.extract_dropped_probs(q, k, **kw)
+            ref = fad._probs(q, k, bias, causal) * fad.dropout_mask(
+                B, heads, L, L, rate, seed, dev)
+            same = torch.equal(got == 0, ref == 0)
+            print(f"  mask{tag} [{str(dtype)[6:]}]: kernel and plain drop the "
+                  f"same entries: {same}")
+            fail_unless(same, f"dropout mask{tag} [{dtype}] differs from the "
+                        "plain version's")
+            del got, ref
+            note_times(report, fwd_name, dtype,
+                       lambda: fad.flash_attention_dropout_fwd(
+                           q, k, v, bias, seed, causal, rate),
+                       lambda: fad.flash_attention_dropout_plain(q, k, v,
+                                                                 **kw),
+                       plain_iters=3, key=key)
+            note_times(report, bwd_name, dtype,
+                       lambda: fad.flash_attention_dropout_bwd(
+                           q, k, v, bias, do, seed, stats, out, causal, rate),
+                       lambda: fad.flash_attention_dropout_plain_bwd(
+                           q, k, v, do, **kw),
+                       plain_iters=3, key=key)
+            if dtype != torch.bfloat16:
+                continue
+            # the bound: each input read once, each output written once
+            # (the bias read by both, dbias written by the backward); the
+            # causal form does about half the products
+            flops = 2 * B * heads * L * L * D * (0.5 if causal else 1.0)
+            report[fwd_name]["form_bound_" + key] = form_bound(
+                nbytes(q, k, v, q, bias), 2 * flops)
+            report[bwd_name]["form_bound_" + key] = form_bound(
+                nbytes(q, k, v, do, q, k, v, bias, bias), 5 * flops)
+            mask = None
+            if bias is not None:
+                cm = torch.ones(L, L, dtype=torch.bool, device=dev).triu(1)
+                mask = bias.masked_fill(cm, float("-inf")).to(dtype)
+            ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+            ml = None if mask is None else mask.clone().requires_grad_()
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      dropout_p=rate)
+
+            def lib_fwd_bwd():
+                o = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ml,
+                                                   dropout_p=rate)
+                args = (ql, kl, vl) + (() if ml is None else (ml,))
+                return torch.autograd.grad(o, args, do)
+            t_f = time_ms(lib_fwd)[0]
+            try:
+                t_fb = time_ms(lib_fwd_bwd)[0]
+            except RuntimeError as e:  # no backend differentiates the mask
+                print(f"  (the library's backward without the mask's "
+                      f"gradient: {str(e).splitlines()[0][:80]})")
+                ml = None
+                mask_fwd = mask
+
+                def lib_fwd_bwd():
+                    o = F.scaled_dot_product_attention(
+                        ql, kl, vl, attn_mask=mask_fwd, dropout_p=rate)
+                    return torch.autograd.grad(o, (ql, kl, vl), do)
+                t_fb = time_ms(lib_fwd_bwd)[0]
+            report[fwd_name]["library_" + key] = t_f
+            report[bwd_name]["library_" + key] = t_fb - t_f
+            print(f"  F.scaled_dot_product_attention({key[3:]} form, "
+                  f"dropout_p={rate}) [bfloat16]: forward {t_f:.4f} ms, "
+                  f"backward {t_fb - t_f:.4f} ms (graph replay; another "
+                  f"mask)")
+            for name in TRAIN_KERNELS:
+                b_ms, by = report[name]["form_bound_" + key]
+                print(f"  {name} ({key}) bound {b_ms:.4f} ms by {by}")
 
 
 def library_dropout_times(report, q, k, v, do, rate, causal):
@@ -4084,7 +4233,7 @@ def train_phase(card, report):
                                                 output_dir=out),
                           train_ds, val_ds, device="cuda")
         torch.cuda.synchronize()
-        epoch_steps = state.step
+        epoch_steps, trained = state.step, state
         print(f"train_amt: one epoch of {epoch_steps} steps at B={B} plus "
               f"the eval passes in {time.perf_counter() - t0:.2f} s [{card}]")
         with open(os.path.join(out, "results.csv")) as f:
@@ -4119,6 +4268,7 @@ def train_phase(card, report):
         ms_step = events[0].elapsed_time(events[1]) / 50
         counts = {name: fn.launches for name, fn in wrappers().items()}
         profile_train_steps(step, state, batch, card)
+        serve_trained_phase(tmp, out, train_ds, val_ds, trained, tcfg, card)
     losses = torch.stack(losses).float().cpu()
     fail_unless(bool(torch.isfinite(losses).all()), f"losses {losses}")
     first, last = losses[:5].mean().item(), losses[-5:].mean().item()
@@ -4144,6 +4294,263 @@ def train_phase(card, report):
         report[name]["launches"] = counts[name]
     report["train"] = dict(ms_step=ms_step, loss_drop_pct=drop,
                            loss_first=first, loss_last=last)
+
+
+def zoo_batch(kind, B, L, seed):
+    """A full-width bf16-ready training batch on the card from a seed: the
+    AMT's (video L, chord L - 1, motion 512-d), the MusicTransformer's
+    (chords only) or the regression's (video L, note density, loudness,
+    instruments)."""
+    import numpy as np
+    import torch
+    from video2music_tpu_torch.core.vocab import emotion_chord_targets
+
+    r = np.random.default_rng(seed)
+    Lc = L - 1
+    chords = dict(x=r.integers(0, CHORD_END, (B, Lc)),
+                  x_root=r.integers(0, 13, (B, Lc)),
+                  x_attr=r.integers(0, 14, (B, Lc)),
+                  tgt=r.integers(0, CHORD_END, (B, Lc)),
+                  key=r.integers(0, 2, (B, 1)).astype(np.float32))
+    video = dict(semantic=r.standard_normal((B, L, 768)).astype(np.float32),
+                 scene_offset=(np.arange(L) // 10).astype(np.float32)[None]
+                 .repeat(B, 0),
+                 motion=r.standard_normal((B, L, 512)).astype(np.float32),
+                 emotion=r.dirichlet(np.ones(6), (B, L)).astype(np.float32))
+    if kind == "mt":
+        batch = chords
+    elif kind == "reg":
+        batch = dict(video, note_density=r.uniform(size=(B, L)).astype(
+            np.float32), loudness=r.uniform(size=(B, L)).astype(np.float32),
+            instrument=(r.uniform(size=(B, L, 40)) > 0.8).astype(np.float32))
+    else:
+        batch = dict(chords, **video, tgt_emotion=emotion_chord_targets()[
+            r.integers(0, 6, (B, Lc))],
+            tgt_emotion_prob=r.uniform(0.3, 1.0, (B, Lc)).astype(np.float32))
+    return {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+
+def train_zoo_phase(card, report):
+    """A few bf16 train steps (AdamW, B=16, L=300) of each model family at
+    full width: V3.1 (row 11 at 2H heads), 2.1 under the top-k scheduler,
+    the base AMT (row 11 with the full RPR bias), the MusicTransformer
+    (RPR, 6 layers), and the bimamba+ (row 12) and bilstm regressions. Per
+    model: ms/step over the timed steps (CUDA events), finite losses, the
+    launches of rows 11 and 12 in those steps equal to what the path
+    implies, and the forms row 11 was called in (heads, bias). Then one
+    step of each of the six optimizers on the MusicTransformer, and the
+    share of a bimamba+ step the scan's plain-recompute backward takes."""
+    import numpy as np
+    import torch
+    from video2music_tpu_torch.core.config import (MusicTransformerConfig,
+                                                   RegressionConfig,
+                                                   TrainConfig, amt_config)
+    from video2music_tpu_torch.ops import attention
+    from video2music_tpu_torch.ops.scan import selective_scan
+    from video2music_tpu_torch.train import (create_train_state,
+                                             make_amt_train_step,
+                                             make_music_transformer_train_step,
+                                             make_optimizer,
+                                             make_regression_train_step)
+    from video2music_tpu_torch.train.optim import OPTIMIZERS
+
+    tcfg = TrainConfig(optimizer="adamw", lr=1e-4, mixed_precision=True)
+    B, L, n_steps = 16, 300, 6
+    vf = 768 + 1 + 512 + 6
+    cases = (("3.1", amt_config("3.1", total_vf_dim=vf), "amt"),
+             ("2.1", amt_config("2.1", total_vf_dim=vf), "amt"),
+             ("base", amt_config(None, total_vf_dim=vf), "amt"),
+             ("music_transformer", MusicTransformerConfig(), "mt"),
+             ("bimamba+", RegressionConfig(reg_model="bimamba+"), "reg"),
+             ("bilstm", RegressionConfig(reg_model="bilstm"), "reg"))
+    makers = {"amt": make_amt_train_step,
+              "mt": make_music_transformer_train_step,
+              "reg": make_regression_train_step}
+    real = attention.flash_attention_dropout
+    forms = []
+
+    def spy(q, k, v, *, bias=None, **kw):
+        forms.append((q.shape[1], v.shape[1], None if bias is None else
+                      (tuple(bias.shape), str(bias.dtype)[6:])))
+        return real(q, k, v, bias=bias, **kw)
+
+    fwd_name, bwd_name = TRAIN_KERNELS
+    zoo = {}
+    for name, cfg, kind in cases:
+        state = create_train_state(cfg, tcfg, device="cuda")
+        step = makers[kind](tcfg)
+        batch = zoo_batch(kind, B, L, seed=len(zoo))
+        for _ in range(2):  # warm-up
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        for fn in wrappers().values():
+            fn.launches = 0
+        forms.clear()
+        attention.flash_attention_dropout = spy
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        losses = []
+        try:
+            events[0].record()
+            for _ in range(n_steps):
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+            events[1].record()
+            events[1].synchronize()
+        finally:
+            attention.flash_attention_dropout = real
+        ms_step = events[0].elapsed_time(events[1]) / n_steps
+        counts = {k: fn.launches for k, fn in wrappers().items()}
+        losses = torch.stack(losses).float().cpu()
+        fail_unless(bool(torch.isfinite(losses).all()),
+                    f"{name}: losses {losses}")
+        if kind == "amt":
+            n_attn = len(cfg.encoder_layers) + 2 * len(cfg.decoder_layers)
+        else:
+            n_attn = cfg.n_layers if kind == "mt" else 0
+        n_scan = (2 * cfg.n_layers if kind == "reg"
+                  and "mamba" in cfg.reg_model else 0)
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({fwd_name: n_attn * n_steps, bwd_name: n_attn * n_steps,
+                     "selective_scan": n_scan * n_steps})
+        for k in KERNELS:
+            fail_unless(counts[k] == want[k], f"{name}: {k} launched "
+                        f"{counts[k]} times, the path implies {want[k]}")
+        for k in TRAIN_KERNELS + ("selective_scan",):
+            if counts[k]:
+                report[k]["launches_train_zoo"] = \
+                    report[k].get("launches_train_zoo", 0) + counts[k]
+        seen = sorted(set(forms), key=str)
+        print(f"train zoo {name}: {ms_step:.2f} ms/step (bf16, B={B}, "
+              f"L={L}, AdamW, CUDA events over {n_steps} steps), loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches: row 11 "
+              f"{counts[fwd_name]} + {counts[bwd_name]}, row 12 "
+              f"{counts['selective_scan']}; row 11 forms (q heads, v heads, "
+              f"bias): {seen} [{card}]")
+        if name == "3.1":
+            H = cfg.num_heads
+            fail_unless(all(f[0] == f[1] == 2 * H and f[2] is None
+                            for f in forms),
+                        f"V3.1 trained row 11 in the forms {seen}")
+        if name in ("base", "music_transformer"):
+            rpr = [f for f in forms if f[2] is not None]
+            n_rpr = len(cfg.decoder_layers) if name == "base" else \
+                cfg.n_layers
+            # the full (B, H, L, L) bias in the model's dtype; the wrapper
+            # hands the kernel its f32 copy
+            fail_unless(len(rpr) == n_rpr * n_steps and all(
+                f[2][0] == (B, cfg.num_heads, L - 1, L - 1) for f in rpr),
+                f"{name}: RPR forms {seen}")
+        zoo[name] = dict(ms_step=ms_step, loss_first=float(losses[0]),
+                         loss_last=float(losses[-1]),
+                         launches_row11=counts[fwd_name] + counts[bwd_name],
+                         launches_row12=counts["selective_scan"])
+        if kind == "mt":  # every optimizer takes a step on the card
+            for opt_name in OPTIMIZERS:
+                params = [p.detach().clone() for p in state.model.parameters()]
+                opt = make_optimizer(TrainConfig(optimizer=opt_name,
+                                                 lr=1e-4), params, 512)
+                grads = [torch.randn_like(p) for p in params]
+                opt.step(grads)
+                opt.step(grads)
+                fail_unless(all(bool(torch.isfinite(p).all())
+                                for p in params), f"{opt_name} on the card")
+            print(f"  optimizers {OPTIMIZERS}: two steps each on the "
+                  f"MusicTransformer's parameters, finite")
+        if name == "bimamba+":
+            # the scan at the step's shapes: b=16, L=300, d_inner 128,
+            # d_state 16, bf16 inputs (A, the f32 -exp(A_log))
+            ED, N = 2 * cfg.d_model, 16
+            g = torch.Generator(device="cuda").manual_seed(5)
+            mk = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+            x, dl_ = mk(B, L, ED).bfloat16(), (mk(B, L, ED).abs() * 0.1) \
+                .bfloat16()
+            Bm, Cm = mk(B, L, N).bfloat16(), mk(B, L, N).bfloat16()
+            A, Dv = -torch.rand(ED, N, device="cuda") - 0.5, \
+                torch.ones(ED, device="cuda").bfloat16()
+            leaves = [t.requires_grad_() for t in (x, dl_, Bm, Cm)]
+            gy = mk(B, L, ED).bfloat16()
+
+            def fwd():
+                with torch.no_grad():
+                    return selective_scan(x, dl_, A, Bm, Cm, Dv)
+
+            def fwd_bwd():
+                y = selective_scan(x, dl_, A, Bm, Cm, Dv)
+                return torch.autograd.grad(y, leaves, gy)
+            t_f, t_fb = eager_ms(fwd, 5), eager_ms(fwd_bwd, 5)
+            share = n_scan * (t_fb - t_f) / ms_step
+            zoo[name].update(scan_fwd_ms=t_f, scan_bwd_ms=t_fb - t_f,
+                             scan_bwd_share=share)
+            print(f"  the scan at the step's shapes (b={B}, L={L}, ED={ED}, "
+                  f"N={N}, bf16): forward {t_f:.3f} ms, plain-recompute "
+                  f"backward {t_fb - t_f:.3f} ms (eager, CUDA events); "
+                  f"{n_scan} scans a step: the backward is {share:.3f} of "
+                  f"the {ms_step:.2f} ms step [{card}]")
+        del state, step, batch
+        torch.cuda.empty_cache()
+    report["train_zoo"] = zoo
+
+
+def serve_trained_phase(tmp, out, train_ds, val_ds, state, tcfg, card):
+    """The checkpoint train_amt wrote (``out``) and a train_regression
+    run's (bimamba+, one epoch at B=16) served: Video2music(amt_checkpoint
+    =..., reg_checkpoint=...) generates the trained models' chords and
+    regression outputs token for token with a Video2music given the
+    trained state dicts; a Video2music of other random weights behind a
+    DynamicBatcher answers, load_checkpoints through submit_control swaps
+    the checkpoints in, and its next answer is the served one."""
+    import numpy as np
+    from video2music_tpu_torch.core.config import RegressionConfig
+    from video2music_tpu_torch.pipeline.api import Video2music
+    from video2music_tpu_torch.pipeline.serving import DynamicBatcher
+    from video2music_tpu_torch.train import LoopConfig, train_regression
+
+    t0 = time.perf_counter()
+    reg_out = os.path.join(tmp, "reg_run")
+    reg_state = train_regression(
+        RegressionConfig(reg_model="bimamba+"), tcfg,
+        LoopConfig(epochs=1, batch_size=16, output_dir=reg_out),
+        train_ds, val_ds, device="cuda")
+    amt_ckpt = os.path.join(out, "weights", "best_loss_weights")
+    reg_ckpt = os.path.join(reg_out, "weights", "best_rmse_weights")
+    served = Video2music(amt_checkpoint=amt_ckpt, reg_checkpoint=reg_ckpt,
+                         seed=1, device="cuda")
+    mem = Video2music(seed=2, device="cuda")
+    mem.load_state_dicts(state.model.state_dict(),
+                         reg_state.model.state_dict())
+    feats = synthetic_features(90, seed=8)
+    a = served.generate(features=feats, output_dir=os.path.join(tmp, "a"))
+    reg_a = dict(served.last_regression)
+    b = mem.generate(features=feats, output_dir=os.path.join(tmp, "b"))
+    check_ids("served checkpoint", a.chord_ids, [], 90)
+    fail_unless(np.array_equal(a.chord_ids, b.chord_ids),
+                "the served checkpoint's chords differ from the trained "
+                "model's")
+    fail_unless(all(np.array_equal(reg_a[k], v)
+                    for k, v in mem.last_regression.items()),
+                "the served regression checkpoint's outputs differ")
+    print(f"served checkpoints: Video2music(amt_checkpoint=..., "
+          f"reg_checkpoint=...) generates the trained models' {len(a.chord_ids)}"
+          f" chords and regression outputs token for token (bf16) [{card}]")
+    fresh = Video2music(seed=3, device="cuda")
+    batcher = DynamicBatcher(fresh, max_batch=4, max_wait_ms=5,
+                             output_dir=os.path.join(tmp, "serve"))
+    try:
+        before, _ = batcher.submit({"features": feats}).result(timeout=600)
+        batcher.submit_control(lambda v: v.load_checkpoints(
+            amt_ckpt, reg_ckpt)).result(timeout=600)
+        after, _ = batcher.submit({"features": feats}).result(timeout=600)
+    finally:
+        batcher.stop()
+    fail_unless(np.array_equal(after.chord_ids, a.chord_ids),
+                "load_checkpoints behind the DynamicBatcher did not serve "
+                "the checkpoint's chords")
+    fail_unless(not np.array_equal(before.chord_ids, after.chord_ids),
+                "the batcher's answer did not change with its weights")
+    print(f"load_checkpoints through DynamicBatcher.submit_control: the "
+          f"next answer is the checkpoint's, token for token "
+          f"({time.perf_counter() - t0:.1f} s with the regression's "
+          f"training) [{card}]")
 
 
 def profile_train_steps(step, state, batch, card, n=3):
@@ -4375,6 +4782,7 @@ def main() -> int:
     phase("batched kernels", batched_kernel_phase, report, v2m)
     phase("int8 KV kernels", int8_kv_kernel_phase, report, v2m)
     phase("dropout kernels", dropout_kernel_phase, report, v2m.amt_cfg)
+    phase("dropout forms", dropout_forms_phase, report, v2m.amt_cfg)
     phase("variant kernels", variant_kernel_phase, report, v2m)
     phase("decode breakdown", decode_breakdown_phase, report, v2m, card)
     phase("gemv yardstick", gemv_yardstick_phase, report, card)
@@ -4411,6 +4819,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("train", train_phase, card, report)
     phase("teacher-forced train", teacher_forced_train_phase, card)
+    torch.cuda.empty_cache()
+    phase("train zoo", train_zoo_phase, card, report)
     print(f"phase seconds: {json.dumps(seconds)}")
 
     rows = []
@@ -4448,7 +4858,7 @@ def main() -> int:
         # flash attention at the V3 encoder's 2H; the launches of the
         # wirings' and the regression zoo's paths
         for key in ("launches_2h", "launches_wirings", "launches_zoo",
-                    "launches_raw_video"):
+                    "launches_raw_video", "launches_train_zoo"):
             if key in r:
                 row[key] = r[key]
         if "err_int8" in r:  # int8 weights (decode layers), int8 KV caches
@@ -4474,6 +4884,7 @@ def main() -> int:
     print(f"scan shapes (this run, device ms): "
           f"{json.dumps(report['scan_shapes'])}")
     print(f"train: {json.dumps(report['train'])}")
+    print(f"train zoo (this run): {json.dumps(report['train_zoo'])}")
     print(f"V3 decode step: {json.dumps(report['v3_step'])}")
     print(f"B=1 backends, ms/token: {json.dumps(report['backends'])}")
     print(f"int8 KV at B=16: {json.dumps(report['int8_kv_b16'])}")

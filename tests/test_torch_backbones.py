@@ -138,9 +138,15 @@ def test_rnn_stack_matches_plain_cell_loops(cell, bidirectional):
             h = torch.cat(outs, dim=-1)
     assert got.shape == (2, 11, 10 if bidirectional else 5)
     _close(got, h)
-    # inter-layer dropout acts in training only
+    # inter-layer dropout acts in a training call only (a generator
+    # given), which runs the layers one at a time on the stack's weights
     stack.train()
-    assert not torch.equal(stack(x), got)
+    with torch.no_grad():
+        _close(stack(x), got)
+        dropped = stack(x, torch.Generator().manual_seed(0))
+        assert dropped.shape == got.shape and not torch.equal(dropped, got)
+        stack.dropout_rate = 0.0
+        _close(stack._layered(x, torch.Generator()), got)
 
 
 def test_mingru_parts_match_jax():

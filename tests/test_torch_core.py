@@ -7,6 +7,7 @@ the MIDI helpers' output, and the serving module's source."""
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -15,7 +16,6 @@ import video2music_tpu.core.constants as JC
 import video2music_tpu.core.vocab as JV
 import video2music_tpu.midi as JM
 from video2music_tpu.core import config as JCFG
-from video2music_tpu.data import native as JN
 import video2music_tpu_torch.core.constants as PC
 import video2music_tpu_torch.core.vocab as PV
 import video2music_tpu_torch.midi as PM
@@ -85,7 +85,10 @@ def test_midi_copy_writes_the_same_bytes(tmp_path):
 
 def test_native_copy_builds_into_the_ports_build_dir(tmp_path):
     """The port's loader never writes the JAX package's native/ cache; its
-    parsers give the JAX loader's results (or both fall back alike)."""
+    scalar-lab parser gives the literal expected rows. It is not held to
+    the JAX package's native loader: that loader builds its library in
+    place, and a test worker that loads it half-written while another
+    builds it falls back for the rest of its life (ROADMAP.md, Queue 3)."""
     assert os.path.dirname(PN._SO).endswith(
         os.path.join("video2music_tpu_torch", "_build"))
     assert os.path.samefile(PN._SRC, os.path.join(ROOT, "native",
@@ -93,10 +96,11 @@ def test_native_copy_builds_into_the_ports_build_dir(tmp_path):
     lab = tmp_path / "s.lab"
     lab.write_text("0 0.5\n1 0.25\n2 1.0\n")
     got = PN.parse_scalar_lab(str(lab), 5, 0.0, 1.0)
-    want = JN.parse_scalar_lab(str(lab), 5, 0.0, 1.0)
-    assert (got is None) == (want is None)
-    if got is not None:
-        np.testing.assert_array_equal(got, want)
+    if shutil.which("g++") is None:  # the callers parse in Python
+        assert got is None
+        return
+    np.testing.assert_array_equal(got, np.asarray([1.5, 1.25, 2.0, 0.0, 0.0],
+                                                  np.float32))
 
 
 @pytest.mark.parametrize("path", [("features", "scene.py"),
@@ -105,6 +109,18 @@ def test_raw_video_modules_are_copies(path):
     """Scene-cut detection and the video I/O (decode, muxing, FluidSynth)
     are framework-free: the port keeps them byte for byte (their imports
     are relative already: data.native's HSV scorer, features.scene)."""
+    with open(os.path.join(ROOT, "video2music_tpu", *path), "rb") as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "video2music_tpu_torch", *path), "rb") as f:
+        assert f.read() == want
+
+
+def test_convert_module_is_a_copy():
+    """The reference-checkpoint converter imports only numpy: the port
+    keeps train/convert.py byte for byte; its flax-layout output reaches
+    the port's models through weights.amt_from_jax / regression_from_jax
+    (tests/test_torch_train_serve.py)."""
+    path = ("train", "convert.py")
     with open(os.path.join(ROOT, "video2music_tpu", *path), "rb") as f:
         want = f.read()
     with open(os.path.join(ROOT, "video2music_tpu_torch", *path), "rb") as f:

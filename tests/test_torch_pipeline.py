@@ -2,8 +2,8 @@
 ``Video2music.generate(features=...)`` with bridged weights and the JAX
 sampling noise handed in must give the same chords and byte-identical
 MIDI, stems and inst.csv. Also: the port runs with the JAX package and
-JAX blocked, CPU calls launch no kernel, the parts outside the port raise
-NotImplementedError (and the ones a later slice ported now run), and
+JAX blocked, CPU calls launch no kernel, the parts a later slice ported
+run (port checkpoints among them; an orbax one raises ValueError), and
 without CUDA the default device raises instead of falling back."""
 
 import os
@@ -223,6 +223,24 @@ batch = dict(x=r.integers(0, 157, (B, L)), x_root=r.integers(0, 13, (B, L)),
 state, m = make_amt_train_step(TrainConfig(lr=1e-3))(
     state, {k: torch.as_tensor(v) for k, v in batch.items()})
 assert state.step == 1 and torch.isfinite(m["loss"])
+# a regression step (Lion) and a MusicTransformer step (RAdanW)
+from video2music_tpu_torch.core.config import (MusicTransformerConfig,
+                                               RegressionConfig)
+from video2music_tpu_torch.train import (make_music_transformer_train_step,
+                                         make_regression_train_step)
+tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+tb.update(note_density=torch.rand(B, L), loudness=torch.rand(B, L),
+          instrument=(torch.rand(B, L, 40) > 0.5).float())
+for cfg, opt, make in (
+        (RegressionConfig(reg_model="bimamba+", n_layers=1, d_model=8,
+                          d_hidden=16, total_vf_dim=8 + 6), "lion",
+         make_regression_train_step),
+        (MusicTransformerConfig(n_layers=1, num_heads=2, d_model=16, d_ff=32,
+                                max_seq_chord=L), "radanw",
+         make_music_transformer_train_step)):
+    tcfg = TrainConfig(lr=1e-3, optimizer=opt)
+    st, m = make(tcfg)(create_train_state(cfg, tcfg, device="cpu"), tb)
+    assert st.step == 1 and torch.isfinite(m["loss"])
 loaded = [m for m in sys.modules
           if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -236,7 +254,8 @@ def test_port_imports_no_jax():
     the CPU: a tiny 2.2 and a tiny V3.1 ``generate``, a 2.2
     ``generate_batch(kv_quant="int8")`` at B=2, a DynamicBatcher request, a
     ``generate(video=...)`` through seeded CLIP and MaxViT with the mingru
-    regression, and one train step."""
+    regression, and one train step each of an AMT, a regression and a
+    MusicTransformer."""
     out = subprocess.run([sys.executable, "-c", ISOLATED_RUN], cwd=ROOT,
                          check=True, timeout=600, capture_output=True,
                          text=True)
@@ -246,11 +265,12 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("case", ["video", "checkpoint", "backbone",
                                   "wiring"])
 def test_outside_the_slice_raises(pair, tmp_path, case):
-    """Orbax checkpoints and training through differential attention are
-    still outside the port and raise NotImplementedError; raw video in and
-    the RNN backbones, outside it until they were ported, now serve: a
-    ``generate(video=...)`` through a tiny seeded CLIP, and a ``bigru``
-    regression."""
+    """The parts once outside the port now run: raw video in (a
+    ``generate(video=...)`` through a tiny seeded CLIP), the RNN backbones
+    (a ``bigru`` regression), port checkpoints (an orbax directory or any
+    other file raises a ValueError naming the rewriter still to come,
+    while a port checkpoint of the model serves its weights), and training
+    through differential attention (a V3.1 training forward)."""
     _, pv = pair
     if case == "video":
         cv2 = pytest.importorskip("cv2")
@@ -281,18 +301,40 @@ def test_outside_the_slice_raises(pair, tmp_path, case):
                       compute_dtype="float32")
         assert res.chord_ids.shape == (7,)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if case == "checkpoint":
-            Video2music(device="cpu", amt_checkpoint="ckpt", **KW)
-        else:  # wiring: every wiring serves; training through
-            # differential attention is not ported
-            model = Video2music(device="cpu", **dict(
-                KW, music_gen_version="3.1")).model.train()
-            L = 5
-            ids = torch.zeros(1, L, dtype=torch.long)
-            model(ids, ids, ids, torch.zeros(1, L, 768), torch.zeros(1, 1),
-                  torch.zeros(1, L), torch.zeros(1, L), torch.zeros(1, L, 6),
-                  deterministic=False, generator=torch.Generator())
+    if case == "checkpoint":
+        from video2music_tpu_torch.train.checkpoint import save_checkpoint
+        from video2music_tpu_torch.train.step import TrainState
+        orbax_dir = tmp_path / "orbax"
+        orbax_dir.mkdir()
+        (tmp_path / "junk").write_bytes(b"not a checkpoint")
+        for bad in (str(orbax_dir), str(tmp_path / "junk")):
+            with pytest.raises(ValueError, match="orbax rewriter"):
+                Video2music(device="cpu", amt_checkpoint=bad, **KW)
+        path = str(tmp_path / "amt")
+        save_checkpoint(path, TrainState(0, pv.model, _NoOptimizer(),
+                                         torch.Generator()))
+        served = Video2music(device="cpu", seed=7, amt_checkpoint=path, **KW)
+        for k, v in pv.model.state_dict().items():
+            assert torch.equal(served.model.state_dict()[k], v), k
+        with pytest.raises(ValueError, match="VideoRegression"):
+            served.load_checkpoints(reg_checkpoint=path)
+        return
+    # wiring: every wiring serves and trains, differential attention too
+    model = Video2music(device="cpu", **dict(
+        KW, music_gen_version="3.1")).model.train()
+    L = 5
+    ids = torch.zeros(1, L, dtype=torch.long)
+    out = model(ids, ids, ids, torch.zeros(1, L, 768), torch.zeros(1, 1),
+                torch.zeros(1, L), torch.zeros(1, L), torch.zeros(1, L, 6),
+                deterministic=False, generator=torch.Generator())
+    assert out.shape == (1, L, 159) and bool(torch.isfinite(out).all())
+
+
+class _NoOptimizer:
+    """The optimizer slot of a TrainState that is saved only."""
+
+    def state_dict(self):
+        return {"count": 0}
 
 
 def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):

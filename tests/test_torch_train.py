@@ -401,31 +401,214 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 @pytest.mark.parametrize("case", ["optimizer", "capacity", "mesh", "profile",
                                   "drop_token", "topk_schedule"])
 def test_outside_the_training_slice_raises(case, tree, tmp_path):
+    """Meshes and the step profiler are outside the port's training
+    (ROADMAP.md Queue 1 item 13) and raise. The other cases raised until
+    they were ported and are now held to the JAX package: Lion against
+    optax, the capacity dispatch against the JAX MoE layer, a train step
+    with drop_token_rate (finite, and moved by the token drop), and a 2.2
+    wiring under the top-k scheduler routing every token to JAX's k."""
     cfg = amt_config("2.2", **TINY)
     tcfg = TrainConfig(optimizer="adamw", lr=1e-3)
     ds = VevoDataset(tree, split="train", max_seq_chord=10, max_seq_video=10)
     loop = LoopConfig(output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if case == "optimizer":
-            make_optimizer(TrainConfig(optimizer="lion"), [], 32)
-        elif case == "capacity":
-            SharedMoE(MoEConfig(expert="glu", shared_expert=True,
-                                dispatch="capacity"), 16, 32)
-        elif case == "mesh":
-            train_amt(cfg, tcfg, loop, ds, ds, device="cpu", mesh=object())
-        elif case == "profile":
-            train_amt(cfg, tcfg, LoopConfig(output_dir=str(tmp_path),
-                                            profile_steps=2), ds, ds,
-                      device="cpu")
-        else:
-            kw = ({"drop_token_rate": 0.1} if case == "drop_token"
-                  else {})
-            state = create_train_state(amt_config("2.2", **TINY, **kw), tcfg,
-                                       device="cpu")
-            if case == "topk_schedule":
-                for layer in state.model.decoder_layers:
-                    if isinstance(layer.ffn, SharedMoE):
-                        layer.ffn.cfg = MoEConfig(expert="glu",
-                                                  shared_expert=True,
-                                                  topk_schedule=True)
-            make_amt_train_step(tcfg)(state, _torch_batch(_batch(6)))
+    if case in ("mesh", "profile"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            if case == "mesh":
+                train_amt(cfg, tcfg, loop, ds, ds, device="cpu",
+                          mesh=object())
+            else:
+                train_amt(cfg, tcfg, LoopConfig(output_dir=str(tmp_path),
+                                                profile_steps=2), ds, ds,
+                          device="cpu")
+        return
+    if case == "optimizer":
+        import optax
+        r = np.random.default_rng(0)
+        p0 = r.standard_normal((4, 5)).astype(np.float32)
+        tx = jax_make_optimizer(JaxTrainConfig(optimizer="lion", lr=1e-3), 32)
+        jp, js = jnp.asarray(p0), None
+        js = tx.init(jp)
+        tp = torch.tensor(p0)
+        opt = make_optimizer(TrainConfig(optimizer="lion", lr=1e-3), [tp], 32)
+        for _ in range(3):
+            g = r.standard_normal((4, 5)).astype(np.float32)
+            u, js = tx.update(jnp.asarray(g), js, jp)
+            jp = optax.apply_updates(jp, u)
+            opt.step([torch.tensor(g)])
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6)
+        return
+    if case == "capacity":
+        from video2music_tpu.core.config import MoEConfig as JaxMoEConfig
+        from video2music_tpu.ops.moe import MoELayer as JaxMoE
+        from video2music_tpu_torch.weights import _put_moe
+        kw = dict(expert="glu", shared_expert=True, dispatch="capacity")
+        jm = JaxMoE(cfg=JaxMoEConfig(**kw), d_model=16, d_ff=32,
+                    dropout_rate=0.0)
+        x = np.random.default_rng(1).standard_normal((2, 5, 16)).astype(
+            np.float32)
+        v = jm.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x))
+        sd = {}
+        _put_moe(sd, "m", jax.device_get(v["params"]))
+        pm = SharedMoE(MoEConfig(**kw), 16, 32)
+        pm.load_state_dict({k[2:]: t for k, t in sd.items()})
+        want, _ = jm.apply(v, jnp.asarray(x), mutable=["moe_state",
+                                                       "metrics"])
+        np.testing.assert_allclose(pm(torch.tensor(x)).detach().numpy(),
+                                   np.asarray(want), rtol=1e-5, atol=1e-6)
+        return
+    kw = {"drop_token_rate": 0.5} if case == "drop_token" else {}
+    state = create_train_state(amt_config("2.2", **TINY, **kw), tcfg,
+                               device="cpu")
+    if case == "topk_schedule":
+        for layer in state.model.decoder_layers:
+            if isinstance(layer.ffn, SharedMoE):
+                layer.ffn.cfg = MoEConfig(expert="glu", shared_expert=True,
+                                          topk_schedule=True)
+                layer.ffn.steps["sched_step"] = 0
+                layer.ffn.register_buffer("sched_step",
+                                          torch.zeros((), dtype=torch.int32))
+    b = _torch_batch(_batch(6))
+    _, m = make_amt_train_step(tcfg)(state, b)
+    assert torch.isfinite(m["loss"])
+    if case == "topk_schedule":  # k = max(2, 6 - 1 // 32): every expert
+        assert torch.equal(m["expert_counts"][-1],
+                           torch.full((6,), 3.0 * L))
+        assert m["expert_counts"][0].sum() == 3 * L * 2  # the encoder's
+    else:  # the same step without the token drop moves another way
+        plain = create_train_state(amt_config("2.2", **TINY), tcfg,
+                                   device="cpu")
+        _, m0 = make_amt_train_step(tcfg)(plain, b)
+        assert float(m["loss"]) != float(m0["loss"])
+
+
+# ---------------------------------------------------------------------------
+# the dropout attention's training forms (row 11) against Pallas
+# ---------------------------------------------------------------------------
+
+def _pallas_interp():
+    from jax.experimental.pallas import tpu as pltpu
+    return pltpu.InterpretParams()
+
+
+def test_dropout_attention_at_2h_heads_matches_pallas():
+    """Differential attention's training call: q and k at 2H heads, v
+    repeated from H to 2H heads per pair, causal, rate 0.1. The output,
+    the dropped probabilities (mask entry for entry), dq, dk and the
+    gradient of the H-head v against the Pallas kernel in interpret
+    mode at the same seed."""
+    from video2music_tpu.ops.pallas_attention_dropout import (
+        extract_dropped_probs as jax_extract)
+    from video2music_tpu.ops.pallas_attention_dropout import \
+        flash_attention_dropout as jax_fad
+    from video2music_tpu_torch.ops.flash_attention_dropout import (
+        extract_dropped_probs, flash_attention_dropout)
+    B, H, Lq, D, rate, seed = 2, 2, 24, 16, 0.1, 77
+    r = np.random.default_rng(3)
+    q, k, do = (r.standard_normal((B, 2 * H, Lq, D)).astype(np.float32)
+                for _ in range(3))
+    vh = r.standard_normal((B, H, Lq, D)).astype(np.float32)
+    interp = _pallas_interp()
+
+    def jf(q_, k_, v_):
+        return jax_fad(q_, k_, jnp.repeat(v_, 2, axis=1), causal=True,
+                       dropout_rate=rate, seed=seed, interpret=interp)
+    jout, vjp = jax.vjp(jf, jnp.asarray(q), jnp.asarray(k), jnp.asarray(vh))
+    want = [jout, *vjp(jnp.asarray(do))]
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, vh)]
+    out = flash_attention_dropout(ts[0], ts[1],
+                                  ts[2].repeat_interleave(2, dim=1),
+                                  causal=True, dropout_rate=rate, seed=seed)
+    out.backward(torch.tensor(do))
+    got = [out] + [t.grad for t in ts]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+    pm = extract_dropped_probs(torch.tensor(q), torch.tensor(k), causal=True,
+                               dropout_rate=rate, seed=seed)
+    jm = jax_extract(jnp.asarray(q), jnp.asarray(k), causal=True,
+                     dropout_rate=rate, seed=seed, interpret=interp)
+    np.testing.assert_array_equal(pm.numpy() == 0, np.asarray(jm) == 0)
+
+
+def test_dropout_attention_with_the_full_rpr_bias_matches_pallas():
+    """The RPR training call: the full (B, H, L, L) f32 bias of
+    q_scaled . Er, causal, rate 0.1. The output, the mask, dq, dk, dv,
+    dbias and the gradient that reaches Er through dbias, against the
+    Pallas kernel in interpret mode at the same seed."""
+    from video2music_tpu.ops.pallas_attention_dropout import (
+        extract_dropped_probs as jax_extract)
+    from video2music_tpu.ops.pallas_attention_dropout import \
+        flash_attention_dropout as jax_fad
+    from video2music_tpu.ops.rpr import rpr_bias_full as jax_rpr
+    from video2music_tpu_torch.ops.flash_attention_dropout import (
+        extract_dropped_probs, flash_attention_dropout)
+    from video2music_tpu_torch.ops.rpr import rpr_bias_full
+    B, H, Lq, D, rate, seed = 2, 2, 24, 16, 0.1, 5
+    r = np.random.default_rng(4)
+    q, k, v, do = (r.standard_normal((B, H, Lq, D)).astype(np.float32)
+                   for _ in range(4))
+    er = r.standard_normal((Lq + 4, D)).astype(np.float32) * D ** -0.5
+    interp = _pallas_interp()
+
+    def jf(q_, k_, v_, er_):
+        bias = jax_rpr(q_ * D ** -0.5, er_)
+        return jax_fad(q_, k_, v_, bias=bias, causal=True,
+                       dropout_rate=rate, seed=seed, interpret=interp), bias
+    (jout, jbias), vjp = jax.vjp(jf, *(jnp.asarray(a) for a in (q, k, v, er)))
+    jgrads = vjp((jnp.asarray(do), jnp.zeros_like(jbias)))
+    # dbias: the kernel's gradient with respect to the bias itself
+    _, bvjp = jax.vjp(lambda b_: jax_fad(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bias=b_, causal=True,
+        dropout_rate=rate, seed=seed, interpret=interp), jbias)
+    (jdbias,) = bvjp(jnp.asarray(do))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v, er)]
+    bias = rpr_bias_full(ts[0] * D ** -0.5, ts[3])
+    bias.retain_grad()
+    out = flash_attention_dropout(ts[0], ts[1], ts[2], bias=bias, causal=True,
+                                  dropout_rate=rate, seed=seed)
+    out.backward(torch.tensor(do))
+    np.testing.assert_allclose(bias.detach().numpy(), np.asarray(jbias),
+                               rtol=1e-5, atol=1e-6, err_msg="bias")
+    got = [out] + [t.grad for t in ts] + [bias.grad]
+    want = [jout, *jgrads, jdbias]
+    for name, g, w in zip(("out", "dq", "dk", "dv", "dEr", "dbias"), got,
+                          want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+    pm = extract_dropped_probs(torch.tensor(q), torch.tensor(k),
+                               bias=bias.detach(), causal=True,
+                               dropout_rate=rate, seed=seed)
+    jm = jax_extract(jnp.asarray(q), jnp.asarray(k), bias=jbias, causal=True,
+                     dropout_rate=rate, seed=seed, interpret=interp)
+    np.testing.assert_array_equal(pm.numpy() == 0, np.asarray(jm) == 0)
+
+
+@pytest.mark.parametrize("version", ["3.1", None])
+def test_training_attention_runs_the_dropout_kernel_in_its_form(version,
+                                                                monkeypatch):
+    """A training forward with dropout calls the dropout attention at the
+    heads the layer attends with: 2H for V3.1's differential layers (v
+    repeated per pair), H with the full (B, H, L, L) RPR bias for the base
+    AMT's decoder self-attention; the loss is finite."""
+    from video2music_tpu_torch.ops import attention
+    calls = []
+    real = attention.flash_attention_dropout
+
+    def spy(q, k, v, *, bias=None, **kw):
+        calls.append((q.shape[1], v.shape[1],
+                      None if bias is None else tuple(bias.shape)))
+        return real(q, k, v, bias=bias, **kw)
+    monkeypatch.setattr(attention, "flash_attention_dropout", spy)
+    cfg = amt_config(version, dropout=0.1, **TINY)
+    state = create_train_state(cfg, TrainConfig(optimizer="adamw", lr=1e-3),
+                               device="cpu")
+    _, m = make_amt_train_step(TrainConfig(optimizer="adamw", lr=1e-3))(
+        state, _torch_batch(_batch(8)))
+    assert torch.isfinite(m["loss"])
+    H = TINY["num_heads"]
+    assert len(calls) == 6  # 2 encoder + 2 x 2 decoder attentions
+    if version == "3.1":
+        assert all(c[:2] == (2 * H, 2 * H) and c[2] is None for c in calls)
+    else:
+        rpr = [c for c in calls if c[2] is not None]
+        assert len(rpr) == 2 and all(c[2] == (3, H, L, L) for c in rpr)

@@ -21,8 +21,10 @@ runs the fused kernel step of decode/fused.py instead of
 :meth:`VideoMusicTransformer.decode_step`, which stays the unfused
 reference, where a kernel covers the wiring. The full forward with
 ``deterministic=False`` and a ``generator`` is the training forward: every
-dropout of the layers draws from the generator. ``drop_token_rate`` is not
-ported to training (ROADMAP.md, Queue 1 item 10).
+dropout of the layers draws from the generator, and so does
+``drop_token_rate``: each (B, L) video token's projected features are kept
+with probability 1 - rate and zeroed otherwise, not rescaled
+(models/amt.py:164-167).
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from torch import nn
 from ..core import constants as C
 from ..core.config import AMTConfig
 
-from ..ops.attention import not_ported
 from ..ops.embeddings import LearnedPE, SinusoidalPE
 from ..ops.norms import make_norm
 from .layers import DecoderLayer, EncoderLayer
@@ -119,7 +120,8 @@ class VideoMusicTransformer(nn.Module):
         key = key.expand(emb.shape[0], emb.shape[1], 1)
         return self.linear_chord(torch.cat([emb, key], dim=-1))
 
-    def _embed_video(self, semantic, scene_offset, motion, emotion):
+    def _embed_video(self, semantic, scene_offset, motion, emotion,
+                     generator=None):
         dt = semantic.dtype
         if motion.dim() == 2:
             motion = motion[..., None]
@@ -130,6 +132,11 @@ class VideoMusicTransformer(nn.Module):
         vf = self.linear_vis(torch.cat(feats, dim=-1))
         if self.cfg.scene_embed:
             vf = vf + self.scene_embedding(scene_offset.long())
+        rate = self.cfg.drop_token_rate
+        if generator is not None and rate > 0.0:
+            keep = torch.rand(vf.shape[:2], generator=generator,
+                              device=vf.device) < 1.0 - rate
+            vf = vf * keep[..., None].to(vf.dtype)
         return vf
 
     def position_row(self, pos: int, device) -> torch.Tensor:
@@ -152,7 +159,8 @@ class VideoMusicTransformer(nn.Module):
     def embed_video_input(self, semantic, scene_offset, motion, emotion,
                           generator=None):
         """Video features -> positioned encoder input (B, Lv, D)."""
-        vf = self._embed_video(semantic, scene_offset, motion, emotion)
+        vf = self._embed_video(semantic, scene_offset, motion, emotion,
+                               generator)
         if self.cfg.pos_encoding == "sinusoidal":
             return self.pe_video(vf, generator)
         if self.cfg.pos_encoding == "learned":
@@ -222,8 +230,6 @@ class VideoMusicTransformer(nn.Module):
         elif generator is None:
             raise ValueError("a training forward (deterministic=False) "
                              "needs a generator")
-        elif self.cfg.drop_token_rate > 0.0:
-            raise not_ported("drop_token_rate in training", "Queue 1 item 10")
         memory = self.encode(semantic, scene_offset, motion, emotion,
                              generator)
         out = self.embed_decoder_input(x, x_root, x_attr, key, generator)

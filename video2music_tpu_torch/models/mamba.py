@@ -10,9 +10,9 @@ output y * z + xb * (1 - sigmoid(z)) where z is ALREADY silu(z) — the
 reference's quirk, kept. ``dt_proj`` holds the effective weight: the JAX
 parameter is stored unshifted and shifted by -dt_rank**-0.5 at use
 (weights.regression_from_jax applies the shift). With ``use_kan`` the
-in / x / out projections are KANLinear layers (no bias). The block's
-output dropout is a training feature and not ported (these backbones
-serve).
+in / x / out projections are KANLinear layers (no bias). A training call
+(a ``generator`` given) adds the block's output dropout at
+``cfg.dropout`` and the MoE layers' dropouts.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from torch.nn import functional as F
 
 from ..core.config import MambaBackboneConfig
 
+from ..ops.dropout import dropout
 from ..ops.kan import KANLinear
 from ..ops.norms import RMSNorm
 from ..ops.scan import selective_scan
@@ -47,7 +48,7 @@ class MambaBlock(nn.Module):
         self.A_log = nn.Parameter(torch.zeros(ED, N))
         self.D = nn.Parameter(torch.ones(ED))
 
-    def forward(self, x):  # (B, L, d_model)
+    def forward(self, x, generator=None):  # (B, L, d_model)
         cfg = self.cfg
         R, N = cfg.resolved_dt_rank, cfg.d_state
         xb, z = self.in_proj(x).chunk(2, dim=-1)
@@ -65,7 +66,7 @@ class MambaBlock(nn.Module):
             out = y * z + xb * (1.0 - torch.sigmoid(z))
         else:
             out = y * z
-        return self.out_proj(out)
+        return dropout(self.out_proj(out), cfg.dropout, generator)
 
 
 class ResidualBlock(nn.Module):
@@ -76,8 +77,8 @@ class ResidualBlock(nn.Module):
         self.norm = RMSNorm(cfg.d_model, cfg.rms_norm_eps)
         self.mixer = MambaBlock(cfg, use_kan)
 
-    def forward(self, x):
-        return self.mixer(self.norm(x)) + x
+    def forward(self, x, generator=None):
+        return self.mixer(self.norm(x), generator) + x
 
 
 class Mamba(nn.Module):
@@ -89,9 +90,9 @@ class Mamba(nn.Module):
         self.layers = nn.ModuleList(ResidualBlock(cfg, use_kan)
                                     for _ in range(n_layers))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
         return x
 
 
@@ -108,8 +109,8 @@ class MoEMamba(nn.Module):
                                       for _ in range(n_layers))
         self.moe = nn.ModuleList(moe_maker() for _ in range(n_layers))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         for block, norm, moe in zip(self.mamba, self.moe_norm, self.moe):
-            x = block(x)
-            x = moe(norm(x)) + x
+            x = block(x, generator)
+            x = moe(norm(x), generator) + x
         return x

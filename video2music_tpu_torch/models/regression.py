@@ -19,6 +19,10 @@ projections KAN layers (the bidirectional encoders do not pass it on, as
 in the JAX package);
 
   mingru                _MinGRUBackbone: RMSNorm + minGRU + FF blocks.
+
+``forward(..., generator=...)`` is a training call: the input projection's
+dropout and every backbone dropout draw from that generator (the minGRU
+blocks have none).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch.nn import functional as F
 
 from ..core import constants as C
 from ..core.config import MambaBackboneConfig, MoEConfig, RegressionConfig
+from ..ops.dropout import dropout
 from ..ops.moe import MoELayer
 from .bimamba import BiMambaEncoder
 from .mamba import Mamba, MoEMamba
@@ -49,14 +54,14 @@ class CNNGRU(nn.Module):
                  dropout_rate: float = 0.1, bidirectional: bool = False):
         super().__init__()
         self.cnn = nn.Conv1d(d_model, d_model, 7, padding=3)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.gru = RNNStack("gru", d_model, d_model, n_layers,
                             bidirectional, dropout_rate)
         self.out_dim = self.gru.out_dim
 
-    def forward(self, x):                                  # (B, L, d_model)
+    def forward(self, x, generator=None):                  # (B, L, d_model)
         h = F.silu(self.cnn(x.transpose(1, 2)).transpose(1, 2))
-        return self.gru(self.dropout(h))
+        return self.gru(dropout(h, self.dropout_rate, generator), generator)
 
 
 class _MinGRUBackbone(nn.Module):
@@ -68,7 +73,8 @@ class _MinGRUBackbone(nn.Module):
         self.blocks = nn.ModuleList(_MinGRUBlock(d_model, 1.5, 4 * d_model)
                                     for _ in range(depth))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        del generator  # the minGRU blocks have no dropout
         for block in self.blocks:
             x = block(x)
         return x
@@ -117,16 +123,19 @@ class VideoRegression(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.in_proj = nn.Linear(cfg.total_vf_dim, cfg.d_model)
-        self.dropout = nn.Dropout(cfg.dropout)
         self.backbone = make_backbone(cfg)
         d_out = getattr(self.backbone, "out_dim", cfg.d_model)
         self.regressor = nn.Linear(d_out, 2)
         self.classifier = nn.Linear(d_out, C.INSTRUMENT_SIZE)
 
-    def forward(self, semantic, scene_offset, motion, emotion):
+    def forward(self, semantic, scene_offset, motion, emotion,
+                generator=None):
         """Live-path features are semantic + emotion only; returns
-        (loudness/note density (B, L, 2), instrument probs (B, L, 40))."""
+        (loudness/note density (B, L, 2), instrument probs (B, L, 40)).
+        ``generator``: a torch.Generator on the inputs' device makes this a
+        training call."""
         del scene_offset, motion
         vf = torch.cat([semantic, emotion.to(semantic.dtype)], dim=-1)
-        out = self.backbone(self.dropout(self.in_proj(vf)))
+        vf = dropout(self.in_proj(vf), self.cfg.dropout, generator)
+        out = self.backbone(vf, generator)
         return self.regressor(out), torch.sigmoid(self.classifier(out))

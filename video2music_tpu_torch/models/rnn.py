@@ -16,6 +16,14 @@ regression forwards 6-26 ms there where float32 ran 0.7-2.6 ms
 (chip_smoke.py "new backbones", ``PERF.md``). So the choice is fixed by
 dtype: a bfloat16 stack runs its RNN in float32, on float32 copies of its
 weights, and casts the output back.
+
+The inter-layer dropout of a training call (a ``generator`` given) draws
+from that generator: the stack then runs one layer at a time (each
+through a one-layer RNN of the same kind, on the stack's weights) with the
+dropout between them; otherwise it is one cuDNN call. The RNN module's
+own dropout stays 0. A stack that trains must be in training mode (cuDNN
+has no backward of an eval-mode forward), which a model is unless
+``.eval()`` was called.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.func import functional_call
+
+from ..ops.dropout import dropout
 
 
 class RNNStack(nn.Module):
@@ -37,11 +47,20 @@ class RNNStack(nn.Module):
             raise ValueError(f"unknown RNN cell {cell!r}")
         rnn = nn.GRU if cell == "gru" else nn.LSTM
         self.rnn = rnn(in_dim, d_model, n_layers, batch_first=True,
-                       bidirectional=bidirectional,
-                       dropout=dropout_rate if n_layers > 1 else 0.0)
+                       bidirectional=bidirectional)
+        self.n_layers, self.dropout_rate = n_layers, dropout_rate
         self.out_dim = d_model * (2 if bidirectional else 1)
+        # one-layer RNNs for a layer-by-layer training call (first layer,
+        # later layers); a tuple, so not submodules: they run on the
+        # stack's weights only
+        self._one = tuple(rnn(width, d_model, 1, batch_first=True,
+                              bidirectional=bidirectional)
+                          for width in (in_dim, self.out_dim))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        if (generator is not None and self.dropout_rate > 0.0
+                and self.n_layers > 1):
+            return self._layered(x, generator)
         if x.dtype != torch.float32:  # the float32 RNN (module docstring)
             weights = {n: p.float() for n, p in self.rnn.named_parameters()}
             return functional_call(self.rnn, weights,
@@ -49,3 +68,16 @@ class RNNStack(nn.Module):
         if x.is_cuda:  # cuDNN wants one weight buffer after a dtype cast
             self.rnn.flatten_parameters()
         return self.rnn(x)[0]
+
+    def _layered(self, x, generator):
+        """The stack one layer at a time, the dropout between layers."""
+        weights = dict(self.rnn.named_parameters())
+        h = x.float()
+        for i in range(self.n_layers):
+            one = self._one[min(i, 1)].train(self.training)
+            w = {n: weights[n.replace("_l0", f"_l{i}")].float()
+                 for n, _ in one.named_parameters()}
+            h = functional_call(one, w, (h,))[0]
+            if i < self.n_layers - 1:
+                h = dropout(h, self.dropout_rate, generator)
+        return h.to(x.dtype)

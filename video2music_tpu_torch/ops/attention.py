@@ -36,8 +36,13 @@ attention), so ``in_proj`` holds q | k | v rows of widths qk_dim | k_dim |
 v_dim; each group of consecutive query heads reads one K/V head (K and V
 repeated over the group before the attention); the ``gqa_norm``
 LayerNorm (eps 1e-6, over the head dim) runs before ``out_proj``. Caches
-are k_dim / v_dim wide. Training through differential attention is not
-ported yet.
+are k_dim / v_dim wide.
+
+A training call of any kind goes through :func:`flash_attention_dropout`
+at the heads the attention runs at: 2H for differential attention (v
+repeated per pair, the mask hashed per 2H head as the JAX kernel hashes
+it), the full (B, H, L, L) bias for RPR, whose gradient reaches ``Er``
+through the kernel's dbias.
 """
 
 from __future__ import annotations
@@ -57,12 +62,6 @@ from .norms import SUBLN_EPS, LayerNorm, RMSNorm
 from .rpr import rpr_bias_decode, rpr_bias_full
 
 GQA_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
-
-
-def not_ported(what: str, queue_item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to video2music_tpu_torch yet "
-        f"(ROADMAP.md, {queue_item})")
 
 
 def dot_product_attention(q, k, v, *, bias=None, mask=None):
@@ -187,10 +186,8 @@ class MultiHeadAttention(nn.Module):
         if "mask" in kw:
             attn = dot_product_attention(q, k, v, bias=bias, mask=kw["mask"])
         elif kw["generator"] is not None and self.dropout_rate > 0.0:
-            if self.diff:
-                raise not_ported("training through differential attention",
-                                 "Queue 1 item 10")
-            # the seed stays on the device: no host sync per call
+            # the seed stays on the device: no host sync per call; a
+            # differential layer runs the kernel at its 2H heads
             seed = torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=kw["generator"],
                                  device=q.device, dtype=torch.int32)

@@ -37,11 +37,16 @@ decode kernel: at B=1 the decode kernels read int8 weights, at B>1 the plain
 step runs on fake-quantized weights, as in the JAX package
 (decode/sampler.py). ``kv_quant="int8"`` (``generate_batch``) keeps the
 batched 2.x step's KV caches as int8 rows with row scales. The regression
-takes any of the fourteen backbones (models/regression.py). Not ported
-yet, and raising NotImplementedError: orbax checkpoints.
-Weights come from :mod:`video2music_tpu_torch.weights`: random from a seed,
-or bridged from a JAX param tree (:meth:`Video2music.load_state_dicts`;
-``weights.clip_from_jax`` / ``maxvit_from_jax`` for the extractors).
+takes any of the fourteen backbones (models/regression.py).
+Weights come from the port's own checkpoints (``amt_checkpoint`` /
+``reg_checkpoint``, the files ``train.train_amt`` / ``train_regression``
+write; :meth:`Video2music.load_checkpoints` swaps them while serving,
+through ``DynamicBatcher.submit_control``), from
+:mod:`video2music_tpu_torch.weights` (random from a seed, or bridged from a
+JAX param tree, :meth:`Video2music.load_state_dicts`;
+``weights.clip_from_jax`` / ``maxvit_from_jax`` for the extractors). A
+JAX package orbax checkpoint raises ValueError: its rewriter is still to
+come (ROADMAP.md, Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -71,7 +76,6 @@ from ..features.maxvit import (MaxViT, maxvit_t_config, motion_diff_frames,
                                normalize_diff_pixels, resize_crop_diff_frames,
                                scalar_motion)
 from ..models import VideoMusicTransformer, VideoRegression
-from ..ops.attention import not_ported
 from ..weights import init_weights_
 from . import video_io
 from .primer import TRANSPOSE_KEY, parse_primer, resolve_key_and_primer
@@ -218,11 +222,6 @@ class Video2music:
                  extractor_dtype: str = "bfloat16",
                  resize_backend: str = "cv2",
                  clip_cfg=None, maxvit_cfg=None, device=None):
-        if amt_checkpoint or reg_checkpoint:
-            raise not_ported(
-                "orbax checkpoint loading (it needs orbax/jax; bridge params "
-                "with video2music_tpu_torch.weights instead)",
-                "Queue 1, orbax checkpoint loading")
         self.motion_type = motion_type
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -258,6 +257,43 @@ class Video2music:
         # stage times (ms) and regression outputs of the last generate
         self.last_timings: Dict[str, float] = {}
         self.last_regression: Dict[str, np.ndarray] = {}
+        self.load_checkpoints(amt_checkpoint, reg_checkpoint)
+
+    def load_checkpoints(self, amt_checkpoint: Optional[str] = None,
+                         reg_checkpoint: Optional[str] = None) -> None:
+        """(Re)load the AMT and / or regression weights from port
+        checkpoints (train/checkpoint.py files, e.g.
+        ``weights/best_loss_weights`` of ``train_amt`` and
+        ``weights/best_rmse_weights`` of ``train_regression``), in place:
+        the serving hot-reload hook. Both files are read and checked before
+        either model changes; the cached bfloat16 copies built from the old
+        weights are dropped (every decode pack, int8 or not, is built from
+        the models at each ``generate_batch``, and the extractors keep
+        their own weights). Not thread-safe against a running generate:
+        in serving, route it through ``DynamicBatcher.submit_control``,
+        which runs it between batches. A file that is not a port
+        checkpoint, or one of another wiring, raises ValueError."""
+        from ..train.checkpoint import load_weights
+
+        pending = []
+        for path, model, kind in ((amt_checkpoint, self.model,
+                                   "VideoMusicTransformer"),
+                                  (reg_checkpoint, self.model_reg,
+                                   "VideoRegression")):
+            if path:
+                state = load_weights(path, model_class=kind)
+                own = model.state_dict()
+                if sorted(state) != sorted(own) or any(
+                        state[k].shape != own[k].shape for k in own):
+                    raise ValueError(
+                        f"{path!r} holds a {kind} of another wiring than "
+                        f"this Video2music's (differing tensors: "
+                        f"{sorted(set(state) ^ set(own))[:6] or 'shapes'})")
+                pending.append((model, state))
+        for model, state in pending:
+            model.load_state_dict(state)
+        if pending:
+            self._bf16 = None
 
     def _extractor(self, cls, cfg, state):
         """An extractor built on the device from its state dict, in

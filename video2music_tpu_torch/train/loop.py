@@ -1,16 +1,23 @@
-"""The AMT epoch loop on one device (counterpart of train/loop.py's
-``train_amt``): per epoch a train pass over shuffled batches (threaded
-prefetch, each batch copied to the device ahead of its step), an eval pass
-on the train split (``eval_train_subset``) and on the val split, one
-``results.csv`` row with the JAX package's header, ``best_loss_weights``
-on a new best val loss (and ``best_epochs.txt``), and ``epoch_NNNN``
-snapshots every ``weight_modulus`` epochs; ``continue_from`` and
-``auto_resume`` restore a checkpoint of the port's format
-(train/checkpoint.py).
+"""The epoch loops on one device (counterpart of train/loop.py):
+
+  * ``train_amt`` (any AMT wiring): per epoch a train pass over shuffled
+    batches (threaded prefetch, each batch copied to the device ahead of
+    its step), an eval pass on the train split (``eval_train_subset``)
+    and on the val split, one ``results.csv`` row with the JAX package's
+    header, ``best_loss_weights`` on a new best val loss (and
+    ``best_epochs.txt``), and ``epoch_NNNN`` snapshots every
+    ``weight_modulus`` epochs; ``continue_from`` and ``auto_resume``
+    restore a checkpoint of the port's format (train/checkpoint.py);
+  * ``train_regression``: a train pass, the val pass's RMSE per head and
+    instrument BCE, ``weights/best_rmse_weights`` on a new best total
+    RMSE, one ``REG_CSV_HEADER`` row per epoch;
+  * ``train_music_transformer``: a train pass, the val pass,
+    ``weights/best_loss_weights`` on a new best val loss, one
+    ``CSV_HEADER`` row with the train and emotion columns empty.
 
 Not ported, and raising: meshes and the parallel strategies, the profiler
 (``profile_steps``) and TensorBoard (``tensorboard_dir``) (ROADMAP.md,
-Queue 1 item 10).
+Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -24,14 +31,23 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from ..core.config import AMTConfig, TrainConfig
+from ..core.config import (AMTConfig, MusicTransformerConfig,
+                           RegressionConfig, TrainConfig)
 from ..data.dataset import batches as make_batches
 from ..data.loader import PrefetchLoader, device_prefetch
-from ..ops.attention import not_ported
 from . import checkpoint as ckpt
 from .optim import noam_schedule
 from .step import (TrainState, create_train_state, make_amt_eval_step,
-                   make_amt_train_step, resolve_device)
+                   make_amt_train_step, make_music_transformer_eval_step,
+                   make_music_transformer_train_step,
+                   make_regression_eval_step, make_regression_train_step,
+                   resolve_device)
+
+def not_ported(what: str, queue_item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to video2music_tpu_torch yet "
+        f"(ROADMAP.md, {queue_item})")
+
 
 CSV_HEADER = [
     "Epoch", "Learn rate",
@@ -41,6 +57,12 @@ CSV_HEADER = [
     "Avg Eval loss (total)", "Avg Eval loss (chord)",
     "Avg Eval loss (emotion)",
     "Avg Eval h1", "Avg Eval h3", "Avg Eval h5",
+]
+
+REG_CSV_HEADER = [
+    "Epoch", "Learn rate", "Avg Train loss (total)",
+    "Avg Eval loss (total)", "Eval RMSE (note density)",
+    "Eval RMSE (loudness)", "Eval BCE (instrument)",
 ]
 
 
@@ -93,6 +115,34 @@ def _latest_epoch_snapshot(weights_dir: str):
     return best, best_epoch
 
 
+def _start(cfg, tcfg: TrainConfig, loop: LoopConfig, device):
+    """The output tree and a fresh train state: (device, results.csv path,
+    weights dir, state)."""
+    if loop.profile_steps or loop.tensorboard_dir:
+        raise not_ported("the step profiler and TensorBoard",
+                         "Queue 1 item 13")
+    dev = resolve_device(device)
+    os.makedirs(loop.output_dir, exist_ok=True)
+    weights_dir = os.path.join(loop.output_dir, "weights")
+    os.makedirs(weights_dir, exist_ok=True)
+    state = create_train_state(cfg, tcfg, device=dev,
+                               init_steps=loop.init_steps)
+    return dev, os.path.join(loop.output_dir, "results.csv"), weights_dir, \
+        state
+
+
+def _csv_header(path: str, header) -> None:
+    """Start the CSV at ``path`` with ``header`` unless it exists (a
+    resumed run appends)."""
+    if not os.path.isfile(path):
+        _csv_row(path, header)
+
+
+def _csv_row(path: str, row) -> None:
+    with open(path, "a", newline="") as f:
+        csv.writer(f).writerow(row)
+
+
 def _epoch_pass(step_fn, state, batches_iter, device):
     rows = []
     for batch in device_prefetch(batches_iter, device):
@@ -117,18 +167,9 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
     ``loop.output_dir``."""
     if mesh is not None or parallel != "dp":
         raise not_ported("meshes and parallel training strategies",
-                         "Queue 1 item 10")
-    if loop.profile_steps or loop.tensorboard_dir:
-        raise not_ported("the step profiler and TensorBoard",
-                         "Queue 1 item 10")
-    dev = resolve_device(device)
-    os.makedirs(loop.output_dir, exist_ok=True)
-    results_file = os.path.join(loop.output_dir, "results.csv")
-    weights_dir = os.path.join(loop.output_dir, "weights")
-    os.makedirs(weights_dir, exist_ok=True)
-
-    state = create_train_state(model_cfg, tcfg, device=dev,
-                               init_steps=loop.init_steps)
+                         "Queue 1 item 13")
+    dev, results_file, weights_dir, state = _start(model_cfg, tcfg, loop,
+                                                   device)
     start_epoch = 0
     if not loop.continue_from and loop.auto_resume:
         snap, start_epoch = _latest_epoch_snapshot(weights_dir)
@@ -142,10 +183,7 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
     eval_step = make_amt_eval_step(tcfg)
     sched = noam_schedule(model_cfg.d_model, tcfg.warmup_steps)
 
-    if not os.path.isfile(results_file):
-        with open(results_file, "w", newline="") as f:
-            csv.writer(f).writerow(CSV_HEADER)
-
+    _csv_header(results_file, CSV_HEADER)
     best_eval_loss, best_epoch = float("inf"), -1
     loader = PrefetchLoader(train_ds, loop.batch_size, shuffle=True,
                             seed=loop.seed)
@@ -174,14 +212,90 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
             ckpt.save_checkpoint(
                 os.path.join(weights_dir, f"epoch_{epoch + 1:04d}"), state)
 
-        with open(results_file, "a", newline="") as f:
-            csv.writer(f).writerow([
-                epoch + 1, lr,
-                train_m.get("loss", ""), train_m.get("loss_chord", ""),
-                train_m.get("loss_emotion", ""),
-                train_m.get("hits@1", ""), train_m.get("hits@3", ""),
-                train_m.get("hits@5", ""),
-                eval_m["loss"], eval_m["loss_chord"], eval_m["loss_emotion"],
-                eval_m["hits@1"], eval_m["hits@3"], eval_m["hits@5"],
-            ])
+        _csv_row(results_file, [
+            epoch + 1, lr,
+            train_m.get("loss", ""), train_m.get("loss_chord", ""),
+            train_m.get("loss_emotion", ""),
+            train_m.get("hits@1", ""), train_m.get("hits@3", ""),
+            train_m.get("hits@5", ""),
+            eval_m["loss"], eval_m["loss_chord"], eval_m["loss_emotion"],
+            eval_m["hits@1"], eval_m["hits@3"], eval_m["hits@5"],
+        ])
+    return state
+
+
+def train_regression(model_cfg: RegressionConfig, tcfg: TrainConfig,
+                     loop: LoopConfig, train_ds, val_ds, *,
+                     device=None) -> TrainState:
+    """A regression training run on one device (CUDA unless ``device``
+    says otherwise). Per epoch: the train pass, then on the val split the
+    RMSE of note density and of loudness (from the summed squared errors)
+    and the mean instrument BCE; ``weights/best_rmse_weights`` on a new
+    best total RMSE; a ``REG_CSV_HEADER`` row in ``results.csv``."""
+    dev, results_file, weights_dir, state = _start(model_cfg, tcfg, loop,
+                                                   device)
+    if loop.continue_from:
+        state = ckpt.restore_checkpoint(loop.continue_from, state)
+    train_step = make_regression_train_step(tcfg)
+    eval_step = make_regression_eval_step()
+    _csv_header(results_file, REG_CSV_HEADER)
+    best_rmse = float("inf")
+    loader = PrefetchLoader(train_ds, loop.batch_size, shuffle=True,
+                            seed=loop.seed)
+    for epoch in range(loop.epochs):
+        state, train_rows = _epoch_pass(train_step, state, loader, dev)
+        train_loss = float(np.mean([float(r["loss"]) for r in train_rows]))
+        rows = [eval_step(state.model, batch) for batch in device_prefetch(
+            make_batches(val_ds, loop.batch_size, shuffle=False), dev)]
+        total = {k: sum(float(r[k]) for r in rows)
+                 for k in ("se_note_density", "se_loudness", "count")}
+        n = max(total["count"], 1.0)
+        rmse_nd = float(np.sqrt(total["se_note_density"] / n))
+        rmse_ln = float(np.sqrt(total["se_loudness"] / n))
+        bce = float(np.mean([float(r["bce_instrument"]) for r in rows]))
+        eval_loss = float(np.mean([float(r["loss"]) for r in rows]))
+        loop.log_fn(f"epoch {epoch + 1}/{loop.epochs} "
+                    f"rmse_nd={rmse_nd:.4f} rmse_loud={rmse_ln:.4f} "
+                    f"bce={bce:.4f}")
+        if rmse_nd + rmse_ln < best_rmse:
+            best_rmse = rmse_nd + rmse_ln
+            ckpt.save_checkpoint(
+                os.path.join(weights_dir, "best_rmse_weights"), state)
+        _csv_row(results_file, [epoch + 1, tcfg.lr or "", train_loss,
+                                eval_loss, rmse_nd, rmse_ln, bce])
+    return state
+
+
+def train_music_transformer(model_cfg: MusicTransformerConfig,
+                            tcfg: TrainConfig, loop: LoopConfig, train_ds,
+                            val_ds, *, device=None) -> TrainState:
+    """A MusicTransformer (no-video) training run on one device: the chord
+    CE; ``weights/best_loss_weights`` on a new best val loss; a
+    ``CSV_HEADER`` row per epoch with the train and emotion columns
+    empty."""
+    dev, results_file, weights_dir, state = _start(model_cfg, tcfg, loop,
+                                                   device)
+    if loop.continue_from:
+        state = ckpt.restore_checkpoint(loop.continue_from, state)
+    train_step = make_music_transformer_train_step(tcfg)
+    eval_step = make_music_transformer_eval_step(tcfg)
+    _csv_header(results_file, CSV_HEADER)
+    best_eval_loss = float("inf")
+    loader = PrefetchLoader(train_ds, loop.batch_size, shuffle=True,
+                            seed=loop.seed)
+    for epoch in range(loop.epochs):
+        t0 = time.time()
+        state, _ = _epoch_pass(train_step, state, loader, dev)
+        eval_m = _eval_pass(eval_step, state, val_ds, loop.batch_size)
+        loop.log_fn(f"epoch {epoch + 1}/{loop.epochs} "
+                    f"val_loss={eval_m['loss']:.4f} "
+                    f"h1={eval_m['hits@1']:.4f} ({time.time() - t0:.1f}s)")
+        if eval_m["loss"] < best_eval_loss:
+            best_eval_loss = eval_m["loss"]
+            ckpt.save_checkpoint(
+                os.path.join(weights_dir, "best_loss_weights"), state)
+        _csv_row(results_file, [
+            epoch + 1, "", "", "", "", "", "", "",
+            eval_m["loss"], eval_m["loss"], "",
+            eval_m["hits@1"], eval_m["hits@3"], eval_m["hits@5"]])
     return state

@@ -173,24 +173,81 @@ def amt_from_jax(params, moe_state=None) -> Dict[str, torch.Tensor]:
     for name, state in (moe_state or {}).items():
         kind, i = name.split("_")
         stack = {"enc": "encoder_layers", "dec": "decoder_layers"}[kind]
-        if "balance_bias" in state.get("ffn", {}):
-            sd[f"{stack}.{i}.ffn.balance_bias"] = _t(
-                state["ffn"]["balance_bias"])
+        ffn = state.get("ffn", {})
+        if "balance_bias" in ffn:
+            sd[f"{stack}.{i}.ffn.balance_bias"] = _t(ffn["balance_bias"])
+        for step in MOE_STEPS:
+            if step in ffn:
+                sd[f"{stack}.{i}.ffn.{step}"] = torch.tensor(
+                    int(np.asarray(ffn[step])), dtype=torch.int32)
     return sd
 
 
-def load_amt_from_jax_(model: nn.Module, params) -> None:
-    """Copy a JAX train state's ``params`` (a numpy tree) into ``model`` in
-    place: the tensors keep their device and identity, so an optimizer
-    over them stays valid."""
-    sd = amt_from_jax(params)
+MOE_STEPS = ("sched_step", "temp_step")
+
+
+def amt_moe_state_to_jax(model: nn.Module) -> Dict:
+    """The JAX "moe_state" collection of a port VideoMusicTransformer: per
+    MoE layer ("enc_i" / "dec_i") its balancing bias and its schedules'
+    steps (int32), numpy arrays; {} without such state."""
+    out: Dict = {}
+    for kind, stack in (("enc", model.encoder_layers),
+                        ("dec", model.decoder_layers)):
+        for i, layer in enumerate(stack):
+            ffn = layer.ffn
+            if not isinstance(ffn, MoELayer):
+                continue
+            state = {name: np.asarray(ffn.steps[name], np.int32)
+                     for name in ffn.steps}
+            if getattr(ffn, "balance_bias", None) is not None:
+                state["balance_bias"] = ffn.balance_bias.detach().cpu() \
+                    .numpy()
+            if state:
+                out[f"{kind}_{i}"] = {"ffn": state}
+    return out
+
+
+def load_amt_from_jax_(model: nn.Module, params, moe_state=None) -> None:
+    """Copy a JAX train state's ``params`` (a numpy tree), and its
+    ``moe_state`` where given, into ``model`` in place: the tensors keep
+    their device and identity, so an optimizer over them stays valid.
+    Without ``moe_state`` the MoE state (balancing biases, schedule steps)
+    is left as it is."""
+    sd = amt_from_jax(params, moe_state)
     with torch.no_grad():
         own = model.state_dict()
+        if moe_state is None:  # MoE state, not params
+            own = {k: v for k, v in own.items() if k.rsplit(".", 1)[-1]
+                   not in MOE_STEPS + ("balance_bias",)}
         if sorted(own) != sorted(sd):
             raise KeyError(f"parameter names differ: "
                            f"{sorted(set(own) ^ set(sd))}")
         for name, t in sd.items():
             own[name].copy_(t)
+    for mod in model.modules():
+        if isinstance(mod, MoELayer):
+            for name in mod.steps:
+                mod.steps[name] = int(getattr(mod, name))
+
+
+def music_transformer_from_jax(params) -> Dict[str, torch.Tensor]:
+    """State dict of a port MusicTransformer from the flax params of the
+    JAX MusicTransformer of the same config."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("embedding_root", "embedding_attr"):
+        sd[f"{name}.weight"] = _t(params[name]["embedding"])
+    _put_linear(sd, "linear_chord", params["Linear_chord"])
+    _put_linear(sd, "wout", params["Wout"])
+    _put_norm(sd, "final_norm", params["final_norm"])
+    i = 0
+    while f"layer_{i}" in params:
+        p, pre = params[f"layer_{i}"], f"layers.{i}"
+        _put_attention(sd, f"{pre}.self_attn", p["self_attn"])
+        for n in ("norm1", "norm2", "ff1", "ff2"):
+            (_put_norm if n.startswith("norm") else _put_linear)(
+                sd, f"{pre}.{n}", p[n])
+        i += 1
+    return sd
 
 
 def _put_proj(sd, prefix, p):
