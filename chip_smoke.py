@@ -162,7 +162,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      rows 11 and 12 equal to the path's, row 11's forms (2H heads for
      V3.1, the full RPR bias for the base AMT and the MusicTransformer);
      two steps of each optimizer on the card; the scan's plain-recompute
-     backward at a bimamba+ step's shapes and its share of the step.
+     backward at a bimamba+ step's shapes and its share of the step;
+  12. CLIs: the port's command line at full width on a synthetic feature
+     tree of 64 clips of 300 s (motion_type 1; four steps at B=16):
+     train_amt (2.2, f32, -profile 3 and the default TensorBoard: results
+     .csv, the checkpoint, the four tags at step 1, a trace naming row
+     11's kernels), train_regression (bimamba+), evaluate (-confusion and
+     the expert-emotion counts, each MoE layer's summing to k_top x its
+     labelled positions), evaluate_regression, generate (output.lab token
+     for token with Video2music on the two checkpoints), the serve CLI in
+     a subprocess (8 concurrent requests, one answer batched, a stream,
+     /reload, then the generate CLI's chords; 404 and 400), one demo form
+     POST, and extract_features semantic / emotion / scene / motion on a
+     cv2 clip against Video2music.extract_features; every step's kernel
+     launches equal to what its path implies ("launches_clis").
 The "dropout forms" phase (after "dropout kernels") holds the dropout
 attention in its two training forms to its plain version in f32 and bf16
 (output, mask entry for entry, dq / dk / dv / dbias) with its times,
@@ -1066,16 +1079,20 @@ def batched_kernel_phase(report, v2m):
                                lambda: db.batched_layer_step_plain(
                                    x, pos, p, kc2, vc2, kx, vx, **kw),
                                key=key)
-                if tag == "deep" and B == 16 and dtype == torch.bfloat16:
+                if tag == "deep" and dtype == torch.bfloat16:
                     # the attention block's weights once for the batch;
                     # per clip self rows 0..pos and all cross rows
                     el = x.element_size()
                     w_b, w_f = layer_work(p, db._LAYER_KEYS)
-                    note_bound(report, "batched_layer_step",
-                               w_b + B * (2 * (pos + 1) * D * el)
-                               + nbytes(kx, vx) + 4 * nbytes(x),
-                               B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D))
-                    report["batched_layer_step"]["library_ms"] = None
+                    work = (w_b + B * (2 * (pos + 1) * D * el)
+                            + nbytes(kx, vx) + 4 * nbytes(x),
+                            B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D))
+                    if B == 16:
+                        note_bound(report, "batched_layer_step", *work)
+                        report["batched_layer_step"]["library_ms"] = None
+                    else:
+                        report["batched_layer_step"][
+                            "form_bound_" + key] = form_bound(*work)
             for tag, hp in (("", None), ("+head", head)):
                 got = db.batched_moe_ffn(x, deep, k_top=k_top, head_pack=hp)
                 want = db.batched_moe_ffn_plain(x, deep, k_top=k_top,
@@ -1089,7 +1106,7 @@ def batched_kernel_phase(report, v2m):
                                                   head_pack=head),
                        lambda: db.batched_moe_ffn_plain(
                            x, deep, k_top=k_top, head_pack=head), key=key)
-            if B == 16 and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
                 # shared expert, router, norm and head for every clip; each
                 # expert its router picked, for the clips that picked it
                 rows = (db.route_plain(x, deep["gate_w"], deep["gate_b"],
@@ -1100,10 +1117,14 @@ def batched_kernel_phase(report, v2m):
                 e_b, e_f = layer_work(deep, EXPERT_KEYS, rows)
                 h_b, h_f = layer_work(head, ("dn_scale", "dn_bias", "wout",
                                              "bout"))
-                note_bound(report, "batched_moe_ffn",
-                           s_b + e_b + h_b + nbytes(x) + B * 159
-                           * x.element_size(), B * (s_f + h_f) + e_f)
-                report["batched_moe_ffn"]["library_ms"] = None
+                work = (s_b + e_b + h_b + nbytes(x) + B * 159
+                        * x.element_size(), B * (s_f + h_f) + e_f)
+                if B == 16:
+                    note_bound(report, "batched_moe_ffn", *work)
+                    report["batched_moe_ffn"]["library_ms"] = None
+                else:
+                    report["batched_moe_ffn"]["form_bound_" + key] = \
+                        form_bound(*work)
 
         # flash attention and the scan at the batch of the serving path
         B = 16
@@ -1120,6 +1141,8 @@ def batched_kernel_phase(report, v2m):
             report["flash_attention"]["library_ms_b16"] = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v))[0]
+            report["flash_attention"]["form_bound_ms_b16"] = form_bound(
+                nbytes(q, k, v, q), 4 * B * H * Sm * Sm * hd)
         L, ED, N = Sm, mamba.d_inner, mamba.d_state
         xs = torch.randn(B, L, ED, generator=gen).to(dev, dtype)
         dt = (torch.rand(B, L, ED, generator=gen) * 0.1).to(dev, dtype)
@@ -1135,6 +1158,10 @@ def batched_kernel_phase(report, v2m):
                    lambda: selective_scan(xs, dt, A, Bm, Cm, Dv),
                    lambda: selective_scan_plain(xs, dt, A, Bm, Cm, Dv),
                    plain_iters=3, key="ms_b16")
+        if dtype == torch.bfloat16:
+            report["selective_scan"]["form_bound_ms_b16"] = form_bound(
+                nbytes(xs, dt, A, Bm, Cm, Dv, xs), 8 * B * L * ED * N,
+                peak=PEAK_F32)
 
 
 def int8_kv_kernel_phase(report, v2m):
@@ -1210,18 +1237,20 @@ def int8_kv_kernel_phase(report, v2m):
                                x, pos, p, two[0], two[1], kx, vx,
                                kv_scales=(two[2], two[3], kxs, vxs), **kw),
                            key=key)
-                if B == 16 and dtype == torch.bfloat16:
+                if dtype == torch.bfloat16:
                     # the attention block's weights once for the batch; per
                     # clip self rows 0..pos and all cross rows at one byte
                     # an element and four a row scale; x in, y and the new
                     # int8 rows with their scales out
                     w_b, w_f = layer_work(p, db._LAYER_KEYS)
                     c_b = B * (2 * (pos + 1) * (D + 4) + 2 * Sm * (D + 4))
-                    r["bound_ms_int8"] = max(
-                        (w_b + c_b + 2 * nbytes(x) + 2 * B * (D + 4))
-                        / HBM_BYTES_PER_S * 1e3,
-                        B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D)
-                        / PEAK_BF16 * 1e3)
+                    bound = form_bound(
+                        w_b + c_b + 2 * nbytes(x) + 2 * B * (D + 4),
+                        B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D))
+                    if B == 16:
+                        r["bound_ms_int8"] = bound[0]
+                    else:
+                        r["form_bound_" + key] = bound
 
 
 def dropout_kernel_phase(report, cfg):
@@ -1303,11 +1332,19 @@ def dropout_kernel_phase(report, cfg):
                        plain_iters=5, key=key)
             if dtype != torch.bfloat16:
                 continue
+            # one (L, S, D) product; the causal form's lower triangle
+            pairs = L * (L + 1) // 2 if causal else L * L
+            flops = 2 * B * H * pairs * D
+            fwd_work = (nbytes(q, k, v, q), 2 * flops)
+            bwd_work = (nbytes(q, k, v, do, q, k, v), 5 * flops)
             if not causal:
-                flops = 2 * B * H * L * L * D  # one (L, S, D) product
-                note_bound(report, fwd_name, nbytes(q, k, v, q), 2 * flops)
-                note_bound(report, bwd_name, nbytes(q, k, v, do, q, k, v),
-                           5 * flops)
+                note_bound(report, fwd_name, *fwd_work)
+                note_bound(report, bwd_name, *bwd_work)
+            else:
+                report[fwd_name]["form_bound_ms_causal"] = \
+                    form_bound(*fwd_work)
+                report[bwd_name]["form_bound_ms_causal"] = \
+                    form_bound(*bwd_work)
             library_dropout_times(report, q, k, v, do, rate, causal)
 
 
@@ -1440,16 +1477,18 @@ def dropout_forms_phase(report, cfg):
                 print(f"  {name} ({key}) bound {b_ms:.4f} ms by {by}")
 
 
-def library_dropout_times(report, q, k, v, do, rate, causal):
+def library_dropout_times(report, q, k, v, do, rate, causal, key=None):
     """F.scaled_dot_product_attention with the same dropout rate (its own
     random mask), timed as the kernels are (time_ms: CUDA-graph replay):
     the forward, and the backward as (forward + backward) less the
-    forward, since autograd runs a backward on its forward's stream."""
+    forward, since autograd runs a backward on its forward's stream. Kept
+    as "library_" + key ("ms", or "ms_causal" when causal, by default)."""
     import torch
     from torch.nn import functional as F
 
     fwd_name, bwd_name = TRAIN_KERNELS
-    suffix = "_causal" if causal else ""
+    key = key or ("ms_causal" if causal else "ms")
+    suffix = key[2:]
     ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
 
     def fwd():
@@ -2431,6 +2470,8 @@ def variant_kernel_phase(report, v2m):
             report["flash_attention"]["library_ms_2h"] = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v))[0]
+            report["flash_attention"]["form_bound_ms_2h"] = form_bound(
+                nbytes(q, k, v, q), 4 * 2 * H * Sm * Sm * hd)
         for name, layer_metas, norm, pre_norm, use_rope in VARIANT_CASES:
             for fields in layer_metas:
                 meta = dv.VariantLayerMeta(*fields)
@@ -2515,15 +2556,19 @@ def variant_kernel_phase(report, v2m):
                                        *args1, **kw),
                                    lambda: dbv.batched_variant_layer_plain(
                                        *args2, **kw), key=key)
-                    if name == "3.1" and deep and B == 16 \
-                            and dtype == torch.bfloat16:
+                    if name == "3.1" and deep and dtype == torch.bfloat16:
                         w_b, w_f = layer_work(p, VARIANT_ATTN_KEYS)
                         a_b, a_f = variant_attention_work(p, B, pos, Sm, D,
                                                           el)
-                        note_bound(report, "batched_variant_layer_step",
-                                   w_b + a_b + 2 * nbytes(x), B * w_f + a_f)
-                        report["batched_variant_layer_step"][
-                            "library_ms"] = None
+                        work = (w_b + a_b + 2 * nbytes(x), B * w_f + a_f)
+                        if B == 16:
+                            note_bound(report, "batched_variant_layer_step",
+                                       *work)
+                            report["batched_variant_layer_step"][
+                                "library_ms"] = None
+                        else:
+                            report["batched_variant_layer_step"][
+                                "form_bound_" + key] = form_bound(*work)
                     if not deep:
                         continue
                     got = dbv.batched_variant_moe_ffn(want, p, meta,
@@ -2543,7 +2588,7 @@ def variant_kernel_phase(report, v2m):
                                lambda: dbv.batched_variant_moe_plain(
                                    want, p, meta, k_top=k_top, **nkw),
                                key=key)
-                    if B == 16 and dtype == torch.bfloat16:
+                    if dtype == torch.bfloat16:
                         xn = want
                         if pre_norm:
                             xn = dv._norm(want, p["norm_scale"][2],
@@ -2554,11 +2599,15 @@ def variant_kernel_phase(report, v2m):
                             p, VARIANT_SHARED_KEYS + ("norm_scale",
                                                       "norm_bias"))
                         e_b, e_f = layer_work(p, EXPERT_KEYS, rows)
-                        note_bound(report, "batched_variant_moe_ffn",
-                                   s_b + e_b + 2 * nbytes(want),
-                                   B * s_f + e_f)
-                        report["batched_variant_moe_ffn"]["library_ms"] = \
-                            None
+                        work = (s_b + e_b + 2 * nbytes(want), B * s_f + e_f)
+                        if B == 16:
+                            note_bound(report, "batched_variant_moe_ffn",
+                                       *work)
+                            report["batched_variant_moe_ffn"][
+                                "library_ms"] = None
+                        else:
+                            report["batched_variant_moe_ffn"][
+                                "form_bound_" + key] = form_bound(*work)
 
 
 def short_kernel_name(name: str) -> str:
@@ -2877,6 +2926,12 @@ def head_size_phase(report, card):
         note_times(report, "flash_attention", dtype,
                    lambda: flash_attention(q, k, v),
                    lambda: flash_attention_plain(q, k, v), key="ms_d128")
+        if dtype == torch.bfloat16:
+            report["flash_attention"]["form_bound_ms_d128"] = form_bound(
+                nbytes(q, k, v, q), 4 * H * L * L * D)
+            report["flash_attention"]["library_ms_d128"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v))[0]
         q, k, v, do = (torch.randn(16, H, L, D, generator=gen).to(dev, dtype)
                        for _ in range(4))
         out, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
@@ -2893,6 +2948,14 @@ def head_size_phase(report, card):
                    lambda: fad.flash_attention_dropout_plain_bwd(
                        q, k, v, do, **dkw),
                    plain_iters=5, key="ms_d128")
+        if dtype == torch.bfloat16:
+            flops = 2 * 16 * H * L * L * D  # one (L, S, D) product
+            report[fwd_name]["form_bound_ms_d128"] = form_bound(
+                nbytes(q, k, v, q), 2 * flops)
+            report[bwd_name]["form_bound_ms_d128"] = form_bound(
+                nbytes(q, k, v, do, q, k, v), 5 * flops)
+            library_dropout_times(report, q, k, v, do, rate, False,
+                                  key="ms_d128")
 
 
 def many_experts_phase(report, v2m):
@@ -4718,6 +4781,581 @@ def step_gap(got, want):
         errs.values())))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the command line, on the card
+# ---------------------------------------------------------------------------
+
+# the CLIs phase's feature tree: 64 clips of 300 s, so that one epoch at
+# B=16 has the four steps -profile 3 traces (steps 1..3 after step 0)
+CLI_CLIPS = 64
+CLI_PRIMER = "C Am F G"
+# row 11's kernels in a float32 trace (the CLI trains in f32): the
+# forward, and the backward's dK/dV and dQ kernels
+ROW11_TRACE_NAMES = ("attention_dropout_fwd", "attention_dropout_dkv",
+                     "attention_dropout_dq")
+
+
+def zero_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def check_path_launches(tag, want, report=None):
+    """The counters against ``want`` (name -> launches; every other kernel
+    0), each kernel of ``want`` above 0 launched at least once; adds the
+    counts to ``report[name]["launches_clis"]``."""
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    for name in KERNELS:
+        w = want.get(name, 0)
+        fail_unless(counts[name] == w, f"{tag}: {name} launched "
+                    f"{counts[name]} times, the path implies {w}")
+        if w and report is not None:
+            report[name]["launches_clis"] = \
+                report[name].get("launches_clis", 0) + counts[name]
+    print(f"  {tag} launches: " + ", ".join(
+        f"{n} {counts[n]}" for n in KERNELS if counts[n]) +
+        " (each as the path implies; every other kernel 0)")
+
+
+def read_scalar_events(path):
+    """(tag, step, value) of every scalar event in a TFRecord event file
+    (the first record, the file version, is skipped); each record's length
+    and payload checked against their masked CRC32C."""
+    import struct
+    from video2music_tpu_torch.obs.tensorboard import masked_crc32c
+
+    def varint(b, i):
+        n = shift = 0
+        while True:
+            n |= (b[i] & 0x7F) << shift
+            shift += 7
+            i += 1
+            if not b[i - 1] & 0x80:
+                return n, i
+
+    def fields(b):
+        out, i = {}, 0
+        while i < len(b):
+            key, i = varint(b, i)
+            wire = key & 7
+            if wire == 0:
+                v, i = varint(b, i)
+            elif wire == 1:
+                v, i = struct.unpack_from("<d", b, i)[0], i + 8
+            elif wire == 5:
+                v, i = struct.unpack_from("<f", b, i)[0], i + 4
+            else:
+                n, i = varint(b, i)
+                v, i = b[i:i + n], i + n
+            out[key >> 3] = v
+        return out
+
+    with open(path, "rb") as f:
+        data = f.read()
+    events, off = [], 0
+    while off < len(data):
+        (n,) = struct.unpack_from("<Q", data, off)
+        payload = data[off + 12:off + 12 + n]
+        fail_unless(struct.unpack_from("<I", data, off + 8)[0]
+                    == masked_crc32c(data[off:off + 8])
+                    and struct.unpack_from("<I", data, off + 12 + n)[0]
+                    == masked_crc32c(payload), f"{path}: a bad CRC")
+        ev = fields(payload)
+        if 5 in ev:
+            value = fields(fields(ev[5])[1])
+            events.append((value[1].decode(), ev[2], value[2]))
+        off += 16 + n
+    return events
+
+
+def trace_kernel_names(path):
+    """The names of the device kernels in a torch.profiler Chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    return {e["name"] for e in trace["traceEvents"]
+            if e.get("cat") == "kernel"}
+
+
+def http_call(port, method, path, body=None, timeout=600):
+    """(status, decoded JSON, or the NDJSON lines of a stream)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, body=None if body is None
+                 else json.dumps(body).encode())
+    resp = conn.getresponse()
+    raw = resp.read().decode()
+    conn.close()
+    if resp.getheader("Content-Type") == "application/x-ndjson":
+        return resp.status, [json.loads(x) for x in raw.splitlines() if x]
+    return resp.status, json.loads(raw)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_train_phase(root, tmp, cfg, card, report):
+    """train_amt (with the step profiler and the default TensorBoard) and
+    train_regression through their CLIs; returns the two checkpoints."""
+    import csv
+
+    import torch
+    from video2music_tpu_torch.cli import train_amt as train_amt_cli
+    from video2music_tpu_torch.cli import train_regression as train_reg_cli
+    from video2music_tpu_torch.train import CSV_HEADER, REG_CSV_HEADER
+
+    out, prof = os.path.join(tmp, "amt"), os.path.join(tmp, "profile")
+    n_attn = 3 * len(cfg.decoder_layers)
+    steps = -(-CLI_CLIPS // 16)
+    eval_batches = steps + -(-(CLI_CLIPS // 2) // 16)
+    zero_launches()
+    t0 = time.perf_counter()
+    state = train_amt_cli.main([
+        "-dataset_dir", root, "-output_dir", out, "-music_gen_version",
+        "2.2", "-motion_type", "1", "-epochs", "1", "-batch_size", "16",
+        "-profile", "3", "-profile_dir", prof, "-device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fail_unless(state.step == steps, f"train_amt CLI: {state.step} steps")
+    check_path_launches("train_amt CLI", dict(
+        flash_attention=n_attn * eval_batches,
+        flash_attention_dropout_fwd=n_attn * steps,
+        flash_attention_dropout_bwd=n_attn * steps), report)
+    with open(os.path.join(out, "results.csv")) as f:
+        rows = list(csv.reader(f))
+    fail_unless(rows[0] == CSV_HEADER and len(rows) == 2
+                and all(torch.isfinite(torch.tensor(float(v)))
+                        for v in rows[1][2:]), f"results.csv {rows}")
+    ckpt = os.path.join(out, "weights", "best_loss_weights")
+    fail_unless(os.path.isfile(ckpt), "no weights/best_loss_weights")
+    tb_dir = os.path.join(out, "tensorboard")
+    (name,) = os.listdir(tb_dir)
+    events = read_scalar_events(os.path.join(tb_dir, name))
+    tags = ["Avg_CE_loss/eval", "Avg_CE_loss_chord/eval",
+            "Avg_CE_loss_emotion/eval", "Learn_rate/train"]
+    fail_unless([(t, s) for t, s, _ in events] == [(t, 1) for t in tags],
+                f"TensorBoard events {events}")
+    want = [float(rows[1][i]) for i in (8, 9, 10, 1)]
+    fail_unless(all(abs(v - w) <= 1e-6 * max(1.0, abs(w))
+                    for (_, _, v), w in zip(events, want)),
+                f"TensorBoard values {events} against results.csv {want}")
+    (trace,) = os.listdir(prof)
+    names = trace_kernel_names(os.path.join(prof, trace))
+    found = {k: sorted(n for n in names if k in n)
+             for k in ROW11_TRACE_NAMES}
+    fail_unless(all(found.values()), f"the trace lacks row 11's kernels: "
+                f"{sorted(names)[:40]}")
+    print(f"train_amt CLI (2.2, motion_type 1, f32, B=16, {steps} steps, "
+          f"-profile 3): {wall:.2f} s with the eval passes; results.csv, "
+          f"weights/best_loss_weights; TensorBoard {name}: "
+          f"{[(t, s) for t, s, _ in events]}; trace {trace}, "
+          f"{os.path.getsize(os.path.join(prof, trace))} bytes, row 11's "
+          f"kernels in it: {sorted(sum(found.values(), []))} [{card}]")
+
+    reg_out = os.path.join(tmp, "reg")
+    zero_launches()
+    t0 = time.perf_counter()
+    reg_state = train_reg_cli.main([
+        "-dataset_dir", root, "-output_dir", reg_out, "-regModel",
+        "bimamba+", "-epochs", "1", "-batch_size", "16", "-device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scans = 2 * reg_state.model.cfg.n_layers
+    check_path_launches("train_regression CLI", dict(
+        selective_scan=scans * (steps + -(-(CLI_CLIPS // 2) // 16))), report)
+    with open(os.path.join(reg_out, "results.csv")) as f:
+        rows = list(csv.reader(f))
+    fail_unless(rows[0] == REG_CSV_HEADER and len(rows) == 2
+                and all(torch.isfinite(torch.tensor(float(v)))
+                        for v in rows[1][1:]), f"results.csv {rows}")
+    reg_ckpt = os.path.join(reg_out, "weights", "best_rmse_weights")
+    fail_unless(os.path.isfile(reg_ckpt), "no weights/best_rmse_weights")
+    print(f"train_regression CLI (bimamba+, f32, B=16, {steps} steps): "
+          f"{wall:.2f} s; results.csv {dict(zip(rows[0], rows[1]))} [{card}]")
+    return ckpt, reg_ckpt
+
+
+def cli_eval_phase(root, tmp, cfg, ckpt, reg_ckpt, has_mpl, card, report):
+    """evaluate (with -confusion and the expert-emotion counts) and
+    evaluate_regression through their CLIs on the checkpoints."""
+    import numpy as np
+    from video2music_tpu_torch.cli import evaluate as eval_cli
+    from video2music_tpu_torch.cli import evaluate_regression as eval_reg_cli
+    from video2music_tpu_torch.core import constants as C
+    from video2music_tpu_torch.data import create_vevo_datasets
+
+    _, _, test_ds = create_vevo_datasets(root, motion_type=1)
+    B, n_attn = 8, 3 * len(cfg.decoder_layers)
+    batches = -(-len(test_ds) // B)
+    out = os.path.join(tmp, "eval")
+    flags = ["-dataset_dir", root, "-model_weights", ckpt,
+             "-music_gen_version", "2.2", "-motion_type", "1",
+             "-batch_size", str(B), "-output_dir", out, "-confusion",
+             "-device", "cuda"]
+    zero_launches()
+    t0 = time.perf_counter()
+    metrics = eval_cli.main(flags + (["-expert_plots"] if has_mpl else []))
+    if not has_mpl:
+        # the CLI's -expert_plots renders with matplotlib: count through
+        # the same function and write the JSON alone
+        from video2music_tpu_torch.obs import save_expert_emotion
+        model = eval_cli.load_model(cfg, ckpt, "VideoMusicTransformer",
+                                    "cuda")
+        save_expert_emotion(eval_cli.expert_emotion_counts(
+            model, test_ds, B), out_dir=out)
+        print("  matplotlib is not installed on this machine: no "
+              "-expert_plots; the counts' JSON written through "
+              "obs.save_expert_emotion, no heatmaps")
+    wall = time.perf_counter() - t0
+    # the eval pass, the counting pass and the confusion pass
+    check_path_launches("evaluate CLI", dict(
+        flash_attention=3 * n_attn * batches), report)
+    fail_unless(all(np.isfinite(v) for k, v in metrics.items()
+                    if k != "correspondence"), f"eval metrics {metrics}")
+    tgt = np.stack([test_ds[i]["tgt"] for i in range(len(test_ds))])
+    emo = np.stack([test_ds[i]["emotion"] for i in range(len(test_ds))])
+    labelled = emo.any(-1)
+    n_tgt = int((tgt != C.CHORD_PAD).sum())
+    for name, n in (("chord", C.CHORD_SIZE), ("root", 15), ("quality", 16)):
+        cm = np.load(os.path.join(out, f"confusion_{name}.npy"))
+        fail_unless(cm.shape == (n, n) and int(cm.sum()) == n_tgt,
+                    f"confusion_{name}: {cm.shape}, {cm.sum()} != {n_tgt}")
+    k = cfg.moe.n_experts_per_token
+    deep = [i for i, s in enumerate(cfg.encoder_layers) if s.ffn == "moe"]
+    deep_dec = [i for i, s in enumerate(cfg.decoder_layers)
+                if s.ffn == "moe"]
+    want = sorted([(f"enc_{i}/ffn", k * int(labelled.sum())) for i in deep]
+                  + [(f"dec_{i}/ffn", k * int(labelled[:, :tgt.shape[1]]
+                                                   .sum()))
+                     for i in deep_dec])
+    got = []
+    for i in range(len(want)):
+        with open(os.path.join(out, f"experts_emotion_count{i}.json")) as f:
+            data = json.load(f)
+        counts = np.asarray(data["counts"])
+        fail_unless(counts.shape == (6, cfg.moe.n_experts),
+                    f"{data['layer']}: counts {counts.shape}")
+        got.append((data["layer"], int(counts.sum())))
+    fail_unless(not os.path.exists(os.path.join(
+        out, f"experts_emotion_count{len(want)}.json")),
+        "more expert-emotion files than MoE layers")
+    fail_unless(got == want, f"expert-emotion counts {got}, k_top x the "
+                f"labelled positions implies {want}")
+    pngs = [n for n in os.listdir(out) if n.endswith(".png")]
+    fail_unless(len(pngs) == (len(want) if has_mpl else 0),
+                f"heatmaps {pngs}")
+    print(f"evaluate CLI (f32, B={B}, {len(test_ds)} clips): {wall:.2f} s; "
+          f"loss {metrics['loss']:.4f}, hits@1 {metrics['hits@1']:.4f}; "
+          f"confusion matrices over {n_tgt} targets; expert-emotion counts "
+          f"(layer, sum = k_top x labelled positions): {got}; "
+          f"{len(pngs)} heatmaps [{card}]")
+
+    zero_launches()
+    t0 = time.perf_counter()
+    reg_metrics = eval_reg_cli.main([
+        "-dataset_dir", root, "-model_weights", reg_ckpt, "-regModel",
+        "bimamba+", "-batch_size", str(B), "-output_dir",
+        os.path.join(tmp, "eval_reg"), "-device", "cuda"])
+    wall = time.perf_counter() - t0
+    check_path_launches("evaluate_regression CLI",
+                        dict(selective_scan=4 * batches), report)
+    fail_unless(all(np.isfinite(v) for v in reg_metrics.values()),
+                f"regression eval metrics {reg_metrics}")
+    print(f"evaluate_regression CLI (bimamba+, f32, B={B}): {wall:.2f} s; "
+          f"{reg_metrics} [{card}]")
+
+
+def cli_generate_phase(root, tmp, ckpt, reg_ckpt, card, report):
+    """The generate CLI on the checkpoints against Video2music of the same
+    checkpoints on the same sample, seed and primer; returns its chords."""
+    from video2music_tpu_torch.cli import generate as generate_cli
+    from video2music_tpu_torch.data import create_vevo_datasets
+    from video2music_tpu_torch.pipeline.api import Video2music
+
+    test_id, out = "clip003", os.path.join(tmp, "generate")
+    zero_launches()
+    t0 = time.perf_counter()
+    res = generate_cli.main([
+        "-dataset_dir", root, "-test_id", test_id, "-primer", CLI_PRIMER,
+        "-music_gen_version", "2.2", "-regModel", "bimamba+",
+        "-motion_type", "1", "-amt_weights", ckpt, "-reg_weights",
+        reg_ckpt, "-output_dir", out, "-seed", "0", "-device", "cuda"])
+    wall = time.perf_counter() - t0
+    ref = Video2music(amt_checkpoint=ckpt, reg_checkpoint=reg_ckpt,
+                      motion_type=1, device="cuda")
+    want = path_launches(ref, 1)
+    print(f"  generate CLI: row 2 (decode_layer) {wrappers()['decode_layer'].launches}"
+          f" launches, row 12 (selective_scan) "
+          f"{wrappers()['selective_scan'].launches}; path_launches implies "
+          f"{want['decode_layer']} and {want['selective_scan']}")
+    check_path_launches("generate CLI", want, report)
+    with open(os.path.join(out, "output.lab")) as f:
+        lab = [line.split(" ", 1)[1].strip() for line in f]
+    _, _, test_ds = create_vevo_datasets(root, motion_type=1)
+    sample = test_ds[test_ds.ids.index(test_id)]
+    expect = ref.generate(primer=CLI_PRIMER, features={
+        k: sample[k] for k in ("semantic", "emotion", "scene_offset",
+                               "motion")},
+        output_dir=os.path.join(tmp, "generate_ref"), seed=0)
+    check_clip("generate CLI", res, CLI_PRIMER, 300)
+    fail_unless(lab == res.chords == expect.chords,
+                "the generate CLI's output.lab differs from Video2music's")
+    print(f"generate CLI ({test_id}, bf16, B=1 'ends'): {wall:.2f} s; "
+          f"output.lab's {len(lab)} chords equal Video2music(amt_checkpoint"
+          f"=..., reg_checkpoint=...).generate's token for token [{card}]")
+    del ref
+    return test_id, lab
+
+
+def cli_serve_phase(root, tmp, ckpt, reg_ckpt, test_id, chords, card):
+    """python -m video2music_tpu_torch.cli.serve in a subprocess: eight
+    concurrent requests (one answer at least batch_width > 1), a stream, a
+    reload of the trained checkpoints (then the generate CLI's request
+    answers its chords), an unknown test_id (404), a bad payload (400)."""
+    import signal
+    import threading
+
+    port = free_port()
+    cmd = [sys.executable, "-m", "video2music_tpu_torch.cli.serve",
+           "-dataset_dir", root, "-output_dir", os.path.join(tmp, "serve"),
+           "-port", str(port), "-motion_type", "1", "-max_batch", "16",
+           "-max_wait_ms", "50", "-device", "cuda"]
+    log = os.path.join(tmp, "serve.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving on"):
+            with open(log) as f:
+                fail_unless(False, f"the server did not start: {line!r} "
+                            f"{f.read()[-2000:]}")
+        start = time.perf_counter() - t0
+        ids = [f"clip{i:03d}" for i in range(8)]
+        code, warm = http_call(port, "POST", "/generate",
+                               dict(test_id=ids[0]))
+        fail_unless(code == 200 and len(warm["chords"]) == 300,
+                    f"warm-up request: {code} {warm}")
+        answers = [None] * 8
+
+        def ask(i):
+            answers[i] = http_call(port, "POST", "/generate", dict(
+                test_id=ids[i], primer=SERVE_PRIMERS[i % 5],
+                temperature=0.8 + 0.05 * i))
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst = time.perf_counter() - t1
+        widths = [a[1].get("batch_width") for a in answers]
+        fail_unless(all(a[0] == 200 and len(a[1]["chords"]) == 300
+                        for a in answers), f"burst answers {answers}")
+        fail_unless(max(widths) > 1, f"no request batched: {widths}")
+        code, lines = http_call(port, "POST", "/generate",
+                                dict(test_id=ids[1], stream=True))
+        stages = [x["stage"] for x in lines]
+        fail_unless(code == 200 and stages == ["decoded", "done"]
+                    and lines[0]["chords"] == lines[1]["chords"],
+                    f"stream: {code} {stages}")
+        code, body = http_call(port, "POST", "/reload", dict(
+            amt_checkpoint=ckpt, reg_checkpoint=reg_ckpt))
+        fail_unless(code == 200 and body["ok"], f"reload: {code} {body}")
+        code, body = http_call(port, "POST", "/generate", dict(
+            test_id=test_id, primer=CLI_PRIMER))
+        fail_unless(code == 200 and body["chords"] == chords,
+                    "after /reload the server's chords differ from the "
+                    "generate CLI's on the same checkpoints")
+        code, body = http_call(port, "POST", "/generate",
+                               dict(test_id="no_such_clip"))
+        fail_unless(code == 404, f"unknown test_id: {code} {body}")
+        code, body = http_call(port, "POST", "/generate",
+                               dict(features={"semantic": [[0.0]]}))
+        fail_unless(code == 400, f"bad payload: {code} {body}")
+        code, health = http_call(port, "GET", "/healthz")
+        fail_unless(code == 200 and health["ok"], f"healthz {code}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    print(f"serve CLI (a subprocess, bf16, max_batch 16): up in {start:.1f} "
+          f"s; 8 concurrent requests in {burst:.2f} s, batch widths "
+          f"{widths}; stream stages {stages}; /reload, then the generate "
+          f"CLI's chords token for token; 404 and 400 as the API says; "
+          f"batcher stats {health['stats']}; {wall:.1f} s in all [{card}]")
+
+
+def cli_demo_phase(root, tmp, ckpt, reg_ckpt, test_id, chords, card):
+    """One POST to the demo's form, in this process: the page carries the
+    chords the generate CLI wrote for the same clip, primer and seed."""
+    import html
+    import threading
+    import urllib.parse
+    import urllib.request
+    from video2music_tpu_torch.cli import demo
+
+    app = demo.DemoApp(dataset_dir=root, output_dir=os.path.join(tmp, "demo"),
+                       motion_type=1, amt_checkpoint=ckpt,
+                       reg_checkpoint=reg_ckpt, device="cuda")
+    server = demo.make_server(app, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    t0 = time.perf_counter()
+    try:
+        form = urllib.parse.urlencode(dict(test_id=test_id,
+                                           primer=CLI_PRIMER)).encode()
+        with urllib.request.urlopen(url + "/generate", form,
+                                    timeout=600) as r:
+            status, page = r.status, r.read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+    fail_unless(status == 200 and html.escape(" ".join(chords[:64])) in page,
+                "the demo page does not carry the generate CLI's chords")
+    print(f"demo CLI: one form POST in {time.perf_counter() - t0:.2f} s, "
+          f"the page carries the {len(chords)} chords' first 64 [{card}]")
+
+
+def cli_extract_phase(tmp, card, report):
+    """extract_features semantic, emotion, scene and motion -motion_type 1
+    on a cv2 clip, with the seeded CLIP-L / MaxViT-T state dicts saved as
+    the CLI's weight files, against Video2music.extract_features of the
+    same clip (float32 extractors, the PIL resize the CLI uses)."""
+    import numpy as np
+    import torch
+    from video2music_tpu_torch.cli import extract_features as extract_cli
+    from video2music_tpu_torch.pipeline.api import Video2music
+
+    vids = os.path.join(tmp, "videos")
+    os.makedirs(vids)
+    seconds = RAW_CLIPS[1][0]
+    clip = write_clip(os.path.join(vids, "clip.mp4"), *RAW_CLIPS[1])
+    clip_sd, mv_sd, text = seeded_extractors(torch.device("cuda"))
+    paths = {n: os.path.join(tmp, n) for n in ("clip.pt", "maxvit.pt",
+                                               "text.npy")}
+    t0 = time.perf_counter()
+    torch.save(clip_sd, paths["clip.pt"])
+    torch.save(mv_sd, paths["maxvit.pt"])
+    np.save(paths["text.npy"], text)
+    saved = time.perf_counter() - t0
+    out = {k: os.path.join(tmp, "feat", k) for k in
+           ("semantic", "emotion", "scene", "offset", "motion")}
+    v = ["-video_dir", vids]
+    dev = ["-device", "cuda"]
+    zero_launches()
+    t0 = time.perf_counter()
+    extract_cli.main(["semantic"] + v + ["-out_dir", out["semantic"],
+                                         "-clip_params", paths["clip.pt"]]
+                     + dev)
+    extract_cli.main(["emotion"] + v + ["-out_dir", out["emotion"],
+                                        "-clip_params", paths["clip.pt"],
+                                        "-text_embeds", paths["text.npy"]]
+                     + dev)
+    extract_cli.main(["scene"] + v + ["-out_dir", out["scene"],
+                                      "-offset_dir", out["offset"]])
+    extract_cli.main(["motion"] + v + ["-out_dir", out["motion"],
+                                       "-motion_type", "1",
+                                       "-maxvit_params", paths["maxvit.pt"]]
+                     + dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # one forward a video each: CLIP-L's 24 layers twice, MaxViT-T's 22
+    check_path_launches("extract_features CLI",
+                        dict(flash_attention=24 + 24 + 22), report)
+    ref = Video2music(clip_params=clip_sd, emotion_text_embeds=text,
+                      maxvit_params=mv_sd, motion_type=1,
+                      extractor_dtype="float32", resize_backend="pil",
+                      device="cuda")
+    want = ref.extract_features(clip)
+    zero_launches()  # the comparison's launches are not the CLI's path
+    semantic = np.load(os.path.join(out["semantic"], "clip.npy"))
+    motion = np.load(os.path.join(out["motion"], "clip.npy"))
+    with open(os.path.join(out["emotion"], "clip.lab")) as f:
+        emotion = np.asarray([[float(x) for x in line.split()[1:]]
+                              for line in f.read().splitlines()[1:]])
+    with open(os.path.join(out["offset"], "clip.lab")) as f:
+        offsets = [int(line.split()[1]) for line in f]
+    n = want["semantic"].shape[0]
+    fail_unless(n == seconds and semantic.shape == (n, 768)
+                and semantic.dtype == want["semantic"].dtype
+                and motion.shape == want["motion"].shape == (n, 512)
+                and motion.dtype == want["motion"].dtype
+                and emotion.shape == (n, 6),
+                f"shapes {semantic.shape} {motion.shape} {emotion.shape}")
+    rels = {}
+    for name, got, ref_v in (("semantic", semantic, want["semantic"]),
+                             ("motion", motion, want["motion"])):
+        _, rels[name] = errors(torch.from_numpy(got),
+                               torch.from_numpy(ref_v))
+        fail_unless(rels[name] <= EXTRACT_F32_REL,
+                    f"extract_features {name}: rel {rels[name]:.3e} "
+                    f"over {EXTRACT_F32_REL}")
+    # four decimals in the .lab: one unit of the last besides the tolerance
+    emo_err = float(np.abs(emotion - want["emotion"]).max())
+    fail_unless(emo_err <= 1e-4 + EXTRACT_F32_REL,
+                f"extract_features emotion: {emo_err:.3e}")
+    fail_unless(offsets == (want["scene_offset"] - 1).astype(int).tolist(),
+                f"scene offsets {offsets} != {want['scene_offset'] - 1}")
+    print(f"extract_features CLI on a {seconds} s clip (f32, CLIP-L and "
+          f"MaxViT-T state dicts saved in {saved:.1f} s): semantic, "
+          f"emotion, scene and motion -motion_type 1 in {wall:.2f} s; "
+          f"against Video2music.extract_features: semantic rel "
+          f"{rels['semantic']:.2e}, motion rel {rels['motion']:.2e} (rel "
+          f"{EXTRACT_F32_REL}), emotion .lab max abs {emo_err:.1e}, scene "
+          f"offsets equal [{card}]")
+
+
+def cli_phase(card, report):
+    """The port's command line at full width on the card, on a feature
+    tree of CLI_CLIPS clips of 300 s (motion_type 1) from a seed and
+    random weights from seeds: train_amt (with -profile 3 and the default
+    TensorBoard), train_regression, evaluate (-confusion and the
+    expert-emotion counts), evaluate_regression, generate (token for token
+    with Video2music on the checkpoints), the serve CLI in a subprocess,
+    one demo request, and extract_features on a cv2 clip. Every step's
+    kernel launches must equal what its path implies."""
+    import importlib.util
+    from video2music_tpu_torch.core.config import amt_config
+
+    has = {m: importlib.util.find_spec(m) is not None
+           for m in ("matplotlib", "sklearn")}
+    print(f"optional libraries on this machine: {has} (key_detection and "
+          f"the plots are held on the CPU by the tests)")
+    cfg = amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6, dropout=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vevo")
+        t0 = time.perf_counter()
+        write_feature_tree(root, CLI_CLIPS, 300, seed=5)
+        # the regression CLIs read the tree at motion_type 0 (as the JAX
+        # CLIs do): scalar motion labs beside the 512-d ones
+        motion0 = os.path.join(root, "vevo_motion", "origin")
+        os.makedirs(motion0)
+        for i in range(CLI_CLIPS):
+            with open(os.path.join(motion0, f"clip{i:03d}.lab"), "w") as f:
+                f.write("".join(f"{t} {(t * 7 + i) % 50 / 10:.4f}\n"
+                                for t in range(300)))
+        print(f"wrote a feature tree of {CLI_CLIPS} clips of 300 s in "
+              f"{time.perf_counter() - t0:.1f} s")
+        ckpt, reg_ckpt = cli_train_phase(root, tmp, cfg, card, report)
+        cli_eval_phase(root, tmp, cfg, ckpt, reg_ckpt, has["matplotlib"],
+                       card, report)
+        test_id, chords = cli_generate_phase(root, tmp, ckpt, reg_ckpt,
+                                             card, report)
+        cli_serve_phase(root, tmp, ckpt, reg_ckpt, test_id, chords, card)
+        cli_demo_phase(root, tmp, ckpt, reg_ckpt, test_id, chords, card)
+        cli_extract_phase(tmp, card, report)
+
+
 def register_report(log: str) -> str:
     """One line per compiled kernel from ptxas -v: its (mangled) name, its
     registers, shared memory and spills."""
@@ -4821,6 +5459,8 @@ def main() -> int:
     phase("teacher-forced train", teacher_forced_train_phase, card)
     torch.cuda.empty_cache()
     phase("train zoo", train_zoo_phase, card, report)
+    torch.cuda.empty_cache()
+    phase("CLIs", cli_phase, card, report)
     print(f"phase seconds: {json.dumps(seconds)}")
 
     rows = []
@@ -4858,7 +5498,8 @@ def main() -> int:
         # flash attention at the V3 encoder's 2H; the launches of the
         # wirings' and the regression zoo's paths
         for key in ("launches_2h", "launches_wirings", "launches_zoo",
-                    "launches_raw_video", "launches_train_zoo"):
+                    "launches_raw_video", "launches_train_zoo",
+                    "launches_clis"):
             if key in r:
                 row[key] = r[key]
         if "err_int8" in r:  # int8 weights (decode layers), int8 KV caches

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules
 (core, midi, data.native / parsers / dataset, pipeline/serving.py,
-features/scene.py, pipeline/video_io.py) equal
+features/scene.py, pipeline/video_io.py, midi/reader.py, midi/processor.py,
+features/audio.py, obs/tensorboard.py, the framework-free CLIs) equal
 the originals: configs field for field for every AMT version, the
 TrainConfig / RegressionConfig defaults, the vocab tables, the constants,
 the MIDI helpers' output, and the serving module's source."""
@@ -104,11 +105,22 @@ def test_native_copy_builds_into_the_ports_build_dir(tmp_path):
 
 
 @pytest.mark.parametrize("path", [("features", "scene.py"),
-                                  ("pipeline", "video_io.py")])
+                                  ("pipeline", "video_io.py"),
+                                  ("midi", "reader.py"),
+                                  ("midi", "processor.py"),
+                                  ("features", "audio.py"),
+                                  ("obs", "tensorboard.py"),
+                                  ("cli", "analyze.py"),
+                                  ("cli", "dataset_tools.py"),
+                                  ("cli", "key_detection.py"),
+                                  ("cli", "silu_approx.py")])
 def test_raw_video_modules_are_copies(path):
-    """Scene-cut detection and the video I/O (decode, muxing, FluidSynth)
-    are framework-free: the port keeps them byte for byte (their imports
-    are relative already: data.native's HSV scorer, features.scene)."""
+    """Scene-cut detection and the video I/O (decode, muxing, FluidSynth),
+    the MIDI reader and event codec, the audio features, the TensorBoard
+    event writer and the four framework-free CLIs (analyze, dataset_tools,
+    key_detection, silu_approx; sklearn, scipy and matplotlib imported
+    lazily) are framework-free: the port keeps them byte for byte (their
+    imports are relative already)."""
     with open(os.path.join(ROOT, "video2music_tpu", *path), "rb") as f:
         want = f.read()
     with open(os.path.join(ROOT, "video2music_tpu_torch", *path), "rb") as f:

@@ -241,6 +241,19 @@ for cfg, opt, make in (
     tcfg = TrainConfig(lr=1e-3, optimizer=opt)
     st, m = make(tcfg)(create_train_state(cfg, tcfg, device="cpu"), tb)
     assert st.step == 1 and torch.isfinite(m["loss"])
+# one train_amt CLI epoch on a feature tree of four 8 s clips
+from video2music_tpu_torch.cli import train_amt as train_amt_cli
+with tempfile.TemporaryDirectory() as tmp:
+    chip_smoke.write_feature_tree(tmp + "/vevo", 4, 8, seed=1)
+    train_amt_cli.main(["-dataset_dir", tmp + "/vevo", "-output_dir",
+                        tmp + "/run", "-music_gen_version", "2.2",
+                        "-motion_type", "1", "-epochs", "1", "-batch_size",
+                        "2", "-n_layers", "2", "-num_heads", "2",
+                        "-d_model", "16", "-dim_feedforward", "32",
+                        "-device", "cpu"])
+    import os
+    assert os.path.isfile(tmp + "/run/weights/best_loss_weights")
+    assert len(os.listdir(tmp + "/run/tensorboard")) == 1
 loaded = [m for m in sys.modules
           if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -250,12 +263,12 @@ print("isolated ok")
 
 def test_port_imports_no_jax():
     """With the JAX package and JAX itself blocked, the whole port imports
-    (every module, the raw-video ones too, and chip_smoke.py) and runs on
-    the CPU: a tiny 2.2 and a tiny V3.1 ``generate``, a 2.2
+    (every module, the raw-video ones and every CLI too, and chip_smoke.py)
+    and runs on the CPU: a tiny 2.2 and a tiny V3.1 ``generate``, a 2.2
     ``generate_batch(kv_quant="int8")`` at B=2, a DynamicBatcher request, a
     ``generate(video=...)`` through seeded CLIP and MaxViT with the mingru
-    regression, and one train step each of an AMT, a regression and a
-    MusicTransformer."""
+    regression, one train step each of an AMT, a regression and a
+    MusicTransformer, and one epoch of the ``train_amt`` CLI."""
     out = subprocess.run([sys.executable, "-c", ISOLATED_RUN], cwd=ROOT,
                          check=True, timeout=600, capture_output=True,
                          text=True)

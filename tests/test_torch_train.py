@@ -401,25 +401,39 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 @pytest.mark.parametrize("case", ["optimizer", "capacity", "mesh", "profile",
                                   "drop_token", "topk_schedule"])
 def test_outside_the_training_slice_raises(case, tree, tmp_path):
-    """Meshes and the step profiler are outside the port's training
-    (ROADMAP.md Queue 1 item 13) and raise. The other cases raised until
+    """Meshes are outside the port's training (the multi-GPU slice,
+    ROADMAP.md Queue 1 item 13) and raise. The other cases raised until
     they were ported and are now held to the JAX package: Lion against
     optax, the capacity dispatch against the JAX MoE layer, a train step
-    with drop_token_rate (finite, and moved by the token drop), and a 2.2
-    wiring under the top-k scheduler routing every token to JAX's k."""
+    with drop_token_rate (finite, and moved by the token drop), a 2.2
+    wiring under the top-k scheduler routing every token to JAX's k, and
+    the step profiler, which traces steps 1..2 of the first epoch once
+    (one Chrome trace file, the JAX loop's log line)."""
     cfg = amt_config("2.2", **TINY)
     tcfg = TrainConfig(optimizer="adamw", lr=1e-3)
     ds = VevoDataset(tree, split="train", max_seq_chord=10, max_seq_video=10)
     loop = LoopConfig(output_dir=str(tmp_path))
-    if case in ("mesh", "profile"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            if case == "mesh":
-                train_amt(cfg, tcfg, loop, ds, ds, device="cpu",
-                          mesh=object())
-            else:
-                train_amt(cfg, tcfg, LoopConfig(output_dir=str(tmp_path),
-                                                profile_steps=2), ds, ds,
-                          device="cpu")
+    if case == "mesh":
+        with pytest.raises(NotImplementedError,
+                           match="not ported.*multi-GPU slice"):
+            train_amt(cfg, tcfg, loop, ds, ds, device="cpu", mesh=object())
+        return
+    if case == "profile":
+        import json
+        logs, prof = [], tmp_path / "prof"
+        cfg = amt_config("2.2", **dict(TINY, total_vf_dim=8 + 1 + 1 + 6))
+        train_amt(cfg, tcfg, LoopConfig(output_dir=str(tmp_path / "o"),
+                                        epochs=2, batch_size=1,
+                                        profile_steps=2,
+                                        profile_dir=str(prof),
+                                        log_fn=logs.append), ds, ds,
+                  device="cpu")
+        assert os.listdir(prof) == ["trace_steps_1-2.json"]
+        with open(prof / "trace_steps_1-2.json") as f:
+            assert json.load(f)["traceEvents"]
+        assert [m for m in logs if m.startswith("profiled")] == [
+            f"profiled steps 1..2 -> {prof} "
+            "(TensorBoard profile plugin / xprof)"]
         return
     if case == "optimizer":
         import optax

@@ -24,7 +24,9 @@ reference, where a kernel covers the wiring. The full forward with
 dropout of the layers draws from the generator, and so does
 ``drop_token_rate``: each (B, L) video token's projected features are kept
 with probability 1 - rate and zeroed otherwise, not rescaled
-(models/amt.py:164-167).
+(models/amt.py:164-167). ``count_emotions=True`` makes an eval forward
+(or ``encode``) count each MoE layer's selections by the tokens' dominant
+emotion (ops/moe.py, obs/logging.py); nothing else counts.
 """
 
 from __future__ import annotations
@@ -63,6 +65,13 @@ def chord_table(cfg: AMTConfig) -> torch.Tensor:
     else:
         raise ValueError(f"unknown chord_table {cfg.chord_table!r}")
     return torch.from_numpy(table.astype("float32"))
+
+
+def dominant_emotion_ids(emotion: torch.Tensor) -> torch.Tensor:
+    """(B, L, n_emo) probabilities -> (B, L) dominant-emotion ids, -1 where
+    the row is all zero (PAD) (models/amt.py:40-46)."""
+    ids = torch.argmax(emotion, dim=-1)
+    return torch.where((emotion == 0).all(dim=-1), -1, ids)
 
 
 class VideoMusicTransformer(nn.Module):
@@ -176,12 +185,14 @@ class VideoMusicTransformer(nn.Module):
             return self.pe_chord(xf)
         return xf
 
-    def encode(self, semantic, scene_offset, motion, emotion, generator=None):
+    def encode(self, semantic, scene_offset, motion, emotion, generator=None,
+               count_emotions: bool = False):
         """Video features -> encoder memory (B, Lv, D)."""
         vf = self.embed_video_input(semantic, scene_offset, motion, emotion,
                                     generator)
+        ids = dominant_emotion_ids(emotion) if count_emotions else None
         for layer in self.encoder_layers:
-            vf = layer(vf, generator)
+            vf = layer(vf, generator, ids)
         return self.encoder_norm(vf)
 
     def prime(self, memory) -> List[tuple]:
@@ -220,25 +231,29 @@ class VideoMusicTransformer(nn.Module):
         return self.wout(out)
 
     def forward(self, x, x_root, x_attr, semantic, key, scene_offset, motion,
-                emotion, deterministic: bool = True, generator=None):
+                emotion, deterministic: bool = True, generator=None,
+                count_emotions: bool = False):
         """Teacher-forced full forward -> (B, L, 159) logits (or the root /
         attr pair). With ``deterministic=False`` a training forward:
         ``generator`` (a torch.Generator on the inputs' device) drives every
-        dropout."""
+        dropout. ``count_emotions``: an eval forward's MoE layers count
+        their selections by dominant emotion (ignored in training)."""
         if deterministic:
             generator = None
         elif generator is None:
             raise ValueError("a training forward (deterministic=False) "
                              "needs a generator")
+        count_emotions = count_emotions and generator is None
         memory = self.encode(semantic, scene_offset, motion, emotion,
-                             generator)
+                             generator, count_emotions)
         out = self.embed_decoder_input(x, x_root, x_attr, key, generator)
+        ids = dominant_emotion_ids(emotion) if count_emotions else None
         for layer in self.decoder_layers:
-            out = layer(out, memory, generator)
+            out = layer(out, memory, generator, ids)
         return self.head(out)
 
     def moe_metrics(self):
-        """The last training forward's load metrics of the MoE layers
+        """The last recorded forward's load metrics of the MoE layers
         (encoder first, then decoder): ``expert_counts`` (n, E) and
         ``maxvio`` (n,), or an empty dict without MoE layers."""
         moes = [layer.ffn for layer in (*self.encoder_layers,

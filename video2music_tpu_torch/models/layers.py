@@ -6,7 +6,9 @@ with LayerNorm or RMSNorm as the config says. A ``generator`` makes a
 forward a training call: the attention and feed-forward dropouts draw from
 it, and, with ``residual_dropout`` (the base AMT's torch layers: the JAX
 model sets it for ``version is None`` only, models/amt.py:107), so does a
-dropout on each sublayer output before its residual add."""
+dropout on each sublayer output before its residual add. ``emotion_ids``
+(B, L') reach an MoE feed-forward only, which counts its selections by
+dominant emotion in an eval call (ops/moe.py)."""
 
 from __future__ import annotations
 
@@ -57,6 +59,11 @@ class _Layer(nn.Module):
     def _drop(self, x, generator):
         return dropout(x, self.residual_rate, generator)
 
+    def _ffn(self, h, generator, emotion_ids):
+        if emotion_ids is not None and isinstance(self.ffn, MoELayer):
+            return self.ffn(h, generator, emotion_ids)
+        return self.ffn(h, generator)
+
 
 class EncoderLayer(_Layer):
     def __init__(self, spec: LayerSpec, cfg: AMTConfig, depth: int = 0,
@@ -70,13 +77,13 @@ class EncoderLayer(_Layer):
         self.norm1 = make_norm(cfg.norm, cfg.d_model)
         self.norm2 = make_norm(cfg.norm, cfg.d_model)
 
-    def forward(self, x, generator=None):
-        g = generator
+    def forward(self, x, generator=None, emotion_ids=None):
+        g, e = generator, emotion_ids
         if self.pre_norm:
             x = x + self._drop(self.self_attn(self.norm1(x), generator=g), g)
-            return x + self._drop(self.ffn(self.norm2(x), g), g)
+            return x + self._drop(self._ffn(self.norm2(x), g, e), g)
         x = self.norm1(x + self._drop(self.self_attn(x, generator=g), g))
-        return self.norm2(x + self._drop(self.ffn(x, g), g))
+        return self.norm2(x + self._drop(self._ffn(x, g, e), g))
 
 
 class DecoderLayer(_Layer):
@@ -111,12 +118,12 @@ class DecoderLayer(_Layer):
         x = self.norm2(x + d(ca(x)))
         return self.norm3(x + d(ffn(x)))
 
-    def forward(self, x, memory, generator=None):
+    def forward(self, x, memory, generator=None, emotion_ids=None):
         """Full sequence: causal self-attention, cross-attention to memory."""
         return self._wire(
             x, lambda h: self.self_attn(h, causal=True, generator=generator),
             lambda h: self.cross_attn(h, memory, generator=generator),
-            lambda h: self.ffn(h, generator), generator)
+            lambda h: self._ffn(h, generator, emotion_ids), generator)
 
     def step(self, x, pos: int, cache):
         """One cached step. cache: dict with self "k"/"v" (B, S, k_dim) /

@@ -11,7 +11,13 @@ which always route densely (:242). A training call (a ``generator`` given)
 adds the JAX module's dropout inside the GLU and MLP experts (:66, :93,
 :121) and on the expert outputs (:282), records the step's
 ``expert_counts`` and ``maxvio``, and, with ``cfg.balancing``, selects with
-the balancing bias and then moves it (:294-296).
+the balancing bias and then moves it (:294-296). An eval call given the
+tokens' dominant-emotion ids (``emotion_ids``, asked for by the model's
+caller: models/amt.py ``count_emotions``) records its ``expert_counts``
+and ``maxvio`` too and adds its selections per (emotion, expert) to
+``expert_emotion_counts`` (6, E), over the first min(L, L') positions
+(:308-320); no other call counts, so the serving and train paths launch
+nothing more.
 
 The options of the JAX module:
   * the top-k scheduler (``topk_schedule``, :186-202): a training call
@@ -137,8 +143,10 @@ class MoELayer(nn.Module):
             if on:
                 self.steps[name] = 0
                 self.register_buffer(name, torch.zeros((), dtype=torch.int32))
-        # the last training call's load metrics (E,) and ()
+        # the last recorded call's load metrics (E,) and (); the counting
+        # eval calls' selections by dominant emotion (6, E), summed
         self.expert_counts = self.maxvio = None
+        self.expert_emotion_counts = None
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata,
                               strict, missing_keys, unexpected_keys,
@@ -253,9 +261,16 @@ class MoELayer(nn.Module):
         selected = F.one_hot(idx, E).sum(1).bool().view(B, L, E)
         return out.view(B, L, D), selected
 
-    def forward(self, x, generator=None):
+    def reset_metrics(self) -> None:
+        """Forget the recorded load metrics and emotion counts."""
+        self.expert_counts = self.maxvio = None
+        self.expert_emotion_counts = None
+
+    def forward(self, x, generator=None, emotion_ids=None):
         """generator: a torch.Generator on x's device makes this a training
-        call (dropout, load metrics, balancing, the schedules' steps)."""
+        call (dropout, load metrics, balancing, the schedules' steps).
+        emotion_ids: (B, L') ints in [-1, 5] make an eval call count its
+        selections by dominant emotion (ignored in a training call)."""
         training = generator is not None
         logits = self.gate(x).float()  # (B, L, E)
         E = logits.shape[-1]
@@ -275,6 +290,10 @@ class MoELayer(nn.Module):
                 gsel = gsel / t_div
             w = torch.softmax(gsel, dim=-1).to(x.dtype)
             out = (w[:, None] * self._experts(x, idx)).sum(0).view_as(x)
+            if emotion_ids is not None:
+                selected = torch.zeros(1, 1, E, dtype=torch.bool,
+                                       device=x.device)
+                selected[0, 0, idx] = True
         elif self.cfg.dispatch == "capacity" and not (
                 training and self.cfg.topk_schedule):
             out, selected = self._capacity(x, logits, select, t_div,
@@ -290,18 +309,32 @@ class MoELayer(nn.Module):
                               self.dropout_rate, generator)
             out = torch.einsum("ble,bled->bld", w, experts)
         if training:
-            self._record_load(selected)
+            self._record_load(selected, balance=self.cfg.balancing)
+        elif emotion_ids is not None:
+            self._record_load(selected, balance=False)
+            self._count_emotions(selected, emotion_ids)
         if self.shared is not None:
             out = out + self.shared(x, generator) / k
         return out
 
     @torch.no_grad()
-    def _record_load(self, selected):
+    def _record_load(self, selected, balance: bool):
         counts = selected.sum(dim=(0, 1)).float()
         mean = counts.mean()
         self.expert_counts = counts
         self.maxvio = (counts.max() - mean.clamp(min=1e-6)) \
             / mean.clamp(min=1e-6)
-        if self.cfg.balancing:
+        if balance:
             self.balance_bias += self.cfg.balancing_update_rate \
                 * (mean - counts)
+
+    @torch.no_grad()
+    def _count_emotions(self, selected, emotion_ids):
+        L = min(selected.shape[1], emotion_ids.shape[1])
+        onehot = emotion_ids[:, :L, None] == torch.arange(
+            6, device=selected.device)
+        counts = torch.einsum("blc,ble->ce", onehot.float(),
+                              selected[:, :L].float())
+        self.expert_emotion_counts = counts if \
+            self.expert_emotion_counts is None \
+            else self.expert_emotion_counts + counts

@@ -15,9 +15,15 @@
     ``weights/best_loss_weights`` on a new best val loss, one
     ``CSV_HEADER`` row with the train and emotion columns empty.
 
-Not ported, and raising: meshes and the parallel strategies, the profiler
-(``profile_steps``) and TensorBoard (``tensorboard_dir``) (ROADMAP.md,
-Queue 1 item 13).
+``tensorboard_dir`` streams ``train_amt``'s four per-epoch tags with
+1-based steps through the first-party event writer (obs/tensorboard.py),
+as the JAX loop does (only ``train_amt`` writes them there too);
+``profile_steps=N`` traces steps 1..N of the first epoch once with
+``torch.profiler`` (CPU and, on a card, CUDA activities) into a Chrome
+trace file in ``profile_dir`` (:class:`StepProfiler`).
+
+Not ported, and raising: meshes and the parallel strategies, which wait
+for the multi-GPU slice (ROADMAP.md, Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..core.config import (AMTConfig, MusicTransformerConfig,
                            RegressionConfig, TrainConfig)
@@ -79,9 +86,65 @@ class LoopConfig:
     init_steps: int = 0
     # resume from the newest epoch_NNNN snapshot in output_dir/weights
     auto_resume: bool = False
+    # trace train steps 1..N of the first epoch into profile_dir
     profile_steps: int = 0
+    profile_dir: str = "./profile"
+    # TensorBoard scalars (train_amt's four tags per epoch); None: none
     tensorboard_dir: Optional[str] = None
     log_fn: Callable[[str], None] = print
+
+
+def _make_tb(loop: LoopConfig):
+    if not loop.tensorboard_dir:
+        return None
+    from ..obs.tensorboard import SummaryWriter
+
+    return SummaryWriter(loop.tensorboard_dir)
+
+
+class StepProfiler:
+    """Traces steps [1, 1+n) of the first epoch pass it sees, once
+    (``torch.profiler``: CPU activities, and CUDA ones on a card), into
+    ``out_dir/trace_steps_1-<n>.json`` (a Chrome trace)."""
+
+    def __init__(self, n_steps: int, out_dir: str, device, log_fn=print):
+        self.n = n_steps
+        self.dir = out_dir
+        self.device = torch.device(device)
+        self.log_fn = log_fn
+        self._prof = None
+        self._done = n_steps <= 0
+
+    def maybe_start(self, i: int) -> None:
+        if self._done or self._prof is not None or i != 1:
+            return
+        from torch.profiler import ProfilerActivity, profile
+        os.makedirs(self.dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=acts)
+        self._prof.start()
+
+    def maybe_stop(self, i: int) -> None:
+        if self._prof is None or i < self.n:
+            return
+        # the queued steps must finish before the trace is read, or the
+        # device timeline is cut short
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        self._prof.export_chrome_trace(
+            os.path.join(self.dir, f"trace_steps_1-{i}.json"))
+        self._prof, self._done = None, True
+        self.log_fn(f"profiled steps 1..{i} -> {self.dir} "
+                    "(TensorBoard profile plugin / xprof)")
+
+
+def _make_profiler(loop: LoopConfig, device):
+    return (StepProfiler(loop.profile_steps, loop.profile_dir, device,
+                         loop.log_fn)
+            if loop.profile_steps > 0 else None)
 
 
 def _mean_metrics(rows) -> Dict[str, float]:
@@ -118,9 +181,6 @@ def _latest_epoch_snapshot(weights_dir: str):
 def _start(cfg, tcfg: TrainConfig, loop: LoopConfig, device):
     """The output tree and a fresh train state: (device, results.csv path,
     weights dir, state)."""
-    if loop.profile_steps or loop.tensorboard_dir:
-        raise not_ported("the step profiler and TensorBoard",
-                         "Queue 1 item 13")
     dev = resolve_device(device)
     os.makedirs(loop.output_dir, exist_ok=True)
     weights_dir = os.path.join(loop.output_dir, "weights")
@@ -143,11 +203,16 @@ def _csv_row(path: str, row) -> None:
         csv.writer(f).writerow(row)
 
 
-def _epoch_pass(step_fn, state, batches_iter, device):
+def _epoch_pass(step_fn, state, batches_iter, device,
+                profiler: Optional[StepProfiler] = None):
     rows = []
-    for batch in device_prefetch(batches_iter, device):
+    for i, batch in enumerate(device_prefetch(batches_iter, device)):
+        if profiler is not None:
+            profiler.maybe_start(i)
         state, m = step_fn(state, batch)
         rows.append(m)
+        if profiler is not None:
+            profiler.maybe_stop(i)
     return state, rows
 
 
@@ -167,7 +232,7 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
     ``loop.output_dir``."""
     if mesh is not None or parallel != "dp":
         raise not_ported("meshes and parallel training strategies",
-                         "Queue 1 item 13")
+                         "Queue 1 item 13: the multi-GPU slice")
     dev, results_file, weights_dir, state = _start(model_cfg, tcfg, loop,
                                                    device)
     start_epoch = 0
@@ -187,9 +252,11 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
     best_eval_loss, best_epoch = float("inf"), -1
     loader = PrefetchLoader(train_ds, loop.batch_size, shuffle=True,
                             seed=loop.seed)
+    profiler = _make_profiler(loop, dev)
+    tb = _make_tb(loop)
     for epoch in range(start_epoch, loop.epochs):
         t0 = time.time()
-        state, _ = _epoch_pass(train_step, state, loader, dev)
+        state, _ = _epoch_pass(train_step, state, loader, dev, profiler)
         train_m = (_eval_pass(eval_step, state, train_ds, loop.batch_size)
                    if loop.eval_train_subset else {})
         eval_m = _eval_pass(eval_step, state, val_ds, loop.batch_size)
@@ -199,6 +266,15 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
             f"val_loss={eval_m['loss']:.4f} h1={eval_m['hits@1']:.4f} "
             f"h3={eval_m['hits@3']:.4f} h5={eval_m['hits@5']:.4f} "
             f"({time.time() - t0:.1f}s)")
+        if tb is not None:
+            # the JAX loop's tags and 1-based step (train/loop.py:367-377)
+            tb.add_scalar("Avg_CE_loss/eval", eval_m["loss"], epoch + 1)
+            tb.add_scalar("Avg_CE_loss_chord/eval", eval_m["loss_chord"],
+                          epoch + 1)
+            tb.add_scalar("Avg_CE_loss_emotion/eval",
+                          eval_m["loss_emotion"], epoch + 1)
+            tb.add_scalar("Learn_rate/train", lr, epoch + 1)
+            tb.flush()
 
         if eval_m["loss"] < best_eval_loss:
             best_eval_loss, best_epoch = eval_m["loss"], epoch + 1
@@ -221,6 +297,8 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
             eval_m["loss"], eval_m["loss_chord"], eval_m["loss_emotion"],
             eval_m["hits@1"], eval_m["hits@3"], eval_m["hits@5"],
         ])
+    if tb is not None:
+        tb.close()
     return state
 
 
@@ -242,8 +320,10 @@ def train_regression(model_cfg: RegressionConfig, tcfg: TrainConfig,
     best_rmse = float("inf")
     loader = PrefetchLoader(train_ds, loop.batch_size, shuffle=True,
                             seed=loop.seed)
+    profiler = _make_profiler(loop, dev)
     for epoch in range(loop.epochs):
-        state, train_rows = _epoch_pass(train_step, state, loader, dev)
+        state, train_rows = _epoch_pass(train_step, state, loader, dev,
+                                        profiler)
         train_loss = float(np.mean([float(r["loss"]) for r in train_rows]))
         rows = [eval_step(state.model, batch) for batch in device_prefetch(
             make_batches(val_ds, loop.batch_size, shuffle=False), dev)]
@@ -283,9 +363,10 @@ def train_music_transformer(model_cfg: MusicTransformerConfig,
     best_eval_loss = float("inf")
     loader = PrefetchLoader(train_ds, loop.batch_size, shuffle=True,
                             seed=loop.seed)
+    profiler = _make_profiler(loop, dev)
     for epoch in range(loop.epochs):
         t0 = time.time()
-        state, _ = _epoch_pass(train_step, state, loader, dev)
+        state, _ = _epoch_pass(train_step, state, loader, dev, profiler)
         eval_m = _eval_pass(eval_step, state, val_ds, loop.batch_size)
         loop.log_fn(f"epoch {epoch + 1}/{loop.epochs} "
                     f"val_loss={eval_m['loss']:.4f} "
