@@ -1258,8 +1258,9 @@ def dropout_kernel_phase(report, cfg):
     L=S=300, D=64, rate 0.1), causal and not, f32 and bf16, plus a small
     case with a bias: the output and the gradients against the plain
     versions, the mask entry for entry (f32, read through identity values),
-    the times of both and of F.scaled_dot_product_attention with the same
-    dropout rate (which draws another mask)."""
+    row 11's shard forms (:func:`dropout_origin_form`), the times of both
+    and of F.scaled_dot_product_attention with the same dropout rate
+    (which draws another mask)."""
     import torch
     from video2music_tpu_torch.ops import flash_attention_dropout as fad
 
@@ -1310,6 +1311,7 @@ def dropout_kernel_phase(report, cfg):
             fail_unless(same, f"dropout mask{tag} [{dtype}] differs from the "
                         "plain version's")
             check_close(f"dropped probabilities{tag}", dtype, got, ref)
+        dropout_origin_form(report, dtype, gen, seed, rate, H, D, B, L)
         # times at the training shape: "ms" without, "ms_causal" with the
         # causal mask
         for causal in (False, True):
@@ -1346,6 +1348,66 @@ def dropout_kernel_phase(report, cfg):
                 report[bwd_name]["form_bound_ms_causal"] = \
                     form_bound(*bwd_work)
             library_dropout_times(report, q, k, v, do, rate, causal)
+
+
+def origin_shard_forms(B, H, L):
+    """(b, heads, L, S, causal, (b0, h0, H)) of row 11's shards: a toy
+    (2 of 4 batch rows, H/2 heads at h0 H/2, L 77, causal), then the
+    shards the multi-GPU worlds give it at B, L (the video stream) and
+    L - 1 (the chord stream): a model rank's H/2 heads (tp, sp), a data
+    rank's B/2 rows (dp) and a 2x2 rank's both, each as encoder
+    self-attention (L, L), causal decoder self-attention (L-1, L-1) and
+    cross-attention (L-1, L)."""
+    forms = [(2, H // 2, 77, 77, True, (1, H // 2, H))]
+    for b, h, b0, h0 in ((B, H // 2, 0, H // 2), (B // 2, H, B // 2, 0),
+                         (B // 2, H // 2, B // 2, H // 2)):
+        forms += [(b, h, L, L, False, (b0, h0, H)),
+                  (b, h, L - 1, L - 1, True, (b0, h0, H)),
+                  (b, h, L - 1, L, False, (b0, h0, H))]
+    return forms
+
+
+def dropout_origin_form(report, dtype, gen, seed, rate, H, D, B, L):
+    """Row 11 as a shard of a sharded step runs it, at
+    :func:`origin_shard_forms`: the kernels (forward, dK/dV and dQ)
+    against the plain version at the shard's origin, and the
+    probabilities they drop against the whole (b0 + b, H) grid's mask,
+    sliced."""
+    import torch
+    from video2music_tpu_torch.ops import flash_attention_dropout as fad
+
+    fwd_name, bwd_name = TRAIN_KERNELS
+    for b, h, l, sl, causal, origin in origin_shard_forms(B, H, L):
+        b0, h0, _ = origin
+        q, do = (torch.randn(b, h, l, D, generator=gen).to("cuda", dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, sl, D, generator=gen).to("cuda", dtype)
+                for _ in range(2))
+        tag = (f" origin (b0 {b0}, h0 {h0}, H {H}) B={b} h={h} L={l} S={sl}"
+               + (" causal" if causal else ""))
+        kw = dict(causal=causal, dropout_rate=rate, seed=seed, origin=origin)
+        out, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
+                                                     causal, rate, origin)
+        note_error(report, fwd_name, dtype, check_close(
+            f"{fwd_name}{tag}", dtype, out,
+            fad.flash_attention_dropout_plain(q, k, v, **kw)))
+        grads = fad.flash_attention_dropout_bwd(q, k, v, None, do, seed,
+                                                stats, out, causal, rate,
+                                                origin)
+        wants = fad.flash_attention_dropout_plain_bwd(q, k, v, do, **kw)
+        for gname, g, w in zip(("dq", "dk", "dv"), grads, wants):
+            note_error(report, bwd_name, dtype,
+                       check_close(f"{bwd_name} {gname}{tag}", dtype, g, w))
+        got = fad.extract_dropped_probs(q, k, **kw)
+        whole = fad.dropout_mask(b0 + b, H, l, sl, rate, seed, "cuda")
+        ref = fad._probs(q, k, None, causal) * whole[b0:, h0:h0 + h]
+        same = torch.equal(got == 0, ref == 0)
+        print(f"  mask{tag} [{str(dtype)[6:]}]: the kernels drop the whole "
+              f"grid's mask, sliced: {same}")
+        fail_unless(same, f"dropout mask{tag} [{dtype}] is not the slice of "
+                    "the whole grid's mask")
+        check_close(f"dropped probabilities{tag}", dtype, got, ref)
+        del got, ref, whole
 
 
 def dropout_forms_phase(report, cfg):
@@ -5354,6 +5416,386 @@ def cli_phase(card, report):
         cli_serve_phase(root, tmp, ckpt, reg_ckpt, test_id, chords, card)
         cli_demo_phase(root, tmp, ckpt, reg_ckpt, test_id, chords, card)
         cli_extract_phase(tmp, card, report)
+        cli_mesh_phase(root, tmp, card, report)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: multi-GPU training, as ranks sharing this card over gloo
+# ---------------------------------------------------------------------------
+
+# (strategy, mesh, the forms each world checks): f32 at dropout 0, f32 at
+# dropout 0.1 (the masks global), bf16 mixed at dropout 0.1
+MULTI_GPU_WORLDS = (("dp", (2, 1), ("f32", "f32_drop", "bf16")),
+                    ("tp", (1, 2), ("f32", "f32_drop", "bf16")),
+                    ("sp", (1, 2), ("f32", "bf16")),
+                    ("tp", (1, 4), ("f32",)),
+                    ("tp", (2, 2), ("f32",)),
+                    ("pp", (1, 3), ("f32",)))
+MULTI_GPU_FORMS = {"f32": (0.0, False), "f32_drop": (0.1, False),
+                   "bf16": (0.1, True)}
+MULTI_GPU_STEPS, MULTI_GPU_LR, MULTI_GPU_MICROBATCHES = 3, 1e-4, 4
+# Parameters are held entry by entry to rtol 1e-3 / atol 1e-5, at most
+# MULTI_GPU_OUTLIER_SHARE of them within the Adam step bound instead (the
+# CPU tests' bound: an Adam step follows the last digits of a near-zero
+# gradient). A router's near-tie that one summation order puts on the other
+# side moves a token to another expert; from that MoE layer on the token's
+# hidden state differs, and the experts it reaches there and in the later
+# MoE layers take another update wherever their gradient is small beside
+# one token's part (PERF.md §6). So where the two runs' global expert counts
+# differ at some step, the expert stacks of the first MoE layer that differs
+# (in forward order) and of every later one are held to the Adam step bound
+# alone; with equal counts nothing is exempt.
+MULTI_GPU_OUTLIER_SHARE = 1e-4
+EXPERT_STACKS = ("w1g", "b1g", "w2", "b2")
+
+
+def moe_layer_names(cfg):
+    """The MoE layers' state-dict prefixes in ``moe_metrics`` order (the
+    forward order: the encoder's, then the decoder's)."""
+    return [f"{stack}.{i}.ffn" for stack in ("encoder_layers",
+                                            "decoder_layers")
+            for i, spec in enumerate(getattr(cfg, stack))
+            if spec.ffn == "moe"]
+
+
+def flipped_layers(cfg, got_counts, want_counts):
+    """{step: [MoE layer prefixes]} where two runs' global token counts
+    differ, steps from 1."""
+    import torch
+    names, out = moe_layer_names(cfg), {}
+    for step, (g, w) in enumerate(zip(got_counts, want_counts), 1):
+        rows = sorted({r for r, _ in torch.nonzero(g != w).tolist()})
+        if rows:
+            out[step] = [names[r] for r in rows]
+    return out
+
+
+def exempt_layers(cfg, flipped):
+    """The MoE layers from the first one in ``flipped`` on, in forward
+    order."""
+    names = moe_layer_names(cfg)
+    hit = {n for layers in flipped.values() for n in layers}
+    return [] if not hit else names[min(names.index(n) for n in hit):]
+
+
+def params_close(tag, got, want, lr, steps, exempt=()):
+    """Every entry within rtol 1e-3 / atol 1e-5 but at most
+    MULTI_GPU_OUTLIER_SHARE of them within 2 lr a step (the CPU tests'
+    bound, tests/test_torch_parallel.py), the key projection's bias (zero
+    gradient but for rounding) within the step bound, the expert stacks of
+    the ``exempt`` MoE layers within the step bound. Returns {worst,
+    outliers (held to the share), out of rtol in the exempt stacks, in the
+    other expert stacks and elsewhere, and the five leaves with the most}."""
+    import torch
+    step_bound = 2 * lr * steps
+    diffs, bounds, leaves = [], [], {}
+    split = {"exempt_stacks": 0, "other_stacks": 0, "elsewhere": 0}
+    for k, w in want.items():
+        g = got[k]
+        if not w.is_floating_point():
+            fail_unless(torch.equal(g, w), f"{tag}: {k} differs")
+            continue
+        bound = 1e-5 + 1e-3 * w.abs()
+        if k.endswith("in_proj.bias"):
+            n = w.numel() // 3
+            bound[n:2 * n] = step_bound
+        d = (g - w).abs()
+        n_out = int((d > bound).sum())
+        prefix, _, leaf = k.rpartition(".")
+        where = ("elsewhere" if leaf not in EXPERT_STACKS else
+                 "exempt_stacks" if prefix in exempt else "other_stacks")
+        split[where] += n_out
+        if n_out:
+            leaves[k] = n_out
+        if where == "exempt_stacks":
+            bound.fill_(step_bound)
+        diffs.append(d.flatten())
+        bounds.append(bound.flatten())
+    d, bound = torch.cat(diffs), torch.cat(bounds)
+    outliers = int((d > bound).sum())
+    top = dict(sorted(leaves.items(), key=lambda kv: -kv[1])[:5])
+    fail_unless(outliers <= MULTI_GPU_OUTLIER_SHARE * d.numel() and
+                d.max().item() <= step_bound,
+                f"{tag}: {outliers} of {d.numel()} parameters off (the "
+                f"expert stacks of {list(exempt)} exempt), worst "
+                f"{d.max().item():.3g}; out of rtol: {split}, most in {top}")
+    return dict(worst=d.max().item(), outliers=outliers,
+                out_of_rtol=split, most=top)
+
+
+def updates_agree(tag, got, want, start, lr, steps):
+    """bf16: each entry's update within the step bound and of the same
+    sign as the single-process step's in >= 95% of the entries (bf16
+    gradients may flip the sign of the smallest). Returns the share."""
+    import torch
+    agree = total = 0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        dg, dw = got[k] - start[k], w - start[k]
+        fail_unless((dg - dw).abs().max().item() <= 2 * lr * steps * 1.01,
+                    f"{tag}: {k} moved beyond the Adam step bound")
+        agree += int(((dg > 0) == (dw > 0)).sum())
+        total += dg.numel()
+    share = agree / total
+    fail_unless(share >= 0.95, f"{tag}: updates agree in sign on "
+                f"{share:.4f} of the entries")
+    return share
+
+
+def multi_gpu_batches(B, L, n):
+    """n full-width AMT batches (numpy, for the ranks to split)."""
+    return [{k: v.cpu().numpy() for k, v in zoo_batch("amt", B, L,
+                                                      40 + i).items()}
+            for i in range(n)]
+
+
+def single_process_steps(cfg, tcfg, batches):
+    """The single-process step on the card from the seeded init: (losses,
+    the initial and final state dicts on the CPU, each step's ms and its
+    global MoE expert counts, the state dict after the first step)."""
+    import torch
+    from video2music_tpu_torch.data.loader import to_device
+    from video2music_tpu_torch.train import (create_train_state,
+                                             make_amt_train_step)
+    state = create_train_state(cfg, tcfg, device="cuda")
+    start = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    step = make_amt_train_step(tcfg)
+    losses, ms, counts = [], [], []
+    for b in batches:
+        b = to_device(b, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(m["expert_counts"].cpu())
+        if len(counts) == 1:
+            first = {k: v.to("cpu", copy=True)
+                     for k, v in state.model.state_dict().items()}
+    final = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    return losses, start, final, ms, counts, first
+
+
+def world_launches_want(strategy, shape, cfg, form):
+    """Rows 1 and 11's launches on a rank over MULTI_GPU_STEPS steps: one
+    attention call a self- or cross-attention of a layer the rank runs
+    (every layer, or its stage's), microbatch and step; row 11 when the
+    call drops (forward and backward), else row 1's forward."""
+    n_enc, n_dec = len(cfg.encoder_layers), len(cfg.decoder_layers)
+    calls = n_enc + 2 * n_dec
+    if strategy == "pp":
+        calls = MULTI_GPU_MICROBATCHES * calls // shape[1]
+    calls *= MULTI_GPU_STEPS
+    if MULTI_GPU_FORMS[form][0] > 0:
+        return {"flash_attention": 0, "flash_attention_dropout_fwd": calls,
+                "flash_attention_dropout_bwd": calls}
+    return {"flash_attention": calls, "flash_attention_dropout_fwd": 0,
+            "flash_attention_dropout_bwd": 0}
+
+
+def multi_gpu_phase(card, report):
+    """Every strategy of train_amt's mesh at full width (AMT 2.2: d_model
+    512, 8 heads, d_ff 1024, 6+6 layers, 3 SharedMoE of 6 experts top-2 a
+    stack; B=16, L=300, AdamW lr 1e-4, seeded weights, synthetic batches)
+    as worlds of ranks sharing this card over gloo (NCCL takes one GPU a
+    rank): 2x1 dp, 1x2 tp (EP 6/2), 1x2 sp, 1x4 tp (6 experts on 4 ranks:
+    the inner-d_ff fallback), 2x2 tp and 1x3 pp (4 microbatches, the 3+3
+    segments). Each runs three steps against the single-process step on
+    this card from the same seed: f32 at dropout 0 (losses rtol 1e-4,
+    parameters rtol 1e-3 / atol 1e-5 but for MULTI_GPU_OUTLIER_SHARE of
+    them; where the global expert counts differ at some step, a router's
+    near-tie, the expert stacks from that MoE layer on within the Adam
+    step bound; the state after the first step too); dp and tp again at
+    dropout 0.1 (the same bounds: every mask is the unsharded step's), and
+    bf16 mixed (losses within 1e-2, updates agreeing in sign). Each rank's row 1 /
+    row 11 launches must be what its path implies. The kernels are built
+    here first, so no rank builds them. The phase runs torch's
+    deterministic kernels, here and in the ranks: CUDA's embedding
+    backward adds with atomics, so the single-process step alone differs
+    from run to run (by whole experts' updates once a router's near-tie
+    flips), and the ranks are held to one run of it."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        multi_gpu_worlds(card, report)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def multi_gpu_worlds(card, report):
+    """The body of :func:`multi_gpu_phase`."""
+    import dataclasses
+
+    import numpy as np
+    from video2music_tpu_torch.core.config import TrainConfig, amt_config
+    from video2music_tpu_torch.parallel.launch import spawn
+
+    base = amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6)
+    B, L = 16, 300
+    batches = multi_gpu_batches(B, L, MULTI_GPU_STEPS)
+    tcfgs = {form: TrainConfig(optimizer="adamw", lr=MULTI_GPU_LR,
+                               mixed_precision=mp)
+             for form, (_, mp) in MULTI_GPU_FORMS.items()}
+    cfgs = {form: dataclasses.replace(base, dropout=rate)
+            for form, (rate, _) in MULTI_GPU_FORMS.items()}
+    refs = {}
+    for form in MULTI_GPU_FORMS:
+        t0 = time.perf_counter()
+        refs[form] = single_process_steps(cfgs[form], tcfgs[form], batches)
+        print(f"single-process step, {form}: losses "
+              f"{[round(v, 6) for v in refs[form][0]]}, "
+              f"{np.mean(refs[form][3][1:]):.1f} ms/step (steps 2-3; "
+              f"{time.perf_counter() - t0:.1f} s with the set-up) [{card}]")
+    summary = {"single_process_ms_step": {
+        form: float(np.mean(r[3][1:])) for form, r in refs.items()}}
+    launches = {"flash_attention": 0, "flash_attention_dropout_fwd": 0,
+                "flash_attention_dropout_bwd": 0}
+    for strategy, shape, forms in MULTI_GPU_WORLDS:
+        tag = f"{shape[0]}x{shape[1]} {strategy}"
+        cases = []
+        for form in forms:
+            cfg = dataclasses.replace(cfgs[form],
+                                      sequence_parallel=strategy == "sp")
+            cases.append(dict(name=form, cfg=cfg, tcfg=tcfgs[form],
+                              strategy=strategy, weights=None,
+                              batches=batches,
+                              microbatches=MULTI_GPU_MICROBATCHES,
+                              first_state=form.startswith("f32")))
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as work:
+            results = spawn("video2music_tpu_torch.parallel.worlds:run_world",
+                            shape[0] * shape[1],
+                            dict(mesh=shape, backend="gloo", device="cuda",
+                                 deterministic=True, cases=cases),
+                            workdir=work, timeout=600)
+        wall = time.perf_counter() - t0
+        for form in forms:
+            got = results[0][form]
+            losses, start, final, _, counts, first = refs[form]
+            flips = flipped_layers(cfgs[form], got["expert_counts"], counts)
+            if form.startswith("f32"):
+                np.testing.assert_allclose(got["losses"], losses, rtol=1e-4,
+                                           err_msg=f"{tag} {form} losses")
+                held1 = params_close(
+                    f"{tag} {form} after step 1", got["first_state"], first,
+                    MULTI_GPU_LR, 1, exempt_layers(cfgs[form],
+                                                   {1: flips.get(1, [])}))
+                exempt = exempt_layers(cfgs[form], flips)
+                held = params_close(f"{tag} {form}", got["state"], final,
+                                    MULTI_GPU_LR, MULTI_GPU_STEPS, exempt)
+                held.update(step1=held1, exempt=exempt)
+                counted = ("not reported" if not got["expert_counts"] else
+                           f"differ at steps {flips}" if flips else "equal")
+                check = (f"parameters worst {held['worst']:.3g} (step 1: "
+                         f"{held1['worst']:.3g}, {held1['outliers']} "
+                         f"outliers), {held['outliers']} outliers of "
+                         f"{sum(v.numel() for v in final.values())}; expert "
+                         f"counts {counted}, the expert stacks of {exempt} "
+                         f"exempt; out of rtol {held['out_of_rtol']}, most "
+                         f"in {held['most']}")
+            else:
+                rel = max(abs(g - w) / abs(w)
+                          for g, w in zip(got["losses"], losses))
+                fail_unless(rel <= 1e-2, f"{tag} bf16 losses {got['losses']}"
+                            f" against {losses}")
+                share = updates_agree(f"{tag} bf16", got["state"], final,
+                                      start, MULTI_GPU_LR, MULTI_GPU_STEPS)
+                held = dict(loss_rel=rel, sign_agreement=share)
+                check = (f"loss within {rel:.2e}, updates agree in sign on "
+                         f"{share:.4f}")
+            want = world_launches_want(strategy, shape, cfgs[form], form)
+            for rank, res in enumerate(results):
+                fail_unless(res[form]["launches"] == want,
+                            f"{tag} {form} rank {rank}: launches "
+                            f"{res[form]['launches']}, the path implies "
+                            f"{want}")
+                for name, n in res[form]["launches"].items():
+                    launches[name] += n
+            ms = float(np.mean(got["ms"][1:]))
+            summary[f"{tag} {form}"] = dict(
+                ms_step=ms, heads=got["heads"],
+                launches_per_rank=got["launches"],
+                flipped_layers=flips, **held)
+            print(f"  {tag} {form}: losses {[round(v, 6) for v in got['losses']]}"
+                  f" (single process {[round(v, 6) for v in losses]}), "
+                  f"{check}; rank 0 {ms:.1f} ms/step (ranks sharing one "
+                  f"card over gloo: functional, not scaling); per rank "
+                  f"launches {got['launches']} at {got['heads']} heads a "
+                  "call [" + card + "]")
+        print(f"world {tag}: {shape[0] * shape[1]} ranks, {wall:.1f} s "
+              "with their start and set-up")
+    for name, n in launches.items():
+        report[name]["launches_multi_gpu"] = n
+    report["multi_gpu"] = summary
+    print("multi-GPU summary: " + json.dumps(summary))
+
+
+def cli_mesh_phase(root, tmp, card, report):
+    """NCCL at world size 1: the train_amt CLI with -mesh 1x1 -parallel tp
+    -device cuda, joining a world of this process (as under torchrun), on
+    the CLIs phase's tree; the checkpoint it writes (gathered whole)
+    served by Video2music(amt_checkpoint=...)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from video2music_tpu_torch.cli import train_amt as train_amt_cli
+    from video2music_tpu_torch.core.config import amt_config
+    from video2music_tpu_torch.parallel.mesh import INIT_METHOD_ENV
+    from video2music_tpu_torch.pipeline.api import Video2music
+
+    cfg = amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6)
+    out = os.path.join(tmp, "amt_mesh")
+    n_attn = 3 * len(cfg.decoder_layers)
+    steps = -(-CLI_CLIPS // 16)
+    eval_batches = steps + -(-(CLI_CLIPS // 2) // 16)
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    env[INIT_METHOD_ENV] = "file://" + os.path.join(tmp, "nccl_rdv")
+    os.environ.update(env)
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        state = train_amt_cli.main([
+            "-dataset_dir", root, "-output_dir", out, "-music_gen_version",
+            "2.2", "-motion_type", "1", "-epochs", "1", "-batch_size", "16",
+            "-mesh", "1x1", "-parallel", "tp", "-device", "cuda",
+            "-no_tensorboard"])
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+    wall = time.perf_counter() - t0
+    fail_unless(backend == "nccl" and state.step == steps,
+                f"-mesh 1x1: backend {backend}, {state.step} steps")
+    check_path_launches("train_amt CLI -mesh 1x1 -parallel tp (nccl)", dict(
+        flash_attention=n_attn * eval_batches,
+        flash_attention_dropout_fwd=n_attn * steps,
+        flash_attention_dropout_bwd=n_attn * steps))
+    for name, n in (("flash_attention", n_attn * eval_batches),
+                    ("flash_attention_dropout_fwd", n_attn * steps),
+                    ("flash_attention_dropout_bwd", n_attn * steps)):
+        report[name]["launches_multi_gpu"] = \
+            report[name].get("launches_multi_gpu", 0) + n
+    ckpt = os.path.join(out, "weights", "best_loss_weights")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    served = Video2music(amt_checkpoint=ckpt, seed=1, device="cuda")
+    fail_unless(all(torch.equal(v.float().cpu(), saved[k].float())
+                    for k, v in served.model.state_dict().items()),
+                "the served model's weights are not the checkpoint's")
+    res = served.generate(features=synthetic_features(60, seed=9),
+                          output_dir=os.path.join(tmp, "mesh_gen"))
+    check_ids("served -mesh checkpoint", res.chord_ids, [], 60)
+    print(f"train_amt CLI -mesh 1x1 -parallel tp -device cuda (nccl, world "
+          f"of 1; f32, B=16, {steps} steps): {wall:.2f} s with the eval "
+          f"passes; its checkpoint served: {len(res.chord_ids)} chords "
+          f"{np.asarray(res.chord_ids)[:8].tolist()}... [{card}]")
 
 
 def register_report(log: str) -> str:
@@ -5460,6 +5902,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("train zoo", train_zoo_phase, card, report)
     torch.cuda.empty_cache()
+    phase("multi-GPU", multi_gpu_phase, card, report)
+    torch.cuda.empty_cache()
     phase("CLIs", cli_phase, card, report)
     print(f"phase seconds: {json.dumps(seconds)}")
 
@@ -5499,7 +5943,7 @@ def main() -> int:
         # wirings' and the regression zoo's paths
         for key in ("launches_2h", "launches_wirings", "launches_zoo",
                     "launches_raw_video", "launches_train_zoo",
-                    "launches_clis"):
+                    "launches_clis", "launches_multi_gpu"):
             if key in r:
                 row[key] = r[key]
         if "err_int8" in r:  # int8 weights (decode layers), int8 KV caches
@@ -5526,6 +5970,8 @@ def main() -> int:
           f"{json.dumps(report['scan_shapes'])}")
     print(f"train: {json.dumps(report['train'])}")
     print(f"train zoo (this run): {json.dumps(report['train_zoo'])}")
+    print(f"multi-GPU, ranks sharing one card over gloo (functional, not "
+          f"scaling; this run): {json.dumps(report['multi_gpu'])}")
     print(f"V3 decode step: {json.dumps(report['v3_step'])}")
     print(f"B=1 backends, ms/token: {json.dumps(report['backends'])}")
     print(f"int8 KV at B=16: {json.dumps(report['int8_kv_b16'])}")

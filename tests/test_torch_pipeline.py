@@ -148,6 +148,13 @@ import chip_smoke
 import video2music_tpu_torch as pkg
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
+# multi-GPU training: the mesh, collectives, shard plan, pipeline, the
+# launcher and the pipelined step, run in a world of one rank
+import video2music_tpu_torch.parallel.launch
+import video2music_tpu_torch.parallel.worlds
+from video2music_tpu_torch.parallel import create_mesh
+from video2music_tpu_torch.parallel.shard import shard_train_state_
+from video2music_tpu_torch.train.pp import make_amt_pp_train_step
 from video2music_tpu_torch.core.config import TrainConfig, amt_config
 from video2music_tpu_torch.core.vocab import emotion_chord_targets
 from video2music_tpu_torch.pipeline import Video2music
@@ -223,6 +230,19 @@ batch = dict(x=r.integers(0, 157, (B, L)), x_root=r.integers(0, 13, (B, L)),
 state, m = make_amt_train_step(TrainConfig(lr=1e-3))(
     state, {k: torch.as_tensor(v) for k, v in batch.items()})
 assert state.step == 1 and torch.isfinite(m["loss"])
+# a tp and a pipelined step on a mesh of one gloo rank
+with tempfile.TemporaryDirectory() as tmp:
+    mesh = create_mesh((1, 1), backend="gloo", init_method="file://" + tmp
+                       + "/rdv", rank=0, world_size=1)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    for parallel in ("tp", "pp"):
+        st = create_train_state(cfg, TrainConfig(lr=1e-3), device="cpu")
+        shard_train_state_(st, mesh, parallel)
+        step = (make_amt_pp_train_step(cfg, TrainConfig(lr=1e-3), mesh, 2)
+                if parallel == "pp" else
+                make_amt_train_step(TrainConfig(lr=1e-3), mesh=mesh))
+        st, m = step(st, tb)
+        assert st.step == 1 and torch.isfinite(m["loss"])
 # a regression step (Lion) and a MusicTransformer step (RAdanW)
 from video2music_tpu_torch.core.config import (MusicTransformerConfig,
                                                RegressionConfig)

@@ -401,9 +401,10 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 @pytest.mark.parametrize("case", ["optimizer", "capacity", "mesh", "profile",
                                   "drop_token", "topk_schedule"])
 def test_outside_the_training_slice_raises(case, tree, tmp_path):
-    """Meshes are outside the port's training (the multi-GPU slice,
-    ROADMAP.md Queue 1 item 13) and raise. The other cases raised until
-    they were ported and are now held to the JAX package: Lion against
+    """A mesh run with an unknown parallel strategy raises the JAX loop's
+    ValueError (meshes themselves are tests/test_torch_parallel.py's).
+    The other cases raised until they were ported and are now held to the
+    JAX package: Lion against
     optax, the capacity dispatch against the JAX MoE layer, a train step
     with drop_token_rate (finite, and moved by the token drop), a 2.2
     wiring under the top-k scheduler routing every token to JAX's k, and
@@ -414,9 +415,10 @@ def test_outside_the_training_slice_raises(case, tree, tmp_path):
     ds = VevoDataset(tree, split="train", max_seq_chord=10, max_seq_video=10)
     loop = LoopConfig(output_dir=str(tmp_path))
     if case == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="not ported.*multi-GPU slice"):
-            train_amt(cfg, tcfg, loop, ds, ds, device="cpu", mesh=object())
+        with pytest.raises(ValueError,
+                           match="unknown parallel strategy 'zz'"):
+            train_amt(cfg, tcfg, loop, ds, ds, device="cpu", mesh=object(),
+                      parallel="zz")
         return
     if case == "profile":
         import json

@@ -3,10 +3,16 @@
 The JAX package's CLI on the port (its flags, defaults and output tree:
 ``results.csv``, ``weights/``, ``best_epochs.txt``, TensorBoard scalars
 under ``<output_dir>/tensorboard`` unless ``-no_tensorboard``), plus
-``-device`` (``cuda`` unless given; without CUDA it raises). ``-mesh`` and
-``-parallel tp|sp|pp`` raise: multi-GPU training waits for its own slice.
-Flag names mirror the reference's ``parse_train_args``
+``-device`` (``cuda`` unless given; without CUDA it raises). Flag names
+mirror the reference's ``parse_train_args``
 (reference: ``utilities/argument_funcs.py:22-75``, dashes kept).
+
+Several GPUs: ``-mesh DxM -parallel dp|tp|sp|pp [-microbatches N]``.
+From a plain shell the command starts its D*M ranks itself (fresh
+processes on this machine, ``parallel.launch``); under ``torchrun`` (or
+any launcher that sets ``RANK`` / ``WORLD_SIZE``) it joins the world it
+is given. ``-device cuda`` runs NCCL, one GPU per rank; ``-device cpu``
+runs gloo. ``-parallel sp`` sets ``sequence_parallel``.
 """
 
 from __future__ import annotations
@@ -14,11 +20,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
 from ..core.config import MusicTransformerConfig, TrainConfig, amt_config
 from ..data import create_vevo_datasets
-from ..train.loop import (LoopConfig, not_ported, train_amt,
-                          train_music_transformer)
+from ..train.loop import LoopConfig, train_amt, train_music_transformer
 from ..train.step import resolve_device
 
 
@@ -38,7 +44,7 @@ def add_device_flag(p: argparse.ArgumentParser) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train the AMT on one GPU")
+    p = argparse.ArgumentParser(description="Train the AMT")
     p.add_argument("-dataset_dir", default="./dataset")
     p.add_argument("-output_dir", default="./saved_models/AMT")
     p.add_argument("-music_gen_version", default=None,
@@ -70,11 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "buffers of capacity-factor slots)")
     p.add_argument("-moe_capacity_factor", type=float, default=1.25)
     p.add_argument("-mesh", default=None, metavar="DATAxMODEL",
-                   help="multi-GPU device mesh: not ported yet (raises)")
+                   help="multi-GPU mesh, e.g. '2x2' (data x model ranks: "
+                        "started here from a shell, joined under "
+                        "torchrun); single device when unset")
     p.add_argument("-parallel", default="dp",
                    choices=["dp", "tp", "sp", "pp"],
-                   help="strategy on the mesh; anything but dp raises "
-                        "until multi-GPU training is ported")
+                   help="strategy on the mesh: dp (batch; EP expert "
+                        "stacks), tp (+Megatron column/row weights), sp "
+                        "(tp + sequence-parallel residual stream), pp "
+                        "(GPipe pipeline stages, homogeneous stacks only)")
     p.add_argument("-profile", type=int, default=0, metavar="N",
                    help="trace train steps 1..N (step 0 warms up) with "
                         "torch.profiler into -profile_dir (a Chrome trace)")
@@ -90,12 +100,46 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _mesh_shape(text: str):
+    data, model = (int(v) for v in text.lower().split("x"))
+    return data, model
+
+
+def _rank_main(argv):
+    """One rank of a world this command started."""
+    main(argv)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh or args.parallel != "dp":
-        raise not_ported("-mesh / -parallel (multi-GPU training)",
-                         "Queue 1 item 13: the multi-GPU slice")
-    device = resolve_device(args.device)
+    if not args.mesh and args.parallel != "dp":
+        raise SystemExit(
+            f"-parallel {args.parallel} requires -mesh (e.g. -mesh 4x2); "
+            "without a mesh the run would silently train single-device")
+    mesh = None
+    if args.mesh:
+        shape = _mesh_shape(args.mesh)
+        backend = "nccl" if args.device.startswith("cuda") else "gloo"
+        if "RANK" not in os.environ:
+            # a plain shell: start the world's ranks, each this command
+            from ..parallel.launch import spawn
+            import tempfile
+            world = shape[0] * shape[1]
+            with tempfile.TemporaryDirectory() as work:
+                # CPU ranks share this machine's cores
+                spawn("video2music_tpu_torch.cli.train_amt:_rank_main",
+                      world, sys.argv[1:] if argv is None else list(argv),
+                      workdir=work,
+                      threads=(max(1, (os.cpu_count() or 1) // world)
+                               if backend == "gloo" else None))
+            return None
+        from ..parallel import create_mesh
+        mesh = create_mesh(shape, backend=backend,
+                           device=("cuda" if backend == "nccl"
+                                   else args.device))
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
     train_ds, val_ds, _ = create_vevo_datasets(
         dataset_root=args.dataset_dir, motion_type=args.motion_type,
         augmentation=args.augmentation)
@@ -116,6 +160,8 @@ def main(argv=None):
                           None if args.no_tensorboard else
                           os.path.join(args.output_dir, "tensorboard")))
     if args.music_only:
+        if mesh is not None:
+            raise SystemExit("-music_only trains on one device; drop -mesh")
         mcfg = MusicTransformerConfig(
             n_layers=args.n_layers, num_heads=args.num_heads,
             d_model=args.d_model, d_ff=args.dim_feedforward,
@@ -131,8 +177,12 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch=args.moe_dispatch,
             capacity_factor=args.moe_capacity_factor))
+    if mesh is not None and args.parallel == "sp":
+        cfg = dataclasses.replace(cfg, sequence_parallel=True)
     return train_amt(cfg, tcfg, loop, train_ds, val_ds,
-                     drop_loss=args.drop_loss, device=device)
+                     drop_loss=args.drop_loss, device=device, mesh=mesh,
+                     parallel=args.parallel,
+                     n_microbatches=args.microbatches)
 
 
 if __name__ == "__main__":

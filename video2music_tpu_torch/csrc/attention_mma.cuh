@@ -233,10 +233,16 @@ __device__ __forceinline__ float quad_max(float v) {
 struct DropoutSpec {
   unsigned int threshold;  // keep iff hash > threshold
   float keep_scale;        // 1 / (1 - rate), rounded to f32
-  int apply;               // rate > 0 (rate 0 applies no mask at all)
+  // 0: rate 0, no mask at all; 1: the mask; 2: a shard's mask, its seed
+  // pointer holding {seed, heads, heads_global, bh_offset} (drop_salt).
+  // The shard's origin travels in that block, not in this struct: a
+  // larger kernel argument block moved the capped backward kernels'
+  // registers (+20-28% time).
+  int apply;
 };
 
-// _drop_mask's hash of one (row, column); salt = u32(seed) + bh * 0xC2B2AE35.
+// _drop_mask's hash of one (row, column); salt = u32(seed) + bh * 0xC2B2AE35,
+// bh the plane's index in the global (batch, head) grid.
 __device__ __forceinline__ unsigned int drop_hash(unsigned int row,
                                                   unsigned int col,
                                                   unsigned int salt) {
@@ -268,7 +274,16 @@ __device__ __forceinline__ float keep_factor(const DropoutSpec& d,
   return drop_hash(0u, 0u, rt ^ ct) > d.threshold ? d.keep_scale : 0.f;
 }
 
-__device__ __forceinline__ unsigned int drop_salt(const int* seed, int bh) {
+// The salt of the launch's plane bh. A shard's launch (apply 2) covers the
+// local (b, h) of `heads` heads of the global grid and hashes the global
+// (b0 + b) * heads_global + h0 + h, with bh_offset = b0 * heads_global + h0.
+__device__ __forceinline__ unsigned int drop_salt(const int* seed,
+                                                  const DropoutSpec& d,
+                                                  int bh) {
+  if (d.apply == 2) {
+    const int heads = seed[1];
+    bh += (bh / heads) * (seed[2] - heads) + seed[3];
+  }
   return (unsigned int)seed[0] + (unsigned int)bh * 0xC2B2AE35u;
 }
 
@@ -368,7 +383,7 @@ __device__ __forceinline__ void fwd_mma_body(FwdArgs a) {
   load_a<HD>(qf, a.q + (size_t)bh * L * HD, r0, L, lane);
   unsigned int rta = 0, rtb = 0;
   if (DROPOUT) {
-    const unsigned int salt = drop_salt(a.seed, bh);
+    const unsigned int salt = drop_salt(a.seed, a.drop, bh);
     rta = row_term(ra, salt);
     rtb = row_term(rb, salt);
   }

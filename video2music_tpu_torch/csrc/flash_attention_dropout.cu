@@ -15,7 +15,10 @@
 // with v (as the Pallas kernel's astype) and saves each row's softmax max m
 // and sum l. Head sizes: instances at 16, 32, 64, 128 and 256, the wrappers
 // padding the others with zero columns (flash_attention.cu); the mask
-// hashes rows and columns only, so padding leaves it as it is.
+// hashes rows and columns only, so padding leaves it as it is. A shard of
+// a sharded step (B/d rows of the batch, H/m heads) passes apply 2 and its
+// origin in the global grid beside the seed (drop_salt), and hashes the
+// global b*H + h, so it draws its slice of the unsharded mask.
 //
 // What bounds it on the H100: at the training shape (B*H = 128,
 // L = S = 300, head_dim 64, bf16) the forward moves 19.7 MB (5.9 us at
@@ -108,7 +111,7 @@ attention_dropout_fwd_kernel(const float* __restrict__ q,
   const float* kb = k + (size_t)bh * S * HD;
   const float* vb = v + (size_t)bh * S * HD;
   const float* brow = bias && live ? bias + ((size_t)bh * L + row) * S : nullptr;
-  const unsigned int salt = (unsigned int)seed[0] + (unsigned int)bh * 0xC2B2AE35u;
+  const unsigned int salt = mma::drop_salt(seed, drop, bh);
   const int s_end = causal ? min(S, row0 + kDropRows) : S;
 
   float qr[HD];
@@ -203,7 +206,7 @@ attention_dropout_dq_kernel(const float* __restrict__ q,
   const size_t rix = (size_t)bh * L + row;
   const float* brow = bias && live ? bias + rix * S : nullptr;
   float* dbrow = dbias && live ? dbias + rix * S : nullptr;
-  const unsigned int salt = (unsigned int)seed[0] + (unsigned int)bh * 0xC2B2AE35u;
+  const unsigned int salt = mma::drop_salt(seed, drop, bh);
   const int s_end = causal ? min(S, row0 + kDropRows) : S;
 
   float qr[HD];
@@ -304,7 +307,7 @@ attention_dropout_dkv_kernel(const float* __restrict__ q,
   const bool live = col < S;
   const float* qb = q + (size_t)bh * L * HD;
   const float* dob = dout + (size_t)bh * L * HD;
-  const unsigned int salt = (unsigned int)seed[0] + (unsigned int)bh * 0xC2B2AE35u;
+  const unsigned int salt = mma::drop_salt(seed, drop, bh);
 
   for (int i = threadIdx.x; i < kDropRows * HD; i += blockDim.x) {
     const int r = i / HD, c = i % HD;
@@ -460,7 +463,7 @@ attention_dq_mma(BwdArgs a) {
   const bool drop = a.drop.apply != 0;
   unsigned int rta = 0, rtb = 0;
   if (drop) {
-    const unsigned int salt = drop_salt(a.seed, bh);
+    const unsigned int salt = drop_salt(a.seed, a.drop, bh);
     rta = row_term(ra, salt);
     rtb = row_term(rb, salt);
   }
@@ -586,7 +589,7 @@ attention_dkv_mma(BwdArgs a) {
   load_a<HD>(kf, a.k + koff, k0, S, lane);
   load_a<HD>(vf, a.v + koff, k0, S, lane);
   const bool drop = a.drop.apply != 0;
-  const unsigned int salt = drop ? drop_salt(a.seed, bh) : 0u;
+  const unsigned int salt = drop ? drop_salt(a.seed, a.drop, bh) : 0u;
   const unsigned int cta = col_term(ka), ctb = col_term(kb);
 
   float dk[kDT][4], dv[kDT][4];
@@ -834,8 +837,10 @@ static int run(int dtype, const DropoutArgs& a, int D, bool backward,
 }  // namespace v2m
 
 // q (BH, L, D), k/v (BH, S, D), bias (BH, L, S) f32 or null, seed one int32
-// on the device; out (BH, L, D) of q's dtype, stats (BH, L, 2) f32 (row max,
-// row sum of exponentials). Returns a cudaError_t code.
+// on the device (apply 2: four, {seed, heads, heads_global, bh_offset}, a
+// shard's origin in the global (batch, head) grid); out (BH, L, D) of q's
+// dtype, stats (BH, L, 2) f32 (row max, row sum of exponentials). Returns a
+// cudaError_t code.
 extern "C" int v2m_attention_dropout_fwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     const void* seed, void* out, void* stats, int BH, int L, int S, int D,

@@ -27,6 +27,14 @@ with probability 1 - rate and zeroed otherwise, not rescaled
 (models/amt.py:164-167). ``count_emotions=True`` makes an eval forward
 (or ``encode``) count each MoE layer's selections by the tokens' dominant
 emotion (ops/moe.py, obs/logging.py); nothing else counts.
+
+Sharded training (parallel/shard.py) keeps the embeddings, positions,
+final norms and heads replicated; the layers split as the plan says.
+With ``sp`` (sequence parallelism) a stream whose length the model group
+divides runs through its layers as this rank's sequence shard, gathered
+whole again before the final norm. The pipeline step (train/pp.py) runs
+the pieces one by one: ``embed_video_input``, ``embed_decoder_input``,
+the layers, ``finalize_encoder`` and ``head``.
 """
 
 from __future__ import annotations
@@ -39,8 +47,10 @@ from torch import nn
 from ..core import constants as C
 from ..core.config import AMTConfig
 
+from ..ops.dropout import batch_span, keep_mask
 from ..ops.embeddings import LearnedPE, SinusoidalPE
 from ..ops.norms import make_norm
+from ..parallel.comm import gather_seq, split_seq
 from .layers import DecoderLayer, EncoderLayer
 
 
@@ -116,6 +126,17 @@ class VideoMusicTransformer(nn.Module):
             self.wout_attr = nn.Linear(D, C.CHORD_ATTR_SIZE)
         else:
             self.wout = nn.Linear(D, C.CHORD_SIZE)
+        # sharded training (parallel/shard.py): the mesh, and whether the
+        # streams shard by sequence over its model group
+        self.mesh = None
+        self.sp = False
+
+    def _seq(self, h):
+        """The model group when ``h`` (B, L, D) shards by sequence, else
+        None."""
+        if not self.sp or h.shape[1] % self.mesh.model.size:
+            return None
+        return self.mesh.model
 
     # -- embeddings ---------------------------------------------------------
     def _embed_chords(self, x, x_root, x_attr, key):
@@ -143,8 +164,10 @@ class VideoMusicTransformer(nn.Module):
             vf = vf + self.scene_embedding(scene_offset.long())
         rate = self.cfg.drop_token_rate
         if generator is not None and rate > 0.0:
-            keep = torch.rand(vf.shape[:2], generator=generator,
-                              device=vf.device) < 1.0 - rate
+            B, L = vf.shape[:2]
+            keep = keep_mask((B, L), rate, generator, vf.device,
+                             None if self.mesh is None
+                             else [batch_span(self, B), (0, L)])
             vf = vf * keep[..., None].to(vf.dtype)
         return vf
 
@@ -191,9 +214,23 @@ class VideoMusicTransformer(nn.Module):
         vf = self.embed_video_input(semantic, scene_offset, motion, emotion,
                                     generator)
         ids = dominant_emotion_ids(emotion) if count_emotions else None
-        for layer in self.encoder_layers:
-            vf = layer(vf, generator, ids)
-        return self.encoder_norm(vf)
+        return self.finalize_encoder(self._run(self.encoder_layers, vf,
+                                               generator, ids))
+
+    def _run(self, layers, h, generator, ids, memory=None):
+        """A layer stack over the stream h, sharded by sequence over its
+        length when ``sp`` allows it, returned whole."""
+        seq = self._seq(h)
+        if seq is not None:
+            h = split_seq(h, seq)
+        for layer in layers:
+            h = (layer(h, generator, ids, seq=seq) if memory is None
+                 else layer(h, memory, generator, ids, seq=seq))
+        return h if seq is None else gather_seq(h, seq)
+
+    def finalize_encoder(self, h):
+        """The encoder stack's output -> memory (the final norm)."""
+        return self.encoder_norm(h)
 
     def prime(self, memory) -> List[tuple]:
         """Every decoder layer's cross-attention (K, V), (B, Sm, k_dim)
@@ -248,9 +285,8 @@ class VideoMusicTransformer(nn.Module):
                              generator, count_emotions)
         out = self.embed_decoder_input(x, x_root, x_attr, key, generator)
         ids = dominant_emotion_ids(emotion) if count_emotions else None
-        for layer in self.decoder_layers:
-            out = layer(out, memory, generator, ids)
-        return self.head(out)
+        return self.head(self._run(self.decoder_layers, out, generator, ids,
+                                   memory))
 
     def moe_metrics(self):
         """The last recorded forward's load metrics of the MoE layers

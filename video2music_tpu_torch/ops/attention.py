@@ -43,6 +43,17 @@ at the heads the attention runs at: 2H for differential attention (v
 repeated per pair, the mask hashed per 2H head as the JAX kernel hashes
 it), the full (B, H, L, L) bias for RPR, whose gradient reaches ``Er``
 through the kernel's dbias.
+
+Tensor parallelism by whole heads (parallel/shard.py sets ``tp``, the
+model group, and cuts the weights): ``in_proj`` keeps this rank's rows of
+each of its q / k / v blocks (column-parallel), ``out_proj`` its input
+columns (row-parallel); the inputs enter through *f*, the partial output
+leaves through *g* (or a reduce-scatter along a sequence-sharded stream)
+and the ``out_proj`` bias is added once, after it. The kernels run at the
+local heads with the shard's mask origin (batch and head offsets), so the
+dropout mask is the unsharded call's. The replicated parameters used per
+head (``Er``, the lambdas, ``subln``, ``gqa_norm``) enter through *f* too,
+so their gradients sum the ranks' heads.
 """
 
 from __future__ import annotations
@@ -55,6 +66,9 @@ from torch.nn import functional as F
 
 from ..core.config import AttentionConfig
 
+from ..parallel.comm import (copy_to, enter, reduce_out, summed_call,
+                             whole_out)
+from .dropout import batch_span
 from .embeddings import apply_rope
 from .flash_attention import NEG_INF, flash_attention
 from .flash_attention_dropout import flash_attention_dropout
@@ -136,12 +150,33 @@ class MultiHeadAttention(nn.Module):
                 nn.Parameter(torch.zeros(hd)) for _ in range(4))
             self.subln = RMSNorm(hd, eps=SUBLN_EPS)
             self.lambda_init = lambda_init_fn(depth)
+        # tensor parallelism (parallel/shard.py): the model group and the
+        # first local query head in the global grid; the mesh (batch shard)
+        self.tp = None
+        self.head0 = 0
+        self.qk_heads_global = self.qk_heads
+        self.mesh = None
 
     def diff_lambda(self) -> torch.Tensor:
         """The learned scalar lambda, in the parameters' dtype."""
-        return (torch.exp((self.lambda_q1 * self.lambda_k1).sum())
-                - torch.exp((self.lambda_q2 * self.lambda_k2).sum())
+        q1, k1, q2, k2 = (copy_to(p, self.tp) for p in (
+            self.lambda_q1, self.lambda_k1, self.lambda_q2, self.lambda_k2))
+        return (torch.exp((q1 * k1).sum()) - torch.exp((q2 * k2).sum())
                 + self.lambda_init)
+
+    def _drop_origin(self, B: int):
+        """The kernel's (b0, h0, global heads) of this shard, or None."""
+        if self.mesh is None:
+            return None
+        return batch_span(self, B)[0], self.head0, self.qk_heads_global
+
+    def _out(self, h, seq=None):
+        """out_proj; under TP the row-parallel product summed over the
+        model group (reduce-scattered when ``seq``), then the bias."""
+        if self.tp is None:
+            return whole_out(self.out_proj(h), seq)
+        return reduce_out(F.linear(h, self.out_proj.weight), self.tp, seq,
+                          self.out_proj.bias)
 
     def _heads(self, x, n):  # (B, L, n * hd) -> (B, n, L, hd)
         B, L, _ = x.shape
@@ -180,7 +215,7 @@ class MultiHeadAttention(nn.Module):
         bias = None
         if self.rpr:
             q_scaled = q * self.head_dim ** -0.5
-            er = self.Er.to(q.dtype)
+            er = copy_to(self.Er, self.tp).to(q.dtype)
             bias = (rpr_bias_full(q_scaled, er) if "mask" not in kw else
                     rpr_bias_decode(q_scaled, er, kw["pos"], k.shape[2]))
         if "mask" in kw:
@@ -193,18 +228,20 @@ class MultiHeadAttention(nn.Module):
                                  device=q.device, dtype=torch.int32)
             attn = flash_attention_dropout(
                 q, k, v, bias=bias, causal=kw["causal"],
-                dropout_rate=self.dropout_rate, seed=seed)
+                dropout_rate=self.dropout_rate, seed=seed,
+                origin=self._drop_origin(q.shape[0]))
         else:
             attn = flash_attention(q, k, v, bias=bias, causal=kw["causal"])
         if self.diff:
             B, _, L, hd = attn.shape
             attn = attn.view(B, self.num_heads, 2, L, hd)
             lam = self.diff_lambda().to(attn.dtype)
-            attn = self.subln(attn[:, :, 0] - lam * attn[:, :, 1])
+            attn = summed_call(self.subln, self.tp,
+                               attn[:, :, 0] - lam * attn[:, :, 1])
             attn = attn * (1.0 - self.lambda_init)
         if self.gqa_norm is not None:
-            attn = self.gqa_norm(attn)
-        return self.out_proj(self._merge(attn))
+            attn = summed_call(self.gqa_norm, self.tp, attn)
+        return self._out(self._merge(attn), kw.get("seq"))
 
     def project_kv(self, x):
         """Memory / sequence -> (k roped at 0..L-1, v), (B, L, k_dim) and
@@ -214,18 +251,23 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query, key_value=None, *, causal: bool = False,
                 mode: str = "full", cache=None, pos: int = 0,
-                generator=None):
+                generator=None, seq=None):
         """cache: "step" mode only — (k, v) tensors (B, S, k_dim) and
         (B, S, v_dim); written in place for self-attention, read for
         cross-attention. generator: a torch.Generator on the query's device
         makes a "full" call a training call (attention dropout at
-        ``dropout_rate``)."""
+        ``dropout_rate``). seq: the model group when the caller's stream
+        is sharded by sequence (the query, this rank's shard, is gathered
+        whole; the output leaves as this rank's shard)."""
         if mode == "prime":
             return self.project_kv(key_value)
         if mode == "full":
+            query = enter(query, self.tp, seq)
+            kv = copy_to(key_value, self.tp) if self.is_cross else query
             q = self._rope(self._proj(query, 0), None, self.max_query_len)
-            k, v = self.project_kv(key_value if self.is_cross else query)
-            return self._attend(q, k, v, causal=causal, generator=generator)
+            k, v = self.project_kv(kv)
+            return self._attend(q, k, v, causal=causal, generator=generator,
+                                seq=seq)
         if mode != "step":
             raise ValueError(f"unknown attention mode {mode!r}")
         positions = torch.tensor([pos], device=query.device)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .dropout import dropout
+from .dropout import batch_span, dropout
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,7 +50,11 @@ class SinusoidalPE(nn.Module):
     def forward(self, x, generator=None):
         table = sinusoidal_table(self.max_len, self.d_model)[:x.shape[-2]]
         x = x + torch.from_numpy(table).to(device=x.device, dtype=x.dtype)
-        return dropout(x, self.dropout_rate, generator)
+        origin = None
+        if getattr(self, "mesh", None) is not None:
+            B, L, D = x.shape
+            origin = [batch_span(self, B), (0, L), (0, D)]
+        return dropout(x, self.dropout_rate, generator, origin)
 
 
 class LearnedPE(nn.Module):

@@ -2,7 +2,13 @@
 PyTorch functions of (logits, targets) returning f32 scalars, with the JAX
 package's semantics (torch's CrossEntropyLoss with ignore_index and label
 smoothing, the reference's TopK auxiliary pair averaged over its active
-terms, unmasked BCE-with-logits for the emotion target)."""
+terms, unmasked BCE-with-logits for the emotion target).
+
+``reduce``: a sharded step's sum over its data group (parallel/comm.py
+``reduce_from``, differentiable). Each mean is then the global batch's:
+the rank's numerator and count are summed over the group before the
+division, so every rank holds the unsharded loss and its part of the
+gradient (which the step sums over the group)."""
 
 from __future__ import annotations
 
@@ -10,9 +16,14 @@ import torch
 from torch.nn import functional as F
 
 
-def _masked_mean(per_token, targets, ignore_index: int):
+def _global(num, den, reduce):
+    return (num, den) if reduce is None else (reduce(num), reduce(den))
+
+
+def _masked_mean(per_token, targets, ignore_index: int, reduce=None):
     mask = (targets != ignore_index).float()
-    return (per_token * mask).sum() / mask.sum().clamp(min=1.0)
+    num, den = _global((per_token * mask).sum(), mask.sum(), reduce)
+    return num / den.clamp(min=1.0)
 
 
 def _onehot(targets, vocab_size: int):
@@ -21,7 +32,7 @@ def _onehot(targets, vocab_size: int):
 
 
 def cross_entropy(logits, targets, *, ignore_index: int,
-                  label_smoothing: float = 0.0):
+                  label_smoothing: float = 0.0, reduce=None):
     """Mean over non-ignored targets of (1-eps)*NLL + eps*mean(-log p).
     logits (..., V); targets (...) int."""
     V = logits.shape[-1]
@@ -31,11 +42,12 @@ def cross_entropy(logits, targets, *, ignore_index: int,
     if label_smoothing > 0.0:
         nll = (1.0 - label_smoothing) * nll \
             + label_smoothing * -logp.mean(dim=-1)
-    return _masked_mean(nll, targets, ignore_index)
+    return _masked_mean(nll, targets, ignore_index, reduce)
 
 
 def smooth_cross_entropy(logits, targets, *, vocab_size: int,
-                         label_smoothing: float, ignore_index: int):
+                         label_smoothing: float, ignore_index: int,
+                         reduce=None):
     """The reference's SmoothCrossEntropyLoss: q' = (1-eps)*onehot + eps/V,
     ignored rows zeroed, mean over the non-ignored count."""
     logp = F.log_softmax(logits.float(), dim=-1)
@@ -43,11 +55,12 @@ def smooth_cross_entropy(logits, targets, *, vocab_size: int,
         + label_smoothing / vocab_size
     mask = (targets != ignore_index).float()
     ce = -(q * mask[..., None] * logp).sum(-1)
-    return ce.sum() / mask.sum().clamp(min=1.0)
+    num, den = _global(ce.sum(), mask.sum(), reduce)
+    return num / den.clamp(min=1.0)
 
 
 def topk_auxiliary_loss(logits, targets, *, k: int, weight: float,
-                        vocab_size: int, ignore_index: int):
+                        vocab_size: int, ignore_index: int, reduce=None):
     """relu(mean(top-k softmax probs) - p_true), pad-masked mean, times
     ``weight``."""
     probs = torch.softmax(logits.float(), dim=-1)
@@ -56,33 +69,40 @@ def topk_auxiliary_loss(logits, targets, *, k: int, weight: float,
     true_score = (probs * _onehot(targets, vocab_size)
                   * mask[..., None]).sum(-1)
     loss = F.relu(mean_topk - true_score) * mask
-    return loss.sum() / mask.sum().clamp(min=1.0) * weight
+    num, den = _global(loss.sum(), mask.sum(), reduce)
+    return num / den.clamp(min=1.0) * weight
 
 
 def combined_chord_loss(logits, targets, *, vocab_size: int,
                         ignore_index: int, label_smoothing: float = 0.1,
-                        auxiliary: bool = False):
+                        auxiliary: bool = False, reduce=None):
     """CE, or with ``auxiliary`` (CE + top-3 + top-5 auxiliary) divided by
     the number of terms above 1e-10."""
     ce = cross_entropy(logits, targets, ignore_index=ignore_index,
-                       label_smoothing=label_smoothing)
+                       label_smoothing=label_smoothing, reduce=reduce)
     if not auxiliary:
         return ce
     a3 = topk_auxiliary_loss(logits, targets, k=3, weight=3.0,
-                             vocab_size=vocab_size, ignore_index=ignore_index)
+                             vocab_size=vocab_size, ignore_index=ignore_index,
+                             reduce=reduce)
     a5 = topk_auxiliary_loss(logits, targets, k=5, weight=5.0,
-                             vocab_size=vocab_size, ignore_index=ignore_index)
+                             vocab_size=vocab_size, ignore_index=ignore_index,
+                             reduce=reduce)
     count = sum((t > 1e-10).float() for t in (ce, a3, a5))
     return (ce + a3 + a5) / count.clamp(min=1.0)
 
 
-def bce_with_logits(logits, targets):
+def bce_with_logits(logits, targets, reduce=None):
     """torch's BCEWithLogitsLoss (mean over every element, not pad-masked,
     as the reference's emotion term)."""
     logits = logits.float()
     loss = logits.clamp(min=0) - logits * targets \
         + torch.log1p(torch.exp(-logits.abs()))
-    return loss.mean()
+    if reduce is None:
+        return loss.mean()
+    num, den = _global(loss.sum(), loss.new_tensor(float(loss.numel())),
+                       reduce)
+    return num / den
 
 
 def bce(probs, targets, eps: float = 1e-7):

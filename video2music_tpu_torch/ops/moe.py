@@ -37,6 +37,21 @@ The options of the JAX module:
     the assignments past it dropped; each expert runs once over its
     buffer. An annealing top-k scheduler in training routes densely, as
     in JAX.
+
+Sharded (parallel/shard.py sets ``tp``, the model group, and cuts the
+weights): the expert stacks split on E (expert parallelism) where the
+model axis divides E, else, under tensor parallelism, on their inner
+d_ff (``b2`` then added by model rank 0 alone, through *f*). The router
+stays replicated: each rank computes its experts for every token, the
+gate logits and the tokens enter the expert region through *f* and the
+partial combine leaves through *g* (or a reduce-scatter along a
+sequence-sharded stream). SwiGLU and SiLU-MLP feed-forwards (and shared
+experts) split their hidden columns the same way. The capacity dispatch
+fills the global token order: each data rank's slots start after the
+earlier ranks' assignments and the capacity counts the global tokens.
+The load counts that move ``balance_bias`` and the emotion counts are
+summed over the data group, so every rank moves it as the unsharded step
+does. Each dropout draws the unsharded tensor and keeps its slice.
 """
 
 from __future__ import annotations
@@ -50,42 +65,81 @@ from torch.nn import functional as F
 
 from ..core.config import MoEConfig
 
-from .dropout import dropout
+from ..parallel.comm import (all_gather, all_reduce, copy_to, enter,
+                             reduce_out, whole_out)
+from .dropout import batch_span, dropout
 from .kan import KANLinear
 
 
-class SwiGLU(nn.Module):
+def hidden_origin(module, x, width_global: int, first: int = 0):
+    """The dropout origin of a (B, ..., F_local) hidden of ``module``
+    computed from ``x`` (B, ..., D): the batch shard, whole middle dims,
+    the columns [first, first + F_local) of ``width_global``; None
+    unsharded."""
+    if getattr(module, "mesh", None) is None:
+        return None
+    return ([batch_span(module, x.shape[0])]
+            + [(0, n) for n in x.shape[1:-1]] + [(first, width_global)])
+
+
+def row_parallel_out(linear: nn.Linear, h, tp, seq):
+    """``linear`` of a hidden h: whole, or under tensor parallelism the
+    row-parallel product of this rank's columns summed over ``tp`` (a
+    reduce-scatter along a sequence-sharded stream) plus the bias."""
+    if tp is None:
+        return whole_out(linear(h), seq)
+    return reduce_out(F.linear(h, linear.weight), tp, seq, linear.bias)
+
+
+class _Hidden(nn.Module):
+    """Shared state of the two-matrix feed-forwards: the hidden width
+    (local under tensor parallelism) and the shard's place."""
+
+    def _shard_init(self, d_ff: int):
+        self.d_ff = d_ff
+        self.tp = None          # the model group when the columns split
+        self.ff0 = 0            # first local hidden column
+        self.d_ff_global = d_ff
+        self.mesh = None
+
+
+class SwiGLU(_Hidden):
     """h * silu(g) feed-forward, dropout on h before ``linear2`` in a
     training call (models/layers.py:88). ``w1g`` rows are [linear1; gate]
-    (2F, D)."""
+    (2F, D); under tensor parallelism this rank's rows of each block."""
 
     def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
         super().__init__()
-        self.d_ff = d_ff
+        self._shard_init(d_ff)
         self.dropout_rate = dropout_rate
         self.w1g = nn.Linear(d_model, 2 * d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, seq=None):
+        x = enter(x, self.tp, seq)
         h, g = self.w1g(x).split(self.d_ff, dim=-1)
-        return self.linear2(dropout(h * F.silu(g), self.dropout_rate,
-                                    generator))
+        h = dropout(h * F.silu(g), self.dropout_rate, generator,
+                    hidden_origin(self, x, self.d_ff_global, self.ff0))
+        return row_parallel_out(self.linear2, h, self.tp, seq)
 
 
-class SiLUMLP(nn.Module):
+class SiLUMLP(_Hidden):
     """One SiLU-MLP expert D -> Fe -> D (the V1 shared expert): ``w1g``
     (Fe, D), ``linear2`` (D, Fe), the names of :class:`SwiGLU` so the
     decode packs read both alike."""
 
     def __init__(self, d_model: int, d_hidden: int, dropout_rate: float = 0.0):
         super().__init__()
+        self._shard_init(d_hidden)
         self.dropout_rate = dropout_rate
         self.w1g = nn.Linear(d_model, d_hidden)
         self.linear2 = nn.Linear(d_hidden, d_model)
 
-    def forward(self, x, generator=None):
-        return self.linear2(dropout(F.silu(self.w1g(x)), self.dropout_rate,
-                                    generator))
+    def forward(self, x, generator=None, seq=None):
+        x = enter(x, self.tp, seq)
+        h = dropout(F.silu(self.w1g(x)), self.dropout_rate, generator,
+                    hidden_origin(self, x, self.d_ff_global, self.ff0))
+        return row_parallel_out(self.linear2, h, self.tp, seq)
 
 
 class KANExpert(KANLinear):
@@ -94,8 +148,8 @@ class KANExpert(KANLinear):
     def __init__(self, d_model: int):
         super().__init__(d_model, d_model)
 
-    def forward(self, x, generator=None):
-        return super().forward(x)
+    def forward(self, x, generator=None, seq=None):
+        return whole_out(super().forward(enter(x, None, seq)), seq)
 
 
 class MoELayer(nn.Module):
@@ -147,6 +201,14 @@ class MoELayer(nn.Module):
         # eval calls' selections by dominant emotion (6, E), summed
         self.expert_counts = self.maxvio = None
         self.expert_emotion_counts = None
+        # sharding (parallel/shard.py): the model group when the expert
+        # stacks split, how ("ep" on E, "inner" on d_ff), the local experts
+        # [e0, e0 + n_local) and hidden columns from ff0; the mesh
+        self.tp = self.split = None
+        self.e0, self.n_local = 0, E
+        self.ff0 = 0
+        self.d_ff_global = getattr(self, "d_ff", None)
+        self.mesh = None
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata,
                               strict, missing_keys, unexpected_keys,
@@ -201,23 +263,49 @@ class MoELayer(nn.Module):
                 cfg.temperature_max)
         return float(np.float32(t))
 
-    def _act(self, hg, generator):
+    def _origin(self, lead, width_global: int, first: int,
+                experts_first: bool = False):
+        """Dropout origin of a (*lead, E_local, width) tensor, or with
+        ``experts_first`` an (E_local, *lead, width) one: ``lead`` the
+        (offset, global size) of the token or slot dimensions, then this
+        rank's experts and columns [first, ...) of ``width_global``; None
+        unsharded."""
+        if self.mesh is None:
+            return None
+        e, w = (self.e0, self.cfg.n_experts), (first, width_global)
+        return [e, *lead, w] if experts_first else [*lead, e, w]
+
+    def _tokens(self, x):
+        """The (offset, global size) of x's (B, ..., D) token dimensions."""
+        return [batch_span(self, x.shape[0])] + [(0, n)
+                                                 for n in x.shape[1:-1]]
+
+    def _b2(self):
+        """b2, added by model rank 0 alone when the inner d_ff splits
+        (through *f*, so every rank holds its summed gradient)."""
+        if self.split != "inner":
+            return self.b2
+        b2 = copy_to(self.b2, self.tp)
+        return b2 if self.tp.rank == 0 else b2 * 0.0
+
+    def _act(self, hg, generator, origin=None):
         if self.cfg.expert == "glu":
             h, g = hg.split(self.d_ff, dim=-1)
             hg = h * F.silu(g)
         else:
             hg = F.silu(hg)
-        return dropout(hg, self.dropout_rate, generator)
+        return dropout(hg, self.dropout_rate, generator, origin)
 
     def _experts(self, x, idx=None, generator=None):
-        """x (..., D) through every expert (..., E, D), or through the
-        experts idx (K,) for a single token -> (K, D)."""
+        """x (..., D) through every (local) expert (..., E, D), or through
+        the experts idx (K,) for a single token -> (K, D)."""
         if self.cfg.expert == "kan":
             return torch.stack([kan(x) for kan in self.kan], dim=-2)
         if idx is None:
             hg = torch.einsum("...d,egd->...eg", x, self.w1g) + self.b1g
-            h = self._act(hg, generator)
-            return torch.einsum("...ef,edf->...ed", h, self.w2) + self.b2
+            h = self._act(hg, generator, self._origin(
+                self._tokens(x), self.d_ff_global, self.ff0))
+            return torch.einsum("...ef,edf->...ed", h, self.w2) + self._b2()
         hg = torch.einsum("d,kgd->kg", x.reshape(-1), self.w1g[idx]) \
             + self.b1g[idx]
         return torch.einsum("kf,kdf->kd", self._act(hg, None), self.w2[idx]) \
@@ -228,15 +316,21 @@ class MoELayer(nn.Module):
         if self.cfg.expert == "kan":
             return torch.stack([kan(buf[e]) for e, kan in enumerate(self.kan)])
         hg = torch.einsum("ecd,egd->ecg", buf, self.w1g) + self.b1g[:, None]
-        h = self._act(hg, generator)
-        return torch.einsum("ecf,edf->ecd", h, self.w2) + self.b2[:, None]
+        h = self._act(hg, generator, self._origin(
+            [(0, buf.shape[1])], self.d_ff_global, self.ff0,
+            experts_first=True))
+        return torch.einsum("ecf,edf->ecd", h, self.w2) + self._b2()[:, None]
 
     def _capacity(self, x, logits, select, t_div, generator):
-        """The capacity dispatch: (out (B, L, D), selected (B, L, E))."""
+        """The capacity dispatch: (out (B, L, D), selected (B, L, E)),
+        the slots numbered in the global token order, this rank's
+        experts' part of the combine."""
         B, L, D = x.shape
         E, k = self.cfg.n_experts, self.k
         T = B * L
-        cap = max(1, math.ceil(T * k / E * self.cfg.capacity_factor))
+        data = None if self.mesh is None else self.mesh.data
+        Tg = T * (1 if data is None else data.size)
+        cap = max(1, math.ceil(Tg * k / E * self.cfg.capacity_factor))
         idx = torch.argsort(-select.reshape(T, E), dim=-1,
                             stable=True)[:, :k]                   # (T, k)
         gsel = logits.reshape(T, E).gather(-1, idx)
@@ -247,15 +341,24 @@ class MoELayer(nn.Module):
         flat_tok = torch.arange(T, device=x.device).repeat_interleave(k)
         onehot = F.one_hot(flat_e, E)
         # each assignment's slot: the earlier assignments to its expert
+        # (on earlier data ranks too)
         pos = ((onehot.cumsum(0) - onehot) * onehot).sum(1)
+        if data is not None and data.size > 1:
+            before = all_gather(onehot.sum(0)[None], data)[:data.rank]
+            pos = pos + before.sum(0)[flat_e]
         keep = pos < cap
         slot = pos.clamp(max=cap - 1)
+        # this rank's experts' assignments
+        le = flat_e - self.e0
+        keep = keep & (le >= 0) & (le < self.n_local)
+        le = le.clamp(0, self.n_local - 1)
         xf = x.reshape(T, D)
-        buf = x.new_zeros(E * cap, D).index_add_(
-            0, flat_e * cap + slot, xf[flat_tok] * keep[:, None].to(x.dtype))
-        out_e = dropout(self._per_expert(buf.view(E, cap, D), generator),
-                        self.dropout_rate, generator)
-        gathered = out_e[flat_e, slot]
+        buf = x.new_zeros(self.n_local * cap, D).index_add_(
+            0, le * cap + slot, xf[flat_tok] * keep[:, None].to(x.dtype))
+        out_e = self._per_expert(buf.view(self.n_local, cap, D), generator)
+        out_e = dropout(out_e, self.dropout_rate, generator,
+                        self._origin([(0, cap)], D, 0, experts_first=True))
+        gathered = out_e[le, slot]
         comb = (w.to(out_e.dtype) * keep.to(out_e.dtype))[:, None]
         out = out_e.new_zeros(T, D).index_add_(0, flat_tok, gathered * comb)
         selected = F.one_hot(idx, E).sum(1).bool().view(B, L, E)
@@ -266,12 +369,18 @@ class MoELayer(nn.Module):
         self.expert_counts = self.maxvio = None
         self.expert_emotion_counts = None
 
-    def forward(self, x, generator=None, emotion_ids=None):
+    def forward(self, x, generator=None, emotion_ids=None, seq=None):
         """generator: a torch.Generator on x's device makes this a training
         call (dropout, load metrics, balancing, the schedules' steps).
         emotion_ids: (B, L') ints in [-1, 5] make an eval call count its
-        selections by dominant emotion (ignored in a training call)."""
+        selections by dominant emotion (ignored in a training call). seq:
+        the model group when the caller's stream is sharded by sequence
+        (x, this rank's shard, is gathered whole: the router sees every
+        token on every rank, so the gradient that reaches x is whole there
+        and *f* sums the experts' parts; the output leaves as this rank's
+        shard)."""
         training = generator is not None
+        shard, x = x, enter(x, None, seq)
         logits = self.gate(x).float()  # (B, L, E)
         E = logits.shape[-1]
         k = self._top_k(training)
@@ -280,7 +389,10 @@ class MoELayer(nn.Module):
         if training and self.cfg.balancing:
             select = logits + self.balance_bias
         gather = (not training and x.shape[0] * x.shape[1] == 1
-                  and self.k < E and self.cfg.expert != "kan")
+                  and self.k < E and self.cfg.expert != "kan"
+                  and self.tp is None)
+        # the expert region: tokens and gate logits through f
+        xe, gl = copy_to(x, self.tp), copy_to(logits, self.tp)
         if gather:
             # descending order, ties to the first index (stable, as
             # jnp.argsort and lax.top_k)
@@ -296,30 +408,37 @@ class MoELayer(nn.Module):
                 selected[0, 0, idx] = True
         elif self.cfg.dispatch == "capacity" and not (
                 training and self.cfg.topk_schedule):
-            out, selected = self._capacity(x, logits, select, t_div,
-                                           generator)
+            out, selected = self._capacity(xe, gl, select, t_div, generator)
         else:
             order = torch.argsort(-select, dim=-1, stable=True)
             selected = torch.argsort(order, dim=-1, stable=True) < k
-            masked = logits.masked_fill(~selected, float("-inf"))
+            masked = gl.masked_fill(~selected, float("-inf"))
             if t_div is not None:
                 masked = masked / t_div
             w = torch.softmax(masked, dim=-1).to(x.dtype)
-            experts = dropout(self._experts(x, generator=generator),
-                              self.dropout_rate, generator)
-            out = torch.einsum("ble,bled->bld", w, experts)
+            experts = dropout(self._experts(xe, generator=generator),
+                              self.dropout_rate, generator,
+                              self._origin(self._tokens(x), x.shape[-1], 0))
+            out = torch.einsum("ble,bled->bld",
+                               w[..., self.e0:self.e0 + self.n_local],
+                               experts)
+        out = (whole_out(out, seq) if self.tp is None
+               else reduce_out(out, self.tp, seq))
         if training:
             self._record_load(selected, balance=self.cfg.balancing)
         elif emotion_ids is not None:
             self._record_load(selected, balance=False)
             self._count_emotions(selected, emotion_ids)
         if self.shared is not None:
-            out = out + self.shared(x, generator) / k
+            out = out + self.shared(shard, generator, seq=seq) / k
         return out
+
+    def _data_sum(self, t):
+        return t if self.mesh is None else all_reduce(t, self.mesh.data)
 
     @torch.no_grad()
     def _record_load(self, selected, balance: bool):
-        counts = selected.sum(dim=(0, 1)).float()
+        counts = self._data_sum(selected.sum(dim=(0, 1)).float())
         mean = counts.mean()
         self.expert_counts = counts
         self.maxvio = (counts.max() - mean.clamp(min=1e-6)) \
@@ -333,8 +452,8 @@ class MoELayer(nn.Module):
         L = min(selected.shape[1], emotion_ids.shape[1])
         onehot = emotion_ids[:, :L, None] == torch.arange(
             6, device=selected.device)
-        counts = torch.einsum("blc,ble->ce", onehot.float(),
-                              selected[:, :L].float())
+        counts = self._data_sum(torch.einsum(
+            "blc,ble->ce", onehot.float(), selected[:, :L].float()))
         self.expert_emotion_counts = counts if \
             self.expert_emotion_counts is None \
             else self.expert_emotion_counts + counts

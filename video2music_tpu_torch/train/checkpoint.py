@@ -9,6 +9,11 @@ state, so a restore resumes exactly. Any of the three model families
 (VideoMusicTransformer, VideoRegression, MusicTransformer) saves alike.
 ``load_weights`` reads the weights alone (the JAX package's
 ``load_params``), as the pipeline does.
+
+A sharded state (parallel/) is saved as the single-device file: its
+parameters, moments and MoE buffers are gathered whole (collectively,
+every rank calls) and rank 0 alone writes; a restore loads the whole
+state, which the caller then cuts for whatever mesh it runs on.
 """
 
 from __future__ import annotations
@@ -29,13 +34,26 @@ ORBAX_HINT = (
     "item 1)")
 
 
-def save_checkpoint(path: str, state: TrainState) -> None:
-    """Write ``path`` (a file; its directory is made), atomically."""
+def save_checkpoint(path: str, state: TrainState, mesh=None,
+                    plan=None) -> None:
+    """Write ``path`` (a file; its directory is made), atomically. On a
+    mesh, every rank calls it with the state's shard ``plan``: the shares
+    are gathered and rank 0 writes the whole state."""
     model = state.model
-    tree = {"model": model.state_dict(),
+    if mesh is None:
+        weights, opt = model.state_dict(), state.optimizer.state_dict()
+    else:
+        from ..parallel.shard import (gather_optimizer_state,
+                                      gather_state_dict)
+        weights = gather_state_dict(model, plan or {}, mesh)
+        opt = gather_optimizer_state(state.optimizer, model, plan or {},
+                                     mesh)
+        if not mesh.is_main:
+            return
+    tree = {"model": weights,
             "model_class": type(model).__name__,
             "config": dataclasses.asdict(model.cfg),
-            "optimizer": state.optimizer.state_dict(), "step": state.step,
+            "optimizer": opt, "step": state.step,
             "generator": state.generator.get_state()}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"

@@ -22,8 +22,17 @@ as the JAX loop does (only ``train_amt`` writes them there too);
 ``torch.profiler`` (CPU and, on a card, CUDA activities) into a Chrome
 trace file in ``profile_dir`` (:class:`StepProfiler`).
 
-Not ported, and raising: meshes and the parallel strategies, which wait
-for the multi-GPU slice (ROADMAP.md, Queue 1 item 13).
+``train_amt(mesh=..., parallel=..., n_microbatches=...)`` trains on a
+("data", "model") mesh of ranks (parallel/): "dp" (the batch over "data";
+expert stacks over "model" where it divides them), "tp" (dp plus
+Megatron column / row splits), "sp" (tp plus the sequence-sharded
+residual stream; the config must set ``sequence_parallel``) or "pp"
+(GPipe stages over "model", train/pp.py). Every rank calls it: each reads
+the same shuffled global batches and takes its rows, ragged trailing
+batches are dropped with one notice (sharded steps need full batches),
+the eval metrics are the global batches', and rank 0 alone writes
+``results.csv``, TensorBoard, the profiler trace and the checkpoints
+(gathered whole, so they load as the single-device ones do).
 """
 
 from __future__ import annotations
@@ -49,11 +58,6 @@ from .step import (TrainState, create_train_state, make_amt_eval_step,
                    make_music_transformer_train_step,
                    make_regression_eval_step, make_regression_train_step,
                    resolve_device)
-
-def not_ported(what: str, queue_item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to video2music_tpu_torch yet "
-        f"(ROADMAP.md, {queue_item})")
 
 
 CSV_HEADER = [
@@ -216,23 +220,82 @@ def _epoch_pass(step_fn, state, batches_iter, device,
     return state, rows
 
 
-def _eval_pass(eval_fn, state, dataset, batch_size):
-    rows = [eval_fn(state.model, batch) for batch in device_prefetch(
-        make_batches(dataset, batch_size, shuffle=False), state.device)]
+def _eval_pass(eval_fn, state, dataset, batch_size, mesh=None,
+               log_fn=print):
+    batches = make_batches(dataset, batch_size, shuffle=False)
+    if mesh is not None:
+        batches = _local_batches(batches, batch_size, mesh, log_fn)
+    rows = [eval_fn(state.model, batch)
+            for batch in device_prefetch(batches, state.device)]
     return _mean_metrics(rows)
+
+
+def _full_batches(batches_iter, batch_size: int, log_fn):
+    """Drop ragged trailing batches (a sharded step needs every batch
+    divisible by the data axis and the microbatch count). The reference's
+    DataLoader keeps partial batches (drop_last defaults False); single-
+    device runs do too, only mesh runs drop, with a one-time notice."""
+    warned = False
+    for batch in batches_iter:
+        n = next(iter(batch.values())).shape[0]
+        if n != batch_size:
+            if not warned:
+                log_fn(f"mesh run: dropping ragged batch of {n} "
+                       f"(< batch_size {batch_size}) — sharded steps need "
+                       "full batches")
+                warned = True
+            continue
+        yield batch
+
+
+def _local_batches(batches_iter, batch_size: int, mesh, log_fn):
+    """This rank's rows of each full global batch."""
+    from ..parallel import shard_batch
+    for batch in _full_batches(batches_iter, batch_size, log_fn):
+        yield shard_batch(mesh, batch)
+
+
+def check_mesh_run(model_cfg: AMTConfig, batch_size: int, mesh,
+                   parallel: str, n_microbatches: int) -> None:
+    """The JAX loop's checks of a mesh run (its messages)."""
+    if parallel not in ("dp", "tp", "sp", "pp"):
+        raise ValueError(f"unknown parallel strategy {parallel!r}")
+    if parallel == "sp" and not model_cfg.sequence_parallel:
+        raise ValueError(
+            "parallel='sp' needs AMTConfig.sequence_parallel=True")
+    data = mesh.shape["data"]
+    if batch_size % data:
+        raise ValueError(
+            f"batch_size {batch_size} not divisible by the "
+            f"data-axis size {data}")
+    if parallel == "pp" and (
+            batch_size % n_microbatches
+            or (batch_size // n_microbatches) % data):
+        raise ValueError(
+            f"pp needs batch_size divisible by n_microbatches "
+            f"({n_microbatches}) and each microbatch divisible by the "
+            f"data axis ({data}); got {batch_size}")
 
 
 def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
               train_ds, val_ds, *, drop_loss: bool = False, device=None,
-              mesh=None, parallel: str = "dp") -> TrainState:
-    """A full AMT training run on one device (CUDA unless ``device`` says
-    otherwise; raises without CUDA). Returns the final state; writes
+              mesh=None, parallel: str = "dp",
+              n_microbatches: int = 4) -> TrainState:
+    """A full AMT training run (CUDA unless ``device`` says otherwise;
+    raises without CUDA). Returns the final state; writes
     ``results.csv``, ``weights/best_loss_weights``,
     ``weights/epoch_NNNN`` and ``best_epochs.txt`` under
-    ``loop.output_dir``."""
-    if mesh is not None or parallel != "dp":
-        raise not_ported("meshes and parallel training strategies",
-                         "Queue 1 item 13: the multi-GPU slice")
+    ``loop.output_dir``. ``mesh`` (``parallel.create_mesh``; every rank
+    calls): train with ``parallel`` "dp" | "tp" | "sp" | "pp" on it (the
+    state returned is this rank's shares; the checkpoints are whole)."""
+    if mesh is not None:
+        check_mesh_run(model_cfg, loop.batch_size, mesh, parallel,
+                       n_microbatches)
+        device = mesh.device
+    main = mesh is None or mesh.is_main
+    if not main:
+        loop = dataclasses.replace(loop, log_fn=lambda msg: None,
+                                   profile_steps=0, tensorboard_dir=None)
     dev, results_file, weights_dir, state = _start(model_cfg, tcfg, loop,
                                                    device)
     start_epoch = 0
@@ -244,11 +307,26 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
     if loop.continue_from:
         state = ckpt.restore_checkpoint(loop.continue_from, state)
 
-    train_step = make_amt_train_step(tcfg, drop_loss=drop_loss)
-    eval_step = make_amt_eval_step(tcfg)
+    plan = None
+    if mesh is None:
+        train_step = make_amt_train_step(tcfg, drop_loss=drop_loss)
+    else:
+        from ..parallel.shard import shard_train_state_
+        plan = shard_train_state_(state, mesh, parallel)
+        if parallel == "pp":
+            from .pp import make_amt_pp_train_step
+            train_step = make_amt_pp_train_step(
+                model_cfg, tcfg, mesh, n_microbatches=n_microbatches,
+                drop_loss=drop_loss)
+        else:
+            train_step = make_amt_train_step(tcfg, drop_loss=drop_loss,
+                                             mesh=mesh)
+    eval_step = make_amt_eval_step(tcfg, mesh)
     sched = noam_schedule(model_cfg.d_model, tcfg.warmup_steps)
+    save = lambda path: ckpt.save_checkpoint(path, state, mesh, plan)
 
-    _csv_header(results_file, CSV_HEADER)
+    if main:
+        _csv_header(results_file, CSV_HEADER)
     best_eval_loss, best_epoch = float("inf"), -1
     loader = PrefetchLoader(train_ds, loop.batch_size, shuffle=True,
                             seed=loop.seed)
@@ -256,10 +334,14 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
     tb = _make_tb(loop)
     for epoch in range(start_epoch, loop.epochs):
         t0 = time.time()
-        state, _ = _epoch_pass(train_step, state, loader, dev, profiler)
-        train_m = (_eval_pass(eval_step, state, train_ds, loop.batch_size)
+        batches = loader if mesh is None else _local_batches(
+            loader, loop.batch_size, mesh, loop.log_fn)
+        state, _ = _epoch_pass(train_step, state, batches, dev, profiler)
+        train_m = (_eval_pass(eval_step, state, train_ds, loop.batch_size,
+                              mesh, loop.log_fn)
                    if loop.eval_train_subset else {})
-        eval_m = _eval_pass(eval_step, state, val_ds, loop.batch_size)
+        eval_m = _eval_pass(eval_step, state, val_ds, loop.batch_size,
+                            mesh, loop.log_fn)
         lr = float(sched(state.step)) if tcfg.lr is None else tcfg.lr
         loop.log_fn(
             f"epoch {epoch + 1}/{loop.epochs} "
@@ -278,16 +360,16 @@ def train_amt(model_cfg: AMTConfig, tcfg: TrainConfig, loop: LoopConfig,
 
         if eval_m["loss"] < best_eval_loss:
             best_eval_loss, best_epoch = eval_m["loss"], epoch + 1
-            ckpt.save_checkpoint(
-                os.path.join(weights_dir, "best_loss_weights"), state)
-            with open(os.path.join(loop.output_dir, "best_epochs.txt"),
-                      "w") as f:
-                f.write(f"Best val loss epoch: {best_epoch}\n"
-                        f"Best val loss: {best_eval_loss}\n")
+            save(os.path.join(weights_dir, "best_loss_weights"))
+            if main:
+                with open(os.path.join(loop.output_dir, "best_epochs.txt"),
+                          "w") as f:
+                    f.write(f"Best val loss epoch: {best_epoch}\n"
+                            f"Best val loss: {best_eval_loss}\n")
         if (epoch + 1) % loop.weight_modulus == 0:
-            ckpt.save_checkpoint(
-                os.path.join(weights_dir, f"epoch_{epoch + 1:04d}"), state)
-
+            save(os.path.join(weights_dir, f"epoch_{epoch + 1:04d}"))
+        if not main:
+            continue
         _csv_row(results_file, [
             epoch + 1, lr,
             train_m.get("loss", ""), train_m.get("loss_chord", ""),

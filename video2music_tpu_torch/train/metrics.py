@@ -4,7 +4,8 @@ are 1.0 when every target is PAD; correspondence is -1.0 when no frame
 passes the emotion filter; an emitted "N" counts as quality "maj"; the
 root x attr reconstruction of separated heads applies a second softmax to
 the product distribution before top-k), and the regression's per-batch
-sums."""
+sums. ``reduce`` (a sharded eval's sum over its data group) makes a rate
+the global batch's: numerator and count summed before the division."""
 
 from __future__ import annotations
 
@@ -16,22 +17,26 @@ from ..core import constants as C
 from ..core.vocab import chord_to_root_attr_tables
 
 
-def _masked_rate(hit, tgt):
+def _summed(num, den, reduce):
+    return (num, den) if reduce is None else (reduce(num), reduce(den))
+
+
+def _masked_rate(hit, tgt, reduce=None):
     mask = (tgt != C.CHORD_PAD).float()
-    denom = mask.sum()
-    rate = (hit.float() * mask).sum() / denom.clamp(min=1.0)
+    num, denom = _summed((hit.float() * mask).sum(), mask.sum(), reduce)
+    rate = num / denom.clamp(min=1.0)
     return torch.where(denom == 0, torch.ones_like(rate), rate)
 
 
-def compute_vevo_accuracy(logits, tgt):
+def compute_vevo_accuracy(logits, tgt, reduce=None):
     """Masked top-1 accuracy. logits (B, L, CHORD_SIZE); tgt (B, L)."""
-    return _masked_rate(logits.argmax(-1) == tgt, tgt)
+    return _masked_rate(logits.argmax(-1) == tgt, tgt, reduce)
 
 
-def compute_hits_k(logits, tgt, k: int):
+def compute_hits_k(logits, tgt, k: int, reduce=None):
     """Hits@k: the target among the top-k logits, over non-PAD targets."""
     topk = logits.topk(k, dim=-1).indices
-    return _masked_rate((topk == tgt[..., None]).any(-1), tgt)
+    return _masked_rate((topk == tgt[..., None]).any(-1), tgt, reduce)
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,7 +47,8 @@ def _quality_table(device: str) -> torch.Tensor:
 
 
 def compute_vevo_correspondence(logits, tgt, tgt_emotion, tgt_emotion_prob,
-                                emotion_threshold: float = C.EMOTION_THRESHOLD):
+                                emotion_threshold: float = C.EMOTION_THRESHOLD,
+                                reduce=None):
     """Fraction of emitted chords whose quality the frame's dominant emotion
     allows; -1.0 when no frame passes the filter. logits (B, L, CHORD_SIZE)
     or (B, L) predictions; tgt_emotion (B, L, CHORD_SIZE);
@@ -60,8 +66,8 @@ def compute_vevo_correspondence(logits, tgt, tgt_emotion, tgt_emotion_prob,
     allowed = tgt_emotion[..., 0:14].gather(
         -1, quality.clamp(max=13)[..., None])[..., 0] == 1
     right = (passes & emittable & allowed).float()
-    pt = passes.float().sum()
-    rate = right.sum() / pt.clamp(min=1.0)
+    num, pt = _summed(right.sum(), passes.float().sum(), reduce)
+    rate = num / pt.clamp(min=1.0)
     return torch.where(pt == 0, torch.full_like(rate, -1.0), rate)
 
 

@@ -27,6 +27,16 @@ moves in the training forward.
 
 Every entry point runs on CUDA unless the caller passes ``device="cpu"``,
 and raises without CUDA.
+
+On a mesh (``make_amt_train_step(..., mesh=...)``, the model cut by
+parallel/shard.py and the batch this rank's rows): the loss terms are the
+global batch's (each masked mean's numerator and count summed over the
+data group before the division, ops/losses.py), so every rank holds the
+unsharded loss and its part of each gradient; the gradients are then
+summed over the data group (not averaged) and the optimizers, which act
+entry by entry, update each rank's shares unchanged. The eval step's
+rates are the global batch's the same way. The step generator advances in
+lock-step on every rank, so ``drop_loss`` draws alike.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from ..core.config import (AMTConfig, MusicTransformerConfig,
                            RegressionConfig, TrainConfig)
 from ..models import MusicTransformer, VideoMusicTransformer, VideoRegression
 from ..ops.losses import bce, bce_with_logits, combined_chord_loss, smooth_l1
+from ..parallel.comm import all_reduce_coalesced, reduce_from
 from ..weights import init_weights_
 from . import metrics as M
 from .optim import make_optimizer
@@ -121,20 +132,31 @@ def maybe_bf16_batch(batch: Dict, tcfg: TrainConfig) -> Dict:
             for k, v in batch.items()}
 
 
-def _chord_loss(logits, tgt, tcfg: TrainConfig, vocab: int, pad: int):
+def data_sum(mesh):
+    """The differentiable sum over ``mesh``'s data group (None without a
+    mesh): the ``reduce`` of the losses and metrics."""
+    if mesh is None:
+        return None
+    return lambda t: reduce_from(t, mesh.data)
+
+
+def _chord_loss(logits, tgt, tcfg: TrainConfig, vocab: int, pad: int,
+                reduce=None):
     return combined_chord_loss(
         logits, tgt, vocab_size=vocab, ignore_index=pad,
         label_smoothing=(tcfg.ce_smoothing or 0.0),
-        auxiliary=tcfg.auxiliary_loss)
+        auxiliary=tcfg.auxiliary_loss, reduce=reduce)
 
 
-def amt_loss(logits, batch, tcfg: TrainConfig, generator=None):
+def amt_loss(logits, batch, tcfg: TrainConfig, generator=None, reduce=None):
     """(total, (loss_chord, loss_emotion)); with a ``generator`` the
     drop_loss selection: p < 0.6 combined, p < 0.8 chord only, else
-    emotion only (one uniform draw, on the device)."""
+    emotion only (one uniform draw, on the device). ``reduce``: a sharded
+    step's sum over its data group."""
     loss_chord = _chord_loss(logits, batch["tgt"], tcfg, C.CHORD_SIZE,
-                             C.CHORD_PAD)
-    loss_emotion = bce_with_logits(logits, batch["tgt_emotion"].float())
+                             C.CHORD_PAD, reduce)
+    loss_emotion = bce_with_logits(logits, batch["tgt_emotion"].float(),
+                                   reduce)
     lam = tcfg.loss_lambda
     combined = lam * loss_chord + (1.0 - lam) * loss_emotion
     if generator is None:
@@ -145,12 +167,13 @@ def amt_loss(logits, batch, tcfg: TrainConfig, generator=None):
     return total, (loss_chord, loss_emotion)
 
 
-def amt_separated_loss(logits_root, logits_attr, batch, tcfg: TrainConfig):
+def amt_separated_loss(logits_root, logits_attr, batch, tcfg: TrainConfig,
+                       reduce=None):
     """Separated heads: CE(root) + CE(attr), no emotion term."""
     return (_chord_loss(logits_root, batch["tgt_root"], tcfg,
-                        C.CHORD_ROOT_SIZE, C.CHORD_ROOT_PAD)
+                        C.CHORD_ROOT_SIZE, C.CHORD_ROOT_PAD, reduce)
             + _chord_loss(logits_attr, batch["tgt_attr"], tcfg,
-                          C.CHORD_ATTR_SIZE, C.CHORD_ATTR_PAD))
+                          C.CHORD_ATTR_SIZE, C.CHORD_ATTR_PAD, reduce))
 
 
 def regression_loss(ln_nd, inst, batch):
@@ -167,11 +190,11 @@ def _model_args(batch, keys=MODEL_INPUTS):
 
 
 def _forward_backward(state: TrainState, tcfg: TrainConfig, batch: Dict,
-                      keys, kwargs, loss_fn):
+                      keys, kwargs, loss_fn, mesh=None):
     """One training forward of ``state.model`` on ``batch[keys]`` (bf16
     parameters and inputs under mixed precision) with ``kwargs``, the loss
-    ``loss_fn(out) -> (total, aux)``, its gradients and one optimizer
-    update, in place. Returns aux."""
+    ``loss_fn(out) -> (total, aux)``, its gradients (summed over the data
+    group on a mesh) and one optimizer update, in place. Returns aux."""
     model = state.model
     params = dict(model.named_parameters())
     fwd = ({n: p.to(torch.bfloat16) for n, p in params.items()}
@@ -181,7 +204,10 @@ def _forward_backward(state: TrainState, tcfg: TrainConfig, batch: Dict,
                           kwargs, strict=False)
     total, aux = loss_fn(out)
     trainable = [p for p in params.values() if p.requires_grad]
-    grads = iter(torch.autograd.grad(total, trainable))
+    grads = torch.autograd.grad(total, trainable)
+    if mesh is not None:
+        grads = all_reduce_coalesced(grads, mesh.data)
+    grads = iter(grads)
     state.optimizer.step([next(grads) if p.requires_grad
                           else torch.zeros_like(p)
                           for p in params.values()])
@@ -189,28 +215,33 @@ def _forward_backward(state: TrainState, tcfg: TrainConfig, batch: Dict,
     return aux
 
 
-def make_amt_train_step(tcfg: TrainConfig, drop_loss: bool = False):
+def make_amt_train_step(tcfg: TrainConfig, drop_loss: bool = False,
+                        mesh=None):
     """``train_step(state, batch) -> (state, metrics)``: one forward and
     backward (bf16 under mixed precision) and one optimizer update, in
     place. metrics: loss, loss_chord, loss_emotion (f32 scalars on the
     device) and the MoE layers' expert_counts (n, E) and maxvio (n,).
     Separated heads optimise their loss; loss_chord is then the total and
-    loss_emotion -1."""
+    loss_emotion -1. ``mesh``: a sharded step (the state's model cut by
+    parallel/shard.py, ``batch`` this rank's rows)."""
+    reduce = data_sum(mesh)
 
     def train_step(state: TrainState, batch: Dict):
         model = state.model
 
         def loss_fn(logits):
             if model.cfg.separated:
-                total = amt_separated_loss(*logits, batch, tcfg)
+                total = amt_separated_loss(*logits, batch, tcfg, reduce)
                 return total, (total, total, torch.full_like(total, -1.0))
             total, (lc, le) = amt_loss(
-                logits, batch, tcfg, state.generator if drop_loss else None)
+                logits, batch, tcfg, state.generator if drop_loss else None,
+                reduce)
             return total, (total, lc, le)
 
         total, lc, le = _forward_backward(
             state, tcfg, batch, MODEL_INPUTS,
-            {"deterministic": False, "generator": state.generator}, loss_fn)
+            {"deterministic": False, "generator": state.generator}, loss_fn,
+            mesh)
         metrics = {"loss": total.detach(), "loss_chord": lc.detach(),
                    "loss_emotion": le.detach()}
         metrics.update(model.moe_metrics())
@@ -219,30 +250,32 @@ def make_amt_train_step(tcfg: TrainConfig, drop_loss: bool = False):
     return train_step
 
 
-def make_amt_eval_step(tcfg: TrainConfig):
+def make_amt_eval_step(tcfg: TrainConfig, mesh=None):
     """``eval_step(model, batch) -> metrics``: the f32 eval forward, the
     loss terms, accuracy, hits@1/3/5 and correspondence; separated heads
-    score through the root x attr reconstruction."""
+    score through the root x attr reconstruction. ``mesh``: a sharded
+    eval, whose metrics are the global batch's."""
+    r = data_sum(mesh)
 
     @torch.no_grad()
     def eval_step(model, batch: Dict):
         logits = model(*_model_args(batch))
         if model.cfg.separated:
-            total = amt_separated_loss(*logits, batch, tcfg)
+            total = amt_separated_loss(*logits, batch, tcfg, r)
             lc, le = total, torch.full_like(total, -1.0)
             logits = torch.log(M.root_attr_to_chord_logits(*logits) + 1e-20)
         else:
-            total, (lc, le) = amt_loss(logits, batch, tcfg)
+            total, (lc, le) = amt_loss(logits, batch, tcfg, reduce=r)
         tgt = batch["tgt"]
         return {
             "loss": total, "loss_chord": lc, "loss_emotion": le,
-            "accuracy": M.compute_vevo_accuracy(logits, tgt),
-            "hits@1": M.compute_hits_k(logits, tgt, 1),
-            "hits@3": M.compute_hits_k(logits, tgt, 3),
-            "hits@5": M.compute_hits_k(logits, tgt, 5),
+            "accuracy": M.compute_vevo_accuracy(logits, tgt, r),
+            "hits@1": M.compute_hits_k(logits, tgt, 1, r),
+            "hits@3": M.compute_hits_k(logits, tgt, 3, r),
+            "hits@5": M.compute_hits_k(logits, tgt, 5, r),
             "correspondence": M.compute_vevo_correspondence(
                 logits, tgt, batch["tgt_emotion"],
-                batch["tgt_emotion_prob"]),
+                batch["tgt_emotion_prob"], reduce=r),
         }
 
     return eval_step
