@@ -175,7 +175,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      /reload, then the generate CLI's chords; 404 and 400), one demo form
      POST, and extract_features semantic / emotion / scene / motion on a
      cv2 clip against Video2music.extract_features; every step's kernel
-     launches equal to what its path implies ("launches_clis").
+     launches equal to what its path implies ("launches_clis");
+  14. published layouts (after "multi-GPU" and "CLIs"): generate_chords
+     on AMT 2.2 at shapes the decode kernels refuse (d_model 96 / 8
+     heads, 36 / 2 heads) decodes on the plain step, fused="on" warning,
+     and rows 1 / 11 above head size 256 and the scan above d_state 1024
+     raise their ValueError; CLIP ViT-L/14@336 converted from a seeded
+     transformers CLIPModel (convert_hf_clip) and MaxViT-T from a seeded
+     tools/torch_maxvit_mirror.py model (convert_torchvision_maxvit)
+     against their sources on 30 frames, f32 and bf16, with row 1's
+     launches and ms; a full-width 2.2 and base-AMT state dict in the
+     reference's names, converted by the convert_reference_checkpoint
+     CLI in subprocesses and served by Video2music(amt_checkpoint=...):
+     a 300 s request (2.2: "ends", then "monolith" through
+     generate_chords; the base AMT: row 8) and generate_batch at B=16,
+     every clip checked, launches as the path implies
+     ("launches_published"), the tokens equal to the same model loaded
+     from the in-memory conversion.
 The "dropout forms" phase (after "dropout kernels") holds the dropout
 attention in its two training forms to its plain version in f32 and bf16
 (output, mask entry for entry, dq / dk / dv / dbias) with its times,
@@ -5798,6 +5814,549 @@ def cli_mesh_phase(root, tmp, card, report):
           f"{np.asarray(res.chord_ids)[:8].tolist()}... [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the published layouts (HF CLIP, torchvision MaxViT, the
+# reference's checkpoints through the converter CLI)
+# ---------------------------------------------------------------------------
+
+# (version, d_model, heads, d_ff) the decode kernels refuse: head size 12,
+# and head size 18 beside d_model 36 (not a multiple of 8)
+REFUSED_SHAPES = (("2.2", 96, 8, 64), ("2.2", 36, 2, 72))
+PUBLISHED_B = 16
+
+
+def add_launches(report, counts):
+    """Add ``counts`` (name -> launches on the published-layouts paths) to
+    each kernel's ``launches_published``."""
+    for name, n in counts.items():
+        if n:
+            report[name]["launches_published"] = \
+                report[name].get("launches_published", 0) + n
+
+
+def seeded_(module, gen):
+    """Every float parameter of ``module`` from ``gen`` (on its device):
+    matrices and kernels N(0, 1 / fan_in), vectors their own init plus
+    N(0, 0.02); BatchNorm statistics N(0, 0.1) means, U(0.5, 1.5)
+    variances. Returns the module."""
+    import torch
+    with torch.no_grad():
+        for p in module.parameters():
+            noise = torch.randn(p.shape, generator=gen, device=p.device)
+            if p.dim() >= 2:
+                p.copy_(noise * p[0].numel() ** -0.5)
+            else:
+                p.add_(noise * 0.02)
+        for name, b in module.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(torch.randn(b.shape, generator=gen,
+                                    device=b.device) * 0.1)
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=gen,
+                                   device=b.device) + 0.5)
+    return module
+
+
+def reference_state_dict(kind, seed, d=512, ff=1024, heads=8, n=6, E=6,
+                         vf=768 + 1 + 512 + 6, S=300):
+    """An AMT state dict in the reference's torch module names, random from
+    a seeded torch.Generator (full width by default; the port's tests
+    build theirs here too, at small widths): "amt" the base AMT (the
+    nn.Transformer core with the decoder's RPR ``Er`` tables), "amt_v2"
+    2.2 and "amt_v3" 3.1 (min(3, n - 1) SwiGLU layers, then SharedMoE
+    layers of E experts; 3.1 with RMSNorm, bias-free differential
+    attention and the experts' balancing biases). Matrices N(0, 1 /
+    fan_in), vectors N(0, 0.02), norm scales 1 + N(0, 0.02)."""
+    import torch
+    from video2music_tpu_torch.core import constants as C
+    if kind not in ("amt", "amt_v2", "amt_v3"):
+        raise ValueError(f"kind must be amt, amt_v2 or amt_v3, got {kind!r}")
+    gen = torch.Generator().manual_seed(seed)
+    W = lambda o, i: torch.randn(o, i, generator=gen) * i ** -0.5
+    vec = lambda *m: torch.randn(*m, generator=gen) * 0.02
+    v3, hd = kind == "amt_v3", d // heads
+    sd = {}
+
+    def lin(p, o, i):
+        sd[p + ".weight"], sd[p + ".bias"] = W(o, i), vec(o)
+
+    def norm(p, m=d):
+        sd[p + ".weight"] = 1 + vec(m)
+        if not v3:
+            sd[p + ".bias"] = vec(m)
+
+    def mha(p):
+        if v3:  # differential: bias-free, 2x q / k heads
+            for name, rows in (("q_proj", 2 * d), ("k_proj", 2 * d),
+                               ("v_proj", d), ("out_proj", d)):
+                sd[f"{p}.{name}.weight"] = W(rows, d)
+            for lam in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
+                sd[f"{p}.{lam}"] = vec(hd)
+            norm(p + ".subln", hd)
+            return
+        sd[p + ".in_proj_weight"], sd[p + ".in_proj_bias"] = (W(3 * d, d),
+                                                              vec(3 * d))
+        lin(p + ".out_proj", d, d)
+
+    def glu(p):
+        lin(p + ".linear1", ff, d)
+        lin(p + ".gate", ff, d)
+        lin(p + ".linear2", d, ff)
+
+    def moe(p):
+        lin(p + ".gate", E, d)
+        for e in range(E):
+            glu(f"{p}.experts.{e}")
+        glu(p + ".shared_expert")
+        if v3:
+            sd[p + ".bias"] = vec(E, 1)  # the balancing buffer
+
+    sd["embedding_root.weight"] = W(C.CHORD_ROOT_SIZE, d)
+    sd["embedding_attr.weight"] = W(C.CHORD_ATTR_SIZE, d)
+    lin("Linear_chord", d, d + 1)
+    lin("Linear_vis", d, vf)
+    lin("Wout", C.CHORD_SIZE, d)
+    norm("transformer.encoder.norm")
+    norm("transformer.decoder.norm")
+    rate = min(3, max(0, n - 1))
+    for i in range(n):
+        e, dd = f"transformer.encoder.layers.{i}", \
+            f"transformer.decoder.layers.{i}"
+        mha(e + ".self_attn")
+        mha(dd + ".self_attn")
+        for name in ("norm1", "norm2"):
+            norm(f"{e}.{name}")
+        for name in ("norm1", "norm2", "norm3"):
+            norm(f"{dd}.{name}")
+        if kind == "amt":
+            sd[dd + ".self_attn.Er"] = W(S, hd)
+            mha(dd + ".multihead_attn")
+            for p in (e, dd):
+                lin(p + ".linear1", ff, d)
+                lin(p + ".linear2", d, ff)
+        else:
+            mha(dd + ".cross_attn")
+            (glu if i < rate else moe)(e + ".ff")
+            (glu if i < rate else moe)(dd + ".ff")
+    return sd
+
+
+def refused_shapes_phase(card, report):
+    """Step 0 on the card: generate_chords on AMT 2.2 at the shapes the
+    decode kernels refuse decodes on the plain step (no decode kernel
+    launches), fused="on" warning; the limits kept raise their
+    ValueError on CUDA tensors (rows 1 and 11 above head size 256, the
+    scan above d_state 1024)."""
+    import warnings
+
+    import torch
+    from video2music_tpu_torch.core.config import amt_config
+    from video2music_tpu_torch.decode.sampler import (GenerateConfig,
+                                                      generate_chords)
+    from video2music_tpu_torch.models import VideoMusicTransformer
+    from video2music_tpu_torch.ops.flash_attention import flash_attention
+    from video2music_tpu_torch.ops.flash_attention_dropout import (
+        flash_attention_dropout_fwd)
+    from video2music_tpu_torch.ops.scan import selective_scan
+    from video2music_tpu_torch.weights import init_weights_
+    dev = torch.device("cuda")
+    T = 300
+    for version, D, H, F in REFUSED_SHAPES:
+        cfg = amt_config(version, n_layers=2, num_heads=H, d_model=D,
+                         d_ff=F, total_vf_dim=11, dropout=0.0)
+        model = init_weights_(VideoMusicTransformer(cfg),
+                              torch.Generator().manual_seed(3)).to(dev)
+        model.eval()
+        r = torch.Generator(device=dev).manual_seed(1)
+        feats = dict(semantic=torch.randn(1, T, 7, generator=r, device=dev),
+                     key=torch.ones(1, 1, device=dev),
+                     scene_offset=torch.zeros(1, T, device=dev),
+                     motion=torch.randn(1, T, generator=r, device=dev),
+                     emotion=torch.rand(1, T, 2, generator=r, device=dev))
+        p = torch.tensor([[5, 122]], dtype=torch.int32, device=dev)
+        kw = dict(primer=p, primer_root=p % 12 + 1, primer_attr=p % 14,
+                  num_primer=2, gcfg=GenerateConfig(target_seq_length=T),
+                  **feats)
+        outs = {}
+        for fused in ("auto", "on"):
+            zero_launches()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = generate_chords(model, fused=fused, generator=torch
+                                      .Generator(device=dev).manual_seed(2),
+                                      **kw)
+            warned = any("CUDA shape limits" in str(w.message)
+                         for w in caught)
+            fail_unless(warned == (fused == "on"),
+                        f"d_model {D} / {H} heads, fused={fused!r}: "
+                        f"warned {warned}")
+            check_ids(f"refused shape d_model {D} / {H} heads {fused}",
+                      out["gen_seq"][0].cpu().numpy(), "", T)
+            enc = {"flash_attention": len(cfg.encoder_layers)}
+            check_path_launches(f"d_model {D} / {H} heads fused={fused!r} "
+                                f"(plain step)", enc)
+            add_launches(report, enc)
+            outs[fused] = out["gen_seq"].cpu()
+        fail_unless(torch.equal(outs["auto"], outs["on"]),
+                    f"d_model {D} / {H} heads: auto and on differ")
+        print(f"  d_model {D}, {H} heads (head size {D // H}), d_ff {F}: "
+              f"300 tokens on the plain step, fused='on' warned, decode "
+              f"{out['timings_ms']['decode'] / (T - 1):.4f} ms/token "
+              f"[{card}]")
+    # int8 KV caches beside head size 8 at B=2: the batched kernels keep
+    # the config with full-precision caches, and warn; the tokens are
+    # those of kv_quant=None
+    cfg = amt_config("2.2", n_layers=2, num_heads=8, d_model=64, d_ff=128,
+                     total_vf_dim=11, dropout=0.0)
+    model = init_weights_(VideoMusicTransformer(cfg),
+                          torch.Generator().manual_seed(3)).to(dev).eval()
+    kw2 = {k: v.expand(2, *v.shape[1:]).contiguous() for k, v in kw.items()
+           if torch.is_tensor(v)}
+    kw2.update(num_primer=2, gcfg=GenerateConfig(target_seq_length=T))
+    outs = {}
+    for kv in ("int8", None):
+        zero_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = generate_chords(model, kv_quant=kv, generator=torch
+                                  .Generator(device=dev).manual_seed(2),
+                                  **kw2)
+        warned = any("full-precision KV" in str(w.message) for w in caught)
+        fail_unless(warned == (kv is not None),
+                    f"head size 8, B=2, kv_quant={kv!r}: warned {warned}")
+        counts = {n: fn.launches for n, fn in wrappers().items()}
+        fail_unless(counts["batched_layer_step"] > 0
+                    and counts["batched_moe_ffn"] > 0,
+                    f"head size 8, B=2, kv_quant={kv!r}: the batched "
+                    f"kernels did not launch: {counts}")
+        add_launches(report, counts)
+        for b in range(2):
+            check_ids(f"head size 8 B=2 kv_quant={kv!r} clip {b}",
+                      out["gen_seq"][b].cpu().numpy(), "", T)
+        outs[kv] = out["gen_seq"].cpu()
+    fail_unless(torch.equal(outs["int8"], outs[None]),
+                "head size 8, B=2: kv_quant='int8' (dropped) and None differ")
+    print(f"  d_model 64, 8 heads (head size 8), B=2, kv_quant='int8': "
+          f"warned, batched kernels with full-precision caches "
+          f"(batched_layer_step {counts['batched_layer_step']}, "
+          f"batched_moe_ffn {counts['batched_moe_ffn']} launches), tokens "
+          f"equal kv_quant=None's [{card}]")
+    zero_launches()
+    q = torch.zeros(1, 2, 8, 320, device=dev)
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    x = torch.zeros(1, 4, 8, device=dev)
+    for name, fn, msg in (
+            ("flash_attention", lambda: flash_attention(q, q, q),
+             "head_dim 320 above 256"),
+            ("flash_attention_dropout", lambda: flash_attention_dropout_fwd(
+                q, q, q, None, seed, False, 0.1), "head_dim 320 above 256"),
+            ("selective_scan", lambda: selective_scan(
+                x, x, torch.zeros(8, 1025, device=dev),
+                torch.zeros(1, 4, 1025, device=dev),
+                torch.zeros(1, 4, 1025, device=dev),
+                torch.zeros(8, device=dev)), "d_state 1025 outside")):
+        try:
+            fn()
+        except ValueError as e:
+            fail_unless(msg in str(e), f"{name}: {e}")
+            print(f"  {name} keeps its limit: ValueError {str(e)[:72]!r}")
+        else:
+            raise SmokeFailure(f"{name}: no ValueError beyond its limit")
+    check_path_launches("the limits", {})
+
+
+def hf_clip_vit_l14_336(dev, gen):
+    """A transformers CLIPModel at the ViT-L/14@336 config on ``dev``,
+    float32, seeded from ``gen``."""
+    import torch
+    from transformers import CLIPConfig, CLIPModel
+    cfg = CLIPConfig(
+        text_config=dict(hidden_size=768, intermediate_size=3072,
+                         num_hidden_layers=12, num_attention_heads=12,
+                         max_position_embeddings=77, vocab_size=49408,
+                         hidden_act="quick_gelu"),
+        vision_config=dict(hidden_size=1024, intermediate_size=4096,
+                           num_hidden_layers=24, num_attention_heads=16,
+                           patch_size=14, image_size=336,
+                           hidden_act="quick_gelu"),
+        projection_dim=768)
+    with torch.device(dev):
+        hf = CLIPModel(cfg)
+    return seeded_(hf, gen).float().eval()
+
+
+def image_features(out):
+    """HF's get_image_features, a tensor (or the output object holding
+    it, in transformers versions that return one)."""
+    import torch
+    return out if torch.is_tensor(out) else out.pooler_output
+
+
+def extractor_layout_phase(card, report):
+    """CLIP-L/14@336 from a transformers CLIPModel (convert_hf_clip) and
+    MaxViT-T from tools/torch_maxvit_mirror.py (convert_torchvision_
+    maxvit), on seeded weights: the port's forward through row 1 against
+    the source module's on 30 frames, f32 and bf16 (bf16 against the
+    source's f32; the source's own bf16 distance printed beside), row 1's
+    launches, the forwards' ms and row 1's ms in the forms they give it
+    (CLIP's; MaxViT's stages 0 and 3), on their own activations."""
+    import copy
+
+    import torch
+    from tools.torch_maxvit_mirror import feature_extractor, maxvit_t_mirror
+    from video2music_tpu_torch.features import clip as clip_mod
+    from video2music_tpu_torch.features import maxvit as maxvit_mod
+    from video2music_tpu_torch.features.clip import (
+        CLIP, clip_vit_l14_336_config, convert_hf_clip)
+    from video2music_tpu_torch.features.maxvit import (
+        MaxViT, convert_torchvision_maxvit, maxvit_t_config)
+    from video2music_tpu_torch.ops.flash_attention import flash_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = report.setdefault("published", {})
+    for name, per_call in (("CLIP ViT-L/14@336", 24), ("MaxViT-T", 22)):
+        t0 = time.perf_counter()
+        if per_call == 24:
+            src = hf_clip_vit_l14_336(dev, gen)
+            t1 = time.perf_counter()
+            cfg = clip_vit_l14_336_config()
+            state = convert_hf_clip(src.state_dict(), cfg)
+            with torch.device(dev):
+                port = CLIP(cfg)
+            size = cfg.vision.image_size
+            src_fwd = lambda m, x: image_features(
+                m.get_image_features(pixel_values=x.permute(0, 3, 1, 2)))
+            port_fwd = lambda m, x: m.encode_image(x)
+        else:
+            with torch.device(dev):
+                src = feature_extractor(maxvit_t_mirror())
+            src = seeded_(src, gen).eval()
+            t1 = time.perf_counter()
+            cfg = maxvit_t_config()
+            state = convert_torchvision_maxvit(src.state_dict(), cfg)
+            with torch.device(dev):
+                port = MaxViT(cfg)
+            size = cfg.image_size
+            src_fwd = lambda m, x: m(x.permute(0, 3, 1, 2))
+            port_fwd = lambda m, x: m(x)
+        port.load_state_dict(state)
+        port.eval()
+        print(f"  {name}: the source built and seeded in {t1 - t0:.1f} s, "
+              f"converted and loaded in {time.perf_counter() - t1:.1f} s")
+        x = torch.randn(30, size, size, 3, generator=gen, device=dev)
+        row = out[name] = {}
+        with torch.no_grad():
+            want = src_fwd(src, x)
+            n0 = flash_attention.launches
+            got = port_fwd(port, x)
+            abs_err, rel = errors(got, want)
+            verdict = "ok" if rel <= EXTRACT_F32_REL else "FAIL"
+            print(f"  {name} f32, 30 frames, against the source module: "
+                  f"max_abs {abs_err:.3e} max_rel {rel:.3e} (rel "
+                  f"{EXTRACT_F32_REL}) {verdict}")
+            fail_unless(rel <= EXTRACT_F32_REL,
+                        f"{name}: f32 differs from the source module")
+            src_bf, port_bf = (copy.deepcopy(m).to(torch.bfloat16)
+                               for m in (src, port))
+            xb = x.to(torch.bfloat16)
+            got = port_fwd(port_bf, xb).float()
+            n = flash_attention.launches - n0
+            fail_unless(n == 2 * per_call, f"{name}: {n} row-1 launches in "
+                        f"two forwards, {2 * per_call} implied")
+            add_launches(report, {"flash_attention": n})
+            abs_err, rel = errors(got, want)
+            _, src_rel = errors(src_fwd(src_bf, xb).float(), want)
+            print(f"  {name} bf16 against the source's f32: max_abs "
+                  f"{abs_err:.3e} max_rel {rel:.3e} (rel {EXTRACT_BF16_REL};"
+                  f" the source's own bf16: {src_rel:.3e}) "
+                  f"{'ok' if rel <= EXTRACT_BF16_REL else 'FAIL'}")
+            fail_unless(bool(torch.isfinite(got).all())
+                        and rel <= EXTRACT_BF16_REL,
+                        f"{name}: bf16 differs from the source's f32")
+            for dt, m, s, xx in (("float32", port, src, x),
+                                 ("bfloat16", port_bf, src_bf, xb)):
+                row[f"ms_30_frames_{dt}"] = eager_ms(
+                    lambda: port_fwd(m, xx), iters=3)
+                row[f"source_ms_30_frames_{dt}"] = eager_ms(
+                    lambda: src_fwd(s, xx), iters=3)
+            # row 1 in the forms this forward gives it (CLIP: its one
+            # form; MaxViT: stages 0 and 3), timed on these activations
+            mod = clip_mod if per_call == 24 else maxvit_mod
+            seen = []
+
+            def record(q, k, v, **kw):
+                seen.append((q, k, v, kw))
+                return flash_attention(q, k, v, **kw)
+
+            mod.flash_attention = record
+            try:
+                port_fwd(port_bf, xb)
+            finally:
+                mod.flash_attention = flash_attention
+            forms = row["row1_ms"] = {}
+            for q, k, v, kw in (seen[:1] if per_call == 24
+                                else [seen[0], seen[-1]]):
+                form = forms[str(list(q.shape))] = {}
+                form["bfloat16"] = time_ms(
+                    lambda: flash_attention(q, k, v, **kw))[0]
+                q, k, v = (t.float() for t in (q, k, v))
+                form["float32"] = time_ms(
+                    lambda: flash_attention(q, k, v, **kw))[0]
+        print(f"  {name} forward, 30 frames: port "
+              f"{row['ms_30_frames_bfloat16']:.2f} ms bf16 / "
+              f"{row['ms_30_frames_float32']:.2f} ms f32, source module "
+              f"{row['source_ms_30_frames_bfloat16']:.2f} / "
+              f"{row['source_ms_30_frames_float32']:.2f} (CUDA events); "
+              f"row 1 (B, H, L, D) bf16 / f32 device ms: "
+              + ", ".join(f"{shape} {t['bfloat16']:.4f} / {t['float32']:.4f}"
+                          for shape, t in forms.items()) + f" [{card}]")
+        del src, port, src_bf, port_bf, state
+        torch.cuda.empty_cache()
+
+
+def convert_cli(tmp, kind, sd):
+    """Write ``sd`` as a pickle and start the converter CLI on it (a
+    subprocess on the card); returns (process, output path)."""
+    import torch
+    pickle = os.path.join(tmp, f"{kind}.pickle")
+    torch.save(sd, pickle)
+    ckpt = os.path.join(tmp, f"{kind}_weights")
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "video2music_tpu_torch.cli.convert_reference_checkpoint",
+         "--weights", pickle, "--kind", kind, "--out", ckpt],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, ckpt
+
+
+def checkpoint_serving_phase(card, report):
+    """A full-width 2.2 (--kind amt_v2) and base-AMT (--kind amt)
+    reference state dict, seeded, through the converter CLI (two
+    subprocesses at once), served by Video2music(amt_checkpoint=...): one
+    300 s request through generate (2.2: "ends"; the base AMT: row 8), the
+    same request through generate_chords under "monolith" (2.2), and
+    generate_batch at B=16; every clip checked, the launches equal to the
+    path's, then the same calls on the in-memory conversion
+    (amt_from_jax(convert_reference_*(sd))): the same tokens."""
+    import numpy as np
+    import torch
+    from video2music_tpu_torch.decode.sampler import generate_chords
+    from video2music_tpu_torch.pipeline.api import Video2music
+    from video2music_tpu_torch.train import convert
+    from video2music_tpu_torch.weights import amt_from_jax
+    T, B = 300, PUBLISHED_B
+    out = report.setdefault("published", {})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sds = {kind: reference_state_dict(kind, seed)
+               for kind, seed in (("amt_v2", 22), ("amt", 10))}
+        procs = {kind: convert_cli(tmp, kind, sd) for kind, sd in sds.items()}
+        for kind, (proc, _) in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            print("  " + text.strip().replace("\n", "\n  "))
+            fail_unless(proc.returncode == 0,
+                        f"convert_reference_checkpoint --kind {kind}: "
+                        f"rc {proc.returncode}")
+        print(f"  two reference pickles written and converted in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for kind, version in (("amt_v2", "2.2"), ("amt", None)):
+            sd, (_, ckpt) = sds[kind], procs[kind]
+            row = out[kind] = {}
+            v2m = Video2music(music_gen_version=version, seed=0,
+                              device="cuda", amt_checkpoint=ckpt)
+            label = f"converted {kind} ({version or 'base AMT'})"
+            v2m.generate(features=synthetic_features(30, 99),  # warm-up
+                         output_dir=os.path.join(tmp, "warm_up"))
+            req = REQUESTS[0]
+            reqs, temps = serving_requests(B, 5000)
+            runs = {}
+            for source in ("checkpoint", "in memory"):
+                if source == "in memory":
+                    params = (convert.convert_reference_amt_v2(sd)
+                              if kind == "amt_v2"
+                              else convert.convert_reference_amt(sd))
+                    v2m.load_state_dicts(amt_from_jax(
+                        params, convert.convert_reference_moe_state(sd)))
+                zero_launches()
+                t0 = time.perf_counter()
+                res = v2m.generate(
+                    primer=req["primer"], key=req["key"],
+                    temperature=req["temperature"],
+                    features=synthetic_features(T, 7), seed=7,
+                    output_dir=os.path.join(tmp, kind, source, "b1"))
+                wall = time.perf_counter() - t0
+                check_clip(f"{label} request", res, req["primer"], T,
+                           v2m.last_regression["instrument"],
+                           v2m.last_regression["ln_nd"])
+                row.setdefault("ms_token", []).append(
+                    v2m.last_timings["decode"] / (T - 1))
+                print(f"  {label} from the {source}: 300 s request, wall "
+                      f"{wall:.3f} s, {row['ms_token'][-1]:.4f} ms/token "
+                      f"[{card}]")
+                runs[source] = [res.chord_ids]
+                if version is not None:  # one launch a step
+                    model, _ = v2m._models("bfloat16")
+                    inputs = request_inputs(v2m, synthetic_features(T, 7),
+                                            req["primer"], torch.bfloat16)
+                    mono = generate_chords(
+                        model, fused="monolith", generator=torch.Generator(
+                            device=v2m.device).manual_seed(7), **inputs)
+                    ids = mono["gen_seq"][0].cpu().numpy()
+                    check_ids(f"{label} monolith", ids, req["primer"], T)
+                    row.setdefault("ms_token_monolith", []).append(
+                        mono["timings_ms"]["decode"] / (T - 1))
+                    print(f"  {label} from the {source}, monolith: "
+                          f"{row['ms_token_monolith'][-1]:.4f} ms/token "
+                          f"[{card}]")
+                    runs[source].append(ids)
+                t0 = time.perf_counter()
+                results = v2m.generate_batch(
+                    reqs, temperature=temps, seed=B,
+                    output_dir=os.path.join(tmp, kind, source, "b16"))
+                wall = time.perf_counter() - t0
+                check_batch(f"{label} B={B}", v2m, reqs, results)
+                row.setdefault("clips_s_b16", []).append(B / wall)
+                print(f"  {label} from the {source}: generate_batch B={B}, "
+                      f"wall {wall:.3f} s = {B / wall:.2f} clips/s, "
+                      f"{v2m.last_timings['decode'] / (T - 1):.4f} ms/step "
+                      f"[{card}]")
+                runs[source] += [r.chord_ids for r in results]
+                counts = {n: fn.launches for n, fn in wrappers().items()}
+                want = {n: sum(path_launches(v2m, w)[n] for w in (1, B))
+                        for n in KERNELS}
+                if version is not None:  # the monolith request's
+                    want["decode_monolith"] = T - 1
+                    want["flash_attention"] += len(v2m.amt_cfg
+                                                   .encoder_layers)
+                for n in KERNELS:
+                    fail_unless(counts[n] == want[n],
+                                f"{label} from the {source}: {n} launched "
+                                f"{counts[n]} times, the path implies "
+                                f"{want[n]}")
+                add_launches(report, counts)
+                print(f"  {label} from the {source} launches: " + ", ".join(
+                    f"{n} {counts[n]}" for n in KERNELS if counts[n])
+                    + " (each as the path implies; every other kernel 0)")
+            for a, b in zip(runs["checkpoint"], runs["in memory"]):
+                fail_unless(np.array_equal(a, b),
+                            f"{label}: the checkpoint's tokens differ from "
+                            f"the in-memory conversion's")
+            print(f"  {label}: {len(runs['checkpoint'])} clips, the "
+                  f"checkpoint's tokens equal the in-memory conversion's")
+            del v2m
+            torch.cuda.empty_cache()
+
+
+def published_layouts_phase(card, report):
+    """The published layouts: Step 0's routing on the card, the
+    extractors from HF / torchvision layouts, and the reference's
+    checkpoints through the converter CLI, served."""
+    refused_shapes_phase(card, report)
+    extractor_layout_phase(card, report)
+    checkpoint_serving_phase(card, report)
+
+
 def register_report(log: str) -> str:
     """One line per compiled kernel from ptxas -v: its (mangled) name, its
     registers, shared memory and spills."""
@@ -5905,6 +6464,8 @@ def main() -> int:
     phase("multi-GPU", multi_gpu_phase, card, report)
     torch.cuda.empty_cache()
     phase("CLIs", cli_phase, card, report)
+    torch.cuda.empty_cache()
+    phase("published layouts", published_layouts_phase, card, report)
     print(f"phase seconds: {json.dumps(seconds)}")
 
     rows = []
@@ -5943,7 +6504,8 @@ def main() -> int:
         # wirings' and the regression zoo's paths
         for key in ("launches_2h", "launches_wirings", "launches_zoo",
                     "launches_raw_video", "launches_train_zoo",
-                    "launches_clis", "launches_multi_gpu"):
+                    "launches_clis", "launches_multi_gpu",
+                    "launches_published"):
             if key in r:
                 row[key] = r[key]
         if "err_int8" in r:  # int8 weights (decode layers), int8 KV caches
@@ -5972,6 +6534,9 @@ def main() -> int:
     print(f"train zoo (this run): {json.dumps(report['train_zoo'])}")
     print(f"multi-GPU, ranks sharing one card over gloo (functional, not "
           f"scaling; this run): {json.dumps(report['multi_gpu'])}")
+    print(f"published layouts (this run; ms from CUDA events, ms/token "
+          f"and clips/s from the checkpoint and the in-memory conversion): "
+          f"{json.dumps(report['published'])} [{card}]")
     print(f"V3 decode step: {json.dumps(report['v3_step'])}")
     print(f"B=1 backends, ms/token: {json.dumps(report['backends'])}")
     print(f"int8 KV at B=16: {json.dumps(report['int8_kv_b16'])}")

@@ -85,21 +85,22 @@ def _features(r, n):
         emotion=r.uniform(size=(n, L, 2)).astype(np.float32))
 
 
-def _tiny_cfg(version, factory=amt_config, n_layers=4):
-    """A tiny config; a deeper one keeps one encoder layer (only the
-    decoder's depth matters here)."""
-    cfg = factory(version, n_layers=n_layers, num_heads=2, d_model=16,
-                  d_ff=32, max_seq_video=L, max_seq_chord=L,
+def _tiny_cfg(version, factory=amt_config, n_layers=4, d_model=16):
+    """A tiny config with two heads; a deeper one keeps one encoder layer
+    (only the decoder's depth matters here)."""
+    cfg = factory(version, n_layers=n_layers, num_heads=2,
+                  d_model=d_model, d_ff=2 * d_model, max_seq_video=L,
+                  max_seq_chord=L,
                   total_vf_dim=7 + 1 + 1 + 2, dropout=0.0)
     if n_layers > 4:
         cfg = dataclasses.replace(cfg, encoder_layers=cfg.encoder_layers[:1])
     return cfg
 
 
-def _pair(version, n, seed=0, n_layers=4):
+def _pair(version, n, seed=0, n_layers=4, d_model=16):
     """A tiny AMT in JAX and the port with the same bridged weights, and n
     clips' features."""
-    cfg = _tiny_cfg(version, n_layers=n_layers)
+    cfg = _tiny_cfg(version, n_layers=n_layers, d_model=d_model)
     feats = _features(np.random.default_rng(seed), n)
     jm = JaxAMT(cfg=cfg)
     z = jnp.zeros((1, L - 1), jnp.int32)
@@ -108,7 +109,7 @@ def _pair(version, n, seed=0, n_layers=4):
         feats["key"][:1], feats["scene_offset"][:1], feats["motion"][:1],
         feats["emotion"][:1])
     pm = VideoMusicTransformer(_tiny_cfg(version, port_amt_config,
-                                         n_layers)).eval()
+                                         n_layers, d_model)).eval()
     pm.load_state_dict(amt_from_jax(jax.device_get(variables["params"]),
                                     variables.get("moe_state")))
     memory, _ = jm.apply(variables, feats["semantic"], feats["scene_offset"],
@@ -123,8 +124,10 @@ def _pair(version, n, seed=0, n_layers=4):
 
 @pytest.fixture(scope="module")
 def v22():
-    """Tiny 2.2 (4 decoder layers: 3 SwiGLU + 1 SharedMoE), B=4 clips."""
-    return _pair("2.2", 4)
+    """Tiny 2.2 (4 decoder layers: 3 SwiGLU + 1 SharedMoE), B=4 clips, two
+    heads of 16: the batched kernels keep int8 KV caches at head sizes that
+    are multiples of 16 (ops/decode_layer.py decode_shape_fault)."""
+    return _pair("2.2", 4, d_model=32)
 
 
 @pytest.fixture(scope="module", params=["3.1", "3.2"])
@@ -309,7 +312,12 @@ def test_int8_kv_batched_layer_step_matches_pallas(v22, case):
 def test_int8_kv_batch_step_matches_jax_step(v22, ends):
     """8 teacher-forced steps of the batched step on int8 caches against
     the JAX make_fused_batch_step(kv_quant="int8") (Pallas interpret mode):
-    the logits, and the caches both steps append to."""
+    the caches each side quantizes (the primed cross K/V, then the rows
+    each step appends), and the logits of each step on the same int8
+    caches. Each step starts from the JAX caches: a value on a rounding
+    boundary of x / s, which the two frameworks' f32 sums put one quantum
+    apart (``_same_int8``), would otherwise move every later logit of
+    its clip by ~1e-3."""
     m = v22
     n = 4
     r = np.random.default_rng(5)
@@ -328,6 +336,9 @@ def test_int8_kv_batch_step_matches_jax_step(v22, ends):
         pstep = fused.make_fused_batch_step(m["pm"], ends=ends,
                                             kv_quant="int8")
         for pos in range(8):
+            _same_caches(pc, jc, f"ends={ends} before pos {pos}")
+            for k, v in jc.items():
+                pc[k].copy_(torch.from_numpy(np.array(v)))
             jr, ja = (jnp.asarray(v[pos][:, None], jnp.int32)
                       for v in (roots, attrs))
             want, jc = jstep(jc, jr, jr, ja, m["feats"]["key"],
@@ -337,11 +348,18 @@ def test_int8_kv_batch_step_matches_jax_step(v22, ends):
                         pos)
             assert got.shape == (n, C.CHORD_SIZE)
             _close(got, want, f"ends={ends} pos {pos}")
+    _same_caches(pc, jc, f"ends={ends} after pos 7")
+
+
+def _same_caches(pc, jc, msg):
+    """The port's int8 caches against JAX's: int8 values by ``_same_int8``,
+    the f32 scales to RTOL / ATOL."""
+    assert set(pc) == set(jc), msg
     for k, v in jc.items():
         if v.dtype == jnp.int8:
-            _same_int8(pc[k], v, k)
+            _same_int8(pc[k], v, f"{msg} {k}")
         else:
-            _close(pc[k], v, k)
+            _close(pc[k], v, f"{msg} {k}")
 
 
 def test_generate_chords_kv_quant_b3_matches_jax_sampler(v22):
@@ -354,11 +372,14 @@ def test_generate_chords_kv_quant_b3_matches_jax_sampler(v22):
 
 
 @pytest.mark.parametrize("case", ["bad value", "with quantize", "B=1",
-                                  "variant at B>1"])
+                                  "variant at B>1", "head size 8 at B>1"])
 def test_kv_quant_guards(v22, case):
     """The JAX sampler's semantics: a value other than None / "int8" and
     kv_quant with quantize raise ValueError; at B=1 kv_quant is ignored; a
-    variant wiring at B>1 warns and decodes with full-precision caches."""
+    variant wiring at B>1 warns and decodes with full-precision caches. The
+    port's own limit: a 2.2 head size of 8 at B>1 (int8 KV caches need a
+    multiple of 16) warns and decodes on the batched step with
+    full-precision caches."""
     p = torch.ones(B, 2, dtype=torch.int32)
     kw = dict(primer_root=p, primer_attr=p, num_primer=2,
               gcfg=GenerateConfig(target_seq_length=L))
@@ -374,8 +395,9 @@ def test_kv_quant_guards(v22, case):
         model, n = v22["pm"], 1
         f = {k: v[:1] for k, v in v22["t"].items()}
     else:
+        version = "3.1" if case == "variant at B>1" else "2.2"
         model, n = init_weights_(
-            VideoMusicTransformer(_tiny_cfg("3.1", port_amt_config)),
+            VideoMusicTransformer(_tiny_cfg(version, port_amt_config)),
             torch.Generator().manual_seed(0)).eval(), B
         f = {k: v[:B] for k, v in v22["t"].items()}
     kw.update(primer=p[:n], primer_root=p[:n], primer_attr=p[:n])
@@ -525,9 +547,11 @@ def _pipe_features(n_sec, seed):
             "motion": r.standard_normal((n_sec,)).astype(np.float32)}
 
 
-def _pipelines(version):
-    jv = JaxVideo2music(music_gen_version=version, **PIPE)
-    pv = Video2music(device="cpu", music_gen_version=version, **PIPE)
+def _pipelines(version, d_model=16):
+    kw = dict(PIPE, amt_overrides=dict(PIPE["amt_overrides"],
+                                       d_model=d_model, d_ff=2 * d_model))
+    jv = JaxVideo2music(music_gen_version=version, **kw)
+    pv = Video2music(device="cpu", music_gen_version=version, **kw)
     pv.load_state_dicts(
         amt_from_jax(jax.device_get(jv.variables["params"]),
                      jv.variables.get("moe_state")),
@@ -542,7 +566,7 @@ def test_generate_batch_kv_quant_matches_jax_pipeline(monkeypatch, tmp_path):
     interpret mode) instead, the port on its "auto" step."""
     monkeypatch.setattr(jax_api, "generate_chords", functools.partial(
         jax_generate, fused="ends", interpret=True))
-    jv, pv = _pipelines("2.2")
+    jv, pv = _pipelines("2.2", d_model=32)  # int8 KV: two heads of 16
     reqs = lambda: [dict(features=_pipe_features(24, 5), primer="C Am",
                          key="C major"),
                     dict(features=_pipe_features(10, 6), primer=""),

@@ -168,7 +168,7 @@ feats = {"semantic": r.standard_normal((6, 768)).astype(np.float32),
          "motion": r.standard_normal((6,)).astype(np.float32)}
 v2m = Video2music(device="cpu", music_gen_version="2.2", reg_model="bimamba+",
                   motion_type=0, amt_overrides=dict(n_layers=2, num_heads=2,
-                  d_model=16, d_ff=32), reg_overrides=dict(n_layers=1,
+                  d_model=32, d_ff=64), reg_overrides=dict(n_layers=1,
                   d_model=8, d_hidden=16))
 v3 = Video2music(device="cpu", music_gen_version="3.1", reg_model="bimamba+",
                  motion_type=0, amt_overrides=dict(n_layers=2, num_heads=2,
@@ -177,9 +177,19 @@ v3 = Video2music(device="cpu", music_gen_version="3.1", reg_model="bimamba+",
 with tempfile.TemporaryDirectory() as tmp:
     assert v2m.generate(features=feats, output_dir=tmp).chord_ids.shape == (6,)
     assert v3.generate(features=feats, output_dir=tmp).chord_ids.shape == (6,)
+    # int8 KV caches (two heads of 16): the batched step's caches are int8
+    from video2music_tpu_torch.decode import sampler
+    init_batch, kv_dtypes = sampler.init_fused_batch_caches, []
+    def recording_init(model, cross, kv_quant=None):
+        caches = init_batch(model, cross, kv_quant=kv_quant)
+        kv_dtypes.append(caches["k0"].dtype)
+        return caches
+    sampler.init_fused_batch_caches = recording_init
     pair = v2m.generate_batch([{"features": feats}] * 2, output_dir=tmp,
                               kv_quant="int8")
+    sampler.init_fused_batch_caches = init_batch
     assert [r.chord_ids.shape for r in pair] == [(6,), (6,)]
+    assert kv_dtypes == [torch.int8], kv_dtypes
     batcher = DynamicBatcher(v2m, max_batch=2, max_wait_ms=10, output_dir=tmp)
     try:
         res, width = batcher.submit({"features": feats}).result(timeout=300)
@@ -285,9 +295,9 @@ def test_port_imports_no_jax():
     """With the JAX package and JAX itself blocked, the whole port imports
     (every module, the raw-video ones and every CLI too, and chip_smoke.py)
     and runs on the CPU: a tiny 2.2 and a tiny V3.1 ``generate``, a 2.2
-    ``generate_batch(kv_quant="int8")`` at B=2, a DynamicBatcher request, a
-    ``generate(video=...)`` through seeded CLIP and MaxViT with the mingru
-    regression, one train step each of an AMT, a regression and a
+    ``generate_batch(kv_quant="int8")`` at B=2 on int8 KV caches, a
+    DynamicBatcher request, a ``generate(video=...)`` through seeded CLIP
+    and MaxViT with the mingru regression, one train step each of an AMT, a regression and a
     MusicTransformer, and one epoch of the ``train_amt`` CLI."""
     out = subprocess.run([sys.executable, "-c", ISOLATED_RUN], cwd=ROOT,
                          check=True, timeout=600, capture_output=True,

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import reference_state_dict
 from tests.test_convert import _TorchReg
 from tests.test_data import _write_fixture_tree
 from video2music_tpu.core.config import amt_config as jax_amt_config
@@ -218,27 +219,13 @@ def test_reference_regression_state_dict_loads_through_convert():
 
 def test_reference_amt_state_dict_loads_through_convert():
     """A base-AMT state dict in the reference's names (the torch
-    nn.Transformer core with random weights, the decoder's RPR tables, the
-    embeddings and projections) -> convert_reference_amt ->
+    nn.Transformer core, the decoder's RPR tables, the embeddings and
+    projections; chip_smoke.py's builder) -> convert_reference_amt ->
     weights.amt_from_jax -> the port's base AMT: the same logits as the
     JAX base AMT on the converted params."""
     D, H, FF, n, Lq, vf = 16, 2, 32, 2, 9, 15
-    torch.manual_seed(2)
-    core = torch.nn.Transformer(d_model=D, nhead=H, num_encoder_layers=n,
-                                num_decoder_layers=n, dim_feedforward=FF,
-                                dropout=0.0)
-    sd = {"transformer." + k: v for k, v in core.state_dict().items()}
-    g = torch.Generator().manual_seed(3)
-    extra = {
-        "embedding_root.weight": (C.CHORD_ROOT_SIZE, D),
-        "embedding_attr.weight": (C.CHORD_ATTR_SIZE, D),
-        "Linear_chord.weight": (D, D + 1), "Linear_chord.bias": (D,),
-        "Linear_vis.weight": (D, vf), "Linear_vis.bias": (D,),
-        "Wout.weight": (C.CHORD_SIZE, D), "Wout.bias": (C.CHORD_SIZE,)}
-    for i in range(n):
-        extra[f"transformer.decoder.layers.{i}.self_attn.Er"] = (Lq, D // H)
-    sd.update({k: torch.randn(s, generator=g) * 0.3
-               for k, s in extra.items()})
+    sd = reference_state_dict("amt", 3, d=D, ff=FF, heads=H, n=n, S=Lq,
+                              vf=vf)
     params = convert_reference_amt(sd, n_layers=n)
     kw = dict(n_layers=n, num_heads=H, d_model=D, d_ff=FF, dropout=0.0,
               max_seq_chord=Lq, max_seq_video=Lq, total_vf_dim=vf)

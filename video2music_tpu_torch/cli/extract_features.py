@@ -14,7 +14,8 @@ attention kernel (the reference runs one frame per forward). Their weight
 file is the JAX CLI's (a pickled dict of numpy arrays: ``np.save`` of the
 flax params, or an ``.npz`` holding ``params``), bridged by
 ``weights.clip_from_jax`` / ``maxvit_from_jax``, or a ``torch.save``d
-state dict of the port's ``CLIP`` / ``MaxViT``.
+state dict of the port's ``CLIP`` / ``MaxViT`` (what cli/convert_clip.py
+and cli/convert_maxvit.py write from the published weights).
 """
 
 from __future__ import annotations

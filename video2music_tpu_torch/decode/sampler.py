@@ -37,6 +37,15 @@ decode/fused.py:
     at B>1 or with "off" decodes on the plain step with fake-quantized
     weights (and warns at B>1 unless ``fused="auto"``); ``kv_quant`` at
     B>1 warns and keeps full-precision caches;
+  * a covered wiring whose shapes the CUDA kernels refuse
+    (``ops/decode_layer.cuda_decode_shapes_ok``: a head size not a
+    multiple of 8 or above 256, widths not multiples of 8, int8 rows not
+    multiples of 16): the plain step (on fake-quantized weights under
+    ``quantize="int8"``), with a warning unless ``fused="auto"``, as the
+    JAX sampler sends dims Mosaic cannot lower to its XLA step; int8 KV
+    caches beside a head size not a multiple of 16 keep the batched
+    kernels with full-precision caches, and warn, as a variant wiring
+    does;
   * a wiring no kernel covers (KAN 2.3, grouped-query attention, odd head
     dims): the plain step whatever ``fused`` says, as in the JAX sampler;
     ``quantize="int8"`` raises ValueError;
@@ -48,11 +57,12 @@ NotImplementedError, as in the JAX sampler.
 ``kv_quant`` is None or "int8", excludes ``quantize`` (ValueError), and is
 ignored at B=1 and with "off", as in the JAX sampler.
 "auto" means the kernels on a CUDA tensor and their plain versions on a
-CPU tensor (the wrappers dispatch by device); the JAX sampler's TPU checks
-(``_use_pallas``, the Mosaic tiling checks) have no counterpart here. Cache
-segmentation
-(``GenerateConfig.cache_segments``) is not ported: the JAX sampler is
-bit-exact with one segment, and the kernels read only rows <= pos.
+CPU tensor (the wrappers dispatch by device); the JAX sampler's
+``_use_pallas`` has no counterpart here, and its Mosaic tiling checks are
+the CUDA shape limits above, routed the same on every device. Cache
+segmentation (``GenerateConfig.cache_segments``) is not ported: the JAX
+sampler is bit-exact with one segment, and the kernels read only rows <=
+pos.
 """
 
 from __future__ import annotations
@@ -66,7 +76,8 @@ import torch
 from ..core import constants as C
 from ..core.vocab import chord_to_root_attr_tables
 
-from ..ops.decode_layer import (fake_quantize_decoder_params,
+from ..ops.decode_layer import (cuda_decode_shapes_ok,
+                                fake_quantize_decoder_params,
                                 fused_decode_eligible)
 from ..ops.decode_variant import fused_variant_eligible
 from .fused import (init_fused_batch_caches,
@@ -102,8 +113,30 @@ def _fake_quant_backend(B: int, fused: str):
             f"fused={fused!r} with quantize='int8' at B={B}: int8 weights "
             "are a B=1 fused feature; decoding on the plain step with "
             "fake-quantized weights", stacklevel=4)
+    return _plain_backend("int8")
+
+
+def _plain_backend(quantize):
+    """The plain step, on fake-quantized weights under ``quantize``."""
+    if quantize is None:
+        return _init_plain_caches, _make_plain_step
     return _init_plain_caches, lambda model: _make_plain_step(
         fake_quantize_decoder_params(model))
+
+
+def _shapes_refused(cfg, B: int, fused: str, quantize, kv_quant) -> bool:
+    """True when the kernels refuse ``cfg``'s shapes
+    (``cuda_decode_shapes_ok``); warns when ``fused`` was asked for
+    explicitly, as the JAX sampler does for Mosaic's limits."""
+    if cuda_decode_shapes_ok(cfg, B, quantize, kv_quant):
+        return False
+    if fused != "auto":
+        warnings.warn(
+            f"fused={fused!r} requested but d_model / num_heads / d_ff do "
+            "not satisfy the fused kernels' CUDA shape limits "
+            "(ops/decode_layer.cuda_decode_shapes_ok); using the plain "
+            "decode step", stacklevel=4)
+    return True
 
 
 def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
@@ -126,6 +159,16 @@ def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
             return _fake_quant_backend(B, fused)
         if fused == "off":
             return _init_plain_caches, _make_plain_step
+        if (kv_quant is not None and B > 1 and cuda_decode_shapes_ok(cfg, B)
+                and not cuda_decode_shapes_ok(cfg, B, kv_quant=kv_quant)):
+            warnings.warn(
+                f"kv_quant={kv_quant!r} needs a head size that is a multiple "
+                "of 16 (ops/decode_layer.cuda_decode_shapes_ok); this config "
+                "decodes on the batched kernels with full-precision KV "
+                "caches", stacklevel=3)
+            kv_quant = None
+        if _shapes_refused(cfg, B, fused, quantize, kv_quant):
+            return _plain_backend(quantize)
         if B > 1:
             ends = fused in ("auto", "ends")
             return (lambda model, cross: init_fused_batch_caches(
@@ -159,6 +202,8 @@ def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
             return _fake_quant_backend(B, fused)
         if fused == "off":
             return _init_plain_caches, _make_plain_step
+        if _shapes_refused(cfg, B, fused, quantize, None):
+            return _plain_backend(quantize)
         if B == 1:
             return init_fused_variant_caches, lambda model: \
                 make_fused_variant_step(model, quantize=quantize)

@@ -256,3 +256,63 @@ def preprocess_frames(frames: np.ndarray, image_size: int = 336) -> np.ndarray:
     [0, 1], CLIP mean / std)."""
     u8 = resize_crop_frames(frames, image_size)
     return (u8.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+
+
+# ---------------------------------------------------------------------------
+# weight conversion from the HuggingFace CLIPModel state dict
+# ---------------------------------------------------------------------------
+
+def _hf_block(t, prefix: str):
+    """One HF encoder layer (``t``: name -> f32 array) in the JAX tree."""
+    at = lambda k: t(prefix + k)
+    lin = lambda k: {"kernel": at(k + ".weight").T, "bias": at(k + ".bias")}
+    ln = lambda k: {"scale": at(k + ".weight"), "bias": at(k + ".bias")}
+    return {"ln1": ln("layer_norm1"), "ln2": ln("layer_norm2"),
+            "q_proj": lin("self_attn.q_proj"),
+            "k_proj": lin("self_attn.k_proj"),
+            "v_proj": lin("self_attn.v_proj"),
+            "out_proj": lin("self_attn.out_proj"),
+            "fc1": lin("mlp.fc1"), "fc2": lin("mlp.fc2")}
+
+
+def convert_hf_clip(state_dict, cfg: CLIPConfig):
+    """HF ``CLIPModel.state_dict()`` -> the state dict of :class:`CLIP`
+    (both towers, the projections and ``logit_scale``), for
+    ``load_state_dict``. Works with openai/clip-vit-large-patch14-336 (the
+    reference's weights re-hosted on HF) and any smaller CLIPConfig; takes
+    torch tensors or numpy arrays.
+
+    The key map is the JAX package's convert_hf_clip (features/clip.py:
+    294): the HF names to the JAX module's tree (``pre_layrnorm`` as HF
+    spells it, the patch kernel as (P, P, 3, D), Linear weights as (in,
+    out)), which ``weights.clip_from_jax`` then lays out for this module,
+    as it does any JAX CLIP tree: q | k | v into one ``qkv``, the patch
+    kernel as torch's (D, 3, P, P), the projections as (width,
+    projection_dim)."""
+    from ..weights import clip_from_jax, f32_array
+
+    t = lambda k: f32_array(state_dict[k])
+    ln = lambda k: {"scale": t(k + ".weight"), "bias": t(k + ".bias")}
+    vp, tp = "vision_model.", "text_model."
+    visual = {
+        "patch_embed": {"kernel": np.transpose(
+            t(vp + "embeddings.patch_embedding.weight"), (2, 3, 1, 0))},
+        "class_embedding": t(vp + "embeddings.class_embedding"),
+        "position_embedding": t(vp + "embeddings.position_embedding.weight"),
+        "ln_pre": ln(vp + "pre_layrnorm"),
+        "ln_post": ln(vp + "post_layernorm"),
+        "projection": t("visual_projection.weight").T,
+    }
+    for i in range(cfg.vision.layers):
+        visual[f"block_{i}"] = _hf_block(t, f"{vp}encoder.layers.{i}.")
+    text = {
+        "token_embedding": {
+            "embedding": t(tp + "embeddings.token_embedding.weight")},
+        "position_embedding": t(tp + "embeddings.position_embedding.weight"),
+        "ln_final": ln(tp + "final_layer_norm"),
+        "projection": t("text_projection.weight").T,
+    }
+    for i in range(cfg.text.layers):
+        text[f"block_{i}"] = _hf_block(t, f"{tp}encoder.layers.{i}.")
+    return clip_from_jax({"visual": visual, "text": text,
+                          "logit_scale": t("logit_scale")})

@@ -290,3 +290,75 @@ def scalar_motion(frame_pairs: list) -> np.ndarray:
         diff = cv2.absdiff(cur, prev)
         vals.append(float(cv2.cvtColor(diff, cv2.COLOR_BGR2RGB).mean()))
     return np.asarray(vals, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# weight conversion from torchvision's maxvit_t state dict
+# ---------------------------------------------------------------------------
+
+def _fold_bn(t, prefix, eps=1e-3):
+    """BatchNorm running stats (``t``: name -> f32 array) -> inference
+    scale / bias (the JAX package's _fold_bn). MaxVit builds its
+    BatchNorm2d with eps=1e-3 (torchvision MaxVit.__init__), not torch's
+    default 1e-5."""
+    w, b, mean, var = (t(f"{prefix}.{k}") for k in (
+        "weight", "bias", "running_mean", "running_var"))
+    scale = w / np.sqrt(var + eps)
+    return {"scale": scale, "bias": b - mean * scale}
+
+
+def convert_torchvision_maxvit(state_dict,
+                               cfg: MaxViTConfig = MaxViTConfig()):
+    """torchvision ``maxvit_t().state_dict()`` (stem ``stem.0/1``, blocks
+    ``blocks.{s}.layers.{d}.layers.{MBconv,window_attention,
+    grid_attention}``) -> the state dict of :class:`MaxViT`, for
+    ``load_state_dict``, every BatchNorm folded into a FoldedBN's scale and
+    bias. Takes torch tensors or numpy arrays.
+
+    The key map is the JAX package's convert_torchvision_maxvit
+    (features/maxvit.py:323): torchvision's names to the JAX module's tree
+    (conv kernels (kh, kw, in, out), Linear weights (in, out)), which
+    ``weights.maxvit_from_jax`` then lays out for this module, as it does
+    any JAX MaxViT tree."""
+    from ..weights import f32_array, maxvit_from_jax
+
+    sd = state_dict
+    t = lambda k: f32_array(sd[k])
+    conv = lambda k: {"kernel": np.transpose(t(k + ".weight"), (2, 3, 1, 0))}
+    conv_b = lambda k: {**conv(k), "bias": t(k + ".bias")}
+    lin = lambda k: {"kernel": t(k + ".weight").T, "bias": t(k + ".bias")}
+    ln = lambda k: {"scale": t(k + ".weight"), "bias": t(k + ".bias")}
+
+    params = {"stem_conv1": conv("stem.0.0"),
+              "stem_bn": _fold_bn(t, "stem.0.1"),
+              "stem_conv2": conv_b("stem.1.0")}
+    for s, depth in enumerate(cfg.depths):
+        for d in range(depth):
+            base = f"blocks.{s}.layers.{d}.layers"
+            mb = f"{base}.MBconv"
+            m = {"pre_norm": _fold_bn(t, f"{mb}.layers.pre_norm")}
+            if f"{mb}.proj.1.weight" in sd:  # downsample: avgpool + conv
+                m["down_proj"] = conv_b(f"{mb}.proj.1")
+            elif f"{mb}.proj.weight" in sd:
+                m["down_proj"] = conv_b(f"{mb}.proj")
+            m["conv_a"] = conv(f"{mb}.layers.conv_a.0")
+            m["bn_a"] = _fold_bn(t, f"{mb}.layers.conv_a.1")
+            m["conv_b"] = conv(f"{mb}.layers.conv_b.0")
+            m["bn_b"] = _fold_bn(t, f"{mb}.layers.conv_b.1")
+            m["se"] = {
+                "fc1": conv_b(f"{mb}.layers.squeeze_excitation.fc1"),
+                "fc2": conv_b(f"{mb}.layers.squeeze_excitation.fc2")}
+            m["conv_proj"] = conv_b(f"{mb}.layers.conv_c")
+            params[f"s{s}_b{d}_mbconv"] = m
+            for kind, name in (("window", "window_attention"),
+                               ("grid", "grid_attention")):
+                p = f"{base}.{name}"
+                a = f"{p}.attn_layer"
+                params[f"s{s}_b{d}_{kind}"] = {
+                    "ln1": ln(f"{a}.0"), "qkv": lin(f"{a}.1.to_qkv"),
+                    "rel_bias": t(f"{a}.1.relative_position_bias_table"),
+                    "proj": lin(f"{a}.1.merge"),
+                    "ln2": ln(f"{p}.mlp_layer.0"),
+                    "fc1": lin(f"{p}.mlp_layer.1"),
+                    "fc2": lin(f"{p}.mlp_layer.3")}
+    return maxvit_from_jax(params)

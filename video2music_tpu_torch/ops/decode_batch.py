@@ -57,8 +57,8 @@ import torch
 
 from .. import kernels
 from .decode_layer import (_dot, _layer_norm, _rope_at, _rotate,
-                           _swiglu, attend, embed_plain, log_route,
-                           selw_floats)
+                           _swiglu, attend, decode_shape_fault, embed_plain,
+                           log_route, selw_floats)
 
 
 # ---------------------------------------------------------------------------
@@ -234,11 +234,6 @@ _EMBED_KEYS = ("emb_root", "emb_attr", "lc_w", "lc_krow", "lc_b")
 _HEAD_KEYS = ("dn_scale", "dn_bias", "wout", "bout")
 
 
-def _require_widths(D: int, F: int, what: str) -> None:
-    kernels.require(D % 8 == 0 and F % 8 == 0, what,
-                    f"D={D} and F={F} must be multiples of 8")
-
-
 def layer_workspace_size(B: int, D: int, F: int, quant: bool = False) -> int:
     """f32 scratch of one batched layer step (csrc/decode_batch.cu
     run_layer); the int8-KV form adds the f32 K/V rows and their
@@ -283,10 +278,8 @@ def _launch_layer(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     code = kernels.dtype_code(p["wqkv"], what)
     hd = D // n_heads if n_heads else 0
     quant = kv_scales is not None
-    kernels.require(n_heads > 0 and D % n_heads == 0 and hd % 8 == 0
-                    and hd <= 256 and (not quant or hd % 16 == 0), what,
-                    f"bad head split D={D} H={n_heads}")
-    _require_widths(D, F, what)
+    fault = decode_shape_fault(D, n_heads, (F,), int8_kv=quant)
+    kernels.require(fault is None, what, fault)
     kernels.require(0 <= pos < S, what, f"pos {pos} outside cache of {S}")
     kernels.require(k_cross.dim() == 3 and k_cross.shape[0] == B
                     and k_cross.shape[2] == D
@@ -430,7 +423,8 @@ def batched_moe_ffn(x2, layer, *, k_top: int = 2,
     F = F2 // 2
     dev, dt = x2.device, x2.dtype
     code = kernels.dtype_code(x2, what)
-    _require_widths(D, F, what)
+    fault = decode_shape_fault(D, None, (F,))
+    kernels.require(fault is None, what, fault)
     kernels.require(1 <= k_top <= E, what,
                     f"k_top={k_top} must be in [1, E={E}]")
     tensors = {k: layer[k] for k in _EXPERT_KEYS + _FFN_KEYS

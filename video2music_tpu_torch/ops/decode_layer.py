@@ -83,6 +83,45 @@ def fused_decode_eligible(cfg) -> bool:
     return True
 
 
+def decode_shape_fault(D: int, H: Optional[int], widths=(), *,
+                       int8_rows: bool = False,
+                       int8_kv: bool = False) -> Optional[str]:
+    """Why the CUDA decode kernels (rows 2-10) cannot take width D, H heads
+    and FFN widths ``widths``, or None where they can: a head size D / H
+    that is a multiple of 8 and at most 256 (a multiple of 16 beside int8
+    KV caches), D and every width a multiple of 8 (of 16 with int8 weight
+    rows, which load 16 weights at a time). ``H`` None skips the head
+    check (the MoE halves run no attention). The one statement of these
+    limits: the wrappers raise on it, and the sampler sends what it refuses
+    to the plain step (:func:`cuda_decode_shapes_ok`)."""
+    if H is not None:
+        hd = D // H if H > 0 and D % H == 0 else 0
+        if hd == 0 or hd % 8 or hd > 256:
+            return (f"bad head split D={D} H={H}: the head size must be a "
+                    "multiple of 8, at most 256")
+        if int8_kv and hd % 16:
+            return (f"bad head split D={D} H={H}: int8 KV caches need a "
+                    "head size that is a multiple of 16")
+    mult = 16 if int8_rows else 8
+    if any(n % mult for n in (D, *widths)):
+        return (f"widths {(D, *widths)} must be multiples of {mult}"
+                + (" (int8 rows)" if int8_rows else ""))
+    return None
+
+
+def cuda_decode_shapes_ok(cfg, B: int, quantize=None, kv_quant=None) -> bool:
+    """True when the CUDA decode kernels take ``cfg``'s shapes at batch
+    ``B`` (:func:`decode_shape_fault`), with int8 weight rows at B=1 under
+    ``quantize`` and int8 KV caches at B>1 under ``kv_quant``. The
+    counterpart of the JAX package's fused_decode_mosaic_ok
+    (pallas_decode.py:583), with these kernels' limits for Mosaic's."""
+    expert = 2 * cfg.d_model if cfg.moe.expert == "mlp" else cfg.d_ff
+    return decode_shape_fault(
+        cfg.d_model, cfg.num_heads, (cfg.d_ff, expert),
+        int8_rows=quantize is not None and B == 1,
+        int8_kv=kv_quant is not None and B > 1) is None
+
+
 def quantize_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per output row: w (..., out, in) -> (int8 (..., out,
     in), f32 scales (..., out)); a row's scale is max|w| over its inputs /
@@ -424,21 +463,17 @@ def _launch(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     deep = "gate_w" in p
     E = p["gate_w"].shape[0] if deep else 0
     hd = D // n_heads if n_heads else 0
-    kernels.require(n_heads > 0 and D % n_heads == 0 and hd % 8 == 0
-                    and hd <= 256, what, f"bad head split D={D} H={n_heads}")
-    kernels.require(D % 8 == 0 and F % 8 == 0, what,
-                    f"D={D} and F={F} must be multiples of 8")
+    qkeys = (QUANT_KEYS + (QUANT_DEEP_KEYS if deep else ())
+             if "wqkv_s" in p else ())
+    fault = decode_shape_fault(D, n_heads, (F,), int8_rows=bool(qkeys))
+    kernels.require(fault is None, what, fault)
     kernels.require(0 <= pos < S, what, f"pos {pos} outside cache of {S}")
     kernels.require(not deep or 1 <= k_top <= E, what,
                     f"k_top={k_top} must be in [1, E={E}]")
-    qkeys = (QUANT_KEYS + (QUANT_DEEP_KEYS if deep else ())
-             if "wqkv_s" in p else ())
     for name in qkeys:  # int8 rows, f32 scales
         q, sc = p[name], p[name + "_s"]
         kernels.require(ends is None, what, "int8 weights run through "
                         "decode_layer_step only")
-        kernels.require(D % 16 == 0 and F % 16 == 0, what,
-                        f"int8 rows need D={D} and F={F} multiples of 16")
         kernels.require(q.dtype == torch.int8 and q.device == dev
                         and q.is_contiguous(), what,
                         f"{name} must be a contiguous int8 tensor on {dev}")

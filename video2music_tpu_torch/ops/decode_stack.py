@@ -37,9 +37,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import kernels
-from .decode_layer import (decode_layer_plain, embed_plain,
-                           head_plain, log_route, logging_routes,
-                           pack_decoder_layers, pack_ends, workspace_size)
+from .decode_layer import (decode_layer_plain, decode_shape_fault,
+                           embed_plain, head_plain, log_route,
+                           logging_routes, pack_decoder_layers, pack_ends,
+                           workspace_size)
 
 _LAYER_KEYS = ("wqkv", "bqkv", "wo", "bo", "cwq", "cbq", "cwo", "cbo",
                "norm_scale", "norm_bias", "w1g", "b1g", "w2", "b2")
@@ -188,10 +189,8 @@ class _Run:
         F = layers[0]["w2"].shape[-1]
         deep = [l for l in layers if "gate_w" in l]
         E = deep[0]["gate_w"].shape[0] if deep else 0
-        kernels.require(hd % 8 == 0 and hd <= 256, what,
-                        f"head_dim {hd} must be a multiple of 8, <= 256")
-        kernels.require(D % 8 == 0 and F % 8 == 0, what,
-                        f"D={D} and F={F} must be multiples of 8")
+        fault = decode_shape_fault(D, n_heads, (F,))
+        kernels.require(fault is None, what, fault)
         kernels.require(all(l["w2"].shape[-1] == F for l in layers)
                         and all(l["gate_w"].shape[0] == E for l in deep),
                         what, "every layer needs the same d_ff and experts")

@@ -57,7 +57,8 @@ from .. import kernels
 from ..core.config import AMTConfig
 from .decode_batch import dense_experts, log_route, route_plain
 from .decode_layer import (_dot, _layer_norm, _rope_at, _rotate,
-                           attend, quantize_weight, selw_floats)
+                           attend, decode_shape_fault, quantize_weight,
+                           selw_floats)
 from .norms import RMS_EPS, LayerNorm
 
 LAYER_ROWS = 12    # csrc/decode_variant.cu kLayerRows
@@ -421,9 +422,6 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
     hd = D // H if H else 0
     deep = meta.ffn == "moe"
     moe_only = entry == "batched_moe"
-    kernels.require(moe_only or (H > 0 and D % H == 0 and hd % 8 == 0
-                                 and hd <= 256),
-                    what, f"bad head split D={D} H={H}")
     kernels.require(norm in ("layernorm", "rmsnorm"), what,
                     f"unknown norm {norm!r}")
     with_moe = deep and entry != "batched_layer"  # this launch runs the MoE
@@ -485,10 +483,9 @@ def launch(entry: str, x, pos: int, p, meta: VariantLayerMeta, k_cache,
     F = 0 if deep else p["fw2"].shape[-1]
     E = p["gate_w"].shape[0] if deep else 0
     Fe = p["ew2"].shape[-1] if deep else 0
-    mult = 16 if qkeys else 8  # an int8 row loads 16 weights at a time
-    for n in (D, F, Fe):
-        kernels.require(n % mult == 0, what,
-                        f"widths {D}, {F}, {Fe} must be multiples of {mult}")
+    fault = decode_shape_fault(D, None if moe_only else H, (F, Fe),
+                               int8_rows=bool(qkeys))
+    kernels.require(fault is None, what, fault)
     if with_moe:
         kernels.require(1 <= k_top < E, what,
                         f"k_top={k_top} must be in [1, E={E}) (the JAX "

@@ -2,7 +2,8 @@
 PyTorch functions of (logits, targets) returning f32 scalars, with the JAX
 package's semantics (torch's CrossEntropyLoss with ignore_index and label
 smoothing, the reference's TopK auxiliary pair averaged over its active
-terms, unmasked BCE-with-logits for the emotion target).
+terms, unmasked BCE-with-logits for the emotion target, and the
+reference's FocalLoss).
 
 ``reduce``: a sharded step's sum over its data group (parallel/comm.py
 ``reduce_from``, differentiable). Each mean is then the global batch's:
@@ -57,6 +58,18 @@ def smooth_cross_entropy(logits, targets, *, vocab_size: int,
     ce = -(q * mask[..., None] * logp).sum(-1)
     num, den = _global(ce.sum(), mask.sum(), reduce)
     return num / den.clamp(min=1.0)
+
+
+def focal_loss(logits, targets, *, vocab_size: int, weight: float = 0.1,
+               gamma: float = 2.0, ignore_index: int = -100):
+    """The reference's FocalLoss (model/loss.py:50-83): -(1 - p)^gamma log p
+    at each target, ignored rows zeroed, mean over the non-ignored count,
+    times ``weight``. In f32; on no train path, as in the JAX package."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    mask = (targets != ignore_index).float()
+    onehot = _onehot(targets, vocab_size) * mask[..., None]
+    loss = (-((1.0 - logp.exp()) ** gamma) * logp * onehot).sum(-1)
+    return loss.sum() / mask.sum().clamp(min=1.0) * weight
 
 
 def topk_auxiliary_loss(logits, targets, *, k: int, weight: float,

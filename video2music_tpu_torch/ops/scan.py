@@ -45,6 +45,15 @@ def selective_scan_plain(x, delta, A, B, C, D):
     return (y + D.float() * xf).to(x.dtype)
 
 
+def require_d_state(N: int, what: str) -> None:
+    """The kernel's d_state limit (csrc/selective_scan.cu kMaxState), the
+    one the wrapper raises on."""
+    kernels.require(1 <= N <= MAX_D_STATE, what,
+                    f"d_state {N} outside 1..{MAX_D_STATE}: a channel's "
+                    f"states are spread over the 32 lanes of a warp, "
+                    f"{MAX_D_STATE // 32} a lane in registers")
+
+
 def _forward(x, delta, A, B, C, D):
     what = "selective_scan"
     if kernels.use_plain(x, what):
@@ -60,10 +69,7 @@ def _forward(x, delta, A, B, C, D):
     kernels.require(all(t.is_cuda and t.is_contiguous()
                         for t in (x, delta, B, C)), what,
                     "x, delta, B and C must be contiguous CUDA tensors")
-    kernels.require(1 <= N <= MAX_D_STATE, what,
-                    f"d_state {N} outside 1..{MAX_D_STATE}: a channel's "
-                    f"states are spread over the 32 lanes of a warp, "
-                    f"{MAX_D_STATE // 32} a lane in registers")
+    require_d_state(N, what)
     A32 = A.to(device=x.device, dtype=torch.float32).contiguous()
     D32 = D.to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)

@@ -1,5 +1,7 @@
 """Weights of the port: random initialisation from a seed, and the bridge
-from the JAX package's flax param trees.
+from the JAX package's flax param trees, which the converters of the
+published layouts (HF CLIP, torchvision MaxViT, the reference's torch
+checkpoints through train/convert.py) also go through.
 
 ``amt_from_jax`` / ``regression_from_jax`` take a flax param tree (nested
 dicts of arrays, the ``"params"`` collection) and return a float32 state
@@ -34,6 +36,16 @@ from .ops.norms import LayerNorm, RMSNorm
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def f32_array(v) -> np.ndarray:
+    """A torch tensor (any float dtype, any device) or an array, as f32
+    numpy: a published state dict's entries on their way into a JAX-layout
+    tree (features.clip.convert_hf_clip,
+    features.maxvit.convert_torchvision_maxvit)."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(v, np.float32)
 
 
 def _dense(p):
