@@ -179,8 +179,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   14. published layouts (after "multi-GPU" and "CLIs"): generate_chords
      on AMT 2.2 at shapes the decode kernels refuse (d_model 96 / 8
      heads, 36 / 2 heads) decodes on the plain step, fused="on" warning,
-     and rows 1 / 11 above head size 256 and the scan above d_state 1024
-     raise their ValueError; CLIP ViT-L/14@336 converted from a seeded
+     and int8 KV caches at head size 8 (B=2) stay int8 on the batched
+     kernels, with no warning; CLIP ViT-L/14@336 converted from a seeded
      transformers CLIPModel (convert_hf_clip) and MaxViT-T from a seeded
      tools/torch_maxvit_mirror.py model (convert_torchvision_maxvit)
      against their sources on 30 frames, f32 and bf16, with row 1's
@@ -191,7 +191,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      generate_chords; the base AMT: row 8) and generate_batch at B=16,
      every clip checked, launches as the path implies
      ("launches_published"), the tokens equal to the same model loaded
-     from the in-memory conversion.
+     from the in-memory conversion;
+  15. head size 512 path ("launches_wide"): the train_amt
+     CLI at -num_heads 1 (head size 512, f32, one epoch at B=16 on 32
+     synthetic clips: row 11 at hd 512 every step, row 1 in its eval),
+     its checkpoint served in bf16 with the moemamba regression at
+     d_hidden 2048 (d_state 2048): a 300 s request and a B=16 batch, row 1
+     encoding at hd 512, the plain step decoding (the decode kernels stop
+     at 256), each scan in two state chunks, launches as the path implies;
+  16. head size 8 int8 KV: the product 2.2 at 64 heads: row 6's int8-KV
+     form at hd 8 against its plain version (B=16, 64; "ms_int8_hd8"),
+     generate_batch(kv_quant="int8") at B=16 (no warning, int8 caches,
+     rows 6 and 7 every step), 16 teacher-forced int8-KV steps at B=8.
+After "head sizes": "wide heads" holds rows 1 and 11 at head
+sizes 320, 512 and 1024 (the head split across blocks) to their plain
+versions in f32 and bf16 (+bias, +causal; output, mask entry for entry,
+dq / dk / dv / dbias), timed at 512 beside F.scaled_dot_product_attention
+(its backend named); "wide states" the scan at d_state 1025 and 2048 (two
+state chunks), timed at 2048 ("ms_n2048"); "probes" rows 13 and 14: the
+kv traffic probe's four modes at B = 16, 32, 64 (bf16 core beside SDPA,
+the floor beside row 6) and the dot_general probe's three forms in TF32
+and bf16 against the f32 product beside torch.matmul, then both tools'
+command lines. To keep the run within its limit the "multi-GPU" worlds
+train 3+3 layers (pp 6+6) and start two at a time, the wirings run 3+3
+layers (the plain-step ones 2+2), and "new backbones" serves a 2+2-layer
+2.2.
 The "dropout forms" phase (after "dropout kernels") holds the dropout
 attention in its two training forms to its plain version in f32 and bf16
 (output, mask entry for entry, dq / dk / dv / dbias) with its times,
@@ -277,6 +301,12 @@ KERNELS = {
     "decode_flat_monolith": dict(
         source="video2music_tpu_torch/csrc/decode_stack.cu",
         replaces="video2music_tpu/ops/pallas_decode_stack.py:519"),
+    "kv_traffic_probe": dict(
+        source="video2music_tpu_torch/csrc/probes.cu",
+        replaces="tools/kv_traffic_probe.py:128"),
+    "probe_dotgeneral": dict(
+        source="video2music_tpu_torch/csrc/probes.cu",
+        replaces="tools/probe_dotgeneral.py:35"),
 }
 # the kernels of the B=1 slice and of batched serving
 SLICE_KERNELS = ("flash_attention", "decode_layer", "decode_ends",
@@ -1180,13 +1210,14 @@ def batched_kernel_phase(report, v2m):
                 peak=PEAK_F32)
 
 
-def int8_kv_kernel_phase(report, v2m):
+def int8_kv_kernel_phase(report, v2m, tag=""):
     """The int8-KV form of batched_layer_step at B=16 (timed at B=64 too),
-    product widths, float32 and bfloat16: the shallow layer with the embed
-    prologue and the deep layer, on int8 self caches whose rows 0..149 hold
-    quantized random rows (pos 150) and int8 cross K/V, against the plain
-    version: the output, the int8 K/V rows and the scales written at pos,
-    and the rows before pos untouched."""
+    v2m's widths (the product's; ``tag`` "_hd8": its 64 heads of 8, the
+    times kept under "ms_int8_hd8"), float32 and bfloat16: the shallow
+    layer with the embed prologue and the deep layer, on int8 self caches
+    whose rows 0..149 hold quantized random rows (pos 150) and int8 cross
+    K/V, against the plain version: the output, the int8 K/V rows and the
+    scales written at pos, and the rows before pos untouched."""
     import torch
     from video2music_tpu_torch.decode.fused import rope_tables
     from video2music_tpu_torch.ops import decode_batch as db
@@ -1217,9 +1248,10 @@ def int8_kv_kernel_phase(report, v2m):
             tokens = (torch.randint(15, (B,), generator=gen).to(dev),
                       torch.randint(16, (B,), generator=gen).to(dev),
                       torch.randint(2, (B,), generator=gen).to(dev).float())
-            key = "ms_int8" if B == 16 else f"ms_int8_b{B}"
-            for tag, p, x_in, tok in (("shallow+embed", shallow, None, tokens),
-                                      ("deep", deep, x, None)):
+            key = f"ms_int8{tag}" if B == 16 else f"ms_int8{tag}_b{B}"
+            for form, p, x_in, tok in (
+                    ("shallow+embed", shallow, None, tokens),
+                    ("deep", deep, x, None)):
                 one, two = ([t.clone() for t in (kc, vc, ks, vs)]
                             for _ in range(2))
                 lkw = dict(kw, tokens=tok, embed_pack=head if tok else None)
@@ -1229,7 +1261,8 @@ def int8_kv_kernel_phase(report, v2m):
                 want = db.batched_layer_step_plain(
                     x_in, pos, p, two[0], two[1], kx, vx,
                     kv_scales=(two[2], two[3], kxs, vxs), **lkw)
-                name = f"batched_layer_step int8 KV {tag} B={B}"
+                name = (f"batched_layer_step int8 KV {form} B={B}"
+                        f"{' hd ' + str(D // H) if tag else ''}")
                 err = check_close(name, dtype, got, want)
                 for i, row in enumerate(("k", "v")):
                     check_int8_rows(f"{name} {row} row", one[i][:, pos],
@@ -1240,9 +1273,9 @@ def int8_kv_kernel_phase(report, v2m):
                                 for a, b in zip(one, two)),
                             f"{name}: cache rows other than pos changed")
                 if B == 16:
-                    errs = r.setdefault("err_int8", {})
+                    errs = r.setdefault(f"err_int8{tag}", {})
                     errs[dtype] = max(err, errs.get(dtype, 0.0))
-                if tag != "deep":
+                if form != "deep":
                     continue
                 scales = (one[2], one[3], kxs, vxs)
                 note_times(report, "batched_layer_step", dtype,
@@ -1263,7 +1296,7 @@ def int8_kv_kernel_phase(report, v2m):
                     bound = form_bound(
                         w_b + c_b + 2 * nbytes(x) + 2 * B * (D + 4),
                         B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D))
-                    if B == 16:
+                    if B == 16 and not tag:
                         r["bound_ms_int8"] = bound[0]
                     else:
                         r["form_bound_" + key] = bound
@@ -1620,6 +1653,8 @@ def wrappers():
     from video2music_tpu_torch.ops import flash_attention_dropout as fad
     from video2music_tpu_torch.ops.flash_attention import flash_attention
     from video2music_tpu_torch.ops.scan import selective_scan
+    from video2music_tpu_torch.tools import kv_traffic_probe as kvp
+    from video2music_tpu_torch.tools import probe_dotgeneral as pdg
     return {"flash_attention": flash_attention,
             "decode_layer": dl.decode_layer_step,
             "decode_ends": dl.decode_ends_step,
@@ -1633,7 +1668,9 @@ def wrappers():
             "batched_variant_moe_ffn": dbv.batched_variant_moe_ffn,
             "decode_monolith": ds.decode_monolith_step,
             "decode_segment": ds.decode_segment_step,
-            "decode_flat_monolith": ds.decode_flat_monolith_step}
+            "decode_flat_monolith": ds.decode_flat_monolith_step,
+            "kv_traffic_probe": kvp.attend,
+            "probe_dotgeneral": pdg.probe_dot}
 
 
 def path_launches(v2m, width: int, T: int = 300, backend: str = "ends",
@@ -1651,7 +1688,7 @@ def path_launches(v2m, width: int, T: int = 300, backend: str = "ends",
     n_deep = sum(spec.ffn == "moe" for spec in cfg.decoder_layers)
     out = dict.fromkeys(KERNELS, 0)
     out.update(flash_attention=len(cfg.encoder_layers),
-               selective_scan=2 * rcfg.n_layers if regression else 0)
+               selective_scan=scan_launches(rcfg) if regression else 0)
     v2 = fused_decode_eligible(cfg)
     per_step = {"layer": L, "int8": L, "stack": len(decoder_segments(cfg)),
                 "monolith": 1, "whole": 1}
@@ -1670,6 +1707,19 @@ def path_launches(v2m, width: int, T: int = 300, backend: str = "ends",
         out.update(batched_variant_layer_step=(T - 1) * L,
                    batched_variant_moe_ffn=(T - 1) * n_deep)
     return out
+
+
+def scan_launches(rcfg):
+    """Scan kernel launches of one regression forward: a scan a Mamba layer
+    (two in the bidirectional encoders), each in its state chunks (d_state
+    16, moemamba's its d_hidden); none for the other backbones."""
+    from video2music_tpu_torch.core.config import MambaBackboneConfig
+    from video2music_tpu_torch.ops.scan import state_chunks
+    rm = rcfg.reg_model
+    if "mamba" not in rm:
+        return 0
+    N = rcfg.d_hidden if rm == "moemamba" else MambaBackboneConfig().d_state
+    return rcfg.n_layers * (2 if "bimamba" in rm else 1) * state_chunks(N)
 
 
 def check_launches(report, v2m, widths, names, record, key="launches",
@@ -3036,6 +3086,468 @@ def head_size_phase(report, card):
                                   key="ms_d128")
 
 
+# ---------------------------------------------------------------------------
+# rows 1, 11 and 12 above the narrow instances' limits: head sizes above
+# 256 (the head split across blocks), d_state above 1024 (state chunks)
+# ---------------------------------------------------------------------------
+
+WIDE_HEADS = (320, 512, 1024)  # 5, 8 and 16 slices of 64 columns
+WIDE_STATES = (1025, 2048)     # two state chunks each
+
+
+def sdpa_backend(q, k, v):
+    """The backend F.scaled_dot_product_attention picks for these inputs
+    (torch._fused_sdp_choice, the dispatcher's own choice), by name."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    names = {int(v): n for n, v in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v)), "unknown")
+
+
+def wide_head_phase(report, card):
+    """Rows 1 and 11 at head sizes 320, 512 and 1024 (the wide instances,
+    csrc/attention_wide.cuh: the head split across blocks of 64 output
+    columns), f32 and bf16, B=2, H=2, L=S=300, against the plain versions:
+    flash attention plain, +bias, +causal, +bias +causal; the dropout
+    attention (rate 0.1) with and without the causal mask and its bias:
+    output, dq / dk / dv (/ dbias), and the mask entry for entry. Both
+    timed at 512 (train_amt -num_heads 1 at d_model 512): row 1 at B=1,
+    H=1, L=300 beside F.scaled_dot_product_attention, whose backend is
+    named (its flash backend stops at head size 256), row 11's pair at
+    B=16, H=1, L=S=300 beside SDPA with the same dropout rate."""
+    import torch
+    from video2music_tpu_torch.ops import flash_attention_dropout as fad
+    from video2music_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    dev, H, L, rate = "cuda", 2, 300, 0.1
+    gen = torch.Generator().manual_seed(512)
+    seed = torch.tensor([11], dtype=torch.int32, device=dev)
+    fwd_name, bwd_name = TRAIN_KERNELS
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"wide heads, {dtype}:")
+        for D in WIDE_HEADS:
+            q, k, v, do = (torch.randn(2, H, L, D, generator=gen)
+                           .to(dev, dtype) for _ in range(4))
+            bias = torch.randn(2, H, L, L, generator=gen).to(dev)
+            for tag, kw in (("", {}), ("+bias", dict(bias=bias)),
+                            ("+causal", dict(causal=True)),
+                            ("+bias+causal", dict(bias=bias, causal=True))):
+                note_error(report, "flash_attention", dtype, check_close(
+                    f"flash_attention D={D}{tag}", dtype,
+                    flash_attention(q, k, v, **kw),
+                    flash_attention_plain(q, k, v, **kw)))
+            for causal in (False, True):
+                for b in (None, bias):
+                    tag = f" D={D}" + (" causal" if causal else "") + \
+                        (" +bias" if b is not None else "")
+                    out, stats = fad.flash_attention_dropout_fwd(
+                        q, k, v, b, seed, causal, rate)
+                    dkw = dict(bias=b, causal=causal, dropout_rate=rate,
+                               seed=seed)
+                    note_error(report, fwd_name, dtype, check_close(
+                        f"{fwd_name}{tag}", dtype, out,
+                        fad.flash_attention_dropout_plain(q, k, v, **dkw)))
+                    grads = fad.flash_attention_dropout_bwd(
+                        q, k, v, b, do, seed, stats, out, causal, rate)
+                    wants = fad.flash_attention_dropout_plain_bwd(q, k, v,
+                                                                  do, **dkw)
+                    for gname, g, w in zip(("dq", "dk", "dv", "dbias"),
+                                           grads, wants):
+                        # dbias (dlogits) sums D products of dO and v: its
+                        # f32 summation-order error grows with the head
+                        # (3e-5 at 512), the logits' allowance
+                        atol = F32_LOGIT_ATOL if gname == "dbias" else \
+                            F32_ATOL
+                        if w is not None:
+                            note_error(report, bwd_name, dtype, check_close(
+                                f"{bwd_name} {gname}{tag}", dtype, g, w,
+                                atol=atol))
+                got = fad.extract_dropped_probs(q, k, causal=causal,
+                                                dropout_rate=rate, seed=seed)
+                ref = fad._probs(q, k, None, causal) * fad.dropout_mask(
+                    2, H, L, L, rate, seed, dev)
+                fail_unless(torch.equal(got == 0, ref == 0),
+                            f"dropout mask D={D} causal={causal} [{dtype}] "
+                            "differs from the plain version's")
+            print(f"  dropout mask D={D} [{str(dtype)[6:]}]: equal entry "
+                  f"for entry (causal and not)")
+        D = 512
+        q, k, v = (torch.randn(1, 1, L, D, generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        note_times(report, "flash_attention", dtype,
+                   lambda: flash_attention(q, k, v),
+                   lambda: flash_attention_plain(q, k, v), key="ms_d512")
+        if dtype == torch.bfloat16:
+            r = report["flash_attention"]
+            r["form_bound_ms_d512"] = form_bound(nbytes(q, k, v, q),
+                                                 4 * L * L * D)
+            r["library_ms_d512"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v))[0]
+            backend = sdpa_backend(q, k, v)
+            report.setdefault("wide", {})["sdpa_backend_d512"] = backend
+            print(f"  F.scaled_dot_product_attention at head size 512: "
+                  f"backend {backend} (its flash backend stops at head "
+                  f"size 256) [{card}]")
+        q, k, v, do = (torch.randn(16, 1, L, D, generator=gen).to(dev, dtype)
+                       for _ in range(4))
+        out, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
+                                                     False, rate)
+        dkw = dict(dropout_rate=rate, seed=seed)
+        note_times(report, fwd_name, dtype,
+                   lambda: fad.flash_attention_dropout_fwd(
+                       q, k, v, None, seed, False, rate),
+                   lambda: fad.flash_attention_dropout_plain(q, k, v, **dkw),
+                   plain_iters=5, key="ms_d512")
+        note_times(report, bwd_name, dtype,
+                   lambda: fad.flash_attention_dropout_bwd(
+                       q, k, v, None, do, seed, stats, out, False, rate),
+                   lambda: fad.flash_attention_dropout_plain_bwd(
+                       q, k, v, do, **dkw),
+                   plain_iters=5, key="ms_d512")
+        if dtype == torch.bfloat16:
+            flops = 2 * 16 * L * L * D  # one (L, S, D) product
+            report[fwd_name]["form_bound_ms_d512"] = form_bound(
+                nbytes(q, k, v, q), 2 * flops)
+            report[bwd_name]["form_bound_ms_d512"] = form_bound(
+                nbytes(q, k, v, do, q, k, v), 5 * flops)
+            library_dropout_times(report, q, k, v, do, rate, False,
+                                  key="ms_d512")
+
+
+def wide_state_phase(report, card):
+    """Row 12 at d_state 1025 and 2048 (two state chunks of at most 1024,
+    their partial C . h added in an f32 workspace), b 1 and 16, L 300, ED
+    128 (bimamba+'s d_inner), f32 and bf16, against its plain version, two
+    launches a call; timed at 2048, b=1 (ms_n2048), with its bound."""
+    import torch
+    from video2music_tpu_torch.ops.scan import (selective_scan,
+                                                selective_scan_plain,
+                                                state_chunks)
+
+    dev, L, ED = "cuda", 300, 128
+    gen = torch.Generator().manual_seed(2049)
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in WIDE_STATES:
+            for b in (1, 16):
+                x = torch.randn(b, L, ED, generator=gen).to(dev, dtype)
+                dt = (torch.rand(b, L, ED, generator=gen) * 0.1).to(dev, dtype)
+                A = (-0.5 - 4 * torch.rand(ED, N, generator=gen)).to(dev)
+                Bm, Cm = (torch.randn(b, L, N, generator=gen).to(dev, dtype)
+                          for _ in range(2))
+                Dv = torch.randn(ED, generator=gen).to(dev)
+                n0 = selective_scan.launches
+                got = selective_scan(x, dt, A, Bm, Cm, Dv)
+                fail_unless(selective_scan.launches - n0 == state_chunks(N),
+                            f"selective_scan N={N}: "
+                            f"{selective_scan.launches - n0} launches")
+                note_error(report, "selective_scan", dtype, check_close(
+                    f"selective_scan b={b} N={N} L={L} ({state_chunks(N)} "
+                    f"state chunks)", dtype, got,
+                    selective_scan_plain(x, dt, A, Bm, Cm, Dv)))
+                if N == 2048 and b == 1:
+                    args = (x, dt, A, Bm, Cm, Dv)
+                    note_times(report, "selective_scan", dtype,
+                               lambda: selective_scan(*args),
+                               lambda: selective_scan_plain(*args),
+                               plain_iters=3, key="ms_n2048")
+                    if dtype == torch.bfloat16:
+                        report["selective_scan"]["form_bound_ms_n2048"] = \
+                            form_bound(nbytes(x, dt, A, Bm, Cm, Dv, x),
+                                       8 * b * L * ED * N, peak=PEAK_F32)
+
+
+def wide_head_path_phase(card, report):
+    """Head size 512 and d_state 2048 through the entry points, at full
+    width (AMT 2.2: d_model 512, d_ff 1024, 6+6 layers, 3 SharedMoE of 6
+    experts top-2): the train_amt CLI at -num_heads 1 (f32, one epoch at
+    B=16 on a synthetic tree of 32 clips: row 11's forward and backward at
+    hd 512 every step, row 1 in its eval passes), then its checkpoint
+    served in bf16 by Video2music(num_heads=1) with the moemamba
+    regression at d_hidden 2048 (its d_state is its d_hidden; the Mamba
+    family's one configurable d_state: bimamba+ keeps 16): one 300 s
+    request and a generate_batch at B=16, every clip checked. Row 1
+    encodes at hd 512; the decode kernels do not take hd 512
+    (ops/decode_layer.py cuda_decode_shapes_ok), so the plain step
+    decodes, with no warning under fused="auto"; each scan of the
+    regression launches in two state chunks. Launches as the path
+    implies."""
+    import torch
+    from video2music_tpu_torch.cli import train_amt as train_amt_cli
+    from video2music_tpu_torch.pipeline.api import Video2music
+
+    clips, T = 32, 300
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vevo")
+        write_feature_tree(root, clips, T, seed=17)
+        out = os.path.join(tmp, "amt")
+        steps = -(-clips // 16)
+        eval_batches = steps + -(-(clips // 2) // 16)
+        n_attn = 3 * 6
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train_amt_cli.main([
+            "-dataset_dir", root, "-output_dir", out, "-music_gen_version",
+            "2.2", "-motion_type", "1", "-epochs", "1", "-batch_size", "16",
+            "-num_heads", "1", "-device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = wall = time.perf_counter() - t0
+        fail_unless(state.model.cfg.head_dim == 512 and state.step == steps,
+                    f"train_amt -num_heads 1: head size "
+                    f"{state.model.cfg.head_dim}, {state.step} steps")
+        check_path_launches("train_amt CLI -num_heads 1", dict(
+            flash_attention=n_attn * eval_batches,
+            flash_attention_dropout_fwd=n_attn * steps,
+            flash_attention_dropout_bwd=n_attn * steps))
+        add_wide_launches(report)
+        ckpt = os.path.join(out, "weights", "best_loss_weights")
+        fail_unless(os.path.isfile(ckpt), "no weights/best_loss_weights")
+        print(f"train_amt CLI -num_heads 1 (2.2, head size 512, f32, B=16, "
+              f"{steps} steps): {wall:.2f} s with the eval passes [{card}]")
+        v2m = Video2music(seed=0, device="cuda", amt_checkpoint=ckpt,
+                          amt_overrides=dict(num_heads=1),
+                          reg_model="moemamba",
+                          reg_overrides=dict(d_hidden=2048))
+        zero_launches()
+        req = REQUESTS[0]
+        with warnings_caught() as caught:
+            t0 = time.perf_counter()
+            res = v2m.generate(primer=req["primer"], key=req["key"],
+                               temperature=req["temperature"],
+                               features=synthetic_features(T, 5),
+                               output_dir=os.path.join(tmp, "clip"), seed=5)
+            wall = time.perf_counter() - t0
+            check_clip("head size 512 request", res, req["primer"], T,
+                       v2m.last_regression["instrument"],
+                       v2m.last_regression["ln_nd"])
+            tm = v2m.last_timings
+            print(f"head size 512 request (its checkpoint, 300 s): wall "
+                  f"{wall:.3f} s, encode {tm['encode']:.3f} ms, decode "
+                  f"{tm['decode'] / (T - 1):.4f} ms/token (plain step), "
+                  f"regression (moemamba, d_state 2048) "
+                  f"{tm['regression']:.3f} ms "
+                  f"[{card}]")
+            B = 16
+            reqs, temps = serving_requests(B, 5120)
+            rate, ms_step = run_batch("head size 512 generate_batch B=16",
+                                      v2m, card, reqs, temps,
+                                      os.path.join(tmp, "b16"))
+        fail_unless(not caught, f"head size 512 under fused='auto' warned: "
+                    f"{[str(w.message)[:80] for w in caught]}")
+        check_launches(report, v2m, [1, B], ("flash_attention",
+                                             "selective_scan"),
+                       (), plain_decode=True)
+        add_wide_launches(report)
+        report.setdefault("wide", {}).update(
+            hd512_train_s=train_s, hd512_ms_token=tm["decode"] / (T - 1),
+            hd512_clips_s_b16=rate, hd512_ms_step_b16=ms_step)
+        del v2m
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def warnings_caught():
+    """Every warning raised inside, as a list."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield caught
+
+
+def add_wide_launches(report):
+    """Add the counters to each kernel's ``launches_wide`` (the paths of
+    this slice's repaired limits)."""
+    for name, fn in wrappers().items():
+        if fn.launches:
+            report[name]["launches_wide"] = \
+                report[name].get("launches_wide", 0) + fn.launches
+
+
+def int8_kv_hd8_phase(card, report):
+    """Head size 8 with int8 KV caches at full width (the product 2.2 at 64
+    heads): row 6's int8-KV form at hd 8 against its plain version at
+    B=16 and 64 (int8_kv_kernel_phase, forms ms_int8_hd8); then
+    generate_batch(kv_quant="int8") at B=16: no warning, the sampler's
+    batched caches int8, rows 6 and 7 launched every step as the path
+    implies, every clip checked; then 16 teacher-forced steps of the
+    kernel step at B=8 on int8 caches against the plain batched int8-KV
+    step (teacher_forced_batch_phase)."""
+    import torch
+    from video2music_tpu_torch.decode import sampler
+    from video2music_tpu_torch.pipeline.api import Video2music
+
+    v2m = Video2music(seed=0, device="cuda", amt_overrides=dict(num_heads=64))
+    fail_unless(v2m.amt_cfg.head_dim == 8, "64 heads of d_model 512")
+    int8_kv_kernel_phase(report, v2m, tag="_hd8")
+    seen = []
+    real = sampler.init_fused_batch_caches
+
+    def recorded(model, cross, kv_quant=None):
+        caches = real(model, cross, kv_quant=kv_quant)
+        seen.append((kv_quant, caches["k0"].dtype))
+        return caches
+
+    B = 16
+    with tempfile.TemporaryDirectory() as tmp:
+        reqs, temps = serving_requests(B, 8800)
+        zero_launches()
+        sampler.init_fused_batch_caches = recorded
+        try:
+            with warnings_caught() as caught:
+                rate, ms_step = run_batch(
+                    "head size 8 generate_batch B=16 kv_quant='int8'", v2m,
+                    card, reqs, temps, tmp, kv_quant="int8")
+        finally:
+            sampler.init_fused_batch_caches = real
+    fail_unless(not caught, f"head size 8, kv_quant='int8' warned: "
+                f"{[str(w.message)[:80] for w in caught]}")
+    fail_unless(seen == [("int8", torch.int8)],
+                f"head size 8: the batched caches were {seen}")
+    check_launches(report, v2m, [B], SERVING_KERNELS, ())
+    add_wide_launches(report)
+    report.setdefault("wide", {}).update(hd8_int8_clips_s_b16=rate,
+                                         hd8_int8_ms_step_b16=ms_step)
+    teacher_forced_batch_phase(v2m, 8, "int8")
+    del v2m
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# rows 13 and 14: the probes (video2music_tpu_torch/tools/, csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+PROBE_BS = (16, 32, 64)  # row 6's widths and the JAX probe's B=32
+
+
+def probes_phase(report, card):
+    """Rows 13 and 14, on no serving or training path (launches 0 there):
+    the kv traffic probe's four modes (tools/kv_traffic_probe.py: the
+    bf16 and int8 decode-attention core, the slab-reading floor, the
+    no-cache form) at B = 16, 32 and 64 (S 300, D 512, 8 heads, pos 299)
+    against their plain versions, timed (B=32 under "ms"), the bf16 core
+    beside F.scaled_dot_product_attention, and the floor set beside row
+    6's time at B=16 and 64 (the share of row 6 its cache bytes explain at
+    the floor's rate); the dot_general probe's three forms
+    (tools/probe_dotgeneral.py) in f32 (TF32) and bf16 against the f32
+    product, timed beside torch.matmul; then both tools from their command
+    lines, one JSON line each."""
+    import torch
+    from video2music_tpu_torch.tools import kv_traffic_probe as kvp
+    from video2music_tpu_torch.tools import probe_dotgeneral as pdg
+
+    dev, S, D, H = torch.device("cuda"), 300, 512, 8
+    pos = S - 1
+    bf = torch.bfloat16
+    r = report["kv_traffic_probe"]
+    out = report.setdefault("probes", {})
+    kvp.attend.launches = kvp.floor.launches = kvp.noattn.launches = 0
+    for B in PROBE_BS:
+        x = kvp.inputs(B, S, D, dev)
+        q = x["q"]
+        sfx = "" if B == 32 else f"_b{B}"
+        row = out[f"kv B={B}"] = {}
+        for mode, (kernel, plain) in kvp.modes(x, pos, H).items():
+            key = ("ms" if mode == "bf16" else f"ms_{mode}") + sfx
+            err = check_close(f"kv_traffic_probe {mode} B={B}", bf, kernel(),
+                              plain())
+            if key == "ms":
+                note_error(report, "kv_traffic_probe", bf, err)
+            elif "err_" + key not in r:
+                r["err_" + key] = {bf: err}
+            note_times(report, "kv_traffic_probe", bf, kernel, plain,
+                       plain_iters=5, key=key)
+            row[mode] = r[key][bf][0]
+        sb = kvp.slab_bytes(B, S, D)
+        rest = 2 * nbytes(q)  # q in, out out
+        r["form_bound_ms" + sfx] = form_bound(
+            sb["bf16"] + rest, 4 * B * H * (pos + 1) * (D // H))
+        r["form_bound_ms_int8" + sfx] = form_bound(
+            sb["int8"] + rest, 4 * B * H * (pos + 1) * (D // H))
+        r["form_bound_ms_floor" + sfx] = form_bound(sb["bf16"] + rest, 0)
+        r["form_bound_ms_noattn" + sfx] = form_bound(rest, 0)
+        r["library_ms" + sfx] = row["sdpa"] = time_ms(
+            kvp.sdpa_call(x, pos, H))[0]
+        floor_rate = sb["bf16"] / (row["floor"] * 1e-3)  # bytes / s
+        row["floor_TB_s"] = floor_rate / 1e12
+        if B in (16, 64):  # row 6's deep layer at pos 150 (batched kernels)
+            row6 = report["batched_layer_step"]
+            ms6 = row6["ms" if B == 16 else "ms_b64"][bf][0]
+            cache = 2 * B * (151 + 300) * D * 2  # self 0..150, cross 300
+            row["row6_ms"] = ms6
+            row["row6_cache_share_at_floor_rate"] = \
+                cache / floor_rate * 1e3 / ms6
+        print(f"kv_traffic_probe B={B}: bf16 {row['bf16']:.4f} ms, int8 "
+              f"{row['int8']:.4f}, floor {row['floor']:.4f} "
+              f"({row['floor_TB_s']:.2f} TB/s), noattn {row['noattn']:.4f}, "
+              f"SDPA {row['sdpa']:.4f} ms; bounds bf16 "
+              f"{sb['bf16'] / HBM_BYTES_PER_S * 1e3:.5f}, int8 "
+              f"{sb['int8'] / HBM_BYTES_PER_S * 1e3:.5f} ms" + (
+                  f"; row 6 at B={B} {row['row6_ms']:.4f} ms, its cache "
+                  f"bytes at the floor's rate "
+                  f"{row['row6_cache_share_at_floor_rate']:.1%} of it"
+                  if "row6_ms" in row else "") + f" [{card}]")
+    r["launches_probe"] = (kvp.attend.launches + kvp.floor.launches
+                           + kvp.noattn.launches)
+    r["launches"] = 0  # on no path
+    r["bound_ms"], r["bound_by"] = r.pop("form_bound_ms")
+
+    d = report["probe_dotgeneral"]
+    pdg.probe_dot.launches = 0
+    rows, C, Dd = 2400, 64, 512
+    gen = torch.Generator().manual_seed(35)
+    keys = {"NT logits": "ms", "TN pv": "ms_tn", "NT tiny-diag": "ms_diag"}
+    shapes = dict(rows=rows, D=Dd, C=C)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (ash, bsh, form) in pdg.FORMS.items():
+            a, b = (torch.randn(*(shapes[s] for s in sh.split()),
+                                generator=gen).to(dev, dtype)
+                    for sh in (ash, bsh))
+            got, want = pdg.probe_dot(a, b, form), pdg.probe_dot_plain(a, b,
+                                                                       form)
+            err, rel = errors(got, want)
+            tol = pdg.TOL[str(dtype)[6:]]
+            print(f"  probe_dotgeneral {name} [{str(dtype)[6:]}, "
+                  f"{'TF32' if dtype == torch.float32 else 'bf16'} tensor "
+                  f"cores] max_abs {err:.3e} rel {rel:.3e} (limit {tol}) "
+                  f"{'ok' if rel <= tol else 'FAIL'}")
+            fail_unless(rel <= tol, f"probe_dotgeneral {name} [{dtype}] "
+                        "disagrees with the f32 product")
+            key = keys[name]
+            if key == "ms":
+                note_error(report, "probe_dotgeneral", dtype, err)
+            else:
+                d.setdefault("err_" + key, {})[dtype] = err
+            note_times(report, "probe_dotgeneral", dtype,
+                       lambda: pdg.probe_dot(a, b, form),
+                       lambda: pdg.probe_dot_plain(a, b, form), key=key)
+            if dtype == torch.bfloat16:
+                K = a.shape[1] if form == "NT" else a.shape[0]
+                M, N = got.shape
+                d["form_bound_" + key] = form_bound(
+                    nbytes(a, b, got), 2 * M * N * K)
+                mm = (lambda: a @ b.t()) if form == "NT" else \
+                    (lambda: a.t() @ b)
+                d["library_" + key if key != "ms" else "library_ms"] = \
+                    time_ms(mm)[0]
+    d["launches_probe"] = pdg.probe_dot.launches
+    d["launches"] = 0  # on no path
+    d["bound_ms"], d["bound_by"] = d.pop("form_bound_ms")
+    for module, args in (("kv_traffic_probe", ["-B", "32"]),
+                         ("probe_dotgeneral", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"video2music_tpu_torch.tools.{module}",
+             *args], capture_output=True, text=True, cwd=ROOT, timeout=300)
+        fail_unless(proc.returncode == 0, f"{module} CLI exited "
+                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        out[f"{module} CLI"] = line
+        print(f"python -m video2music_tpu_torch.tools.{module} "
+              f"{' '.join(args)} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(line)}")
+
+
 def many_experts_phase(report, v2m):
     """The decode kernels at 40 experts, top-10 (product d_model 512, 8
     heads, d_ff 1024, pos 150) against their plain versions, float32 and
@@ -3465,9 +3977,14 @@ def v3_teacher_forced_phase(models, cases=((1, None), (8, None))):
 # decodes through the variant kernels where fused_variant_eligible holds
 # (the base AMT, 1.1, 1.3.4, 2.0) and on the plain step where it does not
 # (KAN 2.3, grouped-query attention), as in the JAX sampler
-WIRINGS = (("AMT", None, {}), ("1.1", "1.1", {}), ("1.3.4", "1.3.4", {}),
-           ("2.0", "2.0", {}), ("2.3", "2.3", {}),
-           ("2.2 GQA", "2.2", dict(kv_heads=2)))
+# depth cut to keep the run within its limit: the variant-kernel wirings
+# at 3+3 layers (each keeps its layer kinds), the two that decode on the
+# plain step (KAN 2.3, GQA) at 2+2 (their plain steps took 60 s of the run
+# at 6+6)
+WIRINGS = (("AMT", None, dict(n_layers=3)), ("1.1", "1.1", dict(n_layers=3)),
+           ("1.3.4", "1.3.4", dict(n_layers=3)),
+           ("2.0", "2.0", dict(n_layers=3)), ("2.3", "2.3", dict(n_layers=2)),
+           ("2.2 GQA", "2.2", dict(kv_heads=2, n_layers=2)))
 WIRING_KERNELS = ("flash_attention", "decode_variant_layer",
                   "batched_variant_layer_step", "batched_variant_moe_ffn")
 # (label, decoder layer, key): the layer forms of rows 8-10 timed on a
@@ -3578,7 +4095,9 @@ def wiring_form_phase(report, v2m, layer_idx, key):
 
 def wirings_phase(card, report):
     """Each wiring of WIRINGS at full width (d_model 512, 8 heads, d_ff
-    1024, 6 + 6 layers, 300 positions, 6 experts top-2; bimamba+
+    1024; depth cut to 3 + 3 layers, 2 + 2 for the plain-step wirings),
+    300 positions,
+    6 experts top-2; bimamba+
     regression), random weights from seed 0, bfloat16 serving: the kernel
     step held to the plain step under teacher forcing at B=1 and B=8 (f32
     and bf16, expert ids compared) where a kernel covers the wiring; one
@@ -4215,7 +4734,8 @@ def raw_video_phase(card, report):
 def new_backbones_phase(card, report):
     """The RNN, CNN-GRU and minGRU regressions at full width (the
     RegressionConfig defaults: d_model 64, 2 layers) behind a full-width
-    2.2, seeded: one generate (B=1) and one generate_batch (B=16) each in
+    2.2 cut to 2+2 layers (the decode is not what this phase checks),
+    seeded: one generate (B=1) and one generate_batch (B=16) each in
     float32 and bfloat16, every clip checked; the f32 regression outputs
     of the card against the same model on the CPU, bf16 against f32 on
     the card; the regression forward's ms at B=1 and B=16 (CUDA events).
@@ -4230,7 +4750,8 @@ def new_backbones_phase(card, report):
     reqs, temps = serving_requests(16, 900)
     with tempfile.TemporaryDirectory() as tmp:
         for rm in NEW_BACKBONES:
-            v2m = Video2music(seed=0, device="cuda", reg_model=rm)
+            v2m = Video2music(seed=0, device="cuda", reg_model=rm,
+                              amt_overrides=dict(n_layers=2))
             cpu = copy.deepcopy(v2m.model_reg).cpu()
             row = out[rm] = {}
             for B in (1, 16):
@@ -5450,6 +5971,16 @@ MULTI_GPU_WORLDS = (("dp", (2, 1), ("f32", "f32_drop", "bf16")),
 MULTI_GPU_FORMS = {"f32": (0.0, False), "f32_drop": (0.1, False),
                    "bf16": (0.1, True)}
 MULTI_GPU_STEPS, MULTI_GPU_LR, MULTI_GPU_MICROBATCHES = 3, 1e-4, 4
+# decoder (and encoder) layers of the worlds' model: cut from 6 to 3 (two
+# SwiGLU layers and a SharedMoE one a stack) to keep the run within its
+# time limit, but for pp, whose 3 stages must divide each segment of
+# identical layers (3 SwiGLU, 3 SharedMoE)
+MULTI_GPU_DEPTH = {"pp": 6}
+MULTI_GPU_DEPTH_DEFAULT = 3
+# worlds started together (their ranks' start-up, ~8 s a process, is most
+# of a world's wall): pairs, seven ranks at most on the card machine's
+# eight cores; their ms/step read the transport under that contention
+MULTI_GPU_CONCURRENT = 2
 # Parameters are held entry by entry to rtol 1e-3 / atol 1e-5, at most
 # MULTI_GPU_OUTLIER_SHARE of them within the Adam step bound instead (the
 # CPU tests' bound: an Adam step follows the last digits of a near-zero
@@ -5615,11 +6146,13 @@ def world_launches_want(strategy, shape, cfg, form):
 
 def multi_gpu_phase(card, report):
     """Every strategy of train_amt's mesh at full width (AMT 2.2: d_model
-    512, 8 heads, d_ff 1024, 6+6 layers, 3 SharedMoE of 6 experts top-2 a
-    stack; B=16, L=300, AdamW lr 1e-4, seeded weights, synthetic batches)
+    512, 8 heads, d_ff 1024, 6 experts top-2; depth cut to 3+3 layers, one
+    SharedMoE a stack, but for pp's 6+6 (MULTI_GPU_DEPTH); B=16, L=300,
+    AdamW lr 1e-4, seeded weights, synthetic batches)
     as worlds of ranks sharing this card over gloo (NCCL takes one GPU a
-    rank): 2x1 dp, 1x2 tp (EP 6/2), 1x2 sp, 1x4 tp (6 experts on 4 ranks:
-    the inner-d_ff fallback), 2x2 tp and 1x3 pp (4 microbatches, the 3+3
+    rank), two worlds started at a time (MULTI_GPU_CONCURRENT): 2x1 dp,
+    1x2 tp (EP 6/2), 1x2 sp, 1x4 tp (6 experts on 4 ranks: the inner-d_ff
+    fallback), 2x2 tp and 1x3 pp (4 microbatches, the 3+3
     segments). Each runs three steps against the single-process step on
     this card from the same seed: f32 at dropout 0 (losses rtol 1e-4,
     parameters rtol 1e-3 / atol 1e-5 but for MULTI_GPU_OUTLIER_SHARE of
@@ -5649,59 +6182,87 @@ def multi_gpu_worlds(card, report):
 
     import numpy as np
     from video2music_tpu_torch.core.config import TrainConfig, amt_config
-    from video2music_tpu_torch.parallel.launch import spawn
+    from video2music_tpu_torch.parallel.launch import join
+    from video2music_tpu_torch.parallel.launch import start as start_world
 
-    base = amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6)
     B, L = 16, 300
     batches = multi_gpu_batches(B, L, MULTI_GPU_STEPS)
     tcfgs = {form: TrainConfig(optimizer="adamw", lr=MULTI_GPU_LR,
                                mixed_precision=mp)
              for form, (_, mp) in MULTI_GPU_FORMS.items()}
-    cfgs = {form: dataclasses.replace(base, dropout=rate)
-            for form, (rate, _) in MULTI_GPU_FORMS.items()}
-    refs = {}
-    for form in MULTI_GPU_FORMS:
+    # (form, depth) -> config, and the single-process run of each that a
+    # world checks
+    cfgs, refs = {}, {}
+    for strategy, _, forms in MULTI_GPU_WORLDS:
+        depth = MULTI_GPU_DEPTH.get(strategy, MULTI_GPU_DEPTH_DEFAULT)
+        for form in forms:
+            cfgs[form, depth] = dataclasses.replace(
+                amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6,
+                           n_layers=depth),
+                dropout=MULTI_GPU_FORMS[form][0])
+    for (form, depth), cfg in cfgs.items():
         t0 = time.perf_counter()
-        refs[form] = single_process_steps(cfgs[form], tcfgs[form], batches)
-        print(f"single-process step, {form}: losses "
-              f"{[round(v, 6) for v in refs[form][0]]}, "
-              f"{np.mean(refs[form][3][1:]):.1f} ms/step (steps 2-3; "
+        refs[form, depth] = single_process_steps(cfg, tcfgs[form], batches)
+        print(f"single-process step, {form}, {depth}+{depth} layers: losses "
+              f"{[round(v, 6) for v in refs[form, depth][0]]}, "
+              f"{np.mean(refs[form, depth][3][1:]):.1f} ms/step (steps 2-3; "
               f"{time.perf_counter() - t0:.1f} s with the set-up) [{card}]")
     summary = {"single_process_ms_step": {
-        form: float(np.mean(r[3][1:])) for form, r in refs.items()}}
+        f"{form} {depth}+{depth}": float(np.mean(r[3][1:]))
+        for (form, depth), r in refs.items()}}
     launches = {"flash_attention": 0, "flash_attention_dropout_fwd": 0,
                 "flash_attention_dropout_bwd": 0}
-    for strategy, shape, forms in MULTI_GPU_WORLDS:
-        tag = f"{shape[0]}x{shape[1]} {strategy}"
-        cases = []
-        for form in forms:
-            cfg = dataclasses.replace(cfgs[form],
-                                      sequence_parallel=strategy == "sp")
-            cases.append(dict(name=form, cfg=cfg, tcfg=tcfgs[form],
-                              strategy=strategy, weights=None,
-                              batches=batches,
-                              microbatches=MULTI_GPU_MICROBATCHES,
-                              first_state=form.startswith("f32")))
+
+    def world_cases(strategy, forms, depth):
+        return [dict(name=form, tcfg=tcfgs[form], strategy=strategy,
+                     cfg=dataclasses.replace(
+                         cfgs[form, depth],
+                         sequence_parallel=strategy == "sp"), weights=None,
+                     batches=batches, microbatches=MULTI_GPU_MICROBATCHES,
+                     first_state=form.startswith("f32")) for form in forms]
+
+    def run_group(group):
+        """The group's worlds started together; (their ranks' results in
+        world order, the group's wall). Every rank is stopped on the way
+        out, whatever happened."""
         t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as work:
-            results = spawn("video2music_tpu_torch.parallel.worlds:run_world",
-                            shape[0] * shape[1],
-                            dict(mesh=shape, backend="gloo", device="cuda",
-                                 deterministic=True, cases=cases),
-                            workdir=work, timeout=600)
-        wall = time.perf_counter() - t0
+        with contextlib.ExitStack() as stack:
+            started = []
+            for strategy, shape, forms in group:
+                work = stack.enter_context(tempfile.TemporaryDirectory())
+                depth = MULTI_GPU_DEPTH.get(strategy, MULTI_GPU_DEPTH_DEFAULT)
+                started.append((start_world(
+                    "video2music_tpu_torch.parallel.worlds:run_world",
+                    shape[0] * shape[1], dict(
+                        mesh=shape, backend="gloo", device="cuda",
+                        deterministic=True,
+                        cases=world_cases(strategy, forms, depth)),
+                    workdir=work), work))
+            stack.callback(lambda: [(p.kill(), p.wait()) for procs, _ in
+                                    started for p in procs
+                                    if p.poll() is None])
+            results = [join(procs, work, timeout=600)
+                       for procs, work in started]
+        return results, time.perf_counter() - t0
+
+    def check_world(world, results, wall):
+        """One world's results against the single-process runs."""
+        strategy, shape, forms = world
+        tag = f"{shape[0]}x{shape[1]} {strategy}"
+        depth = MULTI_GPU_DEPTH.get(strategy, MULTI_GPU_DEPTH_DEFAULT)
         for form in forms:
             got = results[0][form]
-            losses, start, final, _, counts, first = refs[form]
-            flips = flipped_layers(cfgs[form], got["expert_counts"], counts)
+            fcfg = cfgs[form, depth]
+            losses, start, final, _, counts, first = refs[form, depth]
+            flips = flipped_layers(fcfg, got["expert_counts"], counts)
             if form.startswith("f32"):
                 np.testing.assert_allclose(got["losses"], losses, rtol=1e-4,
                                            err_msg=f"{tag} {form} losses")
                 held1 = params_close(
                     f"{tag} {form} after step 1", got["first_state"], first,
-                    MULTI_GPU_LR, 1, exempt_layers(cfgs[form],
+                    MULTI_GPU_LR, 1, exempt_layers(fcfg,
                                                    {1: flips.get(1, [])}))
-                exempt = exempt_layers(cfgs[form], flips)
+                exempt = exempt_layers(fcfg, flips)
                 held = params_close(f"{tag} {form}", got["state"], final,
                                     MULTI_GPU_LR, MULTI_GPU_STEPS, exempt)
                 held.update(step1=held1, exempt=exempt)
@@ -5724,7 +6285,7 @@ def multi_gpu_worlds(card, report):
                 held = dict(loss_rel=rel, sign_agreement=share)
                 check = (f"loss within {rel:.2e}, updates agree in sign on "
                          f"{share:.4f}")
-            want = world_launches_want(strategy, shape, cfgs[form], form)
+            want = world_launches_want(strategy, shape, fcfg, form)
             for rank, res in enumerate(results):
                 fail_unless(res[form]["launches"] == want,
                             f"{tag} {form} rank {rank}: launches "
@@ -5744,7 +6305,15 @@ def multi_gpu_worlds(card, report):
                   f"launches {got['launches']} at {got['heads']} heads a "
                   "call [" + card + "]")
         print(f"world {tag}: {shape[0] * shape[1]} ranks, {wall:.1f} s "
-              "with their start and set-up")
+              f"with their start and set-up (started with "
+              f"{MULTI_GPU_CONCURRENT - 1} other world)")
+
+    worlds = list(MULTI_GPU_WORLDS)
+    for i in range(0, len(worlds), MULTI_GPU_CONCURRENT):
+        group = worlds[i:i + MULTI_GPU_CONCURRENT]
+        group_results, wall = run_group(group)
+        for world, results in zip(group, group_results):
+            check_world(world, results, wall)
     for name, n in launches.items():
         report[name]["launches_multi_gpu"] = n
     report["multi_gpu"] = summary
@@ -5944,9 +6513,11 @@ def reference_state_dict(kind, seed, d=512, ff=1024, heads=8, n=6, E=6,
 def refused_shapes_phase(card, report):
     """Step 0 on the card: generate_chords on AMT 2.2 at the shapes the
     decode kernels refuse decodes on the plain step (no decode kernel
-    launches), fused="on" warning; the limits kept raise their
-    ValueError on CUDA tensors (rows 1 and 11 above head size 256, the
-    scan above d_state 1024)."""
+    launches), fused="on" warning; int8 KV caches at head size 8 and B=2
+    stay int8 on the batched kernels, with no warning. (Rows 1 and 11
+    above head size 256 and the scan above d_state 1024, limits until
+    this slice, are held to their plain versions by the "wide heads" and
+    "wide states" phases.)"""
     import warnings
 
     import torch
@@ -5954,10 +6525,6 @@ def refused_shapes_phase(card, report):
     from video2music_tpu_torch.decode.sampler import (GenerateConfig,
                                                       generate_chords)
     from video2music_tpu_torch.models import VideoMusicTransformer
-    from video2music_tpu_torch.ops.flash_attention import flash_attention
-    from video2music_tpu_torch.ops.flash_attention_dropout import (
-        flash_attention_dropout_fwd)
-    from video2music_tpu_torch.ops.scan import selective_scan
     from video2music_tpu_torch.weights import init_weights_
     dev = torch.device("cuda")
     T = 300
@@ -6003,9 +6570,11 @@ def refused_shapes_phase(card, report):
               f"300 tokens on the plain step, fused='on' warned, decode "
               f"{out['timings_ms']['decode'] / (T - 1):.4f} ms/token "
               f"[{card}]")
-    # int8 KV caches beside head size 8 at B=2: the batched kernels keep
-    # the config with full-precision caches, and warn; the tokens are
-    # those of kv_quant=None
+    # int8 KV caches at head size 8 and B=2: the batched kernels keep the
+    # config and its int8 caches (8-value loads), with no warning; the
+    # tokens are checked as the repo's checks hold any clip (the
+    # full-width "head size 8 int8 KV" phase holds the steps to the plain
+    # int8-KV step)
     cfg = amt_config("2.2", n_layers=2, num_heads=8, d_model=64, d_ff=128,
                      total_vf_dim=11, dropout=0.0)
     model = init_weights_(VideoMusicTransformer(cfg),
@@ -6013,56 +6582,26 @@ def refused_shapes_phase(card, report):
     kw2 = {k: v.expand(2, *v.shape[1:]).contiguous() for k, v in kw.items()
            if torch.is_tensor(v)}
     kw2.update(num_primer=2, gcfg=GenerateConfig(target_seq_length=T))
-    outs = {}
-    for kv in ("int8", None):
-        zero_launches()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = generate_chords(model, kv_quant=kv, generator=torch
-                                  .Generator(device=dev).manual_seed(2),
-                                  **kw2)
-        warned = any("full-precision KV" in str(w.message) for w in caught)
-        fail_unless(warned == (kv is not None),
-                    f"head size 8, B=2, kv_quant={kv!r}: warned {warned}")
-        counts = {n: fn.launches for n, fn in wrappers().items()}
-        fail_unless(counts["batched_layer_step"] > 0
-                    and counts["batched_moe_ffn"] > 0,
-                    f"head size 8, B=2, kv_quant={kv!r}: the batched "
-                    f"kernels did not launch: {counts}")
-        add_launches(report, counts)
-        for b in range(2):
-            check_ids(f"head size 8 B=2 kv_quant={kv!r} clip {b}",
-                      out["gen_seq"][b].cpu().numpy(), "", T)
-        outs[kv] = out["gen_seq"].cpu()
-    fail_unless(torch.equal(outs["int8"], outs[None]),
-                "head size 8, B=2: kv_quant='int8' (dropped) and None differ")
-    print(f"  d_model 64, 8 heads (head size 8), B=2, kv_quant='int8': "
-          f"warned, batched kernels with full-precision caches "
-          f"(batched_layer_step {counts['batched_layer_step']}, "
-          f"batched_moe_ffn {counts['batched_moe_ffn']} launches), tokens "
-          f"equal kv_quant=None's [{card}]")
     zero_launches()
-    q = torch.zeros(1, 2, 8, 320, device=dev)
-    seed = torch.zeros(1, dtype=torch.int32, device=dev)
-    x = torch.zeros(1, 4, 8, device=dev)
-    for name, fn, msg in (
-            ("flash_attention", lambda: flash_attention(q, q, q),
-             "head_dim 320 above 256"),
-            ("flash_attention_dropout", lambda: flash_attention_dropout_fwd(
-                q, q, q, None, seed, False, 0.1), "head_dim 320 above 256"),
-            ("selective_scan", lambda: selective_scan(
-                x, x, torch.zeros(8, 1025, device=dev),
-                torch.zeros(1, 4, 1025, device=dev),
-                torch.zeros(1, 4, 1025, device=dev),
-                torch.zeros(8, device=dev)), "d_state 1025 outside")):
-        try:
-            fn()
-        except ValueError as e:
-            fail_unless(msg in str(e), f"{name}: {e}")
-            print(f"  {name} keeps its limit: ValueError {str(e)[:72]!r}")
-        else:
-            raise SmokeFailure(f"{name}: no ValueError beyond its limit")
-    check_path_launches("the limits", {})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = generate_chords(model, kv_quant="int8", generator=torch
+                              .Generator(device=dev).manual_seed(2), **kw2)
+    fail_unless(not caught, f"head size 8, B=2, kv_quant='int8' warned: "
+                f"{[str(w.message)[:80] for w in caught]}")
+    counts = {n: fn.launches for n, fn in wrappers().items()}
+    fail_unless(counts["batched_layer_step"] == 2 * (T - 1)
+                and counts["batched_moe_ffn"] == T - 1,
+                f"head size 8, B=2, kv_quant='int8': the batched kernels "
+                f"launched {counts}")
+    add_launches(report, counts)
+    for b in range(2):
+        check_ids(f"head size 8 B=2 kv_quant='int8' clip {b}",
+                  out["gen_seq"][b].cpu().numpy(), "", T)
+    print(f"  d_model 64, 8 heads (head size 8), B=2, kv_quant='int8': no "
+          f"warning, batched kernels on int8 caches (batched_layer_step "
+          f"{counts['batched_layer_step']}, batched_moe_ffn "
+          f"{counts['batched_moe_ffn']} launches) [{card}]")
 
 
 def hf_clip_vit_l14_336(dev, gen):
@@ -6427,6 +6966,9 @@ def main() -> int:
     phase("gemv yardstick", gemv_yardstick_phase, report, card)
     phase("d_ff 2048", wide_ffn_phase, report, v2m)
     phase("head sizes", head_size_phase, report, card)
+    phase("wide heads", wide_head_phase, report, card)
+    phase("wide states", wide_state_phase, report, card)
+    phase("probes", probes_phase, report, card)
     phase("40 experts", many_experts_phase, report, v2m)
     phase("expert cut", expert_cut_phase, report, v2m, card)
     phase("slice", slice_phase, v2m, card, report)
@@ -6466,12 +7008,18 @@ def main() -> int:
     phase("CLIs", cli_phase, card, report)
     torch.cuda.empty_cache()
     phase("published layouts", published_layouts_phase, card, report)
+    torch.cuda.empty_cache()
+    phase("head size 512 path", wide_head_path_phase, card, report)
+    torch.cuda.empty_cache()
+    phase("head size 8 int8 KV", int8_kv_hd8_phase, card, report)
     print(f"phase seconds: {json.dumps(seconds)}")
 
     rows = []
     for name, meta in KERNELS.items():
         r = report[name]
-        bf, f32 = r["ms"][torch.bfloat16], r["ms"][torch.float32]
+        # the kv probe has bf16 forms only
+        no_f32 = (None,) * 4
+        bf, f32 = r["ms"][torch.bfloat16], r["ms"].get(torch.float32, no_f32)
         row = dict(name=name, route="cuda", source=meta["source"],
                    replaces=meta["replaces"], launches=r["launches"],
                    max_abs_err=r["err"][torch.bfloat16], ms=bf[0],
@@ -6479,22 +7027,28 @@ def main() -> int:
                    bound_by=r["bound_by"], library_ms=r["library_ms"],
                    dtype="bfloat16",
                    ms_eager=bf[1], plain_ms_eager=bf[3],
-                   max_abs_err_f32=r["err"][torch.float32],
+                   max_abs_err_f32=r["err"].get(torch.float32),
                    ms_f32=f32[0], plain_ms_f32=f32[2])
         for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h", "ms_int8",
-                    "ms_int8_b64", "ms_d128", "ms_rpr", "ms_mlp",
-                    "ms_moemamba") + tuple(f[0] for f in RAW_VIDEO_FORMS):
-            # other shapes; int8 weights or caches; head size 128; the
-            # RPR / MLP-expert layer forms, the scan inside moemamba and
-            # row 1 in the extractors' forms, each with its own bound
+                    "ms_int8_b16", "ms_int8_b64", "ms_d128", "ms_rpr",
+                    "ms_mlp", "ms_moemamba", "ms_d512", "ms_int8_hd8",
+                    "ms_int8_hd8_b64", "ms_n2048", "ms_floor", "ms_floor_b16",
+                    "ms_floor_b64", "ms_noattn", "ms_noattn_b16",
+                    "ms_noattn_b64", "ms_tn", "ms_diag") + tuple(
+                        f[0] for f in RAW_VIDEO_FORMS):
+            # other shapes; int8 weights or caches; head sizes 128 and 512,
+            # and 8 with int8 caches; the RPR / MLP-expert layer forms, the
+            # scan inside moemamba and at d_state 2048, row 1 in the
+            # extractors' forms, the probes' modes and forms, each with
+            # its own bound
             if key in r:
                 t = r[key][torch.bfloat16]
                 row[key], row["plain_" + key] = t[0], t[2]
-                row[key + "_f32"] = r[key][torch.float32][0]
+                row[key + "_f32"] = r[key].get(torch.float32, no_f32)[0]
             if "err_" + key in r:
                 row["max_abs_err_" + key] = r["err_" + key][torch.bfloat16]
                 row["max_abs_err_" + key + "_f32"] = \
-                    r["err_" + key][torch.float32]
+                    r["err_" + key].get(torch.float32)
             if "library_" + key in r:
                 row["library_" + key] = r["library_" + key]
             if "form_bound_" + key in r:  # (ms, "bytes" / "operations")
@@ -6505,9 +7059,14 @@ def main() -> int:
         for key in ("launches_2h", "launches_wirings", "launches_zoo",
                     "launches_raw_video", "launches_train_zoo",
                     "launches_clis", "launches_multi_gpu",
-                    "launches_published"):
+                    "launches_published", "launches_wide",
+                    "launches_probe"):
             if key in r:
                 row[key] = r[key]
+        if "err_int8_hd8" in r:  # int8 KV caches at head size 8
+            row.update(max_abs_err_int8_hd8=r["err_int8_hd8"][torch.bfloat16],
+                       max_abs_err_int8_hd8_f32=r["err_int8_hd8"][
+                           torch.float32])
         if "err_int8" in r:  # int8 weights (decode layers), int8 KV caches
             row.update(max_abs_err_int8=r["err_int8"][torch.bfloat16],
                        max_abs_err_int8_f32=r["err_int8"][torch.float32],
@@ -6534,6 +7093,9 @@ def main() -> int:
     print(f"train zoo (this run): {json.dumps(report['train_zoo'])}")
     print(f"multi-GPU, ranks sharing one card over gloo (functional, not "
           f"scaling; this run): {json.dumps(report['multi_gpu'])}")
+    print(f"wide heads and states, head size 8 with int8 caches (this "
+          f"run): {json.dumps(report['wide'])} [{card}]")
+    print(f"probes (this run, device ms): {json.dumps(report['probes'])}")
     print(f"published layouts (this run; ms from CUDA events, ms/token "
           f"and clips/s from the checkpoint and the in-memory conversion): "
           f"{json.dumps(report['published'])} [{card}]")

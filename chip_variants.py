@@ -99,8 +99,8 @@ def load(proc, so, source):
         lib.v2m_decode_stack.argtypes = [i, ctypes.POINTER(kernels.StackArgs),
                                          vp]
     else:
-        lib.v2m_selective_scan.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i,
-                                           i, i, i, vp]
+        lib.v2m_selective_scan.argtypes = [i, vp, vp, vp, vp, vp, vp, vp,
+                                           vp, i, i, i, i, vp]
     return lib
 
 
@@ -199,7 +199,7 @@ def scan_designs(v2m, libs):
                         return
                     cs.fail_unless(lib.v2m_selective_scan(
                         kernels.dtype_code(x, "scan"), *(kernels.ptr(t) for t
-                        in (x, dt, A, Bm, Cm, Dv, y)), b, L, ED, N,
+                        in (x, dt, A, Bm, Cm, Dv, y, None)), b, L, ED, N,
                         kernels.stream_of(x)) == 0, f"{design}: launch")
                 go()
                 err = cs.errors(y, want)[1]

@@ -4,7 +4,8 @@ and the attention kernels' head sizes, held to the JAX package on the CPU
 
 * Head sizes outside the kernels' instances: the wrappers pad q, k, v (and
   dO, O) with zero columns up to the next built head size (16, 32, 64,
-  128, 256) and keep the unpadded scale. The padded form, run through the
+  128, 256; above 256 a multiple of the wide form's 64-column slices) and
+  keep the unpadded scale. The padded form, run through the
   plain versions at the padded size with q scaled by sqrt(Dp / D) (so
   that their 1 / sqrt(Dp) is the kernels' 1 / sqrt(D)), against the
   Pallas flash attention and dropout attention at head sizes 48, 96 and
@@ -105,17 +106,22 @@ def _padded(D, q, *ts):
     """q, *ts zero-padded to the kernels' head instance Dp, q in f32 and
     scaled by sqrt(Dp / D): the plain versions' 1 / sqrt(Dp) on the padded
     q is the kernels' 1 / sqrt(D). Returns (factor, padded tensors)."""
-    Dp = kernels.head_instance(D, "test")
+    Dp = kernels.padded_head(D, "test")
     c = (Dp / D) ** 0.5
     return c, [kernels.pad_head(t, Dp) for t in (q.float() * c, *ts)]
 
 
 def test_head_instances_and_the_limit():
+    """The narrow instances up to 256, one slice each; above, 64-column
+    slices; the one limit left is a positive head size."""
     assert [kernels.head_instance(d, "t") for d in (8, 16, 48, 64, 80, 96,
                                                     128, 200, 256)] == \
-        [16, 16, 64, 64, 128, 128, 128, 256, 256]
-    with pytest.raises(ValueError, match="above 256"):
-        kernels.head_instance(320, "t")
+        [(16, 1), (16, 1), (64, 1), (64, 1), (128, 1), (128, 1), (128, 1),
+         (256, 1), (256, 1)]
+    assert kernels.head_instance(320, "t") == (64, 5)
+    for D in (0, -1):
+        with pytest.raises(ValueError, match="no positive head size"):
+            kernels.head_instance(D, "t")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -4,9 +4,11 @@ take to the plain step, as the JAX sampler sends dims Mosaic cannot lower
 to its XLA step (``fused_decode_mosaic_ok``), warning when ``fused`` was
 asked for explicitly; the kernels' limits are stated once
 (``ops/decode_layer.py decode_shape_fault``), and the sampler's predicate
-and the wrappers read them. The limits kept elsewhere (rows 1 and 11
-above head size 256, the scan above d_state 1024) raise with their
-messages."""
+and the wrappers read them; int8 KV caches add no limit. Rows 1 and 11
+above head size 256 (the head split across blocks on the card) and the
+scan above d_state 1024 (state chunks on the card), limits until they
+were lifted, against the JAX package: forward and gradients, the dropout
+mask entry for entry, and the attention kernels' plan over head sizes."""
 
 import warnings
 
@@ -15,12 +17,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from video2music_tpu.core import constants as JC
 from video2music_tpu.core.config import amt_config as jax_amt_config
 from video2music_tpu.decode.sampler import GenerateConfig as JaxGenerateConfig
 from video2music_tpu.decode.sampler import generate_chords as jax_generate
 from video2music_tpu.models import VideoMusicTransformer as JaxAMT
+from video2music_tpu.ops.pallas_attention import flash_attention as jax_flash
+from video2music_tpu.ops.pallas_attention_dropout import (
+    extract_dropped_probs as jax_extract, flash_attention_dropout as jax_fad)
+from video2music_tpu.ops.scan import selective_scan as jax_scan
 from video2music_tpu_torch import kernels
 from video2music_tpu_torch.core.config import amt_config
 from video2music_tpu_torch.decode import sampler
@@ -31,7 +38,9 @@ from video2music_tpu_torch.models import VideoMusicTransformer
 from video2music_tpu_torch.ops import flash_attention_dropout as fad
 from video2music_tpu_torch.ops.decode_layer import (cuda_decode_shapes_ok,
                                                     decode_shape_fault)
-from video2music_tpu_torch.ops.scan import require_d_state
+from video2music_tpu_torch.ops.flash_attention import flash_attention
+from video2music_tpu_torch.ops.scan import (require_d_state, selective_scan,
+                                            state_chunks)
 from video2music_tpu_torch.weights import amt_from_jax
 
 torch.set_num_threads(1)
@@ -118,8 +127,8 @@ PREDICATE = [
      "multiples of 16 (int8 rows)"),
     (dict(d_model=16, num_heads=2, d_ff=40), 2, "int8", None, True, True,
      None),
-    (dict(d_model=16, num_heads=2, d_ff=32), 2, None, "int8", False, False,
-     "int8 KV caches need"),
+    (dict(d_model=16, num_heads=2, d_ff=32), 2, None, "int8", True, False,
+     None),
     (dict(d_model=16, num_heads=1, d_ff=32), 2, None, "int8", True, False,
      None),
     (dict(d_model=16, num_heads=2, d_ff=32), 1, None, "int8", True, False,
@@ -134,55 +143,142 @@ PREDICATE = [
 def test_shape_predicate_and_routing(over, B, quantize, kv_quant, ok, plain,
                                      message):
     """cuda_decode_shapes_ok on the kernels' limits (int8 weight rows count
-    at B=1 only, where int8 kernels run; int8 KV caches at B>1 only), the
-    plain step where it fails (and for int8 weights at B>1), and the
-    wrappers' message. Where only the int8 KV caches are refused, the
-    batched kernels keep the config with full-precision caches, and warn
-    under "auto" too."""
+    at B=1 only, where int8 kernels run; int8 KV caches add none: a head
+    size of 8 at B>1 keeps them), the plain step where it fails (and for
+    int8 weights at B>1), and the wrappers' message; no routing warns
+    under "auto"."""
     cfg = amt_config("2.2", n_layers=2, **over)
-    assert cuda_decode_shapes_ok(cfg, B, quantize, kv_quant) is ok
-    kv_dropped = kv_quant is not None and not ok and not plain
+    assert cuda_decode_shapes_ok(cfg, B, quantize) is ok
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         init, _ = fused_backend(cfg, B, quantize=quantize, kv_quant=kv_quant)
     assert (init is sampler._init_plain_caches) is plain
-    dropped = [w for w in caught if "full-precision KV" in str(w.message)]
-    assert len(dropped) == int(kv_dropped)
-    fault = decode_shape_fault(
-        cfg.d_model, cfg.num_heads, (cfg.d_ff,),
-        int8_rows=quantize is not None and B == 1,
-        int8_kv=kv_quant is not None and B > 1)
+    assert not caught, [str(w.message) for w in caught]
+    fault = decode_shape_fault(cfg.d_model, cfg.num_heads, (cfg.d_ff,),
+                               int8_rows=quantize is not None and B == 1)
     assert (fault is None) is ok
     if message:
         assert message in fault
 
 
 # ---------------------------------------------------------------------------
-# the limits kept: rows 1 and 11 above head size 256, the scan above
-# d_state 1024 (ValueError on a CUDA tensor, as the wrappers raise)
+# rows 1, 11 and 12 above their former limits: head sizes above 256, d_state
+# above 1024, against the JAX package (the wrappers' plain versions on CPU
+# tensors; f32, within WIDE_REL of the largest magnitude)
 # ---------------------------------------------------------------------------
 
-def test_flash_attention_head_size_limit_kept():
-    """Row 1: the padded instances stop at 256."""
-    with pytest.raises(ValueError, match="flash_attention: head_dim 320 "
-                       "above 256: the widest instance"):
-        kernels.head_instance(320, "flash_attention")
+WIDE = [320, 512]
+WIDE_REL = 1e-5
+INTERP = pltpu.InterpretParams()
 
 
-def test_dropout_attention_head_size_limit_kept():
-    """Row 11: the wrapper's validation (which runs before the kernel
-    launches) refuses head size 320."""
-    q = torch.zeros(1, 2, 8, 320)
-    seed = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="flash_attention_dropout: "
-                       "head_dim 320 above 256"):
-        fad._check(q, q, q, None, seed, "flash_attention_dropout")
+def _rel(got, want, msg=""):
+    got = np.asarray(torch.as_tensor(got).detach().float())
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape, msg
+    err = np.abs(got - want).max()
+    assert err <= WIDE_REL * np.abs(want).max(), f"{msg}: max abs {err}"
 
 
-def test_scan_d_state_limit_kept():
-    """Row 12: d_state 1 to 1024."""
-    require_d_state(1024, "selective_scan")
-    for N in (0, 1025):
-        with pytest.raises(ValueError, match=f"selective_scan: d_state {N} "
-                           "outside 1..1024"):
-            require_d_state(N, "selective_scan")
+@pytest.mark.parametrize("mode", ["plain", "bias", "causal"])
+@pytest.mark.parametrize("D", WIDE)
+def test_flash_attention_wide_heads_match_jax(D, mode):
+    """Row 1 at head sizes 320 and 512 (B=1, H=2, L=S=16): the output and
+    the q / k / v gradients against the Pallas flash attention in
+    interpret mode (its custom VJP), with a bias or the causal mask."""
+    r = np.random.default_rng(D + len(mode))
+    q, k, v, g = (r.standard_normal((1, 2, 16, D)).astype(np.float32)
+                  for _ in range(4))
+    bias = r.standard_normal((1, 2, 16, 16)).astype(np.float32) \
+        if mode == "bias" else None
+    causal = mode == "causal"
+
+    def f(q_, k_, v_):
+        return jax_flash(q_, k_, v_, bias=None if bias is None
+                         else jnp.asarray(bias), causal=causal,
+                         interpret=True)
+    want, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    wants = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = flash_attention(*leaves, causal=causal, bias=None if bias is None
+                          else torch.from_numpy(bias))
+    _rel(got, want, f"out D={D} {mode}")
+    grads = torch.autograd.grad(got, leaves, torch.from_numpy(g))
+    for name, a, w in zip(("dq", "dk", "dv"), grads, wants):
+        _rel(a, w, f"{name} D={D} {mode}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", WIDE)
+def test_dropout_attention_wide_heads_match_jax(D, causal):
+    """Row 11 at head sizes 320 and 512 (B=1, H=2, L=S=16, rate 0.1): the
+    output and the q / k / v gradients against the Pallas dropout
+    attention in interpret mode, and the dropped probabilities (the mask)
+    equal to the Pallas kernel's entry for entry."""
+    rate, seed = 0.1, 7
+    r = np.random.default_rng(D + 3 * causal)
+    q, k, v, do = (r.standard_normal((1, 2, 16, D)).astype(np.float32)
+                   for _ in range(4))
+
+    def f(q_, k_, v_):
+        return jax_fad(q_, k_, v_, causal=causal, dropout_rate=rate,
+                       seed=seed, interpret=INTERP)
+    want, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    wants = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = fad.flash_attention_dropout(*leaves, causal=causal,
+                                      dropout_rate=rate, seed=seed)
+    _rel(got, want, f"out D={D}")
+    grads = torch.autograd.grad(got, leaves, torch.from_numpy(do))
+    for name, a, w in zip(("dq", "dk", "dv"), grads, wants):
+        _rel(a, w, f"{name} D={D}")
+    jm = np.asarray(jnp.asarray(jax_extract(
+        jnp.asarray(q), jnp.asarray(k), causal=causal, dropout_rate=rate,
+        seed=seed, interpret=INTERP), jnp.float32))
+    pm = fad.extract_dropped_probs(torch.from_numpy(q), torch.from_numpy(k),
+                                   causal=causal, dropout_rate=rate,
+                                   seed=seed).numpy()
+    np.testing.assert_array_equal(pm == 0, jm == 0)
+    _rel(pm, jm, f"dropped probabilities D={D}")
+
+
+def test_scan_d_state_1025_matches_jax_vjp():
+    """Row 12 at d_state 1025 (two state chunks on the card): the forward
+    and all six inputs' gradients (the wrapper's backward recomputes the
+    plain scan) against jax.vjp of the JAX package's scan."""
+    rng = np.random.default_rng(1025)
+    b, L, ED, N = 2, 9, 4, 1025
+    assert state_chunks(N) == 2
+    x = rng.standard_normal((b, L, ED)).astype(np.float32)
+    delta = rng.uniform(0.01, 0.5, (b, L, ED)).astype(np.float32)
+    A = -rng.uniform(0.5, 4.0, (ED, N)).astype(np.float32)
+    B, C = (rng.standard_normal((b, L, N)).astype(np.float32)
+            for _ in range(2))
+    D = rng.standard_normal(ED).astype(np.float32)
+    g = rng.standard_normal((b, L, ED)).astype(np.float32)
+    args = (x, delta, A, B, C, D)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    y = selective_scan(*leaves)
+    want, vjp = jax.vjp(jax_scan, *(jnp.asarray(a) for a in args))
+    _rel(y, want, "y")
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(g))
+    for name, a, w in zip(("x", "delta", "A", "B", "C", "D"), got,
+                          vjp(jnp.asarray(g))):
+        _rel(a, w, name)
+
+
+@pytest.mark.parametrize("D,plan", [(8, (16, 1)), (256, (256, 1)),
+                                    (257, (64, 5)), (512, (64, 8)),
+                                    (1024, (64, 16))])
+def test_head_instance_plan(D, plan):
+    """The attention kernels' plan the wrappers read: (instance width,
+    slices), the narrow instances to 256 and 64-column slices above; the
+    padded head size is their product; no positive size raises, for the
+    scan's d_state too."""
+    assert kernels.head_instance(D, "t") == plan
+    assert kernels.padded_head(D, "t") == plan[0] * plan[1] >= D
+    with pytest.raises(ValueError, match="no positive head size"):
+        kernels.head_instance(0, "flash_attention")
+    with pytest.raises(ValueError, match="no positive state count"):
+        require_d_state(0, "selective_scan")
+    require_d_state(2048, "selective_scan")

@@ -18,6 +18,7 @@ them rare; every float keeps the tolerance of tests/test_torch_stack.py.
 
 import dataclasses
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -125,8 +126,7 @@ def _pair(version, n, seed=0, n_layers=4, d_model=16):
 @pytest.fixture(scope="module")
 def v22():
     """Tiny 2.2 (4 decoder layers: 3 SwiGLU + 1 SharedMoE), B=4 clips, two
-    heads of 16: the batched kernels keep int8 KV caches at head sizes that
-    are multiples of 16 (ops/decode_layer.py decode_shape_fault)."""
+    heads of 16 (heads of 8: test_kv_quant_guards)."""
     return _pair("2.2", 4, d_model=32)
 
 
@@ -376,10 +376,20 @@ def test_generate_chords_kv_quant_b3_matches_jax_sampler(v22):
 def test_kv_quant_guards(v22, case):
     """The JAX sampler's semantics: a value other than None / "int8" and
     kv_quant with quantize raise ValueError; at B=1 kv_quant is ignored; a
-    variant wiring at B>1 warns and decodes with full-precision caches. The
-    port's own limit: a 2.2 head size of 8 at B>1 (int8 KV caches need a
-    multiple of 16) warns and decodes on the batched step with
-    full-precision caches."""
+    variant wiring at B>1 warns and decodes with full-precision caches. A
+    2.2 head size of 8 at B>1 keeps its int8 caches, as in JAX: no
+    warning, and B=3 tokens equal the JAX sampler's batched int8-KV
+    kernels ("ends", Pallas interpret mode)."""
+    if case == "head size 8 at B>1":
+        m = _pair("2.2", B, d_model=16)  # two heads of 8
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = _port_generate(m, B, kv_quant="int8")
+        assert not caught, [str(w.message) for w in caught]
+        want = _jax_generate(m, B, fused="ends", interpret=True,
+                             kv_quant="int8")
+        _same_tokens(got, want, case)
+        return
     p = torch.ones(B, 2, dtype=torch.int32)
     kw = dict(primer_root=p, primer_attr=p, num_primer=2,
               gcfg=GenerateConfig(target_seq_length=L))
@@ -394,10 +404,9 @@ def test_kv_quant_guards(v22, case):
     if case == "B=1":
         model, n = v22["pm"], 1
         f = {k: v[:1] for k, v in v22["t"].items()}
-    else:
-        version = "3.1" if case == "variant at B>1" else "2.2"
+    else:  # a variant wiring at B>1
         model, n = init_weights_(
-            VideoMusicTransformer(_tiny_cfg(version, port_amt_config)),
+            VideoMusicTransformer(_tiny_cfg("3.1", port_amt_config)),
             torch.Generator().manual_seed(0)).eval(), B
         f = {k: v[:B] for k, v in v22["t"].items()}
     kw.update(primer=p[:n], primer_root=p[:n], primer_attr=p[:n])

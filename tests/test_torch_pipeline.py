@@ -138,7 +138,8 @@ def test_cpu_generate_launches_no_kernel(pair, tmp_path):
 
 ISOLATED_RUN = """
 import sys, tempfile
-BLOCKED = ("video2music_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
+BLOCKED = ("video2music_tpu", "jax", "jaxlib", "flax", "optax", "orbax",
+           "tools")
 for m in BLOCKED:
     sys.modules[m] = None
 import importlib, pkgutil
@@ -292,8 +293,10 @@ print("isolated ok")
 
 
 def test_port_imports_no_jax():
-    """With the JAX package and JAX itself blocked, the whole port imports
-    (every module, the raw-video ones and every CLI too, and chip_smoke.py)
+    """With the JAX package, JAX itself and the JAX probes' ``tools``
+    blocked, the whole port imports (every module, the raw-video ones,
+    every CLI and the two probes under video2music_tpu_torch/tools too,
+    and chip_smoke.py)
     and runs on the CPU: a tiny 2.2 and a tiny V3.1 ``generate``, a 2.2
     ``generate_batch(kv_quant="int8")`` at B=2 on int8 KV caches, a
     DynamicBatcher request, a ``generate(video=...)`` through seeded CLIP

@@ -1109,6 +1109,13 @@ __device__ __forceinline__ float2 block_reduce2(float x, float y, float* red) {
   return make_float2(red[0], red[32]);
 }
 
+// The raw load of a row piece of BYTES bytes: 16 (V = Vec<C>::N elements,
+// the rule), or 8 (8 int8 values: int8 caches at a head size that is a
+// multiple of 8 but not of 16, e.g. the product's d_model 512 at 64 heads).
+template <int BYTES> struct RawVec;
+template <> struct RawVec<16> { using type = uint4; };
+template <> struct RawVec<8> { using type = uint2; };
+
 // Sum over the 8 lanes of a row group (lanes 8g .. 8g + 7).
 __device__ __forceinline__ float group_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -1127,17 +1134,19 @@ __device__ __forceinline__ float group_sum(float v) {
 // head read once for both query heads; the first block sums the partials in
 // rank order and finishes. Vanilla / RPR: out = sum_s p_s v_s.
 // Differential: c = pv_even - lambda * pv_odd, then out = c * rsqrt(mean(c^2)
-// + 1e-5) * subw over the head. Needs hd % Vec<C>::N == 0, hd <= kThreads
-// and hd <= 8 kVL Vec<C>::N.
+// + 1e-5) * subw over the head. Needs hd % V == 0, hd <= kThreads and
+// hd <= 8 kVL V, V the elements of a load (Vec<C>::N, or 8 for int8 rows
+// at a head size that is no multiple of 16: RawVec).
 // C = int8_t (vanilla, batched): a cached row's logit is (q . k) * scale *
 // k_scale[s], its probability times v_scale[s] is rounded to T before P.V
 // over the integer V; row `cur` uses k_cur / v_cur with no scale and an f32
 // probability (the Pallas _wide_attention).
-template <typename T, typename C, int kVL>
+template <typename T, typename C, int kVL, int V = Vec<C>::N>
 static __global__ void __launch_bounds__(kThreads)
 attn_cluster_kernel(Attn a) {
   namespace cg = cooperative_groups;
-  constexpr int V = Vec<C>::N;  // kVL: 16-byte vectors of a row a lane holds
+  // kVL: the loads of V elements of a row a lane holds
+  using Raw = typename RawVec<V * (int)sizeof(C)>::type;
   constexpr bool kQ = std::is_same<C, int8_t>::value;
   constexpr int kVR = 2;  // row iterations whose V vectors a lane keeps
   extern __shared__ __align__(16) float sm[];
@@ -1180,26 +1189,26 @@ attn_cluster_kernel(Attn a) {
   // ..; its K vectors and, for its first kVR rows, its V vectors are loaded
   // together before any is used
   float lmax0 = -INFINITY, lmax1 = -INFINITY;
-  uint4 vkeep[kVR][kVL];
+  Raw vkeep[kVR][kVL];
   int it = 0;
   for (int s0 = r0 + 4 * warp; s0 < r1; s0 += 4 * kWarps, ++it) {
     const int s = s0 + (lane >> 3);
     const bool ok = s < r1;
     const bool cached = ok && !(kQ && s == a.cur);
     const int sl = cached ? s : r0;  // a row to address
-    uint4 kraw[kVL], kraw1[kVL];
+    Raw kraw[kVL], kraw1[kVL];
 #pragma unroll
     for (int jv = 0; jv < kVL; ++jv) {
       const int j = sub + 8 * jv;
       if (j >= nvec) continue;
       const C* kr = k + (size_t)sl * kw + j * V;
-      kraw[jv] = __ldg(reinterpret_cast<const uint4*>(kr));
-      if (nq == 2) kraw1[jv] = __ldg(reinterpret_cast<const uint4*>(kr + hd));
+      kraw[jv] = __ldg(reinterpret_cast<const Raw*>(kr));
+      if (nq == 2) kraw1[jv] = __ldg(reinterpret_cast<const Raw*>(kr + hd));
 #pragma unroll
       for (int r = 0; r < kVR; ++r)
         if (it == r)
           vkeep[r][jv] = __ldg(
-              reinterpret_cast<const uint4*>(v + (size_t)sl * D + j * V));
+              reinterpret_cast<const Raw*>(v + (size_t)sl * D + j * V));
     }
     float acc0 = 0.f, acc1 = 0.f;
     if (ok && !cached) {  // the current row: its dequantized K
@@ -1330,13 +1339,13 @@ attn_cluster_kernel(Attn a) {
         for (int i = 0; i < V; ++i) acc0[jv][i] = fmaf(p0, vc[i], acc0[jv][i]);
         continue;
       }
-      uint4 raw;
+      Raw raw;
       if (it < kVR) {  // kept from the logits pass
 #pragma unroll
         for (int r = 0; r < kVR; ++r)
           if (it == r) raw = vkeep[r][jv];
       } else {
-        raw = __ldg(reinterpret_cast<const uint4*>(v + (size_t)s * D + j * V));
+        raw = __ldg(reinterpret_cast<const Raw*>(v + (size_t)s * D + j * V));
       }
       const C* e = reinterpret_cast<const C*>(&raw);
 #pragma unroll
@@ -1420,15 +1429,16 @@ attn_cluster_kernel(Attn a) {
 // pv_odd, then out = c * rsqrt(mean(c^2) + 1e-5) * subw over the head.
 // Logits: a thread owns a row; P.V: a thread owns V consecutive dims of a
 // row group, the groups summed in shared memory. Needs hd % Vec<C>::N == 0
-// and hd <= kThreads. C = int8_t (vanilla, batched): a cached row's logit
+// and hd <= kThreads (V the elements of a load, as attn_cluster_kernel).
+// C = int8_t (vanilla, batched): a cached row's logit
 // is (q . k) * scale * k_scale[s], its probability times v_scale[s] is
 // rounded to T before P.V over the integer V; row `cur` uses k_cur / v_cur
 // with no scale and an f32 probability (the Pallas _wide_attention). Runs
 // for vanilla and RPR heads where a cluster would have fewer than
 // kMinCluster blocks (attention()).
-template <typename T, typename C>
+template <typename T, typename C, int V = Vec<C>::N>
 static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
-  constexpr int V = Vec<C>::N;
+  using Raw = typename RawVec<V * (int)sizeof(C)>::type;
   constexpr bool kQ = std::is_same<C, int8_t>::value;
   extern __shared__ __align__(16) float sm[];
   __shared__ float red[32];
@@ -1459,14 +1469,14 @@ static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
       for (int d = 0; d < hd; ++d) acc0 = fmaf(qs[d], kc[d], acc0);
     } else {
       for (int d = 0; d < hd; d += V) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kr + d));
+        const Raw raw = __ldg(reinterpret_cast<const Raw*>(kr + d));
         const C* e = reinterpret_cast<const C*>(&raw);
 #pragma unroll
         for (int i = 0; i < V; ++i)
           acc0 = fmaf(qs[d + i], to_f<C>(e[i]), acc0);
         if (nq == 2) {
-          const uint4 raw1 =
-              __ldg(reinterpret_cast<const uint4*>(kr + hd + d));
+          const Raw raw1 =
+              __ldg(reinterpret_cast<const Raw*>(kr + hd + d));
           const C* e1 = reinterpret_cast<const C*>(&raw1);
 #pragma unroll
           for (int i = 0; i < V; ++i)
@@ -1537,8 +1547,8 @@ static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
         for (int i = 0; i < V; ++i) acc0[i] = fmaf(p0, vc[i], acc0[i]);
         continue;
       }
-      const uint4 raw =
-          __ldg(reinterpret_cast<const uint4*>(v + (size_t)s * D + c * V));
+      const Raw raw =
+          __ldg(reinterpret_cast<const Raw*>(v + (size_t)s * D + c * V));
       const C* e = reinterpret_cast<const C*>(&raw);
       const float p0 = p[s];
       const float p1 = nq == 2 ? p[rows + s] : 0.f;
@@ -1597,35 +1607,31 @@ static inline int attn_cluster(int rows, int pairs) {
   return cs;
 }
 
-template <typename T, typename C, int kVL>
+template <typename T, typename C, int kVL, int V>
 static int attention_vl(Attn t, int B, int H, int cs, size_t smem,
                         cudaStream_t st) {
   static bool opted_in = false;
   int err;
-  if ((err = allow_smem(attn_cluster_kernel<T, C, kVL>, opted_in)))
+  if ((err = allow_smem(attn_cluster_kernel<T, C, kVL, V>, opted_in)))
     return err;
-  return launch(attn_cluster_kernel<T, C, kVL>, dim3(H * cs, B), kThreads,
+  return launch(attn_cluster_kernel<T, C, kVL, V>, dim3(H * cs, B), kThreads,
                 smem, st, cs, t);
 }
 
-template <typename T, typename C = T>
-static int attention(Attn t, int B, int H, cudaStream_t st) {
-  constexpr int V = Vec<C>::N;
-  // the int8 form: vanilla batched attention, heads of whole 16-byte loads
-  if (std::is_same<C, int8_t>::value &&
-      (t.diff || t.er != nullptr || !t.batched))
-    return (int)cudaErrorInvalidValue;
+// attention() with V elements a load.
+template <typename T, typename C, int V>
+static int attention_v(Attn t, int B, int H, cudaStream_t st) {
   if (t.hd % V || t.hd > kThreads) return (int)cudaErrorInvalidValue;
   const int nq = t.diff ? 2 : 1;
   const int cs = attn_cluster(t.rows, H * B);
   if (!t.diff && cs < kMinCluster) {  // one block per (value head, clip)
     static bool opted_in = false;
     int err;
-    if ((err = allow_smem(attn_kernel<T, C>, opted_in))) return err;
+    if ((err = allow_smem(attn_kernel<T, C, V>, opted_in))) return err;
     const int groups = kThreads / (t.hd / V);
     const size_t smem =
         (size_t)(nq * t.hd + nq * t.rows + groups * nq * t.hd) * sizeof(float);
-    return launch(attn_kernel<T, C>, dim3(H, B), kThreads, smem, st, 0, t);
+    return launch(attn_kernel<T, C, V>, dim3(H, B), kThreads, smem, st, 0, t);
   }
   t.per = ceil_div(t.rows, cs);
   const size_t smem =
@@ -1635,8 +1641,23 @@ static int attention(Attn t, int B, int H, cudaStream_t st) {
   // up to 64 wide, one up to 256
   constexpr int kSmall = 64 / V / 8 > 0 ? 64 / V / 8 : 1;
   if (ceil_div(t.hd / V, 8) <= kSmall)
-    return attention_vl<T, C, kSmall>(t, B, H, cs, smem, st);
-  return attention_vl<T, C, 32 / V>(t, B, H, cs, smem, st);
+    return attention_vl<T, C, kSmall, V>(t, B, H, cs, smem, st);
+  return attention_vl<T, C, 32 / V, V>(t, B, H, cs, smem, st);
+}
+
+template <typename T, typename C = T>
+static int attention(Attn t, int B, int H, cudaStream_t st) {
+  // the int8 form: vanilla batched attention
+  if (std::is_same<C, int8_t>::value &&
+      (t.diff || t.er != nullptr || !t.batched))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<C, int8_t>::value) {
+    // int8 rows at a head size that is a multiple of 8 but not of 16:
+    // 8-byte loads (instances of their own; 16-wide heads keep theirs)
+    if (t.hd % Vec<C>::N && t.hd % 8 == 0)
+      return attention_v<T, C, 8>(t, B, H, st);
+  }
+  return attention_v<T, C, Vec<C>::N>(t, B, H, st);
 }
 
 // ---------------------------------------------------------------------------

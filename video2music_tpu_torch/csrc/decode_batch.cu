@@ -32,7 +32,9 @@
 // divisions and round-half-to-even (quantize_kv_rows bit for bit), and
 // keeps the dequantized row, rounded to T, for the current row's term.
 // Attention then runs its int8 instance (attn_kernel<T, int8_t>): 16 cache
-// values a load, the scales folded into the logits and probabilities.
+// values a load (8 at a head size that is a multiple of 8 but not of 16,
+// e.g. d_model 512 at 64 heads: instances of their own), the scales
+// folded into the logits and probabilities.
 //
 // What bounds it on the H100: bytes. One deep layer's attention half at
 // B=16, pos 150, bf16 reads the attention block's weights once (2.6 MB),
@@ -428,8 +430,8 @@ extern "C" int v2m_batched_layer(int dtype,
                                  void* stream) {
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
-  if (args->quant && (args->D % Vec<int8_t>::N || args->H <= 0 ||
-                      (args->D / args->H) % Vec<int8_t>::N))
+  if (args->quant && (args->D % 8 || args->H <= 0 ||
+                      (args->D / args->H) % 8))
     return (int)cudaErrorInvalidValue;
   if (dtype == kF32) return batch::run_layer<float>(*args, st);
   if (dtype == kBF16) return batch::run_layer<bf16>(*args, st);

@@ -15,7 +15,9 @@
 // other head size up to the next with zero columns (as the Pallas wrapper
 // pads D to a multiple of 128), which change neither q . k nor the kept
 // columns of P . V, and passes the unpadded scale. The tiles live in
-// dynamic shared memory (above 48 KB at 128 and 256).
+// dynamic shared memory (above 48 KB at 128 and 256). Above 256 the head
+// is split across blocks (attention_wide.cuh), D padded to a multiple of
+// 64.
 //
 // What bounds it on the H100: at the product shape (B*H = 8, L = S = 300,
 // head_dim 64) the call moves 4 * 8 * 300 * 64 * 2 bytes = 1.2 MB in bf16
@@ -36,6 +38,7 @@
 // against the 0.0098 ms of F.scaled_dot_product_attention (chip run, an
 // H100 80GB HBM3 at 700 W).
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace v2m {
 
@@ -167,7 +170,8 @@ static int launch_f32(const void* q, const void* k, const void* v,
 }  // namespace v2m
 
 // q (BH, L, D), k/v (BH, S, D), bias (bias_planes, L, S) f32 or null (BH
-// a multiple of bias_planes), out (BH, L, D); all contiguous, q/k/v/out of
+// a multiple of bias_planes), out (BH, L, D); D one of 16, 32, 64, 128,
+// 256 or a multiple of 64 above; all contiguous, q/k/v/out of
 // dtype `dtype`. Returns a cudaError_t code.
 extern "C" int v2m_flash_attention(int dtype, const void* q, const void* k,
                                    const void* v, const void* bias,
@@ -178,6 +182,23 @@ extern "C" int v2m_flash_attention(int dtype, const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   const float* b = (const float*)bias;
   if (bias_planes <= 0 || BH % bias_planes) return (int)cudaErrorInvalidValue;
+  if (D > 256) {  // the head split across blocks
+    if (dtype == kF32) {
+      wide::F32Args a{};
+      a.q = (const float*)q; a.k = (const float*)k; a.v = (const float*)v;
+      a.bias = b; a.out = (float*)out;
+      a.L = L; a.S = S; a.D = D; a.causal = causal; a.scale = scale;
+      return wide::run_fwd_f32<false>(a, BH, bias_planes, st);
+    }
+    if (dtype == kBF16) {
+      mma::FwdArgs a{};
+      a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v;
+      a.bias = b; a.out = (bf16*)out;
+      a.L = L; a.S = S; a.scale = scale;
+      return wide::run_fwd_mma<false>(a, BH, D, causal, bias_planes, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == kF32)
     return launch_f32(q, k, v, b, bias_planes, out, BH, L, S, D, causal,
                       scale, st);

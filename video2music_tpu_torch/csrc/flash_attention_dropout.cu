@@ -14,8 +14,10 @@
 // forward rounds the dropped probabilities to v's dtype before the product
 // with v (as the Pallas kernel's astype) and saves each row's softmax max m
 // and sum l. Head sizes: instances at 16, 32, 64, 128 and 256, the wrappers
-// padding the others with zero columns (flash_attention.cu); the mask
-// hashes rows and columns only, so padding leaves it as it is. A shard of
+// padding the others with zero columns (flash_attention.cu), and above
+// 256 the head split across blocks (attention_wide.cuh and the wide
+// backward below), D padded to a multiple of 64; the mask hashes rows and
+// columns only, so padding and splitting leave it as it is. A shard of
 // a sharded step (B/d rows of the batch, H/m heads) passes apply 2 and its
 // origin in the global grid beside the seed (drop_salt), and hashes the
 // global b*H + h, so it draws its slice of the unsharded mask.
@@ -54,6 +56,7 @@
 // attention, chunks (f32: tiles) wholly in the masked triangle add exact
 // zeros and are skipped.
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace v2m {
 
@@ -709,6 +712,546 @@ inline int launch_bwd_mma(const BwdArgs& a, int BH, int causal,
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
+// Above head size 256: the backward with the head split across blocks
+// (attention_wide.cuh), a block owning kWide columns of dQ (or of dK and
+// dV) and forming S and dP over the whole head in kWide-column chunks, its
+// own slice last, so the last chunk in shared memory is the one its
+// products need. D = rowsum(dO * O) over the whole head in both dtypes; a
+// row's dbias and D are written by the blocks of slice 0.
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+struct BwdF32 {
+  const float *q, *k, *v, *bias;
+  const int* seed;
+  const float *dout, *stats, *out;
+  float *dq, *dk, *dv, *dbias, *dsum;
+  int L, S, D, causal;
+  float scale;
+  DropoutSpec drop;
+};
+
+constexpr int kQTileF32 = 16;  // f32 dK/dV: query rows a shared tile
+
+// f32 dQ, D and dbias: one thread per query row. grid (row blocks x
+// slices, BH).
+__global__ void __launch_bounds__(kRowsF32) attention_dq_wide_f32(BwdF32 a) {
+  // K and V tiles, then each thread's own dO chunk, padded (dq_f32_smem)
+  float (*ks)[kWide] = reinterpret_cast<float (*)[kWide]>(mma::attn_smem);
+  float (*vs)[kWide] = ks + kTileF32;
+  float (*dos)[kWide + 1] = reinterpret_cast<float (*)[kWide + 1]>(vs + kTileF32);
+  const int L = a.L, S = a.S, D = a.D, nd = D / kWide;
+  const int slice = blockIdx.x % nd;
+  const int row0 = (blockIdx.x / nd) * kRowsF32;
+  const int row = row0 + threadIdx.x;
+  const bool live = row < L;
+  const int bh = blockIdx.y;
+  const size_t rix = (size_t)bh * L + (live ? row : 0);
+  const float* kb = a.k + (size_t)bh * S * D;
+  const float* vb = a.v + (size_t)bh * S * D;
+  const float* brow = a.bias && live ? a.bias + rix * S : nullptr;
+  float* dbrow = a.dbias && live && slice == 0 ? a.dbias + rix * S : nullptr;
+  const unsigned int salt = mma::drop_salt(a.seed, a.drop, bh);
+  const int s_end = a.causal ? min(S, row0 + kRowsF32) : S;
+  const float m = live ? a.stats[rix * 2] : 0.f;
+  const float l = live ? a.stats[rix * 2 + 1] : 1.f;
+  float dsumr = 0.f;  // D = rowsum(dO * O)
+  if (live)
+    for (int d = 0; d < D; ++d)
+      dsumr = fmaf(a.dout[rix * D + d], a.out[rix * D + d], dsumr);
+
+  float dqa[kWide];
+#pragma unroll
+  for (int c = 0; c < kWide; ++c) dqa[c] = 0.f;
+  for (int s0 = 0; s0 < s_end; s0 += kTileF32) {
+    float sc[kTileF32], dp[kTileF32];
+#pragma unroll
+    for (int j = 0; j < kTileF32; ++j) sc[j] = dp[j] = 0.f;
+    for (int i = 0; i < nd; ++i) {
+      const int dc = chunk_col(i, slice, nd);
+      __syncthreads();
+      for (int e = threadIdx.x; e < kTileF32 * kWide; e += kRowsF32) {
+        const int r = e / kWide, c = e % kWide, s = s0 + r;
+        ks[r][c] = s < S ? kb[(size_t)s * D + dc + c] : 0.f;
+        vs[r][c] = s < S ? vb[(size_t)s * D + dc + c] : 0.f;
+      }
+      for (int c = 0; c < kWide; ++c)
+        dos[threadIdx.x][c] = live ? a.dout[rix * D + dc + c] : 0.f;
+      __syncthreads();
+      if (live) {
+        float qc[kWide];
+#pragma unroll
+        for (int c = 0; c < kWide; ++c) qc[c] = a.q[rix * D + dc + c];
+#pragma unroll
+        for (int j = 0; j < kTileF32; ++j) {
+#pragma unroll 16
+          for (int c = 0; c < kWide; ++c) {
+            sc[j] = fmaf(qc[c], ks[j][c], sc[j]);
+            dp[j] = fmaf(dos[threadIdx.x][c], vs[j][c], dp[j]);
+          }
+        }
+      }
+    }
+    if (!live) continue;
+    const int n = min(kTileF32, s_end - s0);
+    for (int j = 0; j < n; ++j) {  // ks holds the slice's K columns
+      const int col = s0 + j;
+      const float w =
+          expf(logit_f32(sc[j], a.scale, brow, row, col, a.causal) - m) / l;
+      const float dl = w * (dp[j] * drop_f32(a.drop, row, col, salt) - dsumr);
+      if (dbrow) dbrow[col] = dl;
+#pragma unroll
+      for (int c = 0; c < kWide; ++c) dqa[c] = fmaf(dl, ks[j][c], dqa[c]);
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int c = 0; c < kWide; ++c)
+    a.dq[rix * D + slice * kWide + c] = dqa[c] * a.scale;
+  if (slice == 0) a.dsum[rix] = dsumr;
+  if (dbrow)  // the skipped causal columns: dlogits is exactly 0 there
+    for (int col = s_end; col < S; ++col) dbrow[col] = 0.f;
+}
+
+// f32 dK and dV: one thread per key row over tiles of query rows. grid
+// (key blocks x slices, BH).
+__global__ void __launch_bounds__(kRowsF32) attention_dkv_wide_f32(BwdF32 a) {
+  // the block's K and V rows' chunk, padded, then the q and dO tiles
+  // (dkv_f32_smem)
+  float (*kss)[kWide + 1] = reinterpret_cast<float (*)[kWide + 1]>(mma::attn_smem);
+  float (*vss)[kWide + 1] = kss + kRowsF32;
+  float (*qs)[kWide] = reinterpret_cast<float (*)[kWide]>(vss + kRowsF32);
+  float (*dos)[kWide] = qs + kQTileF32;
+  __shared__ float ms[kQTileF32], ls[kQTileF32], ds[kQTileF32];
+  const int L = a.L, S = a.S, D = a.D, nd = D / kWide;
+  const int slice = blockIdx.x % nd;
+  const int col0 = (blockIdx.x / nd) * kRowsF32;
+  const int col = col0 + threadIdx.x;
+  const bool live = col < S;
+  const int bh = blockIdx.y;
+  const float* qb = a.q + (size_t)bh * L * D;
+  const float* dob = a.dout + (size_t)bh * L * D;
+  const unsigned int salt = mma::drop_salt(a.seed, a.drop, bh);
+
+  float dka[kWide], dva[kWide];
+#pragma unroll
+  for (int c = 0; c < kWide; ++c) dka[c] = dva[c] = 0.f;
+  // rows above the block's first key see none of its keys under causal
+  for (int r0 = a.causal ? col0 : 0; r0 < L; r0 += kQTileF32) {
+    float d[kQTileF32], dp[kQTileF32];
+#pragma unroll
+    for (int i = 0; i < kQTileF32; ++i) d[i] = dp[i] = 0.f;
+    for (int i = 0; i < nd; ++i) {
+      const int dc = chunk_col(i, slice, nd);
+      __syncthreads();
+      for (int e = threadIdx.x; e < kQTileF32 * kWide; e += kRowsF32) {
+        const int r = e / kWide, c = e % kWide, q = r0 + r;
+        qs[r][c] = q < L ? qb[(size_t)q * D + dc + c] : 0.f;
+        dos[r][c] = q < L ? dob[(size_t)q * D + dc + c] : 0.f;
+      }
+      for (int e = threadIdx.x; e < kRowsF32 * kWide; e += kRowsF32) {
+        const int r = e / kWide, c = e % kWide;
+        const bool in = col0 + r < S;
+        const size_t at = ((size_t)bh * S + col0 + r) * D + dc + c;
+        kss[r][c] = in ? a.k[at] : 0.f;
+        vss[r][c] = in ? a.v[at] : 0.f;
+      }
+      if (i == 0 && threadIdx.x < kQTileF32) {
+        const int r = r0 + threadIdx.x;
+        const size_t rix = (size_t)bh * L + r;
+        ms[threadIdx.x] = r < L ? a.stats[rix * 2] : 0.f;
+        ls[threadIdx.x] = r < L ? a.stats[rix * 2 + 1] : 1.f;
+        ds[threadIdx.x] = r < L ? a.dsum[rix] : 0.f;
+      }
+      __syncthreads();
+      if (live) {
+#pragma unroll
+        for (int qi = 0; qi < kQTileF32; ++qi) {
+#pragma unroll 16
+          for (int c = 0; c < kWide; ++c) {
+            d[qi] = fmaf(qs[qi][c], kss[threadIdx.x][c], d[qi]);
+            dp[qi] = fmaf(dos[qi][c], vss[threadIdx.x][c], dp[qi]);
+          }
+        }
+      }
+    }
+    if (!live) continue;
+    const int n = min(kQTileF32, L - r0);
+    for (int qi = 0; qi < n; ++qi) {  // qs / dos hold the slice's columns
+      const int row = r0 + qi;
+      const float* brow = a.bias ? a.bias + ((size_t)bh * L + row) * S : nullptr;
+      const float w =
+          expf(logit_f32(d[qi], a.scale, brow, row, col, a.causal) - ms[qi]) /
+          ls[qi];
+      const float f = drop_f32(a.drop, row, col, salt);
+      const float wd = w * f;
+      const float dl = w * (dp[qi] * f - ds[qi]);
+#pragma unroll
+      for (int c = 0; c < kWide; ++c) {
+        dva[c] = fmaf(wd, dos[qi][c], dva[c]);
+        dka[c] = fmaf(dl, qs[qi][c], dka[c]);
+      }
+    }
+  }
+  if (!live) return;
+  const size_t at = ((size_t)bh * S + col) * D + slice * kWide;
+#pragma unroll
+  for (int c = 0; c < kWide; ++c) {
+    a.dk[at + c] = dka[c] * a.scale;
+    a.dv[at + c] = dva[c];
+  }
+}
+
+constexpr size_t dq_f32_smem() {
+  return (2 * kTileF32 * kWide + kRowsF32 * (kWide + 1)) * sizeof(float);
+}
+constexpr size_t dkv_f32_smem() {
+  return (2 * kRowsF32 * (kWide + 1) + 2 * kQTileF32 * kWide) * sizeof(float);
+}
+
+inline int run_bwd_f32(const BwdF32& a, int BH, cudaStream_t st) {
+  if (a.D % kWide) return (int)cudaErrorInvalidValue;
+  const int nd = a.D / kWide;
+  attention_dq_wide_f32<<<dim3((a.L + kRowsF32 - 1) / kRowsF32 * nd, BH),
+                          kRowsF32, dq_f32_smem(), st>>>(a);
+  attention_dkv_wide_f32<<<dim3((a.S + kRowsF32 - 1) / kRowsF32 * nd, BH),
+                           kRowsF32, dkv_f32_smem(), st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// bf16 dQ, D and dbias on the tensor cores: a warp per 16 query rows, one
+// pass over the key chunks, each in nd steps of kWide columns (K and V
+// double-buffered by cp.async, the step's q and dO fragments from device
+// memory); at a chunk's last step (its K columns the slice's) P, dS and
+// dQ += dS K, as mma::attention_dq_mma. grid (row blocks x slices, BH).
+template <bool CAUSAL>
+__global__ void __launch_bounds__(mma::kBwdWarps * 32)
+attention_dq_wide_mma(mma::BwdArgs a, int D) {
+  using namespace mma;
+  constexpr int kNT = kChunk / 8;
+  constexpr int kDT = kWide / 8;
+  bf16 (*ks)[Chunk<kWide>::kElems] =
+      reinterpret_cast<bf16 (*)[Chunk<kWide>::kElems]>(attn_smem);
+  bf16 (*vs)[Chunk<kWide>::kElems] = ks + 2;
+  const int nd = D / kWide;
+  const int slice = blockIdx.x % nd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int blk0 = (blockIdx.x / nd) * kBwdWarps * 16;
+  const int r0 = blk0 + warp * 16;
+  const int ra = r0 + (lane >> 2), rb = ra + 8;
+  const int c2 = (lane & 3) * 2;
+  const int L = a.L, S = a.S;
+  const size_t qoff = (size_t)bh * L * D;
+  const bf16* kb = a.k + (size_t)bh * S * D;
+  const bf16* vb = a.v + (size_t)bh * S * D;
+  const size_t ia = (size_t)bh * L + ra, ib = (size_t)bh * L + rb;
+  const float* ba = a.bias && ra < L ? a.bias + ia * S : nullptr;
+  const float* bb = a.bias && rb < L ? a.bias + ib * S : nullptr;
+  const bool owner = slice == 0;  // writes dbias and D
+  float* dba = owner && a.dbias && ra < L ? a.dbias + ia * S : nullptr;
+  float* dbb = owner && a.dbias && rb < L ? a.dbias + ib * S : nullptr;
+
+  int n_chunks = (S + kChunk - 1) / kChunk;
+  if (CAUSAL) n_chunks = min(n_chunks, (blk0 + kBwdWarps * 16 - 1) / kChunk + 1);
+  int mine = CAUSAL ? min(n_chunks, (r0 + 15) / kChunk + 1) : n_chunks;
+  if (r0 >= L) mine = 0;
+
+  const int steps = n_chunks * nd;
+  auto issue = [&](int t) {
+    const int c = t / nd, dc = chunk_col(t % nd, slice, nd);
+    load_chunk_s<kBwdWarps * 32>(ks[t & 1], kb + dc, c * kChunk, S, D);
+    load_chunk_s<kBwdWarps * 32>(vs[t & 1], vb + dc, c * kChunk, S, D);
+    cp_async_commit();
+  };
+  issue(0);
+
+  float Da = 0.f, Db = 0.f;  // D = rowsum(dO * O) over the whole head
+  for (int i = 0; i < nd; ++i) {
+    uint32_t df[kWide / 16][4], of[kWide / 16][4];
+    load_a_s(df, a.dout + qoff + i * kWide, r0, L, lane, D);
+    load_a_s(of, a.out + qoff + i * kWide, r0, L, lane, D);
+#pragma unroll
+    for (int kk = 0; kk < kWide / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&df[kk][e]));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&of[kk][e]));
+        const float d = fmaf(x.x, y.x, x.y * y.y);
+        if (e & 1) Db += d; else Da += d;
+      }
+    }
+  }
+  Da = quad_sum(Da);
+  Db = quad_sum(Db);
+  float ma2 = 0.f, mb2 = 0.f, inva = 1.f, invb = 1.f;
+  if (ra < L) { ma2 = a.stats[ia * 2] * kLog2e; inva = 1.f / a.stats[ia * 2 + 1]; }
+  if (rb < L) { mb2 = a.stats[ib * 2] * kLog2e; invb = 1.f / a.stats[ib * 2 + 1]; }
+  const bool drop = a.drop.apply != 0;
+  unsigned int rta = 0, rtb = 0;
+  if (drop) {
+    const unsigned int salt = drop_salt(a.seed, a.drop, bh);
+    rta = row_term(ra, salt);
+    rtb = row_term(rb, salt);
+  }
+
+  float dq[kDT][4], s[kNT][4], dp[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int c = t / nd, i = t % nd;
+    if (c < mine) {
+      if (i == 0) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+      {
+        const int dc = chunk_col(i, slice, nd);
+        uint32_t qf[kWide / 16][4], df[kWide / 16][4];
+        load_a_s(qf, a.q + qoff + dc, r0, L, lane, D);
+        load_a_s(df, a.dout + qoff + dc, r0, L, lane, D);
+        mma_a_rowsT<kWide, kNT>(s, qf, ks[t & 1], lane);
+        mma_a_rowsT<kWide, kNT>(dp, df, vs[t & 1], lane);
+      }
+      if (i == nd - 1) {
+        const int c0 = c * kChunk;
+        to_logits<kNT, CAUSAL>(s, a.scale, ba, bb, r0, c0, S, lane);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool top = e < 2;
+            const int col = c0 + j * 8 + c2 + (e & 1);
+            const float p =
+                exp_from(s[j][e], top ? ma2 : mb2) * (top ? inva : invb);
+            const float f =
+                drop ? keep_factor(a.drop, top ? rta : rtb, col_term(col)) : 1.f;
+            s[j][e] = p * (dp[j][e] * f - (top ? Da : Db));
+          }
+          const int col = c0 + j * 8 + c2;
+          if (dba && col < S) dba[col] = s[j][0];
+          if (dba && col + 1 < S) dba[col + 1] = s[j][1];
+          if (dbb && col < S) dbb[col] = s[j][2];
+          if (dbb && col + 1 < S) dbb[col + 1] = s[j][3];
+        }
+        uint32_t ds[kNT / 2][4];
+        pack_a<kNT>(ds, s);
+        mma_a_rows<kWide, kNT / 2>(dq, ds, ks[t & 1], lane);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (mine == 0) return;
+  bf16* dqb = a.dq + qoff + slice * kWide;
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    const int col = j * 8 + c2;
+    if (ra < L)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)ra * D + col) =
+          __floats2bfloat162_rn(dq[j][0] * a.scale, dq[j][1] * a.scale);
+    if (rb < L)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)rb * D + col) =
+          __floats2bfloat162_rn(dq[j][2] * a.scale, dq[j][3] * a.scale);
+  }
+  if (owner && (lane & 3) == 0) {
+    if (ra < L) a.dsum[ia] = Da;
+    if (rb < L) a.dsum[ib] = Db;
+  }
+  // the key chunks this warp skipped under causal: dS is exactly 0 there
+  for (int col = mine * kChunk + (lane & 3); col < S; col += 4) {
+    if (dba) dba[col] = 0.f;
+    if (dbb) dbb[col] = 0.f;
+  }
+}
+
+// bf16 dK and dV on the tensor cores: a warp per 16 key rows, over chunks
+// of 64 queries, each in nd steps of kWide columns (q and dO
+// double-buffered by cp.async, the step's K and V fragments from device
+// memory); at a chunk's last step (its q and dO columns the slice's)
+// (P * mask)^T and dS^T, dV += (P * mask)^T dO and dK += dS^T Q, as
+// mma::attention_dkv_mma. grid (key blocks x slices, BH).
+template <bool CAUSAL>
+__global__ void __launch_bounds__(mma::kBwdWarps * 32)
+attention_dkv_wide_mma(mma::BwdArgs a, int D) {
+  using namespace mma;
+  constexpr int kNT = kChunk / 8;  // query tiles of a chunk
+  constexpr int kDT = kWide / 8;
+  bf16 (*qs)[Chunk<kWide>::kElems] =
+      reinterpret_cast<bf16 (*)[Chunk<kWide>::kElems]>(attn_smem);
+  bf16 (*dos)[Chunk<kWide>::kElems] = qs + 2;
+  __shared__ __align__(16) float2 mls[2][kChunk];  // (m, l) a query
+  __shared__ __align__(16) float dds[2][kChunk];   // D a query
+  const int nd = D / kWide;
+  const int slice = blockIdx.x % nd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int blk0 = (blockIdx.x / nd) * kBwdWarps * 16;
+  const int k0 = blk0 + warp * 16;
+  const int ka = k0 + (lane >> 2), kb = ka + 8;
+  const int c2 = (lane & 3) * 2;
+  const int L = a.L, S = a.S;
+  const size_t qoff = (size_t)bh * L * D, koff = (size_t)bh * S * D;
+  const bf16* qb = a.q + qoff;
+  const bf16* dob = a.dout + qoff;
+  const float* stb = a.stats + (size_t)bh * L * 2;
+  const float* dsb = a.dsum + (size_t)bh * L;
+  const float* bias = a.bias ? a.bias + (size_t)bh * L * S : nullptr;
+
+  // queries above the block's first key see none of its keys under causal
+  const int n_q = (L + kChunk - 1) / kChunk;
+  const int first = CAUSAL ? blk0 / kChunk : 0;
+  const int steps = max(n_q - first, 0) * nd;
+  auto issue = [&](int t) {
+    const int c = first + t / nd, i = t % nd, dc = chunk_col(i, slice, nd);
+    load_chunk_s<kBwdWarps * 32>(qs[t & 1], qb + dc, c * kChunk, L, D);
+    load_chunk_s<kBwdWarps * 32>(dos[t & 1], dob + dc, c * kChunk, L, D);
+    if (i == 0 && threadIdx.x < kChunk) {
+      const int mb = (c - first) & 1;
+      const int r = c * kChunk + threadIdx.x;
+      const bool ok = r < L;
+      cp_async_small<8>(&mls[mb][threadIdx.x], stb + (size_t)(ok ? r : 0) * 2, ok);
+      cp_async_small<4>(&dds[mb][threadIdx.x], dsb + (ok ? r : 0), ok);
+    }
+    cp_async_commit();
+  };
+  if (steps > 0) issue(0);
+
+  const bool drop = a.drop.apply != 0;
+  const unsigned int salt = drop ? drop_salt(a.seed, a.drop, bh) : 0u;
+  const unsigned int cta = col_term(ka), ctb = col_term(kb);
+
+  float dk[kDT][4], dv[kDT][4], st[kNT][4], dpt[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int c = first + t / nd, i = t % nd, buf = t & 1;
+    const int q0 = c * kChunk;
+    // a dead warp; or every pair above the diagonal
+    if (!(k0 >= S || (CAUSAL && q0 + kChunk - 1 < k0))) {
+      if (i == 0) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      }
+      {
+        const int dc = chunk_col(i, slice, nd);
+        uint32_t kf[kWide / 16][4], vf[kWide / 16][4];
+        load_a_s(kf, a.k + koff + dc, k0, S, lane, D);
+        load_a_s(vf, a.v + koff + dc, k0, S, lane, D);
+        mma_a_rowsT<kWide, kNT>(st, kf, qs[buf], lane);
+        mma_a_rowsT<kWide, kNT>(dpt, vf, dos[buf], lane);
+      }
+      if (i == nd - 1) {
+        const int mb = (c - first) & 1;
+        // the diagonal crosses this chunk: some key above some query
+        const bool diag = CAUSAL && k0 + 15 > q0;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {  // this lane's two queries of tile j
+            const int qi = j * 8 + c2 + u;  // in the chunk
+            const int row = q0 + qi;        // the query
+            const float2 ml = mls[mb][qi];
+            const float ml2 = ml.x * kLog2e, inv = 1.f / ml.y, Dq = dds[mb][qi];
+            const unsigned int rt = drop ? row_term(row, salt) : 0u;
+#pragma unroll
+            for (int e = u; e < 4; e += 2) {
+              const int key = e < 2 ? ka : kb;
+              float pm = 0.f, ds = 0.f;
+              if (row < L) {
+                float x = st[j][e] * a.scale;
+                if (bias && key < S) x += bias[(size_t)row * S + key];
+                if (diag && key > row) x = kNegInf;
+                const float p = exp_from(x, ml2) * inv;
+                const float f =
+                    drop ? keep_factor(a.drop, rt, e < 2 ? cta : ctb) : 1.f;
+                pm = p * f;
+                ds = p * (dpt[j][e] * f - Dq);
+              }
+              st[j][e] = pm;
+              dpt[j][e] = ds;
+            }
+          }
+        }
+        uint32_t pa[kNT / 2][4], sa[kNT / 2][4];
+        pack_a<kNT>(pa, st);
+        pack_a<kNT>(sa, dpt);
+        mma_a_rows<kWide, kNT / 2>(dv, pa, dos[buf], lane);
+        mma_a_rows<kWide, kNT / 2>(dk, sa, qs[buf], lane);
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16* dkb = a.dk + koff + slice * kWide;
+  bf16* dvb = a.dv + koff + slice * kWide;
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    const int col = j * 8 + c2;
+    if (ka < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)ka * D + col) =
+          __floats2bfloat162_rn(dk[j][0] * a.scale, dk[j][1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)ka * D + col) =
+          __floats2bfloat162_rn(dv[j][0], dv[j][1]);
+    }
+    if (kb < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kb * D + col) =
+          __floats2bfloat162_rn(dk[j][2] * a.scale, dk[j][3] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kb * D + col) =
+          __floats2bfloat162_rn(dv[j][2], dv[j][3]);
+    }
+  }
+}
+
+template <bool CAUSAL>
+inline int launch_bwd_wide(const mma::BwdArgs& a, int BH, int D,
+                          cudaStream_t st) {
+  constexpr int kRows = mma::kBwdWarps * 16;
+  const int nd = D / kWide;
+  attention_dq_wide_mma<CAUSAL>
+      <<<dim3((a.L + kRows - 1) / kRows * nd, BH), mma::kBwdWarps * 32,
+         mma_smem(), st>>>(a, D);
+  attention_dkv_wide_mma<CAUSAL>
+      <<<dim3((a.S + kRows - 1) / kRows * nd, BH), mma::kBwdWarps * 32,
+         mma_smem(), st>>>(a, D);
+  return (int)cudaGetLastError();
+}
+
+inline int run_bwd_mma(const mma::BwdArgs& a, int BH, int D, int causal,
+                       cudaStream_t st) {
+  if (D % kWide) return (int)cudaErrorInvalidValue;
+  return causal ? launch_bwd_wide<true>(a, BH, D, st)
+                : launch_bwd_wide<false>(a, BH, D, st);
+}
+
+}  // namespace wide
+
+// ---------------------------------------------------------------------------
 // Entry points: f32 runs the first design above, bf16 the tensor cores
 // ---------------------------------------------------------------------------
 
@@ -782,6 +1325,27 @@ static int launch_f32(const DropoutArgs& a, bool backward, cudaStream_t st) {
 
 static int dispatch_f32(const DropoutArgs& a, int D, bool backward,
                         cudaStream_t st) {
+  if (D > 256) {  // the head split across blocks (attention_wide.cuh)
+    if (!backward) {
+      wide::F32Args f{};
+      f.q = (const float*)a.q; f.k = (const float*)a.k; f.v = (const float*)a.v;
+      f.bias = (const float*)a.bias; f.seed = (const int*)a.seed;
+      f.out = (float*)a.out; f.stats = (float*)a.stats;
+      f.L = a.L; f.S = a.S; f.D = D; f.causal = a.causal; f.scale = a.scale;
+      f.drop = a.drop;
+      return wide::run_fwd_f32<true>(f, a.BH, a.BH, st);
+    }
+    wide::BwdF32 b{};
+    b.q = (const float*)a.q; b.k = (const float*)a.k; b.v = (const float*)a.v;
+    b.bias = (const float*)a.bias; b.seed = (const int*)a.seed;
+    b.dout = (const float*)a.dout; b.stats = (const float*)a.stats;
+    b.out = (const float*)a.out;
+    b.dq = (float*)a.dq; b.dk = (float*)a.dk; b.dv = (float*)a.dv;
+    b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
+    b.L = a.L; b.S = a.S; b.D = D; b.causal = a.causal; b.scale = a.scale;
+    b.drop = a.drop;
+    return wide::run_bwd_f32(b, a.BH, st);
+  }
   int err;
   switch (D) {
     case 16: err = launch_f32<16>(a, backward, st); break;
@@ -803,6 +1367,8 @@ static int dispatch_bf16(const DropoutArgs& a, int D, bool backward,
     f.bias = (const float*)a.bias; f.seed = (const int*)a.seed;
     f.out = (bf16*)a.out; f.stats = (float*)a.stats;
     f.L = a.L; f.S = a.S; f.scale = a.scale; f.drop = a.drop;
+    if (D > 256)  // the head split across blocks (attention_wide.cuh)
+      return wide::run_fwd_mma<true>(f, a.BH, D, a.causal, a.BH, st);
     return mma::run_fwd_mma<true>(f, a.BH, D, a.causal, st, a.BH);
   }
   mma::BwdArgs b{};
@@ -813,6 +1379,7 @@ static int dispatch_bf16(const DropoutArgs& a, int D, bool backward,
   b.dq = (bf16*)a.dq; b.dk = (bf16*)a.dk; b.dv = (bf16*)a.dv;
   b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
   b.L = a.L; b.S = a.S; b.scale = a.scale; b.drop = a.drop;
+  if (D > 256) return wide::run_bwd_mma(b, a.BH, D, a.causal, st);
   int err;
   switch (D) {
     case 16: err = mma::launch_bwd_mma<16>(b, a.BH, a.causal, st); break;

@@ -5,8 +5,12 @@
 // selective_scan_pallas (_scan_kernel). On the JAX product path the same
 // function runs as jax.lax.associative_scan (ops/scan.py:selective_scan);
 // the port puts this kernel on the bimamba+ regression path instead. Like
-// the Pallas kernel (which pads N to 128) it takes any d_state N, here up
-// to kMaxState (32 lanes of a warp x kMaxPer states in registers).
+// the Pallas kernel (which pads N to 128) it takes any d_state N: up to
+// kMaxState (32 lanes of a warp x kMaxPer states in registers) in one
+// launch; above, in launches over chunks of at most kMaxState states. A
+// channel's states are independent until y sums C . h over them, so each
+// chunk scans its own states and adds its partial C . h to an f32 (b, L,
+// ED) workspace; the last adds D * x and writes y (scan_split_kernel).
 //
 // What bounds it on the H100: the recurrence is sequential in L. At the
 // product shape (b = 1, L = 300, ED = 128, N = 16) it reads x, delta, B, C
@@ -55,6 +59,17 @@ constexpr int kStageBytes = 32 * 1024; // B and C of one chunk at most
 constexpr int kMaxPer = 32;            // states a lane holds
 constexpr int kMaxState = 32 * kMaxPer;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// One chunk of the states of a split scan (d_state above kMaxState):
+// states n0 .. n0 + N - 1 (Args::N the chunk's width) of rows Ns wide;
+// the partial sums C . h go through `part`, (b, L, ED) f32: the first
+// chunk writes it, a middle one adds to it, the last adds it to its own,
+// adds D * x and writes y.
+struct Split {
+  int n0, Ns;
+  float* part;
+  int first, last;
+};
 
 struct Args {
   const void *x, *delta, *B, *C;
@@ -205,10 +220,12 @@ __device__ __forceinline__ void scan_steps(
   }
 }
 
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads) scan_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float dskip[kThreads];
+// The scan of a block's channels: scan_kernel's body (SPLIT false: every
+// state, y written) and scan_split_kernel's (one chunk of the states).
+template <typename T, int P, bool SPLIT>
+__device__ __forceinline__ void scan_body(const Args& a, const Split& sp,
+                                          unsigned char* smem,
+                                          float* dskip) {
   const int G = a.G, CH = a.CH, TC = a.TC, N = a.N, Np = a.Np, L = a.L;
   const int ED = a.ED;
   const Layout lay(TC, CH, Np, (int)sizeof(T));
@@ -221,7 +238,9 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const Args a) {
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int n = g + G * p;
-    av[p] = live && n < N ? a.A[(size_t)(ch0 + c) * N + n] * kLog2e : 0.f;
+    const size_t at = SPLIT ? (size_t)(ch0 + c) * sp.Ns + sp.n0 + n
+                            : (size_t)(ch0 + c) * N + n;
+    av[p] = live && n < N ? a.A[at] * kLog2e : 0.f;
     h[p] = 0.f;
   }
   if (tid < CHv) dskip[tid] = a.D[ch0 + tid];
@@ -241,11 +260,13 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const Args a) {
     }
   auto stage = [&](int k) {
     const int t0 = k * TC, nt = min(TC, L - t0);
-    const size_t at = (row0 + t0) * ED + ch0, bt = (row0 + t0) * N;
+    const size_t at = (row0 + t0) * ED + ch0;
+    const size_t Ns = SPLIT ? sp.Ns : N;
+    const size_t bt = (row0 + t0) * Ns + (SPLIT ? sp.n0 : 0);
     copy_rows_any<T>(vxd, (T*)(buf(k) + lay.x), CH, x + at, ED, nt, CHv);
     copy_rows_any<T>(vxd, (T*)(buf(k) + lay.d), CH, dl + at, ED, nt, CHv);
-    copy_rows_any<T>(a.vec_bc, (T*)(buf(k) + lay.b), Np, Bm + bt, N, nt, N);
-    copy_rows_any<T>(a.vec_bc, (T*)(buf(k) + lay.c), Np, Cm + bt, N, nt, N);
+    copy_rows_any<T>(a.vec_bc, (T*)(buf(k) + lay.b), Np, Bm + bt, Ns, nt, N);
+    copy_rows_any<T>(a.vec_bc, (T*)(buf(k) + lay.c), Np, Cm + bt, Ns, nt, N);
   };
   float* yp = (float*)(smem + lay.part);
   T* sy = (T*)(smem + lay.y);
@@ -269,9 +290,18 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const Args a) {
       const float* part = yp + (size_t)cc * (G / kPre) * (TC + 1) + t;
       float s = 0.f;
       for (int j = 0; j < G / kPre; ++j) s += part[(size_t)j * (TC + 1)];
+      if constexpr (SPLIT) {  // the chunks' partial sums
+        float* pp = sp.part + (row0 + t0 + t) * ED + ch0 + cc;
+        if (!sp.first) s += *pp;
+        if (!sp.last) {
+          *pp = s;
+          continue;
+        }
+      }
       sy[t * CH + cc] = from_f<T>(s + dskip[cc] * to_f<T>(sx[t * CH + cc]));
     }
     __syncthreads();
+    if (SPLIT && !sp.last) continue;
     for (int i = tid; i < nt * CHv; i += kThreads) {
       const int t = i / CHv, cc = i % CHv;
       y[(row0 + t0 + t) * ED + ch0 + cc] = sy[t * CH + cc];
@@ -280,23 +310,42 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const Args a) {
 }
 
 template <typename T, int P>
-static int launch(const Args& a, int b, cudaStream_t st) {
+__global__ void __launch_bounds__(kThreads) scan_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float dskip[kThreads];
+  scan_body<T, P, false>(a, Split{}, smem, dskip);
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads)
+scan_split_kernel(const Args a, const Split sp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float dskip[kThreads];
+  scan_body<T, P, true>(a, sp, smem, dskip);
+}
+
+template <typename T, int P, bool SPLIT>
+static int launch(const Args& a, const Split& sp, int b, cudaStream_t st) {
   const size_t smem = Layout(a.TC, a.CH, a.Np, (int)sizeof(T)).total;
   static size_t opted = 48 * 1024;  // dynamic shared memory allowed so far
+  const void* kernel = SPLIT ? (const void*)scan_split_kernel<T, P>
+                             : (const void*)scan_kernel<T, P>;
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        scan_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted = smem;
   }
   const dim3 grid((a.ED + a.CH - 1) / a.CH, b);
-  scan_kernel<T, P><<<grid, kThreads, smem, st>>>(a);
+  if constexpr (SPLIT)
+    scan_split_kernel<T, P><<<grid, kThreads, smem, st>>>(a, sp);
+  else
+    scan_kernel<T, P><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int dispatch(Args a, int b, cudaStream_t st) {
+template <typename T, bool SPLIT>
+static int dispatch(Args a, const Split& sp, int b, cudaStream_t st) {
   const size_t elt = sizeof(T);
   int G = kPre;  // at least kPre lanes a channel (padded states add 0)
   while (G < a.N && G < 32) G *= 2;
@@ -312,31 +361,55 @@ static int dispatch(Args a, int b, cudaStream_t st) {
   a.TC = TC;
   a.vec_xd = vec16(a.x, a.CH * elt, a.ED * elt) &&
              vec16(a.delta, a.CH * elt, a.ED * elt);
-  a.vec_bc = vec16(a.B, a.N * elt, a.N * elt) &&
-             vec16(a.C, a.N * elt, a.N * elt);
+  const size_t Ns = SPLIT ? sp.Ns : a.N, n0 = SPLIT ? sp.n0 : 0;
+  a.vec_bc = vec16((const T*)a.B + n0, a.N * elt, Ns * elt) &&
+             vec16((const T*)a.C + n0, a.N * elt, Ns * elt);
   switch (P) {
-    case 1: return launch<T, 1>(a, b, st);
-    case 2: return launch<T, 2>(a, b, st);
-    case 4: return launch<T, 4>(a, b, st);
-    case 8: return launch<T, 8>(a, b, st);
-    case 16: return launch<T, 16>(a, b, st);
-    case 32: return launch<T, 32>(a, b, st);
+    case 1: return launch<T, 1, SPLIT>(a, sp, b, st);
+    case 2: return launch<T, 2, SPLIT>(a, sp, b, st);
+    case 4: return launch<T, 4, SPLIT>(a, sp, b, st);
+    case 8: return launch<T, 8, SPLIT>(a, sp, b, st);
+    case 16: return launch<T, 16, SPLIT>(a, sp, b, st);
+    case 32: return launch<T, 32, SPLIT>(a, sp, b, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// d_state N above kMaxState: ceil(N / kMaxState) launches over equal
+// chunks of the states (the last the remainder), in order, through the f32
+// workspace `part`.
+template <typename T>
+static int dispatch_split(Args a, float* part, int b, cudaStream_t st) {
+  const int N = a.N, chunks = (N + kMaxState - 1) / kMaxState;
+  const int width = (N + chunks - 1) / chunks;
+  for (int j = 0; j < chunks; ++j) {
+    Split sp;
+    sp.n0 = j * width;
+    sp.Ns = N;
+    sp.part = part;
+    sp.first = j == 0;
+    sp.last = j == chunks - 1;
+    a.N = min(width, N - sp.n0);
+    const int err = dispatch<T, true>(a, sp, b, st);
+    if (err) return err;
+  }
+  return 0;
 }
 
 }  // namespace scan
 }  // namespace v2m
 
 // x/delta/y (b, L, ED) and B/C (b, L, N) of dtype `dtype`; A (ED, N) and
-// D (ED) float32; all contiguous; 1 <= N <= 1024. Returns a cudaError_t
-// code.
+// D (ED) float32; all contiguous; N >= 1; part: a (b, L, ED) f32
+// workspace where N > kMaxState (else unused, may be null). Returns a
+// cudaError_t code.
 extern "C" int v2m_selective_scan(int dtype, const void* x, const void* delta,
                                   const void* A, const void* B, const void* C,
-                                  const void* D, void* y, int b, int L, int ED,
-                                  int N, void* stream) {
+                                  const void* D, void* y, void* part, int b,
+                                  int L, int ED, int N, void* stream) {
   using namespace v2m;
-  if (N < 1 || N > scan::kMaxState || L < 1 || ED < 1 || b < 1)
+  if (N < 1 || L < 1 || ED < 1 || b < 1 ||
+      (N > scan::kMaxState && part == nullptr))
     return (int)cudaErrorInvalidValue;
   scan::Args a = {};
   a.x = x;
@@ -350,7 +423,12 @@ extern "C" int v2m_selective_scan(int dtype, const void* x, const void* delta,
   a.ED = ED;
   a.N = N;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kF32) return scan::dispatch<float>(a, b, st);
-  if (dtype == kBF16) return scan::dispatch<bf16>(a, b, st);
+  if (N > scan::kMaxState) {
+    if (dtype == kF32) return scan::dispatch_split<float>(a, (float*)part, b, st);
+    if (dtype == kBF16) return scan::dispatch_split<bf16>(a, (float*)part, b, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == kF32) return scan::dispatch<float, false>(a, {}, b, st);
+  if (dtype == kBF16) return scan::dispatch<bf16, false>(a, {}, b, st);
   return (int)cudaErrorInvalidValue;
 }

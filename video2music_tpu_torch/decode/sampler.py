@@ -42,10 +42,9 @@ decode/fused.py:
     multiple of 8 or above 256, widths not multiples of 8, int8 rows not
     multiples of 16): the plain step (on fake-quantized weights under
     ``quantize="int8"``), with a warning unless ``fused="auto"``, as the
-    JAX sampler sends dims Mosaic cannot lower to its XLA step; int8 KV
-    caches beside a head size not a multiple of 16 keep the batched
-    kernels with full-precision caches, and warn, as a variant wiring
-    does;
+    JAX sampler sends dims Mosaic cannot lower to its XLA step (int8 KV
+    caches add no limit: at any head size the batched kernels take they
+    keep int8 caches, as the JAX sampler does);
   * a wiring no kernel covers (KAN 2.3, grouped-query attention, odd head
     dims): the plain step whatever ``fused`` says, as in the JAX sampler;
     ``quantize="int8"`` raises ValueError;
@@ -124,11 +123,11 @@ def _plain_backend(quantize):
         fake_quantize_decoder_params(model))
 
 
-def _shapes_refused(cfg, B: int, fused: str, quantize, kv_quant) -> bool:
+def _shapes_refused(cfg, B: int, fused: str, quantize) -> bool:
     """True when the kernels refuse ``cfg``'s shapes
     (``cuda_decode_shapes_ok``); warns when ``fused`` was asked for
     explicitly, as the JAX sampler does for Mosaic's limits."""
-    if cuda_decode_shapes_ok(cfg, B, quantize, kv_quant):
+    if cuda_decode_shapes_ok(cfg, B, quantize):
         return False
     if fused != "auto":
         warnings.warn(
@@ -159,15 +158,7 @@ def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
             return _fake_quant_backend(B, fused)
         if fused == "off":
             return _init_plain_caches, _make_plain_step
-        if (kv_quant is not None and B > 1 and cuda_decode_shapes_ok(cfg, B)
-                and not cuda_decode_shapes_ok(cfg, B, kv_quant=kv_quant)):
-            warnings.warn(
-                f"kv_quant={kv_quant!r} needs a head size that is a multiple "
-                "of 16 (ops/decode_layer.cuda_decode_shapes_ok); this config "
-                "decodes on the batched kernels with full-precision KV "
-                "caches", stacklevel=3)
-            kv_quant = None
-        if _shapes_refused(cfg, B, fused, quantize, kv_quant):
+        if _shapes_refused(cfg, B, fused, quantize):
             return _plain_backend(quantize)
         if B > 1:
             ends = fused in ("auto", "ends")
@@ -202,7 +193,7 @@ def fused_backend(cfg, B: int, fused: str = "auto", quantize=None,
             return _fake_quant_backend(B, fused)
         if fused == "off":
             return _init_plain_caches, _make_plain_step
-        if _shapes_refused(cfg, B, fused, quantize, None):
+        if _shapes_refused(cfg, B, fused, quantize):
             return _plain_backend(quantize)
         if B == 1:
             return init_fused_variant_caches, lambda model: \

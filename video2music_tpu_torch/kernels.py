@@ -27,9 +27,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu",
            "decode_batch.cu", "flash_attention_dropout.cu",
-           "decode_variant.cu", "decode_stack.cu")
+           "decode_variant.cu", "decode_stack.cu", "probes.cu")
 HEADERS = ("common.cuh", "batch_decode.cuh", "decode_step.cuh",
-           "decode_rows.cuh", "attention_mma.cuh")
+           "decode_rows.cuh", "attention_mma.cuh", "attention_wide.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -206,7 +206,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.v2m_flash_attention.restype = i
     lib.v2m_decode_layer.argtypes = [i, ctypes.POINTER(DecodeLayerArgs), p]
     lib.v2m_decode_layer.restype = i
-    lib.v2m_selective_scan.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.v2m_selective_scan.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i,
+                                       p]
     lib.v2m_selective_scan.restype = i
     lib.v2m_batched_layer.argtypes = [i, ctypes.POINTER(BatchLayerArgs), p]
     lib.v2m_batched_layer.restype = i
@@ -226,6 +227,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.v2m_decode_stack_grid.restype = i
     lib.v2m_decode_stack.argtypes = [i, ctypes.POINTER(StackArgs), p]
     lib.v2m_decode_stack.restype = i
+    lib.v2m_kv_probe_attend.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
+                                        p]
+    lib.v2m_kv_probe_floor.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.v2m_kv_probe_noattn.argtypes = [p, p, i, p]
+    lib.v2m_probe_dot_splits.argtypes = [i, i, i]
+    lib.v2m_probe_dot.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p]
+    for name in ("v2m_kv_probe_attend", "v2m_kv_probe_floor",
+                 "v2m_kv_probe_noattn",
+                 "v2m_probe_dot_splits", "v2m_probe_dot"):
+        getattr(lib, name).restype = i
     for name in ("v2m_variant_layer", "v2m_variant_batched_layer",
                  "v2m_variant_batched_moe"):
         fn = getattr(lib, name)
@@ -294,23 +305,32 @@ def aligned(t):
 
 # the head sizes the attention kernels are built for
 # (csrc/flash_attention.cu, csrc/flash_attention_dropout.cu,
-# csrc/attention_mma.cuh)
+# csrc/attention_mma.cuh), and the column slice of the wide form above
+# them (csrc/attention_wide.cuh kWide)
 HEAD_SIZES = (16, 32, 64, 128, 256)
+WIDE_SLICE = 64
 
 
-def head_instance(D: int, what: str) -> int:
-    """The attention kernel instance that takes head size D: the smallest
-    of HEAD_SIZES at least D (the wrappers pad q, k, v (and dO, O) with
-    zero columns up to it, as the Pallas wrappers pad D to a multiple of
-    128: zero columns change neither q . k nor the kept columns of P . V)."""
+def head_instance(D: int, what: str) -> tuple:
+    """The attention kernels' plan for head size D: (instance width,
+    slices). Up to 256 the smallest of HEAD_SIZES at least D, one slice
+    (the wrappers pad q, k, v (and dO, O) with zero columns up to it, as
+    the Pallas wrappers pad D to a multiple of 128: zero columns change
+    neither q . k nor the kept columns of P . V); above, the head split
+    across blocks of WIDE_SLICE output columns each, ceil(D / WIDE_SLICE)
+    of them (the wrappers pad D to their sum). Raises on no positive D."""
+    if D < 1:
+        raise ValueError(f"{what}: head_dim {D}: no positive head size")
     for n in HEAD_SIZES:
         if D <= n:
-            return n
-    raise ValueError(
-        f"{what}: head_dim {D} above {HEAD_SIZES[-1]}: the widest instance "
-        f"keeps two {HEAD_SIZES[-1]}-wide K/V chunks of 64 rows in shared "
-        f"memory and a q row per thread in registers; a wider head needs "
-        f"the head dimension split across blocks")
+            return n, 1
+    return WIDE_SLICE, -(-D // WIDE_SLICE)
+
+
+def padded_head(D: int, what: str) -> int:
+    """The head size the kernels run for D: instance width x slices."""
+    width, slices = head_instance(D, what)
+    return width * slices
 
 
 def pad_head(t, Dp: int):

@@ -278,7 +278,7 @@ def _launch_layer(x, pos: int, p, k_cache, v_cache, k_cross, v_cross, *,
     code = kernels.dtype_code(p["wqkv"], what)
     hd = D // n_heads if n_heads else 0
     quant = kv_scales is not None
-    fault = decode_shape_fault(D, n_heads, (F,), int8_kv=quant)
+    fault = decode_shape_fault(D, n_heads, (F,))
     kernels.require(fault is None, what, fault)
     kernels.require(0 <= pos < S, what, f"pos {pos} outside cache of {S}")
     kernels.require(k_cross.dim() == 3 and k_cross.shape[0] == B

@@ -84,13 +84,12 @@ def fused_decode_eligible(cfg) -> bool:
 
 
 def decode_shape_fault(D: int, H: Optional[int], widths=(), *,
-                       int8_rows: bool = False,
-                       int8_kv: bool = False) -> Optional[str]:
+                       int8_rows: bool = False) -> Optional[str]:
     """Why the CUDA decode kernels (rows 2-10) cannot take width D, H heads
     and FFN widths ``widths``, or None where they can: a head size D / H
-    that is a multiple of 8 and at most 256 (a multiple of 16 beside int8
-    KV caches), D and every width a multiple of 8 (of 16 with int8 weight
-    rows, which load 16 weights at a time). ``H`` None skips the head
+    that is a multiple of 8 and at most 256 (int8 KV caches too: their
+    rows load 16 or 8 values at a time), D and every width a multiple of 8
+    (of 16 with int8 weight rows, which load 16 weights at a time). ``H`` None skips the head
     check (the MoE halves run no attention). The one statement of these
     limits: the wrappers raise on it, and the sampler sends what it refuses
     to the plain step (:func:`cuda_decode_shapes_ok`)."""
@@ -99,9 +98,6 @@ def decode_shape_fault(D: int, H: Optional[int], widths=(), *,
         if hd == 0 or hd % 8 or hd > 256:
             return (f"bad head split D={D} H={H}: the head size must be a "
                     "multiple of 8, at most 256")
-        if int8_kv and hd % 16:
-            return (f"bad head split D={D} H={H}: int8 KV caches need a "
-                    "head size that is a multiple of 16")
     mult = 16 if int8_rows else 8
     if any(n % mult for n in (D, *widths)):
         return (f"widths {(D, *widths)} must be multiples of {mult}"
@@ -109,17 +105,16 @@ def decode_shape_fault(D: int, H: Optional[int], widths=(), *,
     return None
 
 
-def cuda_decode_shapes_ok(cfg, B: int, quantize=None, kv_quant=None) -> bool:
+def cuda_decode_shapes_ok(cfg, B: int, quantize=None) -> bool:
     """True when the CUDA decode kernels take ``cfg``'s shapes at batch
     ``B`` (:func:`decode_shape_fault`), with int8 weight rows at B=1 under
-    ``quantize`` and int8 KV caches at B>1 under ``kv_quant``. The
+    ``quantize`` (int8 KV caches add no limit). The
     counterpart of the JAX package's fused_decode_mosaic_ok
     (pallas_decode.py:583), with these kernels' limits for Mosaic's."""
     expert = 2 * cfg.d_model if cfg.moe.expert == "mlp" else cfg.d_ff
     return decode_shape_fault(
         cfg.d_model, cfg.num_heads, (cfg.d_ff, expert),
-        int8_rows=quantize is not None and B == 1,
-        int8_kv=kv_quant is not None and B > 1) is None
+        int8_rows=quantize is not None and B == 1) is None
 
 
 def quantize_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -53,7 +53,7 @@ def _forward(q, k, v, bias, causal: bool, scale: float):
                     "q, k and v must share one dtype")
     kernels.require(all(t.is_cuda and t.is_contiguous() for t in (q, k, v)),
                     what, "q, k and v must be contiguous CUDA tensors")
-    Dp = kernels.head_instance(D, what)
+    Dp = kernels.padded_head(D, what)
     planes = B * H
     if bias is not None:
         kernels.require(bias.shape in ((B, H, L, S), (1, H, L, S)), what,

@@ -209,7 +209,7 @@ def flash_attention_dropout_fwd(q, k, v, bias, seed, causal: bool,
             seed=seed, origin=origin), None
     code = _check(q, k, v, bias, seed, what)
     B, H, L, D = q.shape
-    Dp = kernels.head_instance(D, what)
+    Dp = kernels.padded_head(D, what)
     q, k, v = (kernels.aligned(kernels.pad_head(t, Dp)) for t in (q, k, v))
     out = torch.empty_like(q)
     stats = torch.empty(B, H, L, 2, device=q.device, dtype=torch.float32)
@@ -243,7 +243,7 @@ def flash_attention_dropout_bwd(q, k, v, bias, do, seed, stats, out,
                     and stats is not None and stats.shape == (B, H, L, 2),
                     what, "do and out must match q and stats come from the "
                     "forward kernel")
-    Dp = kernels.head_instance(D, what)
+    Dp = kernels.padded_head(D, what)
     q, k, v, do, out = (kernels.aligned(kernels.pad_head(t, Dp))
                         for t in (q, k, v, do, out))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

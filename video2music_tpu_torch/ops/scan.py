@@ -22,8 +22,14 @@ import torch
 
 from .. import kernels
 
-# csrc/selective_scan.cu kMaxState: 32 lanes x 32 states a lane
-MAX_D_STATE = 1024
+# csrc/selective_scan.cu kMaxState: the states one launch scans (32 lanes
+# x 32 states a lane); a larger d_state goes in chunks of at most this many
+STATE_CHUNK = 1024
+
+
+def state_chunks(N: int) -> int:
+    """Launches of the scan kernel at d_state N: ceil(N / STATE_CHUNK)."""
+    return -(-N // STATE_CHUNK)
 
 
 def selective_scan_plain(x, delta, A, B, C, D):
@@ -46,12 +52,9 @@ def selective_scan_plain(x, delta, A, B, C, D):
 
 
 def require_d_state(N: int, what: str) -> None:
-    """The kernel's d_state limit (csrc/selective_scan.cu kMaxState), the
-    one the wrapper raises on."""
-    kernels.require(1 <= N <= MAX_D_STATE, what,
-                    f"d_state {N} outside 1..{MAX_D_STATE}: a channel's "
-                    f"states are spread over the 32 lanes of a warp, "
-                    f"{MAX_D_STATE // 32} a lane in registers")
+    """The kernel takes any positive d_state (above STATE_CHUNK in chunks
+    whose partial C . h are added); the wrapper raises on no positive N."""
+    kernels.require(N >= 1, what, f"d_state {N}: no positive state count")
 
 
 def _forward(x, delta, A, B, C, D):
@@ -73,13 +76,17 @@ def _forward(x, delta, A, B, C, D):
     A32 = A.to(device=x.device, dtype=torch.float32).contiguous()
     D32 = D.to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)
+    chunks = state_chunks(N)
+    # above STATE_CHUNK states: the chunks' partial C . h, summed in f32
+    part = None if chunks == 1 else torch.empty(b, L, ED, device=x.device,
+                                                dtype=torch.float32)
     lib = kernels.library()
     status = lib.v2m_selective_scan(
         code, kernels.ptr(x), kernels.ptr(delta), kernels.ptr(A32),
         kernels.ptr(B), kernels.ptr(C), kernels.ptr(D32), kernels.ptr(y),
-        b, L, ED, N, kernels.stream_of(x))
+        kernels.ptr(part), b, L, ED, N, kernels.stream_of(x))
     kernels.check(status, what)
-    selective_scan.launches += 1
+    selective_scan.launches += chunks
     return y
 
 
