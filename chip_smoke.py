@@ -177,12 +177,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      cv2 clip against Video2music.extract_features; every step's kernel
      launches equal to what its path implies ("launches_clis");
   14. published layouts (after "multi-GPU" and "CLIs"): generate_chords
-     on AMT 2.2 at shapes the decode kernels refuse (d_model 96 / 8
-     heads, 36 / 2 heads) decodes on the plain step, fused="on" warning,
-     and int8 KV caches at head size 8 (B=2) stay int8 on the batched
-     kernels, with no warning; CLIP ViT-L/14@336 converted from a seeded
-     transformers CLIPModel (convert_hf_clip) and MaxViT-T from a seeded
-     tools/torch_maxvit_mirror.py model (convert_torchvision_maxvit)
+     on AMT 2.2 at a shape the decode kernels refuse (d_model 36 / 2
+     heads) decodes on the plain step, fused="on" warning, at head size
+     12 (d_model 96 / 8 heads) on the kernels with no warning, and int8
+     KV caches at head size 8 (B=2) stay int8 on the batched kernels,
+     with no warning; CLIP ViT-L/14@336 converted from a
+     seeded transformers CLIPModel (convert_hf_clip) and MaxViT-T from a
+     seeded tools/torch_maxvit_mirror.py model (convert_torchvision_maxvit)
      against their sources on 30 frames, f32 and bf16, with row 1's
      launches and ms; a full-width 2.2 and base-AMT state dict in the
      reference's names, converted by the convert_reference_checkpoint
@@ -197,18 +198,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      synthetic clips: row 11 at hd 512 every step, row 1 in its eval),
      its checkpoint served in bf16 with the moemamba regression at
      d_hidden 2048 (d_state 2048): a 300 s request and a B=16 batch, row 1
-     encoding at hd 512, the plain step decoding (the decode kernels stop
-     at 256), each scan in two state chunks, launches as the path implies;
+     encoding at hd 512, the decode kernels decoding, each scan in two
+     state chunks, launches as the path implies; then every
+     B=1 backend through generate_chords and generate_batch at B=16 on
+     bf16 and int8 KV caches, no warning ("launches_hd512");
   16. head size 8 int8 KV: the product 2.2 at 64 heads: row 6's int8-KV
      form at hd 8 against its plain version (B=16, 64; "ms_int8_hd8"),
      generate_batch(kv_quant="int8") at B=16 (no warning, int8 caches,
-     rows 6 and 7 every step), 16 teacher-forced int8-KV steps at B=8.
+     rows 6 and 7 every step), 16 teacher-forced int8-KV steps at B=8;
+  17. head size 4 path ("launches_hd4"): the product 2.2 at
+     128 heads of 4, one 300 s generate, every B=1 backend and B=16 on
+     bf16 and int8 KV caches as in 15.; then V3.1 at one head (512: rows
+     8 and 9 with two 512-wide query / key heads a value head) for one
+     request and a B=16 batch; every clip checked, no warning, launches as
+     each path implies.
 After "head sizes": "wide heads" holds rows 1 and 11 at head
 sizes 320, 512 and 1024 (the head split across blocks) to their plain
 versions in f32 and bf16 (+bias, +causal; output, mask entry for entry,
 dq / dk / dv / dbias), timed at 512 beside F.scaled_dot_product_attention
 (its backend named); "wide states" the scan at d_state 1025 and 2048 (two
-state chunks), timed at 2048 ("ms_n2048"); "probes" rows 13 and 14: the
+state chunks), timed at 2048 ("ms_n2048"); "decode head sizes" rows
+2-6, 8 and 9 at head sizes 2, 4, 12, 512 and 1024 (d_model
+1024 / 512 heads, 512 / 128, 384 / 32, 512 / 1, 1024 / 1; the attention
+instances of any even head size) against their plain versions in f32
+and bf16, with int8 weights (rows 2, 8) and int8 KV caches (row 6), each
+bf16 form timed beside its plain version and bound ("ms_hd2" ...
+"ms_int8_hd1024");
+"probes" rows 13 and 14: the
 kv traffic probe's four modes at B = 16, 32, 64 (bf16 core beside SDPA,
 the floor beside row 6) and the dot_general probe's three forms in TF32
 and bf16 against the f32 product beside torch.matmul, then both tools'
@@ -3258,6 +3274,372 @@ def wide_state_phase(report, card):
                                        8 * b * L * ED * N, peak=PEAK_F32)
 
 
+# the decode kernels' head-size forms: (tag, d_model, heads), d_ff 1024,
+# 6 experts top-2, S = Sm = 300, pos 150: head size 2 (d_model 1024 at
+# 512 heads: the RoPE pair is the head; the cooperative kernel's split
+# triples need fewer splits to fit its shared memory), 4 (the product's
+# d_model at 128 heads), 12 (d_model 384 at 32), 512 (one head) and 1024
+# (d_model 1024 at one head); each runs the attention instances of any
+# even head size (csrc/common.cuh narrow_head)
+HEAD_FORMS = (("hd2", 1024, 512), ("hd4", 512, 128), ("hd12", 384, 32),
+              ("hd512", 512, 1), ("hd1024", 1024, 1))
+# the kernels-line keys of those forms: the compute-dtype form, and the
+# int8 one (int8 weights for rows 2 and 8, int8 KV caches for row 6)
+HEAD_FORM_KEYS = tuple(f"ms_{t}" for t, _, _ in HEAD_FORMS) + tuple(
+    f"ms_int8_{t}" for t, _, _ in HEAD_FORMS)
+
+
+def plain_on_rows(db, caches, pos, plain):
+    """``plain(caches)``: the plain int8-KV step on copies of the caches
+    before the kernel's step, its quantizer returning the K and V rows and
+    scales the kernel wrote at pos. Its attention then reads the rows the
+    kernel's did: check_int8_rows holds those to the plain quantizer's
+    (equal, or a share one quantum apart, where the two GEMVs' sum orders
+    put an f32 value on either side of a rounding boundary), and the
+    output check holds the attention and the rest of the step."""
+    rows = iter([(caches[0][:, pos].clone(), caches[2][:, pos].clone()),
+                 (caches[1][:, pos].clone(), caches[3][:, pos].clone())])
+    real = db.quantize_kv_rows
+    db.quantize_kv_rows = lambda x: next(rows)
+    try:
+        return plain([t.clone() for t in caches])
+    finally:
+        db.quantize_kv_rows = real
+
+
+def head_form_check(report, row, key, dtype, name, got, want):
+    """check_close of one head-size form, its error kept under
+    ``err_<key>`` of the row."""
+    err = check_close(name, dtype, got, want)
+    errs = report[row].setdefault("err_" + key, {})
+    errs[dtype] = max(err, errs.get(dtype, 0.0))
+    return err
+
+
+def head_form_times(report, row, key, dtype, kernel_fn, plain_fn, work):
+    """The bf16 form's times (note_times under ``key``, the plain version
+    over 5 calls) and its bound from ``work`` (bytes, flops); f32 forms
+    are checked, not timed."""
+    import torch
+    if dtype != torch.bfloat16:
+        return
+    note_times(report, row, dtype, kernel_fn, plain_fn, plain_iters=5,
+               key=key)
+    report[row]["form_bound_" + key] = form_bound(*work)
+
+
+def decode_head_sizes_phase(report, card):
+    """Rows 2-6, 8 and 9 at the head sizes of HEAD_FORMS, f32 and bf16,
+    against their plain versions, pos 150 over 300-row caches: row 2 (the
+    deep layer at B=1, and with int8 weights), row 3 (one layer with the
+    embed prologue and with the head), rows 3-5 (the cooperative kernel's
+    instance of any even head size: a two-layer run with the ends, the
+    monolith over (2, S, D) caches, a MoE segment), row 6 (the deep
+    batched layer at B=16, and on int8 KV caches: output, int8 rows and
+    scales at pos), row 8 (the deep 3.1 layer at B=1, and with int8
+    weights; the base AMT's RPR layer) and row 9 (the deep 3.1 and the
+    base AMT's batched layer at B=16); each K / V row written at pos
+    compared too. The bf16 forms are timed beside their plain versions
+    and bounds (keys ms_hd4 ... and ms_int8_hd4 ...)."""
+    import torch
+    from video2music_tpu_torch.ops import decode_batch as db
+    from video2music_tpu_torch.ops import decode_batch_variant as dbv
+    from video2music_tpu_torch.ops import decode_layer as dl
+    from video2music_tpu_torch.ops import decode_stack as ds
+    from video2music_tpu_torch.ops import decode_variant as dv
+    from video2music_tpu_torch.ops.embeddings import rope_table
+
+    dev, F, E, k_top, S, Sm, pos, B = "cuda", 1024, 6, 2, 300, 300, 150, 16
+    gen = torch.Generator().manual_seed(5120)
+    root = torch.tensor([3], device=dev, dtype=torch.int32)
+    attr = torch.tensor([5], device=dev, dtype=torch.int32)
+    key1 = torch.tensor([1.0], device=dev)
+    for tag, D, H in HEAD_FORMS:
+        hd = D // H
+        table = rope_table(S, hd, dev)
+        rope = (table[..., 0].contiguous(), table[..., 1].contiguous())
+        kw = dict(n_heads=H, k_top=k_top, rope=rope)
+        k8 = f"ms_int8_{tag}"
+        key = f"ms_{tag}"
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype)[6:]
+            print(f"decode kernels at head size {hd} (d_model {D}, {H} "
+                  f"heads), {dn}:")
+            el = torch.tensor([], dtype=dtype).element_size()
+
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+            shallow = random_layer(gen, D, F, E, False, dtype, dev)
+            deep = random_layer(gen, D, F, E, True, dtype, dev)
+            head = random_head(gen, D, dtype, dev)
+            kc, vc, kx, vx = rnd(S, D), rnd(S, D), rnd(Sm, D), rnd(Sm, D)
+            x = rnd(1, D)
+            # row 2: the deep layer, then with int8 weights
+            q8 = dict(deep)
+            for k in dl.QUANT_KEYS + dl.QUANT_DEEP_KEYS:
+                q8[k], q8[k + "_s"] = dl.quantize_weight(q8[k])
+            for form, p, rk in (("", deep, key), (" int8", q8, k8)):
+                k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                name = f"decode_layer{form} {tag}"
+                head_form_check(report, "decode_layer", rk, dtype, name,
+                                dl.decode_layer_step(x, pos, p, k1, v1, kx,
+                                                     vx, **kw),
+                                dl.decode_layer_plain(x, pos, p, k2, v2, kx,
+                                                      vx, **kw))
+                check_close(name + " k row", dtype, k1[pos], k2[pos])
+                check_close(name + " v row", dtype, v1[pos], v2[pos])
+                rows = torch.zeros(E)
+                rows[:k_top] = 1
+                own = [k for k in p if k not in EXPERT_KEYS + EXPERT_SCALES]
+                w_b, w_f = layer_work(p, own)
+                e_b, e_f = layer_work(p, [k for k in EXPERT_KEYS
+                                          + EXPERT_SCALES if k in p], rows)
+                head_form_times(
+                    report, "decode_layer", rk, dtype,
+                    lambda: dl.decode_layer_step(x, pos, p, k1, v1, kx, vx,
+                                                 **kw),
+                    lambda: dl.decode_layer_plain(x, pos, p, k2, v2, kx, vx,
+                                                  **kw),
+                    (w_b + e_b + 2 * (pos + 1) * D * el + nbytes(kx, vx)
+                     + 2 * nbytes(x) + 2 * D * el,
+                     w_f + e_f + 4 * (pos + 1) * D + 4 * Sm * D))
+            # row 3, one layer: the embed prologue, then the head epilogue
+            for ends in (dict(embed=True, fold_head=False),
+                         dict(embed=False, fold_head=True, x=x)):
+                p = shallow if ends["embed"] else deep
+                k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                name = f"decode_ends {'embed' if ends['embed'] else 'head'}"
+                head_form_check(report, "decode_ends", key, dtype,
+                                f"{name} {tag}",
+                                dl.decode_ends_step(root, attr, key1, pos, p,
+                                                    head, k1, v1, kx, vx,
+                                                    **kw, **ends),
+                                dl.decode_ends_plain(root, attr, key1, pos,
+                                                     p, head, k2, v2, kx, vx,
+                                                     **kw, **ends))
+                check_close(f"{name} {tag} k row", dtype, k1[pos], k2[pos])
+            h_b, h_f = layer_work(head, ("dn_scale", "dn_bias", "wout",
+                                         "bout"))
+            w_b, w_f = run_work([deep], pos, Sm, el)
+            head_form_times(
+                report, "decode_ends", key, dtype,
+                lambda: dl.decode_ends_step(root, attr, key1, pos, deep,
+                                            head, k1, v1, kx, vx, **kw,
+                                            **ends),
+                lambda: dl.decode_ends_plain(root, attr, key1, pos, deep,
+                                             head, k2, v2, kx, vx, **kw,
+                                             **ends),
+                (w_b + h_b + nbytes(x) + 159 * el, w_f + h_f))
+            # rows 3-5: the cooperative kernel, shallow + deep
+            layers = [shallow, deep]
+            packed = dict(head, layers=layers)
+            sk, sv = rnd(2, S, D), rnd(2, S, D)
+            skx, svx = rnd(2, Sm, D), rnd(2, Sm, D)
+
+            def flat(k, v):
+                return [(k[i], v[i], skx[i], svx[i]) for i in range(2)]
+
+            e_b, e_f = layer_work(head, ("lc_w", "lc_krow", "lc_b",
+                                         "dn_scale", "dn_bias", "wout",
+                                         "bout"))
+            r_b, r_f = run_work(layers, pos, Sm, el)
+            ends_work = (r_b + e_b + 2 * D * el + 159 * el, r_f + e_f)
+            k1, v1, k2, v2 = sk.clone(), sv.clone(), sk.clone(), sv.clone()
+            head_form_check(
+                report, "decode_flat_monolith", key, dtype,
+                f"decode_flat_monolith two layers {tag}",
+                ds.decode_flat_monolith_step(root, attr, key1, pos, layers,
+                                             packed, flat(k1, v1), **kw),
+                ds.decode_flat_monolith_plain(root, attr, key1, pos, layers,
+                                              packed, flat(k2, v2), **kw))
+            check_close(f"decode_flat_monolith {tag} caches", dtype, k1, k2)
+            plans = {}
+            caches = flat(k1, v1)
+            head_form_times(
+                report, "decode_flat_monolith", key, dtype,
+                lambda: ds.decode_flat_monolith_step(
+                    root, attr, key1, pos, layers, packed, caches,
+                    plans=plans, **kw),
+                lambda: ds.decode_flat_monolith_plain(
+                    root, attr, key1, pos, layers, packed, flat(k2, v2),
+                    **kw), ends_work)
+            k1, v1, k2, v2 = sk.clone(), sv.clone(), sk.clone(), sv.clone()
+            head_form_check(
+                report, "decode_monolith", key, dtype,
+                f"decode_monolith {tag}",
+                ds.decode_monolith_step(root, attr, key1, pos, packed, k1,
+                                        v1, skx, svx, **kw),
+                ds.decode_monolith_plain(root, attr, key1, pos, packed, k2,
+                                         v2, skx, svx, **kw))
+            check_close(f"decode_monolith {tag} caches", dtype, v1, v2)
+            plans_m = {}
+            head_form_times(
+                report, "decode_monolith", key, dtype,
+                lambda: ds.decode_monolith_step(
+                    root, attr, key1, pos, packed, k1, v1, skx, svx,
+                    plans=plans_m, **kw),
+                lambda: ds.decode_monolith_plain(
+                    root, attr, key1, pos, packed, k2, v2, skx, svx, **kw),
+                ends_work)
+            seg = dict(kind="moe", start=1, layers=[deep])
+            k1, v1, k2, v2 = (t[1:].clone() for t in (sk, sv, sk, sv))
+            gx, gvx = skx[1:].contiguous(), svx[1:].contiguous()
+            head_form_check(
+                report, "decode_segment", key, dtype,
+                f"decode_segment moe {tag}",
+                ds.decode_segment_step(x, pos, seg, k1, v1, gx, gvx, **kw),
+                ds.decode_segment_plain(x, pos, seg, k2, v2, gx, gvx, **kw))
+            check_close(f"decode_segment {tag} caches", dtype, k1, k2)
+            plans_s = {}
+            s_b, s_f = run_work([deep], pos, Sm, el)
+            head_form_times(
+                report, "decode_segment", key, dtype,
+                lambda: ds.decode_segment_step(x, pos, seg, k1, v1, gx, gvx,
+                                               plans=plans_s, **kw),
+                lambda: ds.decode_segment_plain(x, pos, seg, k2, v2, gx,
+                                                gvx, **kw),
+                (s_b + 2 * nbytes(x), s_f))
+            # row 6: the deep batched layer at B=16, then on int8 caches
+            bkw = dict(n_heads=H, rope=rope)
+            bc = [rnd(B, S, D) for _ in range(2)]
+            bx, bvx = rnd(B, Sm, D), rnd(B, Sm, D)
+            xb = rnd(B, D)
+            k1, v1, k2, v2 = (c.clone() for c in bc + bc)
+            name = f"batched_layer_step deep B={B} {tag}"
+            head_form_check(report, "batched_layer_step", key, dtype, name,
+                            db.batched_layer_step(xb, pos, deep, k1, v1, bx,
+                                                  bvx, **bkw),
+                            db.batched_layer_step_plain(xb, pos, deep, k2, v2,
+                                                        bx, bvx, **bkw))
+            check_close(name + " k row", dtype, k1[:, pos], k2[:, pos])
+            check_close(name + " v row", dtype, v1[:, pos], v2[:, pos])
+            w_b, w_f = layer_work(deep, db._LAYER_KEYS)
+            head_form_times(
+                report, "batched_layer_step", key, dtype,
+                lambda: db.batched_layer_step(xb, pos, deep, k1, v1, bx, bvx,
+                                              **bkw),
+                lambda: db.batched_layer_step_plain(xb, pos, deep, k2, v2,
+                                                    bx, bvx, **bkw),
+                (w_b + B * 2 * (pos + 1) * D * el + nbytes(bx, bvx)
+                 + 4 * nbytes(xb),
+                 B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D)))
+
+            def quantized(rows, filled):
+                q, s = db.quantize_kv_rows(
+                    torch.randn(B, rows, D, generator=gen).to(dev))
+                q[:, filled:] = 0
+                s[:, filled:] = 0
+                return q, s
+            (qk, qks), (qv, qvs) = quantized(S, pos), quantized(S, pos)
+            (qx, qxs), (qvx, qvxs) = quantized(Sm, Sm), quantized(Sm, Sm)
+            one, two = ([t.clone() for t in (qk, qv, qks, qvs)]
+                        for _ in range(2))
+            name = f"batched_layer_step int8 KV deep B={B} {tag}"
+            got = db.batched_layer_step(
+                xb, pos, deep, one[0], one[1], qx, qvx,
+                kv_scales=(one[2], one[3], qxs, qvxs), **bkw)
+            db.batched_layer_step_plain(
+                xb, pos, deep, two[0], two[1], qx, qvx,
+                kv_scales=(two[2], two[3], qxs, qvxs), **bkw)
+            for i, row in enumerate(("k", "v")):
+                check_int8_rows(f"{name} {row} row", one[i][:, pos],
+                                two[i][:, pos])
+                check_close(f"{name} {row} scale", torch.float32,
+                            one[i + 2][:, pos], two[i + 2][:, pos])
+            head_form_check(report, "batched_layer_step", k8, dtype, name,
+                            got, plain_on_rows(db, one, pos, lambda c: (
+                                db.batched_layer_step_plain(
+                                    xb, pos, deep, c[0], c[1], qx, qvx,
+                                    kv_scales=(c[2], c[3], qxs, qvxs),
+                                    **bkw))))
+            head_form_times(
+                report, "batched_layer_step", k8, dtype,
+                lambda: db.batched_layer_step(
+                    xb, pos, deep, one[0], one[1], qx, qvx,
+                    kv_scales=(one[2], one[3], qxs, qvxs), **bkw),
+                lambda: db.batched_layer_step_plain(
+                    xb, pos, deep, two[0], two[1], qx, qvx,
+                    kv_scales=(two[2], two[3], qxs, qvxs), **bkw),
+                (w_b + B * (2 * (pos + 1) * (D + 4) + 2 * Sm * (D + 4))
+                 + 2 * nbytes(xb) + 2 * B * (D + 4),
+                 B * (w_f + 4 * (pos + 1) * D + 4 * Sm * D)))
+            # rows 8 and 9: the deep 3.1 layer (differential pairs, RMSNorm,
+            # RoPE), timed, and the base AMT's RPR layer
+            for vname, fields, norm, use_rope in (
+                    ("3.1", ("differential", "differential", "moe", "glu",
+                             True), "rmsnorm", True),
+                    ("AMT", ("rpr", "vanilla", "relu", "glu", False),
+                     "layernorm", False)):
+                meta = dv.VariantLayerMeta(*fields)
+                p = random_variant_layer(gen, meta, D, H, F, E, S, dtype, dev)
+                nq = 2 if meta.attn == "differential" else 1
+                nc = 2 if meta.cross == "differential" else 1
+                vkw = dict(n_heads=H, rope=rope if use_rope else None,
+                           norm=norm, pre_norm=False)
+                timed = vname == "3.1"
+                vk, vv = rnd(S, nq * D), rnd(S, D)
+                vkx, vvx = rnd(Sm, nc * D), rnd(Sm, D)
+                qp = dict(p)
+                for k in dv.QUANT_KEYS:
+                    if k in qp:
+                        qp[k], qp[k + "_s"] = dl.quantize_weight(qp[k])
+                forms = (("", p, key), (" int8", qp, k8)) if timed else \
+                    (("", p, key),)
+                for form, lp, rk in forms:
+                    k1, v1, k2, v2 = (vk.clone(), vv.clone(), vk.clone(),
+                                      vv.clone())
+                    a1 = (x, pos, lp, meta, k1, v1, vkx, vvx)
+                    a2 = (x, pos, lp, meta, k2, v2, vkx, vvx)
+                    name = f"decode_variant_layer{form} {vname} {tag}"
+                    head_form_check(
+                        report, "decode_variant_layer", rk, dtype, name,
+                        dv.decode_variant_layer_step(*a1, k_top=k_top,
+                                                     **vkw),
+                        dv.decode_variant_layer_plain(*a2, k_top=k_top,
+                                                      **vkw))
+                    check_close(name + " k row", dtype, k1[pos], k2[pos])
+                    if not timed:
+                        continue
+                    rows = torch.zeros(E)
+                    rows[:k_top] = 1
+                    own = [k for k in lp
+                           if k not in EXPERT_KEYS + EXPERT_SCALES]
+                    w_b, w_f = layer_work(lp, own)
+                    e_b, e_f = layer_work(lp, [k for k in EXPERT_KEYS
+                                               + EXPERT_SCALES if k in lp],
+                                          rows)
+                    a_b, a_f = variant_attention_work(lp, 1, pos, Sm, D, el)
+                    head_form_times(
+                        report, "decode_variant_layer", rk, dtype,
+                        lambda: dv.decode_variant_layer_step(
+                            *a1, k_top=k_top, **vkw),
+                        lambda: dv.decode_variant_layer_plain(
+                            *a2, k_top=k_top, **vkw),
+                        (w_b + e_b + a_b + 2 * nbytes(x), w_f + e_f + a_f))
+                bk, bv = rnd(B, S, nq * D), rnd(B, S, D)
+                bkx, bvx2 = rnd(B, Sm, nc * D), rnd(B, Sm, D)
+                k1, v1, k2, v2 = bk.clone(), bv.clone(), bk.clone(), bv.clone()
+                a1 = (xb, pos, p, meta, k1, v1, bkx, bvx2)
+                a2 = (xb, pos, p, meta, k2, v2, bkx, bvx2)
+                name = f"batched_variant_layer_step {vname} B={B} {tag}"
+                head_form_check(report, "batched_variant_layer_step", key,
+                                dtype, name,
+                                dbv.batched_variant_layer_step(*a1, **vkw),
+                                dbv.batched_variant_layer_plain(*a2, **vkw))
+                check_close(name + " k row", dtype, k1[:, pos], k2[:, pos])
+                check_close(name + " v row", dtype, v1[:, pos], v2[:, pos])
+                if timed:
+                    w_b, w_f = layer_work(p, VARIANT_ATTN_KEYS)
+                    a_b, a_f = variant_attention_work(p, B, pos, Sm, D, el)
+                    head_form_times(
+                        report, "batched_variant_layer_step", key, dtype,
+                        lambda: dbv.batched_variant_layer_step(*a1, **vkw),
+                        lambda: dbv.batched_variant_layer_plain(*a2, **vkw),
+                        (w_b + a_b + 2 * nbytes(xb), B * w_f + a_f))
+    print(f"  decode head-size forms checked [{card}]")
+
+
 def wide_head_path_phase(card, report):
     """Head size 512 and d_state 2048 through the entry points, at full
     width (AMT 2.2: d_model 512, d_ff 1024, 6+6 layers, 3 SharedMoE of 6
@@ -3268,11 +3650,12 @@ def wide_head_path_phase(card, report):
     regression at d_hidden 2048 (its d_state is its d_hidden; the Mamba
     family's one configurable d_state: bimamba+ keeps 16): one 300 s
     request and a generate_batch at B=16, every clip checked. Row 1
-    encodes at hd 512; the decode kernels do not take hd 512
-    (ops/decode_layer.py cuda_decode_shapes_ok), so the plain step
-    decodes, with no warning under fused="auto"; each scan of the
-    regression launches in two state chunks. Launches as the path
-    implies."""
+    encodes at hd 512; the decode kernels decode (their attention
+    instances of any even head size), with no warning under
+    fused="auto"; each scan of the regression launches in two state
+    chunks. Launches as the path implies. Then every B=1 backend and
+    generate_batch at B=16 with and without int8 KV caches
+    (head_size_paths)."""
     import torch
     from video2music_tpu_torch.cli import train_amt as train_amt_cli
     from video2music_tpu_torch.pipeline.api import Video2music
@@ -3324,7 +3707,7 @@ def wide_head_path_phase(card, report):
             tm = v2m.last_timings
             print(f"head size 512 request (its checkpoint, 300 s): wall "
                   f"{wall:.3f} s, encode {tm['encode']:.3f} ms, decode "
-                  f"{tm['decode'] / (T - 1):.4f} ms/token (plain step), "
+                  f"{tm['decode'] / (T - 1):.4f} ms/token (\"ends\"), "
                   f"regression (moemamba, d_state 2048) "
                   f"{tm['regression']:.3f} ms "
                   f"[{card}]")
@@ -3335,13 +3718,134 @@ def wide_head_path_phase(card, report):
                                       os.path.join(tmp, "b16"))
         fail_unless(not caught, f"head size 512 under fused='auto' warned: "
                     f"{[str(w.message)[:80] for w in caught]}")
-        check_launches(report, v2m, [1, B], ("flash_attention",
-                                             "selective_scan"),
-                       (), plain_decode=True)
+        check_launches(report, v2m, [1, B], SLICE_KERNELS + SERVING_KERNELS,
+                       ())
         add_wide_launches(report)
+        add_wide_launches(report, "launches_hd512")
         report.setdefault("wide", {}).update(
             hd512_train_s=train_s, hd512_ms_token=tm["decode"] / (T - 1),
             hd512_clips_s_b16=rate, hd512_ms_step_b16=ms_step)
+        head_size_paths(v2m, card, report, "hd512")
+        del v2m
+        torch.cuda.empty_cache()
+
+
+def head_size_paths(v2m, card, report, tag, T=300):
+    """The decode paths of a Video2music at a head size the narrow
+    attention instances do not take: one 300 s request through
+    generate_chords on every B=1 backend (BACKENDS: "ends", "layer",
+    "stack", "monolith", split=False and int8 weights), then
+    generate_batch at B=16 on bf16 and on int8 KV caches; every clip
+    checked, no warning under any of them, each call's launches as its
+    path implies (the decode kernels every step, no plain step), added to
+    ``launches_<tag>``; ms/token and clips/s into report["wide"]."""
+    import torch
+    from video2music_tpu_torch.decode.sampler import (GenerateConfig,
+                                                      generate_chords)
+    model, _ = v2m._models("bfloat16")
+    primer = "C Am F G"
+    inputs = request_inputs(v2m, synthetic_features(T, 13), primer,
+                            torch.bfloat16)
+    wide = report.setdefault("wide", {})
+    with warnings_caught() as caught:
+        for name, (fused, quantize, split, kernel) in BACKENDS.items():
+            kw = dict(fused=fused, quantize=quantize, split=split, **inputs)
+            generate_chords(model, gcfg=GenerateConfig(target_seq_length=4),
+                            generator=torch.Generator(device=v2m.device)
+                            .manual_seed(0), **kw)  # warm-up
+            zero_launches()
+            out = generate_chords(model, generator=torch.Generator(
+                device=v2m.device).manual_seed(7), **kw)
+            check_ids(f"{tag} backend {name}", out["gen_seq"][0].cpu()
+                      .numpy(), primer, T)
+            ms = out["timings_ms"]["decode"] / (T - 1)
+            wide[f"{tag}_{name}_ms_token"] = ms
+            print(f"{tag} backend {name} (fused={fused!r}, quantize="
+                  f"{quantize!r}, split={split}): 300 s request, decode "
+                  f"{ms:.4f} ms/token [{card}]")
+            check_launches(report, v2m, [1],
+                           (kernel,) if kernel else ("decode_layer",
+                                                     "decode_ends"), (),
+                           backend=name, regression=False)
+            add_wide_launches(report, "launches_" + tag)
+        B = 16
+        with tempfile.TemporaryDirectory() as tmp:
+            for kv in (None, "int8"):
+                reqs, temps = serving_requests(B, 7700)
+                zero_launches()
+                rate, ms_step = run_batch(
+                    f"{tag} generate_batch B={B} kv_quant={kv!r}", v2m, card,
+                    reqs, temps, os.path.join(tmp, str(kv)), kv_quant=kv)
+                names = SERVING_KERNELS if fused_v2(v2m) else V3_KERNELS
+                check_launches(report, v2m, [B], names, ())
+                add_wide_launches(report, "launches_" + tag)
+                wide[f"{tag}_clips_s_b16_{kv or 'bf16'}"] = rate
+                wide[f"{tag}_ms_step_b16_{kv or 'bf16'}"] = ms_step
+    fail_unless(not caught, f"{tag} paths warned: "
+                f"{[str(w.message)[:80] for w in caught]}")
+
+
+def fused_v2(v2m) -> bool:
+    """True for the V2-family wiring (rows 2-7), False for the variant
+    kernels' (rows 8-10)."""
+    from video2music_tpu_torch.ops.decode_layer import fused_decode_eligible
+    return fused_decode_eligible(v2m.amt_cfg)
+
+
+def narrow_head_path_phase(card, report):
+    """Head size 4 at full width: the product 2.2 (d_model 512, d_ff 1024,
+    6+6 layers, 3 SharedMoE of 6 experts top-2, bimamba+) at 128 heads,
+    random weights from seed 0, in bf16: one 300 s Video2music.generate
+    ("ends") and every path of head_size_paths; then V3.1 at one head
+    (head size 512: two 512-wide query / key heads beside one 512-wide
+    value head, rows 8 and 9): one 300 s request and generate_batch at
+    B=16, every clip checked, no warning, launches as the path implies
+    (launches_hd512)."""
+    import torch
+    from video2music_tpu_torch.pipeline.api import Video2music
+
+    T = 300
+    for tag, kw in (("hd4", dict(amt_overrides=dict(num_heads=128))),
+                    ("hd512", dict(music_gen_version="3.1",
+                                   amt_overrides=dict(num_heads=1)))):
+        v2m = Video2music(seed=0, device="cuda", **kw)
+        hd = v2m.amt_cfg.head_dim
+        fail_unless(hd == int(tag[2:]), f"{tag}: head size {hd}")
+        label = f"{v2m.amt_cfg.version} at head size {hd}"
+        req = REQUESTS[0]
+        with tempfile.TemporaryDirectory() as tmp, \
+                warnings_caught() as caught:
+            zero_launches()
+            res = v2m.generate(primer=req["primer"], key=req["key"],
+                               temperature=req["temperature"],
+                               features=synthetic_features(T, 6),
+                               output_dir=os.path.join(tmp, "clip"), seed=6)
+            check_clip(f"{label} request", res, req["primer"], T,
+                       v2m.last_regression["instrument"],
+                       v2m.last_regression["ln_nd"])
+            tm = v2m.last_timings
+            print(f"{label} request (300 s): encode {tm['encode']:.3f} ms, "
+                  f"decode {tm['decode'] / (T - 1):.4f} ms/token [{card}]")
+            widths = [1]
+            if not fused_v2(v2m):  # V3.1: its B=16 batch here
+                B = 16
+                reqs, temps = serving_requests(B, 6600)
+                rate, ms_step = run_batch(f"{label} generate_batch B={B}",
+                                          v2m, card, reqs, temps,
+                                          os.path.join(tmp, "b16"))
+                widths.append(B)
+                report.setdefault("wide", {}).update(
+                    v31_hd512_clips_s_b16=rate, v31_hd512_ms_step_b16=ms_step,
+                    v31_hd512_ms_token=tm["decode"] / (T - 1))
+        fail_unless(not caught, f"{label} warned: "
+                    f"{[str(w.message)[:80] for w in caught]}")
+        check_launches(report, v2m, widths,
+                       SLICE_KERNELS if fused_v2(v2m) else V3_KERNELS, ())
+        add_wide_launches(report, "launches_" + tag)
+        if fused_v2(v2m):
+            report.setdefault("wide", {})[f"{tag}_ms_token"] = \
+                tm["decode"] / (T - 1)
+            head_size_paths(v2m, card, report, tag)
         del v2m
         torch.cuda.empty_cache()
 
@@ -3355,13 +3859,13 @@ def warnings_caught():
         yield caught
 
 
-def add_wide_launches(report):
-    """Add the counters to each kernel's ``launches_wide`` (the paths of
-    this slice's repaired limits)."""
+def add_wide_launches(report, key="launches_wide"):
+    """Add the counters to each launched kernel's ``key``: launches_wide
+    (the head size 512 and head size 8 int8-KV paths), launches_hd512 and
+    launches_hd4 (the decode paths at head sizes 512 and 4)."""
     for name, fn in wrappers().items():
         if fn.launches:
-            report[name]["launches_wide"] = \
-                report[name].get("launches_wide", 0) + fn.launches
+            report[name][key] = report[name].get(key, 0) + fn.launches
 
 
 def int8_kv_hd8_phase(card, report):
@@ -6390,7 +6894,9 @@ def cli_mesh_phase(root, tmp, card, report):
 
 # (version, d_model, heads, d_ff) the decode kernels refuse: head size 12,
 # and head size 18 beside d_model 36 (not a multiple of 8)
-REFUSED_SHAPES = (("2.2", 96, 8, 64), ("2.2", 36, 2, 72))
+REFUSED_SHAPES = (("2.2", 36, 2, 72),)
+# head size 12, refused until the decode kernels took any even head size
+TAKEN_SHAPES = (("2.2", 96, 8, 64),)
 PUBLISHED_B = 16
 
 
@@ -6512,12 +7018,13 @@ def reference_state_dict(kind, seed, d=512, ff=1024, heads=8, n=6, E=6,
 
 def refused_shapes_phase(card, report):
     """Step 0 on the card: generate_chords on AMT 2.2 at the shapes the
-    decode kernels refuse decodes on the plain step (no decode kernel
-    launches), fused="on" warning; int8 KV caches at head size 8 and B=2
-    stay int8 on the batched kernels, with no warning. (Rows 1 and 11
-    above head size 256 and the scan above d_state 1024, limits until
-    this slice, are held to their plain versions by the "wide heads" and
-    "wide states" phases.)"""
+    decode kernels refuse (widths) decodes on the plain step (no decode
+    kernel launches), fused="on" warning; at head size 12 (TAKEN_SHAPES)
+    it decodes on the kernels ("auto": the ends chain, "on": a layer
+    kernel a layer) with no warning; int8 KV caches at head size 8 and
+    B=2 stay int8 on the batched kernels, with no warning. (Rows 1 and
+    11 above head size 256 and the scan above d_state 1024 are held to
+    their plain versions by the "wide heads" and "wide states" phases.)"""
     import warnings
 
     import torch
@@ -6528,7 +7035,8 @@ def refused_shapes_phase(card, report):
     from video2music_tpu_torch.weights import init_weights_
     dev = torch.device("cuda")
     T = 300
-    for version, D, H, F in REFUSED_SHAPES:
+    for version, D, H, F in REFUSED_SHAPES + TAKEN_SHAPES:
+        taken = (version, D, H, F) in TAKEN_SHAPES
         cfg = amt_config(version, n_layers=2, num_heads=H, d_model=D,
                          d_ff=F, total_vf_dim=11, dropout=0.0)
         model = init_weights_(VideoMusicTransformer(cfg),
@@ -6554,20 +7062,32 @@ def refused_shapes_phase(card, report):
                                       **kw)
             warned = any("CUDA shape limits" in str(w.message)
                          for w in caught)
-            fail_unless(warned == (fused == "on"),
+            fail_unless(warned == (fused == "on" and not taken),
                         f"d_model {D} / {H} heads, fused={fused!r}: "
                         f"warned {warned}")
-            check_ids(f"refused shape d_model {D} / {H} heads {fused}",
+            check_ids(f"{'taken' if taken else 'refused'} shape d_model "
+                      f"{D} / {H} heads {fused}",
                       out["gen_seq"][0].cpu().numpy(), "", T)
-            enc = {"flash_attention": len(cfg.encoder_layers)}
+            want = {"flash_attention": len(cfg.encoder_layers)}
+            L = len(cfg.decoder_layers)
+            if taken and fused == "auto":  # the ends chain
+                want.update(decode_ends=2 * (T - 1))
+                if L > 2:
+                    want["decode_layer"] = (L - 2) * (T - 1)
+            elif taken:  # a layer kernel a layer
+                want["decode_layer"] = L * (T - 1)
             check_path_launches(f"d_model {D} / {H} heads fused={fused!r} "
-                                f"(plain step)", enc)
-            add_launches(report, enc)
+                                f"({'kernels' if taken else 'plain step'})",
+                                want)
+            add_launches(report, want)
             outs[fused] = out["gen_seq"].cpu()
-        fail_unless(torch.equal(outs["auto"], outs["on"]),
-                    f"d_model {D} / {H} heads: auto and on differ")
+        if not taken:  # one plain step: the same tokens
+            fail_unless(torch.equal(outs["auto"], outs["on"]),
+                        f"d_model {D} / {H} heads: auto and on differ")
+        how = ("kernels, no warning" if taken
+               else "plain step, fused='on' warned")
         print(f"  d_model {D}, {H} heads (head size {D // H}), d_ff {F}: "
-              f"300 tokens on the plain step, fused='on' warned, decode "
+              f"300 tokens on the {how}, decode "
               f"{out['timings_ms']['decode'] / (T - 1):.4f} ms/token "
               f"[{card}]")
     # int8 KV caches at head size 8 and B=2: the batched kernels keep the
@@ -6968,6 +7488,7 @@ def main() -> int:
     phase("head sizes", head_size_phase, report, card)
     phase("wide heads", wide_head_phase, report, card)
     phase("wide states", wide_state_phase, report, card)
+    phase("decode head sizes", decode_head_sizes_phase, report, card)
     phase("probes", probes_phase, report, card)
     phase("40 experts", many_experts_phase, report, v2m)
     phase("expert cut", expert_cut_phase, report, v2m, card)
@@ -7012,6 +7533,8 @@ def main() -> int:
     phase("head size 512 path", wide_head_path_phase, card, report)
     torch.cuda.empty_cache()
     phase("head size 8 int8 KV", int8_kv_hd8_phase, card, report)
+    torch.cuda.empty_cache()
+    phase("head size 4 path", narrow_head_path_phase, card, report)
     print(f"phase seconds: {json.dumps(seconds)}")
 
     rows = []
@@ -7034,8 +7557,9 @@ def main() -> int:
                     "ms_mlp", "ms_moemamba", "ms_d512", "ms_int8_hd8",
                     "ms_int8_hd8_b64", "ms_n2048", "ms_floor", "ms_floor_b16",
                     "ms_floor_b64", "ms_noattn", "ms_noattn_b16",
-                    "ms_noattn_b64", "ms_tn", "ms_diag") + tuple(
-                        f[0] for f in RAW_VIDEO_FORMS):
+                    "ms_noattn_b64", "ms_tn", "ms_diag") + (
+                        HEAD_FORM_KEYS + tuple(f[0]
+                                               for f in RAW_VIDEO_FORMS)):
             # other shapes; int8 weights or caches; head sizes 128 and 512,
             # and 8 with int8 caches; the RPR / MLP-expert layer forms, the
             # scan inside moemamba and at d_state 2048, row 1 in the
@@ -7060,7 +7584,7 @@ def main() -> int:
                     "launches_raw_video", "launches_train_zoo",
                     "launches_clis", "launches_multi_gpu",
                     "launches_published", "launches_wide",
-                    "launches_probe"):
+                    "launches_probe", "launches_hd512", "launches_hd4"):
             if key in r:
                 row[key] = r[key]
         if "err_int8_hd8" in r:  # int8 KV caches at head size 8

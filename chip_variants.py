@@ -95,7 +95,7 @@ def load(proc, so, source):
     vp, i = ctypes.c_void_p, ctypes.c_int
     pi = ctypes.POINTER(ctypes.c_int)
     if source == "decode_stack.cu":
-        lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, i, pi, pi]
+        lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, pi, pi, pi]
         lib.v2m_decode_stack.argtypes = [i, ctypes.POINTER(kernels.StackArgs),
                                          vp]
     else:
@@ -153,12 +153,14 @@ def stack_designs(v2m, libs):
                     a.max_splits = min(kernels.MAX_STACK_SPLITS,
                                        -(-max(S, Sm) // TILE_ROWS[design]))
                     seg_run.args.max_splits = a.max_splits
+                splits = ctypes.c_int(a.max_splits)
                 cs.fail_unless(lib.v2m_decode_stack_grid(
-                    run.code, a.D, a.H, a.F, a.E, a.k_top, a.max_splits,
-                    ctypes.byref(smem), ctypes.byref(blocks)) == 0,
-                    f"{design}: no grid")
+                    run.code, a.D, a.H, a.F, a.E, a.k_top,
+                    ctypes.byref(splits), ctypes.byref(smem),
+                    ctypes.byref(blocks)) == 0, f"{design}: no grid")
                 for r in (run, seg_run):
                     r.lib = lib
+                    r.args.max_splits = splits.value
                     r.args.smem, r.args.grid = smem.value, blocks.value
             err = cs.errors(run.launch(pos, tokens=tokens), want)[1]
             ms = cs.time_ms(lambda: run.launch(pos, tokens=tokens))[0]

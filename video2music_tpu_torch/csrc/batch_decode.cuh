@@ -37,8 +37,10 @@
 // partial P.V, and the cluster's first block sums the partials in rank
 // order and finishes (rounding, the differential combine, subln). A
 // vanilla or RPR head at B >= 2 runs one block per (value head, clip)
-// instead, which does all of it. The MoE router and the
-// per-clip closing residual + norm follow.
+// instead, which does all of it. A head size neither takes (no multiple
+// of their load width, or above kThreads) runs attn_any_kernel, one block
+// per (value head, clip) at any even head size, its loads value pairs.
+// The MoE router and the per-clip closing residual + norm follow.
 //
 // Every kernel here is launched by launch() with programmatic dependent
 // launch allowed. Before pdl_wait() it reads only what no kernel of a
@@ -1592,6 +1594,284 @@ static __global__ void __launch_bounds__(kThreads) attn_kernel(Attn a) {
   if (tid < hd) a.out[(size_t)b * D + h * hd + tid] = o;
 }
 
+// ---------------------------------------------------------------------------
+// attention at any even head size
+// ---------------------------------------------------------------------------
+
+constexpr int kAnyRows = 4;    // attn_any_kernel: rows a lane group loads
+constexpr int kAnyGroups = 8;  // at once; row groups from kThreads pairs
+
+// attn_kernel's function at any even head size, for the heads the narrow
+// instances do not take (narrow_head, common.cuh): grid (H * cs, B),
+// clusters of cs blocks along x, every form (vanilla, RPR, differential,
+// int8 rows, batched rounding). Cluster block `rank` of (value head h,
+// clip b) takes rows [rank * per, (rank + 1) * per) of [0, rows), as
+// attn_cluster_kernel does: its logits and local max, the cluster's max
+// and then its sum through distributed shared memory (the sums added in
+// rank order), its probabilities normalised (and rounded where the Pallas
+// kernel rounds) and its partial P.V; the first block adds the partials in
+// rank order and finishes (rounding, the differential combine, subln).
+// Loads are value pairs (4 bytes of bf16, 8 of f32, 2 of int8), so any
+// even head size lines up. Logits: pair_lanes(hd) lanes a row, kAnyRows
+// rows a lane group at once (their loads issued before their products),
+// the lanes' sums reduced by shuffles. A block's P.V: below kThreads pairs
+// a head, a thread owns one pair of a row group (the block's rows g,
+// g + groups, ...) and the groups are summed in group order, as in
+// attn_kernel; from kThreads pairs up (head size 512 and above) a thread
+// owns the pairs c, c + kThreads, ..., each over kAnyGroups row groups
+// held in registers and summed in group order. The partial lives in q's
+// shared memory. kRO: the caches are read through the read-only cache
+// (the batched chains, as attn_kernel reads them), else through L2 only
+// (the B=1 chain's self caches, whose row pos its QKV kernel wrote).
+template <typename T, typename C, bool kRO>
+static __global__ void __launch_bounds__(kThreads) attn_any_kernel(Attn a) {
+  namespace cg = cooperative_groups;
+  constexpr bool kQ = std::is_same<C, int8_t>::value;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red[64];
+  __shared__ float stat[4];  // this block's max and sum per query head
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int nq = a.diff ? 2 : 1;
+  const int hd = a.hd, D = a.D, kw = nq * D, np = hd / 2, per = a.per;
+  const int h = blockIdx.x / cs, b = blockIdx.y, tid = threadIdx.x;
+  const int r0 = min(a.rows, rank * per), r1 = min(a.rows, r0 + per);
+  const int n = r1 - r0;
+  const int G = pair_lanes(hd), sub = tid % G;
+  float* qs = sm;              // (nq, hd); then this block's P.V
+  float* p = qs + nq * hd;     // (nq, per), row r0 + i at i
+  float* part = p + nq * per;  // (groups, nq, hd); rank 0's combine
+  const C* k = (const C*)a.k + (size_t)b * a.stride_rows * kw + h * nq * hd;
+  const C* v = (const C*)a.v + (size_t)b * a.stride_rows * D + h * hd;
+  const float* ksc = nullptr;
+  const float* vsc = nullptr;
+  if constexpr (kQ) {
+    ksc = a.k_scale + (size_t)b * a.stride_rows;
+    vsc = a.v_scale + (size_t)b * a.stride_rows;
+  }
+  pdl_wait();
+  for (int i = tid; i < nq * hd; i += kThreads)
+    qs[i] = a.q[(size_t)b * kw + h * nq * hd + i];
+  __syncthreads();
+  float lmax0 = -INFINITY, lmax1 = -INFINITY;
+  // a lane group takes kAnyRows rows at once (rows s, s + step, ...), the
+  // loads of all of them issued before their products
+  const int step = kThreads / G;
+  for (int s0 = r0 + tid / G; s0 - tid / G < r1; s0 += kAnyRows * step) {
+    float acc0[kAnyRows], acc1[kAnyRows];
+    const C* kr[kAnyRows];
+    bool ok[kAnyRows], fresh[kAnyRows];
+#pragma unroll
+    for (int r = 0; r < kAnyRows; ++r) {
+      const int s = s0 + r * step;
+      ok[r] = s < r1;
+      fresh[r] = kQ && s == a.cur;  // the current row: its dequantized K
+      kr[r] = k + (size_t)(ok[r] && !fresh[r] ? s : 0) * kw;
+      acc0[r] = acc1[r] = 0.f;
+    }
+    const float* kc = a.k_cur + (size_t)b * a.cur_stride + h * hd;
+    for (int j = sub; j < np; j += G) {
+      float2 e[kAnyRows], e1[kAnyRows];
+#pragma unroll
+      for (int r = 0; r < kAnyRows; ++r) {
+        if (!ok[r]) continue;
+        e[r] = fresh[r] ? make_float2(kc[2 * j], kc[2 * j + 1])
+                        : load_pair<C, kRO>(kr[r] + 2 * j);
+        if (nq == 2) e1[r] = load_pair<C, kRO>(kr[r] + hd + 2 * j);
+      }
+#pragma unroll
+      for (int r = 0; r < kAnyRows; ++r) {
+        if (!ok[r]) continue;
+        acc0[r] = fmaf(qs[2 * j], e[r].x, acc0[r]);
+        acc0[r] = fmaf(qs[2 * j + 1], e[r].y, acc0[r]);
+        if (nq == 2) {
+          acc1[r] = fmaf(qs[hd + 2 * j], e1[r].x, acc1[r]);
+          acc1[r] = fmaf(qs[hd + 2 * j + 1], e1[r].y, acc1[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kAnyRows; ++r) {
+      const int s = s0 + r * step;
+      acc0[r] = lanes_sum(acc0[r], G);
+      if (nq == 2) acc1[r] = lanes_sum(acc1[r], G);
+      if (a.er != nullptr) {  // RPR: q . Er[er_len - 1 - (pos - s)]
+        float bias = 0.f;
+        if (ok[r]) {
+          const float* er =
+              a.er + (size_t)(a.er_len - 1 - (a.pos - s)) * D + h * hd;
+          for (int d = sub; d < hd; d += G)
+            bias = fmaf(qs[d], a.batched ? round_t<T>(er[d]) : er[d], bias);
+        }
+        bias = lanes_sum(bias, G);
+        acc0[r] += (a.batched && s != a.cur) ? round_t<T>(bias) : bias;
+      }
+      if (!ok[r]) continue;
+      acc0[r] *= a.scale;
+      if constexpr (kQ) {
+        if (s != a.cur) acc0[r] *= ksc[s];
+      }
+      lmax0 = fmaxf(lmax0, acc0[r]);
+      if (nq == 2) {
+        acc1[r] *= a.scale;
+        lmax1 = fmaxf(lmax1, acc1[r]);
+      }
+      if (sub == 0) {
+        p[s - r0] = acc0[r];
+        if (nq == 2) p[per + s - r0] = acc1[r];
+      }
+    }
+  }
+  // the cluster's max, then its sum, through distributed shared memory
+  const float2 bm = block_reduce2<true>(lmax0, lmax1, red);  // orders p[]
+  if (tid == 0) {
+    stat[0] = bm.x;
+    stat[1] = bm.y;
+  }
+  cluster.sync();
+  float m0 = -INFINITY, m1 = -INFINITY;
+  for (int r = 0; r < cs; ++r) {
+    const float* st = cluster.map_shared_rank(stat, r);
+    m0 = fmaxf(m0, st[0]);
+    m1 = fmaxf(m1, st[1]);
+  }
+  float ls0 = 0.f, ls1 = 0.f;
+  for (int i = tid; i < n; i += kThreads) {
+    const float e0 = expf(p[i] - m0);
+    p[i] = e0;
+    ls0 += e0;
+    if (nq == 2) {
+      const float e1 = expf(p[per + i] - m1);
+      p[per + i] = e1;
+      ls1 += e1;
+    }
+  }
+  const float2 bs = block_reduce2<false>(ls0, ls1, red);  // orders p[]
+  if (tid == 0) {
+    stat[2] = bs.x;
+    stat[3] = bs.y;
+  }
+  cluster.sync();
+  float l0 = 0.f, l1 = 0.f;
+  for (int r = 0; r < cs; ++r) {  // in rank order
+    const float* st = cluster.map_shared_rank(stat, r);
+    l0 += st[2];
+    l1 += st[3];
+  }
+  const float inv0 = 1.f / l0, inv1 = nq == 2 ? 1.f / l1 : 0.f;
+  for (int i = tid; i < n; i += kThreads) {
+    const int s = r0 + i;
+    const bool rnd = a.batched && s != a.cur;
+    float w0 = p[i] * inv0;
+    if constexpr (kQ) {
+      if (s != a.cur) w0 *= vsc[s];
+    }
+    p[i] = rnd ? round_t<T>(w0) : w0;
+    if (nq == 2) {
+      const float w1 = p[per + i] * inv1;
+      p[per + i] = rnd ? round_t<T>(w1) : w1;
+    }
+  }
+  __syncthreads();
+  // row s's term of P.V for value pair c: (o0, o1) for query heads 0, 1
+  auto pv_row = [&](int c, int s, float2& o0, float2& o1) {
+    const float p0 = p[s - r0];
+    float2 e;
+    if (kQ && s == a.cur) {  // the current row: its dequantized V
+      const float* vc = a.v_cur + (size_t)b * a.cur_stride + h * hd + 2 * c;
+      e = make_float2(vc[0], vc[1]);
+    } else {
+      e = load_pair<C, kRO>(v + (size_t)s * D + 2 * c);
+    }
+    o0.x = fmaf(p0, e.x, o0.x);
+    o0.y = fmaf(p0, e.y, o0.y);
+    if (nq == 2) {
+      const float p1 = p[per + s - r0];
+      o1.x = fmaf(p1, e.x, o1.x);
+      o1.y = fmaf(p1, e.y, o1.y);
+    }
+  };
+  if (np < kThreads) {  // row groups, summed in group order
+    const int groups = kThreads / np, g = tid / np, c = tid % np;
+    if (g < groups) {
+      float2 o0 = make_float2(0.f, 0.f), o1 = o0;
+      for (int s = r0 + g; s < r1; s += groups) pv_row(c, s, o0, o1);
+      float* dst = part + (size_t)(g * nq) * hd + 2 * c;
+      dst[0] = o0.x;
+      dst[1] = o0.y;
+      if (nq == 2) {
+        dst[hd] = o1.x;
+        dst[hd + 1] = o1.y;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nq * hd; i += kThreads) {
+      float t = 0.f;
+      for (int j = 0; j < groups; ++j) t += part[(size_t)j * nq * hd + i];
+      qs[i] = t;
+    }
+  } else {  // a thread owns pairs c, c + kThreads, ...: kAnyGroups row
+            // groups in registers, summed in group order
+    for (int c = tid; c < np; c += kThreads) {
+      float2 o0[kAnyGroups], o1[kAnyGroups];
+#pragma unroll
+      for (int g = 0; g < kAnyGroups; ++g) {
+        o0[g] = make_float2(0.f, 0.f);
+        o1[g] = o0[g];
+      }
+      for (int s0 = r0; s0 < r1; s0 += kAnyGroups) {
+#pragma unroll
+        for (int g = 0; g < kAnyGroups; ++g)
+          if (s0 + g < r1) pv_row(c, s0 + g, o0[g], o1[g]);
+      }
+      float2 t0 = o0[0], t1 = o1[0];
+#pragma unroll
+      for (int g = 1; g < kAnyGroups; ++g) {
+        t0.x += o0[g].x;
+        t0.y += o0[g].y;
+        t1.x += o1[g].x;
+        t1.y += o1[g].y;
+      }
+      qs[2 * c] = t0.x;
+      qs[2 * c + 1] = t0.y;
+      if (nq == 2) {
+        qs[hd + 2 * c] = t1.x;
+        qs[hd + 2 * c + 1] = t1.y;
+      }
+    }
+  }
+  cluster.sync();  // every block's partial is in place
+  if (rank == 0) {
+    float ss = 0.f;
+    for (int i = tid; i < hd; i += kThreads) {
+      float t0 = 0.f, t1 = 0.f;
+      for (int r = 0; r < cs; ++r) {  // in rank order
+        const float* pr = cluster.map_shared_rank(qs, r);
+        t0 += pr[i];
+        if (nq == 2) t1 += pr[hd + i];
+      }
+      if (!a.diff) {
+        a.out[(size_t)b * D + h * hd + i] = a.batched ? round_t<T>(t0) : t0;
+        continue;
+      }
+      if (a.batched) {
+        t0 = round_t<T>(t0);
+        t1 = round_t<T>(t1);
+      }
+      float o = t0 - a.lam[0] * t1;
+      if (a.batched) o = round_t<T>(o);
+      part[i] = o;  // free: every group sum has been read
+      ss += o * o;
+    }
+    if (a.diff) {  // subln: RMSNorm over the head, then the packed row
+      const float rs = 1.f / sqrtf(block_sum(ss, red) / hd + kSublnEps);
+      for (int i = tid; i < hd; i += kThreads)
+        a.out[(size_t)b * D + h * hd + i] = part[i] * rs * a.subw[h * hd + i];
+    }
+  }
+  cluster.sync();  // no block leaves before the first has read its partial
+}
+
 // Cluster blocks per (value head, clip): doubled while the grid has fewer
 // blocks than the card's 132 SMs and each block keeps at least 32 rows (at
 // H=8: 8 at B=1 over 300 cross rows, 4 over 151 self rows; 2 at B=16; 1 at
@@ -1605,6 +1885,26 @@ static inline int attn_cluster(int rows, int pairs) {
   int cs = 1;
   while (cs < kMaxCluster && pairs * cs < 132 && rows >= 64 * cs) cs *= 2;
   return cs;
+}
+
+// Launches attn_any_kernel over H value heads and B clips, each head's
+// rows split over a cluster of attn_cluster(rows, H B) blocks. Shared
+// memory: q (then the block's partial), the block's probabilities and
+// the row groups' partials (at least hd floats: rank 0's combine).
+template <typename T, typename C, bool kRO>
+static int attention_any(Attn t, int B, int H, cudaStream_t st) {
+  if (t.hd < 2 || t.hd % 2) return (int)cudaErrorInvalidValue;
+  const int nq = t.diff ? 2 : 1, np = t.hd / 2;
+  const int groups = np < kThreads ? kThreads / np : 1;
+  const int cs = attn_cluster(t.rows, H * B);
+  t.per = ceil_div(t.rows, cs);
+  const size_t smem =
+      (size_t)(nq * t.hd + nq * t.per + groups * nq * t.hd) * sizeof(float);
+  static bool opted_in = false;
+  int err;
+  if ((err = allow_smem(attn_any_kernel<T, C, kRO>, opted_in))) return err;
+  return launch(attn_any_kernel<T, C, kRO>, dim3(H * cs, B), kThreads, smem,
+                st, cs, t);
 }
 
 template <typename T, typename C, int kVL, int V>
@@ -1651,6 +1951,9 @@ static int attention(Attn t, int B, int H, cudaStream_t st) {
   if (std::is_same<C, int8_t>::value &&
       (t.diff || t.er != nullptr || !t.batched))
     return (int)cudaErrorInvalidValue;
+  // a head size no narrow instance takes: the one-block kernel of any even
+  // head size
+  if (!narrow_head(t.hd)) return attention_any<T, C, true>(t, B, H, st);
   if constexpr (std::is_same<C, int8_t>::value) {
     // int8 rows at a head size that is a multiple of 8 but not of 16:
     // 8-byte loads (instances of their own; 16-wide heads keep theirs)

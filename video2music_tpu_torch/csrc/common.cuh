@@ -141,4 +141,53 @@ __device__ __forceinline__ float dot_partial(const T* __restrict__ w,
   return acc;
 }
 
+// ---------------------------------------------------------------------------
+// attention at any even head size (batch_decode.cuh attn_any_kernel,
+// decode_stack.cu attend_split_any)
+// ---------------------------------------------------------------------------
+
+// True where the narrow attention instances (batch_decode.cuh
+// attn_cluster_kernel and attn_kernel, decode_layer.cu
+// chain_attention_kernel, decode_stack.cu attend_split) take head size hd:
+// a multiple of 8 (their 16-byte loads, or 8-byte ones of int8 rows), at
+// most 256 (a head column a thread); the shapes they ran at before the
+// instances of any even head size existed, which take the rest.
+__host__ __device__ constexpr bool narrow_head(int hd) {
+  return hd % 8 == 0 && hd <= 256;
+}
+
+// The raw load of two consecutive cache values.
+template <typename C> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<bf16> { using type = unsigned int; };
+template <> struct Pair<int8_t> { using type = char2; };
+
+// Two consecutive C values from p (2-element aligned) as f32: through the
+// read-only cache (kRO), or through L2 only (a row an earlier kernel of the
+// chain wrote).
+template <typename C, bool kRO>
+__device__ __forceinline__ float2 load_pair(const C* p) {
+  using R = typename Pair<C>::type;
+  const R* rp = reinterpret_cast<const R*>(p);
+  const R r = kRO ? __ldg(rp) : __ldcg(rp);
+  const C* e = reinterpret_cast<const C*>(&r);
+  return make_float2(to_f<C>(e[0]), to_f<C>(e[1]));
+}
+
+// Lanes one row's logit takes at head size hd: its hd / 2 value pairs
+// over a power of two of lanes, at most a warp (2 at head size 4, 8 at 12,
+// 32 from 64).
+__host__ __device__ __forceinline__ int pair_lanes(int hd) {
+  int g = 1;
+  while (g < 32 && 2 * g < hd) g *= 2;
+  return g;
+}
+
+// Sum over the g lanes of a row (g a power of two, aligned lane groups).
+__device__ __forceinline__ float lanes_sum(float v, int g) {
+  for (int o = g >> 1; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 }  // namespace v2m

@@ -33,7 +33,8 @@
 // keeps the dequantized row, rounded to T, for the current row's term.
 // Attention then runs its int8 instance (attn_kernel<T, int8_t>): 16 cache
 // values a load (8 at a head size that is a multiple of 8 but not of 16,
-// e.g. d_model 512 at 64 heads: instances of their own), the scales
+// e.g. d_model 512 at 64 heads: instances of their own; value pairs in
+// attn_any_kernel<T, int8_t> at any other even head size), the scales
 // folded into the logits and probabilities.
 //
 // What bounds it on the H100: bytes. One deep layer's attention half at
@@ -431,7 +432,7 @@ extern "C" int v2m_batched_layer(int dtype,
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
   if (args->quant && (args->D % 8 || args->H <= 0 ||
-                      (args->D / args->H) % 8))
+                      (args->D / args->H) % 2))
     return (int)cudaErrorInvalidValue;
   if (dtype == kF32) return batch::run_layer<float>(*args, st);
   if (dtype == kBF16) return batch::run_layer<bf16>(*args, st);

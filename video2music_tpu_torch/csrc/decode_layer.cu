@@ -29,7 +29,9 @@
 //   1. [embed]  GEMV Linear_chord over the gathered embedding rows;
 //   2. QKV GEMV, one warp per output pair, with bias + RoPE and the K/V
 //      append into the caches at row pos (the caches are updated IN PLACE);
-//   3. cached self-attention over rows <= pos, one block a head;
+//   3. cached self-attention over rows <= pos, one block a head (at a
+//      head size the chain's kernel does not take, batch_decode.cuh's
+//      attention of any even head size, a cluster of blocks a head);
 //   4. out-projection GEMV + residual;
 //   5. LayerNorm (recomputed in every block's prologue) + cross-q GEMV +
 //      RoPE, four row pairs a block;
@@ -471,12 +473,29 @@ static int gemv(const GemvArgs& g, cudaStream_t st, const Tail& t = {}) {
 }
 
 // Attention of the chain over `rows` cache rows, one block a head: 256
-// threads, 512 past 256 rows.
+// threads, 512 past 256 rows. A head size chain_attention_kernel does not
+// take (narrow_head: no multiple of 8, or above 256) runs
+// batch_decode.cuh attn_any_kernel at B=1: each head's rows over a
+// cluster of blocks, value-pair loads (the self caches through L2 only,
+// as here).
 template <typename T, bool kRO>
 static int attend(const float* q, const void* k, const void* v, float* out,
                   int rows, int D, int H, cudaStream_t st) {
   const int hd = D / H;
   const float scale = 1.f / sqrtf((float)hd);
+  if (!narrow_head(hd)) {
+    batch::Attn t = {};
+    t.q = q;
+    t.k = k;
+    t.v = v;
+    t.out = out;
+    t.rows = t.stride_rows = rows;
+    t.D = D;
+    t.hd = hd;
+    t.cur = -1;
+    t.scale = scale;
+    return batch::attention_any<T, T, kRO>(t, 1, H, st);
+  }
   auto smem = [&](int threads) {
     return (size_t)(hd + threads * Vec<T>::N + threads + rows) * sizeof(float);
   };

@@ -550,11 +550,14 @@ __device__ __forceinline__ void stage(const VecIn& in, int K, float* xs) {
 // activations), the router's logits and selection, the attention triples
 // being merged, the K / V tile, q, the tile's probabilities, the P.V
 // partials and the softmax statistics.
+// WIDE (the instance of any even head size, attend_split_any): no K / V
+// tile (its rows are read through L2), `tile` holds the split's running
+// P.V (hd floats) and `part` 2 threads floats.
 struct Smem {
   int xs, route, trip, tile, q, p, part, stat, bars, norms, slots, total;
   __host__ __device__ static int round4(int n) { return (n + 3) / 4 * 4; }
   __host__ __device__ Smem(int D, int H, int F, int E, int k_top, int elt,
-                           int threads, int max_splits) {
+                           int threads, int max_splits, bool wide = false) {
     const int hd = D / H;
     int n = D > F ? D : F;
     if ((k_top + 1) * F > n) n = (k_top + 1) * F;
@@ -562,10 +565,12 @@ struct Smem {
     xs = o;    o += round4(n);
     route = o; o += round4(E + 3 * k_top);
     trip = o;  o += H * max_splits * (hd + 4);
-    tile = o;  o += round4((2 * kTileRows * (hd + 16 / elt) * elt + 3) / 4);
+    tile = o;
+    o += wide ? round4(hd)
+              : round4((2 * kTileRows * (hd + 16 / elt) * elt + 3) / 4);
     q = o;     o += round4(hd);
     p = o;     o += round4(kTileRows);
-    part = o;  o += threads;
+    part = o;  o += wide ? 2 * threads : threads;
     stat = o;  o += 4;
     bars = o;  o += (threads / 32 * 2 + 2) * 2;  // u64 mbarriers: two a
                                                  // warp, the norms'
@@ -717,6 +722,112 @@ __device__ __forceinline__ void attend_split(const float* q, const T* kc, const 
   }
 }
 
+// attend_split's function at any even head size (the WIDE instance, for
+// the head sizes narrow_head, common.cuh, refuses): the same triple, online
+// across tiles of kTileRows rows, with every K / V row read through L2
+// after the wait (no tile in shared memory, so the shared memory does not
+// grow with the head: hd 512 and 1024 fit beside the weight slots). The
+// running P.V, acc (hd floats), stays in shared memory. Logits:
+// pair_lanes(hd) lanes a row, value pairs a load, the lanes' sums
+// reduced by shuffles. P.V of a tile: below NT pairs a head, a thread
+// owns one pair of a row group (rows g, g + groups, ...), the groups
+// summed in group order into part; from NT pairs up a thread owns pairs
+// c, c + NT, ... over the tile's rows in order. Each tile's sum is added
+// to acc rescaled by exp(m_old - m_new), as attend_split does.
+template <typename T, int NT>
+__device__ __forceinline__ void attend_split_any(
+    const float* q, const T* kc, const T* vc, int D, int hd, float scale,
+    int h, int r0, int r1, float* qs, float* acc, float* ps, float* part,
+    float* stat, float* dst) {
+  const int tid = threadIdx.x, lane = tid & 31, np = hd / 2;
+  const int G = pair_lanes(hd), sub = tid % G;
+  for (int i = tid; i < hd; i += NT) {
+    qs[i] = __ldcg(q + h * hd + i);
+    acc[i] = 0.f;
+  }
+  __syncthreads();
+  float m_run = -INFINITY, l_run = 0.f;
+  for (int t0 = r0; t0 < r1; t0 += kTileRows) {
+    const int n = min(kTileRows, r1 - t0);
+    for (int s0 = 0; s0 < n; s0 += NT / G) {  // uniform trip count
+      const int r = s0 + tid / G;
+      float a = 0.f;
+      if (r < n) {
+        const T* kr = kc + (size_t)(t0 + r) * D + h * hd;
+#pragma unroll 4
+        for (int j = sub; j < np; j += G) {
+          const float2 e = load_pair<T, false>(kr + 2 * j);
+          a = fmaf(qs[2 * j], e.x, a);
+          a = fmaf(qs[2 * j + 1], e.y, a);
+        }
+      }
+      a = lanes_sum(a, G);
+      if (r < n && sub == 0) ps[r] = a * scale;
+    }
+    __syncthreads();
+    if (tid < 32) {
+      float mt = -INFINITY;
+      for (int r = lane; r < n; r += 32) mt = fmaxf(mt, ps[r]);
+      const float m_new = fmaxf(m_run, warp_max(mt));
+      float lt = 0.f;
+      for (int r = lane; r < n; r += 32) {
+        const float e = expf(ps[r] - m_new);
+        ps[r] = e;
+        lt += e;
+      }
+      lt = warp_sum(lt);
+      if (lane == 0) {
+        const float corr = expf(m_run - m_new);
+        stat[0] = m_new;
+        stat[1] = corr;
+        stat[2] = l_run * corr + lt;
+      }
+    }
+    __syncthreads();
+    const float corr = stat[1];
+    if (np < NT) {  // row groups, summed in group order
+      const int groups = NT / np, g = tid / np, c = tid % np;
+      if (g < groups) {
+        float a0 = 0.f, a1 = 0.f;
+        for (int r = g; r < n; r += groups) {
+          const float2 e = load_pair<T, false>(
+              vc + (size_t)(t0 + r) * D + h * hd + 2 * c);
+          a0 = fmaf(ps[r], e.x, a0);
+          a1 = fmaf(ps[r], e.y, a1);
+        }
+        part[g * hd + 2 * c] = a0;
+        part[g * hd + 2 * c + 1] = a1;
+      }
+      __syncthreads();
+      for (int i = tid; i < hd; i += NT) {
+        float t = 0.f;
+        for (int j = 0; j < groups; ++j) t += part[j * hd + i];
+        acc[i] = acc[i] * corr + t;
+      }
+    } else {  // a thread owns pairs c, c + NT, ...
+      for (int c = tid; c < np; c += NT) {
+        float a0 = 0.f, a1 = 0.f;
+        for (int r = 0; r < n; ++r) {
+          const float2 e = load_pair<T, false>(
+              vc + (size_t)(t0 + r) * D + h * hd + 2 * c);
+          a0 = fmaf(ps[r], e.x, a0);
+          a1 = fmaf(ps[r], e.y, a1);
+        }
+        acc[2 * c] = acc[2 * c] * corr + a0;
+        acc[2 * c + 1] = acc[2 * c + 1] * corr + a1;
+      }
+    }
+    m_run = stat[0];
+    l_run = stat[2];
+    __syncthreads();  // ps and part are free again
+  }
+  for (int i = tid; i < hd; i += NT) dst[i] = acc[i];
+  if (tid == 0) {
+    dst[hd] = m_run;
+    dst[hd + 1] = l_run;
+  }
+}
+
 // The attention output of all heads from their ns splits' triples (global
 // (H, ns, hd + 4) floats, through L2 into `trip`), rounded to T
 // into xs: o = sum_s exp(m_s - M) o_s / sum_s exp(m_s - M) l_s; one split
@@ -768,7 +879,9 @@ struct Items {
 // the kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, int NW, bool PROBE>
+// WIDE: the instance of any even head size (attend_split_any, no K / V
+// tile); the narrow instances' code is the same without it.
+template <typename T, int NW, bool PROBE, bool WIDE>
 __global__ void __launch_bounds__(NW * 32, 1)
     decode_stack_kernel(const V2MStack a) {
   constexpr int NT = NW * 32;
@@ -781,7 +894,8 @@ __global__ void __launch_bounds__(NW * 32, 1)
   const int lane = threadIdx.x & 31, nb = gridDim.x, b = blockIdx.x;
   const int warp = b * NW + (threadIdx.x >> 5), nwarp = nb * NW;
   const float scale = 1.f / sqrtf((float)hd);
-  const Smem so(D, H, F, a.E, k_top, (int)sizeof(T), NT, a.max_splits);
+  const Smem so(D, H, F, a.E, k_top, (int)sizeof(T), NT, a.max_splits,
+                WIDE);
   float* xs = sm + so.xs;
   float* logit = sm + so.route;
   int* sel_s = reinterpret_cast<int*>(logit + a.E);
@@ -946,6 +1060,7 @@ __global__ void __launch_bounds__(NW * 32, 1)
   // the first attention item's tile: self of layer i (all rows but pos),
   // or cross of layer i
   auto issue_first = [&](int i, bool self) {
+    if constexpr (WIDE) return;  // no tile: rows read after the wait
     const Items& it = self ? self_items : cross_items;
     const int j = it.first;
     if (j >= it.count) return;
@@ -969,18 +1084,25 @@ __global__ void __launch_bounds__(NW * 32, 1)
         (unsigned int)(i + 1) * (self ? 3 : 1) * (hd / 2);
     for (int j = it.first; j < it.count; j += it.step) {
       const int h = it.head(j);
-      if (j != it.first) {
+      if (!WIDE && j != it.first) {
         const int r0 = it.r0(j), n = min(kTileRows, it.r1(j) - r0);
         if (n > 0) tile.issue(kc, vc, D, hd, h, r0, n, self ? a.pos : -1);
       }
       mark(i, self ? 0 : 4);
       wait_for(producers + h, target);
       mark(i, self ? 1 : 5);
-      attend_split<T, NT>(self ? w.q : w.cq, kc, vc, D, hd, scale, h,
-                          it.r0(j), it.r1(j), self ? a.pos : -1, tile,
-                          sm + so.q, sm + so.p, sm + so.part, sm + so.stat,
-                          (self ? self_trip : cross_trip) +
-                              (size_t)j * (hd + 4));
+      float* dst = (self ? self_trip : cross_trip) + (size_t)j * (hd + 4);
+      if constexpr (WIDE) {
+        attend_split_any<T, NT>(self ? w.q : w.cq, kc, vc, D, hd, scale, h,
+                                it.r0(j), it.r1(j), sm + so.q,
+                                sm + so.tile, sm + so.p, sm + so.part,
+                                sm + so.stat, dst);
+      } else {
+        attend_split<T, NT>(self ? w.q : w.cq, kc, vc, D, hd, scale, h,
+                            it.r0(j), it.r1(j), self ? a.pos : -1, tile,
+                            sm + so.q, sm + so.p, sm + so.part, sm + so.stat,
+                            dst);
+      }
       mark(i, self ? 2 : 6);
       arrive(self ? self_cnt : cross_cnt);
       mark(i, self ? 3 : 7);
@@ -1351,26 +1473,39 @@ static int resident_blocks(const void* fn, int threads, int smem,
   return 0;
 }
 
-// The grid both instances (main and probe) can hold at once.
+// The grid both instances (main and probe) can hold at once; the WIDE
+// instance has no probe.
 template <typename T, int NW>
-static int stack_blocks(int smem, int* blocks) {
+static int stack_blocks(int smem, bool wide, int* blocks) {
   int main_blocks = 0, probe_blocks = 0, err;
-  if ((err = resident_blocks((const void*)decode_stack_kernel<T, NW, false>,
-                             NW * 32, smem, &main_blocks)))
+  if (wide) {
+    if ((err = resident_blocks(
+             (const void*)decode_stack_kernel<T, NW, false, true>, NW * 32,
+             smem, blocks)))
+      return err;
+    return *blocks > 0 ? 0 : (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  if ((err = resident_blocks(
+           (const void*)decode_stack_kernel<T, NW, false, false>, NW * 32,
+           smem, &main_blocks)))
     return err;
-  if ((err = resident_blocks((const void*)decode_stack_kernel<T, NW, true>,
-                             NW * 32, smem, &probe_blocks)))
+  if ((err = resident_blocks(
+           (const void*)decode_stack_kernel<T, NW, true, false>, NW * 32,
+           smem, &probe_blocks)))
     return err;
   *blocks = main_blocks < probe_blocks ? main_blocks : probe_blocks;
   return *blocks > 0 ? 0 : (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
 template <typename T, int NW>
-static int launch_stack(const V2MStack& a, cudaStream_t st) {
+static int launch_stack(const V2MStack& a, bool wide, cudaStream_t st) {
   void* args[] = {(void*)&a};
-  const void* fn = a.probe != nullptr
-                       ? (const void*)decode_stack_kernel<T, NW, true>
-                       : (const void*)decode_stack_kernel<T, NW, false>;
+  if (wide && a.probe != nullptr) return (int)cudaErrorInvalidValue;
+  const void* fn =
+      wide ? (const void*)decode_stack_kernel<T, NW, false, true>
+      : a.probe != nullptr
+          ? (const void*)decode_stack_kernel<T, NW, true, false>
+          : (const void*)decode_stack_kernel<T, NW, false, false>;
   cudaError_t e = cudaLaunchCooperativeKernel(
       fn, dim3(a.grid), dim3(NW * 32), args, (size_t)a.smem, st);
   if (e != cudaSuccess) return (int)e;
@@ -1382,17 +1517,30 @@ constexpr int kStackWarps = 8;  // 256 threads, one block an SM
 }  // namespace v2m
 
 // Shared memory (bytes) and the number of blocks the card holds at once
-// for a run of this shape: the wrapper calls it once per run and keeps both
-// in the argument struct.
+// for a run of this shape, and the splits of a head's attention at most:
+// *max_splits in, lowered while the split triples (H max_splits (hd + 4)
+// floats) would take the shared memory past the 227 KB a block may use
+// (many narrow heads of a wide model: d_model 1024 at 512 heads). The
+// wrapper calls it once per run and keeps all three in the argument
+// struct.
 extern "C" int v2m_decode_stack_grid(int dtype, int D, int H, int F,
-                                     int E, int k_top, int max_splits,
+                                     int E, int k_top, int* max_splits,
                                      int* smem, int* blocks) {
   using namespace v2m;
+  if (H < 1 || D % H || (D / H) % 2) return (int)cudaErrorInvalidValue;
   const int elt = dtype == kF32 ? 4 : 2;
-  *smem = Smem(D, H, F, E, k_top, elt, kStackWarps * 32, max_splits).total *
-          (int)sizeof(float);
-  if (dtype == kF32) return stack_blocks<float, kStackWarps>(*smem, blocks);
-  if (dtype == kBF16) return stack_blocks<bf16, kStackWarps>(*smem, blocks);
+  const bool wide = !narrow_head(D / H);  // the instance of any head size
+  for (;; --*max_splits) {
+    if (*max_splits < 1) return (int)cudaErrorInvalidValue;
+    *smem = Smem(D, H, F, E, k_top, elt, kStackWarps * 32, *max_splits, wide)
+                .total *
+            (int)sizeof(float);
+    if (*smem <= 227 * 1024) break;
+  }
+  if (dtype == kF32)
+    return stack_blocks<float, kStackWarps>(*smem, wide, blocks);
+  if (dtype == kBF16)
+    return stack_blocks<bf16, kStackWarps>(*smem, wide, blocks);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1405,9 +1553,12 @@ extern "C" int v2m_decode_stack(int dtype, const v2m::V2MStack* args,
   if (args->n_layers < 1 || args->n_layers > kMaxLayers ||
       args->k_top < 1 || (args->E > 0 && args->k_top > args->E) ||
       args->max_splits < 1 || args->max_splits > kMaxSplits ||
-      args->D % args->H != 0 || args->D / args->H > kStackWarps * 32)
+      args->H < 1 || args->D % args->H != 0 || (args->D / args->H) % 2)
     return (int)cudaErrorInvalidValue;
-  if (dtype == kF32) return launch_stack<float, kStackWarps>(*args, st);
-  if (dtype == kBF16) return launch_stack<bf16, kStackWarps>(*args, st);
+  const bool wide = !narrow_head(args->D / args->H);
+  if (dtype == kF32)
+    return launch_stack<float, kStackWarps>(*args, wide, st);
+  if (dtype == kBF16)
+    return launch_stack<bf16, kStackWarps>(*args, wide, st);
   return (int)cudaErrorInvalidValue;
 }

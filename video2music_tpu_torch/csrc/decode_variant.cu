@@ -53,7 +53,8 @@
 // work where one per head did) that holds both query heads of a
 // differential pair, so the shared value head is read once for both, and
 // whose first block finishes the pair combine and subln (a vanilla or RPR
-// head at B >= 2: one block per (value head, clip)); every
+// head at B >= 2: one block per (value head, clip); a head size the
+// narrow instances do not take: attn_any_kernel's clusters); every
 // launch uses programmatic dependent launch, so a GEMV's weight fetch
 // overlaps the previous kernel. A deep layer at B=1 is 13 launches.
 #include "batch_decode.cuh"
@@ -447,13 +448,14 @@ static int run_layer(const V2MVariant& a, bool batched, cudaStream_t st) {
   return close_rows<T>(c, st);
 }
 
-// The widths the kernels hold; `heads`: the attention's head split too.
+// The widths the kernels hold; `heads`: the attention's head split too
+// (an even head size: RoPE pairs, the attention's value-pair loads).
 // int8 rows load 16 weights at a time.
 static bool widths_ok(const V2MVariant& a, bool heads) {
   constexpr int N8 = Vec<int8_t>::N;
   if (a.wqkv_s != nullptr && (a.D % N8 || a.F % N8 || a.Fe % N8))
     return false;
-  return !heads || (a.H > 0 && a.D % a.H == 0 && a.D / a.H <= kThreads);
+  return !heads || (a.H > 0 && a.D % a.H == 0 && (a.D / a.H) % 2 == 0);
 }
 
 }  // namespace variant

@@ -38,13 +38,16 @@ decode/fused.py:
     weights (and warns at B>1 unless ``fused="auto"``); ``kv_quant`` at
     B>1 warns and keeps full-precision caches;
   * a covered wiring whose shapes the CUDA kernels refuse
-    (``ops/decode_layer.cuda_decode_shapes_ok``: a head size not a
-    multiple of 8 or above 256, widths not multiples of 8, int8 rows not
-    multiples of 16): the plain step (on fake-quantized weights under
-    ``quantize="int8"``), with a warning unless ``fused="auto"``, as the
-    JAX sampler sends dims Mosaic cannot lower to its XLA step (int8 KV
-    caches add no limit: at any head size the batched kernels take they
-    keep int8 caches, as the JAX sampler does);
+    (``ops/decode_layer.cuda_decode_shapes_ok``: widths not multiples of
+    8, int8 rows not multiples of 16; the decode kernels take every head
+    size the wirings do, any even one: multiples of 8 up to 256 on their
+    narrow attention instances, the rest, e.g. 4, 12, 512, 1024, on the
+    instances of any even head size): the plain step (on fake-quantized
+    weights under ``quantize="int8"``), with a warning unless
+    ``fused="auto"``, as the JAX sampler sends dims Mosaic cannot lower to
+    its XLA step (int8 KV caches add no limit: they stay int8 wherever the
+    batched kernels take the config, as in the JAX sampler); every config
+    the JAX sampler fuses on a TPU passes;
   * a wiring no kernel covers (KAN 2.3, grouped-query attention, odd head
     dims): the plain step whatever ``fused`` says, as in the JAX sampler;
     ``quantize="int8"`` raises ValueError;
@@ -131,9 +134,10 @@ def _shapes_refused(cfg, B: int, fused: str, quantize) -> bool:
         return False
     if fused != "auto":
         warnings.warn(
-            f"fused={fused!r} requested but d_model / num_heads / d_ff do "
-            "not satisfy the fused kernels' CUDA shape limits "
-            "(ops/decode_layer.cuda_decode_shapes_ok); using the plain "
+            f"fused={fused!r} requested but d_model / d_ff do not satisfy "
+            "the fused kernels' CUDA shape limits (widths multiples of 8, "
+            "of 16 for int8 weights; any even head size; "
+            "ops/decode_layer.cuda_decode_shapes_ok); using the plain "
             "decode step", stacklevel=4)
     return True
 

@@ -223,7 +223,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               i, p]
     lib.v2m_attention_dropout_bwd.restype = i
     pi = ctypes.POINTER(ctypes.c_int)
-    lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, i, pi, pi]
+    lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, pi, pi, pi]
     lib.v2m_decode_stack_grid.restype = i
     lib.v2m_decode_stack.argtypes = [i, ctypes.POINTER(StackArgs), p]
     lib.v2m_decode_stack.restype = i

@@ -86,18 +86,18 @@ def fused_decode_eligible(cfg) -> bool:
 def decode_shape_fault(D: int, H: Optional[int], widths=(), *,
                        int8_rows: bool = False) -> Optional[str]:
     """Why the CUDA decode kernels (rows 2-10) cannot take width D, H heads
-    and FFN widths ``widths``, or None where they can: a head size D / H
-    that is a multiple of 8 and at most 256 (int8 KV caches too: their
-    rows load 16 or 8 values at a time), D and every width a multiple of 8
-    (of 16 with int8 weight rows, which load 16 weights at a time). ``H`` None skips the head
-    check (the MoE halves run no attention). The one statement of these
-    limits: the wrappers raise on it, and the sampler sends what it refuses
-    to the plain step (:func:`cuda_decode_shapes_ok`)."""
-    if H is not None:
-        hd = D // H if H > 0 and D % H == 0 else 0
-        if hd == 0 or hd % 8 or hd > 256:
-            return (f"bad head split D={D} H={H}: the head size must be a "
-                    "multiple of 8, at most 256")
+    and FFN widths ``widths``, or None where they can: H dividing D (any
+    head size: the attention kernels have narrow instances for head sizes
+    that are multiples of 8 up to 256 and instances of any even head size
+    for the rest, csrc/common.cuh narrow_head; an odd head size never
+    reaches them, the wirings' eligibility sends it to the plain step, as
+    in the JAX package), D and every width a multiple of 8 (of 16 with
+    int8 weight rows, which load 16 weights at a time). ``H`` None skips
+    the head check (the MoE halves run no attention). The one statement of
+    these limits: the wrappers raise on it, and the sampler sends what it
+    refuses to the plain step (:func:`cuda_decode_shapes_ok`)."""
+    if H is not None and (H <= 0 or D % H):
+        return f"bad head split D={D} H={H}: H must divide D"
     mult = 16 if int8_rows else 8
     if any(n % mult for n in (D, *widths)):
         return (f"widths {(D, *widths)} must be multiples of {mult}"
@@ -110,7 +110,9 @@ def cuda_decode_shapes_ok(cfg, B: int, quantize=None) -> bool:
     ``B`` (:func:`decode_shape_fault`), with int8 weight rows at B=1 under
     ``quantize`` (int8 KV caches add no limit). The
     counterpart of the JAX package's fused_decode_mosaic_ok
-    (pallas_decode.py:583), with these kernels' limits for Mosaic's."""
+    (pallas_decode.py:583), with these kernels' limits for Mosaic's: every
+    config that check passes (d_model % 128, 2 d_ff % 128) passes this
+    one, at every head count the wirings take."""
     expert = 2 * cfg.d_model if cfg.moe.expert == "mlp" else cfg.d_ff
     return decode_shape_fault(
         cfg.d_model, cfg.num_heads, (cfg.d_ff, expert),

@@ -242,17 +242,19 @@ class _Run:
         a.S, a.Sm, a.n_out, a.n_layers = S, Sm, self.n_out, len(layers)
         self.S, self.D, self.dev, self.dt, self.k_top = S, D, dev, dt, k_top
         # the splits of a head's attention: one a kernels.STACK_TILE_ROWS
-        # rows of the longer cache, at most kernels.MAX_STACK_SPLITS
-        a.max_splits = min(kernels.MAX_STACK_SPLITS,
-                           -(-max(S, Sm) // kernels.STACK_TILE_ROWS))
+        # rows of the longer cache, at most kernels.MAX_STACK_SPLITS, fewer
+        # where their triples would not fit the shared memory (the grid
+        # call lowers the count)
+        splits = ctypes.c_int(min(kernels.MAX_STACK_SPLITS,
+                                  -(-max(S, Sm) // kernels.STACK_TILE_ROWS)))
         lib = kernels.library()
         smem, blocks = ctypes.c_int(), ctypes.c_int()
         status = lib.v2m_decode_stack_grid(self.code, D, n_heads, F, E,
-                                           k_top, a.max_splits,
+                                           k_top, ctypes.byref(splits),
                                            ctypes.byref(smem),
                                            ctypes.byref(blocks))
         kernels.check(status, what)
-        a.smem, a.grid = smem.value, blocks.value
+        a.max_splits, a.smem, a.grid = splits.value, smem.value, blocks.value
         self.lib = lib
         self.tensors = ()  # the caller's cache tensors (_new_run)
 
