@@ -226,9 +226,13 @@ bf16 form timed beside its plain version and bound ("ms_hd2" ...
 "ms_int8_hd1024");
 "probes" rows 13 and 14: the
 kv traffic probe's four modes at B = 16, 32, 64 (bf16 core beside SDPA,
-the floor beside row 6) and the dot_general probe's three forms in TF32
-and bf16 against the f32 product beside torch.matmul, then both tools'
-command lines. To keep the run within its limit the "multi-GPU" worlds
+the no-cache form beside torch.mul, the floor beside row 6) and the
+dot_general probe's three forms in TF32 and bf16 against the f32 product
+beside torch.matmul (TF32 off, and on for the TF32 forms), each warm and
+cold (calls rotating over input copies that read twice the L2); then
+each kernel at the edge shapes of its plan, the floor's bits over two
+calls, the profiler's count of one kernel and no memset in a call of
+every mode and form, and both tools' command lines. To keep the run within its limit the "multi-GPU" worlds
 train 3+3 layers (pp 6+6) and start two at a time, the wirings run 3+3
 layers (the plain-step ones 2+2), and "new backbones" serves a 2+2-layer
 2.2.
@@ -348,7 +352,8 @@ STACK_KERNELS = ("decode_monolith", "decode_segment", "decode_flat_monolith")
 # earlier chip_smoke.py runs on an NVIDIA H100 80GB HBM3 at 700.00 W
 # (PERF.md): rows 1, 11, 6 and 8 on their first designs, rows 2, 3 (one
 # layer), 7 and 10 on the tree at 04068b2, rows 3-5 (the cooperative
-# kernel) and 12 on the tree at e773164; not measured by this run, so
+# kernel) and 12 on the tree at e773164, rows 13 and 14 (the probes) on
+# the tree at 18aa1a8; not measured by this run, so
 # they stay out of the kernels line and are printed on a line of their
 # own, marked so, beside this run's times
 PREV_MS = {
@@ -366,6 +371,12 @@ PREV_MS = {
     "decode_monolith": dict(ms=0.3097),
     "decode_segment": dict(ms=0.1574),
     "selective_scan": dict(ms=0.1439, ms_b16=0.1481),
+    # rows 13 and 14 on the tree at 18aa1a8 (PERF.md, PR 17's chip run)
+    "kv_traffic_probe": dict(ms=0.0103, ms_b16=0.0094, ms_b64=0.0194,
+                             ms_int8=0.0104, ms_int8_b16=0.0095,
+                             ms_int8_b64=0.0129, ms_floor=0.0097,
+                             ms_floor_b16=0.0076, ms_floor_b64=0.0173),
+    "probe_dotgeneral": dict(ms=0.0168, ms_tn=0.0177, ms_diag=0.0103),
 }
 # per-launch breakdowns before a redesign (decode_breakdown_phase,
 # PERF.md; NVIDIA H100 80GB HBM3, 700.00 W; us per call, launches): rows 8
@@ -416,6 +427,7 @@ PREV_BREAKDOWN = {
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12   # tensor cores
 PEAK_F32 = 67e12     # outside the tensor cores (elementwise work)
+TF32_PEAK = 495e12   # TF32 on the tensor cores (row 14's f32 forms)
 
 
 class SmokeFailure(RuntimeError):
@@ -3922,6 +3934,68 @@ def int8_kv_hd8_phase(card, report):
 # ---------------------------------------------------------------------------
 
 PROBE_BS = (16, 32, 64)  # row 6's widths and the JAX probe's B=32
+# the edge shapes the probes' kernels plan for differently: (B, S, D, H,
+# pos, what) for the core (pos 0, one below and at the first cluster split
+# of kv_traffic_probe.attend_plan, S - 1, head sizes 8 / 16 / 48 / 128, and
+# a cache longer than any ring: S 5000 over a cluster of 8)
+PROBE_ATTEND_EDGES = (
+    (2, 300, 512, 8, 0, "pos 0"), (2, 300, 512, 8, 30, "pos 30"),
+    (2, 300, 512, 8, 31, "pos 31 (cluster split)"),
+    (2, 300, 512, 8, 299, "pos 299"), (2, 300, 512, 64, 299, "hd 8"),
+    (2, 300, 512, 32, 299, "hd 16"), (2, 300, 512, 4, 299, "hd 128"),
+    (3, 17, 96, 2, 16, "hd 48, B 3"), (2, 5000, 512, 4, 4999, "S 5000"))
+# (B, S, D, block, what) for the floor: one group, D 8 with groups of
+# one, a last column slice of 8 (D 2056), D below the slice width
+PROBE_FLOOR_EDGES = ((8, 300, 512, 8, "one group"), (3, 7, 8, 1, "D 8"),
+                     (16, 33, 2056, 8, "D 2056"), (4, 300, 40, 2, "D 40"))
+# (form, M, N, K, what) for the products: 1 x 1 x 1, K no multiple of 16
+# or 64 (staged element by element where the rows are no multiple of 16
+# bytes), M and N no multiple of the 64-wide tile
+PROBE_DOT_EDGES = (("NT", 1, 1, 1, "1 x 1 x 1"), ("TN", 1, 1, 1, "1 x 1 x 1"),
+                   ("NT", 70, 65, 37, "K 37"), ("NT", 130, 100, 104, "K 104"),
+                   ("TN", 65, 100, 70, "M 65"),
+                   ("TN", 72, 136, 1000, "K 1000"))
+
+
+# the profiler's count of device kernels and memsets in one eager call of
+# each probe mode and form, run in a fresh process: after the earlier
+# phases' profiling sessions, CUPTI in this process dropped device events
+# (a replayed graph of 5 calls read as 2)
+PROBE_LAUNCH_CHECK = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from video2music_tpu_torch.tools import kv_traffic_probe as kvp
+from video2music_tpu_torch.tools import probe_dotgeneral as pdg
+dev = torch.device("cuda")
+x = kvp.inputs(32, 300, 512, dev)
+calls = {m: c[0] for m, c in kvp.modes(x, 299, 8).items()}
+shapes = dict(rows=2400, D=512, C=64)
+for dtype in (torch.float32, torch.bfloat16):
+    for name, (ash, bsh, form) in pdg.FORMS.items():
+        a, b = (torch.randn(*(shapes[s] for s in sh.split()), device=dev)
+                .to(dtype) for sh in (ash, bsh))
+        calls[name + " " + str(dtype)[6:]] = (
+            lambda a=a, b=b, form=form: pdg.probe_dot(a, b, form))
+out = {}
+for what, fn in calls.items():
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session without device events: again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    out[what] = dict(
+        kernels=[n for n in names if "memset" not in n.lower()],
+        memsets=[n for n in names if "memset" in n.lower()])
+print(json.dumps(out))
+"""
 
 
 def probes_phase(report, card):
@@ -3929,20 +4003,28 @@ def probes_phase(report, card):
     the kv traffic probe's four modes (tools/kv_traffic_probe.py: the
     bf16 and int8 decode-attention core, the slab-reading floor, the
     no-cache form) at B = 16, 32 and 64 (S 300, D 512, 8 heads, pos 299)
-    against their plain versions, timed (B=32 under "ms"), the bf16 core
-    beside F.scaled_dot_product_attention, and the floor set beside row
-    6's time at B=16 and 64 (the share of row 6 its cache bytes explain at
-    the floor's rate); the dot_general probe's three forms
-    (tools/probe_dotgeneral.py) in f32 (TF32) and bf16 against the f32
-    product, timed beside torch.matmul; then both tools from their command
-    lines, one JSON line each."""
+    against their plain versions, timed warm (the same slabs every call,
+    B=32 under "ms") and cold (calls rotating over copies that read twice
+    the L2), the bf16 core beside F.scaled_dot_product_attention, the
+    no-cache form beside one torch.mul, and the floor's read rate set
+    beside row 6's time at B=16 and 64 (the share of row 6 its cache
+    bytes explain, at the warm and at the cold rate); the dot_general
+    probe's three forms (tools/probe_dotgeneral.py) in f32 (TF32) and bf16
+    against the f32 product, warm and cold, beside torch.matmul (TF32 off,
+    and on for the TF32 forms). Then each kernel at the edge shapes of
+    PROBE_*_EDGES, the floor's bits over two calls, the profiler's count
+    of device kernels and memsets in one call of each mode and form (one
+    kernel, no memset; PROBE_LAUNCH_CHECK, in a fresh process), and both
+    tools from their command lines, one JSON line each."""
     import torch
+    from video2music_tpu_torch.tools import cold_us
     from video2music_tpu_torch.tools import kv_traffic_probe as kvp
     from video2music_tpu_torch.tools import probe_dotgeneral as pdg
 
     dev, S, D, H = torch.device("cuda"), 300, 512, 8
     pos = S - 1
     bf = torch.bfloat16
+    l2 = kvp.l2_bytes(dev)
     r = report["kv_traffic_probe"]
     out = report.setdefault("probes", {})
     kvp.attend.launches = kvp.floor.launches = kvp.noattn.launches = 0
@@ -3962,6 +4044,10 @@ def probes_phase(report, card):
             note_times(report, "kv_traffic_probe", bf, kernel, plain,
                        plain_iters=5, key=key)
             row[mode] = r[key][bf][0]
+            calls = kvp.cold_calls(x, mode, pos, H, l2)
+            row["cold_" + mode] = r["cold_" + key] = \
+                cold_us(calls) * 1e-3
+            del calls
         sb = kvp.slab_bytes(B, S, D)
         rest = 2 * nbytes(q)  # q in, out out
         r["form_bound_ms" + sfx] = form_bound(
@@ -3972,25 +4058,39 @@ def probes_phase(report, card):
         r["form_bound_ms_noattn" + sfx] = form_bound(rest, 0)
         r["library_ms" + sfx] = row["sdpa"] = time_ms(
             kvp.sdpa_call(x, pos, H))[0]
-        floor_rate = sb["bf16"] / (row["floor"] * 1e-3)  # bytes / s
-        row["floor_TB_s"] = floor_rate / 1e12
-        if B in (16, 64):  # row 6's deep layer at pos 150 (batched kernels)
-            row6 = report["batched_layer_step"]
-            ms6 = row6["ms" if B == 16 else "ms_b64"][bf][0]
-            cache = 2 * B * (151 + 300) * D * 2  # self 0..150, cross 300
-            row["row6_ms"] = ms6
-            row["row6_cache_share_at_floor_rate"] = \
-                cache / floor_rate * 1e3 / ms6
-        print(f"kv_traffic_probe B={B}: bf16 {row['bf16']:.4f} ms, int8 "
-              f"{row['int8']:.4f}, floor {row['floor']:.4f} "
-              f"({row['floor_TB_s']:.2f} TB/s), noattn {row['noattn']:.4f}, "
-              f"SDPA {row['sdpa']:.4f} ms; bounds bf16 "
+        r["cold_library_ms" + sfx] = row["cold_sdpa"] = \
+            kvp.cold_sdpa_us(x, pos, H, l2) * 1e-3
+        # the no-cache form's library call: one torch.mul
+        r["library_ms_noattn" + sfx] = row["torch_mul"] = time_ms(
+            lambda: q * 1.0001)[0]
+        for rate in ("", "cold_"):
+            floor_rate = sb["bf16"] / (row[rate + "floor"] * 1e-3)  # B/s
+            row[rate + "floor_TB_s"] = floor_rate / 1e12
+            if B in (16, 64):  # row 6's deep layer at pos 150
+                row6 = report["batched_layer_step"]
+                ms6 = row6["ms" if B == 16 else "ms_b64"][bf][0]
+                cache = 2 * B * (151 + 300) * D * 2  # self 0..150, cross 300
+                row["row6_ms"] = ms6
+                row[f"row6_cache_share_at_{rate}floor_rate"] = \
+                    cache / floor_rate * 1e3 / ms6
+        print(f"kv_traffic_probe B={B} (warm / cold ms): bf16 "
+              f"{row['bf16']:.4f} / {row['cold_bf16']:.4f}, int8 "
+              f"{row['int8']:.4f} / {row['cold_int8']:.4f}, floor "
+              f"{row['floor']:.4f} / {row['cold_floor']:.4f} "
+              f"({row['floor_TB_s']:.2f} / {row['cold_floor_TB_s']:.2f} "
+              f"TB/s), noattn {row['noattn']:.4f} / {row['cold_noattn']:.4f} "
+              f"(torch.mul {row['torch_mul']:.4f}), SDPA {row['sdpa']:.4f} / "
+              f"{row['cold_sdpa']:.4f}; bounds bf16 "
               f"{sb['bf16'] / HBM_BYTES_PER_S * 1e3:.5f}, int8 "
               f"{sb['int8'] / HBM_BYTES_PER_S * 1e3:.5f} ms" + (
                   f"; row 6 at B={B} {row['row6_ms']:.4f} ms, its cache "
-                  f"bytes at the floor's rate "
-                  f"{row['row6_cache_share_at_floor_rate']:.1%} of it"
+                  f"bytes at the floor's warm rate "
+                  f"{row['row6_cache_share_at_floor_rate']:.1%} of it, at "
+                  f"the cold rate "
+                  f"{row['row6_cache_share_at_cold_floor_rate']:.1%}"
                   if "row6_ms" in row else "") + f" [{card}]")
+        del x
+        torch.cuda.empty_cache()
     r["launches_probe"] = (kvp.attend.launches + kvp.floor.launches
                            + kvp.noattn.launches)
     r["launches"] = 0  # on no path
@@ -4002,7 +4102,9 @@ def probes_phase(report, card):
     gen = torch.Generator().manual_seed(35)
     keys = {"NT logits": "ms", "TN pv": "ms_tn", "NT tiny-diag": "ms_diag"}
     shapes = dict(rows=rows, D=Dd, C=C)
+    dot_out = out["dot_general"] = {}
     for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
         for name, (ash, bsh, form) in pdg.FORMS.items():
             a, b = (torch.randn(*(shapes[s] for s in sh.split()),
                                 generator=gen).to(dev, dtype)
@@ -4012,7 +4114,7 @@ def probes_phase(report, card):
             err, rel = errors(got, want)
             tol = pdg.TOL[str(dtype)[6:]]
             print(f"  probe_dotgeneral {name} [{str(dtype)[6:]}, "
-                  f"{'TF32' if dtype == torch.float32 else 'bf16'} tensor "
+                  f"{'TF32' if f32 else 'bf16'} tensor "
                   f"cores] max_abs {err:.3e} rel {rel:.3e} (limit {tol}) "
                   f"{'ok' if rel <= tol else 'FAIL'}")
             fail_unless(rel <= tol, f"probe_dotgeneral {name} [{dtype}] "
@@ -4025,18 +4127,102 @@ def probes_phase(report, card):
             note_times(report, "probe_dotgeneral", dtype,
                        lambda: pdg.probe_dot(a, b, form),
                        lambda: pdg.probe_dot_plain(a, b, form), key=key)
-            if dtype == torch.bfloat16:
-                K = a.shape[1] if form == "NT" else a.shape[0]
-                M, N = got.shape
-                d["form_bound_" + key] = form_bound(
-                    nbytes(a, b, got), 2 * M * N * K)
-                mm = (lambda: a @ b.t()) if form == "NT" else \
-                    (lambda: a.t() @ b)
-                d["library_" + key if key != "ms" else "library_ms"] = \
-                    time_ms(mm)[0]
+            tag = "_f32" if f32 else ""
+            K = a.shape[1] if form == "NT" else a.shape[0]
+            M, N = got.shape
+            d["form_bound_" + key + tag] = form_bound(
+                nbytes(a, b, got), 2 * M * N * K,
+                peak=TF32_PEAK if f32 else PEAK_BF16)
+            lib_key = "library_" + key if key != "ms" else "library_ms"
+            d[lib_key + tag] = time_ms(pdg.library_call(a, b, form))[0]
+            d["cold_" + key + tag] = pdg.cold_dot_us(a, b, form, l2) * 1e-3
+            d["cold_" + lib_key + tag] = pdg.cold_dot_us(
+                a, b, form, l2, call=pdg.library_call) * 1e-3
+            if f32:  # the TF32 forms' yardstick: torch.matmul in TF32
+                torch.backends.cuda.matmul.allow_tf32 = True
+                d["library_tf32_" + key] = time_ms(
+                    pdg.library_call(a, b, form))[0]
+                torch.backends.cuda.matmul.allow_tf32 = False
+            dot_out[f"{name} {'tf32' if f32 else 'bf16'}"] = dict(
+                ms=d[key][dtype][0], cold_ms=d["cold_" + key + tag],
+                matmul_ms=d[lib_key + tag],
+                cold_matmul_ms=d["cold_" + lib_key + tag],
+                **({"matmul_tf32_ms": d["library_tf32_" + key]} if f32
+                   else {}),
+                bound_ms=d["form_bound_" + key + tag][0])
+            print(f"  probe_dotgeneral {name} [{str(dtype)[6:]}] (warm / cold "
+                  f"ms): {d[key][dtype][0]:.4f} / "
+                  f"{d['cold_' + key + tag]:.4f}, torch.matmul "
+                  f"{d[lib_key + tag]:.4f} / {d['cold_' + lib_key + tag]:.4f}"
+                  + (f", TF32 {d['library_tf32_' + key]:.4f}" if f32 else "")
+                  + f"; bound {d['form_bound_' + key + tag][0]:.5f} [{card}]")
     d["launches_probe"] = pdg.probe_dot.launches
     d["launches"] = 0  # on no path
     d["bound_ms"], d["bound_by"] = d.pop("form_bound_ms")
+
+    # the edge shapes, against the plain versions
+    for B, S_, D_, H_, p_, what in PROBE_ATTEND_EDGES:
+        x = kvp.inputs(B, S_, D_, dev, seed=B + p_)
+        for mode in ("bf16", "int8"):
+            if kvp.attend_fault(B, S_, D_, H_, p_, mode == "int8"):
+                continue  # int8 needs head sizes that are multiples of 16
+            kernel, plain = kvp.modes(x, p_, H_)[mode]
+            check_close(f"kv_traffic_probe {mode} {what} (plan "
+                        f"{kvp.attend_plan(B, H_, p_ + 1)})", bf, kernel(),
+                        plain())
+        del x
+    for B, S_, D_, block, what in PROBE_FLOOR_EDGES:
+        x = kvp.inputs(B, S_, D_, dev, seed=S_)
+        one = kvp.floor(x["q"], x["k"], x["v"], block)
+        two = kvp.floor(x["q"], x["k"], x["v"], block)
+        check_close(f"kv_traffic_probe floor {what} (plan "
+                    f"{kvp.floor_plan(B, S_, D_, block)})", bf, one,
+                    kvp.floor_plain(x["q"], x["k"], x["v"], block))
+        fail_unless(torch.equal(one, two), f"kv_traffic_probe floor {what}: "
+                    "two calls gave other bits")
+        del x
+    x = kvp.inputs(64, S, D, dev)
+    same = torch.equal(kvp.floor(x["q"], x["k"], x["v"]),
+                       kvp.floor(x["q"], x["k"], x["v"]))
+    fail_unless(same, "kv_traffic_probe floor: two calls at B=64 gave "
+                "other bits")
+    print(f"  kv_traffic_probe floor: the same bits over two calls at the "
+          f"edge shapes and at B=64")
+    for form, M, N, K, what in PROBE_DOT_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(M + N + K)
+            shp = ((M, K), (N, K)) if form == "NT" else ((K, M), (K, N))
+            a, b = (torch.randn(*sh, generator=g).to(dev, dtype)
+                    for sh in shp)
+            got, want = pdg.probe_dot(a, b, form), pdg.probe_dot_plain(a, b,
+                                                                       form)
+            _, rel = errors(got, want)
+            tol = pdg.TOL[str(dtype)[6:]]
+            print(f"  probe_dotgeneral {form} {what} [{str(dtype)[6:]}] (plan "
+                  f"{pdg.dot_plan(form, M, N, K, a.element_size())}) rel "
+                  f"{rel:.3e} (limit {tol}) {'ok' if rel <= tol else 'FAIL'}")
+            fail_unless(rel <= tol, f"probe_dotgeneral {form} {what} "
+                        f"[{dtype}] disagrees with the f32 product")
+    # one launch a call, no memset: the profiler's count (a fresh process)
+    proc = subprocess.run([sys.executable, "-c", PROBE_LAUNCH_CHECK],
+                          capture_output=True, text=True, cwd=ROOT,
+                          timeout=300)
+    fail_unless(proc.returncode == 0, "the probes' launch count exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    counts = out["device_events_a_call"] = {}
+    for what, seen in json.loads(proc.stdout.strip().splitlines()[-1]
+                                 ).items():
+        counts[what] = dict(kernels=len(seen["kernels"]),
+                            memsets=len(seen["memsets"]))
+        print(f"  profiler, one call of {what}: {len(seen['kernels'])} "
+              f"kernel(s) {[short_kernel_name(k_) for k_ in seen['kernels']]}"
+              f", {len(seen['memsets'])} memset(s)")
+        fail_unless(len(seen["kernels"]) == 1 and not seen["memsets"],
+                    f"{what}: {len(seen['kernels'])} kernels and "
+                    f"{len(seen['memsets'])} memsets in one call, not one "
+                    "kernel")
+    del x
+    torch.cuda.empty_cache()
     for module, args in (("kv_traffic_probe", ["-B", "32"]),
                          ("probe_dotgeneral", [])):
         t0 = time.perf_counter()
@@ -7578,6 +7764,15 @@ def main() -> int:
             if "form_bound_" + key in r:  # (ms, "bytes" / "operations")
                 row["bound_" + key], row["bound_by_" + key] = \
                     r["form_bound_" + key]
+        # the probes' cold times, TF32 yardsticks and bounds, and the
+        # no-cache form's library call (rows 13 and 14)
+        for key in r:
+            if key.startswith(("cold_", "library_tf32_", "library_ms_noattn")
+                              ) or (key.startswith("form_bound_")
+                                    and key.endswith("_f32")):
+                row[key] = r[key]
+            if key.startswith("library_") and key.endswith("_f32"):
+                row[key] = r[key]
         # flash attention at the V3 encoder's 2H; the launches of the
         # wirings' and the regression zoo's paths
         for key in ("launches_2h", "launches_wirings", "launches_zoo",

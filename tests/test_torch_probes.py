@@ -216,3 +216,205 @@ def test_probes_dispatch_by_device_and_count_only_kernel_launches():
             kvp.probe(B=2, S=12)
         with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
             pdg.probe()
+
+
+# the edge shapes the redesigned kernels plan for differently (csrc/
+# probes.cu): at B=2, S=300 the first cache length whose rows the core
+# splits over a cluster of two, and the positions around it
+EDGE_B, EDGE_S = 2, 300
+SPLIT_ROWS = next(n for n in range(1, EDGE_S + 1)
+                  if kvp.attend_plan(EDGE_B, H, n)[0] > 1)
+
+
+def _edge_slabs(seed, Hh=H):
+    """q (2, D) and bf16 K / V (2, 300, D); int8 K / V with row scales."""
+    r = np.random.default_rng(seed)
+    q, k, v = (r.standard_normal(sh).astype(np.float32)
+               for sh in ((EDGE_B, D), (EDGE_B, EDGE_S, D),
+                          (EDGE_B, EDGE_S, D)))
+    k8, v8 = (r.integers(-127, 128, (EDGE_B, EDGE_S, D)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (r.uniform(0.01, 0.1, (EDGE_B, EDGE_S)).astype(np.float32)
+              for _ in range(2))
+    return ([torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)],
+            (k8, v8, ks, vs))
+
+
+def _core_against_jax(jkv, mode, pos, Hh):
+    """The port's plain core against the JAX probe's _attend_core at B=2,
+    S=300, Hh heads of D / Hh, within BF16_REL of the largest value."""
+    (q, k, v), (k8, v8, ks, vs) = _edge_slabs(pos + Hh)
+    rows = EDGE_B * EDGE_S
+    if mode == "bf16":
+        got = kvp.attend(q, k, v, pos, Hh)
+        want = jkv._attend_core(_jnp(q).astype(jnp.float32),
+                                _jnp(k).reshape(rows, D),
+                                _jnp(v).reshape(rows, D), EDGE_S, pos=pos)
+    else:
+        got = kvp.attend(q, torch.from_numpy(k8), torch.from_numpy(v8), pos,
+                         Hh, torch.from_numpy(ks), torch.from_numpy(vs))
+        want = jkv._attend_core(
+            _jnp(q).astype(jnp.float32), jnp.asarray(k8).reshape(rows, D),
+            jnp.asarray(v8).reshape(rows, D), EDGE_S, pos=pos,
+            k_scale=jnp.asarray(ks).reshape(rows, 1),
+            v_scale=jnp.asarray(vs).reshape(rows, 1))
+    want = np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16 and got.shape == (EDGE_B, D)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= BF16_REL * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("pos", [0, SPLIT_ROWS - 2, SPLIT_ROWS - 1,
+                                 EDGE_S - 1])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_attend_core_edge_positions_match_the_jax_probe(jkv, mode, pos):
+    """pos 0, one below and at the first cluster split (rows SPLIT_ROWS - 1
+    and SPLIT_ROWS: one block a (clip, head), then two), and pos S - 1, at
+    S = 300 and B = 2."""
+    assert kvp.attend_plan(EDGE_B, H, SPLIT_ROWS - 1)[0] == 1
+    _core_against_jax(jkv, mode, pos, H)
+
+
+@pytest.mark.parametrize("mode,hd", [("bf16", 8), ("bf16", 128),
+                                     ("int8", 16), ("int8", 128)])
+def test_attend_core_head_sizes_match_the_jax_probe(jkv, monkeypatch, mode,
+                                                    hd):
+    """Head sizes 8 and 128 (bf16) and 16 and 128 (int8, whose kernel takes
+    multiples of 16): the JAX probe's module-level H set to D / hd, which
+    its _attend_core reads (the head and row maps)."""
+    monkeypatch.setattr(jkv, "H", D // hd)
+    assert kvp.attend_fault(EDGE_B, EDGE_S, D, D // hd, EDGE_S - 1,
+                            mode == "int8") is None
+    _core_against_jax(jkv, mode, EDGE_S - 1, D // hd)
+
+
+@pytest.mark.parametrize("Dd,block", [(8, 1), (40, 2)])
+def test_floor_groups_match_the_jax_kernel(jkv, Dd, block):
+    """The floor over several groups (B = 4 clips in groups of `block`) at
+    D 8 and 40: the JAX probe's _kernel body for "floor", run group by
+    group on its rows, against the port's plain floor; equal
+    (integer-valued slabs)."""
+    Bb, Ss = 4, 5
+    r = np.random.default_rng(Dd)
+    q, k, v = (torch.from_numpy(r.integers(-8, 9, sh).astype(np.float32))
+               .to(torch.bfloat16) for sh in ((Bb, Dd), (Bb, Ss, Dd),
+                                              (Bb, Ss, Dd)))
+    want = np.zeros((Bb, Dd), np.float32)
+    for g in range(Bb // block):
+        o = np.zeros((block, Dd), np.float32)
+        sl = slice(g * block, (g + 1) * block)
+        jkv._kernel(np.asarray([Ss - 1], np.int32), _jnp(q[sl]),
+                    _jnp(k[sl]).reshape(block * Ss, Dd),
+                    _jnp(v[sl]).reshape(block * Ss, Dd), o, mode="floor")
+        want[sl] = np.asarray(
+            jnp.asarray(o).astype(jnp.bfloat16).astype(jnp.float32))
+    got = kvp.floor(q, k, v, block=block)
+    assert kvp.floor_fault(Bb, Ss, Dd, block) is None
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+# ragged products: K no multiple of 16 or 64, M and N no multiple of the
+# kernel's 64-wide tiles
+RAGGED_FORMS = [("NT logits", (70, 37), (65, 37), ((1,), (1,)), "NT"),
+                ("TN pv", (100, 65), (100, 72), ((0,), (0,)), "TN"),
+                ("NT tiny-diag", (65, 100), (65, 100), ((1,), (1,)), "NT")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,ash,bsh,dims,form", RAGGED_FORMS)
+def test_dot_forms_ragged_shapes_match_the_jax_probe_kernel(
+        jdot, name, ash, bsh, dims, form, dtype):
+    """The three forms at ragged shapes through the JAX probe's _kernel in
+    interpret mode against probe_dot on CPU tensors: exact on
+    integer-valued operands (products and sums exact in f32)."""
+    r = np.random.default_rng(len(name))
+    a, b = (r.integers(-4, 5, sh).astype(np.float32) for sh in (ash, bsh))
+    ja, jb = (jnp.asarray(x).astype(getattr(jnp, dtype)) for x in (a, b))
+    out_shape = jax.eval_shape(
+        lambda x, y: jax.lax.dot_general(x, y, (dims, ((), ()))), ja, jb)
+    want = np.asarray(pl.pallas_call(
+        functools.partial(jdot._kernel, dims=dims),
+        out_shape=jax.ShapeDtypeStruct(out_shape.shape, jnp.float32),
+        interpret=True)(ja, jb))
+    ta, tb = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        getattr(torch, dtype)) for x in (ja, jb))
+    got = pdg.probe_dot(ta, tb, form)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    M, N = got.shape
+    K = ash[1] if form == "NT" else ash[0]
+    assert pdg.dot_fault(M, N, K) is None
+
+
+def test_cold_copies_read_twice_the_l2():
+    """The cold timing's copy count: one pass over the copies reads at
+    least twice the L2, and there are at least two."""
+    from video2music_tpu_torch.tools import L2_BYTES, cold_copies
+    for nbytes in (1, 131_072, 9_830_400, 19_660_800, 39_321_600,
+                   60_000_000, 200_000_000):
+        n = cold_copies(nbytes)
+        assert n >= 2 and n * nbytes >= 2 * L2_BYTES
+        assert n == 2 or (n - 1) * nbytes < 2 * L2_BYTES  # no more than that
+    assert cold_copies(39_321_600) == 3  # the bf16 slabs at B = 64
+    assert cold_copies(10, l2_bytes=100) == 20
+
+
+def test_limit_predicates():
+    """Each kernel's limits in one predicate (None: the kernel takes the
+    shape): the core at any pos < S, bf16 head sizes that are multiples of
+    8 up to 128, int8 multiples of 16 up to 128; the floor at D a multiple
+    of 8 (no upper limit) with B a multiple of block; the products at any
+    M, N, K >= 1."""
+    ok = kvp.attend_fault
+    assert ok(32, 300, 512, 8, 299, False) is None
+    assert ok(1, 1, 8, 1, 0, False) is None  # one row, head size 8
+    assert ok(2, 100_000, 512, 4, 99_999, True) is None  # any pos < S
+    assert ok(2, 300, 1024, 8, 299, False) is None  # head size 128
+    assert ok(2, 300, 96, 2, 0, False) is None  # head size 48
+    for args in ((2, 300, 512, 8, 300, False), (2, 300, 512, 8, -1, False),
+                 (2, 300, 512, 3, 0, False), (2, 300, 2048, 8, 0, False),
+                 (2, 300, 96, 8, 0, False), (2, 300, 512, 64, 0, True),
+                 (2, 300, 80, 2, 0, True)):
+        assert isinstance(ok(*args), str), args
+    assert kvp.floor_fault(32, 300, 512, 8) is None
+    assert kvp.floor_fault(3, 7, 8, 1) is None
+    assert kvp.floor_fault(8, 300, 4096, 8) is None  # wider than 2048
+    for args in ((30, 300, 512, 8), (4, 300, 36, 2), (4, 0, 512, 2),
+                 (4, 300, 512, 0)):
+        assert isinstance(kvp.floor_fault(*args), str), args
+    assert pdg.dot_fault(1, 1, 1) is None
+    assert pdg.dot_fault(2400, 64, 512) is None
+    assert pdg.dot_fault(64 * 65535, 1, 1) is None
+    for args in ((0, 1, 1), (1, 0, 1), (1, 1, 0), (64 * 65535 + 1, 1, 1)):
+        assert isinstance(pdg.dot_fault(*args), str), args
+
+
+def test_plans_cover_every_row():
+    """The plans the wrappers pass to the kernels: the core's cluster (1 to
+    8, a power of two) times its rows a block covers the cache; the
+    floor's slices cover D and its row ranges are no more than the rows;
+    the products' K split keeps at least one K tile a block, and stages by
+    16-byte copies only where the operands' rows are whole copies."""
+    for B_, H_, rows in ((16, 8, 300), (32, 8, 300), (64, 8, 300),
+                         (2, 8, 300), (2, 8, 1), (2, 4, 5000), (1, 1, 31)):
+        cluster, per = kvp.attend_plan(B_, H_, rows)
+        assert cluster in (1, 2, 4, 8)
+        assert cluster * per >= rows > (cluster - 1) * per
+    assert kvp.attend_plan(64, 8, 300) == kvp.attend_plan(16, 8, 300) == (
+        1, 300)
+    assert kvp.attend_plan(2, 8, 300)[0] == 8
+    for B_, S_, D_, block in ((16, 300, 512, 8), (64, 300, 512, 8),
+                              (3, 7, 8, 1), (16, 33, 2056, 8)):
+        width, slices, chunks = kvp.floor_plan(B_, S_, D_, block)
+        assert width % 8 == 0 and width <= 256 and width * slices >= D_
+        assert 1 <= chunks <= block * S_
+    for form, M, N, K, item in (("NT", 2400, 64, 512, 2),
+                                ("TN", 64, 512, 2400, 4),
+                                ("NT", 64, 64, 512, 2), ("NT", 70, 65, 37, 2),
+                                ("TN", 65, 100, 70, 4)):
+        cluster, vec = pdg.dot_plan(form, M, N, K, item)
+        assert cluster in (1, 2, 4, 8)
+        assert -(-K // (128 // item)) >= cluster
+        unit = 16 // item
+        assert vec == (K % unit == 0 if form == "NT"
+                       else M % unit == 0 and N % unit == 0)

@@ -228,14 +228,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.v2m_decode_stack.argtypes = [i, ctypes.POINTER(StackArgs), p]
     lib.v2m_decode_stack.restype = i
     lib.v2m_kv_probe_attend.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
-                                        p]
-    lib.v2m_kv_probe_floor.argtypes = [p, p, p, p, p, i, i, i, i, p]
+                                        i, i, p]
+    lib.v2m_kv_probe_floor.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.v2m_kv_probe_noattn.argtypes = [p, p, i, p]
-    lib.v2m_probe_dot_splits.argtypes = [i, i, i]
-    lib.v2m_probe_dot.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.v2m_probe_dot.argtypes = [i, i, p, p, p, i, i, i, i, i, p]
     for name in ("v2m_kv_probe_attend", "v2m_kv_probe_floor",
-                 "v2m_kv_probe_noattn",
-                 "v2m_probe_dot_splits", "v2m_probe_dot"):
+                 "v2m_kv_probe_noattn", "v2m_probe_dot"):
         getattr(lib, name).restype = i
     for name in ("v2m_variant_layer", "v2m_variant_batched_layer",
                  "v2m_variant_batched_moe"):
