@@ -16,8 +16,9 @@
 // pads D to a multiple of 128), which change neither q . k nor the kept
 // columns of P . V, and passes the unpadded scale. The tiles live in
 // dynamic shared memory (above 48 KB at 128 and 256). Above 256 the head
-// is split across blocks (attention_wide.cuh), D padded to a multiple of
-// 64.
+// is split into 64-column slices (attention_wide.cuh), D padded to a
+// multiple of 64; in bf16 one thread-block cluster a query tile, its
+// blocks splitting the slices, by the wrapper's plan.
 //
 // What bounds it on the H100: at the product shape (B*H = 8, L = S = 300,
 // head_dim 64) the call moves 4 * 8 * 300 * 64 * 2 bytes = 1.2 MB in bf16
@@ -172,12 +173,14 @@ static int launch_f32(const void* q, const void* k, const void* v,
 // q (BH, L, D), k/v (BH, S, D), bias (bias_planes, L, S) f32 or null (BH
 // a multiple of bias_planes), out (BH, L, D); D one of 16, 32, 64, 128,
 // 256 or a multiple of 64 above; all contiguous, q/k/v/out of
-// dtype `dtype`. Returns a cudaError_t code.
+// dtype `dtype`. wide_plan: above 256 in bf16 the four ints of
+// kernels.wide_plan (cluster, slices, passes, shared bytes), else unread.
+// Returns a cudaError_t code.
 extern "C" int v2m_flash_attention(int dtype, const void* q, const void* k,
                                    const void* v, const void* bias,
                                    int bias_planes, void* out, int BH, int L,
                                    int S, int D, int causal, float scale,
-                                   void* stream) {
+                                   const int* wide_plan, void* stream) {
   using namespace v2m;
   cudaStream_t st = (cudaStream_t)stream;
   const float* b = (const float*)bias;
@@ -195,7 +198,8 @@ extern "C" int v2m_flash_attention(int dtype, const void* q, const void* k,
       a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v;
       a.bias = b; a.out = (bf16*)out;
       a.L = L; a.S = S; a.scale = scale;
-      return wide::run_fwd_mma<false>(a, BH, D, causal, bias_planes, st);
+      return wide::run_fwd_mma<false>(a, BH, D, causal, bias_planes,
+                                      wide_plan, st);
     }
     return (int)cudaErrorInvalidValue;
   }

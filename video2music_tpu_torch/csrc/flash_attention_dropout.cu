@@ -15,8 +15,9 @@
 // with v (as the Pallas kernel's astype) and saves each row's softmax max m
 // and sum l. Head sizes: instances at 16, 32, 64, 128 and 256, the wrappers
 // padding the others with zero columns (flash_attention.cu), and above
-// 256 the head split across blocks (attention_wide.cuh and the wide
-// backward below), D padded to a multiple of 64; the mask hashes rows and
+// 256 the head split into 64-column slices (attention_wide.cuh, in bf16
+// a thread-block cluster a query tile; the wide backward below, a block a
+// slice), D padded to a multiple of 64; the mask hashes rows and
 // columns only, so padding and splitting leave it as it is. A shard of
 // a sharded step (B/d rows of the batch, H/m heads) passes apply 2 and its
 // origin in the global grid beside the seed (drop_salt), and hashes the
@@ -1257,6 +1258,7 @@ inline int run_bwd_mma(const mma::BwdArgs& a, int BH, int D, int causal,
 
 struct DropoutArgs {
   const void *q, *k, *v, *bias, *seed, *dout, *stats;
+  const int* plan;  // the wide forward's (attention_wide.cuh run_fwd_mma)
   void *out, *dq, *dk, *dv, *dbias, *dsum;
   int BH, L, S, causal;
   float scale;
@@ -1368,7 +1370,8 @@ static int dispatch_bf16(const DropoutArgs& a, int D, bool backward,
     f.out = (bf16*)a.out; f.stats = (float*)a.stats;
     f.L = a.L; f.S = a.S; f.scale = a.scale; f.drop = a.drop;
     if (D > 256)  // the head split across blocks (attention_wide.cuh)
-      return wide::run_fwd_mma<true>(f, a.BH, D, a.causal, a.BH, st);
+      return wide::run_fwd_mma<true>(f, a.BH, D, a.causal, a.BH, a.plan,
+                                     st);
     return mma::run_fwd_mma<true>(f, a.BH, D, a.causal, st, a.BH);
   }
   mma::BwdArgs b{};
@@ -1406,15 +1409,17 @@ static int run(int dtype, const DropoutArgs& a, int D, bool backward,
 // q (BH, L, D), k/v (BH, S, D), bias (BH, L, S) f32 or null, seed one int32
 // on the device (apply 2: four, {seed, heads, heads_global, bh_offset}, a
 // shard's origin in the global (batch, head) grid); out (BH, L, D) of q's
-// dtype, stats (BH, L, 2) f32 (row max, row sum of exponentials). Returns a
-// cudaError_t code.
+// dtype, stats (BH, L, 2) f32 (row max, row sum of exponentials);
+// wide_plan: above 256 in bf16 the four ints of kernels.wide_plan, else
+// unread. Returns a cudaError_t code.
 extern "C" int v2m_attention_dropout_fwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     const void* seed, void* out, void* stats, int BH, int L, int S, int D,
     int causal, float scale, unsigned int threshold, float keep_scale,
-    int apply, void* stream) {
+    int apply, const int* wide_plan, void* stream) {
   v2m::DropoutArgs a{};
   a.q = q; a.k = k; a.v = v; a.bias = bias; a.seed = seed;
+  a.plan = wide_plan;
   a.out = out; a.stats = stats;
   a.BH = BH; a.L = L; a.S = S; a.causal = causal; a.scale = scale;
   a.drop = v2m::DropoutSpec{threshold, keep_scale, apply};

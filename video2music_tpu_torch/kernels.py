@@ -13,7 +13,9 @@ path that launches a kernel on a CUDA tensor.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -201,8 +203,9 @@ class VariantArgs(ctypes.Structure):
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    pi = ctypes.POINTER(ctypes.c_int)
     lib.v2m_flash_attention.argtypes = [i, p, p, p, p, i, p, i, i, i, i, i,
-                                        f, p]
+                                        f, pi, p]
     lib.v2m_flash_attention.restype = i
     lib.v2m_decode_layer.argtypes = [i, ctypes.POINTER(DecodeLayerArgs), p]
     lib.v2m_decode_layer.restype = i
@@ -216,13 +219,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.v2m_batched_gemv.argtypes = [i, p, p, p, p, i, i, i, p]
     lib.v2m_batched_gemv.restype = i
     lib.v2m_attention_dropout_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
-                                              i, i, f, u, f, i, p]
+                                              i, i, f, u, f, i, pi, p]
     lib.v2m_attention_dropout_fwd.restype = i
     lib.v2m_attention_dropout_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
                                               p, p, p, i, i, i, i, i, f, u, f,
                                               i, p]
     lib.v2m_attention_dropout_bwd.restype = i
-    pi = ctypes.POINTER(ctypes.c_int)
     lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, pi, pi, pi]
     lib.v2m_decode_stack_grid.restype = i
     lib.v2m_decode_stack.argtypes = [i, ctypes.POINTER(StackArgs), p]
@@ -323,6 +325,100 @@ def head_instance(D: int, what: str) -> tuple:
         if D <= n:
             return n, 1
     return WIDE_SLICE, -(-D // WIDE_SLICE)
+
+
+# The bf16 wide forward's plan (csrc/attention_wide.cuh): one thread-block
+# cluster a tile of WIDE_TILE query rows, its blocks splitting the head's
+# slices and the tile's rows; its constants as the header has them (a CPU
+# test reads them there: tests/test_torch_wide_attention.py).
+WIDE_TILE = 64                 # query rows a cluster (kTile)
+WIDE_CHUNK = 64                # keys a chunk (attention_mma.cuh kChunk)
+WIDE_STAGES = 2                # cp.async ring stages (kStages)
+WIDE_GROUP = 2                 # slices a block's P . V holds at once (kGroup)
+WIDE_CLUSTER_MIN = 4           # a block owns at most 16 rows (kClusterMin)
+WIDE_CLUSTER_MAX = 8           # the portable cluster size (kClusterMax)
+SMEM_MAX = 232448              # dynamic shared bytes a block (kSmemMax)
+
+WidePlan = collections.namedtuple("WidePlan", "cluster slices passes smem")
+
+
+def wide_smem(cluster: int, S: int, passes: int) -> int:
+    """Dynamic shared bytes of a block of the wide forward (plan_smem): a
+    cp.async ring of WIDE_STAGES stages of two 64 x WIDE_SLICE bf16 pieces
+    (padded rows), two partial S tiles of WIDE_TILE x 64 f32 (padded rows),
+    and the block's own rows of the tile (at most ceil(WIDE_TILE /
+    cluster)): with one pass their logits (f32) and weights (bf16) over
+    every key, with two two 64-key chunks of weights."""
+    rows = -(-WIDE_TILE // cluster)
+    keys = -(-S // WIDE_CHUNK) * WIDE_CHUNK
+    ring = WIDE_STAGES * 2 * WIDE_CHUNK * (WIDE_SLICE + 8) * 2
+    part = 2 * WIDE_TILE * (WIDE_CHUNK + 8) * 4
+    if passes == 1:
+        return ring + part + rows * (6 * keys + 16)
+    return ring + part + 2 * rows * (WIDE_CHUNK + 8) * 2
+
+
+def wide_one_pass_keys(cluster: int) -> int:
+    """The largest S the wide forward takes in one pass with a cluster of
+    this size: its block's rows of logits and weights over every key fit
+    SMEM_MAX beside the ring and the partials."""
+    rows = -(-WIDE_TILE // cluster)
+    room = SMEM_MAX - wide_smem(cluster, 0, 1)
+    return room // rows // 6 // WIDE_CHUNK * WIDE_CHUNK
+
+
+def wide_plan(D: int, S: int, what: str, tiles: int, sms: int) -> WidePlan:
+    """The bf16 wide forward's plan for head size D (above 256), S keys,
+    ``tiles`` query tiles (B * H * ceil(L / WIDE_TILE)) and a card of
+    ``sms`` streaming multiprocessors (device_sms): (cluster, slices,
+    passes, smem). A cluster of min(slices of the head, WIDE_CLUSTER_MAX)
+    blocks a tile, halved where its grid passes one wave of two blocks an
+    SM and a block of the halved cluster still holds its slices' P . V at
+    once (WIDE_GROUP): at head size 512, L = 300, four blocks of two slices
+    ran faster than eight of one at B*H = 8 and 16 and slower at 1 and 4
+    (an H100, 132 SMs). Block r owns the slices [r nd / C, (r + 1) nd / C), so
+    ``slices`` = ceil(nd / C) at most; one pass where S <=
+    wide_one_pass_keys(C), else two; ``smem`` the block's dynamic shared
+    bytes (the kernel takes clusters of WIDE_CLUSTER_MIN ..
+    WIDE_CLUSTER_MAX blocks, at most one a slice). Raises on a head the
+    narrow instances take or no keys."""
+    nd = head_instance(D, what)[1]
+    require(nd > 1, what, f"head_dim {D}: the narrow instances take it, "
+            f"no wide plan")
+    require(S >= 1, what, f"{S} keys: no wide plan")
+    cluster = min(nd, WIDE_CLUSTER_MAX)
+    half = cluster // 2
+    if (tiles * cluster > 2 * sms and half >= WIDE_CLUSTER_MIN
+            and -(-nd // half) <= WIDE_GROUP):
+        cluster = half
+    passes = 1 if S <= wide_one_pass_keys(cluster) else 2
+    return WidePlan(cluster, -(-nd // cluster), passes,
+                    wide_smem(cluster, S, passes))
+
+
+def wide_plan_arg(D: int, S: int, tiles: int, code: int, what: str,
+                  device):
+    """The plan as the attention entry points take it: four C ints for the
+    bf16 forward above 256 (wide_plan on ``device``'s card), else None (a
+    null pointer)."""
+    if code != DTYPE_CODES["bfloat16"] or head_instance(D, what)[1] == 1:
+        return None
+    return (ctypes.c_int * 4)(*wide_plan(D, S, what, tiles,
+                                         device_sms(device)))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(device) -> int:
+    """The streaming multiprocessors of a CUDA device's card."""
+    import torch
+    device = torch.device(device)
+    return _sms(torch.cuda.current_device() if device.index is None
+                else device.index)
 
 
 def padded_head(D: int, what: str) -> int:

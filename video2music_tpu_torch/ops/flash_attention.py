@@ -63,11 +63,13 @@ def _forward(q, k, v, bias, causal: bool, scale: float):
         planes = bias.shape[0] * H
     q, k, v = (kernels.aligned(kernels.pad_head(t, Dp)) for t in (q, k, v))
     out = torch.empty_like(q)
+    plan = kernels.wide_plan_arg(D, S, B * H * -(-L // kernels.WIDE_TILE),
+                                 code, what, q.device)
     lib = kernels.library()
     status = lib.v2m_flash_attention(
         code, kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
         kernels.ptr(bias), planes, kernels.ptr(out), B * H, L, S, Dp,
-        int(causal), scale, kernels.stream_of(q))
+        int(causal), scale, plan, kernels.stream_of(q))
     kernels.check(status, what)
     flash_attention.launches += 1
     return out if Dp == D else out[..., :D].contiguous()

@@ -214,11 +214,14 @@ def flash_attention_dropout_fwd(q, k, v, bias, seed, causal: bool,
     out = torch.empty_like(q)
     stats = torch.empty(B, H, L, 2, device=q.device, dtype=torch.float32)
     seed, sharded = _seed_block(seed, H, origin)
+    plan = kernels.wide_plan_arg(
+        D, k.shape[2], B * H * -(-L // kernels.WIDE_TILE), code, what,
+        q.device)
     status = kernels.library().v2m_attention_dropout_fwd(
         code, kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
         kernels.ptr(bias), kernels.ptr(seed), kernels.ptr(out),
         kernels.ptr(stats), B * H, L, k.shape[2], Dp, int(causal),
-        D ** -0.5, *_drop_args(rate, sharded), kernels.stream_of(q))
+        D ** -0.5, *_drop_args(rate, sharded), plan, kernels.stream_of(q))
     kernels.check(status, what)
     flash_attention_dropout_fwd.launches += 1
     return (out if Dp == D else out[..., :D].contiguous()), stats
