@@ -434,7 +434,7 @@ PREV_BREAKDOWN = {
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12   # tensor cores
 PEAK_F32 = 67e12     # outside the tensor cores (elementwise work)
-TF32_PEAK = 495e12   # TF32 on the tensor cores (row 14's f32 forms)
+TF32_PEAK = 495e12   # TF32 on the tensor cores (rows 1, 11 and 14 in f32)
 
 
 class SmokeFailure(RuntimeError):
@@ -588,6 +588,29 @@ def note_bound(report, name, n_bytes, flops, peak=PEAK_BF16):
     report[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
+def yardstick_of(dtype):
+    """(report key suffix, peak rate of the products) of a dtype's forms:
+    ("", the bf16 peak) for bf16, the kernels line's main numbers;
+    ("_f32", the TF32 peak) for float32, whose attention kernels run split
+    TF32 on the tensor cores."""
+    import torch
+    return ("_f32", TF32_PEAK) if dtype == torch.float32 else ("", PEAK_BF16)
+
+
+def note_f32_yardsticks(report, name, key, work, library_ms, backend):
+    """An f32 form's bound (its bytes at f32 sizes, its operations at
+    TF32_PEAK: the f32 attention kernels run split TF32 on the tensor
+    cores) and the library call's f32 time (TF32 off), kept as
+    form_bound_<key>_f32 and library_<key>_f32 (the kernels line carries
+    both) and printed with the backend the library took."""
+    r = report[name]
+    r[f"form_bound_{key}_f32"] = form_bound(*work, peak=TF32_PEAK)
+    r[f"library_{key}_f32"] = library_ms
+    b_ms, by = r[f"form_bound_{key}_f32"]
+    print(f"  {name} ({key}) [float32]: bound {b_ms:.5f} ms by {by}; "
+          f"F.scaled_dot_product_attention {library_ms:.4f} ms ({backend})")
+
+
 EXPERT_KEYS = ("ew1g", "eb1g", "ew2", "eb2")
 EXPERT_SCALES = ("ew1g_s", "ew2_s")  # the experts' int8 row scales
 
@@ -659,12 +682,16 @@ def kernel_phase(report, v2m):
         note_times(report, "flash_attention", dtype,
                    lambda: flash_attention(q, k, v),
                    lambda: flash_attention_plain(q, k, v))
+        work = (nbytes(q, k, v, q), 4 * H * Sm * Sm * hd)
+        lib = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v))[0]
         if dtype == torch.bfloat16:
-            note_bound(report, "flash_attention", nbytes(q, k, v, q),
-                       4 * H * Sm * Sm * hd)
-            report["flash_attention"]["library_ms"] = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v))[0]
+            note_bound(report, "flash_attention", *work)
+            report["flash_attention"]["library_ms"] = lib
+        else:
+            note_f32_yardsticks(report, "flash_attention", "ms", work, lib,
+                                sdpa_backend(q, k, v))
 
         # kernels 2 and 3: decode layer, shallow and deep, plain and ends
         pos = S // 2
@@ -1218,12 +1245,17 @@ def batched_kernel_phase(report, v2m):
         note_times(report, "flash_attention", dtype,
                    lambda: flash_attention(q, k, v),
                    lambda: flash_attention_plain(q, k, v), key="ms_b16")
+        work = (nbytes(q, k, v, q), 4 * B * H * Sm * Sm * hd)
+        lib = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v))[0]
         if dtype == torch.bfloat16:
-            report["flash_attention"]["library_ms_b16"] = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v))[0]
+            report["flash_attention"]["library_ms_b16"] = lib
             report["flash_attention"]["form_bound_ms_b16"] = form_bound(
-                nbytes(q, k, v, q), 4 * B * H * Sm * Sm * hd)
+                *work)
+        else:
+            note_f32_yardsticks(report, "flash_attention", "ms_b16", work,
+                                lib, sdpa_backend(q, k, v))
         L, ED, N = Sm, mamba.d_inner, mamba.d_state
         xs = torch.randn(B, L, ED, generator=gen).to(dev, dtype)
         dt = (torch.rand(B, L, ED, generator=gen) * 0.1).to(dev, dtype)
@@ -1382,7 +1414,7 @@ def dropout_kernel_phase(report, cfg):
                     err = check_close(f"{bwd_name} {gname}{tag}", dtype, g, w)
                     note_error(report, bwd_name, dtype, err)
             # the mask, read back through identity values: f32 from the
-            # FMA kernel, bf16 from the tensor-core kernel (its weights
+            # split-TF32 kernel, bf16 from the bf16 one (its weights
             # rounded to bf16, so held to BF16_REL)
             got = fad.extract_dropped_probs(q, k, bias=bias, causal=causal,
                                             dropout_rate=rate, seed=seed)
@@ -1416,14 +1448,16 @@ def dropout_kernel_phase(report, cfg):
                        lambda: fad.flash_attention_dropout_plain_bwd(
                            q, k, v, do, **kw),
                        plain_iters=5, key=key)
-            if dtype != torch.bfloat16:
-                continue
             # one (L, S, D) product; the causal form's lower triangle
             pairs = L * (L + 1) // 2 if causal else L * L
             flops = 2 * B * H * pairs * D
             fwd_work = (nbytes(q, k, v, q), 2 * flops)
             bwd_work = (nbytes(q, k, v, do, q, k, v), 5 * flops)
-            if not causal:
+            if dtype == torch.float32:
+                for name, work in ((fwd_name, fwd_work), (bwd_name, bwd_work)):
+                    report[name][f"form_bound_{key}_f32"] = form_bound(
+                        *work, peak=TF32_PEAK)
+            elif not causal:
                 note_bound(report, fwd_name, *fwd_work)
                 note_bound(report, bwd_name, *bwd_work)
             else:
@@ -1572,16 +1606,15 @@ def dropout_forms_phase(report, cfg):
                        lambda: fad.flash_attention_dropout_plain_bwd(
                            q, k, v, do, **kw),
                        plain_iters=3, key=key)
-            if dtype != torch.bfloat16:
-                continue
             # the bound: each input read once, each output written once
             # (the bias read by both, dbias written by the backward); the
             # causal form does about half the products
+            tag, peak = yardstick_of(dtype)
             flops = 2 * B * heads * L * L * D * (0.5 if causal else 1.0)
-            report[fwd_name]["form_bound_" + key] = form_bound(
-                nbytes(q, k, v, q, bias), 2 * flops)
-            report[bwd_name]["form_bound_" + key] = form_bound(
-                nbytes(q, k, v, do, q, k, v, bias, bias), 5 * flops)
+            report[fwd_name]["form_bound_" + key + tag] = form_bound(
+                nbytes(q, k, v, q, bias), 2 * flops, peak)
+            report[bwd_name]["form_bound_" + key + tag] = form_bound(
+                nbytes(q, k, v, do, q, k, v, bias, bias), 5 * flops, peak)
             mask = None
             if bias is not None:
                 cm = torch.ones(L, L, dtype=torch.bool, device=dev).triu(1)
@@ -1612,15 +1645,17 @@ def dropout_forms_phase(report, cfg):
                         ql, kl, vl, attn_mask=mask_fwd, dropout_p=rate)
                     return torch.autograd.grad(o, (ql, kl, vl), do)
                 t_fb = time_ms(lib_fwd_bwd)[0]
-            report[fwd_name]["library_" + key] = t_f
-            report[bwd_name]["library_" + key] = t_fb - t_f
+            report[fwd_name]["library_" + key + tag] = t_f
+            report[bwd_name]["library_" + key + tag] = t_fb - t_f
             print(f"  F.scaled_dot_product_attention({key[3:]} form, "
-                  f"dropout_p={rate}) [bfloat16]: forward {t_f:.4f} ms, "
-                  f"backward {t_fb - t_f:.4f} ms (graph replay; another "
-                  f"mask)")
+                  f"dropout_p={rate}) [{str(dtype)[6:]}]: forward "
+                  f"{t_f:.4f} ms, backward {t_fb - t_f:.4f} ms (graph "
+                  f"replay; another mask; "
+                  f"{sdpa_backend(q, k, v, mask, dropout_p=rate)})")
             for name in TRAIN_KERNELS:
-                b_ms, by = report[name]["form_bound_" + key]
-                print(f"  {name} ({key}) bound {b_ms:.4f} ms by {by}")
+                b_ms, by = report[name]["form_bound_" + key + tag]
+                print(f"  {name} ({key}) [{str(dtype)[6:]}] bound "
+                      f"{b_ms:.4f} ms by {by}")
 
 
 def library_dropout_times(report, q, k, v, do, rate, causal, key=None,
@@ -1630,13 +1665,13 @@ def library_dropout_times(report, q, k, v, do, rate, causal, key=None,
     the forward, and (where ``backward``) the backward as (forward +
     backward) less the forward, since autograd runs a backward on its
     forward's stream. Kept as "library_" + key ("ms", or "ms_causal" when
-    causal, by default)."""
+    causal, by default), + "_f32" for float32 inputs (TF32 off)."""
     import torch
     from torch.nn import functional as F
 
     fwd_name, bwd_name = TRAIN_KERNELS
     key = key or ("ms_causal" if causal else "ms")
-    suffix = key[2:]
+    suffix = key[2:] + yardstick_of(q.dtype)[0]
     ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
 
     def fwd():
@@ -1656,8 +1691,9 @@ def library_dropout_times(report, q, k, v, do, rate, causal, key=None,
         report[bwd_name]["library_ms" + suffix] = t_fb - t_f
         bwd = f", backward {t_fb - t_f:.4f} ms"
     print(f"  F.scaled_dot_product_attention(dropout_p={rate}"
-          f"{', is_causal=True' if causal else ''}) [bfloat16]: forward "
-          f"{t_f:.4f} ms{bwd} (graph replay; another mask)")
+          f"{', is_causal=True' if causal else ''}) [{str(q.dtype)[6:]}]: "
+          f"forward {t_f:.4f} ms{bwd} (graph replay; another mask; "
+          f"{sdpa_backend(q, k, v, dropout_p=rate, is_causal=causal)})")
 
 
 # ---------------------------------------------------------------------------
@@ -2634,12 +2670,17 @@ def variant_kernel_phase(report, v2m):
         note_times(report, "flash_attention", dtype,
                    lambda: flash_attention(q, k, v),
                    lambda: flash_attention_plain(q, k, v), key="ms_2h")
+        work = (nbytes(q, k, v, q), 4 * 2 * H * Sm * Sm * hd)
+        lib = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v))[0]
         if dtype == torch.bfloat16:
-            report["flash_attention"]["library_ms_2h"] = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v))[0]
+            report["flash_attention"]["library_ms_2h"] = lib
             report["flash_attention"]["form_bound_ms_2h"] = form_bound(
-                nbytes(q, k, v, q), 4 * 2 * H * Sm * Sm * hd)
+                *work)
+        else:
+            note_f32_yardsticks(report, "flash_attention", "ms_2h", work,
+                                lib, sdpa_backend(q, k, v))
         for name, layer_metas, norm, pre_norm, use_rope in VARIANT_CASES:
             for fields in layer_metas:
                 meta = dv.VariantLayerMeta(*fields)
@@ -3038,16 +3079,18 @@ def wide_ffn_phase(report, v2m):
                                                           **mkw))
 
 
-HEAD_SIZES = (48, 96, 128, 256)  # padded (48, 96) and built (128, 256)
+# built (16, 32, 128, 256; 64 is the product's) and padded (48, 96)
+HEAD_SIZES = (16, 32, 48, 96, 128, 256)
 
 
 def head_size_phase(report, card):
     """Rows 1 and 11 at head sizes the product does not use (the JAX
     kernels take any): encoder flash attention (plain, +bias, +causal) and
     the dropout attention (output, mask entry for entry, gradients) at
-    48, 96 (zero-padded to 64 / 128 in the wrappers), 128 and 256, f32 and
-    bf16, against the plain versions; both timed at 128 (d_model 512 at 4
-    heads): flash attention at B=1, the dropout pair at B=16, L=S=300."""
+    16, 32, 48, 96 (zero-padded to 64 / 128 in the wrappers), 128 and 256,
+    f32 and bf16, against the plain versions; both timed at 128 (d_model
+    512 at 4 heads) beside their bounds and the library: flash attention at
+    B=1, the dropout pair at B=16, L=S=300."""
     import torch
     from video2music_tpu_torch.ops import flash_attention_dropout as fad
     from video2music_tpu_torch.ops.flash_attention import (
@@ -3094,12 +3137,17 @@ def head_size_phase(report, card):
         note_times(report, "flash_attention", dtype,
                    lambda: flash_attention(q, k, v),
                    lambda: flash_attention_plain(q, k, v), key="ms_d128")
+        work = (nbytes(q, k, v, q), 4 * H * L * L * D)
+        lib = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v))[0]
         if dtype == torch.bfloat16:
             report["flash_attention"]["form_bound_ms_d128"] = form_bound(
-                nbytes(q, k, v, q), 4 * H * L * L * D)
-            report["flash_attention"]["library_ms_d128"] = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v))[0]
+                *work)
+            report["flash_attention"]["library_ms_d128"] = lib
+        else:
+            note_f32_yardsticks(report, "flash_attention", "ms_d128", work,
+                                lib, sdpa_backend(q, k, v))
         q, k, v, do = (torch.randn(16, H, L, D, generator=gen).to(dev, dtype)
                        for _ in range(4))
         out, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
@@ -3116,14 +3164,14 @@ def head_size_phase(report, card):
                    lambda: fad.flash_attention_dropout_plain_bwd(
                        q, k, v, do, **dkw),
                    plain_iters=5, key="ms_d128")
-        if dtype == torch.bfloat16:
-            flops = 2 * 16 * H * L * L * D  # one (L, S, D) product
-            report[fwd_name]["form_bound_ms_d128"] = form_bound(
-                nbytes(q, k, v, q), 2 * flops)
-            report[bwd_name]["form_bound_ms_d128"] = form_bound(
-                nbytes(q, k, v, do, q, k, v), 5 * flops)
-            library_dropout_times(report, q, k, v, do, rate, False,
-                                  key="ms_d128")
+        flops = 2 * 16 * H * L * L * D  # one (L, S, D) product
+        tag, peak = yardstick_of(dtype)
+        report[fwd_name]["form_bound_ms_d128" + tag] = form_bound(
+            nbytes(q, k, v, q), 2 * flops, peak)
+        report[bwd_name]["form_bound_ms_d128" + tag] = form_bound(
+            nbytes(q, k, v, do, q, k, v), 5 * flops, peak)
+        library_dropout_times(report, q, k, v, do, rate, False,
+                              key="ms_d128")
 
 
 # ---------------------------------------------------------------------------
@@ -3146,13 +3194,15 @@ WIDE_TIMED_CLUSTERS = {320: 5, 512: 4, 1024: 8}
 WIDE_STATES = (1025, 2048)     # two state chunks each
 
 
-def sdpa_backend(q, k, v):
+def sdpa_backend(q, k, v, mask=None, dropout_p=0.0, is_causal=False):
     """The backend F.scaled_dot_product_attention picks for these inputs
     (torch._fused_sdp_choice, the dispatcher's own choice), by name."""
     import torch
     from torch.nn.attention import SDPBackend
     names = {int(v): n for n, v in SDPBackend.__members__.items()}
-    return names.get(int(torch._fused_sdp_choice(q, k, v)), "unknown")
+    return names.get(int(torch._fused_sdp_choice(
+        q, k, v, attn_mask=mask, dropout_p=dropout_p, is_causal=is_causal)),
+        "unknown")
 
 
 def wide_head_phase(report, card):
@@ -3279,13 +3329,17 @@ def wide_head_phase(report, card):
             note_times(report, "flash_attention", dtype,
                        lambda: flash_attention(q, k, v),
                        lambda: flash_attention_plain(q, k, v), key=key)
-            if dtype == torch.bfloat16:
+            work = (nbytes(q, k, v, q), 4 * L * L * D)
+            lib = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v))[0]
+            if dtype == torch.float32:
+                note_f32_yardsticks(report, "flash_attention", key, work, lib,
+                                    sdpa_backend(q, k, v))
+            else:
                 r = report["flash_attention"]
-                r["form_bound_" + key] = form_bound(nbytes(q, k, v, q),
-                                                    4 * L * L * D)
-                r["library_" + key] = time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        q, k, v))[0]
+                r["form_bound_" + key] = form_bound(*work)
+                r["library_" + key] = lib
                 backend = sdpa_backend(q, k, v)
                 report.setdefault("wide", {})["sdpa_backend_d%d" % D] = \
                     backend
@@ -3314,15 +3368,15 @@ def wide_head_phase(report, card):
                            lambda: fad.flash_attention_dropout_plain_bwd(
                                q, k, v, do, **dkw),
                            plain_iters=5, key=key)
-            if dtype == torch.bfloat16:
-                flops = 2 * 16 * L * L * D  # one (L, S, D) product
-                report[fwd_name]["form_bound_" + key] = form_bound(
-                    nbytes(q, k, v, q), 2 * flops)
-                if D == 512:  # the backward is timed at 512 only
-                    report[bwd_name]["form_bound_" + key] = form_bound(
-                        nbytes(q, k, v, do, q, k, v), 5 * flops)
-                library_dropout_times(report, q, k, v, do, rate, False,
-                                      key=key, backward=D == 512)
+            flops = 2 * 16 * L * L * D  # one (L, S, D) product
+            tag, peak = yardstick_of(dtype)
+            report[fwd_name]["form_bound_" + key + tag] = form_bound(
+                nbytes(q, k, v, q), 2 * flops, peak)
+            if D == 512:  # the backward is timed at 512 only
+                report[bwd_name]["form_bound_" + key + tag] = form_bound(
+                    nbytes(q, k, v, do, q, k, v), 5 * flops, peak)
+            library_dropout_times(report, q, k, v, do, rate, False,
+                                  key=key, backward=D == 512)
 
 
 def wide_b16_checks(report, D, q, k, v, do, out, stats, seed, rate, sms):
@@ -5258,9 +5312,10 @@ def write_clip(path, seconds, n_scenes, seed, fps=10.0, w=320, h=240):
 
 
 def raw_video_kernel_phase(report, card):
-    """Row 1 at the extractors' shapes against its plain version, f32 and
-    bf16, timed beside its bound and F.scaled_dot_product_attention on the
-    same call (the shared bias cast to q's dtype, as SDPA takes it)."""
+    """Row 1 at the extractors' shapes against its plain version, f32 (the
+    extract_features CLI's) and bf16, timed beside its bound and
+    F.scaled_dot_product_attention on the same call (the shared bias cast
+    to q's dtype, as SDPA takes it)."""
     import torch
     import torch.nn.functional as F
     from video2music_tpu_torch.ops.flash_attention import (
@@ -5285,12 +5340,18 @@ def raw_video_kernel_phase(report, card):
                        lambda: flash_attention(q, k, v, **kw),
                        lambda: flash_attention_plain(q, k, v, **kw),
                        plain_iters=5, key=key)
-        pairs = L * (L + 1) // 2 if causal else L * L
-        r["form_bound_" + key] = form_bound(
-            nbytes(q, k, v, q, bias), 4 * B * H * pairs * D)
-        mask = None if bias is None else bias.to(q.dtype)
-        r["library_" + key] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=causal, scale=scale))[0]
+            pairs = L * (L + 1) // 2 if causal else L * L
+            work = (nbytes(q, k, v, q, bias), 4 * B * H * pairs * D)
+            mask = None if bias is None else bias.to(q.dtype)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal, scale=scale))[0]
+            if dtype == torch.float32:
+                note_f32_yardsticks(report, "flash_attention", key, work, lib,
+                                    sdpa_backend(q, k, v, mask,
+                                                 is_causal=causal))
+            else:
+                r["form_bound_" + key] = form_bound(*work)
+                r["library_" + key] = lib
         t = r[key][torch.bfloat16]
         print(f"  row 1 {key[3:]}: kernel {t[0]:.4f} ms, plain {t[2]:.4f}, "
               f"bound {r['form_bound_' + key][0]:.4f} "
@@ -6289,6 +6350,19 @@ def trace_kernel_names(path):
             if e.get("cat") == "kernel"}
 
 
+def trace_device_share(path, names):
+    """(share, us, total us): the device time of the kernels whose names
+    hold one of ``names`` over the device time of every kernel in a
+    torch.profiler Chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    kern = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    total = sum(e.get("dur", 0) for e in kern)
+    ours = sum(e.get("dur", 0) for e in kern
+               if any(n in e["name"] for n in names))
+    return ours / max(total, 1e-9), ours, total
+
+
 def http_call(port, method, path, body=None, timeout=600):
     """(status, decoded JSON, or the NDJSON lines of a stream)."""
     import http.client
@@ -6361,6 +6435,12 @@ def cli_train_phase(root, tmp, cfg, card, report):
              for k in ROW11_TRACE_NAMES}
     fail_unless(all(found.values()), f"the trace lacks row 11's kernels: "
                 f"{sorted(names)[:40]}")
+    share, us, total = trace_device_share(os.path.join(prof, trace),
+                                          ROW11_TRACE_NAMES)
+    report["train"]["cli_f32_row11_share"] = [share, us, total]
+    print(f"train_amt CLI trace (f32, B=16, 3 steps): row 11's kernels "
+          f"{us / 1e3:.3f} ms of {total / 1e3:.3f} ms device kernel time, "
+          f"share {share:.4f} [{card}]")
     print(f"train_amt CLI (2.2, motion_type 1, f32, B=16, {steps} steps, "
           f"-profile 3): {wall:.2f} s with the eval passes; results.csv, "
           f"weights/best_loss_weights; TensorBoard {name}: "

@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 attention kernels
 // (flash_attention.cu, flash_attention_dropout.cu), and the forward they
-// share.
+// share. The f32 kernels (attention_tf32.cuh, split TF32) reuse its
+// cp.async copies, logits, softmax and dropout blocks.
 //
 // Products are bf16 mma.sync.m16n8k16 with f32 accumulators, one warp per
 // 16 rows. Their fragments (PTX ISA, "Matrix fragments for mma.m16n8k16"):
@@ -32,14 +33,6 @@ constexpr float kNegInf = -1e9f;     // a masked logit, as the Pallas kernels
 // of them: at a head size of 128 or 256 their tiles pass the 48 KB a
 // kernel may declare statically.
 extern __shared__ __align__(16) unsigned char attn_smem[];
-
-// The unroll count of the f32 FMA kernels' loops over a head row: whole
-// rows up to 64 (registers), 8 at a time above (the rows spill to local
-// memory whatever the unroll, and whole 128- and 256-wide rows would
-// multiply the compile time).
-__host__ __device__ constexpr int unroll_hd(int hd) {
-  return hd <= 64 ? hd : 8;
-}
 
 // Lets `kernel` take `bytes` of dynamic shared memory, once per instance
 // (`done`); returns a cudaError_t code.

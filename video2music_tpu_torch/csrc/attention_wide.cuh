@@ -106,7 +106,7 @@ __device__ __forceinline__ int chunk_col(int i, int slice, int nd) {
 }
 
 // A logit of the f32 kernels from its dot product: * scale, + bias, -1e9
-// above the causal diagonal (drop_logit of flash_attention_dropout.cu).
+// above the causal diagonal (as mma::to_logits for a column below S).
 __device__ __forceinline__ float logit_f32(float dot, float scale,
                                            const float* brow, int row,
                                            int col, int causal) {

@@ -49,326 +49,20 @@
 //   comes from the bf16 output, so the gradients agree with the plain
 //   backward within 2e-2 of each one's largest value (chip_smoke.py's
 //   bf16 bound), not to f32 precision.
-// The first design, kept for f32 (the parity path: TF32 tensor cores would
-// keep ~3 digits), has one thread per query (or key) row and plain FMA for
-// every product: the forward took 0.43 ms and the backward 3.32 ms at the
-// training shape against 0.065 / 0.56 ms of F.scaled_dot_product_attention
-// with dropout (chip run, an H100 80GB HBM3 at 700 W). Under causal
-// attention, chunks (f32: tiles) wholly in the masked triangle add exact
-// zeros and are skipped.
+// f32 (the train_amt CLI's default: TrainConfig.mixed_precision False)
+// runs the same structure on the same tensor cores in split TF32
+// (attention_tf32.cuh: three TF32 products a product, f32 accuracy): a
+// one-pass forward with an online rescale, dQ then dK/dV, D from the f32
+// output, nothing rounded. It replaced a first design of one thread per
+// query (or key) row and plain FMA for every product: the forward took
+// 0.4721 ms and the backward 3.4168 ms at the training shape (chip run,
+// an H100 80GB HBM3 at 700 W). Under causal attention, chunks wholly in
+// the masked triangle add exact zeros and are skipped.
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 #include "attention_wide.cuh"
 
 namespace v2m {
-
-constexpr int kDropRows = 64;   // query (or key) rows per block, one per thread
-constexpr int kDropTile = 32;   // K/V rows per shared-memory tile
-constexpr int kDropQTile = 16;  // q / dO rows per shared-memory tile (dK/dV)
-constexpr float kDropNegInf = -1e9f;
-
-__device__ __forceinline__ float drop_factor(const DropoutSpec& d, int row,
-                                             int col, unsigned int salt) {
-  if (!d.apply) return 1.f;
-  return drop_hash((unsigned int)row, (unsigned int)col, salt) > d.threshold
-             ? d.keep_scale : 0.f;
-}
-
-// Scaled, biased, causally masked logit of (row, col) from its dot product.
-__device__ __forceinline__ float drop_logit(float dot, float scale,
-                                            const float* brow, int row,
-                                            int col, int causal) {
-  float s = dot * scale;
-  if (brow) s += brow[col];
-  return (causal && col > row) ? kDropNegInf : s;
-}
-
-// The f32 kernels (bf16 runs the tensor-core kernels below and in
-// attention_mma.cuh).
-template <int HD>
-__device__ __forceinline__ void load_tile(float (*dst)[HD],
-                                          const float* __restrict__ src, int r0,
-                                          int nrows, int limit) {
-  for (int i = threadIdx.x; i < nrows * HD; i += blockDim.x) {
-    const int r = i / HD, c = i % HD;
-    dst[r][c] = r0 + r < limit ? src[(size_t)(r0 + r) * HD + c] : 0.f;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kDropRows)
-attention_dropout_fwd_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ bias,
-                             const int* __restrict__ seed,
-                             float* __restrict__ out,
-                             float* __restrict__ stats, int L, int S,
-                             int causal, float scale, DropoutSpec drop) {
-  constexpr int kUnrollHD = mma::unroll_hd(HD);
-  // K and V tiles (fwd_f32_smem bytes)
-  float (*ks)[HD] = reinterpret_cast<float (*)[HD]>(mma::attn_smem);
-  float (*vs)[HD] = ks + kDropTile;
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kDropRows;
-  const int row = row0 + threadIdx.x;
-  const bool live = row < L;
-  const float* kb = k + (size_t)bh * S * HD;
-  const float* vb = v + (size_t)bh * S * HD;
-  const float* brow = bias && live ? bias + ((size_t)bh * L + row) * S : nullptr;
-  const unsigned int salt = mma::drop_salt(seed, drop, bh);
-  const int s_end = causal ? min(S, row0 + kDropRows) : S;
-
-  float qr[HD];
-#pragma unroll kUnrollHD
-  for (int c = 0; c < HD; ++c)
-    qr[c] = live ? q[((size_t)bh * L + row) * HD + c] : 0.f;
-
-  // pass 1: row max and sum of exponentials
-  float m = -INFINITY, l = 0.f;
-  for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
-    load_tile<HD>(ks, kb, s0, kDropTile, S);
-    __syncthreads();
-    if (live) {
-      const int n = min(kDropTile, s_end - s0);
-      float sc[kDropTile];
-      float tmax = m;
-#pragma unroll
-      for (int j = 0; j < kDropTile; ++j) {
-        if (j < n) {
-          float d = 0.f;
-#pragma unroll kUnrollHD
-          for (int c = 0; c < HD; ++c) d = fmaf(qr[c], ks[j][c], d);
-          sc[j] = drop_logit(d, scale, brow, row, s0 + j, causal);
-          tmax = fmaxf(tmax, sc[j]);
-        }
-      }
-      l *= expf(m - tmax);
-#pragma unroll
-      for (int j = 0; j < kDropTile; ++j)
-        if (j < n) l += expf(sc[j] - tmax);
-      m = tmax;
-    }
-    __syncthreads();
-  }
-
-  // pass 2: dropped weights times V
-  float acc[HD];
-#pragma unroll kUnrollHD
-  for (int c = 0; c < HD; ++c) acc[c] = 0.f;
-  for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
-    load_tile<HD>(ks, kb, s0, kDropTile, S);
-    load_tile<HD>(vs, vb, s0, kDropTile, S);
-    __syncthreads();
-    if (live) {
-      const int n = min(kDropTile, s_end - s0);
-      for (int j = 0; j < n; ++j) {
-        float d = 0.f;
-#pragma unroll kUnrollHD
-        for (int c = 0; c < HD; ++c) d = fmaf(qr[c], ks[j][c], d);
-        const int col = s0 + j;
-        const float s = drop_logit(d, scale, brow, row, col, causal);
-        const float w = expf(s - m) / l * drop_factor(drop, row, col, salt);
-#pragma unroll kUnrollHD
-        for (int c = 0; c < HD; ++c) acc[c] = fmaf(w, vs[j][c], acc[c]);
-      }
-    }
-    __syncthreads();
-  }
-  if (live) {
-    float* o = out + ((size_t)bh * L + row) * HD;
-#pragma unroll kUnrollHD
-    for (int c = 0; c < HD; ++c) o[c] = acc[c];
-    stats[((size_t)bh * L + row) * 2] = m;
-    stats[((size_t)bh * L + row) * 2 + 1] = l;
-  }
-}
-
-// dQ, D = rowsum(dw * w) and dbias: one thread per query row.
-template <int HD>
-__global__ void __launch_bounds__(kDropRows)
-attention_dropout_dq_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ bias,
-                            const int* __restrict__ seed,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ stats,
-                            float* __restrict__ dq, float* __restrict__ dsum,
-                            float* __restrict__ dbias, int L, int S,
-                            int causal, float scale, DropoutSpec drop) {
-  constexpr int kUnrollHD = mma::unroll_hd(HD);
-  // K and V tiles, then each thread's own dO row, padded (dq_f32_smem)
-  float (*ks)[HD] = reinterpret_cast<float (*)[HD]>(mma::attn_smem);
-  float (*vs)[HD] = ks + kDropTile;
-  float (*dos)[HD + 1] = reinterpret_cast<float (*)[HD + 1]>(vs + kDropTile);
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kDropRows;
-  const int row = row0 + threadIdx.x;
-  const bool live = row < L;
-  const float* kb = k + (size_t)bh * S * HD;
-  const float* vb = v + (size_t)bh * S * HD;
-  const size_t rix = (size_t)bh * L + row;
-  const float* brow = bias && live ? bias + rix * S : nullptr;
-  float* dbrow = dbias && live ? dbias + rix * S : nullptr;
-  const unsigned int salt = mma::drop_salt(seed, drop, bh);
-  const int s_end = causal ? min(S, row0 + kDropRows) : S;
-
-  float qr[HD];
-#pragma unroll kUnrollHD
-  for (int c = 0; c < HD; ++c) {
-    qr[c] = live ? q[rix * HD + c] : 0.f;
-    dos[threadIdx.x][c] = live ? dout[rix * HD + c] : 0.f;
-  }
-  const float m = live ? stats[rix * 2] : 0.f;
-  const float l = live ? stats[rix * 2 + 1] : 1.f;
-
-  // pass 1: D = sum_j w_j * mask_j * (do . v_j)
-  float dsumr = 0.f;
-  for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
-    load_tile<HD>(ks, kb, s0, kDropTile, S);
-    load_tile<HD>(vs, vb, s0, kDropTile, S);
-    __syncthreads();
-    if (live) {
-      const int n = min(kDropTile, s_end - s0);
-      for (int j = 0; j < n; ++j) {
-        float d = 0.f, dp = 0.f;
-#pragma unroll kUnrollHD
-        for (int c = 0; c < HD; ++c) {
-          d = fmaf(qr[c], ks[j][c], d);
-          dp = fmaf(dos[threadIdx.x][c], vs[j][c], dp);
-        }
-        const int col = s0 + j;
-        const float w =
-            expf(drop_logit(d, scale, brow, row, col, causal) - m) / l;
-        dsumr = fmaf(w * drop_factor(drop, row, col, salt), dp, dsumr);
-      }
-    }
-    __syncthreads();
-  }
-
-  // pass 2: dlogits = w * (dp * mask - D); dq += dlogits * k; dbias
-  float dqa[HD];
-#pragma unroll kUnrollHD
-  for (int c = 0; c < HD; ++c) dqa[c] = 0.f;
-  for (int s0 = 0; s0 < s_end; s0 += kDropTile) {
-    load_tile<HD>(ks, kb, s0, kDropTile, S);
-    load_tile<HD>(vs, vb, s0, kDropTile, S);
-    __syncthreads();
-    if (live) {
-      const int n = min(kDropTile, s_end - s0);
-      for (int j = 0; j < n; ++j) {
-        float d = 0.f, dp = 0.f;
-#pragma unroll kUnrollHD
-        for (int c = 0; c < HD; ++c) {
-          d = fmaf(qr[c], ks[j][c], d);
-          dp = fmaf(dos[threadIdx.x][c], vs[j][c], dp);
-        }
-        const int col = s0 + j;
-        const float w =
-            expf(drop_logit(d, scale, brow, row, col, causal) - m) / l;
-        const float dl = w * (dp * drop_factor(drop, row, col, salt) - dsumr);
-        if (dbrow) dbrow[col] = dl;
-#pragma unroll kUnrollHD
-        for (int c = 0; c < HD; ++c) dqa[c] = fmaf(dl, ks[j][c], dqa[c]);
-      }
-    }
-    __syncthreads();
-  }
-  if (live) {
-#pragma unroll kUnrollHD
-    for (int c = 0; c < HD; ++c) dq[rix * HD + c] = dqa[c] * scale;
-    dsum[rix] = dsumr;
-    if (dbrow)  // the skipped causal columns: dlogits is exactly 0 there
-      for (int col = s_end; col < S; ++col) dbrow[col] = 0.f;
-  }
-}
-
-// dK and dV: one thread per key row, looping over tiles of query rows.
-template <int HD>
-__global__ void __launch_bounds__(kDropRows)
-attention_dropout_dkv_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ bias,
-                             const int* __restrict__ seed,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ stats,
-                             const float* __restrict__ dsum,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             int L, int S, int causal, float scale,
-                             DropoutSpec drop) {
-  constexpr int kUnrollHD = mma::unroll_hd(HD);
-  // each thread's own K and V rows, padded, then the q and dO tiles
-  // (dkv_f32_smem bytes)
-  float (*kss)[HD + 1] = reinterpret_cast<float (*)[HD + 1]>(mma::attn_smem);
-  float (*vss)[HD + 1] = kss + kDropRows;
-  float (*qs)[HD] = reinterpret_cast<float (*)[HD]>(vss + kDropRows);
-  float (*dos)[HD] = qs + kDropQTile;
-  __shared__ float ms[kDropQTile], ls[kDropQTile], ds[kDropQTile];
-  const int bh = blockIdx.y;
-  const int col0 = blockIdx.x * kDropRows;
-  const int col = col0 + threadIdx.x;
-  const bool live = col < S;
-  const float* qb = q + (size_t)bh * L * HD;
-  const float* dob = dout + (size_t)bh * L * HD;
-  const unsigned int salt = mma::drop_salt(seed, drop, bh);
-
-  for (int i = threadIdx.x; i < kDropRows * HD; i += blockDim.x) {
-    const int r = i / HD, c = i % HD;
-    const bool in = col0 + r < S;
-    const size_t at = ((size_t)bh * S + col0 + r) * HD + c;
-    kss[r][c] = in ? k[at] : 0.f;
-    vss[r][c] = in ? v[at] : 0.f;
-  }
-  float dka[HD], dva[HD];
-#pragma unroll kUnrollHD
-  for (int c = 0; c < HD; ++c) dka[c] = dva[c] = 0.f;
-
-  // rows above the block's first key see none of its keys under causal
-  for (int r0 = causal ? col0 : 0; r0 < L; r0 += kDropQTile) {
-    __syncthreads();
-    load_tile<HD>(qs, qb, r0, kDropQTile, L);
-    load_tile<HD>(dos, dob, r0, kDropQTile, L);
-    if (threadIdx.x < kDropQTile) {
-      const int r = r0 + threadIdx.x;
-      const size_t rix = (size_t)bh * L + r;
-      ms[threadIdx.x] = r < L ? stats[rix * 2] : 0.f;
-      ls[threadIdx.x] = r < L ? stats[rix * 2 + 1] : 1.f;
-      ds[threadIdx.x] = r < L ? dsum[rix] : 0.f;
-    }
-    __syncthreads();
-    if (!live) continue;
-    const int n = min(kDropQTile, L - r0);
-    for (int i = 0; i < n; ++i) {
-      const int row = r0 + i;
-      float d = 0.f, dp = 0.f;
-#pragma unroll kUnrollHD
-      for (int c = 0; c < HD; ++c) {
-        d = fmaf(qs[i][c], kss[threadIdx.x][c], d);
-        dp = fmaf(dos[i][c], vss[threadIdx.x][c], dp);
-      }
-      const float* brow = bias ? bias + ((size_t)bh * L + row) * S : nullptr;
-      const float w =
-          expf(drop_logit(d, scale, brow, row, col, causal) - ms[i]) / ls[i];
-      const float f = drop_factor(drop, row, col, salt);
-      const float wd = w * f;
-      const float dl = w * (dp * f - ds[i]);
-#pragma unroll kUnrollHD
-      for (int c = 0; c < HD; ++c) {
-        dva[c] = fmaf(wd, dos[i][c], dva[c]);
-        dka[c] = fmaf(dl, qs[i][c], dka[c]);
-      }
-    }
-  }
-  if (live) {
-    const size_t at = ((size_t)bh * S + col) * HD;
-#pragma unroll kUnrollHD
-    for (int c = 0; c < HD; ++c) {
-      dk[at + c] = dka[c] * scale;
-      dv[at + c] = dva[c];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core backward (the forward is attention_mma.cuh's)
@@ -1253,7 +947,7 @@ inline int run_bwd_mma(const mma::BwdArgs& a, int BH, int D, int causal,
 }  // namespace wide
 
 // ---------------------------------------------------------------------------
-// Entry points: f32 runs the first design above, bf16 the tensor cores
+// Entry points: f32 runs attention_tf32.cuh, bf16 the kernels above
 // ---------------------------------------------------------------------------
 
 struct DropoutArgs {
@@ -1264,66 +958,6 @@ struct DropoutArgs {
   float scale;
   DropoutSpec drop;
 };
-
-template <int HD>
-constexpr size_t fwd_f32_smem() {
-  return 2 * kDropTile * HD * sizeof(float);
-}
-template <int HD>
-constexpr size_t dq_f32_smem() {
-  return (2 * kDropTile * HD + kDropRows * (HD + 1)) * sizeof(float);
-}
-template <int HD>
-constexpr size_t dkv_f32_smem() {
-  return (2 * kDropRows * (HD + 1) + 2 * kDropQTile * HD) * sizeof(float);
-}
-
-template <int HD>
-static int launch_fwd(const DropoutArgs& a, cudaStream_t st) {
-  static bool opted_in = false;
-  int err;
-  if ((err = mma::smem_opt_in(attention_dropout_fwd_kernel<HD>,
-                              fwd_f32_smem<HD>(), opted_in)))
-    return err;
-  dim3 grid((a.L + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_fwd_kernel<HD><<<grid, kDropRows, fwd_f32_smem<HD>(),
-                                     st>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.bias, (const int*)a.seed, (float*)a.out,
-      (float*)a.stats, a.L, a.S, a.causal, a.scale, a.drop);
-  return 0;
-}
-
-template <int HD>
-static int launch_bwd(const DropoutArgs& a, cudaStream_t st) {
-  static bool dq_in = false, dkv_in = false;
-  int err;
-  if ((err = mma::smem_opt_in(attention_dropout_dq_kernel<HD>,
-                              dq_f32_smem<HD>(), dq_in)) ||
-      (err = mma::smem_opt_in(attention_dropout_dkv_kernel<HD>,
-                              dkv_f32_smem<HD>(), dkv_in)))
-    return err;
-  dim3 grid_q((a.L + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_dq_kernel<HD><<<grid_q, kDropRows, dq_f32_smem<HD>(),
-                                    st>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.bias, (const int*)a.seed, (const float*)a.dout,
-      (const float*)a.stats, (float*)a.dq, (float*)a.dsum,
-      (float*)a.dbias, a.L, a.S, a.causal, a.scale, a.drop);
-  dim3 grid_k((a.S + kDropRows - 1) / kDropRows, a.BH);
-  attention_dropout_dkv_kernel<HD><<<grid_k, kDropRows, dkv_f32_smem<HD>(),
-                                     st>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.bias, (const int*)a.seed, (const float*)a.dout,
-      (const float*)a.stats, (const float*)a.dsum, (float*)a.dk,
-      (float*)a.dv, a.L, a.S, a.causal, a.scale, a.drop);
-  return 0;
-}
-
-template <int HD>
-static int launch_f32(const DropoutArgs& a, bool backward, cudaStream_t st) {
-  return backward ? launch_bwd<HD>(a, st) : launch_fwd<HD>(a, st);
-}
 
 static int dispatch_f32(const DropoutArgs& a, int D, bool backward,
                         cudaStream_t st) {
@@ -1348,17 +982,23 @@ static int dispatch_f32(const DropoutArgs& a, int D, bool backward,
     b.drop = a.drop;
     return wide::run_bwd_f32(b, a.BH, st);
   }
-  int err;
-  switch (D) {
-    case 16: err = launch_f32<16>(a, backward, st); break;
-    case 32: err = launch_f32<32>(a, backward, st); break;
-    case 64: err = launch_f32<64>(a, backward, st); break;
-    case 128: err = launch_f32<128>(a, backward, st); break;
-    case 256: err = launch_f32<256>(a, backward, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (!backward) {
+    tf32::FwdArgs f{};
+    f.q = (const float*)a.q; f.k = (const float*)a.k; f.v = (const float*)a.v;
+    f.bias = (const float*)a.bias; f.seed = (const int*)a.seed;
+    f.out = (float*)a.out; f.stats = (float*)a.stats;
+    f.L = a.L; f.S = a.S; f.scale = a.scale; f.drop = a.drop;
+    return tf32::run_fwd<true>(f, a.BH, D, a.causal, st, a.BH);
   }
-  if (err) return err;
-  return (int)cudaGetLastError();
+  tf32::BwdArgs b{};
+  b.q = (const float*)a.q; b.k = (const float*)a.k; b.v = (const float*)a.v;
+  b.out = (const float*)a.out; b.dout = (const float*)a.dout;
+  b.bias = (const float*)a.bias; b.seed = (const int*)a.seed;
+  b.stats = (const float*)a.stats;
+  b.dq = (float*)a.dq; b.dk = (float*)a.dk; b.dv = (float*)a.dv;
+  b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
+  b.L = a.L; b.S = a.S; b.scale = a.scale; b.drop = a.drop;
+  return tf32::run_bwd(b, a.BH, D, a.causal, st);
 }
 
 static int dispatch_bf16(const DropoutArgs& a, int D, bool backward,
@@ -1427,7 +1067,7 @@ extern "C" int v2m_attention_dropout_fwd(
 }
 
 // The backward of v2m_attention_dropout_fwd from its stats and its output
-// `out` (read by bf16 for D = rowsum(dout * out); f32 recomputes D): dq
+// `out` (D = rowsum(dout * out) in both dtypes): dq
 // (BH, L, D), dk/dv (BH, S, D) of q's dtype, dbias (BH, L, S) f32 when bias
 // is given (else null), dsum (BH, L) f32 scratch. Returns a cudaError_t
 // code.

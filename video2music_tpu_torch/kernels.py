@@ -31,7 +31,8 @@ SOURCES = ("flash_attention.cu", "decode_layer.cu", "selective_scan.cu",
            "decode_batch.cu", "flash_attention_dropout.cu",
            "decode_variant.cu", "decode_stack.cu", "probes.cu")
 HEADERS = ("common.cuh", "batch_decode.cuh", "decode_step.cuh",
-           "decode_rows.cuh", "attention_mma.cuh", "attention_wide.cuh")
+           "decode_rows.cuh", "attention_mma.cuh", "attention_tf32.cuh",
+           "attention_wide.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -305,7 +306,7 @@ def aligned(t):
 
 # the head sizes the attention kernels are built for
 # (csrc/flash_attention.cu, csrc/flash_attention_dropout.cu,
-# csrc/attention_mma.cuh), and the column slice of the wide form above
+# csrc/attention_mma.cuh, csrc/attention_tf32.cuh), and the column slice of the wide form above
 # them (csrc/attention_wide.cuh kWide)
 HEAD_SIZES = (16, 32, 64, 128, 256)
 WIDE_SLICE = 64

@@ -21,8 +21,8 @@ mode ``apply`` 2), so their argument blocks keep their size.
 ``flash_attention_dropout`` is a ``torch.autograd.Function``: on CUDA
 tensors the forward launches the forward kernel (which also saves each
 row's softmax max and sum) and the backward the backward kernel, which
-takes the forward's output as well (the bf16 kernel's D = rowsum(do *
-out)); on CPU tensors both run the plain versions below. The seed is an int32 scalar,
+takes the forward's output as well (its D = rowsum(do * out)); on CPU
+tensors both run the plain versions below. The seed is an int32 scalar,
 a Python int or a tensor on the device, so a training step draws it there
 without a host sync.
 """
@@ -232,8 +232,8 @@ def flash_attention_dropout_bwd(q, k, v, bias, do, seed, stats, out,
     """The backward wrapper: (dq, dk, dv, dbias or None). CPU tensors: the
     plain backward (stats and out unused). CUDA tensors: the backward
     kernel, which replays the mask and recomputes the probabilities from
-    the forward's stats; in bf16 it takes each row's rowsum(do * out) from
-    the forward's output ``out``."""
+    the forward's stats and takes each row's rowsum(do * out) from the
+    forward's output ``out``."""
     what = "flash_attention_dropout backward"
     if kernels.use_plain(q, what):
         return flash_attention_dropout_plain_bwd(
