@@ -10,9 +10,10 @@ and, where the wrapper takes ``scale=``, MaxViT-T's stage 0 (B=1920, H=2,
 L=49, D=32, a bias shared by every window) and stage 3 (B=30, H=16), each
 with its error against the plain version; then the dropout forward at the
 training shape (B=16, H=8, L=300, rate 0.1), causal and not; then the
-wide forms above head size 256 in bfloat16 (H=1, L=S=300): row 1 at B=1
-and row 11's forward at B=16 (rate 0.1) at head sizes 320, 512 and 1024,
-row 11's backward at 512, each beside F.scaled_dot_product_attention.
+wide forms above head size 256 in bfloat16 and float32 (H=1, L=S=300):
+row 1 at B=1 and row 11's forward and backward at B=16 (rate 0.1) at head
+sizes 320, 512 and 1024, each beside F.scaled_dot_product_attention (in
+float32 with TF32 off: EFFICIENT_ATTENTION).
 Device ms per call from a replayed CUDA graph (chip_smoke.time_ms), the
 least of 3.
 Run it from two checkouts in turns (parent, change, change, parent) to
@@ -65,33 +66,34 @@ def main() -> int:
             q, k, v, None, seed, causal, 0.1))[0] for _ in range(3))
         out.append(f"dropout fwd{' causal' if causal else ''} {ms:.4f} ms")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for D in (320, 512, 1024):
-        q, k, v = (torch.randn(1, 1, 300, D, generator=gen)
-                   .to("cuda", torch.bfloat16) for _ in range(3))
-        err = cs.errors(flash_attention(q, k, v),
-                        flash_attention_plain(q, k, v))[1]
-        ms = min(cs.time_ms(lambda: flash_attention(q, k, v))[0]
-                 for _ in range(3))
-        lib = min(cs.time_ms(lambda: sdpa(q, k, v))[0] for _ in range(3))
-        out.append(f"d{D} b1 {ms:.4f} ms (rel err {err:.1e}; sdpa "
-                   f"{lib:.4f})")
-        q, k, v, do = (torch.randn(16, 1, 300, D, generator=gen)
-                       .to("cuda", torch.bfloat16) for _ in range(4))
-        o, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
-                                                   False, 0.1)
-        err = cs.errors(o, fad.flash_attention_dropout_plain(
-            q, k, v, dropout_rate=0.1, seed=seed))[1]
-        ms = min(cs.time_ms(lambda: fad.flash_attention_dropout_fwd(
-            q, k, v, None, seed, False, 0.1))[0] for _ in range(3))
-        lib = min(cs.time_ms(lambda: sdpa(q, k, v, dropout_p=0.1))[0]
-                  for _ in range(3))
-        out.append(f"d{D} dropout fwd b16 {ms:.4f} ms (rel err {err:.1e}; "
-                   f"sdpa {lib:.4f})")
-        if D == 512:
+    for dt in (torch.bfloat16, torch.float32):
+        name = "" if dt == torch.bfloat16 else " f32"
+        for D in (320, 512, 1024):
+            q, k, v = (torch.randn(1, 1, 300, D, generator=gen).to("cuda", dt)
+                       for _ in range(3))
+            err = cs.errors(flash_attention(q, k, v),
+                            flash_attention_plain(q, k, v))[1]
+            ms = min(cs.time_ms(lambda: flash_attention(q, k, v))[0]
+                     for _ in range(3))
+            lib = min(cs.time_ms(lambda: sdpa(q, k, v))[0] for _ in range(3))
+            out.append(f"d{D}{name} b1 {ms:.4f} ms (rel err {err:.1e}; sdpa "
+                       f"{lib:.4f})")
+            q, k, v, do = (torch.randn(16, 1, 300, D, generator=gen)
+                           .to("cuda", dt) for _ in range(4))
+            o, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
+                                                       False, 0.1)
+            err = cs.errors(o, fad.flash_attention_dropout_plain(
+                q, k, v, dropout_rate=0.1, seed=seed))[1]
+            ms = min(cs.time_ms(lambda: fad.flash_attention_dropout_fwd(
+                q, k, v, None, seed, False, 0.1))[0] for _ in range(3))
+            lib = min(cs.time_ms(lambda: sdpa(q, k, v, dropout_p=0.1))[0]
+                      for _ in range(3))
+            out.append(f"d{D}{name} dropout fwd b16 {ms:.4f} ms (rel err "
+                       f"{err:.1e}; sdpa {lib:.4f})")
             ms = min(cs.time_ms(lambda: fad.flash_attention_dropout_bwd(
                 q, k, v, None, do, seed, stats, o, False, 0.1))[0]
                 for _ in range(3))
-            out.append(f"d{D} dropout bwd b16 {ms:.4f} ms")
+            out.append(f"d{D}{name} dropout bwd b16 {ms:.4f} ms")
     print(f"{cs.card_line()} | " + "; ".join(out))
     return 0
 

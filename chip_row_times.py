@@ -14,7 +14,9 @@ every timed form, "<kernel> <form>": [bf16 ms, f32 ms]. Then the f32 train
 step of the train_amt command line (AMT 2.2, motion_type 1, TrainConfig's
 defaults: float32, B=32, L=300): ms per step (CUDA events over 5 steps)
 and the device share of row 11's kernels in 3 steps under torch.profiler,
-``[TAG] F32_STEP {json}``, and the count of each tensor-core instruction
+``[TAG] F32_STEP {json}``; the same step at -num_heads 1 (head size 512:
+row 11 on the wide kernels), ``[TAG] F32_STEP_HD512 {json}``; and the
+count of each tensor-core instruction
 kind in the library's SASS, ``[TAG] HMMA {json}`` (cuobjdump -sass). With
 OUT_DIR (relative to the directory it was started from) the rows also go
 to OUT_DIR/rows_TAG.json and every kernel's registers, shared memory and
@@ -41,9 +43,17 @@ def cuobjdump(kernels, flag: str) -> str:
                           text=True, check=True).stdout
 
 
-def f32_train_step(cs, B=32, L=300, steps=5, traced=3):
-    """ms per f32 train step of the train_amt CLI's model and the device
-    share of row 11's kernels in ``traced`` steps (torch.profiler)."""
+# row 11's kernels by name in a trace: chip_smoke.ROW11_TRACE_NAMES (head
+# sizes to 256) and the wide instances above (csrc/attention_wide.cuh; a
+# train step runs no row 1 forward)
+ROW11_WIDE_NAMES = ("attention_fwd_wide", "attention_dq_wide",
+                    "attention_dkv_wide")
+
+
+def f32_train_step(cs, B=32, L=300, steps=5, traced=3, num_heads=8):
+    """ms per f32 train step of the train_amt CLI's model (at its
+    -num_heads) and the device share of row 11's kernels in ``traced``
+    steps (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -51,7 +61,8 @@ def f32_train_step(cs, B=32, L=300, steps=5, traced=3):
     from video2music_tpu_torch.train import (create_train_state,
                                              make_amt_train_step)
 
-    cfg = amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6)
+    cfg = amt_config("2.2", num_heads=num_heads,
+                     total_vf_dim=768 + 1 + 512 + 6)
     tcfg = TrainConfig(batch_size=B)
     state = create_train_state(cfg, tcfg, device="cuda")
     step = make_amt_train_step(tcfg)
@@ -75,8 +86,10 @@ def f32_train_step(cs, B=32, L=300, steps=5, traced=3):
             if e.device_type == DeviceType.CUDA]
     total = sum(r[0] for r in rows)
     row11 = sum(r[0] for r in rows
-                if any(n in r[1] for n in cs.ROW11_TRACE_NAMES))
-    return dict(B=B, ms_step=ms, device_ms_step=total / 1e3 / traced,
+                if any(n in r[1] for n in
+                       cs.ROW11_TRACE_NAMES + ROW11_WIDE_NAMES))
+    return dict(B=B, num_heads=num_heads, ms_step=ms,
+                device_ms_step=total / 1e3 / traced,
                 row11_ms_step=row11 / 1e3 / traced,
                 row11_share=row11 / max(total, 1e-9))
 
@@ -127,6 +140,8 @@ def main() -> int:
     del v2m
     torch.cuda.empty_cache()
     step = f32_train_step(cs)
+    torch.cuda.empty_cache()
+    step512 = f32_train_step(cs, num_heads=1)
     hmma = collections.Counter(re.findall(r"HMMA\.[\w.]+",
                                           cuobjdump(kernels, "-sass")))
     if out_dir is not None:
@@ -138,6 +153,7 @@ def main() -> int:
     print(f"[{tag}] card: {card}")
     print(f"[{tag}] ROWS {json.dumps(rows)}")
     print(f"[{tag}] F32_STEP {json.dumps(step)}")
+    print(f"[{tag}] F32_STEP_HD512 {json.dumps(step512)}")
     print(f"[{tag}] HMMA {json.dumps(dict(sorted(hmma.items())))}")
     return 0
 

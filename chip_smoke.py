@@ -213,12 +213,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      request and a B=16 batch; every clip checked, no warning, launches as
      each path implies.
 After "head sizes": "wide heads" holds rows 1 and 11 at head
-sizes 264, 320, 512, 576 and 1024 (the head split into 64-column slices;
-in bf16 one thread-block cluster a query tile) to their plain versions in
-f32 and bf16 (+bias, +causal; output, mask entry for entry, dq / dk / dv
-/ dbias from the forward's stats), in bf16 also past the one-pass cut
-(head size 264 at L = S = 2000, two passes) and at the B=16 grids of the
-timed forms (clusters of 5, 4 and 8), timed at 320, 512 and 1024
+sizes 264, 320, 512, 576 and 1024 (the head split into 64-column slices,
+one thread-block cluster a query tile; in f32 split TF32 and the
+backward a cluster a query or key tile) to their plain versions in f32
+and bf16 (+bias, +causal; output, mask entry for entry, dq / dk / dv /
+dbias from the forward's stats), also past each dtype's one-pass cut
+(bf16: head size 264 at L = S = 2000; f32: 4096 at 700, and 4608 with q
+streamed) and at the B=16 grids of the timed forms (clusters of 5, 4 and
+8), forward and backward timed at 320, 512 and 1024 in both dtypes
 beside F.scaled_dot_product_attention (its backend named) and the bound
 ("ms_d320", "ms_d512", "ms_d1024"); "wide states" the scan at d_state 1025 and 2048 (two
 state chunks), timed at 2048 ("ms_n2048"); "decode head sizes" rows
@@ -237,9 +239,8 @@ cold (calls rotating over input copies that read twice the L2); then
 each kernel at the edge shapes of its plan, the floor's bits over two
 calls, the profiler's count of one kernel and no memset in a call of
 every mode and form, and both tools' command lines. To keep the run within its limit the "multi-GPU" worlds
-train 2+2 layers (pp 6+6) and start two at a time, the wirings run 3+3
-layers (the plain-step ones 2+2), and "new backbones" serves a 2+2-layer
-2.2.
+train 2+2 layers (pp 6+6) and start two at a time, the wirings run 2+2
+layers, and "new backbones" serves a 2+2-layer 2.2.
 The "dropout forms" phase (after "dropout kernels") holds the dropout
 attention in its two training forms to its plain version in f32 and bf16
 (output, mask entry for entry, dq / dk / dv / dbias) with its times,
@@ -3185,10 +3186,17 @@ WIDE_HEADS = (264, 320, 512, 576, 1024)
 # bf16 past the wide forward's one-pass cut: head size 264 (a cluster of 5
 # blocks a tile, one pass to 1984 keys) at L = S = 2000, two passes
 WIDE_PAST_CUT = (264, 2000)
+# f32's own edges (B=1, H=1; head size, L = S, what it runs): past the f32
+# forward's one-pass cut (head size 4096: 8 blocks of 8 slices, one pass
+# to 640 keys; the backward in four groups of two slices, its own side
+# streamed), and q streamed through the forward's ring (4608: 9 slices a
+# block, five groups)
+WIDE_F32_EDGES = ((4096, 700, "two passes, four groups"),
+                  (4608, 130, "q streamed, five groups"))
 # the forms timed beside SDPA and the bound; at B=16, H=1, L=300 (row 11's
 # form, and the encoder's of "head size 512 path"'s generate_batch) the
-# wide forward's clusters are 5, 4 (halved: 4 blocks of two slices) and 8,
-# held there against the plain versions too
+# wide clusters are 5, 4 (halved: 4 blocks of two slices) and 8 in both
+# dtypes, held there against the plain versions too
 WIDE_TIMED = (320, 512, 1024)
 WIDE_TIMED_CLUSTERS = {320: 5, 512: 4, 1024: 8}
 WIDE_STATES = (1025, 2048)     # two state chunks each
@@ -3207,22 +3215,23 @@ def sdpa_backend(q, k, v, mask=None, dropout_p=0.0, is_causal=False):
 
 def wide_head_phase(report, card):
     """Rows 1 and 11 at head sizes 264, 320, 512, 576 and 1024 (the wide
-    instances, csrc/attention_wide.cuh: in bf16 one thread-block cluster a
-    query tile, its blocks splitting the head's 64-column slices), f32 and
-    bf16, B=2, H=2, L=S=300, against the plain versions: flash attention
-    plain, +bias, +causal, +bias +causal; the dropout attention (rate 0.1)
-    with and without the causal mask and its bias: output, dq / dk / dv
-    (/ dbias; the backward reads the forward's stats), and the mask entry
-    for entry. In bf16 the same past the one-pass cut (WIDE_PAST_CUT, B=1,
-    H=1: two passes). Timed at 320, 512 (train_amt -num_heads 1 at d_model
-    512) and 1024 (bf16; 512 in f32 too): row 1 at B=1, H=1, L=300 beside
+    instances, csrc/attention_wide.cuh: one thread-block cluster a query
+    tile, its blocks splitting the head's 64-column slices; in f32 split
+    TF32, the backward a cluster a query or key tile), f32 and bf16, B=2,
+    H=2, L=S=300, against the plain versions: flash attention plain,
+    +bias, +causal, +bias +causal; the dropout attention (rate 0.1) with
+    and without the causal mask and its bias: output, dq / dk / dv (/
+    dbias; the backward reads the forward's stats), and the mask entry for
+    entry. The same past each dtype's one-pass cut (WIDE_PAST_CUT in bf16,
+    WIDE_F32_EDGES in f32, B=1, H=1: two passes; in f32 also q streamed).
+    Timed at 320, 512 (train_amt -num_heads 1 at d_model 512) and 1024 in
+    both dtypes: row 1 at B=1, H=1, L=300 beside
     F.scaled_dot_product_attention, whose backend is named (its flash
-    backend stops at head size 256), row 11's forward (at 512 its pair) at
+    backend stops at head size 256), row 11's forward and backward at
     B=16, H=1, L=S=300 beside SDPA with the same dropout rate, each with
-    its bound; in bf16 at that B=16 grid (its clusters
-    WIDE_TIMED_CLUSTERS) row 1 plain and causal, row 11's forward, its
-    backward from the forward's stats and the mask against the plain
-    versions too."""
+    its bound; at that B=16 grid (its clusters WIDE_TIMED_CLUSTERS) row 1
+    plain and causal, row 11's forward, its backward from the forward's
+    stats and the mask against the plain versions too."""
     import torch
     from video2music_tpu_torch import kernels
     from video2music_tpu_torch.ops import flash_attention_dropout as fad
@@ -3280,19 +3289,24 @@ def wide_head_phase(report, card):
                 fail_unless(torch.equal(got == 0, ref == 0),
                             f"dropout mask D={D} causal={causal} [{dtype}] "
                             "differs from the plain version's")
-            plan = "" if dtype != torch.bfloat16 else "; plan %s" % (
-                tuple(kernels.wide_plan(D, L, "wide heads",
-                                        2 * H * -(-L // 64), sms)),)
+            plan = kernels.wide_plan(D, L, "wide heads", 2 * H * -(-L // 64),
+                                     sms, f32=dtype == torch.float32)
             print(f"  dropout mask D={D} [{str(dtype)[6:]}]: equal entry "
-                  f"for entry (causal and not){plan}")
-        if dtype == torch.bfloat16:
-            D, Lc = WIDE_PAST_CUT
-            plan = kernels.wide_plan(D, Lc, "wide heads", -(-Lc // 64), sms)
-            fail_unless(plan.passes == 2, f"D={D} L=S={Lc}: plan {plan} "
-                        "is not past the one-pass cut")
+                  f"for entry (causal and not); plan {tuple(plan)}")
+        f32 = dtype == torch.float32
+        for D, Lc, what in (WIDE_F32_EDGES if f32 else
+                            (WIDE_PAST_CUT + ("two passes",),)):
+            plan = kernels.wide_plan(D, Lc, "wide heads", -(-Lc // 64), sms,
+                                     f32=f32)
+            fail_unless((plan.passes == 2) == what.startswith("two"),
+                        f"D={D} L=S={Lc}: plan {plan} is not {what}")
+            if f32:
+                fail_unless(kernels.wide_resident_f32(
+                    plan.cluster, plan.slices) != ("streamed" in what),
+                    f"D={D}: plan {plan} is not {what}")
             q, k, v, do = (torch.randn(1, 1, Lc, D, generator=gen)
                            .to(dev, dtype) for _ in range(4))
-            tag = f" D={D} L=S={Lc} (two passes)"
+            tag = f" D={D} L=S={Lc} ({what})"
             for ctag, causal in (("", False), (" causal", True)):
                 note_error(report, "flash_attention", dtype, check_close(
                     f"flash_attention{tag}{ctag}", dtype,
@@ -3318,11 +3332,9 @@ def wide_head_phase(report, card):
                 fail_unless(torch.equal(got == 0, ref == 0),
                             f"dropout mask{tag}{ctag} differs from the "
                             "plain version's")
-            print(f"  dropout mask{tag} [bfloat16]: equal entry for entry "
-                  f"(causal and not); plan {tuple(plan)}")
+            print(f"  dropout mask{tag} [{str(dtype)[6:]}]: equal entry for "
+                  f"entry (causal and not); plan {tuple(plan)}")
         for D in WIDE_TIMED:
-            if D != 512 and dtype != torch.bfloat16:
-                continue
             key = f"ms_d{D}"
             q, k, v = (torch.randn(1, 1, L, D, generator=gen).to(dev, dtype)
                        for _ in range(3))
@@ -3351,39 +3363,35 @@ def wide_head_phase(report, card):
             out, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
                                                          False, rate)
             dkw = dict(dropout_rate=rate, seed=seed)
-            if dtype == torch.bfloat16:
-                wide_b16_checks(report, D, q, k, v, do, out, stats, seed,
-                                rate, sms)
+            wide_b16_checks(report, D, q, k, v, do, out, stats, seed, rate,
+                            sms)
             note_times(report, fwd_name, dtype,
                        lambda: fad.flash_attention_dropout_fwd(
                            q, k, v, None, seed, False, rate),
                        lambda: fad.flash_attention_dropout_plain(q, k, v,
                                                                  **dkw),
                        plain_iters=5, key=key)
-            if D == 512:
-                note_times(report, bwd_name, dtype,
-                           lambda: fad.flash_attention_dropout_bwd(
-                               q, k, v, None, do, seed, stats, out, False,
-                               rate),
-                           lambda: fad.flash_attention_dropout_plain_bwd(
-                               q, k, v, do, **dkw),
-                           plain_iters=5, key=key)
+            note_times(report, bwd_name, dtype,
+                       lambda: fad.flash_attention_dropout_bwd(
+                           q, k, v, None, do, seed, stats, out, False, rate),
+                       lambda: fad.flash_attention_dropout_plain_bwd(
+                           q, k, v, do, **dkw),
+                       plain_iters=5, key=key)
             flops = 2 * 16 * L * L * D  # one (L, S, D) product
             tag, peak = yardstick_of(dtype)
             report[fwd_name]["form_bound_" + key + tag] = form_bound(
                 nbytes(q, k, v, q), 2 * flops, peak)
-            if D == 512:  # the backward is timed at 512 only
-                report[bwd_name]["form_bound_" + key + tag] = form_bound(
-                    nbytes(q, k, v, do, q, k, v), 5 * flops, peak)
-            library_dropout_times(report, q, k, v, do, rate, False,
-                                  key=key, backward=D == 512)
+            report[bwd_name]["form_bound_" + key + tag] = form_bound(
+                nbytes(q, k, v, do, q, k, v), 5 * flops, peak)
+            library_dropout_times(report, q, k, v, do, rate, False, key=key)
 
 
 def wide_b16_checks(report, D, q, k, v, do, out, stats, seed, rate, sms):
     """Row 1 (plain and causal), row 11's forward ``out``, its backward
     from ``stats`` and the mask against the plain versions at row 11's
-    B=16, H=1 timing grid, where the wide forward's cluster is
-    WIDE_TIMED_CLUSTERS[D] (checked); bf16, the phase's tolerances."""
+    B=16, H=1 timing grid, where the wide cluster is
+    WIDE_TIMED_CLUSTERS[D] (checked) in either dtype; the phase's
+    tolerances."""
     import torch
     from video2music_tpu_torch import kernels
     from video2music_tpu_torch.ops import flash_attention_dropout as fad
@@ -3393,7 +3401,8 @@ def wide_b16_checks(report, D, q, k, v, do, out, stats, seed, rate, sms):
     B, H, L, _ = q.shape
     dtype, dev = q.dtype, q.device
     fwd_name, bwd_name = TRAIN_KERNELS
-    plan = kernels.wide_plan(D, L, "wide heads", B * H * -(-L // 64), sms)
+    plan = kernels.wide_plan(D, L, "wide heads", B * H * -(-L // 64), sms,
+                             f32=dtype == torch.float32)
     fail_unless(plan.cluster == WIDE_TIMED_CLUSTERS[D],
                 f"D={D} B={B}: plan {tuple(plan)}, not a cluster of "
                 f"{WIDE_TIMED_CLUSTERS[D]}")
@@ -3418,8 +3427,8 @@ def wide_b16_checks(report, D, q, k, v, do, out, stats, seed, rate, sms):
         B, H, L, L, rate, seed, dev)
     fail_unless(torch.equal(got == 0, ref == 0),
                 f"dropout mask{tag} differs from the plain version's")
-    print(f"  dropout mask{tag} [bfloat16]: equal entry for entry; plan "
-          f"{tuple(plan)}")
+    print(f"  dropout mask{tag} [{str(dtype)[6:]}]: equal entry for entry; "
+          f"plan {tuple(plan)}")
 
 
 def wide_state_phase(report, card):
@@ -4845,13 +4854,15 @@ def v3_teacher_forced_phase(models, cases=((1, None), (8, None))):
 # decodes through the variant kernels where fused_variant_eligible holds
 # (the base AMT, 1.1, 1.3.4, 2.0) and on the plain step where it does not
 # (KAN 2.3, grouped-query attention), as in the JAX sampler
-# depth cut to keep the run within its limit: the variant-kernel wirings
-# at 3+3 layers (each keeps its layer kinds), the two that decode on the
-# plain step (KAN 2.3, GQA) at 2+2 (their plain steps took 60 s of the run
-# at 6+6)
-WIRINGS = (("AMT", None, dict(n_layers=3)), ("1.1", "1.1", dict(n_layers=3)),
-           ("1.3.4", "1.3.4", dict(n_layers=3)),
-           ("2.0", "2.0", dict(n_layers=3)), ("2.3", "2.3", dict(n_layers=2)),
+# depth cut to keep the run within its limit: every wiring at 2+2 layers,
+# the least depth that keeps each one's layer kinds (a shallow and a deep
+# layer where it splits them, core/config.py _shallow_deep); the two that
+# decode on the plain step (KAN 2.3, GQA) took 60 s of the run at 6+6, the
+# variant-kernel ones ran 3+3 until the f32 wide kernels' build time had
+# to be made up
+WIRINGS = (("AMT", None, dict(n_layers=2)), ("1.1", "1.1", dict(n_layers=2)),
+           ("1.3.4", "1.3.4", dict(n_layers=2)),
+           ("2.0", "2.0", dict(n_layers=2)), ("2.3", "2.3", dict(n_layers=2)),
            ("2.2 GQA", "2.2", dict(kv_heads=2, n_layers=2)))
 WIRING_KERNELS = ("flash_attention", "decode_variant_layer",
                   "batched_variant_layer_step", "batched_variant_moe_ffn")
@@ -4963,8 +4974,7 @@ def wiring_form_phase(report, v2m, layer_idx, key):
 
 def wirings_phase(card, report):
     """Each wiring of WIRINGS at full width (d_model 512, 8 heads, d_ff
-    1024; depth cut to 3 + 3 layers, 2 + 2 for the plain-step wirings),
-    300 positions,
+    1024; depth cut to 2 + 2 layers), 300 positions,
     6 experts top-2; bimamba+
     regression), random weights from seed 0, bfloat16 serving: the kernel
     step held to the plain step under teacher forcing at B=1 and B=8 (f32

@@ -146,7 +146,9 @@ def test_wide_plan_covers_and_fits(D):
     launch's grid is tiles x cluster blocks); the shared bytes fit a
     block; one pass
     exactly where S is at most the cut the plan states; two slices a block
-    at most where the cluster was halved."""
+    at most where the cluster was halved. The f32 plan: the same cluster,
+    its own shared bytes and one-pass cut (with the plan's slices), and
+    the f32 backward's two kernels fitting a block on that cluster."""
     nd = kernels.head_instance(D, "t")[1]
     assert kernels.padded_head(D, "t") == nd * SLICE >= D
     for tiles in (1, 5, 80, 400):
@@ -170,11 +172,28 @@ def test_wide_plan_covers_and_fits(D):
             assert p.passes == (1 if S <= cut else 2)
             assert kernels.wide_smem(C, cut, 1) <= kernels.SMEM_MAX
             assert kernels.wide_smem(C, cut + CHUNK, 1) > kernels.SMEM_MAX
+            # f32: the same cluster, its own shared bytes and one-pass cut
+            # (its q slices resident or streamed); the backward's two
+            # kernels fit on the forward's cluster
+            f = kernels.wide_plan(D, S, "t", tiles, SMS, f32=True)
+            assert f[:2] == p[:2]
+            assert f.smem == kernels.wide_smem_f32(C, f.slices, S, f.passes)
+            assert f.smem <= kernels.SMEM_MAX
+            cut = kernels.wide_one_pass_keys(C, f.slices)
+            assert cut >= CHUNK and f.passes == (1 if S <= cut else 2)
+            assert kernels.wide_smem_f32(C, f.slices, cut, 1) <= \
+                kernels.SMEM_MAX
+            assert kernels.wide_smem_f32(C, f.slices, cut + CHUNK, 1) > \
+                kernels.SMEM_MAX
+            for dkv in (False, True):
+                assert kernels.wide_bwd_smem_f32(f.slices, dkv) <= \
+                    kernels.SMEM_MAX
 
 
 def test_wide_plan_refuses(monkeypatch):
     """No wide plan for a head the narrow instances take or for no keys;
-    the plan's arguments reach only the bf16 launch above 256; the
+    the plan's arguments reach the launches above 256 in the call's dtype;
+    the
     cluster halves only past one wave of two blocks an SM (head size 512,
     L = 300: eight blocks a tile at B*H = 1 and 4, four at 8 and 16; head
     size 1024 keeps eight, four blocks would hold four slices each)."""
@@ -184,11 +203,14 @@ def test_wide_plan_refuses(monkeypatch):
         kernels.wide_plan(512, 0, "flash_attention", 1, SMS)
     bf16, f32 = kernels.DTYPE_CODES["bfloat16"], kernels.DTYPE_CODES["float32"]
     assert kernels.wide_plan_arg(256, 300, 5, bf16, "t", "cpu") is None
-    assert kernels.wide_plan_arg(512, 300, 5, f32, "t", "cpu") is None
-    # the card's SM count as device_sms reads it on a card
+    assert kernels.wide_plan_arg(256, 300, 5, f32, "t", "cpu") is None
+    # the card's SM count as device_sms reads it on a card; the plan in the
+    # call's dtype (f32 since its kernels run the cluster plan too)
     monkeypatch.setattr(kernels, "device_sms", lambda device: SMS)
     assert list(kernels.wide_plan_arg(512, 300, 5, bf16, "t", "cuda")) == \
         list(kernels.wide_plan(512, 300, "t", 5, SMS))
+    assert list(kernels.wide_plan_arg(512, 300, 5, f32, "t", "cuda")) == \
+        list(kernels.wide_plan(512, 300, "t", 5, SMS, f32=True))
     for tiles, C in ((5, 8), (20, 8), (40, 4), (80, 4)):
         assert kernels.wide_plan(512, 300, "t", tiles, SMS).cluster == C
     assert kernels.wide_plan(1024, 300, "t", 80, SMS).cluster == 8
@@ -205,17 +227,20 @@ def _constexprs(name):
 
 def test_wide_constants_match_the_header():
     """The plan's constants in kernels.py are the kernel's: the tile, the
-    chunk, the slice, the ring's stages, the P . V group, the cluster
-    limits and the shared-memory limit, as csrc/attention_wide.cuh and
+    chunk, the slice, the ring's stages, the products' group, the cluster
+    limits, the f32 pieces' padding and the shared-memory limit, as
+    csrc/attention_wide.cuh and
     csrc/attention_mma.cuh declare them (the launch also refuses a plan
     whose shared bytes differ from the kernel's own count)."""
     wide, mma = _constexprs("attention_wide.cuh"), _constexprs(
         "attention_mma.cuh")
     assert (kernels.WIDE_TILE, kernels.WIDE_SLICE, kernels.WIDE_STAGES,
             kernels.WIDE_GROUP, kernels.WIDE_CLUSTER_MIN,
-            kernels.WIDE_CLUSTER_MAX, kernels.SMEM_MAX) == (
+            kernels.WIDE_CLUSTER_MAX, kernels.WIDE_F32_PAD,
+            kernels.SMEM_MAX) == (
         wide["kTile"], wide["kWide"], wide["kStages"], wide["kGroup"],
-        wide["kClusterMin"], wide["kClusterMax"], wide["kSmemMax"])
+        wide["kClusterMin"], wide["kClusterMax"], wide["kPadF32"],
+        wide["kSmemMax"])
     assert kernels.WIDE_CHUNK == mma["kChunk"]
 
 

@@ -17,8 +17,8 @@
 // columns of P . V, and passes the unpadded scale. The tiles live in
 // dynamic shared memory (above 48 KB at 128 and 256). Above 256 the head
 // is split into 64-column slices (attention_wide.cuh), D padded to a
-// multiple of 64; in bf16 one thread-block cluster a query tile, its
-// blocks splitting the slices, by the wrapper's plan.
+// multiple of 64: one thread-block cluster a query tile, its blocks
+// splitting the slices, by the wrapper's plan (f32 in split TF32).
 //
 // What bounds it on the H100: at the product shape (B*H = 8, L = S = 300,
 // head_dim 64) the call moves 4 * 8 * 300 * 64 * 2 bytes = 1.2 MB in bf16
@@ -47,8 +47,8 @@
 // q (BH, L, D), k/v (BH, S, D), bias (bias_planes, L, S) f32 or null (BH
 // a multiple of bias_planes), out (BH, L, D); D one of 16, 32, 64, 128,
 // 256 or a multiple of 64 above; all contiguous, q/k/v/out of
-// dtype `dtype`. wide_plan: above 256 in bf16 the four ints of
-// kernels.wide_plan (cluster, slices, passes, shared bytes), else unread.
+// dtype `dtype`. wide_plan: above 256 the four ints of kernels.wide_plan
+// (cluster, slices, passes, shared bytes) for the dtype, else unread.
 // Returns a cudaError_t code.
 extern "C" int v2m_flash_attention(int dtype, const void* q, const void* k,
                                    const void* v, const void* bias,
@@ -59,13 +59,14 @@ extern "C" int v2m_flash_attention(int dtype, const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   const float* b = (const float*)bias;
   if (bias_planes <= 0 || BH % bias_planes) return (int)cudaErrorInvalidValue;
-  if (D > 256) {  // the head split across blocks
+  if (D > 256) {  // the head split across a cluster's blocks
     if (dtype == kF32) {
-      wide::F32Args a{};
+      tf32::FwdArgs a{};
       a.q = (const float*)q; a.k = (const float*)k; a.v = (const float*)v;
       a.bias = b; a.out = (float*)out;
-      a.L = L; a.S = S; a.D = D; a.causal = causal; a.scale = scale;
-      return wide::run_fwd_f32<false>(a, BH, bias_planes, st);
+      a.L = L; a.S = S; a.scale = scale;
+      return wide::run_fwd_tf32<false>(a, BH, D, causal, bias_planes,
+                                       wide_plan, st);
     }
     if (dtype == kBF16) {
       mma::FwdArgs a{};

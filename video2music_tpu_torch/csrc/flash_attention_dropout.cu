@@ -15,10 +15,11 @@
 // with v (as the Pallas kernel's astype) and saves each row's softmax max m
 // and sum l. Head sizes: instances at 16, 32, 64, 128 and 256, the wrappers
 // padding the others with zero columns (flash_attention.cu), and above
-// 256 the head split into 64-column slices (attention_wide.cuh, in bf16
-// a thread-block cluster a query tile; the wide backward below, a block a
-// slice), D padded to a multiple of 64; the mask hashes rows and
-// columns only, so padding and splitting leave it as it is. A shard of
+// 256 the head split into 64-column slices (attention_wide.cuh: a
+// thread-block cluster a query tile; in f32 its backward too, a cluster a
+// query or key tile; the bf16 wide backward below, a block a slice), D
+// padded to a multiple of 64; the mask hashes rows and columns only, so
+// padding and splitting leave it as it is. A shard of
 // a sharded step (B/d rows of the batch, H/m heads) passes apply 2 and its
 // origin in the global grid beside the seed (drop_salt), and hashes the
 // global b*H + h, so it draws its slice of the unsharded mask.
@@ -56,8 +57,12 @@
 // output, nothing rounded. It replaced a first design of one thread per
 // query (or key) row and plain FMA for every product: the forward took
 // 0.4721 ms and the backward 3.4168 ms at the training shape (chip run,
-// an H100 80GB HBM3 at 700 W). Under causal attention, chunks wholly in
-// the masked triangle add exact zeros and are skipped.
+// an H100 80GB HBM3 at 700 W). Above head size 256 f32 runs
+// attention_wide.cuh's cluster forward and its cluster backward (dQ, then
+// dK / dV, S and dP formed once a (tile, chunk)), which replaced one thread
+// a row and plain FMA in a block a slice (5.07 and 12.40 ms at head size
+// 512, B=16; the same card). Under causal attention, chunks wholly in the
+// masked triangle add exact zeros and are skipped.
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
 #include "attention_wide.cuh"
@@ -407,213 +412,16 @@ inline int launch_bwd_mma(const BwdArgs& a, int BH, int causal,
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// Above head size 256: the backward with the head split across blocks
-// (attention_wide.cuh), a block owning kWide columns of dQ (or of dK and
-// dV) and forming S and dP over the whole head in kWide-column chunks, its
-// own slice last, so the last chunk in shared memory is the one its
-// products need. D = rowsum(dO * O) over the whole head in both dtypes; a
-// row's dbias and D are written by the blocks of slice 0.
+// Above head size 256 in bf16: the backward with the head split across
+// blocks (attention_wide.cuh), a block owning kWide columns of dQ (or of dK
+// and dV) and forming S and dP over the whole head in kWide-column chunks,
+// its own slice last, so the last chunk in shared memory is the one its
+// products need. D = rowsum(dO * O) over the whole head; a row's dbias and
+// D are written by the blocks of slice 0. (f32: attention_wide.cuh's
+// cluster kernels, S and dP formed once a (tile, chunk).)
 // ---------------------------------------------------------------------------
 
 namespace wide {
-
-struct BwdF32 {
-  const float *q, *k, *v, *bias;
-  const int* seed;
-  const float *dout, *stats, *out;
-  float *dq, *dk, *dv, *dbias, *dsum;
-  int L, S, D, causal;
-  float scale;
-  DropoutSpec drop;
-};
-
-constexpr int kQTileF32 = 16;  // f32 dK/dV: query rows a shared tile
-
-// f32 dQ, D and dbias: one thread per query row. grid (row blocks x
-// slices, BH).
-__global__ void __launch_bounds__(kRowsF32) attention_dq_wide_f32(BwdF32 a) {
-  // K and V tiles, then each thread's own dO chunk, padded (dq_f32_smem)
-  float (*ks)[kWide] = reinterpret_cast<float (*)[kWide]>(mma::attn_smem);
-  float (*vs)[kWide] = ks + kTileF32;
-  float (*dos)[kWide + 1] = reinterpret_cast<float (*)[kWide + 1]>(vs + kTileF32);
-  const int L = a.L, S = a.S, D = a.D, nd = D / kWide;
-  const int slice = blockIdx.x % nd;
-  const int row0 = (blockIdx.x / nd) * kRowsF32;
-  const int row = row0 + threadIdx.x;
-  const bool live = row < L;
-  const int bh = blockIdx.y;
-  const size_t rix = (size_t)bh * L + (live ? row : 0);
-  const float* kb = a.k + (size_t)bh * S * D;
-  const float* vb = a.v + (size_t)bh * S * D;
-  const float* brow = a.bias && live ? a.bias + rix * S : nullptr;
-  float* dbrow = a.dbias && live && slice == 0 ? a.dbias + rix * S : nullptr;
-  const unsigned int salt = mma::drop_salt(a.seed, a.drop, bh);
-  const int s_end = a.causal ? min(S, row0 + kRowsF32) : S;
-  const float m = live ? a.stats[rix * 2] : 0.f;
-  const float l = live ? a.stats[rix * 2 + 1] : 1.f;
-  float dsumr = 0.f;  // D = rowsum(dO * O)
-  if (live)
-    for (int d = 0; d < D; ++d)
-      dsumr = fmaf(a.dout[rix * D + d], a.out[rix * D + d], dsumr);
-
-  float dqa[kWide];
-#pragma unroll
-  for (int c = 0; c < kWide; ++c) dqa[c] = 0.f;
-  for (int s0 = 0; s0 < s_end; s0 += kTileF32) {
-    float sc[kTileF32], dp[kTileF32];
-#pragma unroll
-    for (int j = 0; j < kTileF32; ++j) sc[j] = dp[j] = 0.f;
-    for (int i = 0; i < nd; ++i) {
-      const int dc = chunk_col(i, slice, nd);
-      __syncthreads();
-      for (int e = threadIdx.x; e < kTileF32 * kWide; e += kRowsF32) {
-        const int r = e / kWide, c = e % kWide, s = s0 + r;
-        ks[r][c] = s < S ? kb[(size_t)s * D + dc + c] : 0.f;
-        vs[r][c] = s < S ? vb[(size_t)s * D + dc + c] : 0.f;
-      }
-      for (int c = 0; c < kWide; ++c)
-        dos[threadIdx.x][c] = live ? a.dout[rix * D + dc + c] : 0.f;
-      __syncthreads();
-      if (live) {
-        float qc[kWide];
-#pragma unroll
-        for (int c = 0; c < kWide; ++c) qc[c] = a.q[rix * D + dc + c];
-#pragma unroll
-        for (int j = 0; j < kTileF32; ++j) {
-#pragma unroll 16
-          for (int c = 0; c < kWide; ++c) {
-            sc[j] = fmaf(qc[c], ks[j][c], sc[j]);
-            dp[j] = fmaf(dos[threadIdx.x][c], vs[j][c], dp[j]);
-          }
-        }
-      }
-    }
-    if (!live) continue;
-    const int n = min(kTileF32, s_end - s0);
-    for (int j = 0; j < n; ++j) {  // ks holds the slice's K columns
-      const int col = s0 + j;
-      const float w =
-          expf(logit_f32(sc[j], a.scale, brow, row, col, a.causal) - m) / l;
-      const float dl = w * (dp[j] * drop_f32(a.drop, row, col, salt) - dsumr);
-      if (dbrow) dbrow[col] = dl;
-#pragma unroll
-      for (int c = 0; c < kWide; ++c) dqa[c] = fmaf(dl, ks[j][c], dqa[c]);
-    }
-  }
-  if (!live) return;
-#pragma unroll
-  for (int c = 0; c < kWide; ++c)
-    a.dq[rix * D + slice * kWide + c] = dqa[c] * a.scale;
-  if (slice == 0) a.dsum[rix] = dsumr;
-  if (dbrow)  // the skipped causal columns: dlogits is exactly 0 there
-    for (int col = s_end; col < S; ++col) dbrow[col] = 0.f;
-}
-
-// f32 dK and dV: one thread per key row over tiles of query rows. grid
-// (key blocks x slices, BH).
-__global__ void __launch_bounds__(kRowsF32) attention_dkv_wide_f32(BwdF32 a) {
-  // the block's K and V rows' chunk, padded, then the q and dO tiles
-  // (dkv_f32_smem)
-  float (*kss)[kWide + 1] = reinterpret_cast<float (*)[kWide + 1]>(mma::attn_smem);
-  float (*vss)[kWide + 1] = kss + kRowsF32;
-  float (*qs)[kWide] = reinterpret_cast<float (*)[kWide]>(vss + kRowsF32);
-  float (*dos)[kWide] = qs + kQTileF32;
-  __shared__ float ms[kQTileF32], ls[kQTileF32], ds[kQTileF32];
-  const int L = a.L, S = a.S, D = a.D, nd = D / kWide;
-  const int slice = blockIdx.x % nd;
-  const int col0 = (blockIdx.x / nd) * kRowsF32;
-  const int col = col0 + threadIdx.x;
-  const bool live = col < S;
-  const int bh = blockIdx.y;
-  const float* qb = a.q + (size_t)bh * L * D;
-  const float* dob = a.dout + (size_t)bh * L * D;
-  const unsigned int salt = mma::drop_salt(a.seed, a.drop, bh);
-
-  float dka[kWide], dva[kWide];
-#pragma unroll
-  for (int c = 0; c < kWide; ++c) dka[c] = dva[c] = 0.f;
-  // rows above the block's first key see none of its keys under causal
-  for (int r0 = a.causal ? col0 : 0; r0 < L; r0 += kQTileF32) {
-    float d[kQTileF32], dp[kQTileF32];
-#pragma unroll
-    for (int i = 0; i < kQTileF32; ++i) d[i] = dp[i] = 0.f;
-    for (int i = 0; i < nd; ++i) {
-      const int dc = chunk_col(i, slice, nd);
-      __syncthreads();
-      for (int e = threadIdx.x; e < kQTileF32 * kWide; e += kRowsF32) {
-        const int r = e / kWide, c = e % kWide, q = r0 + r;
-        qs[r][c] = q < L ? qb[(size_t)q * D + dc + c] : 0.f;
-        dos[r][c] = q < L ? dob[(size_t)q * D + dc + c] : 0.f;
-      }
-      for (int e = threadIdx.x; e < kRowsF32 * kWide; e += kRowsF32) {
-        const int r = e / kWide, c = e % kWide;
-        const bool in = col0 + r < S;
-        const size_t at = ((size_t)bh * S + col0 + r) * D + dc + c;
-        kss[r][c] = in ? a.k[at] : 0.f;
-        vss[r][c] = in ? a.v[at] : 0.f;
-      }
-      if (i == 0 && threadIdx.x < kQTileF32) {
-        const int r = r0 + threadIdx.x;
-        const size_t rix = (size_t)bh * L + r;
-        ms[threadIdx.x] = r < L ? a.stats[rix * 2] : 0.f;
-        ls[threadIdx.x] = r < L ? a.stats[rix * 2 + 1] : 1.f;
-        ds[threadIdx.x] = r < L ? a.dsum[rix] : 0.f;
-      }
-      __syncthreads();
-      if (live) {
-#pragma unroll
-        for (int qi = 0; qi < kQTileF32; ++qi) {
-#pragma unroll 16
-          for (int c = 0; c < kWide; ++c) {
-            d[qi] = fmaf(qs[qi][c], kss[threadIdx.x][c], d[qi]);
-            dp[qi] = fmaf(dos[qi][c], vss[threadIdx.x][c], dp[qi]);
-          }
-        }
-      }
-    }
-    if (!live) continue;
-    const int n = min(kQTileF32, L - r0);
-    for (int qi = 0; qi < n; ++qi) {  // qs / dos hold the slice's columns
-      const int row = r0 + qi;
-      const float* brow = a.bias ? a.bias + ((size_t)bh * L + row) * S : nullptr;
-      const float w =
-          expf(logit_f32(d[qi], a.scale, brow, row, col, a.causal) - ms[qi]) /
-          ls[qi];
-      const float f = drop_f32(a.drop, row, col, salt);
-      const float wd = w * f;
-      const float dl = w * (dp[qi] * f - ds[qi]);
-#pragma unroll
-      for (int c = 0; c < kWide; ++c) {
-        dva[c] = fmaf(wd, dos[qi][c], dva[c]);
-        dka[c] = fmaf(dl, qs[qi][c], dka[c]);
-      }
-    }
-  }
-  if (!live) return;
-  const size_t at = ((size_t)bh * S + col) * D + slice * kWide;
-#pragma unroll
-  for (int c = 0; c < kWide; ++c) {
-    a.dk[at + c] = dka[c] * a.scale;
-    a.dv[at + c] = dva[c];
-  }
-}
-
-constexpr size_t dq_f32_smem() {
-  return (2 * kTileF32 * kWide + kRowsF32 * (kWide + 1)) * sizeof(float);
-}
-constexpr size_t dkv_f32_smem() {
-  return (2 * kRowsF32 * (kWide + 1) + 2 * kQTileF32 * kWide) * sizeof(float);
-}
-
-inline int run_bwd_f32(const BwdF32& a, int BH, cudaStream_t st) {
-  if (a.D % kWide) return (int)cudaErrorInvalidValue;
-  const int nd = a.D / kWide;
-  attention_dq_wide_f32<<<dim3((a.L + kRowsF32 - 1) / kRowsF32 * nd, BH),
-                          kRowsF32, dq_f32_smem(), st>>>(a);
-  attention_dkv_wide_f32<<<dim3((a.S + kRowsF32 - 1) / kRowsF32 * nd, BH),
-                           kRowsF32, dkv_f32_smem(), st>>>(a);
-  return (int)cudaGetLastError();
-}
 
 // bf16 dQ, D and dbias on the tensor cores: a warp per 16 query rows, one
 // pass over the key chunks, each in nd steps of kWide columns (K and V
@@ -952,7 +760,8 @@ inline int run_bwd_mma(const mma::BwdArgs& a, int BH, int D, int causal,
 
 struct DropoutArgs {
   const void *q, *k, *v, *bias, *seed, *dout, *stats;
-  const int* plan;  // the wide forward's (attention_wide.cuh run_fwd_mma)
+  const int* plan;  // the wide plan (attention_wide.cuh run_fwd_mma,
+                    // run_fwd_tf32, run_bwd_tf32)
   void *out, *dq, *dk, *dv, *dbias, *dsum;
   int BH, L, S, causal;
   float scale;
@@ -961,33 +770,15 @@ struct DropoutArgs {
 
 static int dispatch_f32(const DropoutArgs& a, int D, bool backward,
                         cudaStream_t st) {
-  if (D > 256) {  // the head split across blocks (attention_wide.cuh)
-    if (!backward) {
-      wide::F32Args f{};
-      f.q = (const float*)a.q; f.k = (const float*)a.k; f.v = (const float*)a.v;
-      f.bias = (const float*)a.bias; f.seed = (const int*)a.seed;
-      f.out = (float*)a.out; f.stats = (float*)a.stats;
-      f.L = a.L; f.S = a.S; f.D = D; f.causal = a.causal; f.scale = a.scale;
-      f.drop = a.drop;
-      return wide::run_fwd_f32<true>(f, a.BH, a.BH, st);
-    }
-    wide::BwdF32 b{};
-    b.q = (const float*)a.q; b.k = (const float*)a.k; b.v = (const float*)a.v;
-    b.bias = (const float*)a.bias; b.seed = (const int*)a.seed;
-    b.dout = (const float*)a.dout; b.stats = (const float*)a.stats;
-    b.out = (const float*)a.out;
-    b.dq = (float*)a.dq; b.dk = (float*)a.dk; b.dv = (float*)a.dv;
-    b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
-    b.L = a.L; b.S = a.S; b.D = D; b.causal = a.causal; b.scale = a.scale;
-    b.drop = a.drop;
-    return wide::run_bwd_f32(b, a.BH, st);
-  }
   if (!backward) {
     tf32::FwdArgs f{};
     f.q = (const float*)a.q; f.k = (const float*)a.k; f.v = (const float*)a.v;
     f.bias = (const float*)a.bias; f.seed = (const int*)a.seed;
     f.out = (float*)a.out; f.stats = (float*)a.stats;
     f.L = a.L; f.S = a.S; f.scale = a.scale; f.drop = a.drop;
+    if (D > 256)  // the head split across a cluster (attention_wide.cuh)
+      return wide::run_fwd_tf32<true>(f, a.BH, D, a.causal, a.BH, a.plan,
+                                      st);
     return tf32::run_fwd<true>(f, a.BH, D, a.causal, st, a.BH);
   }
   tf32::BwdArgs b{};
@@ -998,6 +789,7 @@ static int dispatch_f32(const DropoutArgs& a, int D, bool backward,
   b.dq = (float*)a.dq; b.dk = (float*)a.dk; b.dv = (float*)a.dv;
   b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
   b.L = a.L; b.S = a.S; b.scale = a.scale; b.drop = a.drop;
+  if (D > 256) return wide::run_bwd_tf32(b, a.BH, D, a.causal, a.plan, st);
   return tf32::run_bwd(b, a.BH, D, a.causal, st);
 }
 
@@ -1050,8 +842,8 @@ static int run(int dtype, const DropoutArgs& a, int D, bool backward,
 // on the device (apply 2: four, {seed, heads, heads_global, bh_offset}, a
 // shard's origin in the global (batch, head) grid); out (BH, L, D) of q's
 // dtype, stats (BH, L, 2) f32 (row max, row sum of exponentials);
-// wide_plan: above 256 in bf16 the four ints of kernels.wide_plan, else
-// unread. Returns a cudaError_t code.
+// wide_plan: above 256 the four ints of kernels.wide_plan, else unread.
+// Returns a cudaError_t code.
 extern "C" int v2m_attention_dropout_fwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     const void* seed, void* out, void* stats, int BH, int L, int S, int D,
@@ -1069,16 +861,18 @@ extern "C" int v2m_attention_dropout_fwd(
 // The backward of v2m_attention_dropout_fwd from its stats and its output
 // `out` (D = rowsum(dout * out) in both dtypes): dq
 // (BH, L, D), dk/dv (BH, S, D) of q's dtype, dbias (BH, L, S) f32 when bias
-// is given (else null), dsum (BH, L) f32 scratch. Returns a cudaError_t
-// code.
+// is given (else null), dsum (BH, L) f32 scratch; wide_plan: above 256 in
+// f32 the forward's four ints of kernels.wide_plan (its cluster), else
+// unread. Returns a cudaError_t code.
 extern "C" int v2m_attention_dropout_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     const void* seed, const void* dout, const void* stats, const void* out,
     void* dq, void* dk, void* dv, void* dbias, void* dsum, int BH, int L,
     int S, int D, int causal, float scale, unsigned int threshold,
-    float keep_scale, int apply, void* stream) {
+    float keep_scale, int apply, const int* wide_plan, void* stream) {
   v2m::DropoutArgs a{};
   a.q = q; a.k = k; a.v = v; a.bias = bias; a.seed = seed; a.dout = dout;
+  a.plan = wide_plan;
   a.stats = stats; a.out = const_cast<void*>(out);
   a.dq = dq; a.dk = dk; a.dv = dv; a.dbias = dbias; a.dsum = dsum;
   a.BH = BH; a.L = L; a.S = S; a.causal = causal; a.scale = scale;

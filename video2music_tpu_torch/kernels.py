@@ -224,7 +224,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.v2m_attention_dropout_fwd.restype = i
     lib.v2m_attention_dropout_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
                                               p, p, p, i, i, i, i, i, f, u, f,
-                                              i, p]
+                                              i, pi, p]
     lib.v2m_attention_dropout_bwd.restype = i
     lib.v2m_decode_stack_grid.argtypes = [i, i, i, i, i, i, pi, pi, pi]
     lib.v2m_decode_stack_grid.restype = i
@@ -328,61 +328,118 @@ def head_instance(D: int, what: str) -> tuple:
     return WIDE_SLICE, -(-D // WIDE_SLICE)
 
 
-# The bf16 wide forward's plan (csrc/attention_wide.cuh): one thread-block
-# cluster a tile of WIDE_TILE query rows, its blocks splitting the head's
-# slices and the tile's rows; its constants as the header has them (a CPU
-# test reads them there: tests/test_torch_wide_attention.py).
+# The wide plan (csrc/attention_wide.cuh): one thread-block cluster a tile
+# of WIDE_TILE query rows, its blocks splitting the head's slices and the
+# tile's rows; in bf16 the forward's, in f32 the forward's and (its
+# cluster) the backward's, a cluster a query or key tile. Its constants as
+# the header has them (a CPU test reads them there:
+# tests/test_torch_wide_attention.py).
 WIDE_TILE = 64                 # query rows a cluster (kTile)
 WIDE_CHUNK = 64                # keys a chunk (attention_mma.cuh kChunk)
 WIDE_STAGES = 2                # cp.async ring stages (kStages)
-WIDE_GROUP = 2                 # slices a block's P . V holds at once (kGroup)
+WIDE_GROUP = 2                 # slices a block's products hold at once (kGroup)
 WIDE_CLUSTER_MIN = 4           # a block owns at most 16 rows (kClusterMin)
 WIDE_CLUSTER_MAX = 8           # the portable cluster size (kClusterMax)
+WIDE_F32_PAD = 4               # floats an f32 piece's row is padded (kPadF32)
 SMEM_MAX = 232448              # dynamic shared bytes a block (kSmemMax)
 
 WidePlan = collections.namedtuple("WidePlan", "cluster slices passes smem")
 
+_TILE_BYTES = WIDE_TILE * (WIDE_CHUNK + 8) * 4  # a 64 x 64 f32 tile (padded)
+_PIECE_F32 = WIDE_CHUNK * (WIDE_SLICE + WIDE_F32_PAD) * 4  # an f32 piece
+
+
+def _own_rows(cluster: int) -> int:
+    return -(-WIDE_TILE // cluster)
+
 
 def wide_smem(cluster: int, S: int, passes: int) -> int:
-    """Dynamic shared bytes of a block of the wide forward (plan_smem): a
-    cp.async ring of WIDE_STAGES stages of two 64 x WIDE_SLICE bf16 pieces
-    (padded rows), two partial S tiles of WIDE_TILE x 64 f32 (padded rows),
-    and the block's own rows of the tile (at most ceil(WIDE_TILE /
-    cluster)): with one pass their logits (f32) and weights (bf16) over
-    every key, with two two 64-key chunks of weights."""
-    rows = -(-WIDE_TILE // cluster)
+    """Dynamic shared bytes of a block of the bf16 wide forward
+    (plan_smem): a cp.async ring of WIDE_STAGES stages of two 64 x
+    WIDE_SLICE bf16 pieces (padded rows), two partial S tiles of WIDE_TILE
+    x 64 f32 (padded rows), and the block's own rows of the tile (at most
+    ceil(WIDE_TILE / cluster)): with one pass their logits (f32) and
+    weights (bf16) over every key, with two two 64-key chunks of
+    weights."""
+    rows = _own_rows(cluster)
     keys = -(-S // WIDE_CHUNK) * WIDE_CHUNK
     ring = WIDE_STAGES * 2 * WIDE_CHUNK * (WIDE_SLICE + 8) * 2
-    part = 2 * WIDE_TILE * (WIDE_CHUNK + 8) * 4
+    part = 2 * _TILE_BYTES
     if passes == 1:
         return ring + part + rows * (6 * keys + 16)
     return ring + part + 2 * rows * (WIDE_CHUNK + 8) * 2
 
 
-def wide_one_pass_keys(cluster: int) -> int:
+def wide_resident_f32(cluster: int, slices: int) -> bool:
+    """Whether a block of the f32 wide forward keeps its q slices in
+    shared memory for the whole tile (fwd_resident_f32): the two-pass
+    layout with them fits SMEM_MAX."""
+    return ((WIDE_STAGES + slices) * _PIECE_F32 + 2 * _TILE_BYTES
+            + 2 * _own_rows(cluster) * (WIDE_CHUNK + 8) * 4) <= SMEM_MAX
+
+
+def wide_smem_f32(cluster: int, slices: int, S: int, passes: int) -> int:
+    """Dynamic shared bytes of a block of the f32 wide forward
+    (plan_smem_f32): the ring (WIDE_STAGES stages of one f32 piece of 64
+    rows x WIDE_SLICE, K or V, or of two, q beside K, where q is not
+    resident), the resident q slices, two partial S tiles, and the block's
+    own rows: with one pass their logits, then weights in place, over
+    every key (8 floats of padding a row), with two two chunks of
+    weights."""
+    rows = _own_rows(cluster)
+    res = wide_resident_f32(cluster, slices)
+    pieces = WIDE_STAGES + slices if res else 2 * WIDE_STAGES
+    own = (rows * (-(-S // WIDE_CHUNK) * WIDE_CHUNK + 8) * 4 if passes == 1
+           else 2 * rows * (WIDE_CHUNK + 8) * 4)
+    return pieces * _PIECE_F32 + 2 * _TILE_BYTES + own
+
+
+def wide_bwd_smem_f32(slices: int, dkv: bool) -> int:
+    """Dynamic shared bytes of a block of the f32 wide backward's dQ
+    (``dkv`` False) or dK / dV kernel (bwd_smem_f32): the ring (two f32
+    pieces a stage of the side it streams), the own side (q and dO for dQ,
+    K and V for dK / dV) resident where that fits (bwd_resident_f32), else
+    streamed beside the other (four pieces a stage), the partial S and dP
+    tiles and the pushed tiles (dS; or (P * mask)^T and dS^T). The launch
+    computes it from the plan's slices."""
+    tiles = (4 if dkv else 3) * _TILE_BYTES
+    resident = (2 * slices + 2 * WIDE_STAGES) * _PIECE_F32 + tiles
+    return resident if resident <= SMEM_MAX else \
+        4 * WIDE_STAGES * _PIECE_F32 + tiles
+
+
+def wide_one_pass_keys(cluster: int, slices: int = 0) -> int:
     """The largest S the wide forward takes in one pass with a cluster of
-    this size: its block's rows of logits and weights over every key fit
-    SMEM_MAX beside the ring and the partials."""
-    rows = -(-WIDE_TILE // cluster)
+    this size: its block's rows of logits (and, in bf16, weights) over
+    every key fit SMEM_MAX beside the ring and the partials; ``slices``
+    (the plan's slices a block) gives the f32 forward's cut, which depends
+    on them (its q slices resident or streamed), 0 the bf16 one's."""
+    rows = _own_rows(cluster)
+    if slices:
+        room = SMEM_MAX - wide_smem_f32(cluster, slices, 0, 1)
+        return room // (4 * rows) // WIDE_CHUNK * WIDE_CHUNK
     room = SMEM_MAX - wide_smem(cluster, 0, 1)
     return room // rows // 6 // WIDE_CHUNK * WIDE_CHUNK
 
 
-def wide_plan(D: int, S: int, what: str, tiles: int, sms: int) -> WidePlan:
-    """The bf16 wide forward's plan for head size D (above 256), S keys,
+def wide_plan(D: int, S: int, what: str, tiles: int, sms: int,
+              f32: bool = False) -> WidePlan:
+    """The wide forward's plan for head size D (above 256), S keys,
     ``tiles`` query tiles (B * H * ceil(L / WIDE_TILE)) and a card of
-    ``sms`` streaming multiprocessors (device_sms): (cluster, slices,
-    passes, smem). A cluster of min(slices of the head, WIDE_CLUSTER_MAX)
-    blocks a tile, halved where its grid passes one wave of two blocks an
-    SM and a block of the halved cluster still holds its slices' P . V at
-    once (WIDE_GROUP): at head size 512, L = 300, four blocks of two slices
-    ran faster than eight of one at B*H = 8 and 16 and slower at 1 and 4
-    (an H100, 132 SMs). Block r owns the slices [r nd / C, (r + 1) nd / C), so
-    ``slices`` = ceil(nd / C) at most; one pass where S <=
-    wide_one_pass_keys(C), else two; ``smem`` the block's dynamic shared
-    bytes (the kernel takes clusters of WIDE_CLUSTER_MIN ..
-    WIDE_CLUSTER_MAX blocks, at most one a slice). Raises on a head the
-    narrow instances take or no keys."""
+    ``sms`` streaming multiprocessors (device_sms), in bf16 or ``f32``:
+    (cluster, slices, passes, smem). A cluster of min(slices of the head,
+    WIDE_CLUSTER_MAX) blocks a tile, halved where its grid passes one wave
+    of two blocks an SM and a block of the halved cluster still holds its
+    slices' products at once (WIDE_GROUP): at head size 512, L = 300, four
+    blocks of two slices ran faster than eight of one at B*H = 8 and 16
+    and slower at 1 and 4 (bf16, an H100, 132 SMs). Block r owns the
+    slices [r nd / C, (r + 1) nd / C), so ``slices`` = ceil(nd / C) at
+    most; one pass where S is at most wide_one_pass_keys (f32: with the
+    plan's slices), else two; ``smem`` the forward block's dynamic shared
+    bytes (wide_smem, wide_smem_f32; the kernels take clusters of
+    WIDE_CLUSTER_MIN .. WIDE_CLUSTER_MAX blocks, at most one a slice). The
+    f32 backward runs the same cluster. Raises on a head the narrow
+    instances take or no keys."""
     nd = head_instance(D, what)[1]
     require(nd > 1, what, f"head_dim {D}: the narrow instances take it, "
             f"no wide plan")
@@ -392,20 +449,24 @@ def wide_plan(D: int, S: int, what: str, tiles: int, sms: int) -> WidePlan:
     if (tiles * cluster > 2 * sms and half >= WIDE_CLUSTER_MIN
             and -(-nd // half) <= WIDE_GROUP):
         cluster = half
-    passes = 1 if S <= wide_one_pass_keys(cluster) else 2
-    return WidePlan(cluster, -(-nd // cluster), passes,
-                    wide_smem(cluster, S, passes))
+    slices = -(-nd // cluster)
+    passes = 1 if S <= wide_one_pass_keys(cluster, slices if f32 else 0) \
+        else 2
+    smem = (wide_smem_f32(cluster, slices, S, passes) if f32
+            else wide_smem(cluster, S, passes))
+    return WidePlan(cluster, slices, passes, smem)
 
 
 def wide_plan_arg(D: int, S: int, tiles: int, code: int, what: str,
                   device):
-    """The plan as the attention entry points take it: four C ints for the
-    bf16 forward above 256 (wide_plan on ``device``'s card), else None (a
-    null pointer)."""
-    if code != DTYPE_CODES["bfloat16"] or head_instance(D, what)[1] == 1:
+    """The plan as the attention entry points take it: four C ints above
+    head size 256 (wide_plan in the call's dtype on ``device``'s card; the
+    f32 backward reads its cluster), else None (a null pointer)."""
+    if head_instance(D, what)[1] == 1:
         return None
-    return (ctypes.c_int * 4)(*wide_plan(D, S, what, tiles,
-                                         device_sms(device)))
+    return (ctypes.c_int * 4)(*wide_plan(
+        D, S, what, tiles, device_sms(device),
+        f32=code == DTYPE_CODES["float32"]))
 
 
 @functools.cache

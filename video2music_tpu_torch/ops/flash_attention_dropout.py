@@ -253,13 +253,16 @@ def flash_attention_dropout_bwd(q, k, v, bias, do, seed, stats, out,
     dbias = None if bias is None else torch.empty_like(bias)
     dsum = torch.empty(B, H, L, device=q.device, dtype=torch.float32)
     seed, sharded = _seed_block(seed, H, origin)
+    plan = kernels.wide_plan_arg(
+        D, k.shape[2], B * H * -(-L // kernels.WIDE_TILE), code, what,
+        q.device)
     status = kernels.library().v2m_attention_dropout_bwd(
         code, kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
         kernels.ptr(bias), kernels.ptr(seed), kernels.ptr(do),
         kernels.ptr(stats), kernels.ptr(out), kernels.ptr(dq), kernels.ptr(dk),
         kernels.ptr(dv), kernels.ptr(dbias), kernels.ptr(dsum), B * H, L,
         k.shape[2], Dp, int(causal), D ** -0.5, *_drop_args(rate, sharded),
-        kernels.stream_of(q))
+        plan, kernels.stream_of(q))
     kernels.check(status, what)
     flash_attention_dropout_bwd.launches += 1
     if Dp != D:
