@@ -12,8 +12,10 @@ with its error against the plain version; then the dropout forward at the
 training shape (B=16, H=8, L=300, rate 0.1), causal and not; then the
 wide forms above head size 256 in bfloat16 and float32 (H=1, L=S=300):
 row 1 at B=1 and row 11's forward and backward at B=16 (rate 0.1) at head
-sizes 320, 512 and 1024, each beside F.scaled_dot_product_attention (in
-float32 with TF32 off: EFFICIENT_ATTENTION).
+sizes 320, 512 and 1024, and row 11's backward under the causal mask at
+512, each beside F.scaled_dot_product_attention (in float32 with TF32
+off: EFFICIENT_ATTENTION; the backward's as forward + backward less the
+forward, chip_smoke.library_dropout_times).
 Device ms per call from a replayed CUDA graph (chip_smoke.time_ms), the
 least of 3.
 Run it from two checkouts in turns (parent, change, change, parent) to
@@ -66,6 +68,16 @@ def main() -> int:
             q, k, v, None, seed, causal, 0.1))[0] for _ in range(3))
         out.append(f"dropout fwd{' causal' if causal else ''} {ms:.4f} ms")
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_bwd(q, k, v, do, causal):
+        """SDPA's backward at rate 0.1: forward + backward less forward."""
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+        fwd = cs.time_ms(lambda: sdpa(q, k, v, dropout_p=0.1,
+                                      is_causal=causal))[0]
+        both = cs.time_ms(lambda: torch.autograd.grad(
+            sdpa(ql, kl, vl, dropout_p=0.1, is_causal=causal), (ql, kl, vl),
+            do))[0]
+        return both - fwd
     for dt in (torch.bfloat16, torch.float32):
         name = "" if dt == torch.bfloat16 else " f32"
         for D in (320, 512, 1024):
@@ -90,10 +102,23 @@ def main() -> int:
                       for _ in range(3))
             out.append(f"d{D}{name} dropout fwd b16 {ms:.4f} ms (rel err "
                        f"{err:.1e}; sdpa {lib:.4f})")
-            ms = min(cs.time_ms(lambda: fad.flash_attention_dropout_bwd(
-                q, k, v, None, do, seed, stats, o, False, 0.1))[0]
-                for _ in range(3))
-            out.append(f"d{D}{name} dropout bwd b16 {ms:.4f} ms")
+            for causal in (False, True) if D == 512 else (False,):
+                if causal:
+                    o, stats = fad.flash_attention_dropout_fwd(
+                        q, k, v, None, seed, True, 0.1)
+                err = max(cs.errors(g, w)[1] for g, w in zip(
+                    fad.flash_attention_dropout_bwd(
+                        q, k, v, None, do, seed, stats, o, causal, 0.1),
+                    fad.flash_attention_dropout_plain_bwd(
+                        q, k, v, do, causal=causal, dropout_rate=0.1,
+                        seed=seed)) if w is not None)
+                ms = min(cs.time_ms(lambda: fad.flash_attention_dropout_bwd(
+                    q, k, v, None, do, seed, stats, o, causal, 0.1))[0]
+                    for _ in range(3))
+                lib = min(sdpa_bwd(q, k, v, do, causal) for _ in range(3))
+                ctag = " causal" if causal else ""
+                out.append(f"d{D}{name} dropout bwd{ctag} b16 {ms:.4f} ms "
+                           f"(rel err {err:.1e}; sdpa {lib:.4f})")
     print(f"{cs.card_line()} | " + "; ".join(out))
     return 0
 

@@ -15,7 +15,9 @@ step of the train_amt command line (AMT 2.2, motion_type 1, TrainConfig's
 defaults: float32, B=32, L=300): ms per step (CUDA events over 5 steps)
 and the device share of row 11's kernels in 3 steps under torch.profiler,
 ``[TAG] F32_STEP {json}``; the same step at -num_heads 1 (head size 512:
-row 11 on the wide kernels), ``[TAG] F32_STEP_HD512 {json}``; and the
+row 11 on the wide kernels), ``[TAG] F32_STEP_HD512 {json}``; that step in
+bf16 mixed precision (TrainConfig(mixed_precision=True): row 11's bf16
+wide kernels), ``[TAG] BF16_STEP_HD512 {json}``; and the
 count of each tensor-core instruction
 kind in the library's SASS, ``[TAG] HMMA {json}`` (cuobjdump -sass). With
 OUT_DIR (relative to the directory it was started from) the rows also go
@@ -50,10 +52,11 @@ ROW11_WIDE_NAMES = ("attention_fwd_wide", "attention_dq_wide",
                     "attention_dkv_wide")
 
 
-def f32_train_step(cs, B=32, L=300, steps=5, traced=3, num_heads=8):
-    """ms per f32 train step of the train_amt CLI's model (at its
-    -num_heads) and the device share of row 11's kernels in ``traced``
-    steps (torch.profiler)."""
+def train_step(cs, B=32, L=300, steps=5, traced=3, num_heads=8,
+               mixed_precision=False):
+    """ms per train step of the train_amt CLI's model (at its -num_heads;
+    f32, or bf16 where ``mixed_precision``) and the device share of row
+    11's kernels in ``traced`` steps (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -63,7 +66,7 @@ def f32_train_step(cs, B=32, L=300, steps=5, traced=3, num_heads=8):
 
     cfg = amt_config("2.2", num_heads=num_heads,
                      total_vf_dim=768 + 1 + 512 + 6)
-    tcfg = TrainConfig(batch_size=B)
+    tcfg = TrainConfig(batch_size=B, mixed_precision=mixed_precision)
     state = create_train_state(cfg, tcfg, device="cuda")
     step = make_amt_train_step(tcfg)
     batch = cs.zoo_batch("amt", B, L, seed=0)
@@ -88,7 +91,8 @@ def f32_train_step(cs, B=32, L=300, steps=5, traced=3, num_heads=8):
     row11 = sum(r[0] for r in rows
                 if any(n in r[1] for n in
                        cs.ROW11_TRACE_NAMES + ROW11_WIDE_NAMES))
-    return dict(B=B, num_heads=num_heads, ms_step=ms,
+    return dict(B=B, num_heads=num_heads, mixed_precision=mixed_precision,
+                ms_step=ms,
                 device_ms_step=total / 1e3 / traced,
                 row11_ms_step=row11 / 1e3 / traced,
                 row11_share=row11 / max(total, 1e-9))
@@ -139,9 +143,11 @@ def main() -> int:
                                        v[torch.float32][0]]
     del v2m
     torch.cuda.empty_cache()
-    step = f32_train_step(cs)
+    step = train_step(cs)
     torch.cuda.empty_cache()
-    step512 = f32_train_step(cs, num_heads=1)
+    step512 = train_step(cs, num_heads=1)
+    torch.cuda.empty_cache()
+    bf16_512 = train_step(cs, num_heads=1, mixed_precision=True)
     hmma = collections.Counter(re.findall(r"HMMA\.[\w.]+",
                                           cuobjdump(kernels, "-sass")))
     if out_dir is not None:
@@ -154,6 +160,7 @@ def main() -> int:
     print(f"[{tag}] ROWS {json.dumps(rows)}")
     print(f"[{tag}] F32_STEP {json.dumps(step)}")
     print(f"[{tag}] F32_STEP_HD512 {json.dumps(step512)}")
+    print(f"[{tag}] BF16_STEP_HD512 {json.dumps(bf16_512)}")
     print(f"[{tag}] HMMA {json.dumps(dict(sorted(hmma.items())))}")
     return 0
 

@@ -359,7 +359,9 @@ STACK_KERNELS = ("decode_monolith", "decode_segment", "decode_flat_monolith")
 # layer), 7 and 10 on the tree at 04068b2, rows 3-5 (the cooperative
 # kernel) and 12 on the tree at e773164, rows 13 and 14 (the probes) on
 # the tree at 18aa1a8, rows 1 and 11's head-size-512 forms (ms_d512) on
-# their first wide design (the tree at c9ea41e); not measured by this run, so
+# their first wide design (the tree at c9ea41e), row 11's bf16 backward at
+# head sizes 320 / 512 / 1024 on its block-a-slice design (the tree at
+# 3e43d69, PR 22's comparison call); not measured by this run, so
 # they stay out of the kernels line and are printed on a line of their
 # own, marked so, beside this run's times
 PREV_MS = {
@@ -367,7 +369,9 @@ PREV_MS = {
                             ms_d512=0.0826),
     "flash_attention_dropout_fwd": dict(ms=0.4301, ms_causal=0.4121,
                                         ms_d512=0.2739),
-    "flash_attention_dropout_bwd": dict(ms=3.3249, ms_causal=2.2283),
+    "flash_attention_dropout_bwd": dict(ms=3.3249, ms_causal=2.2283,
+                                        ms_d320=0.2791, ms_d512=0.5971,
+                                        ms_d1024=1.8528),
     "batched_layer_step": dict(ms=0.0539, ms_b64=0.0998, ms_int8=0.0589),
     "decode_variant_layer": dict(ms=0.0613, ms_int8=0.0646),
     "decode_layer": dict(ms=0.0432, ms_int8=0.0440),
@@ -3183,9 +3187,13 @@ def head_size_phase(report, card):
 # 5, 5, 8, 9 and 16 slices of 64 columns: at B=2, H=2, L=300 clusters of
 # 5, 5, 8, 8 (one block owning two slices, the others one) and 8 (two each)
 WIDE_HEADS = (264, 320, 512, 576, 1024)
-# bf16 past the wide forward's one-pass cut: head size 264 (a cluster of 5
-# blocks a tile, one pass to 1984 keys) at L = S = 2000, two passes
-WIDE_PAST_CUT = (264, 2000)
+# bf16's own edges (B=1, H=1; head size, L = S, what it runs): past the
+# wide forward's one-pass cut (head size 264: a cluster of 5 blocks a tile,
+# one pass to 1984 keys) at L = S = 2000, two passes; and the backward's
+# own side streamed through its ring (4608: 9 slices a block of 8, five
+# groups: neither q and dO nor K and V stay resident)
+WIDE_BF16_EDGES = ((264, 2000, "two passes"),
+                   (4608, 130, "own side streamed, five groups"))
 # f32's own edges (B=1, H=1; head size, L = S, what it runs): past the f32
 # forward's one-pass cut (head size 4096: 8 blocks of 8 slices, one pass
 # to 640 keys; the backward in four groups of two slices, its own side
@@ -3199,6 +3207,41 @@ WIDE_F32_EDGES = ((4096, 700, "two passes, four groups"),
 # dtypes, held there against the plain versions too
 WIDE_TIMED = (320, 512, 1024)
 WIDE_TIMED_CLUSTERS = {320: 5, 512: 4, 1024: 8}
+# ... and row 11 under the causal mask at this head size (ms_d512_causal)
+WIDE_TIMED_CAUSAL = 512
+# the profiler's device events in one eager call of the bf16 wide backward
+# at row 11's timed forms (B=16, H=1, L=S=300), in a fresh process (as
+# PROBE_LAUNCH_CHECK): exactly its two kernels, dQ then dK / dV
+WIDE_BWD_LAUNCH_CHECK = """
+import json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from video2music_tpu_torch.ops import flash_attention_dropout as fad
+seed = torch.tensor([11], dtype=torch.int32, device="cuda")
+out = {}
+for D, causal in ((320, False), (512, False), (512, True), (1024, False)):
+    q, k, v, do = (torch.randn(16, 1, 300, D, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed, causal,
+                                               0.1)
+    fn = lambda: fad.flash_attention_dropout_bwd(q, k, v, None, do, seed,
+                                                 stats, o, causal, 0.1)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session without device events: again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    out[f"D{D}" + (" causal" if causal else "")] = names
+print(json.dumps(out))
+"""
+WIDE_BWD_KERNELS = ("attention_dq_wide_mma", "attention_dkv_wide_mma")
 WIDE_STATES = (1025, 2048)     # two state chunks each
 
 
@@ -3222,16 +3265,22 @@ def wide_head_phase(report, card):
     +bias, +causal, +bias +causal; the dropout attention (rate 0.1) with
     and without the causal mask and its bias: output, dq / dk / dv (/
     dbias; the backward reads the forward's stats), and the mask entry for
-    entry. The same past each dtype's one-pass cut (WIDE_PAST_CUT in bf16,
-    WIDE_F32_EDGES in f32, B=1, H=1: two passes; in f32 also q streamed).
+    entry. The same at each dtype's edges (WIDE_BF16_EDGES, WIDE_F32_EDGES;
+    B=1, H=1): past the one-pass cut (two passes), q streamed through the
+    f32 forward's ring, the backward's own side streamed through its ring
+    in bf16.
     Timed at 320, 512 (train_amt -num_heads 1 at d_model 512) and 1024 in
     both dtypes: row 1 at B=1, H=1, L=300 beside
     F.scaled_dot_product_attention, whose backend is named (its flash
     backend stops at head size 256), row 11's forward and backward at
     B=16, H=1, L=S=300 beside SDPA with the same dropout rate, each with
-    its bound; at that B=16 grid (its clusters WIDE_TIMED_CLUSTERS) row 1
-    plain and causal, row 11's forward, its backward from the forward's
-    stats and the mask against the plain versions too."""
+    its bound, and row 11 causal at head size 512 (ms_d512_causal); at that
+    B=16 grid (its clusters WIDE_TIMED_CLUSTERS) row 1 plain and causal,
+    row 11's forward, its backward from the forward's stats (causal and
+    not) and the mask against the plain versions too. Last, in a fresh
+    process, the profiler's device events in one call of the bf16 wide
+    backward at each timed form: its two kernels (WIDE_BWD_KERNELS) and
+    nothing else."""
     import torch
     from video2music_tpu_torch import kernels
     from video2music_tpu_torch.ops import flash_attention_dropout as fad
@@ -3294,16 +3343,17 @@ def wide_head_phase(report, card):
             print(f"  dropout mask D={D} [{str(dtype)[6:]}]: equal entry "
                   f"for entry (causal and not); plan {tuple(plan)}")
         f32 = dtype == torch.float32
-        for D, Lc, what in (WIDE_F32_EDGES if f32 else
-                            (WIDE_PAST_CUT + ("two passes",),)):
+        for D, Lc, what in WIDE_F32_EDGES if f32 else WIDE_BF16_EDGES:
             plan = kernels.wide_plan(D, Lc, "wide heads", -(-Lc // 64), sms,
                                      f32=f32)
             fail_unless((plan.passes == 2) == what.startswith("two"),
                         f"D={D} L=S={Lc}: plan {plan} is not {what}")
-            if f32:
-                fail_unless(kernels.wide_resident_f32(
-                    plan.cluster, plan.slices) != ("streamed" in what),
-                    f"D={D}: plan {plan} is not {what}")
+            streamed = "streamed" in what
+            fail_unless(kernels.wide_resident_f32(
+                plan.cluster, plan.slices) != streamed if f32 else
+                all(kernels.wide_bwd_resident(plan.slices, dkv) != streamed
+                    for dkv in (False, True)),
+                f"D={D}: plan {plan} is not {what}")
             q, k, v, do = (torch.randn(1, 1, Lc, D, generator=gen)
                            .to(dev, dtype) for _ in range(4))
             tag = f" D={D} L=S={Lc} ({what})"
@@ -3384,6 +3434,63 @@ def wide_head_phase(report, card):
             report[bwd_name]["form_bound_" + key + tag] = form_bound(
                 nbytes(q, k, v, do, q, k, v), 5 * flops, peak)
             library_dropout_times(report, q, k, v, do, rate, False, key=key)
+            if D == WIDE_TIMED_CAUSAL:
+                wide_causal_times(report, q, k, v, do, seed, rate, key)
+    wide_bwd_launch_check(report)
+
+
+def wide_causal_times(report, q, k, v, do, seed, rate, key):
+    """Row 11's forward and backward under the causal mask at the timed
+    B=16 grid (key + "_causal") beside their plain versions, their bounds
+    (the bytes, and the operations of the unmasked pairs) and SDPA with
+    is_causal."""
+    from video2music_tpu_torch.ops import flash_attention_dropout as fad
+
+    fwd_name, bwd_name = TRAIN_KERNELS
+    B, _, L, D = q.shape
+    key += "_causal"
+    out, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed, True,
+                                                 rate)
+    dkw = dict(causal=True, dropout_rate=rate, seed=seed)
+    note_times(report, fwd_name, q.dtype,
+               lambda: fad.flash_attention_dropout_fwd(q, k, v, None, seed,
+                                                       True, rate),
+               lambda: fad.flash_attention_dropout_plain(q, k, v, **dkw),
+               plain_iters=5, key=key)
+    note_times(report, bwd_name, q.dtype,
+               lambda: fad.flash_attention_dropout_bwd(q, k, v, None, do, seed,
+                                                       stats, out, True, rate),
+               lambda: fad.flash_attention_dropout_plain_bwd(q, k, v, do,
+                                                             **dkw),
+               plain_iters=5, key=key)
+    flops = 2 * B * L * (L + 1) // 2 * D  # one product over the kept pairs
+    tag, peak = yardstick_of(q.dtype)
+    report[fwd_name]["form_bound_" + key + tag] = form_bound(
+        nbytes(q, k, v, q), 2 * flops, peak)
+    report[bwd_name]["form_bound_" + key + tag] = form_bound(
+        nbytes(q, k, v, do, q, k, v), 5 * flops, peak)
+    library_dropout_times(report, q, k, v, do, rate, True, key=key)
+
+
+def wide_bwd_launch_check(report):
+    """WIDE_BWD_LAUNCH_CHECK in a fresh process: each timed form's bf16
+    wide backward is its two kernels, dQ then dK / dV, in one call; their
+    names go to the kernels line (wide_device_kernels)."""
+    proc = subprocess.run([sys.executable, "-c", WIDE_BWD_LAUNCH_CHECK],
+                          capture_output=True, text=True, cwd=ROOT,
+                          timeout=300)
+    fail_unless(proc.returncode == 0, "the wide backward's launch count "
+                f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    for form, names in json.loads(proc.stdout.strip().splitlines()[-1]
+                                  ).items():
+        short = [short_kernel_name(n) for n in names]
+        print(f"  profiler, one bf16 wide backward call at {form} (B=16): "
+              f"{len(names)} device event(s) {short}")
+        fail_unless(len(names) == 2 and all(
+            want in got for want, got in zip(WIDE_BWD_KERNELS, short)),
+            f"the bf16 wide backward at {form}: {short}, not "
+            f"{list(WIDE_BWD_KERNELS)}")
+    report[TRAIN_KERNELS[1]]["wide_device_kernels"] = list(WIDE_BWD_KERNELS)
 
 
 def wide_b16_checks(report, D, q, k, v, do, out, stats, seed, rate, sms):
@@ -3416,12 +3523,17 @@ def wide_b16_checks(report, D, q, k, v, do, out, stats, seed, rate, sms):
     note_error(report, fwd_name, dtype, check_close(
         f"{fwd_name}{tag}", dtype, out,
         fad.flash_attention_dropout_plain(q, k, v, **dkw)))
-    grads = fad.flash_attention_dropout_bwd(q, k, v, None, do, seed, stats,
-                                            out, False, rate)
-    wants = fad.flash_attention_dropout_plain_bwd(q, k, v, do, **dkw)
-    for gname, g, w in zip(("dq", "dk", "dv"), grads, wants):
-        note_error(report, bwd_name, dtype, check_close(
-            f"{bwd_name} {gname}{tag}", dtype, g, w))
+    for ctag, causal in (("", False), (" causal", True)):
+        if causal:
+            out, stats = fad.flash_attention_dropout_fwd(q, k, v, None, seed,
+                                                         True, rate)
+        grads = fad.flash_attention_dropout_bwd(q, k, v, None, do, seed,
+                                                stats, out, causal, rate)
+        wants = fad.flash_attention_dropout_plain_bwd(q, k, v, do,
+                                                      causal=causal, **dkw)
+        for gname, g, w in zip(("dq", "dk", "dv"), grads, wants):
+            note_error(report, bwd_name, dtype, check_close(
+                f"{bwd_name} {gname}{tag}{ctag}", dtype, g, w))
     got = fad.extract_dropped_probs(q, k, dropout_rate=rate, seed=seed)
     ref = fad._probs(q, k, None, False) * fad.dropout_mask(
         B, H, L, L, rate, seed, dev)
@@ -3927,6 +4039,111 @@ def wide_head_path_phase(card, report):
         head_size_paths(v2m, card, report, "hd512")
         del v2m
         torch.cuda.empty_cache()
+
+
+def wide_bf16_train_phase(card, report):
+    """Row 11's bf16 wide backward on its path: AMT 2.2 trained in bf16
+    mixed precision at one head of 512, full width (d_model 512, d_ff
+    1024, 6+6 layers), through the entry points. train_amt for one epoch
+    at B=16 on a synthetic tree of 32 clips of 300 s, then 30 steps of
+    make_amt_train_step on one fixed batch of the trained state, whose
+    loss must be finite and fall. The counters, zeroed before train_amt
+    and read after the 30 steps, must show 18 forward and 18 backward
+    launches a step and 18 of row 1 an eval batch; a spy on the training
+    attention (ops.attention.flash_attention_dropout, whose backward is
+    row 11's) sees every call in bf16 at head size 512, and the profiler's
+    device events of one more step hold 18 of each of the bf16 wide
+    backward's two kernels (WIDE_BWD_KERNELS) and no other attention
+    backward kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from video2music_tpu_torch.core.config import TrainConfig, amt_config
+    from video2music_tpu_torch.data import batches, create_vevo_datasets
+    from video2music_tpu_torch.data.loader import to_device
+    from video2music_tpu_torch.ops import attention
+    from video2music_tpu_torch.train import (LoopConfig, make_amt_train_step,
+                                             train_amt)
+
+    cfg = amt_config("2.2", total_vf_dim=768 + 1 + 512 + 6, num_heads=1)
+    tcfg = TrainConfig(optimizer="adamw", lr=1e-4, mixed_precision=True)
+    B, n_attn, n_guard = 16, 3 * len(cfg.decoder_layers), 30
+    real, forms = attention.flash_attention_dropout, set()
+
+    def spy(q, *args, **kw):
+        forms.add((str(q.dtype)[6:], q.shape[-1]))
+        return real(q, *args, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vevo")
+        write_feature_tree(root, 32, 300, seed=23)
+        train_ds, val_ds, _ = create_vevo_datasets(root, motion_type=1)
+        zero_launches()
+        attention.flash_attention_dropout = spy
+        try:
+            t0 = time.perf_counter()
+            state = train_amt(cfg, tcfg, LoopConfig(
+                epochs=1, batch_size=B, output_dir=os.path.join(tmp, "run")),
+                train_ds, val_ds, device="cuda")
+            torch.cuda.synchronize()
+            epoch_s, epoch_steps = time.perf_counter() - t0, state.step
+            batch = to_device(next(batches(train_ds, B, shuffle=False)),
+                              "cuda")
+            step = make_amt_train_step(tcfg)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            losses = []
+            for i in range(n_guard):
+                if i == 10:
+                    events[0].record()
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+            events[1].record()
+            events[1].synchronize()
+        finally:
+            attention.flash_attention_dropout = real
+        ms_step = events[0].elapsed_time(events[1]) / (n_guard - 10)
+        fail_unless(state.model.cfg.head_dim == 512, "num_heads=1: head size "
+                    f"{state.model.cfg.head_dim}")
+        fail_unless(forms == {("bfloat16", 512)}, f"the training attention "
+                    f"saw {sorted(forms)}, not bf16 at head size 512 alone")
+        n_steps = epoch_steps + n_guard
+        eval_batches = -(-len(train_ds) // B) + -(-len(val_ds) // B)
+        check_path_launches(
+            f"head size 512 bf16 train ({n_steps} steps)", dict(
+                flash_attention=n_attn * eval_batches,
+                flash_attention_dropout_fwd=n_attn * n_steps,
+                flash_attention_dropout_bwd=n_attn * n_steps))
+        add_wide_launches(report)
+        for _ in range(3):  # a session without device events: again
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+            names = [short_kernel_name(e.name) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+    bwd = [n for n in names if "attention" in n and ("_dq" in n
+                                                      or "_dkv" in n)]
+    counts = {k: sum(k in n for n in bwd) for k in WIDE_BWD_KERNELS}
+    print(f"  profiler, one step: {len(bwd)} attention backward kernels "
+          f"{counts}")
+    fail_unless(len(bwd) == 2 * n_attn and all(
+        c == n_attn for c in counts.values()), f"one bf16 step at head size "
+        f"512: attention backward kernels {sorted(set(bwd))}, "
+        f"{len(bwd)} launches, not {n_attn} of each of {WIDE_BWD_KERNELS}")
+    losses = torch.stack(losses).float().cpu()
+    fail_unless(bool(torch.isfinite(losses).all()), f"losses {losses}")
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    fail_unless(last < first, f"loss did not drop: {first} -> {last}")
+    print(f"head size 512 bf16 train: train_amt one epoch of {epoch_steps} "
+          f"steps at B={B} with the eval passes {epoch_s:.2f} s; {n_guard} "
+          f"steps on one batch, loss {first:.4f} -> {last:.4f}, "
+          f"{ms_step:.2f} ms/step over steps 10-{n_guard - 1} (CUDA events) "
+          f"[{card}]")
+    report.setdefault("wide", {}).update(
+        hd512_bf16_ms_step=ms_step, hd512_bf16_loss_first=first,
+        hd512_bf16_loss_last=last)
 
 
 def head_size_paths(v2m, card, report, tag, T=300):
@@ -7932,6 +8149,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("head size 512 path", wide_head_path_phase, card, report)
     torch.cuda.empty_cache()
+    phase("head size 512 bf16 train", wide_bf16_train_phase, card, report)
+    torch.cuda.empty_cache()
     phase("head size 8 int8 KV", int8_kv_hd8_phase, card, report)
     torch.cuda.empty_cache()
     phase("head size 4 path", narrow_head_path_phase, card, report)
@@ -7955,6 +8174,7 @@ def main() -> int:
         for key in ("ms_b16", "ms_b64", "ms_causal", "ms_2h", "ms_int8",
                     "ms_int8_b16", "ms_int8_b64", "ms_d128", "ms_rpr",
                     "ms_mlp", "ms_moemamba", "ms_d320", "ms_d512", "ms_d1024",
+                    "ms_d512_causal",
                     "ms_int8_hd8",
                     "ms_int8_hd8_b64", "ms_n2048", "ms_floor", "ms_floor_b16",
                     "ms_floor_b64", "ms_noattn", "ms_noattn_b16",
@@ -7994,7 +8214,8 @@ def main() -> int:
                     "launches_raw_video", "launches_train_zoo",
                     "launches_clis", "launches_multi_gpu",
                     "launches_published", "launches_wide",
-                    "launches_probe", "launches_hd512", "launches_hd4"):
+                    "launches_probe", "launches_hd512", "launches_hd4",
+                    "wide_device_kernels"):
             if key in r:
                 row[key] = r[key]
         if "err_int8_hd8" in r:  # int8 KV caches at head size 8

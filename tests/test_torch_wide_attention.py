@@ -186,7 +186,7 @@ def test_wide_plan_covers_and_fits(D):
             assert kernels.wide_smem_f32(C, f.slices, cut + CHUNK, 1) > \
                 kernels.SMEM_MAX
             for dkv in (False, True):
-                assert kernels.wide_bwd_smem_f32(f.slices, dkv) <= \
+                assert kernels.wide_bwd_smem(f.slices, dkv, f32=True) <= \
                     kernels.SMEM_MAX
 
 

@@ -295,6 +295,21 @@ struct FwdArgs {
   DropoutSpec drop;
 };
 
+// The backward's arguments (flash_attention_dropout.cu; above head size
+// 256 attention_wide.cuh's cluster backward).
+struct BwdArgs {
+  const bf16 *q, *k, *v, *out, *dout;
+  const float* bias;   // (BH, L, S) or null
+  const int* seed;
+  const float* stats;  // (BH, L, 2): the forward's row max and sum
+  bf16 *dq, *dk, *dv;
+  float* dbias;        // (BH, L, S) when there is a bias, else null
+  float* dsum;         // (BH, L): D, written by dQ, read by dK/dV
+  int L, S;
+  float scale;
+  DropoutSpec drop;
+};
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 // exp(x - m) as exp2(x log2(e) - m log2(e)): one FMA and the MUFU's ex2;

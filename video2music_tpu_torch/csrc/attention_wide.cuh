@@ -1,6 +1,6 @@
 // Attention above head size 256 (rows 1 and 11 at any head size), for
 // flash_attention.cu (row 1) and flash_attention_dropout.cu (row 11's
-// forward; its backward lives there).
+// forward and backward).
 //
 // The Pallas wrappers pad D to a multiple of 128 and keep whole rows in
 // VMEM (video2music_tpu/ops/pallas_attention.py:143,
@@ -10,12 +10,12 @@
 // kWide (the wrappers pad D with zero columns to a multiple of kWide: zero
 // columns change neither q . k nor the kept columns of P . V).
 //
-// bf16 (the product and training path): one thread-block cluster of C
-// blocks a tile of kTile query rows, block r of it owning the slices
-// [r nd / C, (r + 1) nd / C) of the head and the rows [r kTile / C,
-// (r + 1) kTile / C) of the tile (the plan, kernels.wide_plan, passes C).
-// A block reads only its own slices of q, K and V. For each 64-key chunk
-// it forms its partial S_r = q_r K_r^T on the tensor cores (mma.sync
+// The forward, bf16 (the product and training path): one thread-block
+// cluster of C blocks a tile of kTile query rows, block r of it owning
+// the slices [r nd / C, (r + 1) nd / C) of the head and the rows [r kTile
+// / C, (r + 1) kTile / C) of the tile (the plan, kernels.wide_plan, passes
+// C). A block reads only its own slices of q, K and V. For each 64-key
+// chunk it forms its partial S_r = q_r K_r^T on the tensor cores (mma.sync
 // m16n8k16, f32 accumulators; q and K pieces double-buffered by cp.async)
 // and leaves it in its shared memory; after a cluster barrier each block
 // adds its own rows of the partials of every block of the cluster through
@@ -33,14 +33,6 @@
 // is bit for bit that of the narrow instances; the owner of a row writes
 // its (m, l) for the backward.
 //
-// What bounds it: at row 11's hd 512 training shape (B*H = 16, L = S =
-// 300) the forward moves 19.7 MB in bf16 (5.9 us at 3.35 TB/s) and needs
-// two (L, S, D) products, 2.9 GFLOP (3.0 us at 989 TFLOP/s): the bytes
-// bound it. A block is a chain of a cluster barrier and an exchange a key
-// chunk, the softmax, a barrier and a step a (chunk, slice) of P . V;
-// where the grid is small (row 1 at B=1) that chain's latency, not the
-// bound, sets the time (computed from the shapes, not measured).
-//
 // f32 (the train_amt CLI's default and the evaluate CLI at head size 512)
 // runs the same plan on the same tensor cores in split TF32
 // (attention_tf32.cuh: three TF32 mma.sync.m16n8k8 products a product,
@@ -50,36 +42,47 @@
 // tile and half of a chunk's columns (of S, dP) or of a slice's (of the
 // outputs). The forward keeps a block's q slices in shared memory for the
 // whole tile where they fit and streams only K and V through the cp.async
-// ring; the owners' weights
-// stay f32 and unsplit: a gathering warp splits each A fragment once and
-// reuses it for the 4 column tiles of its half of every slice of its
-// group, while owners that wrote (big, small) pairs would double the
-// remote loads, the slow part. The backward (dQ, D and dbias; then dK and
-// dV) is one skeleton (bwd_wide_body): one cluster a 64-row query (dQ) or
-// key (dK/dV) tile, its blocks owning the plan's slices and rows. For each
+// ring; the owners' weights stay f32 and unsplit: a gathering warp splits
+// each A fragment once and reuses it for the 4 column tiles of its half of
+// every slice of its group, while owners that wrote (big, small) pairs
+// would double the remote loads, the slow part.
+//
+// The backward (dQ, D and dbias; then dK and dV), in both dtypes, is one
+// skeleton (bwd_wide_body, the dtype's products in BwdOps<E>), 8 warps a
+// block as the f32 forward's: one cluster a 64-row query (dQ) or key
+// (dK/dV) tile, its blocks owning the plan's slices and rows. For each
 // 64-row chunk of the other side every block adds its partials of S and
 // dP (dQ: q K^T, dO V^T; dK/dV: K q^T, V dO^T) over its slices into two
-// shared tiles; one reduce-scatter through distributed shared memory
+// f32 shared tiles; one reduce-scatter through distributed shared memory
 // hands each owner its rows of both, so S and dP are formed once a (tile,
 // chunk) for the whole head. The owner forms P and dS (dQ: D = rowsum(dO
 // * O) from per-block partials reduced in the first exchange, dbias
-// written, dsum for dK/dV; dK/dV: (m, l) from the stats and D from dsum)
-// and pushes them into every block's shared memory; every block then
-// multiplies them by its own slices of the chunk (dQ += dS K; dV += (P *
-// mask)^T dO, dK += dS^T q). q and dO (dQ) or K and V (dK/dV) stay
-// resident where they fit; the other side streams. A block holds the
-// outputs of kGroup slices at once; more take another pass over the
-// chunks.
+// written in f32, dsum for dK/dV; dK/dV: (m, l) from the stats and D from
+// dsum) and pushes them into every block's shared memory (bf16: P * mask
+// and dS rounded there, as the narrow bf16 kernels round them; the owners'
+// rows are keys in dK/dV, so the pushed (P * mask)^T and dS^T are A
+// operands as they lie, read by ldmatrix); every block then multiplies
+// them by its own slices of the chunk (dQ += dS K; dV += (P * mask)^T dO,
+// dK += dS^T q). q and dO (dQ) or K and V (dK/dV) stay resident where
+// they fit; the other side streams. A block holds the outputs of kGroup
+// slices at once; more take another pass over the chunks. No atomics: the
+// gradients are the same run to run.
 //
-// What bounds the f32 forms: row 11's forward at hd 512 (B*H = 16, L = S
-// = 300) moves 39.3 MB (11.7 us at 3.35 TB/s) and does 2.9 GFLOP (6.0 us
-// at 495 TFLOP/s TF32), the backward 68.8 MB (20.5 us) and 7.4 GFLOP: the
-// bytes bound both. Split TF32 makes each product three on the card, and
-// every (tile, chunk) is a chain of two cluster barriers (the backward) or
-// one (the forward), so latency, not the bound, sets the time at B=1.
+// What bounds them: at row 11's hd 512 training shape (B*H = 16, L = S =
+// 300) the bf16 forward moves 19.7 MB (5.9 us at 3.35 TB/s) and needs two
+// (L, S, D) products, 2.9 GFLOP (3.0 us at 989 TFLOP/s), the backward 34.4
+// MB (10.3 us) and five, 7.4 GFLOP (7.5 us): the bytes bound both; f32
+// doubles the bytes (39.3 and 68.8 MB) and halves the peak (495 TFLOP/s
+// TF32), with three products on the card for each. A block is a chain of
+// cluster barriers, one (the forward) or two (the backward) a (tile,
+// chunk), and of steps a (chunk, slice); that chain's latency, not the
+// bound, sets the time (at B=1 from the shapes; at B=16 the backward's
+// 0.2-0.6 ms bf16 against its 6-21 us bound, an H100 80GB HBM3 at 700 W).
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
@@ -90,26 +93,6 @@ namespace wide {
 constexpr int kWide = 64;      // columns a block owns; the D-chunk width
 
 using mma::Chunk;
-
-// The A operand of 16 rows r0.. and kWide columns of a (rows, stride)
-// bf16 matrix (m points at the chunk's first column); rows at or past
-// `limit` are zero.
-__device__ __forceinline__ void load_a_s(uint32_t (&a)[kWide / 16][4],
-                                         const bf16* __restrict__ m, int r0,
-                                         int limit, int lane, int stride) {
-  const int ra = r0 + (lane >> 2), rb = ra + 8, c = (lane & 3) * 2;
-  const uint32_t* pa = reinterpret_cast<const uint32_t*>(
-      m + (size_t)(ra < limit ? ra : 0) * stride + c);
-  const uint32_t* pb = reinterpret_cast<const uint32_t*>(
-      m + (size_t)(rb < limit ? rb : 0) * stride + c);
-#pragma unroll
-  for (int kk = 0; kk < kWide / 16; ++kk) {
-    a[kk][0] = ra < limit ? pa[kk * 8] : 0u;
-    a[kk][1] = rb < limit ? pb[kk * 8] : 0u;
-    a[kk][2] = ra < limit ? pa[kk * 8 + 4] : 0u;
-    a[kk][3] = rb < limit ? pb[kk * 8 + 4] : 0u;
-  }
-}
 
 // Rows r0 .. r0 + 63, kWide columns, of a (rows, stride) bf16 matrix (src
 // at the chunk's first column) into a padded shared chunk by the block's
@@ -128,11 +111,6 @@ __device__ __forceinline__ void load_chunk_s(bf16* dst,
     mma::cp_async16(dst + r * Chunk<kWide>::kStride + c,
                     src + (size_t)(ok ? r0 + r : 0) * stride + c, ok);
   }
-}
-
-// The column of the i-th of a block's nd D-chunks: its own slice last.
-__device__ __forceinline__ int chunk_col(int i, int slice, int nd) {
-  return ((slice + 1 + i) % nd) * kWide;
 }
 
 // ---------------------------------------------------------------------------
@@ -535,10 +513,6 @@ attention_fwd_wide_mma(mma::FwdArgs a, int D, Plan plan) {
   cluster.sync();  // no block leaves while another may read its weights
 }
 
-// The shared chunks of the wide backward (flash_attention_dropout.cu): two
-// K and two V chunks of kWide columns.
-constexpr size_t mma_smem() { return mma::fwd_smem<kWide>(); }
-
 // Whether `p` is a plan the kernel takes for nd slices and S keys (the
 // plan kernels.wide_plan makes, with its shared bytes).
 inline bool plan_ok(const Plan& p, int nd, int S) {
@@ -642,26 +616,55 @@ __host__ __device__ constexpr int plan_smem_f32(int cluster, int slices,
                            : 2 * own_rows(cluster) * kPLd));
 }
 
-// The backward's shared tiles: the partial S and dP, and the pushed dS
-// (dQ) or (P * mask)^T and dS^T (dK / dV).
-__host__ __device__ constexpr int bwd_tiles_f32(bool dkv) { return dkv ? 4 : 3; }
+// The backward's pieces, in either dtype: 64 rows x kWide, f32 rows padded
+// by kPadF32 floats, bf16 rows by 8 halves (Chunk<kWide>).
+__host__ __device__ constexpr int piece_bytes(bool b16) {
+  return b16 ? Chunk<kWide>::kElems * 2 : kPieceF32 * 4;
+}
+
+// The backward's shared tiles: the partial S and dP (f32), and the pushed
+// dS (dQ) or (P * mask)^T and dS^T (dK / dV), in the products' dtype (bf16
+// rows of kPLd halves, f32 rows of kPartLd floats).
+__host__ __device__ constexpr int bwd_tile_bytes(bool dkv, bool b16) {
+  return 2 * kTileFloats * 4 + (dkv ? 2 : 1) * kTileFloats * (b16 ? 2 : 4);
+}
 
 // Whether a backward block keeps its own side (q and dO for dQ, K and V
 // for dK / dV; at most `slices` pieces of each) in shared memory for the
 // whole tile, the ring streaming the other side's two pieces a step.
-__host__ __device__ constexpr bool bwd_resident_f32(int slices, bool dkv) {
-  return ((2 * slices + 2 * kStages) * kPieceF32 +
-          bwd_tiles_f32(dkv) * kTileFloats) * 4 <= kSmemMax;
+__host__ __device__ constexpr bool bwd_resident(int slices, bool dkv,
+                                                bool b16) {
+  return (2 * slices + 2 * kStages) * piece_bytes(b16) +
+             bwd_tile_bytes(dkv, b16) <= kSmemMax;
 }
 
 // Dynamic shared bytes of a backward block: the ring (two pieces a stage,
 // four where the own side streams too), the resident pieces, the tiles.
-__host__ __device__ constexpr int bwd_smem_f32(int slices, bool dkv) {
-  return 4 * ((bwd_resident_f32(slices, dkv) ? 2 * slices + 2 * kStages
-                                             : 4 * kStages) *
-                  kPieceF32 +
-              bwd_tiles_f32(dkv) * kTileFloats);
+__host__ __device__ constexpr int bwd_smem(int slices, bool dkv, bool b16) {
+  return (bwd_resident(slices, dkv, b16) ? 2 * slices + 2 * kStages
+                                         : 4 * kStages) *
+             piece_bytes(b16) +
+         bwd_tile_bytes(dkv, b16);
 }
+
+// bwd_smem's bytes for 1 .. kBwdSlicesMax slices a block (every plan up to
+// head size 4608 at clusters of 8), [f32][dK / dV][slices - 1]: the numbers
+// kernels.wide_bwd_smem gives (a CPU test reads this table), held to
+// bwd_smem here.
+constexpr int kBwdSlicesMax = 9;
+constexpr int kBwdSmem[2][2][kBwdSlicesMax] = {
+    {{101376, 119808, 138240, 156672, 175104, 193536, 211968, 230400, 119808},
+     {110592, 129024, 147456, 165888, 184320, 202752, 221184, 129024, 129024}},
+    {{159744, 194560, 229376, 194560, 194560, 194560, 194560, 194560, 194560},
+     {178176, 212992, 212992, 212992, 212992, 212992, 212992, 212992, 212992}}};
+constexpr bool bwd_smem_table_ok() {
+  for (int f = 0; f < 2; ++f)
+    for (int d = 0; d < 2; ++d)
+      for (int s = 1; s <= kBwdSlicesMax; ++s)
+        if (kBwdSmem[f][d][s - 1] != bwd_smem(s, d, !f)) return false;
+  return true;
+}
+static_assert(bwd_smem_table_ok(), "kBwdSmem differs from bwd_smem");
 
 // Rows r0 .. r0 + 63, kWide columns, of a (rows, stride) f32 matrix (src
 // at the slice's first column) into a padded shared piece by the block's
@@ -1039,26 +1042,148 @@ attention_fwd_wide_tf32(tf32::FwdArgs a, int D, Plan plan) {
   cluster.sync();  // no block leaves while another may read its weights
 }
 
-// The f32 backward, one body for both kernels. DKV false, dQ, D and dbias:
-// a cluster a 64-row query tile, chunks of 64 keys (under causal none past
-// the tile's diagonal chunk). DKV true, dK and dV: a cluster a 64-row key
-// tile, chunks of 64 queries (under causal from the tile's diagonal chunk).
-// The own side X, Y (q, dO; or K, V) against the streamed U, V (K, V; or
-// q, dO). Per group of kGroup slices and chunk: the chunk's S steps, one a
+// What the backward body does differently in each dtype (BwdOps<E>, E the
+// element of q, K, V and the gradients): its pieces (cp.async by the
+// block's kThreadsF32 threads), its products (f32: split TF32, the pushed
+// tiles read as C tiles; bf16: mma.sync m16n8k16 with f32 accumulators,
+// the A operands of the own rows and of the pushed tiles by ldmatrix, the
+// B operand of a product with a piece by ldmatrix.trans), the pushed
+// values (bf16: rounded, as the narrow kernels round P * mask and dS) and
+// the stores.
+template <typename E> struct BwdOps;
+
+template <> struct BwdOps<float> {
+  static constexpr int kPiece = kPieceF32;  // floats a piece
+  using Pushed = float[mma::kChunk / 8][4];  // a warp's rows of a pushed tile
+  __device__ static void load(float* dst, const float* src, int r0, int limit,
+                              int stride) {
+    load_piece_f32(dst, src, r0, limit, stride);
+  }
+  // c (16 x kHalf) += the X piece's rows rg * 16.. . the U piece's rows
+  // h0..^T
+  __device__ static void part(float (&c)[kHalf / 8][4], const float* x,
+                              const float* u, int rg, int h0, int lane) {
+    tf32::OwnRows<kWide, true> xr;
+    xr.s = x + rg * 16 * kLdF32;
+    tf32::mma_rowsT<kWide, kHalf / 8, true>(c, xr, u + h0 * kLdF32, lane);
+  }
+  __device__ static void get(Pushed& p, const float* tile, int rg, int lane) {
+    get_tile(p, tile, rg, 0, lane);
+  }
+  // acc (16 x kHalf, the piece's columns h0..) += p . the piece
+  __device__ static void prod(float (&acc)[kHalf / 8][4], const Pushed& p,
+                              const float* piece, int h0, int lane) {
+    tf32::mma_rows<kWide, mma::kChunk / 8, kHalf / 8>(acc, p, piece, h0, lane);
+  }
+  __device__ static void push(float* dst, const float (&o)[4]) {
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+  __device__ static void store2(float* dst, float x, float y) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+  }
+  // d + the dot product of N columns of x and y
+  template <int N>
+  __device__ static float dot(const float* x, const float* y, float d) {
+    const float4* xr = reinterpret_cast<const float4*>(x);
+    const float4* yr = reinterpret_cast<const float4*>(y);
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c) {
+      const float4 u = xr[c], w = yr[c];
+      d = fmaf(u.x, w.x, d);
+      d = fmaf(u.y, w.y, d);
+      d = fmaf(u.z, w.z, d);
+      d = fmaf(u.w, w.w, d);
+    }
+    return d;
+  }
+};
+
+template <> struct BwdOps<bf16> {
+  static constexpr int kPiece = Chunk<kWide>::kElems;  // halves a piece
+  using Pushed = uint32_t[mma::kChunk / 16][4];         // A operands
+  __device__ static void load(bf16* dst, const bf16* src, int r0, int limit,
+                              int stride) {
+    load_chunk_s<kThreadsF32>(dst, src, r0, limit, stride);
+  }
+  __device__ static void part(float (&c)[kHalf / 8][4], const bf16* x,
+                              const bf16* u, int rg, int h0, int lane) {
+    uint32_t xf[kWide / 16][4];
+    load_a_piece(xf, x, rg, lane);
+    mma::mma_a_rowsT<kWide, kHalf / 8>(c, xf, u + h0 * Chunk<kWide>::kStride,
+                                       lane);
+  }
+  __device__ static void get(Pushed& p, const bf16* tile, int rg, int lane) {
+    load_a_piece(p, tile, rg, lane);
+  }
+  __device__ static void prod(float (&acc)[kHalf / 8][4], const Pushed& p,
+                              const bf16* piece, int h0, int lane) {
+    const int lr = (lane & 7) + (((lane >> 3) & 1) << 3);
+    const int lc = (lane >> 4) << 3;
+#pragma unroll
+    for (int j = 0; j < mma::kChunk / 16; ++j) {
+#pragma unroll
+      for (int n = 0; n < kHalf / 8; n += 2) {
+        uint32_t b[4];
+        mma::ldmatrix_x4_trans(b, piece + (j * 16 + lr) * Chunk<kWide>::kStride +
+                                      h0 + n * 8 + lc);
+        mma::mma_bf16(acc[n], p[j], b[0], b[1]);
+        mma::mma_bf16(acc[n + 1], p[j], b[2], b[3]);
+      }
+    }
+  }
+  __device__ static void push(bf16* dst, const float (&o)[4]) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(mma::pack_bf16(o[0], o[1]), mma::pack_bf16(o[2], o[3]));
+  }
+  __device__ static void store2(bf16* dst, float x, float y) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+  }
+  template <int N>
+  __device__ static float dot(const bf16* x, const bf16* y, float d) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x);
+    const uint4* yr = reinterpret_cast<const uint4*>(y);
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c) {
+      const uint4 u = xr[c], w = yr[c];
+      const uint32_t us[4] = {u.x, u.y, u.z, u.w}, ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 p = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&us[e]));
+        const float2 q = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ws[e]));
+        d = fmaf(p.x, q.x, d);
+        d = fmaf(p.y, q.y, d);
+      }
+    }
+    return d;
+  }
+};
+
+// The backward, one body for both kernels and both dtypes (Args is
+// tf32::BwdArgs or mma::BwdArgs). DKV false, dQ, D and dbias: a cluster a
+// 64-row query tile, chunks of 64 keys (under causal none past the tile's
+// diagonal chunk). DKV true, dK and dV: a cluster a 64-row key tile,
+// chunks of 64 queries (under causal from the tile's diagonal chunk). The
+// own side X, Y (q, dO; or K, V) against the streamed U, V (K, V; or q,
+// dO). Per group of kGroup slices and chunk: the chunk's S steps, one a
 // slice of the block's, add X_j U_j^T and Y_j V_j^T into the partial S and
 // dP tiles; the last ends in the exchange: a cluster barrier, each owner
 // sums its rows of both over the cluster (dQ: and, at the first, its rows'
 // D partials, kept in the S tile's padding column kChunk), forms dS (dQ:
-// P from the stats, dS = P (dP * mask - D), dbias in the first group; dK /
-// dV: P^T and dS^T from the stats and dsum) and pushes it into every
+// P from the stats, dS = P (dP * mask - D), dbias in the first group, f32;
+// dK / dV: P^T and dS^T from the stats and dsum) and pushes it into every
 // block's shared memory, and a second barrier. Then the group's product
 // steps, one a slice: dQ += dS U_j; or dV += (P * mask)^T V_j and dK +=
 // dS^T U_j. Every block of a cluster makes the same exchanges (the groups
 // are counted from plan.slices). grid (tiles x cluster, BH).
-template <bool DKV, bool CAUSAL>
-__device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
+template <typename Args, bool DKV, bool CAUSAL>
+__device__ __forceinline__ void bwd_wide_body(const Args& a, int D,
                                               const Plan& plan) {
   using namespace mma;
+  using E = std::remove_const_t<std::remove_pointer_t<decltype(Args::q)>>;
+  using Ops = BwdOps<E>;
+  constexpr int kPiece = Ops::kPiece;  // elements a piece
   constexpr int kNT = kChunk / 8;  // tiles of a chunk
   constexpr int kNH = kHalf / 8;   // tiles of a warp's half chunk
   constexpr int kDH = kHalf / 8;   // column tiles of a warp's half slice
@@ -1076,27 +1201,28 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
   const int n_own = DKV ? S : L;  // rows of the tile's side
   const int n_oth = DKV ? L : S;  // rows of the chunks' side
   const size_t qoff = (size_t)bh * L * D, koff = (size_t)bh * S * D;
-  const float* xg = DKV ? a.k + koff : a.q + qoff;
-  const float* yg = DKV ? a.v + koff : a.dout + qoff;
-  const float* ug = DKV ? a.q + qoff : a.k + koff;
-  const float* vg = DKV ? a.dout + qoff : a.v + koff;
+  const E* xg = DKV ? a.k + koff : a.q + qoff;
+  const E* yg = DKV ? a.v + koff : a.dout + qoff;
+  const E* ug = DKV ? a.q + qoff : a.k + koff;
+  const E* vg = DKV ? a.dout + qoff : a.v + koff;
   const int n_all = (n_oth + kChunk - 1) / kChunk;
   const int first = DKV && CAUSAL ? tile0 / kChunk : 0;
   const int n_chunks =
       (!DKV && CAUSAL ? min(n_all, tile0 / kChunk + 1) : n_all) - first;
-  const bool res = bwd_resident_f32(plan.slices, DKV);
+  const bool res =
+      bwd_resident(plan.slices, DKV, !std::is_same_v<E, float>);
   const bool drop = a.drop.apply != 0;
   const unsigned int salt = drop ? drop_salt(a.seed, a.drop, bh) : 0u;
 
-  // shared memory (bwd_smem_f32): ring [kStages][U, V (, X, Y)], resident
-  // X [plan.slices] and Y [plan.slices], the partial S and dP tiles, the
+  // shared memory (bwd_smem): ring [kStages][U, V (, X, Y)], resident X
+  // [plan.slices] and Y [plan.slices], the partial S and dP tiles, the
   // pushed tiles (dS; or (P * mask)^T and dS^T)
-  float* ring = reinterpret_cast<float*>(attn_smem);
-  const int stage_len = (res ? 2 : 4) * kPieceF32;
-  float* xres = ring + kStages * stage_len;
-  float* yres = xres + (res ? plan.slices * kPieceF32 : 0);
-  float* part = yres + (res ? plan.slices * kPieceF32 : 0);
-  float* pushed = part + 2 * kTileFloats;
+  E* ring = reinterpret_cast<E*>(attn_smem);
+  const int stage_len = (res ? 2 : 4) * kPiece;
+  E* xres = ring + kStages * stage_len;
+  E* yres = xres + (res ? plan.slices * kPiece : 0);
+  float* part = reinterpret_cast<float*>(yres + (res ? plan.slices * kPiece : 0));
+  E* pushed = reinterpret_cast<E*>(part + 2 * kTileFloats);
 
   const int n_groups = (plan.slices + kGroup - 1) / kGroup;
   const int full = (nsl + kGroup) * n_chunks;
@@ -1116,14 +1242,13 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
   auto issue = [&](int t) {
     if (t < steps) {
       const Step s = step_at(t);
-      float* st = ring + (t % kStages) * stage_len;
+      E* st = ring + (t % kStages) * stage_len;
       const int col = (s_lo + s.j) * kWide, r0 = (first + s.c) * kChunk;
-      load_piece_f32(st, ug + col, r0, n_oth, D);
-      if (s.kind == 0 || DKV)
-        load_piece_f32(st + kPieceF32, vg + col, r0, n_oth, D);
+      Ops::load(st, ug + col, r0, n_oth, D);
+      if (s.kind == 0 || DKV) Ops::load(st + kPiece, vg + col, r0, n_oth, D);
       if (s.kind == 0 && !res) {
-        load_piece_f32(st + 2 * kPieceF32, xg + col, tile0, n_own, D);
-        load_piece_f32(st + 3 * kPieceF32, yg + col, tile0, n_own, D);
+        Ops::load(st + 2 * kPiece, xg + col, tile0, n_own, D);
+        Ops::load(st + 3 * kPiece, yg + col, tile0, n_own, D);
       }
     }
     cp_async_commit();
@@ -1131,8 +1256,8 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
   if (res)  // the resident pieces join the first stage's group
     for (int j = 0; j < nsl; ++j) {
       const int col = (s_lo + j) * kWide;
-      load_piece_f32(xres + j * kPieceF32, xg + col, tile0, n_own, D);
-      load_piece_f32(yres + j * kPieceF32, yg + col, tile0, n_own, D);
+      Ops::load(xres + j * kPiece, xg + col, tile0, n_own, D);
+      Ops::load(yres + j * kPiece, yg + col, tile0, n_own, D);
     }
   if (!DKV) {
     // the block's partial of D = rowsum(dO * O) over its slices, kPer
@@ -1142,20 +1267,9 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
     float d = 0.f;
     if (tile0 + r < L) {
       const size_t at = qoff + (size_t)(tile0 + r) * D + q0 * (kWide / kPer);
-      for (int j = 0; j < nsl; ++j) {
-        const float4* dr =
-            reinterpret_cast<const float4*>(a.dout + at + (s_lo + j) * kWide);
-        const float4* orr =
-            reinterpret_cast<const float4*>(a.out + at + (s_lo + j) * kWide);
-#pragma unroll
-        for (int c = 0; c < kWide / 4 / kPer; ++c) {
-          const float4 x = dr[c], y = orr[c];
-          d = fmaf(x.x, y.x, d);
-          d = fmaf(x.y, y.y, d);
-          d = fmaf(x.z, y.z, d);
-          d = fmaf(x.w, y.w, d);
-        }
-      }
+      for (int j = 0; j < nsl; ++j)
+        d = Ops::template dot<kWide / kPer>(a.dout + at + (s_lo + j) * kWide,
+                                            a.out + at + (s_lo + j) * kWide, d);
     }
 #pragma unroll
     for (int o = 1; o < kPer; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
@@ -1195,22 +1309,18 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
     cp_async_wait<kStages - 1>();
     __syncthreads();
     const Step st = step_at(t);
-    const float* stage = ring + (t % kStages) * stage_len;
+    const E* stage = ring + (t % kStages) * stage_len;
     if (st.kind == 0) {
       // the block's partials of S and dP, added in their shared tiles
-      tf32::OwnRows<kWide, true> x, y;
-      x.s = (res ? xres + st.j * kPieceF32 : stage + 2 * kPieceF32) +
-            rg * 16 * kLdF32;
-      y.s = (res ? yres + st.j * kPieceF32 : stage + 3 * kPieceF32) +
-            rg * 16 * kLdF32;
+      const E* x = res ? xres + st.j * kPiece : stage + 2 * kPiece;
+      const E* y = res ? yres + st.j * kPiece : stage + 3 * kPiece;
       float c[kNH][4];
       if (st.j == 0) tf32::zero(c); else get_tile(c, part, rg, h0, lane);
-      tf32::mma_rowsT<kWide, kNH, true>(c, x, stage + h0 * kLdF32, lane);
+      Ops::part(c, x, stage, rg, h0, lane);
       put_tile(part, c, rg, h0, lane);
       if (st.j == 0) tf32::zero(c);
       else get_tile(c, part + kTileFloats, rg, h0, lane);
-      tf32::mma_rowsT<kWide, kNH, true>(c, y, stage + kPieceF32 + h0 * kLdF32,
-                                        lane);
+      Ops::part(c, y, stage + kPiece, rg, h0, lane);
       put_tile(part + kTileFloats, c, rg, h0, lane);
       if (st.j == nsl - 1) {
         cluster.sync();  // every block's partials are in place
@@ -1284,13 +1394,10 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
           }
           if (ok)  // pushed into every block of the cluster
             for (int b = 0; b < C; ++b) {
-              float* dst = cluster.map_shared_rank(pushed, b) +
-                           (r_lo + rl) * kPartLd + c4;
-              *reinterpret_cast<float4*>(dst) =
-                  make_float4(o1[0], o1[1], o1[2], o1[3]);
-              if (DKV)
-                *reinterpret_cast<float4*>(dst + kTileFloats) =
-                    make_float4(o2[0], o2[1], o2[2], o2[3]);
+              E* dst = cluster.map_shared_rank(pushed, b) +
+                       (r_lo + rl) * kPartLd + c4;
+              Ops::push(dst, o1);
+              if (DKV) Ops::push(dst + kTileFloats, o2);
             }
         }
         cluster.sync();  // every owner's rows are in every block
@@ -1298,24 +1405,20 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
       }
     } else {
       const int u = st.j - st.g * kGroup;
-      float c[kNT][4];
-      get_tile(c, pushed, rg, 0, lane);
+      typename Ops::Pushed p;
+      Ops::get(p, pushed, rg, lane);
       if constexpr (!DKV) {
 #pragma unroll
         for (int uu = 0; uu < kGroup; ++uu)
-          if (uu == u)
-            tf32::mma_rows<kWide, kNT, kDH>(acc[uu], c, stage, h0, lane);
+          if (uu == u) Ops::prod(acc[uu], p, stage, h0, lane);
       } else {
 #pragma unroll
         for (int uu = 0; uu < kGroup; ++uu)
-          if (uu == u)
-            tf32::mma_rows<kWide, kNT, kDH>(acc2[uu], c, stage + kPieceF32,
-                                            h0, lane);
-        get_tile(c, pushed + kTileFloats, rg, 0, lane);
+          if (uu == u) Ops::prod(acc2[uu], p, stage + kPiece, h0, lane);
+        Ops::get(p, pushed + kTileFloats, rg, lane);
 #pragma unroll
         for (int uu = 0; uu < kGroup; ++uu)
-          if (uu == u)
-            tf32::mma_rows<kWide, kNT, kDH>(acc[uu], c, stage, h0, lane);
+          if (uu == u) Ops::prod(acc[uu], p, stage, h0, lane);
       }
       if (st.c == n_chunks - 1 && u == st.w - 1) {
         // the group's columns are complete: dQ (or dK) * scale, dV
@@ -1325,28 +1428,28 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
           if (uu < st.w) {
             const size_t off = (DKV ? koff : qoff) +
                                (s_lo + st.g * kGroup + uu) * kWide + h0;
-            float* o1 = (DKV ? a.dk : a.dq) + off;
+            E* o1 = (DKV ? a.dk : a.dq) + off;
 #pragma unroll
             for (int j = 0; j < kDH; ++j) {
               const int col = j * 8 + c2;
               if (ra < n_own)
-                *reinterpret_cast<float2*>(o1 + (size_t)ra * D + col) =
-                    make_float2(acc[uu][j][0] * a.scale, acc[uu][j][1] * a.scale);
+                Ops::store2(o1 + (size_t)ra * D + col, acc[uu][j][0] * a.scale,
+                            acc[uu][j][1] * a.scale);
               if (rb < n_own)
-                *reinterpret_cast<float2*>(o1 + (size_t)rb * D + col) =
-                    make_float2(acc[uu][j][2] * a.scale, acc[uu][j][3] * a.scale);
+                Ops::store2(o1 + (size_t)rb * D + col, acc[uu][j][2] * a.scale,
+                            acc[uu][j][3] * a.scale);
             }
             if constexpr (DKV) {
-              float* o2 = a.dv + off;
+              E* o2 = a.dv + off;
 #pragma unroll
               for (int j = 0; j < kDH; ++j) {
                 const int col = j * 8 + c2;
                 if (ra < n_own)
-                  *reinterpret_cast<float2*>(o2 + (size_t)ra * D + col) =
-                      make_float2(acc2[uu][j][0], acc2[uu][j][1]);
+                  Ops::store2(o2 + (size_t)ra * D + col, acc2[uu][j][0],
+                              acc2[uu][j][1]);
                 if (rb < n_own)
-                  *reinterpret_cast<float2*>(o2 + (size_t)rb * D + col) =
-                      make_float2(acc2[uu][j][2], acc2[uu][j][3]);
+                  Ops::store2(o2 + (size_t)rb * D + col, acc2[uu][j][2],
+                              acc2[uu][j][3]);
               }
               tf32::zero(acc2[uu]);
             }
@@ -1371,19 +1474,33 @@ __device__ __forceinline__ void bwd_wide_body(const tf32::BwdArgs& a, int D,
   }
 }
 
+// The four backward kernels: dQ (with D and dbias) and dK / dV, f32 in
+// split TF32 and bf16.
 template <bool CAUSAL>
 __global__ void __launch_bounds__(kThreadsF32)
 attention_dq_wide_tf32(tf32::BwdArgs a, int D, Plan plan) {
-  bwd_wide_body<false, CAUSAL>(a, D, plan);
+  bwd_wide_body<tf32::BwdArgs, false, CAUSAL>(a, D, plan);
 }
 
 template <bool CAUSAL>
 __global__ void __launch_bounds__(kThreadsF32)
 attention_dkv_wide_tf32(tf32::BwdArgs a, int D, Plan plan) {
-  bwd_wide_body<true, CAUSAL>(a, D, plan);
+  bwd_wide_body<tf32::BwdArgs, true, CAUSAL>(a, D, plan);
 }
 
-// Launches one of the f32 kernels as clusters of p.cluster blocks along x
+template <bool CAUSAL>
+__global__ void __launch_bounds__(kThreadsF32)
+attention_dq_wide_mma(mma::BwdArgs a, int D, Plan plan) {
+  bwd_wide_body<mma::BwdArgs, false, CAUSAL>(a, D, plan);
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(kThreadsF32)
+attention_dkv_wide_mma(mma::BwdArgs a, int D, Plan plan) {
+  bwd_wide_body<mma::BwdArgs, true, CAUSAL>(a, D, plan);
+}
+
+// Launches one of the f32 forward's or the backward's kernels as clusters of p.cluster blocks along x
 // with p.smem dynamic shared bytes (the instance opted in to kSmemMax once,
 // `opted_in`); returns a cudaError_t code.
 template <typename Args>
@@ -1445,36 +1562,44 @@ inline int run_fwd_tf32(const tf32::FwdArgs& a, int BH, int D, int causal,
                 : launch_fwd_tf32<false, DROPOUT>(a, D, p, grid, st);
 }
 
-template <bool DKV, bool CAUSAL>
-inline int launch_bwd_tf32(const tf32::BwdArgs& a, int D, const Plan& p,
-                           dim3 grid, cudaStream_t st) {
+template <typename Args, bool DKV, bool CAUSAL>
+inline int launch_bwd(const Args& a, int D, const Plan& p, dim3 grid,
+                      cudaStream_t st) {
   static bool opted_in = false;
-  void (*kernel)(tf32::BwdArgs, int, Plan);
-  if constexpr (DKV)
+  void (*kernel)(Args, int, Plan);
+  if constexpr (std::is_same_v<Args, tf32::BwdArgs> && DKV)
     kernel = attention_dkv_wide_tf32<CAUSAL>;
-  else
+  else if constexpr (std::is_same_v<Args, tf32::BwdArgs>)
     kernel = attention_dq_wide_tf32<CAUSAL>;
+  else if constexpr (DKV)
+    kernel = attention_dkv_wide_mma<CAUSAL>;
+  else
+    kernel = attention_dq_wide_mma<CAUSAL>;
   return launch_cluster(kernel, opted_in, a, D, p, grid, st);
 }
 
-// Launches the f32 wide backward (dQ, then dK / dV) for head size D over BH
-// planes with the cluster of the forward's plan (the four ints of
-// kernels.wide_plan; each kernel's shared bytes are bwd_smem_f32's);
-// returns a cudaError_t code.
-inline int run_bwd_tf32(const tf32::BwdArgs& a, int BH, int D, int causal,
+// Launches the wide backward (dQ, then dK / dV) for head size D over BH
+// planes, f32 (tf32::BwdArgs) or bf16 (mma::BwdArgs), on the cluster of
+// the plan the wrapper passes (the four ints of kernels.wide_plan in the
+// call's dtype; each kernel's shared bytes are bwd_smem's, from the plan's
+// slices); returns a cudaError_t code (cudaErrorInvalidValue for a plan
+// the kernels do not take).
+template <typename Args>
+inline int run_bwd_wide(const Args& a, int BH, int D, int causal,
                         const int* plan, cudaStream_t st) {
+  constexpr bool b16 = std::is_same_v<Args, mma::BwdArgs>;
   if (!plan || D % kWide) return (int)cudaErrorInvalidValue;
   const Plan f{plan[0], plan[1], plan[2], plan[3]};
   if (!cluster_ok(f, D / kWide)) return (int)cudaErrorInvalidValue;
-  const Plan pq{f.cluster, f.slices, 1, bwd_smem_f32(f.slices, false)};
-  const Plan pk{f.cluster, f.slices, 1, bwd_smem_f32(f.slices, true)};
+  const Plan pq{f.cluster, f.slices, 1, bwd_smem(f.slices, false, b16)};
+  const Plan pk{f.cluster, f.slices, 1, bwd_smem(f.slices, true, b16)};
   const dim3 gq((a.L + kTile - 1) / kTile * f.cluster, BH);
   const dim3 gk((a.S + kTile - 1) / kTile * f.cluster, BH);
-  int err = causal ? launch_bwd_tf32<false, true>(a, D, pq, gq, st)
-                   : launch_bwd_tf32<false, false>(a, D, pq, gq, st);
+  int err = causal ? launch_bwd<Args, false, true>(a, D, pq, gq, st)
+                   : launch_bwd<Args, false, false>(a, D, pq, gq, st);
   if (err) return err;
-  err = causal ? launch_bwd_tf32<true, true>(a, D, pk, gk, st)
-               : launch_bwd_tf32<true, false>(a, D, pk, gk, st);
+  err = causal ? launch_bwd<Args, true, true>(a, D, pk, gk, st)
+               : launch_bwd<Args, true, false>(a, D, pk, gk, st);
   return err ? err : (int)cudaGetLastError();
 }
 

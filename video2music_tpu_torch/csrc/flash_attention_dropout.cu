@@ -16,10 +16,10 @@
 // and sum l. Head sizes: instances at 16, 32, 64, 128 and 256, the wrappers
 // padding the others with zero columns (flash_attention.cu), and above
 // 256 the head split into 64-column slices (attention_wide.cuh: a
-// thread-block cluster a query tile; in f32 its backward too, a cluster a
-// query or key tile; the bf16 wide backward below, a block a slice), D
-// padded to a multiple of 64; the mask hashes rows and columns only, so
-// padding and splitting leave it as it is. A shard of
+// thread-block cluster a query tile for the forward and dQ, a key tile
+// for dK / dV, in both dtypes), D padded to a multiple of 64; the mask
+// hashes rows and columns only, so padding and splitting leave it as it
+// is. A shard of
 // a sharded step (B/d rows of the batch, H/m heads) passes apply 2 and its
 // origin in the global grid beside the seed (drop_salt), and hashes the
 // global b*H + h, so it draws its slice of the unsharded mask.
@@ -61,8 +61,12 @@
 // attention_wide.cuh's cluster forward and its cluster backward (dQ, then
 // dK / dV, S and dP formed once a (tile, chunk)), which replaced one thread
 // a row and plain FMA in a block a slice (5.07 and 12.40 ms at head size
-// 512, B=16; the same card). Under causal attention, chunks wholly in the
-// masked triangle add exact zeros and are skipped.
+// 512, B=16; the same card). bf16 above 256 runs the same cluster forward
+// and backward on bf16 mma.sync (one backward body for both dtypes); that
+// backward replaced one block a 64-column slice forming S and dP over the
+// whole head in every slice (0.5971 ms at head size 512, B=16; the same
+// card). Under causal attention, chunks wholly in the masked triangle add
+// exact zeros and are skipped.
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
 #include "attention_wide.cuh"
@@ -74,19 +78,6 @@ namespace v2m {
 // ---------------------------------------------------------------------------
 
 namespace mma {
-
-struct BwdArgs {
-  const bf16 *q, *k, *v, *out, *dout;
-  const float* bias;   // (BH, L, S) or null
-  const int* seed;
-  const float* stats;  // (BH, L, 2): the forward's row max and sum
-  bf16 *dq, *dk, *dv;
-  float* dbias;        // (BH, L, S) when there is a bias, else null
-  float* dsum;         // (BH, L): D, written by dQ, read by dK/dV
-  int L, S;
-  float scale;
-  DropoutSpec drop;
-};
 
 constexpr int kBwdWarps = 4;  // 64 query (dQ) or key (dK/dV) rows a block
 // Both backward kernels are held to 170 registers, three blocks an SM: left
@@ -412,356 +403,14 @@ inline int launch_bwd_mma(const BwdArgs& a, int BH, int causal,
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// Above head size 256 in bf16: the backward with the head split across
-// blocks (attention_wide.cuh), a block owning kWide columns of dQ (or of dK
-// and dV) and forming S and dP over the whole head in kWide-column chunks,
-// its own slice last, so the last chunk in shared memory is the one its
-// products need. D = rowsum(dO * O) over the whole head; a row's dbias and
-// D are written by the blocks of slice 0. (f32: attention_wide.cuh's
-// cluster kernels, S and dP formed once a (tile, chunk).)
-// ---------------------------------------------------------------------------
-
-namespace wide {
-
-// bf16 dQ, D and dbias on the tensor cores: a warp per 16 query rows, one
-// pass over the key chunks, each in nd steps of kWide columns (K and V
-// double-buffered by cp.async, the step's q and dO fragments from device
-// memory); at a chunk's last step (its K columns the slice's) P, dS and
-// dQ += dS K, as mma::attention_dq_mma. grid (row blocks x slices, BH).
-template <bool CAUSAL>
-__global__ void __launch_bounds__(mma::kBwdWarps * 32)
-attention_dq_wide_mma(mma::BwdArgs a, int D) {
-  using namespace mma;
-  constexpr int kNT = kChunk / 8;
-  constexpr int kDT = kWide / 8;
-  bf16 (*ks)[Chunk<kWide>::kElems] =
-      reinterpret_cast<bf16 (*)[Chunk<kWide>::kElems]>(attn_smem);
-  bf16 (*vs)[Chunk<kWide>::kElems] = ks + 2;
-  const int nd = D / kWide;
-  const int slice = blockIdx.x % nd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
-  const int blk0 = (blockIdx.x / nd) * kBwdWarps * 16;
-  const int r0 = blk0 + warp * 16;
-  const int ra = r0 + (lane >> 2), rb = ra + 8;
-  const int c2 = (lane & 3) * 2;
-  const int L = a.L, S = a.S;
-  const size_t qoff = (size_t)bh * L * D;
-  const bf16* kb = a.k + (size_t)bh * S * D;
-  const bf16* vb = a.v + (size_t)bh * S * D;
-  const size_t ia = (size_t)bh * L + ra, ib = (size_t)bh * L + rb;
-  const float* ba = a.bias && ra < L ? a.bias + ia * S : nullptr;
-  const float* bb = a.bias && rb < L ? a.bias + ib * S : nullptr;
-  const bool owner = slice == 0;  // writes dbias and D
-  float* dba = owner && a.dbias && ra < L ? a.dbias + ia * S : nullptr;
-  float* dbb = owner && a.dbias && rb < L ? a.dbias + ib * S : nullptr;
-
-  int n_chunks = (S + kChunk - 1) / kChunk;
-  if (CAUSAL) n_chunks = min(n_chunks, (blk0 + kBwdWarps * 16 - 1) / kChunk + 1);
-  int mine = CAUSAL ? min(n_chunks, (r0 + 15) / kChunk + 1) : n_chunks;
-  if (r0 >= L) mine = 0;
-
-  const int steps = n_chunks * nd;
-  auto issue = [&](int t) {
-    const int c = t / nd, dc = chunk_col(t % nd, slice, nd);
-    load_chunk_s<kBwdWarps * 32>(ks[t & 1], kb + dc, c * kChunk, S, D);
-    load_chunk_s<kBwdWarps * 32>(vs[t & 1], vb + dc, c * kChunk, S, D);
-    cp_async_commit();
-  };
-  issue(0);
-
-  float Da = 0.f, Db = 0.f;  // D = rowsum(dO * O) over the whole head
-  for (int i = 0; i < nd; ++i) {
-    uint32_t df[kWide / 16][4], of[kWide / 16][4];
-    load_a_s(df, a.dout + qoff + i * kWide, r0, L, lane, D);
-    load_a_s(of, a.out + qoff + i * kWide, r0, L, lane, D);
-#pragma unroll
-    for (int kk = 0; kk < kWide / 16; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 x = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&df[kk][e]));
-        const float2 y = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&of[kk][e]));
-        const float d = fmaf(x.x, y.x, x.y * y.y);
-        if (e & 1) Db += d; else Da += d;
-      }
-    }
-  }
-  Da = quad_sum(Da);
-  Db = quad_sum(Db);
-  float ma2 = 0.f, mb2 = 0.f, inva = 1.f, invb = 1.f;
-  if (ra < L) { ma2 = a.stats[ia * 2] * kLog2e; inva = 1.f / a.stats[ia * 2 + 1]; }
-  if (rb < L) { mb2 = a.stats[ib * 2] * kLog2e; invb = 1.f / a.stats[ib * 2 + 1]; }
-  const bool drop = a.drop.apply != 0;
-  unsigned int rta = 0, rtb = 0;
-  if (drop) {
-    const unsigned int salt = drop_salt(a.seed, a.drop, bh);
-    rta = row_term(ra, salt);
-    rtb = row_term(rb, salt);
-  }
-
-  float dq[kDT][4], s[kNT][4], dp[kNT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-
-  for (int t = 0; t < steps; ++t) {
-    if (t + 1 < steps) {
-      issue(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int c = t / nd, i = t % nd;
-    if (c < mine) {
-      if (i == 0) {
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-      {
-        const int dc = chunk_col(i, slice, nd);
-        uint32_t qf[kWide / 16][4], df[kWide / 16][4];
-        load_a_s(qf, a.q + qoff + dc, r0, L, lane, D);
-        load_a_s(df, a.dout + qoff + dc, r0, L, lane, D);
-        mma_a_rowsT<kWide, kNT>(s, qf, ks[t & 1], lane);
-        mma_a_rowsT<kWide, kNT>(dp, df, vs[t & 1], lane);
-      }
-      if (i == nd - 1) {
-        const int c0 = c * kChunk;
-        to_logits<kNT, CAUSAL>(s, a.scale, ba, bb, r0, c0, S, lane);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool top = e < 2;
-            const int col = c0 + j * 8 + c2 + (e & 1);
-            const float p =
-                exp_from(s[j][e], top ? ma2 : mb2) * (top ? inva : invb);
-            const float f =
-                drop ? keep_factor(a.drop, top ? rta : rtb, col_term(col)) : 1.f;
-            s[j][e] = p * (dp[j][e] * f - (top ? Da : Db));
-          }
-          const int col = c0 + j * 8 + c2;
-          if (dba && col < S) dba[col] = s[j][0];
-          if (dba && col + 1 < S) dba[col + 1] = s[j][1];
-          if (dbb && col < S) dbb[col] = s[j][2];
-          if (dbb && col + 1 < S) dbb[col + 1] = s[j][3];
-        }
-        uint32_t ds[kNT / 2][4];
-        pack_a<kNT>(ds, s);
-        mma_a_rows<kWide, kNT / 2>(dq, ds, ks[t & 1], lane);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (mine == 0) return;
-  bf16* dqb = a.dq + qoff + slice * kWide;
-#pragma unroll
-  for (int j = 0; j < kDT; ++j) {
-    const int col = j * 8 + c2;
-    if (ra < L)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)ra * D + col) =
-          __floats2bfloat162_rn(dq[j][0] * a.scale, dq[j][1] * a.scale);
-    if (rb < L)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)rb * D + col) =
-          __floats2bfloat162_rn(dq[j][2] * a.scale, dq[j][3] * a.scale);
-  }
-  if (owner && (lane & 3) == 0) {
-    if (ra < L) a.dsum[ia] = Da;
-    if (rb < L) a.dsum[ib] = Db;
-  }
-  // the key chunks this warp skipped under causal: dS is exactly 0 there
-  for (int col = mine * kChunk + (lane & 3); col < S; col += 4) {
-    if (dba) dba[col] = 0.f;
-    if (dbb) dbb[col] = 0.f;
-  }
-}
-
-// bf16 dK and dV on the tensor cores: a warp per 16 key rows, over chunks
-// of 64 queries, each in nd steps of kWide columns (q and dO
-// double-buffered by cp.async, the step's K and V fragments from device
-// memory); at a chunk's last step (its q and dO columns the slice's)
-// (P * mask)^T and dS^T, dV += (P * mask)^T dO and dK += dS^T Q, as
-// mma::attention_dkv_mma. grid (key blocks x slices, BH).
-template <bool CAUSAL>
-__global__ void __launch_bounds__(mma::kBwdWarps * 32)
-attention_dkv_wide_mma(mma::BwdArgs a, int D) {
-  using namespace mma;
-  constexpr int kNT = kChunk / 8;  // query tiles of a chunk
-  constexpr int kDT = kWide / 8;
-  bf16 (*qs)[Chunk<kWide>::kElems] =
-      reinterpret_cast<bf16 (*)[Chunk<kWide>::kElems]>(attn_smem);
-  bf16 (*dos)[Chunk<kWide>::kElems] = qs + 2;
-  __shared__ __align__(16) float2 mls[2][kChunk];  // (m, l) a query
-  __shared__ __align__(16) float dds[2][kChunk];   // D a query
-  const int nd = D / kWide;
-  const int slice = blockIdx.x % nd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
-  const int blk0 = (blockIdx.x / nd) * kBwdWarps * 16;
-  const int k0 = blk0 + warp * 16;
-  const int ka = k0 + (lane >> 2), kb = ka + 8;
-  const int c2 = (lane & 3) * 2;
-  const int L = a.L, S = a.S;
-  const size_t qoff = (size_t)bh * L * D, koff = (size_t)bh * S * D;
-  const bf16* qb = a.q + qoff;
-  const bf16* dob = a.dout + qoff;
-  const float* stb = a.stats + (size_t)bh * L * 2;
-  const float* dsb = a.dsum + (size_t)bh * L;
-  const float* bias = a.bias ? a.bias + (size_t)bh * L * S : nullptr;
-
-  // queries above the block's first key see none of its keys under causal
-  const int n_q = (L + kChunk - 1) / kChunk;
-  const int first = CAUSAL ? blk0 / kChunk : 0;
-  const int steps = max(n_q - first, 0) * nd;
-  auto issue = [&](int t) {
-    const int c = first + t / nd, i = t % nd, dc = chunk_col(i, slice, nd);
-    load_chunk_s<kBwdWarps * 32>(qs[t & 1], qb + dc, c * kChunk, L, D);
-    load_chunk_s<kBwdWarps * 32>(dos[t & 1], dob + dc, c * kChunk, L, D);
-    if (i == 0 && threadIdx.x < kChunk) {
-      const int mb = (c - first) & 1;
-      const int r = c * kChunk + threadIdx.x;
-      const bool ok = r < L;
-      cp_async_small<8>(&mls[mb][threadIdx.x], stb + (size_t)(ok ? r : 0) * 2, ok);
-      cp_async_small<4>(&dds[mb][threadIdx.x], dsb + (ok ? r : 0), ok);
-    }
-    cp_async_commit();
-  };
-  if (steps > 0) issue(0);
-
-  const bool drop = a.drop.apply != 0;
-  const unsigned int salt = drop ? drop_salt(a.seed, a.drop, bh) : 0u;
-  const unsigned int cta = col_term(ka), ctb = col_term(kb);
-
-  float dk[kDT][4], dv[kDT][4], st[kNT][4], dpt[kNT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  for (int t = 0; t < steps; ++t) {
-    if (t + 1 < steps) {
-      issue(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int c = first + t / nd, i = t % nd, buf = t & 1;
-    const int q0 = c * kChunk;
-    // a dead warp; or every pair above the diagonal
-    if (!(k0 >= S || (CAUSAL && q0 + kChunk - 1 < k0))) {
-      if (i == 0) {
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      }
-      {
-        const int dc = chunk_col(i, slice, nd);
-        uint32_t kf[kWide / 16][4], vf[kWide / 16][4];
-        load_a_s(kf, a.k + koff + dc, k0, S, lane, D);
-        load_a_s(vf, a.v + koff + dc, k0, S, lane, D);
-        mma_a_rowsT<kWide, kNT>(st, kf, qs[buf], lane);
-        mma_a_rowsT<kWide, kNT>(dpt, vf, dos[buf], lane);
-      }
-      if (i == nd - 1) {
-        const int mb = (c - first) & 1;
-        // the diagonal crosses this chunk: some key above some query
-        const bool diag = CAUSAL && k0 + 15 > q0;
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {  // this lane's two queries of tile j
-            const int qi = j * 8 + c2 + u;  // in the chunk
-            const int row = q0 + qi;        // the query
-            const float2 ml = mls[mb][qi];
-            const float ml2 = ml.x * kLog2e, inv = 1.f / ml.y, Dq = dds[mb][qi];
-            const unsigned int rt = drop ? row_term(row, salt) : 0u;
-#pragma unroll
-            for (int e = u; e < 4; e += 2) {
-              const int key = e < 2 ? ka : kb;
-              float pm = 0.f, ds = 0.f;
-              if (row < L) {
-                float x = st[j][e] * a.scale;
-                if (bias && key < S) x += bias[(size_t)row * S + key];
-                if (diag && key > row) x = kNegInf;
-                const float p = exp_from(x, ml2) * inv;
-                const float f =
-                    drop ? keep_factor(a.drop, rt, e < 2 ? cta : ctb) : 1.f;
-                pm = p * f;
-                ds = p * (dpt[j][e] * f - Dq);
-              }
-              st[j][e] = pm;
-              dpt[j][e] = ds;
-            }
-          }
-        }
-        uint32_t pa[kNT / 2][4], sa[kNT / 2][4];
-        pack_a<kNT>(pa, st);
-        pack_a<kNT>(sa, dpt);
-        mma_a_rows<kWide, kNT / 2>(dv, pa, dos[buf], lane);
-        mma_a_rows<kWide, kNT / 2>(dk, sa, qs[buf], lane);
-      }
-    }
-    __syncthreads();
-  }
-
-  bf16* dkb = a.dk + koff + slice * kWide;
-  bf16* dvb = a.dv + koff + slice * kWide;
-#pragma unroll
-  for (int j = 0; j < kDT; ++j) {
-    const int col = j * 8 + c2;
-    if (ka < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)ka * D + col) =
-          __floats2bfloat162_rn(dk[j][0] * a.scale, dk[j][1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)ka * D + col) =
-          __floats2bfloat162_rn(dv[j][0], dv[j][1]);
-    }
-    if (kb < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kb * D + col) =
-          __floats2bfloat162_rn(dk[j][2] * a.scale, dk[j][3] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kb * D + col) =
-          __floats2bfloat162_rn(dv[j][2], dv[j][3]);
-    }
-  }
-}
-
-template <bool CAUSAL>
-inline int launch_bwd_wide(const mma::BwdArgs& a, int BH, int D,
-                          cudaStream_t st) {
-  constexpr int kRows = mma::kBwdWarps * 16;
-  const int nd = D / kWide;
-  attention_dq_wide_mma<CAUSAL>
-      <<<dim3((a.L + kRows - 1) / kRows * nd, BH), mma::kBwdWarps * 32,
-         mma_smem(), st>>>(a, D);
-  attention_dkv_wide_mma<CAUSAL>
-      <<<dim3((a.S + kRows - 1) / kRows * nd, BH), mma::kBwdWarps * 32,
-         mma_smem(), st>>>(a, D);
-  return (int)cudaGetLastError();
-}
-
-inline int run_bwd_mma(const mma::BwdArgs& a, int BH, int D, int causal,
-                       cudaStream_t st) {
-  if (D % kWide) return (int)cudaErrorInvalidValue;
-  return causal ? launch_bwd_wide<true>(a, BH, D, st)
-                : launch_bwd_wide<false>(a, BH, D, st);
-}
-
-}  // namespace wide
-
-// ---------------------------------------------------------------------------
-// Entry points: f32 runs attention_tf32.cuh, bf16 the kernels above
+// Entry points: f32 runs attention_tf32.cuh, bf16 the kernels above;
+// above head size 256 both run attention_wide.cuh
 // ---------------------------------------------------------------------------
 
 struct DropoutArgs {
   const void *q, *k, *v, *bias, *seed, *dout, *stats;
   const int* plan;  // the wide plan (attention_wide.cuh run_fwd_mma,
-                    // run_fwd_tf32, run_bwd_tf32)
+                    // run_fwd_tf32, run_bwd_wide)
   void *out, *dq, *dk, *dv, *dbias, *dsum;
   int BH, L, S, causal;
   float scale;
@@ -789,7 +438,7 @@ static int dispatch_f32(const DropoutArgs& a, int D, bool backward,
   b.dq = (float*)a.dq; b.dk = (float*)a.dk; b.dv = (float*)a.dv;
   b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
   b.L = a.L; b.S = a.S; b.scale = a.scale; b.drop = a.drop;
-  if (D > 256) return wide::run_bwd_tf32(b, a.BH, D, a.causal, a.plan, st);
+  if (D > 256) return wide::run_bwd_wide(b, a.BH, D, a.causal, a.plan, st);
   return tf32::run_bwd(b, a.BH, D, a.causal, st);
 }
 
@@ -814,7 +463,7 @@ static int dispatch_bf16(const DropoutArgs& a, int D, bool backward,
   b.dq = (bf16*)a.dq; b.dk = (bf16*)a.dk; b.dv = (bf16*)a.dv;
   b.dbias = (float*)a.dbias; b.dsum = (float*)a.dsum;
   b.L = a.L; b.S = a.S; b.scale = a.scale; b.drop = a.drop;
-  if (D > 256) return wide::run_bwd_mma(b, a.BH, D, a.causal, st);
+  if (D > 256) return wide::run_bwd_wide(b, a.BH, D, a.causal, a.plan, st);
   int err;
   switch (D) {
     case 16: err = mma::launch_bwd_mma<16>(b, a.BH, a.causal, st); break;
@@ -861,8 +510,8 @@ extern "C" int v2m_attention_dropout_fwd(
 // The backward of v2m_attention_dropout_fwd from its stats and its output
 // `out` (D = rowsum(dout * out) in both dtypes): dq
 // (BH, L, D), dk/dv (BH, S, D) of q's dtype, dbias (BH, L, S) f32 when bias
-// is given (else null), dsum (BH, L) f32 scratch; wide_plan: above 256 in
-// f32 the forward's four ints of kernels.wide_plan (its cluster), else
+// is given (else null), dsum (BH, L) f32 scratch; wide_plan: above 256 the
+// forward's four ints of kernels.wide_plan (its cluster and slices), else
 // unread. Returns a cudaError_t code.
 extern "C" int v2m_attention_dropout_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias,

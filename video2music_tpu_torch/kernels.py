@@ -330,8 +330,8 @@ def head_instance(D: int, what: str) -> tuple:
 
 # The wide plan (csrc/attention_wide.cuh): one thread-block cluster a tile
 # of WIDE_TILE query rows, its blocks splitting the head's slices and the
-# tile's rows; in bf16 the forward's, in f32 the forward's and (its
-# cluster) the backward's, a cluster a query or key tile. Its constants as
+# tile's rows; the forward's, and (its cluster) the backward's, a cluster
+# a query or key tile, in either dtype. Its constants as
 # the header has them (a CPU test reads them there:
 # tests/test_torch_wide_attention.py).
 WIDE_TILE = 64                 # query rows a cluster (kTile)
@@ -347,6 +347,7 @@ WidePlan = collections.namedtuple("WidePlan", "cluster slices passes smem")
 
 _TILE_BYTES = WIDE_TILE * (WIDE_CHUNK + 8) * 4  # a 64 x 64 f32 tile (padded)
 _PIECE_F32 = WIDE_CHUNK * (WIDE_SLICE + WIDE_F32_PAD) * 4  # an f32 piece
+_PIECE_BF16 = WIDE_CHUNK * (WIDE_SLICE + 8) * 2  # a bf16 piece
 
 
 def _own_rows(cluster: int) -> int:
@@ -363,7 +364,7 @@ def wide_smem(cluster: int, S: int, passes: int) -> int:
     weights."""
     rows = _own_rows(cluster)
     keys = -(-S // WIDE_CHUNK) * WIDE_CHUNK
-    ring = WIDE_STAGES * 2 * WIDE_CHUNK * (WIDE_SLICE + 8) * 2
+    ring = WIDE_STAGES * 2 * _PIECE_BF16
     part = 2 * _TILE_BYTES
     if passes == 1:
         return ring + part + rows * (6 * keys + 16)
@@ -394,18 +395,35 @@ def wide_smem_f32(cluster: int, slices: int, S: int, passes: int) -> int:
     return pieces * _PIECE_F32 + 2 * _TILE_BYTES + own
 
 
-def wide_bwd_smem_f32(slices: int, dkv: bool) -> int:
-    """Dynamic shared bytes of a block of the f32 wide backward's dQ
-    (``dkv`` False) or dK / dV kernel (bwd_smem_f32): the ring (two f32
-    pieces a stage of the side it streams), the own side (q and dO for dQ,
-    K and V for dK / dV) resident where that fits (bwd_resident_f32), else
-    streamed beside the other (four pieces a stage), the partial S and dP
-    tiles and the pushed tiles (dS; or (P * mask)^T and dS^T). The launch
-    computes it from the plan's slices."""
-    tiles = (4 if dkv else 3) * _TILE_BYTES
-    resident = (2 * slices + 2 * WIDE_STAGES) * _PIECE_F32 + tiles
-    return resident if resident <= SMEM_MAX else \
-        4 * WIDE_STAGES * _PIECE_F32 + tiles
+def _wide_bwd_tiles(dkv: bool, f32: bool) -> int:
+    """The backward block's tiles: the partial S and dP (f32) and the
+    pushed dS, or (P * mask)^T and dS^T, in the products' dtype."""
+    return 2 * _TILE_BYTES + (2 if dkv else 1) * (
+        _TILE_BYTES if f32 else _TILE_BYTES // 2)
+
+
+def wide_bwd_resident(slices: int, dkv: bool, f32: bool = False) -> bool:
+    """Whether a wide backward block keeps its own side (q and dO for dQ,
+    K and V for dK / dV) in shared memory for the whole tile
+    (bwd_resident): its ``slices`` pieces of each fit SMEM_MAX beside the
+    ring of the streamed side and the tiles."""
+    return (2 * slices + 2 * WIDE_STAGES) * (_PIECE_F32 if f32 else
+                                             _PIECE_BF16) + \
+        _wide_bwd_tiles(dkv, f32) <= SMEM_MAX
+
+
+def wide_bwd_smem(slices: int, dkv: bool, f32: bool = False) -> int:
+    """Dynamic shared bytes of a block of the wide backward's dQ (``dkv``
+    False) or dK / dV kernel in bf16 or ``f32`` (bwd_smem; the launch
+    computes it from the plan's slices, and the header's kBwdSmem table
+    holds its values): the ring (two pieces a stage of the side it
+    streams), the own side resident where wide_bwd_resident says so,
+    else streamed beside the other (four pieces a stage), and the
+    tiles."""
+    piece = _PIECE_F32 if f32 else _PIECE_BF16
+    pieces = (2 * slices + 2 * WIDE_STAGES
+              if wide_bwd_resident(slices, dkv, f32) else 4 * WIDE_STAGES)
+    return pieces * piece + _wide_bwd_tiles(dkv, f32)
 
 
 def wide_one_pass_keys(cluster: int, slices: int = 0) -> int:
@@ -438,7 +456,8 @@ def wide_plan(D: int, S: int, what: str, tiles: int, sms: int,
     plan's slices), else two; ``smem`` the forward block's dynamic shared
     bytes (wide_smem, wide_smem_f32; the kernels take clusters of
     WIDE_CLUSTER_MIN .. WIDE_CLUSTER_MAX blocks, at most one a slice). The
-    f32 backward runs the same cluster. Raises on a head the narrow
+    backward runs the same cluster in either dtype (its blocks' shared
+    bytes wide_bwd_smem). Raises on a head the narrow
     instances take or no keys."""
     nd = head_instance(D, what)[1]
     require(nd > 1, what, f"head_dim {D}: the narrow instances take it, "
@@ -461,7 +480,7 @@ def wide_plan_arg(D: int, S: int, tiles: int, code: int, what: str,
                   device):
     """The plan as the attention entry points take it: four C ints above
     head size 256 (wide_plan in the call's dtype on ``device``'s card; the
-    f32 backward reads its cluster), else None (a null pointer)."""
+    backward reads its cluster and slices), else None (a null pointer)."""
     if head_instance(D, what)[1] == 1:
         return None
     return (ctypes.c_int * 4)(*wide_plan(
